@@ -5,16 +5,25 @@
 Phases, each printing one JSON line; any failure exits non-zero:
   1. device   -- card name, power limit and count;
   2. build    -- nvcc builds every kernel of the port from csrc/ (one process per source);
-  3. kernels  -- each kernel against its plain PyTorch version on the card, in bf16,
-                 with its time, the plain version's time, the card's bound for the
-                 same work and, where one PyTorch call computes the same function,
-                 that call's time;
-  4. e2e      -- the port's Engine at TinyLlama-1.1B width and depth (random seeded
+  3. kernels  -- each kernel against its plain PyTorch version on the card, at the
+                 main paths' shapes, with its time, the plain version's time, the
+                 card's bound for the same work and, where one PyTorch call computes
+                 the same function, that call's time: flash_prefill, paged_decode,
+                 paged_decode_int8 (cache filled by the port's fill_kv_cache) and
+                 w4a16_gemm (llama2-7b projections, TF32 off, every K split at the
+                 layer's shapes; the check must catch each planted numerical trap);
+  4. parity   -- full width, 2 layers: prefill logits and 8 decode steps on the card
+                 (bf16, kernels) against the port on the CPU (f32, plain paths), for
+                 TinyLlama bf16 and for llama2-7b W4A16 with an int8 KV cache; beside
+                 it the bf16 floor (plain versions on the card) and, for W4A16, what
+                 each planted trap reads, which must exceed the allowance;
+  5. e2e      -- the port's Engine at TinyLlama-1.1B width and depth (random seeded
                  bf16 weights): 8 concurrent 128-token prompts plus one 2048-token
                  prompt, 64 greedy tokens each, run twice; every kernel's launch count
                  is read from the first run; then a traced run (device busy share);
-  5. parity   -- full width, 2 layers: prefill logits and 8 decode steps on the card
-                 (bf16, kernels) against the port on the CPU (f32, plain paths).
+  6. e2e_w4a16_kv8 -- the same at llama2-7b geometry, AWQ-style W4A16 weights (group
+                 128, seeded) and quant_policy=4: 64 concurrent 128-token prompts plus
+                 one 2048-token prompt, 64 greedy tokens each, run twice, then traced.
 The line before the last lists every kernel; the last line is the result.
 It imports nothing of jax or lmdeploy_tpu.
 """
@@ -22,6 +31,9 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import collections
+import contextlib
+import gc
 import json
 import os
 import statistics
@@ -44,9 +56,22 @@ PEAK_BYTES_S = 3.35e12
 # for the P.V product, as the TPU kernel does (_flash_kernel's p.astype(v.dtype)),
 # where the plain version keeps P in f32: its outputs (|ref| up to ~2) differ by up
 # to two ulps, and the allowance is 1e-2 absolute on top
+# paged_decode_int8 is held like paged_decode (both sides f32, one bf16 rounding).
+# w4a16_gemm: both sides sum exact bf16 x bf16 products in f32 with the same f32
+# scales and correction, in another order, and round once to bf16; the cancelling
+# +128 bias term is ~50x the outputs (~1), so the f32 order adds ~1e-5 to one bf16 ulp
 KERNEL_TOL = {'flash_prefill': {'atol': 1e-2, 'rtol': 1e-2},
-              'paged_decode': {'atol': 1e-3, 'rtol': 1e-2}}
+              'paged_decode': {'atol': 1e-3, 'rtol': 1e-2},
+              'paged_decode_int8': {'atol': 1e-3, 'rtol': 1e-2},
+              'w4a16_gemm': {'atol': 2e-3, 'rtol': 1e-2}}
 LOGIT_TOL = 0.1          # bf16 activations through 2 full-width layers vs f32
+# llama2-7b width, W4A16 + int8 KV: logits reach ~6 (TinyLlama's ~4), and bf16
+# activations alone move them more at this width.  The phase reads (H100 80GB HBM3,
+# 700 W): 0.1553 with every kernel swapped for its plain version (bf16 alone), 0.1545
+# with the kernels; with a W4A16 trap planted in the decode steps' group-dot, 0.2407
+# (TF32 correction), 1.78 and 1.94 (the other two).  The allowance sits midway
+# between the bf16 floor and the mildest trap
+LOGIT_TOL_W4 = 0.2
 SEED = 1234
 
 
@@ -102,6 +127,16 @@ def tinyllama_config(num_layers: int = 22, max_len: int = 2304):
                        num_key_value_heads=4, hidden_size=2048, intermediate_size=5632,
                        vocab_size=32000, head_dim=64, max_position_embeddings=max_len,
                        dtype='bfloat16', eos_token_id=[2])
+
+
+def llama7b_w4_config(num_layers: int = 32, max_len: int = 2304):
+    """llama2-7b geometry (bench.py:240-246) with AWQ W4A16, group 128."""
+    from lmdeploy_tpu_torch.config import ModelConfig
+    return ModelConfig(num_layers=num_layers, num_attention_heads=32,
+                       num_key_value_heads=32, hidden_size=4096, intermediate_size=11008,
+                       vocab_size=32000, head_dim=128, max_position_embeddings=max_len,
+                       dtype='bfloat16', eos_token_id=[2],
+                       quantization_config={'quant_method': 'awq', 'group_size': 128})
 
 
 # -- phase 1 + 2 ---------------------------------------------------------------------
@@ -252,20 +287,236 @@ def decode_phase():
     return results
 
 
-# -- phase 4 -------------------------------------------------------------------------
-def build_engine():
+# one llama2-7b layer's W4A16 projections (fused as the model runs them), K x N
+W4_LAYER = (('wqkv', 4096, 12288), ('wo', 4096, 4096), ('w_gateup', 4096, 22016),
+            ('w_down', 11264, 4096))
+# the e2e phase decodes 65 rows, padded to the 128-row batch bucket: its every
+# w4a16_gemm launch runs at M = 128 (the e2e row's ``w4a16_rows`` shows it)
+W4_MAIN_M = 128
+# the layer at M = 128 and 64, the fused wqkv at M = 8 and the fused gate/up at
+# M = 256 (the kernel's largest M); the layer's shapes also run every K split in
+# W4_SPLITS, each held against the plain version
+W4_SHAPES = tuple((f'{n}_m{M}', M, K, N) for M in (W4_MAIN_M, 64) for n, K, N in W4_LAYER) \
+    + (('wqkv_m8', 8, 4096, 12288), ('w_gateup_m256', 256, 4096, 22016))
+W4_SPLITS = (1, 2, 4, 8)
+# the W4A16 numerical traps (ROADMAP section 3, traps 1 and 3, and the output kept
+# f32 until corr is subtracted), planted in the plain group-dot (_gd_trapped): the
+# kernel check and the W4A16 parity must each read every one above its allowance
+W4_TRAPS = ('tf32_correction', 'xg_unrounded', 'rounded_before_correction')
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10 mantissa bits, ties to even), the milder of
+    the two ways a TF32 tensor-core product reads an f32 operand (the other truncates)."""
+    i = t.float().contiguous().view(torch.int32)
+    return ((i + 0xFFF + ((i >> 13) & 1)) & -0x2000).view(torch.float32)
+
+
+def _gd_trapped(trap: str):
+    """``w4a16_matmul_gd_plain`` with one trap planted: 'tf32_correction' rounds xg and
+    corr to TF32 for the correction product (trap 1); 'xg_unrounded' sums xg from x as
+    given instead of from the bf16 x the main product reads (trap 3; it shows only
+    where x is wider than bf16); 'rounded_before_correction' rounds the ~50x-larger
+    main product to x.dtype before corr is subtracted."""
+    from lmdeploy_tpu_torch.ops.quant_matmul import _unpack_planes, _xg
+
+    def gd(x, packed, sb, corr, gs):
+        M, K = x.shape
+        G, N = K // gs, packed.shape[1]
+        xb = x.to(torch.bfloat16)
+        w = (_unpack_planes(packed).float() + 128.0).view(G, gs, N)
+        acc = (torch.bmm(xb.float().view(M, G, gs).transpose(0, 1), w)
+               * sb[:, None, :]).sum(0)
+        xg, cz = _xg(xb, gs), corr
+        if trap == 'tf32_correction':
+            xg, cz = _tf32(xg), _tf32(corr)
+        elif trap == 'xg_unrounded':
+            xg = x.float().view(M, G, gs).sum(-1)
+        elif trap == 'rounded_before_correction':
+            acc = acc.to(x.dtype).float()
+        return (acc - (xg[:, :, None] * cz[None]).sum(1)).to(x.dtype)
+    return gd
+
+
+def _int4pack_library(x, packed, scales, zeros, gs):
+    """One PyTorch call for the same product, as a yardstick only:
+    torch._weight_int4pack_mm computes x @ ((q - 8) * s + zero), so zero = (8 - z) * s
+    maps the zero points.  Returns (fn, None) or (None, error text)."""
+    from lmdeploy_tpu_torch.ops.quant_matmul import _unpack_planes
+    try:
+        q = _unpack_planes(packed).t().contiguous()                  # [N, K] 0..15
+        u8 = (q[:, ::2] << 4 | q[:, 1::2]).to(torch.uint8)
+        wpack = torch._convert_weight_to_int4pack(u8, 8)
+        sz = torch.stack([scales, (8.0 - zeros) * scales], dim=-1).bfloat16().contiguous()
+
+        def fn():
+            return torch._weight_int4pack_mm(x, wpack, gs, sz)
+        fn()
+        return fn, None
+    except Exception as e:        # noqa: BLE001 -- recorded as the yardstick's absence
+        return None, f'{type(e).__name__}: {str(e)[:200]}'
+
+
+def w4a16_phase():
+    from lmdeploy_tpu_torch.ops.quant_matmul import (dequant_w4, prep_w4, quantize_w4,
+                                                     w4a16_matmul_gd,
+                                                     w4a16_matmul_gd_plain, w4a16_splits)
+    torch.backends.cuda.matmul.allow_tf32 = False     # the correction must stay f32
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gs = 128
+    results = []
+    for label, M, K, N in W4_SHAPES:
+        w = (torch.randn(K, N, device='cuda', generator=gen) * 0.02).bfloat16()
+        packed, scales, zeros = quantize_w4(w, gs)
+        sb, corr = prep_w4(scales, zeros)
+        x32 = torch.randn(M, K, device='cuda', generator=gen)
+        x = x32.bfloat16()
+        out = w4a16_matmul_gd(x, packed, sb, corr, gs)
+        ref = w4a16_matmul_gd_plain(x, packed, sb, corr, gs)
+        torch.cuda.synchronize()
+        tol = KERNEL_TOL['w4a16_gemm']
+        err, rel, frac = compare(out, ref, tol)
+        ok = bool(torch.isfinite(out.float()).all()) and frac <= 1.0
+        # what the same check reads with each trap planted (x32: x before bf16 rounding)
+        traps = {t: compare(_gd_trapped(t)(x32 if t == 'xg_unrounded' else x, packed, sb,
+                                           corr, gs).bfloat16(), ref, tol)[2]
+                 for t in W4_TRAPS}
+        ok = ok and min(traps.values()) > 1.0
+        # every K split the kernel takes, each held against the plain version
+        G = K // gs
+        sweep = {}
+        for s in W4_SPLITS if M in (W4_MAIN_M, 64) else ():
+            frac_s = compare(w4a16_matmul_gd(x, packed, sb, corr, gs, splits=s), ref, tol)[2]
+            sweep[s] = {'ms': time_ms(lambda: w4a16_matmul_gd(x, packed, sb, corr, gs,
+                                                              splits=s)),
+                        'err_over_tol': frac_s}
+            ok = ok and frac_s <= 1.0
+        nbytes = K * N // 2 + 2 * 4 * G * N + 2 * M * K + 2 * M * N + 4 * M * G
+        bound_ms, bound_by = bound(2 * M * K * N, nbytes)
+        lib, lib_error = _int4pack_library(x, packed, scales, zeros, gs)
+        lib_err = None if lib is None else (lib().float() - ref.float()).abs().max().item()
+        wd = dequant_w4(packed, scales, zeros, gs)
+        row = {'phase': 'kernel', 'kernel': 'w4a16_gemm', 'case': label,
+               'shape': [M, K, N, gs], 'max_abs_err': err, 'max_rel_err': rel,
+               'err_over_tol': frac, 'tol': tol, 'ok': ok, 'tf32': False,
+               'trap_err_over_tol': traps, 'splits': w4a16_splits(M, N, G, sms),
+               'split_sweep': sweep,
+               'kernel_ms': time_ms(lambda: w4a16_matmul_gd(x, packed, sb, corr, gs)),
+               'plain_ms': time_ms(lambda: w4a16_matmul_gd_plain(x, packed, sb, corr, gs),
+                                   iters=5),
+               'library_ms': time_ms(lib) if lib is not None else None,
+               'library': 'torch._weight_int4pack_mm', 'library_error': lib_error,
+               'library_max_abs_err': lib_err,
+               'dense_bf16_ms': time_ms(lambda: torch.matmul(x, wd)),
+               'bound_ms': bound_ms, 'bound_by': bound_by, 'mbytes': nbytes / 1e6}
+        emit(row)
+        results.append(row)
+        del w, wd
+        if not ok:
+            raise SystemExit(f'w4a16_gemm disagrees with its plain version at some split, '
+                             f'or its check misses a trap: {row}')
+    return results
+
+
+def _int8_decode_inputs(gen, B, Hq, Hkv, D, BS, W, lens, L=2):
+    """A 2-layer int8 cache, every page filled through the port's fill_kv_cache from
+    random bf16 K/V; ragged rows on disjoint random pages, trailing padding rows on
+    block 0 (kv_len 1, as the engine pads), kv_len 0 where ``lens`` says."""
+    from lmdeploy_tpu_torch.ops.attention import fill_kv_cache
+    from lmdeploy_tpu_torch.ops.kv_quant import QuantKV
+    NB = 1 + B * W
+    cache = QuantKV(torch.zeros(L, NB, 2, BS, Hkv * D, dtype=torch.int8, device='cuda'),
+                    torch.zeros(L, NB, 2, BS, Hkv, device='cuda'))
+    slots = torch.arange(BS, NB * BS, device='cuda')
+    for layer in range(L):
+        k = torch.randn(len(slots), Hkv, D, device='cuda', generator=gen).bfloat16()
+        v = torch.randn(len(slots), Hkv, D, device='cuda', generator=gen).bfloat16()
+        fill_kv_cache(cache, k, v, slots, layer)
+    perm = torch.randperm(NB - 1, device='cuda', generator=gen) + 1
+    tables = perm[:B * W].reshape(B, W).int()
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device='cuda')
+    pad_rows = kv_lens < 0
+    tables[pad_rows] = 0
+    kv_lens[pad_rows] = 1
+    q = torch.randn(B, Hq, D, device='cuda', generator=gen).bfloat16()
+    return q, cache, tables.contiguous(), kv_lens
+
+
+def decode_int8_phase():
+    from lmdeploy_tpu_torch.ops.paged_decode import (paged_decode_attention_int8,
+                                                     paged_decode_attention_int8_plain)
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    rng = np.random.RandomState(SEED + 1)
+    results = []
+    BS = 128
+    # bs64 at llama2-7b heads, ragged lengths averaging ~384, one inactive row and
+    # four padding rows; the same with a softcap; TinyLlama heads (G = 8, D = 64);
+    # the e2e phase's decode shape: 64 rows of ~200 tokens, one of ~2,100, padding
+    # rows up to the 128-row bucket, the session-wide table width
+    lens64 = rng.randint(1, 768, size=64)
+    lens64[5] = 0
+    lens64[-4:] = -1
+    lens_e2e = np.concatenate([rng.randint(130, 200, size=64), [2100],
+                               -np.ones(63, int)])
+    cases = [('bs64_7b', 64, 32, 32, 128, lens64, 8, None),
+             ('softcap_7b', 64, 32, 32, 128, lens64, 8, 30.0),
+             ('bs64_tinyllama_heads', 64, 32, 4, 64, lens64, 8, None),
+             ('e2e_shape_7b', 128, 32, 32, 128, lens_e2e, 17, None)]
+    for label, B, Hq, Hkv, D, lens, W, softcap in cases:
+        q, cache, tables, kv_lens = _int8_decode_inputs(gen, B, Hq, Hkv, D, BS, W, lens)
+        scale = D ** -0.5
+        layer = 1
+
+        def kern():
+            return paged_decode_attention_int8(q, cache, tables, kv_lens, layer, scale, Hkv,
+                                               logit_softcap=softcap)
+
+        def plain():
+            return paged_decode_attention_int8_plain(q, cache, tables, kv_lens, layer,
+                                                     scale, Hkv, logit_softcap=softcap)
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        tol = KERNEL_TOL['paged_decode_int8']
+        err, rel, frac = compare(out, ref, tol)
+        zero_ok = bool((out[kv_lens == 0] == 0).all())
+        ok = bool(torch.isfinite(out.float()).all()) and frac <= 1.0 and zero_ok
+        # bytes this data needs: each row's int8 K and V rows and their f32 scales
+        toks = kv_lens.cpu().numpy().astype(np.int64).sum()
+        nbytes = toks * Hkv * (2 * D + 2 * 4) + 2 * (2 * B * Hq * D)
+        bound_ms, bound_by = bound(4 * Hq * D * toks, nbytes)
+        row = {'phase': 'kernel', 'kernel': 'paged_decode_int8', 'case': label,
+               'shape': [B, Hq, Hkv, D, BS, W], 'softcap': softcap,
+               'mean_kv_len': float(kv_lens.float().mean()),
+               'max_abs_err': err, 'max_rel_err': rel, 'err_over_tol': frac, 'tol': tol,
+               'zero_rows_ok': zero_ok, 'ok': ok,
+               'kernel_ms': time_ms(kern), 'plain_ms': time_ms(plain, iters=5),
+               'library_ms': None, 'bound_ms': bound_ms, 'bound_by': bound_by,
+               'kv_mbytes': nbytes / 1e6}
+        emit(row)
+        results.append(row)
+        del q, cache
+        if not ok:
+            raise SystemExit(f'paged_decode_int8 disagrees with its plain version: {row}')
+    return results
+
+
+# -- phase 5 and 6 -------------------------------------------------------------------
+def build_engine(model, max_batch: int, quant_policy: int = 0):
     from lmdeploy_tpu_torch.config import (CacheConfig, EngineConfigBundle, MiscConfig,
                                            SchedulerConfig)
     from lmdeploy_tpu_torch.engine.engine import Engine
-    from lmdeploy_tpu_torch.messages import TpuEngineConfig
+    from lmdeploy_tpu_torch.messages import QuantPolicy, TpuEngineConfig
     bundle = EngineConfigBundle(
-        model=tinyllama_config(),
+        model=model,
         cache=CacheConfig(block_size=128, num_gpu_blocks=0, cache_max_entry_count=0.5,
-                          max_prefill_token_num=8192),
-        scheduler=SchedulerConfig(max_batch_size=64, max_session_len=2048 + 128,
+                          max_prefill_token_num=8192,
+                          quant_policy=QuantPolicy(quant_policy)),
+        scheduler=SchedulerConfig(max_batch_size=max_batch, max_session_len=2048 + 128,
                                   max_prefill_token_num=8192, max_prefill_batch=16),
         misc=MiscConfig(empty_init=True))
-    return Engine(None, TpuEngineConfig(), configs=bundle)
+    return Engine(None, TpuEngineConfig(quant_policy=quant_policy), configs=bundle)
 
 
 def run_requests(engine, prompts, new_tokens):
@@ -296,15 +547,27 @@ def serving_numbers(run) -> dict:
             'wall_s': run['t1'] - run['t0']}
 
 
-def e2e_phase(kernels, card: str):
+def _kernel_counters():
     from lmdeploy_tpu_torch.ops.flash_prefill import flash_prefill_attention
-    from lmdeploy_tpu_torch.ops.paged_decode import paged_decode_attention
+    from lmdeploy_tpu_torch.ops.paged_decode import (paged_decode_attention,
+                                                     paged_decode_attention_int8)
+    from lmdeploy_tpu_torch.ops.quant_matmul import w4a16_matmul_gd
+    return {'flash_prefill': flash_prefill_attention, 'paged_decode': paged_decode_attention,
+            'paged_decode_int8': paged_decode_attention_int8, 'w4a16_gemm': w4a16_matmul_gd}
+
+
+def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
+              need_per_step, card: str) -> dict:
+    """Drive the Engine twice on the same requests (launch counts from the first run,
+    card numbers from the second), then a traced run.  ``need_per_step`` maps each
+    kernel of the path to its launches per (prefill, decode) step.  Returns the first
+    run's launches of every kernel."""
     new_tokens = 64
     rng = np.random.RandomState(SEED)
-    prompts = [rng.randint(3, 32000, size=128).tolist() for _ in range(8)]
+    prompts = [rng.randint(3, 32000, size=128).tolist() for _ in range(n_short)]
     prompts.append(rng.randint(3, 32000, size=2048).tolist())
     t_build = time.perf_counter()
-    engine = build_engine()
+    engine = build_engine(model, max_batch, quant_policy)
     build_s = time.perf_counter() - t_build
     agent = engine.model_agent
     steps = {'prefill': 0, 'decode': 0}
@@ -319,45 +582,62 @@ def e2e_phase(kernels, card: str):
         return decode_run(num_rows, k, *args)
     agent.prefill, agent.decode_run = counted_prefill, counted_decode_run
 
+    from lmdeploy_tpu_torch.nn import linear
+    counters = _kernel_counters()
+    gd, w4_rows = linear.w4a16_matmul_gd, collections.Counter()
+
+    def rows_seen(x, *args):
+        w4_rows[x.shape[0]] += 1
+        return gd(x, *args)
     runs = []
-    for _ in range(2):
+    for i in range(2):
         steps.update(prefill=0, decode=0)
-        flash_prefill_attention.launches = 0
-        paged_decode_attention.launches = 0
-        outs, t0, t1 = run_requests(engine, prompts, new_tokens)
+        for fn in counters.values():
+            fn.launches = 0
+        # the first run also records the rows of every W4A16 product of the path
+        with _swapped(*[(linear, 'w4a16_matmul_gd', rows_seen)] if i == 0 else []):
+            outs, t0, t1 = run_requests(engine, prompts, new_tokens)
         runs.append({'tokens': [o.token_ids for o in outs], 'outs': outs, 't0': t0,
                      't1': t1, 'steps': dict(steps),
-                     'launches': {'flash_prefill': flash_prefill_attention.launches,
-                                  'paged_decode': paged_decode_attention.launches}})
-    profile_phase(engine, prompts, new_tokens)
-    engine.close()
+                     'launches': {n: fn.launches for n, fn in counters.items()}})
+    profile_phase(name, engine, prompts, new_tokens)
     first, second = runs
-    L = engine.configs.model.num_layers
+    num_blocks = agent.num_blocks
+    engine.close()
+    del engine, agent, prefill, decode_run, counted_prefill, counted_decode_run
     lengths_ok = all(len(t) == new_tokens for r in runs for t in r['tokens'])
     finite = all(np.isfinite(lp[tok].logprob)
                  for o in first['outs'] for lp, tok in zip(o.logprobs, o.token_ids))
     deterministic = first['tokens'] == second['tokens']
-    need = {'flash_prefill': L * first['steps']['prefill'],
-            'paged_decode': L * first['steps']['decode']}
+    need = {n: per_prefill * first['steps']['prefill'] + per_decode * first['steps']['decode']
+            for n, (per_prefill, per_decode) in need_per_step.items()}
     launches_ok = all(first['launches'][n] >= need[n] > 0 for n in need)
-    row = {'phase': 'e2e', 'model': 'tinyllama-1.1b geometry, bf16, random seeded weights',
-           'card': card,
+    row = {'phase': name, 'model': model_label(model), 'card': card,
            'requests': len(prompts), 'new_tokens': new_tokens,
            'engine_build_s': build_s, 'lengths_ok': lengths_ok, 'logprobs_finite': finite,
            'deterministic': deterministic, 'steps': first['steps'],
            'launches': first['launches'], 'launches_needed': need,
-           'launches_ok': launches_ok,
-           'num_blocks': agent.num_blocks,
+           'launches_ok': launches_ok, 'w4a16_rows': dict(w4_rows),
+           'num_blocks': num_blocks,
            # card numbers from the second run (cuBLAS and allocator warmed by the first)
            **serving_numbers(second)}
     emit(row)
-    for k in kernels:
-        k['launches'] = first['launches'][k['name']]
+    del runs, first, second
+    gc.collect()
+    torch.cuda.empty_cache()          # the next engine's block budget sees free memory
     if not (lengths_ok and finite and deterministic and launches_ok):
-        raise SystemExit(f'e2e phase failed: {row}')
+        raise SystemExit(f'{name} phase failed: {row}')
+    return row
 
 
-def profile_phase(engine, prompts, new_tokens):
+def model_label(model) -> str:
+    quant = model.quantization_config
+    width = 'tinyllama-1.1b' if model.hidden_size == 2048 else 'llama2-7b'
+    return (f'{width} geometry, {model.num_layers} layers, '
+            f'{"W4A16 gs128 + int8 KV" if quant else "bf16"}, random seeded weights')
+
+
+def profile_phase(name, engine, prompts, new_tokens):
     """A traced run of the same requests: the device's busy share of the wall time
     and the kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
@@ -368,7 +648,8 @@ def profile_phase(engine, prompts, new_tokens):
     busy_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     host = sorted(averages, key=lambda e: -e.self_cpu_time_total)[:8]
-    emit({'phase': 'profile', 'wall_ms': (t1 - t0) * 1e3, 'device_busy_ms': busy_us / 1e3,
+    emit({'phase': 'profile', 'of': name, 'wall_ms': (t1 - t0) * 1e3,
+          'device_busy_ms': busy_us / 1e3,
           'device_busy_share': busy_us / 1e3 / ((t1 - t0) * 1e3) if busy_us else None,
           'top_device_ms': {e.key[:60]: e.self_device_time_total / 1e3 for e in top},
           'top_calls': {e.key[:60]: e.count for e in top},
@@ -376,84 +657,197 @@ def profile_phase(engine, prompts, new_tokens):
           'top_host_calls': {e.key[:60]: e.count for e in host}})
 
 
-# -- phase 5 -------------------------------------------------------------------------
-def parity_phase():
+# -- phase 4 -------------------------------------------------------------------------
+@contextlib.contextmanager
+def _swapped(*swaps):
+    """Set ``module.attr = fn`` for each (module, attr, fn) inside the block."""
+    old = [(m, a, getattr(m, a)) for m, a, _ in swaps]
+    for m, a, fn in swaps:
+        setattr(m, a, fn)
+    try:
+        yield
+    finally:
+        for m, a, fn in old:
+            setattr(m, a, fn)
+
+
+def _plain_kernels():
+    """Inside the block the model's kernel wrappers run their plain versions on the
+    card's tensors: bf16 activations with no hand-written kernel."""
+    from lmdeploy_tpu_torch.nn import linear
+    from lmdeploy_tpu_torch.ops import attention, paged_decode
+    from lmdeploy_tpu_torch.ops.flash_prefill import flash_prefill_attention_plain
+    from lmdeploy_tpu_torch.ops.kv_quant import QuantKV
+    from lmdeploy_tpu_torch.ops.quant_matmul import w4a16_matmul_gd_plain
+
+    def decode_plain(q, kv, tables, lens, layer, scale, hkv, logit_softcap=None,
+                     window=None, sinks=None):
+        if isinstance(kv, QuantKV):
+            return paged_decode.paged_decode_attention_int8_plain(
+                q, kv, tables, lens, layer, scale, hkv, logit_softcap)
+        return paged_decode.paged_decode_attention_plain(
+            q, kv, tables, lens, layer, scale, hkv, logit_softcap, window, sinks)
+    return _swapped((attention, 'flash_prefill_attention', flash_prefill_attention_plain),
+                    (attention, 'paged_decode_attention', decode_plain),
+                    (linear, 'w4a16_matmul_gd', w4a16_matmul_gd_plain))
+
+
+def parity_phase(name: str, cfg16, tol: float, kv_int8: bool):
+    """2 full-width layers: the card (bf16, kernels) against the port on the CPU (f32,
+    plain paths) on the same weights, prefill logits and 8 teacher-forced decode
+    steps.  W4A16 leaves are the same int32 words and f32 scales on both sides.
+
+    Beside it, what the same comparison reads (max |logit error| over the steps):
+    ``floor`` -- the card with every kernel swapped for its plain version (bf16
+    activations alone); and, for W4A16, each of W4_TRAPS planted in the group-dot of
+    the decode steps (prefill rows take the dense route, which has no correction):
+    on the card for the traps a bf16 x can show, on the CPU (f32 x) for
+    'xg_unrounded'.  The allowance must lie above ``floor`` and below every trap."""
     import dataclasses
 
     from lmdeploy_tpu_torch.models.llama import AttnMeta, LlamaModel
+    from lmdeploy_tpu_torch.nn import linear
     from lmdeploy_tpu_torch.nn.layers import make_rope_table
+    from lmdeploy_tpu_torch.ops.kv_quant import QuantKV
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg16 = tinyllama_config(num_layers=2)
     cfg32 = dataclasses.replace(cfg16, dtype='float32')
     m16, m32 = LlamaModel(cfg16), LlamaModel(cfg32)
 
-    def tree(params, fn):
-        return {k: tree(v, fn) if isinstance(v, dict) else fn(v) for k, v in params.items()}
-    # identical bf16-representable weights on both sides
+    # identical weights on both sides: bf16-representable dense weights, the same
+    # W4A16 words and f32 scales / zeros
     w = m32.init_params(SEED, device='cpu', dtype=torch.float32)
-    w_cpu = m32.fuse_projections(tree(w, lambda t: t.bfloat16().float()))
-    w_gpu = m16.fuse_projections(tree(w, lambda t: t.to('cuda', torch.bfloat16)))
+    w_cpu = m32.prep_quant_leaves(m32.fuse_projections(_bf16_tree(w, 'cpu', torch.float32)))
+    w_gpu = m16.prep_quant_leaves(m16.fuse_projections(_bf16_tree(w, 'cuda',
+                                                                  torch.bfloat16)))
     B, T, BS, steps = 2, 256, 128, 8
     pages = (T + steps + BS - 1) // BS
     NB = 1 + B * pages
-    shape = (2, NB, 2, BS, cfg16.num_key_value_heads * cfg16.head_dim)
-    cache = {'cpu': torch.zeros(shape), 'cuda': torch.zeros(shape, dtype=torch.bfloat16,
-                                                             device='cuda')}
+    Hkv = cfg16.num_key_value_heads
+    shape = (2, NB, 2, BS, Hkv * cfg16.head_dim)
+
+    def new_cache(dev):
+        if kv_int8:
+            return QuantKV(torch.zeros(shape, dtype=torch.int8, device=dev),
+                           torch.zeros(shape[:4] + (Hkv,), device=dev))
+        return torch.zeros(shape, dtype=torch.float32 if dev == 'cpu' else torch.bfloat16,
+                           device=dev)
+
+    def clone(kv):
+        return QuantKV(kv.data.clone(), kv.scale.clone()) if kv_int8 else kv.clone()
     tables = (1 + torch.arange(B * pages)).reshape(B, pages).int()
     cos, sin = make_rope_table(cfg16.head_dim, 1024, cfg16.rope_theta)
     rng = np.random.RandomState(SEED)
     ids = torch.from_numpy(rng.randint(3, 32000, size=(B, T))).int()
+    side = {'cpu': (m32, w_cpu), 'cuda': (m16, w_gpu)}
 
-    def step(dev, model, params, tok, hist, q_len, fresh):
+    def step(dev, kv, tok, hist, q_len, fresh):
+        model, params = side[dev]
         meta = AttnMeta(tables.to(dev), torch.full((B,), hist, dtype=torch.int32).to(dev),
                         torch.full((B,), q_len, dtype=torch.int32).to(dev))
         pos = (hist + torch.arange(tok.shape[1]))[None].expand(B, -1).int()
-        return model.forward(params, tok.to(dev), pos.to(dev), cache[dev], meta,
+        return model.forward(params, tok.to(dev), pos.to(dev), kv, meta,
                              cos.to(dev), sin.to(dev), fresh_prefill=fresh).float().cpu()
+
+    def prefill(dev):
+        kv = new_cache(dev)
+        return step(dev, kv, ids, 0, T, True), kv
+
+    def decode(dev, kv, toks):
+        return [step(dev, kv, tok, T + i, 1, False) for i, tok in enumerate(toks)]
+
+    # the f32 CPU run teacher-forces its own argmax tokens; every other run takes them
+    lc0, kv_cpu = prefill('cpu')
+    kv_cpu0, cpu, toks = clone(kv_cpu), [lc0], []
+    for i in range(steps):
+        toks.append(cpu[-1].argmax(-1, keepdim=True).int())
+        cpu.append(step('cpu', kv_cpu, toks[-1], T + i, 1, False))
+    lg0, kv_gpu = prefill('cuda')
+    kv_gpu0 = clone(kv_gpu)
+    card = [lg0] + decode('cuda', kv_gpu, toks)
+
+    def max_err(a, b):
+        return max((x - y).abs().max().item() for x, y in zip(a, b))
     errs, agree, decided = [], 0, 0
-    lc = step('cpu', m32, w_cpu, ids, 0, T, True)
-    lg = step('cuda', m16, w_gpu, ids, 0, T, True)
-    for i in range(steps + 1):
+    for i, (lc, lg) in enumerate(zip(cpu, card)):
         errs.append((lg - lc).abs().max().item())
         top2 = lc.topk(2, dim=-1).values
-        margin_ok = (top2[:, 0] - top2[:, 1]) > 2 * LOGIT_TOL
+        margin_ok = (top2[:, 0] - top2[:, 1]) > 2 * tol
         same = lc.argmax(-1) == lg.argmax(-1)
         agree += int(same.sum())
         decided += int(margin_ok.sum())
         if not bool(same[margin_ok].all()):
-            raise SystemExit(f'parity: argmax differs where the f32 margin exceeds '
-                             f'2 x {LOGIT_TOL} at step {i}')
-        if i == steps:
-            break
-        tok = lc.argmax(-1, keepdim=True).int()          # teacher-force the f32 tokens
-        lc = step('cpu', m32, w_cpu, tok, T + i, 1, False)
-        lg = step('cuda', m16, w_gpu, tok, T + i, 1, False)
-    row = {'phase': 'parity', 'layers': 2, 'width': 'tinyllama-1.1b', 'batch': B,
-           'prompt': T, 'decode_steps': steps, 'max_abs_logit_err': max(errs),
-           'per_step_err': errs, 'tol': LOGIT_TOL,
+            raise SystemExit(f'{name}: argmax differs where the f32 margin exceeds '
+                             f'2 x {tol} at step {i}')
+    with _plain_kernels():
+        lf0, kv_f = prefill('cuda')
+        floor = max_err([lf0] + decode('cuda', kv_f, toks), cpu)
+    traps = {}
+    if cfg16.quantization_config:
+        for trap in W4_TRAPS:
+            with _swapped((linear, 'w4a16_matmul_gd', _gd_trapped(trap))):
+                if trap == 'xg_unrounded':
+                    traps[trap] = max_err([lc0] + decode('cpu', clone(kv_cpu0), toks), card)
+                else:
+                    traps[trap] = max_err([lg0] + decode('cuda', clone(kv_gpu0), toks), cpu)
+    ok = max(errs) <= tol and all(v > tol for v in traps.values())
+    row = {'phase': name, 'layers': 2, 'model': model_label(cfg16), 'batch': B,
+           'prompt': T, 'decode_steps': steps, 'vocab': cfg16.vocab_size,
+           'max_abs_logit_err': max(errs), 'per_step_err': errs, 'tol': tol,
+           'floor_bf16_plain': floor, 'trap_max_abs_logit_err': traps,
+           'logit_abs_max': cpu[-1].abs().max().item(),
            'argmax_agree': agree, 'positions': B * (steps + 1),
-           'positions_with_margin': decided, 'ok': max(errs) <= LOGIT_TOL}
+           'positions_with_margin': decided, 'ok': ok}
     emit(row)
+    del kv_gpu, kv_gpu0, kv_f, w_gpu
+    torch.cuda.empty_cache()
     if not row['ok']:
-        raise SystemExit(f'parity failed: {row}')
+        raise SystemExit(f'{name} failed (over its allowance, or a trap reads within '
+                         f'it): {row}')
 
 
-def kernel_line(flash, decode):
-    f, d = flash[0], decode[0]
+def _bf16_tree(params, device, dtype):
+    """Dense float leaves rounded to bf16, then in ``dtype`` on ``device``; the leaves
+    of a W4A16 dict (int32 words, f32 scales and zeros) move unchanged."""
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, dict) and 'packed' in v:
+            out[k] = {k2: v2.to(device) for k2, v2 in v.items()}
+        elif isinstance(v, dict):
+            out[k] = _bf16_tree(v, device, dtype)
+        else:
+            out[k] = v.bfloat16().to(device, dtype)
+    return out
+
+
+def kernel_line(flash, decode, decode8, w4):
+    def entry(name, source, replaces, rows, lead, library_ms):
+        return {'name': name, 'route': 'cuda', 'source': f'lmdeploy_tpu_torch/csrc/{source}',
+                'replaces': replaces, 'launches': None,
+                'max_abs_err': max(r['max_abs_err'] for r in rows), 'ms': lead['kernel_ms'],
+                'plain_ms': lead['plain_ms'], 'bound_ms': lead['bound_ms'],
+                'bound_by': lead['bound_by'], 'library_ms': library_ms}
+    # the main-path shape of each kernel: T=2048 prefill, bs64 decode, bs64 7b int8
+    # decode, and the W4A16 GEMM summed over one llama2-7b layer's four projections
+    # at the e2e phase's M (times and bounds both)
+    layer = [r for r in w4 if r['shape'][0] == W4_MAIN_M]
+    w4_lead = {k: sum(r[k] for r in layer) for k in ('kernel_ms', 'plain_ms', 'bound_ms')}
+    w4_lead['bound_by'] = 'bytes' if all(r['bound_by'] == 'bytes' for r in layer) \
+        else 'operations'
+    lib = [r['library_ms'] for r in layer]
     return [
-        {'name': 'flash_prefill', 'route': 'cuda',
-         'source': 'lmdeploy_tpu_torch/csrc/flash_prefill.cu',
-         'replaces': 'lmdeploy_tpu/ops/pallas/flash_prefill.py:76', 'launches': None,
-         'max_abs_err': max(r['max_abs_err'] for r in flash), 'ms': f['kernel_ms'],
-         'plain_ms': f['plain_ms'], 'bound_ms': f['bound_ms'], 'bound_by': f['bound_by'],
-         'library_ms': f['library_ms']},
-        {'name': 'paged_decode', 'route': 'cuda',
-         'source': 'lmdeploy_tpu_torch/csrc/paged_decode.cu',
-         'replaces': 'lmdeploy_tpu/ops/pallas/paged_decode.py:866', 'launches': None,
-         'max_abs_err': max(r['max_abs_err'] for r in decode), 'ms': d['kernel_ms'],
-         'plain_ms': d['plain_ms'], 'bound_ms': d['bound_ms'], 'bound_by': d['bound_by'],
-         'library_ms': None},
+        entry('flash_prefill', 'flash_prefill.cu',
+              'lmdeploy_tpu/ops/pallas/flash_prefill.py:76', flash, flash[0],
+              flash[0]['library_ms']),
+        entry('paged_decode', 'paged_decode.cu',
+              'lmdeploy_tpu/ops/pallas/paged_decode.py:866', decode, decode[0], None),
+        entry('paged_decode_int8', 'paged_decode_int8.cu',
+              'lmdeploy_tpu/ops/pallas/paged_decode.py:286', decode8, decode8[0], None),
+        dict(entry('w4a16_gemm', 'w4a16_gemm.cu',
+                   'lmdeploy_tpu/ops/pallas/quant_matmul.py:392', w4, w4_lead,
+                   sum(lib) if None not in lib else None),
+             dense_bf16_ms=sum(r['dense_bf16_ms'] for r in layer),
+             shape=f'llama2-7b layer: wqkv + wo + w_gateup + w_down at M = {W4_MAIN_M}'),
     ]
 
 
@@ -464,9 +858,24 @@ def main():
         return 1
     info = device_phase()
     build_phase()
-    kernels = kernel_line(flash_phase(), decode_phase())
-    parity_phase()
-    e2e_phase(kernels, info['nvidia_smi'])
+    kernels = kernel_line(flash_phase(), decode_phase(), decode_int8_phase(), w4a16_phase())
+    parity_phase('parity', tinyllama_config(num_layers=2), LOGIT_TOL, kv_int8=False)
+    parity_phase('parity_w4a16_kv8', llama7b_w4_config(num_layers=2), LOGIT_TOL_W4,
+                 kv_int8=True)
+    L1, L7 = tinyllama_config().num_layers, llama7b_w4_config().num_layers
+    # launches each (prefill step, decode step) needs on each path
+    tiny = e2e_phase('e2e', tinyllama_config(), 64, 0, 8,
+                     {'flash_prefill': (L1, 0), 'paged_decode': (0, L1)},
+                     info['nvidia_smi'])
+    w4 = e2e_phase('e2e_w4a16_kv8', llama7b_w4_config(), 128, 4, 64,
+                   {'flash_prefill': (L7, 0), 'paged_decode_int8': (0, L7),
+                    'w4a16_gemm': (0, 4 * L7)}, info['nvidia_smi'])
+    for k in kernels:
+        k['launches_by_path'] = {'e2e': tiny['launches'][k['name']],
+                                 'e2e_w4a16_kv8': w4['launches'][k['name']]}
+        k['launches'] = (tiny if k['name'] in ('flash_prefill', 'paged_decode')
+                         else w4)['launches'][k['name']]
+    kernels[-1]['launches_by_rows'] = w4['w4a16_rows']
     emit({'kernels': kernels})
     print(info['nvidia_smi'], flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': info['kind'],

@@ -151,21 +151,28 @@ class MiscConfig:
 
 
 # TpuEngineConfig fields the port does not read yet: a value other than the default
-# would ask for parallelism, a quantized cache or checkpoint, KV roles, swap, LoRA,
-# diffusion decoding, MemDecode or model download, none of which the port does
+# would ask for parallelism, KV roles, swap, LoRA, diffusion decoding, MemDecode or
+# model download, none of which the port does
 _UNPORTED_FIELDS = ('tp', 'dp', 'ep', 'cp', 'attn_tp_size', 'mlp_tp_size',
-                    'num_cpu_blocks', 'quant_policy', 'model_format', 'eager_mode',
-                    'role', 'adapters', 'dllm_block_length', 'memdecode', 'revision',
-                    'download_dir')
+                    'num_cpu_blocks', 'eager_mode', 'role', 'adapters',
+                    'dllm_block_length', 'memdecode', 'revision', 'download_dir')
+# the KV cache policies and checkpoint formats the port serves: plain and int8 KV,
+# dense and AWQ / GPTQ W4A16 weights (the format comes from the checkpoint's
+# quantization_config; model_format only names it)
+_PORTED_VALUES = {'quant_policy': (QuantPolicy.NONE, QuantPolicy.KV_INT8),
+                  'model_format': (None, 'awq', 'gptq')}
 
 
 def check_ported(engine_config: TpuEngineConfig):
     """Validate ``engine_config`` and raise ``NotImplementedError`` for each field
-    set away from its default that the port does not serve yet."""
+    set to a value the port does not serve yet."""
     engine_config.validate()
     default = TpuEngineConfig()
     unported = [f'{name}={getattr(engine_config, name)!r}' for name in _UNPORTED_FIELDS
                 if getattr(engine_config, name) != getattr(default, name)]
+    unported += [f'{name}={getattr(engine_config, name)!r}'
+                 for name, ok in _PORTED_VALUES.items()
+                 if getattr(engine_config, name) not in ok]
     if unported:
         raise NotImplementedError(f'not ported yet: {", ".join(unported)}')
 
@@ -189,6 +196,7 @@ class EngineConfigBundle:
             block_size=engine_config.block_size,
             num_gpu_blocks=engine_config.num_gpu_blocks,
             cache_max_entry_count=engine_config.cache_max_entry_count,
+            quant_policy=QuantPolicy(engine_config.quant_policy),
             max_prefill_token_num=engine_config.max_prefill_token_num,
             enable_prefix_caching=engine_config.enable_prefix_caching,
             window_size=model.sliding_window if model.window_uniform else None,

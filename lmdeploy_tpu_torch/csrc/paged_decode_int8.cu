@@ -1,0 +1,251 @@
+// T = 1 attention over a paged int8 KV cache, for Hopper (sm_90a).
+//
+// Replaces the int8 branch of the TPU kernel lmdeploy_tpu/ops/pallas/paged_decode.py
+// (paged_decode_attention, body _decode_kernel_quant, softmax step _softmax_update).
+// Same function, in the same order:
+//   s = (q * scale) . k_i8 * ksc;  optional softcap tanh(s / c) * c;  mask by kv_len
+//   (MASK_VALUE = -0.7 * FLT_MAX, not -inf);  online softmax in f32 with l summing the
+//   unscaled p;  acc += (p * vsc) @ v_i8;  out = acc / l  (l == 0 -> 1).
+// kv_lens[b] counts the token just filled; 0 marks an inactive row, whose output is
+// 0.  No window and no sinks: the reference never sends those to this kernel.
+//
+// Cache layout: data int8 [L, NB, 2, BS, Hkv * D] -- a K plane and a V plane of
+// head-major token rows per page (the reference layout without its 128-lane
+// padding); scale f32 [L, NB, 2, BS, Hkv], token-major, read straight from there
+// (the reference's per-layer transpose to head-major is a Mosaic workaround).  Block
+// 0 is the padding block; tables [B, W] i32 map a row's page index to its block.
+//
+// What bounds it on an H100: bytes of K/V read.  Per token and layer:
+// Hkv * (2 * D int8 + 2 * 4 scale bytes) -- 8,448 bytes at llama2-7b (Hkv 32,
+// D 128), half the bf16 cache's bytes.
+//
+// Design (paged_decode.cu's, with int8 pages; a split over pages, TMA and
+// tensor-core scores are later work):
+//   * One block per (kv head, batch row) walks the row's pages up to its length.
+//   * The G query heads of the GQA group share every page the block loads.
+//   * Per page: the head's [BS, D] int8 slices of the K and V planes go to shared
+//     memory with 16-byte loads, and the page's BS K and V scales of this head beside
+//     them; scores with one thread per token; online softmax per query head (warp
+//     reductions); P.V with one thread per (head, column), accumulator in shared
+//     memory.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int NT = 128;
+constexpr float MASK_VALUE = -0.7f * 3.402823466e38f;
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// signed byte e (0..3) of a packed word, as float
+__device__ __forceinline__ float byte_f(uint32_t w, int e) {
+  return static_cast<float>(static_cast<int>(w << (24 - 8 * e)) >> 24);
+}
+
+__host__ __device__ inline int float_words(int G, int D, int BS) {
+  // qs [G][D] + os [G][D] + ps [G][BS] + m, l, alpha [G] + ksc, vsc [BS], rounded to 16 B
+  return (2 * G * D + G * BS + 3 * G + 2 * BS + 3) & ~3;
+}
+
+template <int D>
+size_t smem_bytes(int G, int BS) {
+  return (size_t)float_words(G, D, BS) * sizeof(float)
+       + (size_t)BS * (D + 16)          // K slice, 16-byte padded rows
+       + (size_t)BS * D;                // V slice
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT)
+paged_decode_int8_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
+                         const int8_t* __restrict__ data,       // [L, NB, 2, BS, Hkv*D]
+                         const float* __restrict__ scales,      // [L, NB, 2, BS, Hkv]
+                         const int* __restrict__ tables,        // [B, W]
+                         const int* __restrict__ kv_lens,       // [B]
+                         __nv_bfloat16* __restrict__ out,       // [B, Hq, D]
+                         int Hq, int Hkv, int NB, int BS, int W, int layer,
+                         float scale, float softcap) {
+  constexpr int KSTR = D + 16;    // padded K rows: conflict-free 16-byte row reads
+  constexpr int CH = D / 16;      // 16-byte chunks per head row
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int G = Hq / Hkv;
+  const int HD = Hkv * D;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                 // [G][D]  q * scale
+  float* os = qs + G * D;           // [G][D]
+  float* ps = os + G * D;           // [G][BS]
+  float* ms = ps + G * BS;          // [G]
+  float* ls = ms + G;               // [G]
+  float* as = ls + G;               // [G]
+  float* ksc = as + G;              // [BS]
+  float* vsc = ksc + BS;            // [BS]
+  int8_t* ks = reinterpret_cast<int8_t*>(smem + float_words(G, D, BS));
+  int8_t* vs = ks + BS * KSTR;
+
+  const __nv_bfloat16* qrow = q + ((long long)b * Hq + (long long)h * G) * D;
+  for (int i = tid; i < G * D; i += NT) {
+    qs[i] = __bfloat162float(qrow[i]) * scale;
+    os[i] = 0.f;
+  }
+  for (int g = tid; g < G; g += NT) {
+    ms[g] = MASK_VALUE;
+    ls[g] = 0.f;
+  }
+  __syncthreads();
+
+  const int len = kv_lens[b];
+  const int p_hi = min((len + BS - 1) / BS, W);
+  const long long plane = (long long)BS * HD;
+  const long long splane = (long long)BS * Hkv;
+  for (int p = 0; p < p_hi; ++p) {
+    const int blk = min(max(tables[(long long)b * W + p], 0), NB - 1);
+    const long long page = (long long)layer * NB + blk;
+    const int8_t* kpage = data + page * 2 * plane + (long long)h * D;
+    const int8_t* vpage = kpage + plane;
+    const float* kscale = scales + page * 2 * splane + h;
+    for (int i = tid; i < BS * CH; i += NT) {
+      const int t = i / CH;
+      const int c = i - t * CH;
+      *reinterpret_cast<uint4*>(ks + t * KSTR + c * 16) =
+          *reinterpret_cast<const uint4*>(kpage + (long long)t * HD + c * 16);
+      *reinterpret_cast<uint4*>(vs + t * D + c * 16) =
+          *reinterpret_cast<const uint4*>(vpage + (long long)t * HD + c * 16);
+    }
+    for (int t = tid; t < BS; t += NT) {
+      ksc[t] = kscale[(long long)t * Hkv];
+      vsc[t] = kscale[splane + (long long)t * Hkv];
+    }
+    __syncthreads();
+
+    for (int t = tid; t < BS; t += NT) {
+      const bool valid = p * BS + t < len;
+      uint32_t kr[D / 4];
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(ks + t * KSTR + c * 16);
+        kr[c * 4 + 0] = raw.x;
+        kr[c * 4 + 1] = raw.y;
+        kr[c * 4 + 2] = raw.z;
+        kr[c * 4 + 3] = raw.w;
+      }
+      for (int g = 0; g < G; ++g) {
+        const float* qg = qs + g * D;
+        float acc = 0.f;
+#pragma unroll
+        for (int d = 0; d < D; d += 4) {
+          const float4 qv = *reinterpret_cast<const float4*>(qg + d);
+          const uint32_t w = kr[d / 4];
+          acc = fmaf(qv.x, byte_f(w, 0), acc);
+          acc = fmaf(qv.y, byte_f(w, 1), acc);
+          acc = fmaf(qv.z, byte_f(w, 2), acc);
+          acc = fmaf(qv.w, byte_f(w, 3), acc);
+        }
+        float s = acc * ksc[t];
+        if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
+        ps[g * BS + t] = valid ? s : MASK_VALUE;
+      }
+    }
+    __syncthreads();
+
+    for (int g = warp; g < G; g += NT / 32) {
+      float* prow = ps + g * BS;
+      float mx = MASK_VALUE;
+      for (int t = lane; t < BS; t += 32) mx = fmaxf(mx, prow[t]);
+      mx = warp_max(mx);
+      const float m_old = ms[g];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+      for (int t = lane; t < BS; t += 32) {
+        const float e = expf(prow[t] - m_new);
+        sum += e;                     // l sums the unscaled p
+        prow[t] = e * vsc[t];         // P.V takes p * vsc
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        as[g] = alpha;
+        ls[g] = ls[g] * alpha + sum;
+        ms[g] = m_new;
+      }
+    }
+    __syncthreads();
+
+    for (int i = tid; i < G * D; i += NT) {
+      const int g = i / D;
+      const int d = i - g * D;
+      const float* prow = ps + g * BS;
+      float acc = os[i] * as[g];
+      for (int t = 0; t < BS; ++t) acc = fmaf(prow[t], static_cast<float>(vs[t * D + d]), acc);
+      os[i] = acc;
+    }
+    __syncthreads();
+  }
+
+  __nv_bfloat16* orow = out + ((long long)b * Hq + (long long)h * G) * D;
+  for (int i = tid; i < G * D; i += NT) {
+    const float l = ls[i / D];
+    orow[i] = __float2bfloat16(len > 0 ? os[i] / (l == 0.f ? 1.f : l) : 0.f);
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* data, const void* scales, const int* tables,
+                   const int* kv_lens, void* out, int B, int Hq, int Hkv, int NB, int BS,
+                   int W, int layer, float scale, float softcap, cudaStream_t stream) {
+  const size_t bytes = smem_bytes<D>(Hq / Hkv, BS);
+  static size_t configured = 48 * 1024;
+  if (bytes > configured) {
+    cudaError_t e = cudaFuncSetAttribute(paged_decode_int8_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+    if (e != cudaSuccess) return e;
+    configured = bytes;
+  }
+  paged_decode_int8_kernel<D><<<dim3(Hkv, B), NT, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(data),
+      static_cast<const float*>(scales), tables, kv_lens,
+      static_cast<__nv_bfloat16*>(out), Hq, Hkv, NB, BS, W, layer, scale, softcap);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q [B,Hq,D] bf16; data [L,NB,2,BS,Hkv*D] int8; scales [L,NB,2,BS,Hkv] f32; tables
+// [B,W] i32; kv_lens [B] i32; out [B,Hq,D] bf16; all contiguous.  softcap <= 0
+// disables it.  Returns the CUDA error code of the launch (0 = launched).
+extern "C" int paged_decode_int8(const void* q, const void* data, const void* scales,
+                                 const void* tables, const void* kv_lens, void* out,
+                                 int B, int Hq, int Hkv, int D, int NB, int BS, int W,
+                                 int layer, float scale, float softcap, void* stream) {
+  if (B <= 0) return (int)cudaSuccess;
+  if (Hkv <= 0 || Hq % Hkv != 0 || BS <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* tb = static_cast<const int*>(tables);
+  const int* kl = static_cast<const int*>(kv_lens);
+  switch (D) {
+    case 64:
+      return (int)launch<64>(q, data, scales, tb, kl, out, B, Hq, Hkv, NB, BS, W, layer,
+                             scale, softcap, s);
+    case 128:
+      return (int)launch<128>(q, data, scales, tb, kl, out, B, Hq, Hkv, NB, BS, W, layer,
+                              scale, softcap, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}

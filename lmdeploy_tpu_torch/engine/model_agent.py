@@ -84,8 +84,9 @@ class ModelAgent:
         else:
             from ..weight_loader import load_params
             params = load_params(self.model, model_path, self.device)
-        # one wide qkv GEMM and one gate/up GEMM per layer
-        self.params = self.model.fuse_projections(params)
+        # one wide qkv GEMM and one gate/up GEMM per layer; W4A16 leaves then take
+        # the group-dot schedule's prepared form (reference model_agent.py:130-149)
+        self.params = self.model.prep_quant_leaves(self.model.fuse_projections(params))
 
         cos, sin = make_rope_table(cfg.rope_dim, self.max_model_len, cfg.rope_theta,
                                    cfg.rope_scaling, device=self.device)
@@ -117,7 +118,8 @@ class ModelAgent:
         self.decode_run_steps = 16
 
     @property
-    def kv_cache(self) -> torch.Tensor:
+    def kv_cache(self):
+        """The paged cache: a tensor, or a ``QuantKV`` with ``quant_policy=4``."""
         return self.cache_engine.kv_cache
 
     # -- slot management --------------------------------------------------------------

@@ -2,25 +2,46 @@
 
 Port of ``lmdeploy_tpu/models/llama.py`` (``LlamaModel``) for the options the
 ``_llama`` / ``_qwen2`` / ``_qwen3`` registry builders switch on: attention bias,
-qk-norm and tied embeddings.  Parameters keep the reference's tree and names
-(``embed``, ``layers/{attn_norm, wq|wqkv, ...}`` stacked ``[L, ...]``, ``final_norm``,
-``lm_head``) and its ``[in, out]`` weight layout, so a JAX parameter tree carries over
-by name (``weight_convert.params_from_jax``).  The reference's ``lax.scan`` over layers
-becomes a Python loop; the KV cache is one tensor written in place.
+qk-norm and tied embeddings, and AWQ / GPTQ W4A16 checkpoints.  Parameters keep the
+reference's tree and names (``embed``, ``layers/{attn_norm, wq|wqkv, ...}`` stacked
+``[L, ...]``, ``final_norm``, ``lm_head``) and its ``[in, out]`` weight layout, so a JAX
+parameter tree carries over by name (``weight_convert.params_from_jax``).  A W4A16
+linear is a dict leaf ``{'packed' i32[L, Kp/8, N], 'scales', 'zeros' f32[L, Kp/gs, N]}``
+(``Kp`` = ``lite.formats.pad_k4(K)``), prepared to ``{'packed', 'sb', 'corr'}`` by
+``prep_quant_leaves``.  The reference's ``lax.scan`` over layers becomes a Python loop,
+in which one layer's ``[Kp/8, N]`` slice of a stacked leaf is a free view (the
+reference's whole-stack-plus-layer-index kernel design only avoids an XLA slice
+copy); the KV cache is written in place.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig
+from ..lite import formats
 from ..nn.layers import apply_rope, rms_norm
 from ..nn.linear import linear
 from ..ops.attention import compute_slot_mapping, fill_kv_cache, paged_attention
+from ..ops.quant_matmul import prep_w4
+
+# seeded W4A16 weights: nibbles uniform on 0..15 around zero point 7.5, and a scale
+# that gives the dequantized weights the dense init's 0.02 std
+W4_INIT_ZERO = 7.5
+W4_INIT_SCALE = 0.02 / math.sqrt((16 ** 2 - 1) / 12)
+
+
+class Leaf(NamedTuple):
+    """A parameter leaf with its own dtype (quantized leaves); plain shape tuples
+    take the model dtype."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
 
 
 @dataclass
@@ -36,27 +57,44 @@ class LlamaModel:
     """Weights layout + forward for the dense llama family."""
 
     def __init__(self, config: ModelConfig):
-        if config.quantization_config:
-            raise NotImplementedError('quantized checkpoints are not ported yet')
         self.config = config
         self.q_out = config.num_attention_heads * config.head_dim
         self.kv_out = config.num_key_value_heads * config.head_dim
+        self.quant_method = None
+        self.group_size = 128
+        qcfg = config.quantization_config or {}
+        method = qcfg.get('quant_method')
+        if method in ('awq', 'gptq'):
+            self.quant_method = 'w4a16'
+            self.group_size = qcfg.get('group_size') or qcfg.get('q_group_size', 128)
+        elif method is not None:
+            raise NotImplementedError(f'{method!r} checkpoints are not ported yet')
 
     # -- parameters -------------------------------------------------------------------
+    def _linear_shape(self, L: int, K: int, N: int):
+        if self.quant_method == 'w4a16':
+            gs = self.group_size
+            Kp = formats.pad_k4(K, gs)     # plane-packed layout: K in whole groups x4
+            return {'packed': Leaf((L, Kp // 8, N), torch.int32),
+                    'scales': Leaf((L, Kp // gs, N), torch.float32),
+                    'zeros': Leaf((L, Kp // gs, N), torch.float32)}
+        return (L, K, N)
+
     def param_shapes(self) -> Dict:
         cfg = self.config
         L, H, I, V = (cfg.num_layers, cfg.hidden_size, cfg.intermediate_size,
                       cfg.vocab_size)
+        lin = self._linear_shape
         layers = {
             'attn_norm': (L, H),
-            'wq': (L, H, self.q_out),
-            'wk': (L, H, self.kv_out),
-            'wv': (L, H, self.kv_out),
-            'wo': (L, self.q_out, H),
+            'wq': lin(L, H, self.q_out),
+            'wk': lin(L, H, self.kv_out),
+            'wv': lin(L, H, self.kv_out),
+            'wo': lin(L, self.q_out, H),
             'mlp_norm': (L, H),
-            'w_gate': (L, H, I),
-            'w_up': (L, H, I),
-            'w_down': (L, I, H),
+            'w_gate': lin(L, H, I),
+            'w_up': lin(L, H, I),
+            'w_down': lin(L, I, H),
         }
         if cfg.attention_bias:
             layers.update(bq=(L, self.q_out), bk=(L, self.kv_out), bv=(L, self.kv_out))
@@ -71,7 +109,10 @@ class LlamaModel:
                     dtype: Optional[torch.dtype] = None) -> Dict:
         """Random weights from one seeded ``torch.Generator`` on ``device``
         (norms are ones), in the model dtype unless ``dtype`` is given.  The same
-        seed gives the same weights on the same device type."""
+        seed gives the same weights on the same device type.  W4A16 leaves get
+        random int32 words (uniform nibbles), zeros ``W4_INIT_ZERO`` and scales
+        ``W4_INIT_SCALE``: zero-mean weights of std 0.02, the dense default, whose
+        output columns differ (constant positive weights would make them alike)."""
         dtype = dtype or self.config.torch_dtype()
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
@@ -81,6 +122,16 @@ class LlamaModel:
             for name, shape in tree.items():
                 if isinstance(shape, dict):
                     out[name] = walk(shape)
+                elif isinstance(shape, Leaf):
+                    if name == 'packed':
+                        words = torch.randint(-2 ** 31, 2 ** 31, shape.shape,
+                                              generator=gen, device=device,
+                                              dtype=torch.int64)
+                        out[name] = words.to(shape.dtype)
+                    else:
+                        fill = W4_INIT_SCALE if name == 'scales' else W4_INIT_ZERO
+                        out[name] = torch.full(shape.shape, fill, dtype=shape.dtype,
+                                               device=device)
                 elif 'norm' in name:
                     out[name] = torch.ones(shape, dtype=dtype, device=device)
                 else:
@@ -89,57 +140,115 @@ class LlamaModel:
             return out
         return walk(self.param_shapes())
 
-    def make_assign_plan(self) -> Dict[str, Tuple]:
-        """{hf_name: (path, transpose)}; a layer index inside ``path`` selects the
-        stacked row (reference ``make_assign_plan``, dense path)."""
+    def make_assign_plan(self) -> Dict[str, Tuple[Tuple, Optional[Callable]]]:
+        """{hf_name: (path, transform)}: the loader writes ``transform(tensor)`` (or
+        the tensor itself) at ``path``, where a layer index selects the stacked row
+        (reference ``make_assign_plan``, dense and AWQ / GPTQ W4A16 paths)."""
         cfg = self.config
-        plan = {'model.embed_tokens.weight': (('embed',), False),
-                'model.norm.weight': (('final_norm',), False)}
+
+        def transposed(x):
+            return x.t()
+        plan = {'model.embed_tokens.weight': (('embed',), None),
+                'model.norm.weight': (('final_norm',), None)}
         if not cfg.tie_word_embeddings:
-            plan['lm_head.weight'] = (('lm_head',), True)
+            plan['lm_head.weight'] = (('lm_head',), transposed)
         per_layer = [
-            ('input_layernorm.weight', 'attn_norm', False),
-            ('post_attention_layernorm.weight', 'mlp_norm', False),
-            ('self_attn.q_proj.bias', 'bq', False),
-            ('self_attn.k_proj.bias', 'bk', False),
-            ('self_attn.v_proj.bias', 'bv', False),
-            ('self_attn.q_norm.weight', 'q_norm', False),
-            ('self_attn.k_norm.weight', 'k_norm', False),
-            ('self_attn.q_proj.weight', 'wq', True),
-            ('self_attn.k_proj.weight', 'wk', True),
-            ('self_attn.v_proj.weight', 'wv', True),
-            ('self_attn.o_proj.weight', 'wo', True),
-            ('mlp.gate_proj.weight', 'w_gate', True),
-            ('mlp.up_proj.weight', 'w_up', True),
-            ('mlp.down_proj.weight', 'w_down', True),
+            ('input_layernorm.weight', ('attn_norm',), None),
+            ('post_attention_layernorm.weight', ('mlp_norm',), None),
+            ('self_attn.q_proj.bias', ('bq',), None),
+            ('self_attn.k_proj.bias', ('bk',), None),
+            ('self_attn.v_proj.bias', ('bv',), None),
+            ('self_attn.q_norm.weight', ('q_norm',), None),
+            ('self_attn.k_norm.weight', ('k_norm',), None),
         ]
+        hf_linears = [('self_attn.q_proj', 'wq'), ('self_attn.k_proj', 'wk'),
+                      ('self_attn.v_proj', 'wv'), ('self_attn.o_proj', 'wo'),
+                      ('mlp.gate_proj', 'w_gate'), ('mlp.up_proj', 'w_up'),
+                      ('mlp.down_proj', 'w_down')]
+        if self.quant_method == 'w4a16':
+            per_layer += self._w4a16_plan(hf_linears)
+        else:
+            per_layer += [(f'{hf}.weight', (name,), transposed) for hf, name in hf_linears]
         for layer in range(cfg.num_layers):
-            for hf, name, transpose in per_layer:
-                plan[f'model.layers.{layer}.{hf}'] = (('layers', name, layer), transpose)
+            for hf, path, fn in per_layer:
+                plan[f'model.layers.{layer}.{hf}'] = (('layers',) + path + (layer,), fn)
         return plan
+
+    def _w4a16_plan(self, hf_linears):
+        """AWQ / GPTQ tensors -> the plane-packed leaves, K padded by ``pad_k4``
+        (pad rows: q 0, scale 1, zero 0; reference llama.py:266-298)."""
+        cfg = self.config
+        gptq = (cfg.quantization_config or {}).get('quant_method') == 'gptq'
+        unpack_w = formats.gptq_qweight_to_kernel if gptq else formats.awq_qweight_to_kernel
+        unpack_z = formats.unpack_gptq_qzeros if gptq else formats.unpack_awq_qzeros
+        gs = self.group_size
+        k_in = {'wq': cfg.hidden_size, 'wk': cfg.hidden_size, 'wv': cfg.hidden_size,
+                'wo': self.q_out, 'w_gate': cfg.hidden_size, 'w_up': cfg.hidden_size,
+                'w_down': cfg.intermediate_size}
+
+        def numpy_fn(fn):
+            return lambda t: torch.from_numpy(np.ascontiguousarray(fn(t.numpy())))
+        entries = []
+        for hf, name in hf_linears:
+            kp = formats.pad_k4(k_in[name], gs)
+            entries += [
+                (f'{hf}.qweight', (name, 'packed'),
+                 numpy_fn(lambda x, kp=kp: unpack_w(x, pad_to=kp))),
+                (f'{hf}.scales', (name, 'scales'),
+                 numpy_fn(lambda x, g=kp // gs: formats.pad_groups(
+                     x.astype(np.float32), g, 1.0))),
+                (f'{hf}.qzeros', (name, 'zeros'),
+                 numpy_fn(lambda x, g=kp // gs: formats.pad_groups(unpack_z(x), g, 0.0))),
+            ]
+        return entries
 
     def fuse_projections(self, params: Dict) -> Dict:
         """wq/wk/wv -> wqkv and w_gate/w_up -> w_gateup along the output dim (one
-        wide GEMM instead of three narrow ones), biases likewise."""
+        wide GEMM instead of three narrow ones), biases likewise.  Quantized dict
+        leaves concatenate key by key: every quant layout packs along K and keeps
+        N as the trailing axis."""
         lp = dict(params['layers'])
+
+        def cat(names):
+            leaves = [lp.pop(n) for n in names]
+            if isinstance(leaves[0], dict):
+                return {k: torch.cat([v[k] for v in leaves], dim=-1) for k in leaves[0]}
+            return torch.cat(leaves, dim=-1)
         if 'wq' in lp:
-            lp['wqkv'] = torch.cat([lp.pop('wq'), lp.pop('wk'), lp.pop('wv')], dim=-1)
+            lp['wqkv'] = cat(['wq', 'wk', 'wv'])
             if 'bq' in lp:
-                lp['bqkv'] = torch.cat([lp.pop('bq'), lp.pop('bk'), lp.pop('bv')], dim=-1)
+                lp['bqkv'] = cat(['bq', 'bk', 'bv'])
         if 'w_gate' in lp:
-            lp['w_gateup'] = torch.cat([lp.pop('w_gate'), lp.pop('w_up')], dim=-1)
+            lp['w_gateup'] = cat(['w_gate', 'w_up'])
+        return dict(params, layers=lp)
+
+    def prep_quant_leaves(self, params: Dict) -> Dict:
+        """W4A16 leaves -> the group-dot schedule's prepared form
+        ``{'packed', 'sb', 'corr'}`` (reference llama.py:439-459 with mode 'gd')."""
+        lp = dict(params['layers'])
+        for name, leaf in lp.items():
+            if isinstance(leaf, dict) and 'packed' in leaf and 'scales' in leaf:
+                sb, corr = prep_w4(leaf['scales'], leaf['zeros'])
+                lp[name] = {'packed': leaf['packed'], 'sb': sb, 'corr': corr}
         return dict(params, layers=lp)
 
     def unfuse_projections(self, params: Dict) -> Dict:
         """Inverse of ``fuse_projections`` (per-name views of the fused leaves)."""
         lp = dict(params['layers'])
         qo, ko = self.q_out, self.kv_out
+
+        def split(v, sizes):
+            if isinstance(v, dict):
+                parts = {k: a.split(sizes, dim=-1) for k, a in v.items()}
+                return [{k: p[i] for k, p in parts.items()} for i in range(len(sizes))]
+            return v.split(sizes, dim=-1)
         if 'wqkv' in lp:
-            lp['wq'], lp['wk'], lp['wv'] = lp.pop('wqkv').split([qo, ko, ko], dim=-1)
+            lp['wq'], lp['wk'], lp['wv'] = split(lp.pop('wqkv'), [qo, ko, ko])
             if 'bqkv' in lp:
-                lp['bq'], lp['bk'], lp['bv'] = lp.pop('bqkv').split([qo, ko, ko], dim=-1)
+                lp['bq'], lp['bk'], lp['bv'] = split(lp.pop('bqkv'), [qo, ko, ko])
         if 'w_gateup' in lp:
-            lp['w_gate'], lp['w_up'] = lp.pop('w_gateup').chunk(2, dim=-1)
+            inter = self.config.intermediate_size
+            lp['w_gate'], lp['w_up'] = split(lp.pop('w_gateup'), [inter, inter])
         return dict(params, layers=lp)
 
     # -- pieces -----------------------------------------------------------------------
@@ -193,7 +302,8 @@ class LlamaModel:
                                             meta.q_lens, T, block_size)
         lp = params['layers']
         for layer in range(cfg.num_layers):
-            w = {name: t[layer] for name, t in lp.items()}
+            w = {name: {k: a[layer] for k, a in t.items()} if isinstance(t, dict)
+                 else t[layer] for name, t in lp.items()}
             x = rms_norm(hidden, w['attn_norm'], cfg.rms_norm_eps)
             q, k, v = self._qkv(w, x)
             q = q.reshape(B, T, Hq, D)

@@ -1,6 +1,6 @@
 """Paged attention over a block-table KV cache: cache layout, fill, gather, dispatch.
 
-Port of the plain-cache parts of ``lmdeploy_tpu/ops/attention.py``.
+Port of the plain-cache and int8-cache parts of ``lmdeploy_tpu/ops/attention.py``.
 
 The cache is ONE tensor ``[L, num_blocks, 2, block_size, Hkv*D]``: each page holds a K
 plane and a V plane of head-major token rows, as in the reference but without its
@@ -10,9 +10,17 @@ padding block: padded rows and padded tokens write there and read from there, so
 index ever leaves the cache.  Writes are in place (``index_copy_``); there is no
 buffer donation to lean on, so nothing here returns a new cache.
 
-``paged_attention`` picks the path from the tensor's device:
-  * CUDA, T == 1 (decode)                    -> ``ops/paged_decode.py`` kernel
-  * CUDA, fresh prefill, no softcap/window   -> ``ops/flash_prefill.py`` kernel
+An int8 cache (``ops/kv_quant.QuantKV``, quant_policy 4) holds int8 pages of the same
+geometry plus f32 scales ``[L, NB, 2, BS, Hkv]``: the fill quantizes each (token,
+head) row and scatters the int8 rows and the ``[Hkv]`` scale rows at the same row
+indices; the gather dequantizes.
+
+``paged_attention`` picks the path from the tensor's device (the rules of the
+reference's ``paged_attention`` :584-629):
+  * CUDA, T == 1 (decode)                    -> ``ops/paged_decode.py`` kernel (on an
+    int8 cache only without window and sinks)
+  * CUDA, fresh prefill, no softcap/window   -> ``ops/flash_prefill.py`` kernel, over
+    the chunk's exact K/V also with an int8 cache
   * everything else (chunked continuation, prefix hits, CPU) -> gather + dense torch,
     as the reference does in XLA.
 """
@@ -23,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from .flash_prefill import flash_prefill_attention
+from .kv_quant import QuantKV, quantize_rows
 from .paged_decode import paged_decode_attention
 
 
@@ -53,10 +62,11 @@ def fill_kv_cache(kv_cache: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tens
     positions): whole [2, BS, HD] pages are then written at once, as the reference's
     page-granular path does.  Rows shorter than T write garbage into their last
     partial page beyond q_len (masked by length, overwritten later) and into block 0.
+    An int8 cache always takes the row scatter (reference :110-111, :136-162).
     """
     L, nb, _, bs, hd = kv_cache.shape
     N = k_new.shape[0]
-    if page_tables is not None:
+    if page_tables is not None and not isinstance(kv_cache, QuantKV):
         B = page_tables.shape[0]
         T = N // B
         if T % bs == 0 and page_tables.shape[1] >= T // bs:
@@ -74,20 +84,37 @@ def fill_kv_cache(kv_cache: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tens
     off = slots % bs
     block = torch.where((block >= 0) & (block < nb), block, torch.zeros_like(block))
     k_idx = ((layer * nb + block) * 2) * bs + off
+    rows = torch.cat([k_idx, k_idx + bs])
+    if isinstance(kv_cache, QuantKV):
+        # per-(token, head) int8; the [L, NB, 2, BS, Hkv] scales share the data's
+        # leading dims, so one [Hkv] scale row lands at the same row index
+        kq, ksc = quantize_rows(k_new)                      # [N, Hkv, D], [N, Hkv]
+        vq, vsc = quantize_rows(v_new)
+        hkv = kv_cache.scale.shape[-1]
+        kv_cache.data.view(L * nb * 2 * bs, hd).index_copy_(
+            0, rows, torch.cat([kq.reshape(N, hd), vq.reshape(N, hd)]))
+        kv_cache.scale.view(L * nb * 2 * bs, hkv).index_copy_(
+            0, rows, torch.cat([ksc, vsc]))
+        return
     flat = kv_cache.view(L * nb * 2 * bs, hd)
-    flat.index_copy_(0, torch.cat([k_idx, k_idx + bs]),
-                     torch.cat([k_new.reshape(N, hd), v_new.reshape(N, hd)]
-                               ).to(kv_cache.dtype))
+    flat.index_copy_(0, rows, torch.cat([k_new.reshape(N, hd), v_new.reshape(N, hd)]
+                                        ).to(kv_cache.dtype))
 
 
 def gather_layer_kv(kv_cache: torch.Tensor, layer: int, block_tables: torch.Tensor,
                     num_kv_heads: int, head_dim: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One layer's pages for the chunk's rows as (k, v) [Hkv, B, W*BS, D]."""
+    """One layer's pages for the chunk's rows as (k, v) [Hkv, B, W*BS, D]; an int8
+    cache comes back dequantized, in f32."""
     B, W = block_tables.shape
-    pages = kv_cache[layer]
+    quant = isinstance(kv_cache, QuantKV)
+    pages = kv_cache.data[layer] if quant else kv_cache[layer]
     NB, _, bs, _ = pages.shape
-    g = pages[block_tables.long().clamp(0, NB - 1)]               # [B, W, 2, BS, HD]
+    tables = block_tables.long().clamp(0, NB - 1)
+    g = pages[tables]                                             # [B, W, 2, BS, HD]
+    if quant:
+        sc = kv_cache.scale[layer][tables]                        # [B, W, 2, BS, Hkv]
+        g = (g.float().reshape(B, W, 2, bs, num_kv_heads, head_dim) * sc[..., None])
 
     def to_heads(x):
         x = x.reshape(B, W, bs, num_kv_heads, head_dim)
@@ -141,7 +168,10 @@ def paged_attention(q: torch.Tensor, kv_cache: torch.Tensor, block_tables: torch
 
     ``chunk_kv`` = the chunk's own (k, v) [B, T, Hkv, D], used by fresh prefill."""
     T, D = q.shape[1], q.shape[3]
-    if q.is_cuda and T == 1:
+    # an int8 cache's decode kernel has no window and no sinks (reference :584-609)
+    quant_extras = isinstance(kv_cache, QuantKV) and (window_size is not None
+                                                      or sinks is not None)
+    if q.is_cuda and T == 1 and not quant_extras:
         out = paged_decode_attention(
             q[:, 0].contiguous(), kv_cache, block_tables,
             (history_lens + 1).int(),        # kv length includes the token just filled

@@ -1,11 +1,14 @@
 """Carry parameters and KV caches across from the JAX package, without loss.
 
 The port keeps the reference's parameter tree (names, ``[L, ...]`` stacking and the
-``[in, out]`` weight layout), so parameters convert leaf by leaf.  Its cache drops
-the reference's 128-lane row padding: ``[L, NB, 2, BS, Hkv*D]`` here against
-``[L, NB, 2, BS, HDp]`` there, with ``HDp`` the row width rounded up to 128.  The
-functions take and give numpy arrays on the reference side, so callers need not
-import jax.
+``[in, out]`` weight layout), so parameters convert leaf by leaf; quantized linears
+are dict leaves on both sides (``packed`` / ``scales`` / ``zeros`` or the prepared
+``packed`` / ``sb`` / ``corr``) and convert key by key.  The cache drops the
+reference's 128-lane row padding: ``[L, NB, 2, BS, Hkv*D]`` here against
+``[L, NB, 2, BS, HDp]`` there, with ``HDp`` the row width rounded up to 128.  An int8
+cache (``QuantKV``) converts its data that way and copies its token-major f32 scales
+``[L, NB, 2, BS, Hkv]``, the same on both sides.  The functions take and give numpy
+arrays on the reference side, so callers need not import jax.
 """
 from __future__ import annotations
 
@@ -13,6 +16,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from .ops.kv_quant import QuantKV
 
 
 def _to_torch(x, dtype=None, device='cpu') -> torch.Tensor:
@@ -31,17 +36,27 @@ def params_from_jax(params_np: Dict, dtype=None, device='cpu') -> Dict:
             else _to_torch(v, dtype, device) for k, v in params_np.items()}
 
 
-def cache_from_reference(cache_np, num_kv_heads: int, head_dim: int,
-                         device='cpu') -> torch.Tensor:
-    """Reference cache ``[L, NB, 2, BS, HDp]`` -> port cache ``[L, NB, 2, BS, Hkv*D]``."""
+def cache_from_reference(cache_np, num_kv_heads: int, head_dim: int, device='cpu'):
+    """Reference cache ``[L, NB, 2, BS, HDp]`` -> port cache ``[L, NB, 2, BS, Hkv*D]``.
+    A reference ``QuantKV`` (its ``.data`` and ``.scale`` pages) gives a port
+    ``QuantKV``."""
+    if hasattr(cache_np, 'scale'):
+        return QuantKV(cache_from_reference(cache_np.data, num_kv_heads, head_dim, device),
+                       _to_torch(cache_np.scale, device=device).contiguous())
     return _to_torch(np.asarray(cache_np)[..., :num_kv_heads * head_dim],
                      device=device).contiguous()
 
 
-def cache_to_reference(cache: torch.Tensor) -> np.ndarray:
+def cache_to_reference(cache):
     """Port cache -> reference layout (rows zero-padded to a multiple of 128 lanes),
-    as float32 numpy."""
-    x = cache.float().cpu().numpy()
+    as float32 numpy; a ``QuantKV`` gives the pair (int8 data, f32 scale)."""
+    if isinstance(cache, QuantKV):
+        return (_pad_rows(cache.data.cpu().numpy()),
+                cache.scale.float().cpu().numpy())
+    return _pad_rows(cache.float().cpu().numpy())
+
+
+def _pad_rows(x: np.ndarray) -> np.ndarray:
     row = x.shape[-1]
     padded = (row + 127) // 128 * 128
     if padded == row:

@@ -1,9 +1,12 @@
-"""Safetensors -> parameter tree loader (dense f32 / bf16 / f16 checkpoints).
+"""Safetensors -> parameter tree loader (dense f32 / bf16 / f16 and AWQ / GPTQ
+checkpoints).
 
 Port of ``lmdeploy_tpu/weight_loader.py`` (``load_params_np``): allocate the model's
-stacked parameter tree once on the host, stream every safetensors shard through the
-model's assign plan (transposing linears to ``[in, out]``), then move each leaf to the
-device once.  ``safetensors`` is imported only here, when a checkpoint is read.
+stacked parameter tree once on the host (quantized leaves with their own dtypes: int32
+``packed``, f32 ``scales`` and ``zeros``), stream every safetensors shard through the
+model's assign plan (each entry's transform: transposing linears to ``[in, out]``,
+repacking AWQ / GPTQ nibbles to the kernel layout), then move each leaf to the device
+once.  ``safetensors`` is imported only here, when a checkpoint is read.
 """
 from __future__ import annotations
 
@@ -27,7 +30,9 @@ def iter_safetensors(model_path: str):
 
 
 def _alloc_tree(shapes: Dict, dtype: torch.dtype) -> Dict:
+    from .models.llama import Leaf
     return {k: _alloc_tree(v, dtype) if isinstance(v, dict)
+            else torch.zeros(v.shape, dtype=v.dtype) if isinstance(v, Leaf)
             else torch.zeros(v, dtype=dtype) for k, v in shapes.items()}
 
 
@@ -40,9 +45,9 @@ def load_params(model, model_path: str, device) -> Dict:
         entry = plan.get(name)
         if entry is None:
             continue
-        path, transpose = entry
-        if transpose:
-            tensor = tensor.t()
+        path, transform = entry
+        if transform is not None:
+            tensor = transform(tensor)
         node = params
         for part in path[:-1]:
             node = node[part]

@@ -98,7 +98,7 @@ def test_sampled_requests_are_seeded(tiny_model_dir):
 
 @pytest.mark.parametrize('field', [
     dict(tp=2), dict(dp=2), dict(ep=2), dict(cp=2), dict(attn_tp_size=2),
-    dict(num_cpu_blocks=16), dict(quant_policy=8), dict(model_format='awq'),
+    dict(num_cpu_blocks=16), dict(quant_policy=8), dict(model_format='fp8'),
     dict(eager_mode=True), dict(role='prefill'), dict(adapters={'a': 'path'}),
     dict(dllm_block_length=4), dict(memdecode={'memory_model_path': 'path'}),
     dict(revision='main')])
@@ -115,6 +115,26 @@ def test_unported_engine_config_raises(tiny_model_dir, field):
     bundle = EngineConfigBundle.build(tiny_model_dir, TpuEngineConfig(**ENGINE_KW))
     with pytest.raises(NotImplementedError, match=name):
         Engine(None, TpuEngineConfig(**field), configs=bundle, device='cpu')
+
+
+def test_kv_int8_engine_config_accepted(tiny_model_dir):
+    """quant_policy=4 (int8 KV) and an AWQ / GPTQ model_format are served, on both
+    ways into the Engine; the bundle carries the policy to the cache."""
+    from lmdeploy_tpu_torch.config import EngineConfigBundle
+    from lmdeploy_tpu_torch.engine.engine import Engine
+    from lmdeploy_tpu_torch.messages import QuantPolicy, TpuEngineConfig
+    from lmdeploy_tpu_torch.ops.kv_quant import QuantKV
+    cfg = TpuEngineConfig(**ENGINE_KW, quant_policy=4, model_format='awq')
+    engine = Engine.from_pretrained(tiny_model_dir, cfg, device='cpu')
+    assert engine.configs.cache.quant_policy == QuantPolicy.KV_INT8
+    assert isinstance(engine.model_agent.kv_cache, QuantKV)
+    engine.close()
+    bundle = EngineConfigBundle.build(tiny_model_dir, TpuEngineConfig(**ENGINE_KW,
+                                                                      quant_policy=4))
+    engine = Engine(None, TpuEngineConfig(quant_policy=4, model_format='gptq'),
+                    configs=bundle, device='cpu')
+    assert isinstance(engine.model_agent.kv_cache, QuantKV)
+    engine.close()
 
 
 def test_entry_points_need_cuda_unless_cpu(tiny_model_dir, monkeypatch):
