@@ -8,22 +8,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
   3. kernels  -- each kernel against its plain PyTorch version on the card, at the
                  main paths' shapes, with its time, the plain version's time, the
                  card's bound for the same work and, where one PyTorch call computes
-                 the same function, that call's time: flash_prefill, paged_decode,
+                 the same function, that call's time: flash_prefill, paged_decode
+                 (also at gpt-oss-20b heads with sinks, window 128 and none),
                  paged_decode_int8 (cache filled by the port's fill_kv_cache) and
                  w4a16_gemm (llama2-7b projections, TF32 off, every K split at the
-                 layer's shapes; the check must catch each planted numerical trap);
+                 layer's shapes; the check must catch each planted numerical trap) and
+                 mxfp4_bmm (gpt-oss-20b gate and down products at M 8 / 37 / 64 / 128;
+                 the check must catch each planted trap);
   4. parity   -- full width, 2 layers: prefill logits and 8 decode steps on the card
                  (bf16, kernels) against the port on the CPU (f32, plain paths), for
-                 TinyLlama bf16 and for llama2-7b W4A16 with an int8 KV cache; beside
-                 it the bf16 floor (plain versions on the card) and, for W4A16, what
-                 each planted trap reads, which must exceed the allowance;
+                 TinyLlama bf16, for llama2-7b W4A16 with an int8 KV cache and for
+                 gpt-oss-20b with MXFP4 experts (one sliding, one full layer; the CPU
+                 runs the experts widened to f32, and the routing flips between the two
+                 sides are counted); beside it the bf16 floor (plain versions on the
+                 card) and what each planted trap reads, which must exceed the allowance;
   5. e2e      -- the port's Engine at TinyLlama-1.1B width and depth (random seeded
                  bf16 weights): 8 concurrent 128-token prompts plus one 2048-token
                  prompt, 64 greedy tokens each, run twice; every kernel's launch count
                  is read from the first run; then a traced run (device busy share);
   6. e2e_w4a16_kv8 -- the same at llama2-7b geometry, AWQ-style W4A16 weights (group
                  128, seeded) and quant_policy=4: 64 concurrent 128-token prompts plus
-                 one 2048-token prompt, 64 greedy tokens each, run twice, then traced.
+                 one 2048-token prompt, 64 greedy tokens each, run twice, then traced;
+  7. e2e_gptoss_mxfp4 -- gpt-oss-20b width and depth (public config), seeded MXFP4
+                 experts, bf16 KV cache: 32 concurrent 128-token prompts plus one
+                 2048-token prompt, 64 greedy tokens each (decode in the 64-row bucket),
+                 run twice, then traced; the rows of every mxfp4_bmm launch are recorded.
 The line before the last lists every kernel; the last line is the result.
 It imports nothing of jax or lmdeploy_tpu.
 """
@@ -60,10 +69,16 @@ PEAK_BYTES_S = 3.35e12
 # w4a16_gemm: both sides sum exact bf16 x bf16 products in f32 with the same f32
 # scales and correction, in another order, and round once to bf16; the cancelling
 # +128 bias term is ~50x the outputs (~1), so the f32 order adds ~1e-5 to one bf16 ulp
+# mxfp4_bmm: both sides multiply the same bf16 operands (x rounded, e2m1 * 2^k exact)
+# and write f32; only the order of the K = 2880 f32 additions differs (terms up to
+# ~0.2, outputs ~1-10), and the tensor cores' f32 accumulation may truncate on
+# alignment.  The first card run read at most 1.6e-5 (H100 80GB HBM3, 700 W);
+# the allowance is 1e-4 + 1e-4 |ref|
 KERNEL_TOL = {'flash_prefill': {'atol': 1e-2, 'rtol': 1e-2},
               'paged_decode': {'atol': 1e-3, 'rtol': 1e-2},
               'paged_decode_int8': {'atol': 1e-3, 'rtol': 1e-2},
-              'w4a16_gemm': {'atol': 2e-3, 'rtol': 1e-2}}
+              'w4a16_gemm': {'atol': 2e-3, 'rtol': 1e-2},
+              'mxfp4_bmm': {'atol': 1e-4, 'rtol': 1e-4}}
 LOGIT_TOL = 0.1          # bf16 activations through 2 full-width layers vs f32
 # llama2-7b width, W4A16 + int8 KV: logits reach ~6 (TinyLlama's ~4), and bf16
 # activations alone move them more at this width.  The phase reads (H100 80GB HBM3,
@@ -72,7 +87,32 @@ LOGIT_TOL = 0.1          # bf16 activations through 2 full-width layers vs f32
 # (TF32 correction), 1.78 and 1.94 (the other two).  The allowance sits midway
 # between the bf16 floor and the mildest trap
 LOGIT_TOL_W4 = 0.2
+# gpt-oss-20b width, MXFP4 experts, 2 layers, the card's runs on the CPU's expert
+# choices: logits reach ~5.  The phase read (H100 80GB HBM3, 700 W) 0.1157 with every
+# kernel swapped for its plain version, 0.1215 with the kernels; with a trap planted in
+# every MXFP4 product, 3.054 (high half with the low half's scales) and 5.067 (code 9
+# read as +0.5).  The traps lie 26-44x above the floor, so the allowance is set from
+# the floor's side, about 2.5x it: a kernel slip worth a few tenths of a logit fails
+LOGIT_TOL_GPTOSS = 0.3
 SEED = 1234
+# the public config.json of openai/gpt-oss-20b (its fields the port reads)
+GPT_OSS_20B = {
+    'architectures': ['GptOssForCausalLM'], 'model_type': 'gpt_oss',
+    'hidden_size': 2880, 'intermediate_size': 2880, 'num_hidden_layers': 24,
+    'num_attention_heads': 64, 'num_key_value_heads': 8, 'head_dim': 64,
+    'num_local_experts': 32, 'num_experts_per_tok': 4, 'experts_per_token': 4,
+    'vocab_size': 201088, 'max_position_embeddings': 131072, 'initial_context_length': 4096,
+    'rms_norm_eps': 1e-05, 'rope_theta': 150000, 'sliding_window': 128,
+    'rope_scaling': {'beta_fast': 32.0, 'beta_slow': 1.0, 'factor': 32.0,
+                     'original_max_position_embeddings': 4096, 'rope_type': 'yarn',
+                     'truncate': False},
+    'layer_types': ['sliding_attention', 'full_attention'] * 12,
+    'swiglu_limit': 7.0, 'attention_bias': True, 'tie_word_embeddings': False,
+    'eos_token_id': 200002, 'pad_token_id': 199999, 'torch_dtype': 'bfloat16',
+    'quantization_config': {'quant_method': 'mxfp4', 'modules_to_not_convert': [
+        'model.layers.*.self_attn', 'model.layers.*.mlp.router', 'model.embed_tokens',
+        'lm_head']},
+}
 
 
 def emit(obj):
@@ -127,6 +167,14 @@ def tinyllama_config(num_layers: int = 22, max_len: int = 2304):
                        num_key_value_heads=4, hidden_size=2048, intermediate_size=5632,
                        vocab_size=32000, head_dim=64, max_position_embeddings=max_len,
                        dtype='bfloat16', eos_token_id=[2])
+
+
+def gptoss_config(num_layers: int = 24):
+    """gpt-oss-20b (its public config) with MXFP4 experts, depth cut to ``num_layers``
+    (one sliding and one full layer at 2)."""
+    from lmdeploy_tpu_torch.config import ModelConfig
+    return ModelConfig.from_hf_config(dict(GPT_OSS_20B, num_hidden_layers=num_layers,
+                                           layer_types=GPT_OSS_20B['layer_types'][:num_layers]))
 
 
 def llama7b_w4_config(num_layers: int = 32, max_len: int = 2304):
@@ -234,18 +282,25 @@ def decode_phase():
     # the e2e phase's decode shape: a 16-row bucket, 8 rows of ~200 tokens, one of
     # ~2,100, 7 padding rows, the full session-wide table width
     lens16 = np.concatenate([rng.randint(130, 200, size=8), [2100], -np.ones(7, int)])
+    # e2e_gptoss_mxfp4's decode shape: gpt-oss-20b heads (64 / 8, D 64), the 64-row
+    # bucket with 32 rows of 129-192 tokens, one of 2,049-2,112 and 31 padding rows,
+    # sinks on every layer; the sliding layers' window of 128 (one whole page), the
+    # full layers' none
+    lens_gptoss = np.concatenate([rng.randint(129, 193, size=32), rng.randint(2049, 2113, 1),
+                                  -np.ones(31, int)])
     cases = [
-        ('plain', 64, 32, 4, 64, lens64, {}),
-        ('window', 64, 32, 4, 64, lens64, {'window': 200}),
-        ('softcap', 64, 32, 4, 64, lens64, {'logit_softcap': 30.0}),
-        ('sinks', 64, 32, 4, 64, lens64, {'sinks': True}),
-        ('all', 64, 32, 4, 64, lens64, {'window': 100, 'logit_softcap': 20.0,
-                                        'sinks': True}),
-        ('d128_g1', 8, 32, 32, 128, lens8, {}),
-        ('e2e_long', 16, 32, 4, 64, lens16, {}),
+        ('plain', 64, 32, 4, 64, lens64, 8, {}),
+        ('window', 64, 32, 4, 64, lens64, 8, {'window': 200}),
+        ('softcap', 64, 32, 4, 64, lens64, 8, {'logit_softcap': 30.0}),
+        ('sinks', 64, 32, 4, 64, lens64, 8, {'sinks': True}),
+        ('all', 64, 32, 4, 64, lens64, 8, {'window': 100, 'logit_softcap': 20.0,
+                                           'sinks': True}),
+        ('d128_g1', 8, 32, 32, 128, lens8, 8, {}),
+        ('e2e_long', 16, 32, 4, 64, lens16, 17, {}),
+        ('gptoss_sliding', 64, 64, 8, 64, lens_gptoss, 17, {'window': 128, 'sinks': True}),
+        ('gptoss_full', 64, 64, 8, 64, lens_gptoss, 17, {'sinks': True}),
     ]
-    for label, B, Hq, Hkv, D, lens, opts in cases:
-        W = 17 if label == 'e2e_long' else 8
+    for label, B, Hq, Hkv, D, lens, W, opts in cases:
         q, cache, tables, kv_lens = _decode_inputs(gen, B, Hq, Hkv, D, BS, W, lens)
         opts = dict(opts)
         if opts.get('sinks'):
@@ -502,6 +557,89 @@ def decode_int8_phase():
     return results
 
 
+# gpt-oss-20b's expert products: gate / up take x [M, 2880] shared by the 32 experts,
+# down takes x [32, M, 2880]; M = 64 is the e2e phase's decode bucket (its every
+# launch runs there), 8 and 37 (ragged) smaller batches, 128 a dense-combine chunk of
+# a prefill under 768 tokens
+MX_E, MX_H = 32, 2880
+MX_MAIN_M = 64
+MX_SHAPES = tuple((f'{kind}_m{M}', kind, M) for M in (MX_MAIN_M, 8, 37, 128)
+                  for kind in ('gate', 'down'))
+# numerical traps planted in the plain version (ROADMAP section 3): the high nibbles
+# read with the low half's scale rows; code 9 decoded as +0.5 (a sign slip)
+MX_TRAPS = ('hi_with_lo_scales', 'code9_positive')
+
+
+def _mx_trapped(trap: str):
+    """``mxfp4_bmm_plain`` with one trap planted."""
+    from lmdeploy_tpu_torch.ops.quant_bmm import decode_e2m1
+
+    def widen(nib, scale):
+        lo, hi = decode_e2m1(nib & 0xF), decode_e2m1(nib >> 4)
+        if trap == 'code9_positive':
+            hi = torch.where((nib >> 4) == 9, 0.5, hi)
+            lo = torch.where((nib & 0xF) == 9, 0.5, lo)
+        G2 = scale.shape[-2] // 2
+        s_hi = scale[..., :G2, :] if trap == 'hi_with_lo_scales' else scale[..., G2:, :]
+        *lead, K2, N = lo.shape
+
+        def scaled(v, s):
+            return (v.view(*lead, G2, K2 // G2, N) * s.unsqueeze(-2)).view(*lead, K2, N)
+        return torch.cat([scaled(lo, scale[..., :G2, :]), scaled(hi, s_hi)], dim=-2)
+
+    def bmm(x, nib, scale):
+        w = widen(nib, scale).to(torch.bfloat16).float()
+        return torch.matmul(x.to(torch.bfloat16).float(), w)
+    return bmm
+
+
+def mxfp4_phase():
+    from lmdeploy_tpu_torch.ops.quant_bmm import mxfp4_bmm, mxfp4_bmm_plain, widen_mxfp4
+    torch.backends.cuda.matmul.allow_tf32 = False     # the plain version's sums are f32
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    E, K, N = MX_E, MX_H, MX_H
+    # codes uniform, group scales 2^-9 .. 2^-5 (varied, so the scale-row trap shows)
+    nib = torch.randint(0, 256, (E, K // 2, N), generator=gen, device='cuda',
+                        dtype=torch.uint8)
+    scale = torch.exp2(torch.randint(-9, -4, (E, K // 32, N), generator=gen,
+                                     device='cuda').float())
+    wd = widen_mxfp4(nib, scale)                      # bf16 [E, K, N], the yardstick's
+    results = []
+    for label, kind, M in MX_SHAPES:
+        shape = (M, K) if kind == 'gate' else (E, M, K)
+        x = torch.randn(shape, device='cuda', generator=gen).bfloat16()
+        out = mxfp4_bmm(x, nib, scale)
+        ref = mxfp4_bmm_plain(x, nib, scale)
+        torch.cuda.synchronize()
+        tol = KERNEL_TOL['mxfp4_bmm']
+        err, rel, frac = compare(out, ref, tol)
+        traps = {t: compare(_mx_trapped(t)(x, nib, scale), ref, tol)[2] for t in MX_TRAPS}
+        ok = (bool(torch.isfinite(out).all()) and out.shape == (E, M, N) and frac <= 1.0
+              and min(traps.values()) > 1.0)
+        nbytes = nib.numel() + 4 * scale.numel() + 2 * x.numel() + 4 * E * M * N
+        bound_ms, bound_by = bound(2 * E * M * K * N, nbytes)
+        dense = (lambda: torch.matmul(x, wd)) if kind == 'gate' else (lambda: torch.bmm(x, wd))
+        row = {'phase': 'kernel', 'kernel': 'mxfp4_bmm', 'case': label,
+               'shape': [E, M, K, N], 'x': 'shared' if kind == 'gate' else 'per expert',
+               'max_abs_err': err, 'max_rel_err': rel, 'err_over_tol': frac, 'tol': tol,
+               'ok': ok, 'tf32': False, 'trap_err_over_tol': traps,
+               'kernel_ms': time_ms(lambda: mxfp4_bmm(x, nib, scale)),
+               'plain_ms': time_ms(lambda: mxfp4_bmm_plain(x, nib, scale), iters=5),
+               'library_ms': None,
+               'library': 'none: no PyTorch call multiplies MXFP4 weights on sm_90',
+               'dense_bf16_ms': time_ms(dense),
+               'bound_ms': bound_ms, 'bound_by': bound_by, 'mbytes': nbytes / 1e6}
+        emit(row)
+        results.append(row)
+        if not ok:
+            raise SystemExit(f'mxfp4_bmm disagrees with its plain version, or its check '
+                             f'misses a trap: {row}')
+    del nib, scale, wd
+    torch.cuda.empty_cache()
+    return results
+
+
 # -- phase 5 and 6 -------------------------------------------------------------------
 def build_engine(model, max_batch: int, quant_policy: int = 0):
     from lmdeploy_tpu_torch.config import (CacheConfig, EngineConfigBundle, MiscConfig,
@@ -551,9 +689,20 @@ def _kernel_counters():
     from lmdeploy_tpu_torch.ops.flash_prefill import flash_prefill_attention
     from lmdeploy_tpu_torch.ops.paged_decode import (paged_decode_attention,
                                                      paged_decode_attention_int8)
+    from lmdeploy_tpu_torch.ops.quant_bmm import mxfp4_bmm
     from lmdeploy_tpu_torch.ops.quant_matmul import w4a16_matmul_gd
     return {'flash_prefill': flash_prefill_attention, 'paged_decode': paged_decode_attention,
-            'paged_decode_int8': paged_decode_attention_int8, 'w4a16_gemm': w4a16_matmul_gd}
+            'paged_decode_int8': paged_decode_attention_int8, 'w4a16_gemm': w4a16_matmul_gd,
+            'mxfp4_bmm': mxfp4_bmm}
+
+
+def _row_recorders():
+    """{kernel: (module, attr, rows of the call)} for the GEMM kernels, whose launch
+    shape depends on the decode bucket: the e2e phases record the M of every launch."""
+    from lmdeploy_tpu_torch.nn import linear
+    from lmdeploy_tpu_torch.ops import moe
+    return {'w4a16_gemm': (linear, 'w4a16_matmul_gd', lambda x: x.shape[0]),
+            'mxfp4_bmm': (moe, 'mxfp4_bmm', lambda x: x.shape[-2])}
 
 
 def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
@@ -582,20 +731,22 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
         return decode_run(num_rows, k, *args)
     agent.prefill, agent.decode_run = counted_prefill, counted_decode_run
 
-    from lmdeploy_tpu_torch.nn import linear
     counters = _kernel_counters()
-    gd, w4_rows = linear.w4a16_matmul_gd, collections.Counter()
+    rows = {n: collections.Counter() for n in _row_recorders()}
 
-    def rows_seen(x, *args):
-        w4_rows[x.shape[0]] += 1
-        return gd(x, *args)
+    def recorder(name, fn, rows_of):
+        def seen(x, *args):
+            rows[name][rows_of(x)] += 1
+            return fn(x, *args)
+        return seen
+    record = [(m, a, recorder(n, getattr(m, a), f)) for n, (m, a, f) in _row_recorders().items()]
     runs = []
     for i in range(2):
         steps.update(prefill=0, decode=0)
         for fn in counters.values():
             fn.launches = 0
-        # the first run also records the rows of every W4A16 product of the path
-        with _swapped(*[(linear, 'w4a16_matmul_gd', rows_seen)] if i == 0 else []):
+        # the first run also records the rows of every GEMM-kernel call of the path
+        with _swapped(*record if i == 0 else []):
             outs, t0, t1 = run_requests(engine, prompts, new_tokens)
         runs.append({'tokens': [o.token_ids for o in outs], 'outs': outs, 't0': t0,
                      't1': t1, 'steps': dict(steps),
@@ -617,7 +768,8 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
            'engine_build_s': build_s, 'lengths_ok': lengths_ok, 'logprobs_finite': finite,
            'deterministic': deterministic, 'steps': first['steps'],
            'launches': first['launches'], 'launches_needed': need,
-           'launches_ok': launches_ok, 'w4a16_rows': dict(w4_rows),
+           'launches_ok': launches_ok,
+           'rows_by_kernel': {n: dict(c) for n, c in rows.items() if c},
            'num_blocks': num_blocks,
            # card numbers from the second run (cuBLAS and allocator warmed by the first)
            **serving_numbers(second)}
@@ -631,6 +783,9 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
 
 
 def model_label(model) -> str:
+    if model.model_type == 'gpt_oss':
+        return (f'gpt-oss-20b geometry, {model.num_layers} layers, MXFP4 experts + bf16 '
+                f'KV, random seeded weights')
     quant = model.quantization_config
     width = 'tinyllama-1.1b' if model.hidden_size == 2048 else 'llama2-7b'
     return (f'{width} geometry, {model.num_layers} layers, '
@@ -675,8 +830,9 @@ def _plain_kernels():
     """Inside the block the model's kernel wrappers run their plain versions on the
     card's tensors: bf16 activations with no hand-written kernel."""
     from lmdeploy_tpu_torch.nn import linear
-    from lmdeploy_tpu_torch.ops import attention, paged_decode
+    from lmdeploy_tpu_torch.ops import attention, moe, paged_decode
     from lmdeploy_tpu_torch.ops.flash_prefill import flash_prefill_attention_plain
+    from lmdeploy_tpu_torch.ops.quant_bmm import mxfp4_bmm_plain
     from lmdeploy_tpu_torch.ops.kv_quant import QuantKV
     from lmdeploy_tpu_torch.ops.quant_matmul import w4a16_matmul_gd_plain
 
@@ -689,37 +845,71 @@ def _plain_kernels():
             q, kv, tables, lens, layer, scale, hkv, logit_softcap, window, sinks)
     return _swapped((attention, 'flash_prefill_attention', flash_prefill_attention_plain),
                     (attention, 'paged_decode_attention', decode_plain),
-                    (linear, 'w4a16_matmul_gd', w4a16_matmul_gd_plain))
+                    (linear, 'w4a16_matmul_gd', w4a16_matmul_gd_plain),
+                    (moe, 'mxfp4_bmm', mxfp4_bmm_plain))
+
+
+def _parity_traps(cfg16):
+    """[(trap, swap, side)] ('card' or 'cpu'): the numerical traps of the config's quantized kernel,
+    each planted in the plain version (W4_TRAPS in the decode steps' group-dot, on
+    the CPU for 'xg_unrounded', the only side with an x wider than bf16; MX_TRAPS in
+    every MXFP4 product of the card's run)."""
+    from lmdeploy_tpu_torch.nn import linear
+    from lmdeploy_tpu_torch.ops import moe
+    method = (cfg16.quantization_config or {}).get('quant_method')
+    if method == 'mxfp4':
+        return [(t, (moe, 'mxfp4_bmm', _mx_trapped(t)), 'card') for t in MX_TRAPS]
+    if method:
+        return [(t, (linear, 'w4a16_matmul_gd', _gd_trapped(t)),
+                 'cpu' if t == 'xg_unrounded' else 'card') for t in W4_TRAPS]
+    return []
 
 
 def parity_phase(name: str, cfg16, tol: float, kv_int8: bool):
     """2 full-width layers: the card (bf16, kernels) against the port on the CPU (f32,
     plain paths) on the same weights, prefill logits and 8 teacher-forced decode
-    steps.  W4A16 leaves are the same int32 words and f32 scales on both sides.
+    steps.  W4A16 leaves are the same int32 words and f32 scales on both sides; MXFP4
+    experts are the same codes and scales, which the CPU side takes widened to f32
+    (exactly the weights the kernel decodes; a widened stack is 1 GB a layer, and the
+    CPU's plain MXFP4 product would widen it again for every call).
 
-    Beside it, what the same comparison reads (max |logit error| over the steps):
-    ``floor`` -- the card with every kernel swapped for its plain version (bf16
-    activations alone); and, for W4A16, each of W4_TRAPS planted in the group-dot of
-    the decode steps (prefill rows take the dense route, which has no correction):
-    on the card for the traps a bf16 x can show, on the CPU (f32 x) for
-    'xg_unrounded'.  The allowance must lie above ``floor`` and below every trap."""
+    A MoE model's card runs take the CPU run's expert choices (the card's own router
+    logits weight them), so a near-tie that bf16 breaks the other way cannot move the
+    held logits: the comparison isolates the numerics.  The card's own choices are
+    recorded all the same: a routing flip is a token whose chosen experts differ
+    from the CPU's, and a flip is a fault unless the CPU's f32 margin between the
+    k-th and (k+1)-th router logits lies within twice the largest router-logit
+    difference of that layer and step (the bf16 error).  What free routing reads is
+    reported beside it (``free_routing_max_abs_logit_err``), not held.
+
+    Beside it, what the same comparison reads (max |logit error|): ``floor`` -- the
+    card with every kernel swapped for its plain version (bf16 activations alone);
+    and each trap of ``_parity_traps``.  The allowance must lie above ``floor`` and
+    below every trap."""
     import dataclasses
 
-    from lmdeploy_tpu_torch.models.llama import AttnMeta, LlamaModel
-    from lmdeploy_tpu_torch.nn import linear
+    from lmdeploy_tpu_torch.models import build_model
+    from lmdeploy_tpu_torch.models.llama import AttnMeta
     from lmdeploy_tpu_torch.nn.layers import make_rope_table
     from lmdeploy_tpu_torch.ops.kv_quant import QuantKV
+    from lmdeploy_tpu_torch.ops.quant_bmm import widen_mxfp4
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg32 = dataclasses.replace(cfg16, dtype='float32')
-    m16, m32 = LlamaModel(cfg16), LlamaModel(cfg32)
+    m16 = build_model(cfg16)
+    m32 = build_model(dataclasses.replace(cfg16, dtype='float32'))
 
     # identical weights on both sides: bf16-representable dense weights, the same
-    # W4A16 words and f32 scales / zeros
+    # quantized words, codes and f32 scales
     w = m32.init_params(SEED, device='cpu', dtype=torch.float32)
     w_cpu = m32.prep_quant_leaves(m32.fuse_projections(_bf16_tree(w, 'cpu', torch.float32)))
+    for key, leaf in list(w_cpu['layers'].items()):
+        if isinstance(leaf, dict) and 'nib' in leaf:
+            w_cpu['layers'][key] = torch.stack([
+                widen_mxfp4(n.cuda(), s.cuda(), torch.float32).cpu()
+                for n, s in zip(leaf['nib'], leaf['scale'])])
     w_gpu = m16.prep_quant_leaves(m16.fuse_projections(_bf16_tree(w, 'cuda',
                                                                   torch.bfloat16)))
+    del w
     B, T, BS, steps = 2, 256, 128, 8
     pages = (T + steps + BS - 1) // BS
     NB = 1 + B * pages
@@ -736,25 +926,42 @@ def parity_phase(name: str, cfg16, tol: float, kv_int8: bool):
     def clone(kv):
         return QuantKV(kv.data.clone(), kv.scale.clone()) if kv_int8 else kv.clone()
     tables = (1 + torch.arange(B * pages)).reshape(B, pages).int()
-    cos, sin = make_rope_table(cfg16.head_dim, 1024, cfg16.rope_theta)
+    cos, sin = make_rope_table(cfg16.rope_dim, 1024, cfg16.rope_theta, cfg16.rope_scaling)
     rng = np.random.RandomState(SEED)
     ids = torch.from_numpy(rng.randint(3, 32000, size=(B, T))).int()
-    side = {'cpu': (m32, w_cpu), 'cuda': (m16, w_gpu)}
+    # the two sides: the CPU reference and the card
+    side = {'cpu': (m32, w_cpu, 'cpu'), 'card': (m16, w_gpu, 'cuda')}
+    routes = {'cpu': [], 'card': []}       # (router logits, choices) per layer and step
+    route = {'record': True, 'force': False, 'j': 0}
+    moe = hasattr(m16, 'route')
+    for name_, (model, _, _) in side.items():
+        if moe:
+            def rec(w_, xf, _route=model.route, _log=routes[name_], _card=name_ == 'card'):
+                logits, idx, wts = _route(w_, xf)
+                if route['record']:
+                    _log.append((logits.float().cpu(), idx.cpu()))
+                if _card and route['force']:
+                    idx = routes['cpu'][route['j']][1].to(idx.device)
+                    route['j'] += 1
+                    wts = torch.softmax(logits.gather(-1, idx), dim=-1)
+                return logits, idx, wts
+            model.route = rec
 
-    def step(dev, kv, tok, hist, q_len, fresh):
-        model, params = side[dev]
+    def step(which, kv, tok, hist, q_len, fresh):
+        model, params, dev = side[which]
         meta = AttnMeta(tables.to(dev), torch.full((B,), hist, dtype=torch.int32).to(dev),
                         torch.full((B,), q_len, dtype=torch.int32).to(dev))
         pos = (hist + torch.arange(tok.shape[1]))[None].expand(B, -1).int()
         return model.forward(params, tok.to(dev), pos.to(dev), kv, meta,
                              cos.to(dev), sin.to(dev), fresh_prefill=fresh).float().cpu()
 
-    def prefill(dev):
-        kv = new_cache(dev)
-        return step(dev, kv, ids, 0, T, True), kv
+    def prefill(which):
+        route['j'] = 0
+        kv = new_cache(side[which][2])
+        return step(which, kv, ids, 0, T, True), kv
 
-    def decode(dev, kv, toks):
-        return [step(dev, kv, tok, T + i, 1, False) for i, tok in enumerate(toks)]
+    def decode(which, kv, toks):
+        return [step(which, kv, tok, T + i, 1, False) for i, tok in enumerate(toks)]
 
     # the f32 CPU run teacher-forces its own argmax tokens; every other run takes them
     lc0, kv_cpu = prefill('cpu')
@@ -762,9 +969,25 @@ def parity_phase(name: str, cfg16, tol: float, kv_int8: bool):
     for i in range(steps):
         toks.append(cpu[-1].argmax(-1, keepdim=True).int())
         cpu.append(step('cpu', kv_cpu, toks[-1], T + i, 1, False))
-    lg0, kv_gpu = prefill('cuda')
+    route['force'] = moe
+    lg0, kv_gpu = prefill('card')
     kv_gpu0 = clone(kv_gpu)
-    card = [lg0] + decode('cuda', kv_gpu, toks)
+    card = [lg0] + decode('card', kv_gpu, toks)
+    route['record'] = False
+
+    # routing flips: the card's own choices against the CPU's, per layer and step
+    flips, flips_ok, worst, router_err = [0] * cfg16.num_layers, True, 0.0, 0.0
+    for j, ((lc, ic), (lg, ig)) in enumerate(zip(routes['cpu'], routes['card'])):
+        err_j = (lg - lc).abs().max().item()
+        router_err = max(router_err, err_j)
+        diff = (ic.sort(-1).values != ig.sort(-1).values).any(-1)
+        k = cfg16.num_experts_per_tok
+        top = lc.sort(-1, descending=True).values
+        margins = (top[:, k - 1] - top[:, k])[diff]
+        flips[j % cfg16.num_layers] += int(diff.sum())
+        if diff.any():
+            worst = max(worst, margins.max().item() / err_j)
+            flips_ok &= bool((margins <= 2 * err_j).all())
 
     def max_err(a, b):
         return max((x - y).abs().max().item() for x, y in zip(a, b))
@@ -779,18 +1002,27 @@ def parity_phase(name: str, cfg16, tol: float, kv_int8: bool):
         if not bool(same[margin_ok].all()):
             raise SystemExit(f'{name}: argmax differs where the f32 margin exceeds '
                              f'2 x {tol} at step {i}')
+    free = None
+    if moe:
+        route['force'] = False
+        lr0, kv_r = prefill('card')
+        free = max_err([lr0] + decode('card', kv_r, toks), cpu)
+        route['force'] = True
+        del kv_r
     with _plain_kernels():
-        lf0, kv_f = prefill('cuda')
-        floor = max_err([lf0] + decode('cuda', kv_f, toks), cpu)
+        lf0, kv_f = prefill('card')
+        floor = max_err([lf0] + decode('card', kv_f, toks), cpu)
     traps = {}
-    if cfg16.quantization_config:
-        for trap in W4_TRAPS:
-            with _swapped((linear, 'w4a16_matmul_gd', _gd_trapped(trap))):
-                if trap == 'xg_unrounded':
-                    traps[trap] = max_err([lc0] + decode('cpu', clone(kv_cpu0), toks), card)
-                else:
-                    traps[trap] = max_err([lg0] + decode('cuda', clone(kv_gpu0), toks), cpu)
-    ok = max(errs) <= tol and all(v > tol for v in traps.values())
+    for trap, swap, which in _parity_traps(cfg16):
+        with _swapped(swap):
+            if which == 'cpu':
+                traps[trap] = max_err([lc0] + decode('cpu', clone(kv_cpu0), toks), card)
+            elif moe:                    # every MXFP4 product of the run is planted
+                lt0, kv_t = prefill('card')
+                traps[trap] = max_err([lt0] + decode('card', kv_t, toks), cpu)
+            else:
+                traps[trap] = max_err([lg0] + decode('card', clone(kv_gpu0), toks), cpu)
+    ok = max(errs) <= tol and all(v > tol for v in traps.values()) and flips_ok
     row = {'phase': name, 'layers': 2, 'model': model_label(cfg16), 'batch': B,
            'prompt': T, 'decode_steps': steps, 'vocab': cfg16.vocab_size,
            'max_abs_logit_err': max(errs), 'per_step_err': errs, 'tol': tol,
@@ -798,29 +1030,39 @@ def parity_phase(name: str, cfg16, tol: float, kv_int8: bool):
            'logit_abs_max': cpu[-1].abs().max().item(),
            'argmax_agree': agree, 'positions': B * (steps + 1),
            'positions_with_margin': decided, 'ok': ok}
+    if moe:
+        row.update(routing='card runs take the CPU run\'s expert choices',
+                   routing_decisions=sum(int(ic.shape[0]) for _, ic in routes['cpu']),
+                   routing_flips_by_layer=flips, router_logit_err_max=router_err,
+                   worst_flip_margin_over_layer_err=worst,
+                   flips_within_bf16_error=flips_ok, free_routing_max_abs_logit_err=free)
     emit(row)
-    del kv_gpu, kv_gpu0, kv_f, w_gpu
+    del kv_gpu, kv_gpu0, kv_f, w_gpu, side
+    gc.collect()
     torch.cuda.empty_cache()
     if not row['ok']:
-        raise SystemExit(f'{name} failed (over its allowance, or a trap reads within '
-                         f'it): {row}')
+        raise SystemExit(f'{name} failed (over its allowance, a trap reads within it, or '
+                         f'a routing flip beyond the bf16 error): {row}')
 
 
 def _bf16_tree(params, device, dtype):
-    """Dense float leaves rounded to bf16, then in ``dtype`` on ``device``; the leaves
-    of a W4A16 dict (int32 words, f32 scales and zeros) move unchanged."""
+    """Dense float leaves rounded to bf16, then in ``dtype`` on ``device``; quantized
+    dict leaves (W4A16 words, scales and zeros; MXFP4 codes and scales) and integer
+    leaves move unchanged."""
     out = {}
     for k, v in params.items():
-        if isinstance(v, dict) and 'packed' in v:
+        if isinstance(v, dict) and ('packed' in v or 'nib' in v):
             out[k] = {k2: v2.to(device) for k2, v2 in v.items()}
         elif isinstance(v, dict):
             out[k] = _bf16_tree(v, device, dtype)
+        elif not v.is_floating_point():
+            out[k] = v.to(device)
         else:
             out[k] = v.bfloat16().to(device, dtype)
     return out
 
 
-def kernel_line(flash, decode, decode8, w4):
+def kernel_line(flash, decode, decode8, w4, mx):
     def entry(name, source, replaces, rows, lead, library_ms):
         return {'name': name, 'route': 'cuda', 'source': f'lmdeploy_tpu_torch/csrc/{source}',
                 'replaces': replaces, 'launches': None,
@@ -835,6 +1077,13 @@ def kernel_line(flash, decode, decode8, w4):
     w4_lead['bound_by'] = 'bytes' if all(r['bound_by'] == 'bytes' for r in layer) \
         else 'operations'
     lib = [r['library_ms'] for r in layer]
+    # MXFP4: one gpt-oss-20b layer's three expert products (gate, up: shared x; down:
+    # x per expert) at the e2e decode bucket
+    mx_main = {r['case']: r for r in mx if r['shape'][1] == MX_MAIN_M}
+    mx_layer = [mx_main[f'gate_m{MX_MAIN_M}']] * 2 + [mx_main[f'down_m{MX_MAIN_M}']]
+    mx_lead = {k: sum(r[k] for r in mx_layer) for k in ('kernel_ms', 'plain_ms', 'bound_ms')}
+    mx_lead['bound_by'] = 'bytes' if all(r['bound_by'] == 'bytes' for r in mx_layer) \
+        else 'operations'
     return [
         entry('flash_prefill', 'flash_prefill.cu',
               'lmdeploy_tpu/ops/pallas/flash_prefill.py:76', flash, flash[0],
@@ -848,6 +1097,12 @@ def kernel_line(flash, decode, decode8, w4):
                    sum(lib) if None not in lib else None),
              dense_bf16_ms=sum(r['dense_bf16_ms'] for r in layer),
              shape=f'llama2-7b layer: wqkv + wo + w_gateup + w_down at M = {W4_MAIN_M}'),
+        dict(entry('mxfp4_bmm', 'mxfp4_bmm.cu',
+                   'lmdeploy_tpu/ops/pallas/quant_bmm.py:203', mx, mx_lead, None),
+             dense_bf16_ms=sum(r['dense_bf16_ms'] for r in mx_layer),
+             library=mx_layer[0]['library'],
+             shape=f'gpt-oss-20b layer: gate + up (x shared) + down (x per expert), E = '
+                   f'{MX_E}, K = N = {MX_H}, M = {MX_MAIN_M}'),
     ]
 
 
@@ -858,24 +1113,38 @@ def main():
         return 1
     info = device_phase()
     build_phase()
-    kernels = kernel_line(flash_phase(), decode_phase(), decode_int8_phase(), w4a16_phase())
+    kernels = kernel_line(flash_phase(), decode_phase(), decode_int8_phase(), w4a16_phase(),
+                          mxfp4_phase())
     parity_phase('parity', tinyllama_config(num_layers=2), LOGIT_TOL, kv_int8=False)
     parity_phase('parity_w4a16_kv8', llama7b_w4_config(num_layers=2), LOGIT_TOL_W4,
                  kv_int8=True)
-    L1, L7 = tinyllama_config().num_layers, llama7b_w4_config().num_layers
-    # launches each (prefill step, decode step) needs on each path
-    tiny = e2e_phase('e2e', tinyllama_config(), 64, 0, 8,
-                     {'flash_prefill': (L1, 0), 'paged_decode': (0, L1)},
-                     info['nvidia_smi'])
-    w4 = e2e_phase('e2e_w4a16_kv8', llama7b_w4_config(), 128, 4, 64,
-                   {'flash_prefill': (L7, 0), 'paged_decode_int8': (0, L7),
-                    'w4a16_gemm': (0, 4 * L7)}, info['nvidia_smi'])
+    parity_phase('parity_gptoss', gptoss_config(num_layers=2), LOGIT_TOL_GPTOSS,
+                 kv_int8=False)
+    L1, L7, LG = (tinyllama_config().num_layers, llama7b_w4_config().num_layers,
+                  gptoss_config().num_layers)
+    # launches each (prefill step, decode step) needs on each path, and the path whose
+    # launches each kernel's entry reports
+    paths = {
+        'e2e': e2e_phase('e2e', tinyllama_config(), 64, 0, 8,
+                         {'flash_prefill': (L1, 0), 'paged_decode': (0, L1)},
+                         info['nvidia_smi']),
+        'e2e_w4a16_kv8': e2e_phase('e2e_w4a16_kv8', llama7b_w4_config(), 128, 4, 64,
+                                   {'flash_prefill': (L7, 0), 'paged_decode_int8': (0, L7),
+                                    'w4a16_gemm': (0, 4 * L7)}, info['nvidia_smi']),
+        'e2e_gptoss_mxfp4': e2e_phase('e2e_gptoss_mxfp4', gptoss_config(), 64, 0, 32,
+                                      {'paged_decode': (0, LG), 'mxfp4_bmm': (0, 3 * LG)},
+                                      info['nvidia_smi']),
+    }
+    main_path = {'flash_prefill': 'e2e', 'paged_decode': 'e2e',
+                 'paged_decode_int8': 'e2e_w4a16_kv8', 'w4a16_gemm': 'e2e_w4a16_kv8',
+                 'mxfp4_bmm': 'e2e_gptoss_mxfp4'}
     for k in kernels:
-        k['launches_by_path'] = {'e2e': tiny['launches'][k['name']],
-                                 'e2e_w4a16_kv8': w4['launches'][k['name']]}
-        k['launches'] = (tiny if k['name'] in ('flash_prefill', 'paged_decode')
-                         else w4)['launches'][k['name']]
-    kernels[-1]['launches_by_rows'] = w4['w4a16_rows']
+        name = k['name']
+        k['launches_by_path'] = {p: row['launches'][name] for p, row in paths.items()}
+        k['launches'] = paths[main_path[name]]['launches'][name]
+        rows = paths[main_path[name]]['rows_by_kernel'].get(name)
+        if rows:
+            k['launches_by_rows'] = rows
     emit({'kernels': kernels})
     print(info['nvidia_smi'], flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': info['kind'],

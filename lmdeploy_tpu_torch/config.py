@@ -1,9 +1,10 @@
 """Internal engine configuration derived from user configs + HF model configs.
 
-Port of ``lmdeploy_tpu/config.py`` for the dense llama family the port serves
-(``LlamaForCausalLM``, ``MistralForCausalLM``, ``Qwen2ForCausalLM``,
-``Qwen3ForCausalLM``).  Dtypes are torch dtypes; the multimodal / MoE / MLA
-config fields of the reference are not carried until a slice ports those models.
+Port of ``lmdeploy_tpu/config.py`` for the families the port serves (the dense llama
+family: ``LlamaForCausalLM``, ``MistralForCausalLM``, ``Qwen2ForCausalLM``,
+``Qwen3ForCausalLM``; and ``GptOssForCausalLM``), with the reference's MoE fields.
+Dtypes are torch dtypes; the multimodal and MLA config fields of the reference are not
+carried until a slice ports those models.
 """
 from __future__ import annotations
 
@@ -51,6 +52,11 @@ class ModelConfig:
     sliding_window: Optional[int] = None
     # see lmdeploy_tpu/config.py: True when every layer shares the window
     window_uniform: bool = True
+    # MoE (reference config.py:271-275); the reference's norm_topk_prob and shared
+    # experts come with the first ported family that reads them
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
     hf_config: Optional[Dict[str, Any]] = None
     quantization_config: Optional[Dict[str, Any]] = None
 
@@ -93,6 +99,10 @@ class ModelConfig:
             dtype=dtype,
             hf_arch=archs[0],
             model_type=cfg.get('model_type', 'llama'),
+            num_experts=cfg.get('num_local_experts') or cfg.get('num_experts')
+            or cfg.get('n_routed_experts') or 0,
+            num_experts_per_tok=cfg.get('num_experts_per_tok', 0),
+            moe_intermediate_size=cfg.get('moe_intermediate_size', 0),
             attention_bias=cfg.get('attention_bias', False)
             or cfg.get('qkv_bias', False),
             partial_rotary_factor=cfg.get('partial_rotary_factor', 1.0),

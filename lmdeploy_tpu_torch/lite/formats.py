@@ -1,8 +1,9 @@
 """Quantized-checkpoint wire formats: AWQ / GPTQ pack & unpack (numpy, load-time).
 
-Copy of ``lmdeploy_tpu/lite/formats.py`` (lines 1-115; the MXFP4 helpers come with
-their slice): converts between the HF community formats and the kernel layout
-(nibbles plane-packed along K, see ``ops/quant_matmul.py``).
+Copy of ``lmdeploy_tpu/lite/formats.py`` (lines 1-156): converts between the HF
+community formats and the kernel layouts (W4A16 nibbles plane-packed along K, see
+``ops/quant_matmul.py``; MXFP4 e2m1 codes half-split along K, see
+``ops/quant_bmm.py``).
 
 AWQ (autoawq) format:  qweight i32[K, N/8], qzeros i32[K/gs, N/8], scales f16[K/gs, N]
   - 8 nibbles per int32 word along the OUTPUT dim, interleaved order: nibble at
@@ -10,6 +11,9 @@ AWQ (autoawq) format:  qweight i32[K, N/8], qzeros i32[K/gs, N/8], scales f16[K/
 GPTQ format:           qweight i32[K/8, N], qzeros i32[K/gs, N/8], scales f16[K/gs, N]
   - 8 nibbles per word along the INPUT dim, sequential order; stored zero points
     are ``z - 1`` (the classic GPTQ off-by-one).
+MXFP4 (gpt-oss):       *_blocks u8[..., G, 16], *_scales u8[..., G]
+  - 32 e2m1 values per group, two per byte, low nibble first; one ue8m0 exponent
+    byte per group (scale 2^(s - 127)).
 """
 from __future__ import annotations
 
@@ -112,3 +116,43 @@ def awq_qweight_to_kernel(qw: np.ndarray, pad_to: int = 0) -> np.ndarray:
 
 def gptq_qweight_to_kernel(qw: np.ndarray, pad_to: int = 0) -> np.ndarray:
     return to_kernel_packed(_pad_rows(unpack_gptq_qweight(qw), pad_to))
+
+
+# -- MXFP4 (gpt-oss checkpoints) --------------------------------------------------
+# e2m1 nibble values; sign bit 0x8 (code 8 is -0.0, code 1 the subnormal 0.5)
+_E2M1 = np.array([0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0,
+                  -0.0, -0.5, -1.0, -1.5, -2.0, -3.0, -4.0, -6.0], np.float32)
+
+
+def mxfp4_codes(blocks: np.ndarray) -> np.ndarray:
+    """u8 blocks [..., G, 16] (2 e2m1 per byte, low nibble first) -> raw e2m1
+    codes u8 [..., G*32] (no dequantization: the runtime kernel decodes)."""
+    lo = blocks & 0xF
+    hi = blocks >> 4
+    out = np.stack([lo, hi], axis=-1).reshape(*blocks.shape[:-2],
+                                              blocks.shape[-2] * 32)
+    return out.astype(np.uint8)
+
+
+def pack_halfsplit(codes: np.ndarray) -> np.ndarray:
+    """4-bit codes [..., K, N] -> u8 [..., K/2, N] in the kernel's half-split
+    layout (low nibble = input row r, high nibble = row K/2 + r)."""
+    K = codes.shape[-2]
+    return (codes[..., :K // 2, :]
+            | (codes[..., K // 2:, :] << 4)).astype(np.uint8)
+
+
+def ue8m0_to_f32(scales: np.ndarray) -> np.ndarray:
+    """ue8m0 exponent bytes -> f32 2^(s-127) group scales."""
+    return np.exp2(scales.astype(np.int32) - 127).astype(np.float32)
+
+
+def mxfp4_dequant(blocks: np.ndarray, scales: np.ndarray) -> np.ndarray:
+    """u8 blocks [..., G, 16] (2 e2m1 per byte, low nibble first) + ue8m0
+    scales u8 [..., G] (2^(s-127) per 32-value group) -> f32 [..., G*32]."""
+    lo = _E2M1[blocks & 0xF]
+    hi = _E2M1[blocks >> 4]
+    vals = np.stack([lo, hi], axis=-1).reshape(*blocks.shape[:-1], 32)
+    scale = np.exp2(scales.astype(np.int32) - 127).astype(np.float32)
+    out = vals * scale[..., None]
+    return out.reshape(*blocks.shape[:-2], blocks.shape[-2] * 32)

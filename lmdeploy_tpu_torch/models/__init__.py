@@ -1,7 +1,8 @@
 """Model registry: HF architecture name -> model builder.
 
 Port of the dense-llama part of ``lmdeploy_tpu/models/__init__.py`` (the ``_llama``,
-``_qwen2`` and ``_qwen3`` builders); the other families are later slices.
+``_qwen2`` and ``_qwen3`` builders) and its ``_gpt_oss`` entry; the other families are
+later slices.
 """
 from __future__ import annotations
 
@@ -36,6 +37,13 @@ def _qwen2(config: ModelConfig) -> LlamaModel:
 def _qwen3(config: ModelConfig) -> LlamaModel:
     config.qk_norm = True
     return LlamaModel(config)
+
+
+@register_model('GptOssForCausalLM')
+def _gpt_oss(config: ModelConfig) -> LlamaModel:
+    from .gpt_oss import GptOssModel
+    config.attention_bias = True
+    return GptOssModel(config)
 
 
 def build_model(config: ModelConfig) -> LlamaModel:

@@ -12,12 +12,18 @@ linear is a dict leaf ``{'packed' i32[L, Kp/8, N], 'scales', 'zeros' f32[L, Kp/g
 in which one layer's ``[Kp/8, N]`` slice of a stacked leaf is a free view (the
 reference's whole-stack-plus-layer-index kernel design only avoids an XLA slice
 copy); the KV cache is written in place.
+
+The reference layer body's hooks that subclasses use are kept: ``_mlp`` (overridden
+by MoE models, which then keep gate and up unfused), the ``bo`` output-projection
+bias, per-layer ``sinks`` and per-layer windows.  A per-layer window is a Python int
+from ``layer_windows`` (None: every layer takes ``config.sliding_window``), never a
+tensor: the reference's ``layer_window`` leaf is not part of the port's tree.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,18 +62,23 @@ class AttnMeta:
 class LlamaModel:
     """Weights layout + forward for the dense llama family."""
 
+    # checkpoint formats that quantize only a subclass's expert stacks: the seven
+    # linears stay dense (gpt-oss's MXFP4)
+    EXPERT_QUANT_METHODS: Tuple[str, ...] = ()
+
     def __init__(self, config: ModelConfig):
         self.config = config
         self.q_out = config.num_attention_heads * config.head_dim
         self.kv_out = config.num_key_value_heads * config.head_dim
         self.quant_method = None
         self.group_size = 128
+        self.layer_windows: Optional[List[int]] = None
         qcfg = config.quantization_config or {}
         method = qcfg.get('quant_method')
         if method in ('awq', 'gptq'):
             self.quant_method = 'w4a16'
             self.group_size = qcfg.get('group_size') or qcfg.get('q_group_size', 128)
-        elif method is not None:
+        elif method is not None and method not in self.EXPERT_QUANT_METHODS:
             raise NotImplementedError(f'{method!r} checkpoints are not ported yet')
 
     # -- parameters -------------------------------------------------------------------
@@ -123,15 +134,7 @@ class LlamaModel:
                 if isinstance(shape, dict):
                     out[name] = walk(shape)
                 elif isinstance(shape, Leaf):
-                    if name == 'packed':
-                        words = torch.randint(-2 ** 31, 2 ** 31, shape.shape,
-                                              generator=gen, device=device,
-                                              dtype=torch.int64)
-                        out[name] = words.to(shape.dtype)
-                    else:
-                        fill = W4_INIT_SCALE if name == 'scales' else W4_INIT_ZERO
-                        out[name] = torch.full(shape.shape, fill, dtype=shape.dtype,
-                                               device=device)
+                    out[name] = self._init_leaf(name, shape, gen, device)
                 elif 'norm' in name:
                     out[name] = torch.ones(shape, dtype=dtype, device=device)
                 else:
@@ -140,10 +143,21 @@ class LlamaModel:
             return out
         return walk(self.param_shapes())
 
+    def _init_leaf(self, name: str, leaf: Leaf, gen: torch.Generator,
+                   device) -> torch.Tensor:
+        """A seeded typed leaf (W4A16 words, scales and zeros)."""
+        if name == 'packed':
+            words = torch.randint(-2 ** 31, 2 ** 31, leaf.shape, generator=gen,
+                                  device=device, dtype=torch.int64)
+            return words.to(leaf.dtype)
+        fill = W4_INIT_SCALE if name == 'scales' else W4_INIT_ZERO
+        return torch.full(leaf.shape, fill, dtype=leaf.dtype, device=device)
+
     def make_assign_plan(self) -> Dict[str, Tuple[Tuple, Optional[Callable]]]:
-        """{hf_name: (path, transform)}: the loader writes ``transform(tensor)`` (or
-        the tensor itself) at ``path``, where a layer index selects the stacked row
-        (reference ``make_assign_plan``, dense and AWQ / GPTQ W4A16 paths)."""
+        """{hf_name: (path, transform)} (or a list of such pairs, when one tensor
+        fills several leaves): the loader writes ``transform(tensor)`` (or the tensor
+        itself) at ``path``, where a layer index selects the stacked row (reference
+        ``make_assign_plan``, dense and AWQ / GPTQ W4A16 paths)."""
         cfg = self.config
 
         def transposed(x):
@@ -206,7 +220,7 @@ class LlamaModel:
         """wq/wk/wv -> wqkv and w_gate/w_up -> w_gateup along the output dim (one
         wide GEMM instead of three narrow ones), biases likewise.  Quantized dict
         leaves concatenate key by key: every quant layout packs along K and keeps
-        N as the trailing axis."""
+        N as the trailing axis.  Gate and up fuse only for the stock ``_mlp``."""
         lp = dict(params['layers'])
 
         def cat(names):
@@ -218,7 +232,7 @@ class LlamaModel:
             lp['wqkv'] = cat(['wq', 'wk', 'wv'])
             if 'bq' in lp:
                 lp['bqkv'] = cat(['bq', 'bk', 'bv'])
-        if 'w_gate' in lp:
+        if 'w_gate' in lp and type(self)._mlp is LlamaModel._mlp:
             lp['w_gateup'] = cat(['w_gate', 'w_up'])
         return dict(params, layers=lp)
 
@@ -301,6 +315,7 @@ class LlamaModel:
         slot_mapping = compute_slot_mapping(meta.block_tables, meta.history_lens,
                                             meta.q_lens, T, block_size)
         lp = params['layers']
+        windows = self.layer_windows or [cfg.sliding_window] * cfg.num_layers
         for layer in range(cfg.num_layers):
             w = {name: {k: a[layer] for k, a in t.items()} if isinstance(t, dict)
                  else t[layer] for name, t in lp.items()}
@@ -318,9 +333,10 @@ class LlamaModel:
                           page_tables=meta.block_tables if fresh_prefill else None)
             attn = paged_attention(q, kv_cache, meta.block_tables, meta.history_lens,
                                    meta.q_lens, scale, layer, Hkv,
-                                   window_size=cfg.sliding_window,
-                                   chunk_kv=(k, v), fresh_prefill=fresh_prefill)
-            hidden = hidden + linear(attn.reshape(B, T, self.q_out), w['wo'])
+                                   window_size=windows[layer],
+                                   chunk_kv=(k, v), fresh_prefill=fresh_prefill,
+                                   sinks=w.get('sinks'))
+            hidden = hidden + linear(attn.reshape(B, T, self.q_out), w['wo'], w.get('bo'))
             x = rms_norm(hidden, w['mlp_norm'], cfg.rms_norm_eps)
             hidden = hidden + self._mlp(w, x)
         hidden = rms_norm(hidden, params['final_norm'], cfg.rms_norm_eps)

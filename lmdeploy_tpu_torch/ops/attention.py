@@ -34,6 +34,9 @@ from .flash_prefill import flash_prefill_attention
 from .kv_quant import QuantKV, quantize_rows
 from .paged_decode import paged_decode_attention
 
+# the dense path's score tensor per query tile, f32 bytes
+SCORE_TILE_BYTES = 512 * 1024 * 1024
+
 
 def compute_slot_mapping(block_tables: torch.Tensor, history_lens: torch.Tensor,
                          q_lens: torch.Tensor, T: int, block_size: int) -> torch.Tensor:
@@ -131,9 +134,20 @@ def attention_dense_gathered(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Causal by absolute position (history + t), an optional sliding window
     (keys with pos_k > pos_q - window), logit softcap tanh(s/c)*c after the
-    scale, and learned sink logits that join the softmax denominator only."""
+    scale, and learned sink logits that join the softmax denominator only.
+
+    Queries are taken in tiles that keep the f32 score tensor under
+    ``SCORE_TILE_BYTES`` (each query row's softmax is its own, so tiling changes no
+    result): a long prefill chunk with sinks or a window takes this path on the card
+    (gpt-oss), where one [B, Hq, T, S] tensor would not fit."""
     B, T, Hq, D = q.shape
     Hkv, _, S, _ = k.shape
+    tile = max(1, SCORE_TILE_BYTES // (B * Hq * S * 4))
+    if T > tile:
+        return torch.cat([attention_dense_gathered(q[:, t:t + tile], k, v,
+                                                   history_lens + t, scale,
+                                                   logit_softcap, window_size, sinks)
+                          for t in range(0, T, tile)], dim=1)
     G = Hq // Hkv
     qg = q.reshape(B, T, Hkv, G, D).float()
     scores = torch.einsum('bthgd,hbsd->bhgts', qg, k.float()) * scale   # [B,Hkv,G,T,S]

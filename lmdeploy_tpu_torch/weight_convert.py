@@ -2,8 +2,9 @@
 
 The port keeps the reference's parameter tree (names, ``[L, ...]`` stacking and the
 ``[in, out]`` weight layout), so parameters convert leaf by leaf; quantized linears
-are dict leaves on both sides (``packed`` / ``scales`` / ``zeros`` or the prepared
-``packed`` / ``sb`` / ``corr``) and convert key by key.  The cache drops the
+and expert stacks are dict leaves on both sides (``packed`` / ``scales`` / ``zeros``,
+the prepared ``packed`` / ``sb`` / ``corr``, MXFP4 ``nib`` / ``scale``) and convert key
+by key.  The cache drops the
 reference's 128-lane row padding: ``[L, NB, 2, BS, Hkv*D]`` here against
 ``[L, NB, 2, BS, HDp]`` there, with ``HDp`` the row width rounded up to 128.  An int8
 cache (``QuantKV``) converts its data that way and copies its token-major f32 scales
@@ -29,11 +30,27 @@ def _to_torch(x, dtype=None, device='cpu') -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
+# leaves of a quantized dict (W4A16, MXFP4) keep their own dtypes
+_QUANT_KEYS = {'packed', 'scales', 'zeros', 'sb', 'corr', 'nib', 'scale'}
+
+
 def params_from_jax(params_np: Dict, dtype=None, device='cpu') -> Dict:
     """JAX ``LlamaModel`` parameter tree (numpy leaves, fused or unfused, stacked
-    ``[L, ...]``) -> the port's tree of tensors (same names and layout)."""
-    return {k: params_from_jax(v, dtype, device) if isinstance(v, dict)
-            else _to_torch(v, dtype, device) for k, v in params_np.items()}
+    ``[L, ...]``) -> the port's tree of tensors (same names and layout).  ``dtype``
+    applies to the dense float leaves; quantized dict leaves (``{'nib', 'scale'}``,
+    ``{'packed', ...}``) keep theirs.  The reference's ``layer_window`` leaf is
+    dropped: the port's model holds its windows as Python ints (``layer_windows``)."""
+    out = {}
+    for k, v in params_np.items():
+        if isinstance(v, dict) and set(v) <= _QUANT_KEYS:
+            out[k] = {k2: _to_torch(v2, device=device) for k2, v2 in v.items()}
+        elif isinstance(v, dict):
+            out[k] = params_from_jax(v, dtype, device)
+        elif k == 'layer_window':
+            continue
+        else:
+            out[k] = _to_torch(v, dtype, device)
+    return out
 
 
 def cache_from_reference(cache_np, num_kv_heads: int, head_dim: int, device='cpu'):

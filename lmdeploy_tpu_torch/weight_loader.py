@@ -1,12 +1,14 @@
-"""Safetensors -> parameter tree loader (dense f32 / bf16 / f16 and AWQ / GPTQ
-checkpoints).
+"""Safetensors -> parameter tree loader (dense f32 / bf16 / f16, AWQ / GPTQ and
+MXFP4 checkpoints).
 
 Port of ``lmdeploy_tpu/weight_loader.py`` (``load_params_np``): allocate the model's
-stacked parameter tree once on the host (quantized leaves with their own dtypes: int32
-``packed``, f32 ``scales`` and ``zeros``), stream every safetensors shard through the
-model's assign plan (each entry's transform: transposing linears to ``[in, out]``,
-repacking AWQ / GPTQ nibbles to the kernel layout), then move each leaf to the device
-once.  ``safetensors`` is imported only here, when a checkpoint is read.
+stacked parameter tree once on the host (typed leaves keep their own dtypes: int32
+``packed``, f32 ``scales`` / ``zeros`` / ``scale``, u8 ``nib``), stream every
+safetensors shard through the model's assign plan (each entry's transform: transposing
+linears to ``[in, out]``, repacking AWQ / GPTQ nibbles to the kernel layout; one
+tensor may fill several leaves), hand every name the plan does not know to the model's
+``load_hook`` (gpt-oss's ``*_blocks`` / ``*_scales`` pairs), then move each leaf to the
+device once.  ``safetensors`` is imported only here, when a checkpoint is read.
 """
 from __future__ import annotations
 
@@ -41,21 +43,28 @@ def load_params(model, model_path: str, device) -> Dict:
     dtype = model.config.torch_dtype()
     params = _alloc_tree(model.param_shapes(), dtype)
     plan = model.make_assign_plan()
+    hook = getattr(model, 'load_hook', None)
     for name, tensor in iter_safetensors(model_path):
         entry = plan.get(name)
         if entry is None:
+            if hook is not None:
+                hook(name, tensor, params)
             continue
-        path, transform = entry
-        if transform is not None:
-            tensor = transform(tensor)
-        node = params
-        for part in path[:-1]:
-            node = node[part]
-        if isinstance(path[-1], int):
-            node[path[-1]].copy_(tensor)
-        else:
-            node[path[-1]] = tensor.to(dtype).contiguous()
+        for path, transform in entry if isinstance(entry, list) else [entry]:
+            _assign(params, path, tensor if transform is None else transform(tensor))
     return _to_device(params, device)
+
+
+def _assign(params: Dict, path, tensor: torch.Tensor):
+    """Write ``tensor`` at ``path``; a trailing int selects the stacked layer row,
+    which keeps its leaf's dtype."""
+    node = params
+    for part in path[:-1]:
+        node = node[part]
+    if isinstance(path[-1], int):
+        node[path[-1]].copy_(tensor)
+    else:
+        node[path[-1]] = tensor.to(node[path[-1]].dtype).contiguous()
 
 
 def _to_device(tree: Dict, device) -> Dict:

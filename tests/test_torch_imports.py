@@ -19,10 +19,21 @@ bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'lmdeploy_tpu'
              or m.startswith('lmdeploy_tpu.'))
 assert not bad, bad
-assert len(names) >= 25, names
+assert len(names) >= 28, names
+assert {'lmdeploy_tpu_torch.ops.moe', 'lmdeploy_tpu_torch.ops.quant_bmm',
+        'lmdeploy_tpu_torch.models.gpt_oss'} <= set(names), names
 print(len(names))
 '''
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_every_kernel_source_is_built():
+    """``cuda_build.SOURCES`` names every ``csrc/*.cu`` (chip_smoke.py builds them all
+    together) and each wrapper's library name is among them."""
+    from lmdeploy_tpu_torch.ops import cuda_build
+    on_disk = sorted(f[:-3] for f in os.listdir(cuda_build.CSRC_DIR) if f.endswith('.cu'))
+    assert sorted(cuda_build.SOURCES) == on_disk
+    assert 'mxfp4_bmm' in on_disk
