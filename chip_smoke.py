@@ -14,13 +14,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  w4a16_gemm (llama2-7b projections, TF32 off, every K split at the
                  layer's shapes; the check must catch each planted numerical trap) and
                  mxfp4_bmm (gpt-oss-20b gate and down products at M 8 / 37 / 64 / 128;
-                 the check must catch each planted trap);
+                 the check must catch each planted trap) and the KV policies' decodes
+                 paged_decode_int4, paged_decode_turbo and paged_decode_fp8 (caches
+                 filled by the port's fill; the e2e_llama31 decode shape, llama2-7b
+                 and TinyLlama heads; planted traps in the cache bytes);
   4. parity   -- full width, 2 layers: prefill logits and 8 decode steps on the card
                  (bf16, kernels) against the port on the CPU (f32, plain paths), for
                  TinyLlama bf16, for llama2-7b W4A16 with an int8 KV cache and for
                  gpt-oss-20b with MXFP4 experts (one sliding, one full layer; the CPU
                  runs the experts widened to f32, and the routing flips between the two
-                 sides are counted); beside it the bf16 floor (plain versions on the
+                 sides are counted), and for Llama-3.1-8B with the int4, TurboQuant and
+                 fp8 KV caches; beside it the bf16 floor (plain versions on the
                  card) and what each planted trap reads, which must exceed the allowance;
   5. e2e      -- the port's Engine at TinyLlama-1.1B width and depth (random seeded
                  bf16 weights): 8 concurrent 128-token prompts plus one 2048-token
@@ -32,7 +36,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
   7. e2e_gptoss_mxfp4 -- gpt-oss-20b width and depth (public config), seeded MXFP4
                  experts, bf16 KV cache: 32 concurrent 128-token prompts plus one
                  2048-token prompt, 64 greedy tokens each (decode in the 64-row bucket),
-                 run twice, then traced; the rows of every mxfp4_bmm launch are recorded.
+                 run twice, then traced; the rows of every mxfp4_bmm launch are recorded;
+  8. e2e_llama31_8b_kv4 / _turbo / _fp8kv -- Llama-3.1-8B at full width and depth
+                 (public config, seeded bf16 weights built once for the three) with
+                 quant_policy 8, 42 and 16: 63 concurrent 1024-token prompts plus one
+                 4096-token prompt, 64 greedy tokens each, run twice, then traced; each
+                 decode step launches the policy's kernel 32 times, each prefill step
+                 whose chunks all start their prompts flash_prefill 32 times, exactly.
 The line before the last lists every kernel; the last line is the result.
 It imports nothing of jax or lmdeploy_tpu.
 """
@@ -42,6 +52,7 @@ import argparse
 import asyncio
 import collections
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -74,9 +85,14 @@ PEAK_BYTES_S = 3.35e12
 # ~0.2, outputs ~1-10), and the tensor cores' f32 accumulation may truncate on
 # alignment.  The first card run read at most 1.6e-5 (H100 80GB HBM3, 700 W);
 # the allowance is 1e-4 + 1e-4 |ref|
+# paged_decode_int4, _turbo and _fp8 are held like paged_decode (both sides f32, one
+# bf16 rounding)
 KERNEL_TOL = {'flash_prefill': {'atol': 1e-2, 'rtol': 1e-2},
               'paged_decode': {'atol': 1e-3, 'rtol': 1e-2},
               'paged_decode_int8': {'atol': 1e-3, 'rtol': 1e-2},
+              'paged_decode_int4': {'atol': 1e-3, 'rtol': 1e-2},
+              'paged_decode_turbo': {'atol': 1e-3, 'rtol': 1e-2},
+              'paged_decode_fp8': {'atol': 1e-3, 'rtol': 1e-2},
               'w4a16_gemm': {'atol': 2e-3, 'rtol': 1e-2},
               'mxfp4_bmm': {'atol': 1e-4, 'rtol': 1e-4}}
 LOGIT_TOL = 0.1          # bf16 activations through 2 full-width layers vs f32
@@ -94,6 +110,17 @@ LOGIT_TOL_W4 = 0.2
 # read as +0.5).  The traps lie 26-44x above the floor, so the allowance is set from
 # the floor's side, about 2.5x it: a kernel slip worth a few tenths of a logit fails
 LOGIT_TOL_GPTOSS = 0.3
+# Llama-3.1-8B width, 2 layers, per KV policy, held on the 8 decode steps (the card's
+# prefill attends the chunk's exact K/V through flash_prefill, the CPU's the quantized
+# cache, as in the reference: their prefill logits differ by the quantization error
+# itself, 1.78 int4 / 3.68 TurboQuant / 0.53 fp8).  Logits reach ~6.  The phase read
+# (H100 80GB HBM3, 700 W), floor (plain versions on the card) / kernels / traps:
+# int4 0.878 / 0.841 / 8.92 (nibble order swapped), 9.68 (min terms dropped);
+# TurboQuant 1.129 / 1.145 / 2.95 (QJL term dropped), 8.37 (V codebook magnitudes
+# swapped); fp8 0.409 / 0.400 / 6.94 (bytes read as e5m2).  Each allowance is about
+# twice its floor (TurboQuant's midway to its mildest trap)
+LOGIT_TOL_KV = {8: 1.8, 42: 2.0, 16: 0.8}
+KV_PHASE = {8: 'kv4', 42: 'turbo', 16: 'fp8kv'}
 SEED = 1234
 # the public config.json of openai/gpt-oss-20b (its fields the port reads)
 GPT_OSS_20B = {
@@ -114,9 +141,27 @@ GPT_OSS_20B = {
         'lm_head']},
 }
 
+# the public config.json of meta-llama/Llama-3.1-8B-Instruct (its fields the port reads)
+LLAMA31_8B = {
+    'architectures': ['LlamaForCausalLM'], 'model_type': 'llama',
+    'hidden_size': 4096, 'intermediate_size': 14336, 'num_hidden_layers': 32,
+    'num_attention_heads': 32, 'num_key_value_heads': 8, 'head_dim': 128,
+    'vocab_size': 128256, 'max_position_embeddings': 131072, 'rms_norm_eps': 1e-05,
+    'rope_theta': 500000.0,
+    'rope_scaling': {'factor': 8.0, 'low_freq_factor': 1.0, 'high_freq_factor': 4.0,
+                     'original_max_position_embeddings': 8192, 'rope_type': 'llama3'},
+    'tie_word_embeddings': False, 'attention_bias': False, 'bos_token_id': 128000,
+    'eos_token_id': [128001, 128008, 128009], 'torch_dtype': 'bfloat16',
+}
+
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+# a plain version is timed as a yardstick only, and some take 50 ms a call: fewer
+# replays keep the kernel phases short
+PLAIN_TIMING = {'iters': 3, 'reps': 2, 'warmup': 1}
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 10) -> float:
@@ -175,6 +220,12 @@ def gptoss_config(num_layers: int = 24):
     from lmdeploy_tpu_torch.config import ModelConfig
     return ModelConfig.from_hf_config(dict(GPT_OSS_20B, num_hidden_layers=num_layers,
                                            layer_types=GPT_OSS_20B['layer_types'][:num_layers]))
+
+
+def llama31_config(num_layers: int = 32):
+    """Llama-3.1-8B (its public config), depth cut to ``num_layers``."""
+    from lmdeploy_tpu_torch.config import ModelConfig
+    return ModelConfig.from_hf_config(dict(LLAMA31_8B, num_hidden_layers=num_layers))
 
 
 def llama7b_w4_config(num_layers: int = 32, max_len: int = 2304):
@@ -240,7 +291,7 @@ def flash_phase():
                'max_abs_err': err, 'max_rel_err': rel, 'err_over_tol': frac, 'tol': tol, 'ok': ok,
                'kernel_ms': time_ms(lambda: flash_prefill_attention(q, k, v, scale)),
                'plain_ms': time_ms(lambda: flash_prefill_attention_plain(q, k, v, scale),
-                                   iters=5),
+                                   **PLAIN_TIMING),
                'library_ms': time_ms(lambda: lib(qt, kt, vt, is_causal=True, scale=scale,
                                                  enable_gqa=True)),
                'bound_ms': bound_ms, 'bound_by': bound_by, 'gflop': flops / 1e9}
@@ -332,7 +383,7 @@ def decode_phase():
                'shape': [B, Hq, Hkv, D, BS, W], 'mean_kv_len': float(lens_np.mean()),
                'max_abs_err': err, 'max_rel_err': rel, 'err_over_tol': frac, 'tol': tol,
                'zero_rows_ok': zero_ok, 'ok': ok,
-               'kernel_ms': time_ms(kern), 'plain_ms': time_ms(plain, iters=5),
+               'kernel_ms': time_ms(kern), 'plain_ms': time_ms(plain, **PLAIN_TIMING),
                'library_ms': None, 'bound_ms': bound_ms, 'bound_by': bound_by,
                'kv_mbytes': nbytes / 1e6}
         emit(row)
@@ -460,7 +511,7 @@ def w4a16_phase():
                'split_sweep': sweep,
                'kernel_ms': time_ms(lambda: w4a16_matmul_gd(x, packed, sb, corr, gs)),
                'plain_ms': time_ms(lambda: w4a16_matmul_gd_plain(x, packed, sb, corr, gs),
-                                   iters=5),
+                                   **PLAIN_TIMING),
                'library_ms': time_ms(lib) if lib is not None else None,
                'library': 'torch._weight_int4pack_mm', 'library_error': lib_error,
                'library_max_abs_err': lib_err,
@@ -546,7 +597,7 @@ def decode_int8_phase():
                'mean_kv_len': float(kv_lens.float().mean()),
                'max_abs_err': err, 'max_rel_err': rel, 'err_over_tol': frac, 'tol': tol,
                'zero_rows_ok': zero_ok, 'ok': ok,
-               'kernel_ms': time_ms(kern), 'plain_ms': time_ms(plain, iters=5),
+               'kernel_ms': time_ms(kern), 'plain_ms': time_ms(plain, **PLAIN_TIMING),
                'library_ms': None, 'bound_ms': bound_ms, 'bound_by': bound_by,
                'kv_mbytes': nbytes / 1e6}
         emit(row)
@@ -625,7 +676,7 @@ def mxfp4_phase():
                'max_abs_err': err, 'max_rel_err': rel, 'err_over_tol': frac, 'tol': tol,
                'ok': ok, 'tf32': False, 'trap_err_over_tol': traps,
                'kernel_ms': time_ms(lambda: mxfp4_bmm(x, nib, scale)),
-               'plain_ms': time_ms(lambda: mxfp4_bmm_plain(x, nib, scale), iters=5),
+               'plain_ms': time_ms(lambda: mxfp4_bmm_plain(x, nib, scale), **PLAIN_TIMING),
                'library_ms': None,
                'library': 'none: no PyTorch call multiplies MXFP4 weights on sm_90',
                'dense_bf16_ms': time_ms(dense),
@@ -640,8 +691,154 @@ def mxfp4_phase():
     return results
 
 
+# the decode kernel of each KV policy this slice adds, and the bytes its cache holds a
+# token and kv head at head_dim D (codes of K and V, and f32 metadata)
+KV_POLICIES = {8: 'paged_decode_int4', 42: 'paged_decode_turbo', 16: 'paged_decode_fp8'}
+KV_TOKEN_BYTES = {'paged_decode_int4': lambda D: D + 16,        # 2 x D/2 codes + 4 f32
+                  'paged_decode_turbo': lambda D: 3 * D // 4 + 12,  # D/2 + D/4 + 3 f32
+                  'paged_decode_fp8': lambda D: 2 * D}
+# numerical traps planted in each kernel's plain version by a change of the cache's
+# bytes (ROADMAP section 3): the check, and the parity phase, must read each one
+KV_TRAPS = {'paged_decode_int4': ('nibble_order_swapped', 'min_terms_dropped'),
+            'paged_decode_turbo': ('qjl_term_dropped', 'v_codebook_magnitudes_swapped'),
+            'paged_decode_fp8': ('bytes_read_as_e5m2',)}
+# the e2e_llama31 decode shape: 63 rows of 1,024-1,087 tokens and one of 4,096-4,159
+# in the 64-row bucket, the 4,224-token session's 33-page table
+L31_SESSION = 4096 + 128
+L31_W = L31_SESSION // 128
+
+
+def _kv_decode_fns(kernel):
+    from lmdeploy_tpu_torch.ops import paged_decode as pd
+    name = 'paged_decode_attention' + kernel[len('paged_decode'):]
+    return getattr(pd, name), getattr(pd, name + '_plain', pd.paged_decode_attention_plain)
+
+
+def _kv_trapped(trap: str, kv):
+    """A copy of cache ``kv`` whose bytes plant ``trap`` in any reader: the int4 codes'
+    nibbles swapped (dim 2j read from the high nibble); the int4 mins zeroed (the
+    Σq·kmin score term and the rowsum(p·vmin) output term dropped); the TurboQuant QJL
+    norms zeroed (the qjl·(q·sgn) score term dropped); every TurboQuant V code
+    XOR 1 (codebook magnitudes 0.453 and 1.510 swapped within each sign); e4m3 bytes
+    read as e5m2."""
+    from lmdeploy_tpu_torch.ops.kv_quant import QuantKV4, QuantKVTurbo
+    if trap == 'nibble_order_swapped':
+        return QuantKV4((kv.data << 4) | (kv.data >> 4), kv.scale, kv.minv)
+    if trap == 'min_terms_dropped':
+        return QuantKV4(kv.data, kv.scale, torch.zeros_like(kv.minv))
+    if trap == 'qjl_term_dropped':
+        meta = kv.meta.clone()
+        meta[..., 1, :] = 0
+        return QuantKVTurbo(kv.data, meta)
+    if trap == 'v_codebook_magnitudes_swapped':
+        data = kv.data.clone()
+        hd2 = kv.shape[-1] // 2
+        data[..., hd2:] ^= 0x55
+        return QuantKVTurbo(data, kv.meta)
+    if trap == 'bytes_read_as_e5m2':
+        return kv.view(torch.float8_e5m2)
+    raise ValueError(trap)
+
+
+def new_kv_cache(model, num_blocks: int, block_size: int, policy: int, device):
+    """A zeroed cache of ``model``'s layers in ``policy``'s layout, as the engine
+    allocates it."""
+    from lmdeploy_tpu_torch.config import CacheConfig
+    from lmdeploy_tpu_torch.engine.cache_engine import CacheEngine
+    return CacheEngine(model, CacheConfig(block_size=block_size, num_gpu_blocks=num_blocks,
+                                          quant_policy=policy), torch.device(device)).kv_cache
+
+
+def decode_kv_phase():
+    """paged_decode_int4, paged_decode_turbo and paged_decode_fp8 against their plain
+    versions, each cache filled through the port's fill_kv_cache from random bf16 K/V."""
+    from lmdeploy_tpu_torch.config import ModelConfig
+    from lmdeploy_tpu_torch.ops.attention import fill_kv_cache
+    from lmdeploy_tpu_torch.ops.kv_quant import hadamard_rotate
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    rng = np.random.RandomState(SEED + 2)
+    BS = 128
+    # the e2e_llama31 phases' decode shape (Llama-3.1-8B heads, G 4), with two of its
+    # short rows inactive; llama2-7b heads (G 1) and TinyLlama heads (D 64, G 8) at
+    # ragged lengths averaging ~384 with one inactive row and four padding rows
+    # (marked -1), the first of them also with a softcap
+    lens_e2e = np.concatenate([rng.randint(1024, 1088, size=63), rng.randint(4096, 4160, 1)])
+    lens_e2e[[7, 40]] = 0
+    lens64 = rng.randint(1, 768, size=64)
+    lens64[5] = 0
+    lens64[-4:] = -1
+    cases = [('e2e_shape_llama31', 64, 32, 8, 128, lens_e2e, L31_W, None),
+             ('bs64_7b_heads', 64, 32, 32, 128, lens64, 8, None),
+             ('bs64_7b_heads_softcap', 64, 32, 32, 128, lens64, 8, 30.0),
+             ('bs64_tinyllama_heads', 64, 32, 4, 64, lens64, 8, None)]
+    results = {k: [] for k in KV_POLICIES.values()}
+    for label, B, Hq, Hkv, D, lens, W, softcap in cases:
+        NB = 1 + B * W
+        perm = torch.randperm(NB - 1, device='cuda', generator=gen) + 1
+        tables = perm[:B * W].reshape(B, W).int()
+        kv_lens = torch.tensor(lens, dtype=torch.int32, device='cuda')
+        pad_rows = kv_lens < 0
+        tables[pad_rows] = 0
+        kv_lens[pad_rows] = 1
+        tables = tables.contiguous()
+        q0 = torch.randn(B, Hq, D, device='cuda', generator=gen)
+        model = ModelConfig(num_layers=2, num_attention_heads=Hq, num_key_value_heads=Hkv,
+                            hidden_size=Hq * D, intermediate_size=128, vocab_size=128,
+                            head_dim=D, dtype='bfloat16')
+        slots = torch.arange(BS, NB * BS, device='cuda')
+        kvs = [(torch.randn(len(slots), Hkv, D, device='cuda', generator=gen).bfloat16(),
+                torch.randn(len(slots), Hkv, D, device='cuda', generator=gen).bfloat16())
+               for _ in range(2)]
+        scale, layer = D ** -0.5, 1
+        toks = kv_lens.cpu().numpy().astype(np.int64).sum()
+        for policy, kernel in KV_POLICIES.items():
+            cache = new_kv_cache(model, NB, BS, policy, 'cuda')
+            for lay, (k, v) in enumerate(kvs):
+                fill_kv_cache(cache, k, v, slots, lay)
+            # the TurboQuant kernel reads q rotated into the cache's domain
+            q = (hadamard_rotate(q0) if kernel == 'paged_decode_turbo' else q0).bfloat16()
+            wrapper, plain = _kv_decode_fns(kernel)
+
+            def kern():
+                return wrapper(q, cache, tables, kv_lens, layer, scale, Hkv,
+                               logit_softcap=softcap)
+
+            def plain_on(kv):
+                return plain(q, kv, tables, kv_lens, layer, scale, Hkv, logit_softcap=softcap)
+            out, ref = kern(), plain_on(cache)
+            torch.cuda.synchronize()
+            tol = KERNEL_TOL[kernel]
+            err, rel, frac = compare(out, ref, tol)
+            zero_ok = bool((out[kv_lens == 0] == 0).all())
+            traps = {t: compare(plain_on(_kv_trapped(t, cache)), ref, tol)[2]
+                     for t in KV_TRAPS[kernel]}
+            ok = (bool(torch.isfinite(out.float()).all()) and frac <= 1.0 and zero_ok
+                  and min(traps.values()) > 1.0)
+            # bytes this data needs: each row's K and V codes and metadata, q and out
+            nbytes = toks * Hkv * KV_TOKEN_BYTES[kernel](D) + 2 * (2 * B * Hq * D)
+            bound_ms, bound_by = bound(4 * Hq * D * toks, nbytes)
+            row = {'phase': 'kernel', 'kernel': kernel, 'case': label, 'quant_policy': policy,
+                   'shape': [B, Hq, Hkv, D, BS, W], 'softcap': softcap,
+                   'mean_kv_len': float(kv_lens.float().mean()), 'max_kv_len': int(lens.max()),
+                   'max_abs_err': err, 'max_rel_err': rel, 'err_over_tol': frac, 'tol': tol,
+                   'zero_rows_ok': zero_ok, 'trap_err_over_tol': traps, 'ok': ok,
+                   'kernel_ms': time_ms(kern), 'plain_ms': time_ms(lambda: plain_on(cache),
+                                                                    **PLAIN_TIMING),
+                   'library_ms': None, 'bound_ms': bound_ms, 'bound_by': bound_by,
+                   'kv_mbytes': nbytes / 1e6}
+            emit(row)
+            results[kernel].append(row)
+            del cache
+            if not ok:
+                raise SystemExit(f'{kernel} disagrees with its plain version, or its check '
+                                 f'misses a trap: {row}')
+        del kvs
+        torch.cuda.empty_cache()
+    return results
+
+
 # -- phase 5 and 6 -------------------------------------------------------------------
-def build_engine(model, max_batch: int, quant_policy: int = 0):
+def build_engine(model, max_batch: int, quant_policy: int = 0, session_len: int = 2048 + 128):
     from lmdeploy_tpu_torch.config import (CacheConfig, EngineConfigBundle, MiscConfig,
                                            SchedulerConfig)
     from lmdeploy_tpu_torch.engine.engine import Engine
@@ -651,7 +848,7 @@ def build_engine(model, max_batch: int, quant_policy: int = 0):
         cache=CacheConfig(block_size=128, num_gpu_blocks=0, cache_max_entry_count=0.5,
                           max_prefill_token_num=8192,
                           quant_policy=QuantPolicy(quant_policy)),
-        scheduler=SchedulerConfig(max_batch_size=max_batch, max_session_len=2048 + 128,
+        scheduler=SchedulerConfig(max_batch_size=max_batch, max_session_len=session_len,
                                   max_prefill_token_num=8192, max_prefill_batch=16),
         misc=MiscConfig(empty_init=True))
     return Engine(None, TpuEngineConfig(quant_policy=quant_policy), configs=bundle)
@@ -693,7 +890,8 @@ def _kernel_counters():
     from lmdeploy_tpu_torch.ops.quant_matmul import w4a16_matmul_gd
     return {'flash_prefill': flash_prefill_attention, 'paged_decode': paged_decode_attention,
             'paged_decode_int8': paged_decode_attention_int8, 'w4a16_gemm': w4a16_matmul_gd,
-            'mxfp4_bmm': mxfp4_bmm}
+            'mxfp4_bmm': mxfp4_bmm,
+            **{kernel: _kv_decode_fns(kernel)[0] for kernel in KV_POLICIES.values()}}
 
 
 def _row_recorders():
@@ -706,24 +904,39 @@ def _row_recorders():
 
 
 def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
-              need_per_step, card: str) -> dict:
+              need_per_step, card: str, short_len: int = 128, long_len: int = 2048,
+              exact: bool = False, shared: dict = None) -> dict:
     """Drive the Engine twice on the same requests (launch counts from the first run,
-    card numbers from the second), then a traced run.  ``need_per_step`` maps each
-    kernel of the path to its launches per (prefill, decode) step.  Returns the first
-    run's launches of every kernel."""
+    card numbers from the second), then a traced run: ``n_short`` prompts of
+    ``short_len`` tokens and one of ``long_len``.  ``need_per_step`` maps each kernel
+    of the path to its launches per (fresh prefill, decode) step; with ``exact`` the
+    first run must launch exactly that many, else at least.  ``shared`` carries the seeded
+    weights from one phase's engine to the next one of the same model.  Returns the
+    phase's row."""
+    from lmdeploy_tpu_torch.models.llama import LlamaModel
     new_tokens = 64
     rng = np.random.RandomState(SEED)
-    prompts = [rng.randint(3, 32000, size=128).tolist() for _ in range(n_short)]
-    prompts.append(rng.randint(3, 32000, size=2048).tolist())
+    prompts = [rng.randint(3, 32000, size=short_len).tolist() for _ in range(n_short)]
+    prompts.append(rng.randint(3, 32000, size=long_len).tolist())
     t_build = time.perf_counter()
-    engine = build_engine(model, max_batch, quant_policy)
+    reuse = shared is not None and 'params' in shared
+    with _swapped(*[(LlamaModel, 'init_params', lambda *a, **k: shared['params'])]
+                  if reuse else []):
+        engine = build_engine(model, max_batch, quant_policy,
+                              session_len=max(2048, long_len) + 128)
     build_s = time.perf_counter() - t_build
     agent = engine.model_agent
-    steps = {'prefill': 0, 'decode': 0}
+    if shared is not None:
+        shared['params'] = agent.params
+    steps = {'prefill': 0, 'fresh_prefill': 0, 'decode': 0}
     prefill, decode_run = agent.prefill, agent.decode_run
 
     def counted_prefill(chunks):
         steps['prefill'] += 1
+        # a step whose every chunk starts its prompt takes flash_prefill; a step with a
+        # continuation chunk of a prompt longer than the token budget takes the dense
+        # gathered path (ops/attention.py)
+        steps['fresh_prefill'] += all(c.start == 0 for c in chunks)
         return prefill(chunks)
 
     def counted_decode_run(num_rows, k=None, *args):
@@ -742,7 +955,7 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
     record = [(m, a, recorder(n, getattr(m, a), f)) for n, (m, a, f) in _row_recorders().items()]
     runs = []
     for i in range(2):
-        steps.update(prefill=0, decode=0)
+        steps.update(prefill=0, fresh_prefill=0, decode=0)
         for fn in counters.values():
             fn.launches = 0
         # the first run also records the rows of every GEMM-kernel call of the path
@@ -760,12 +973,15 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
     finite = all(np.isfinite(lp[tok].logprob)
                  for o in first['outs'] for lp, tok in zip(o.logprobs, o.token_ids))
     deterministic = first['tokens'] == second['tokens']
-    need = {n: per_prefill * first['steps']['prefill'] + per_decode * first['steps']['decode']
+    need = {n: per_prefill * first['steps']['fresh_prefill']
+            + per_decode * first['steps']['decode']
             for n, (per_prefill, per_decode) in need_per_step.items()}
-    launches_ok = all(first['launches'][n] >= need[n] > 0 for n in need)
-    row = {'phase': name, 'model': model_label(model), 'card': card,
+    launches_ok = all((first['launches'][n] == need[n] if exact else
+                       first['launches'][n] >= need[n]) and need[n] > 0 for n in need)
+    row = {'phase': name, 'model': model_label(model, quant_policy), 'card': card,
            'requests': len(prompts), 'new_tokens': new_tokens,
-           'engine_build_s': build_s, 'lengths_ok': lengths_ok, 'logprobs_finite': finite,
+           'engine_build_s': build_s, 'weights_reused': reuse, 'quant_policy': quant_policy,
+           'lengths_ok': lengths_ok, 'logprobs_finite': finite,
            'deterministic': deterministic, 'steps': first['steps'],
            'launches': first['launches'], 'launches_needed': need,
            'launches_ok': launches_ok,
@@ -782,14 +998,20 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
     return row
 
 
-def model_label(model) -> str:
+KV_LABELS = {0: 'bf16 KV', 4: 'int8 KV', 8: 'int4 KV', 16: 'fp8-e4m3 KV',
+             42: 'TurboQuant k4v2 KV'}
+
+
+def model_label(model, policy: int = 0) -> str:
     if model.model_type == 'gpt_oss':
         return (f'gpt-oss-20b geometry, {model.num_layers} layers, MXFP4 experts + bf16 '
                 f'KV, random seeded weights')
-    quant = model.quantization_config
-    width = 'tinyllama-1.1b' if model.hidden_size == 2048 else 'llama2-7b'
-    return (f'{width} geometry, {model.num_layers} layers, '
-            f'{"W4A16 gs128 + int8 KV" if quant else "bf16"}, random seeded weights')
+    width = {2048: 'tinyllama-1.1b', 4096: 'llama2-7b'}.get(model.hidden_size, 'llama')
+    if model.vocab_size == LLAMA31_8B['vocab_size']:
+        width = 'llama-3.1-8b'
+    weights = 'W4A16 gs128' if model.quantization_config else 'bf16'
+    return (f'{width} geometry, {model.num_layers} layers, {weights} + {KV_LABELS[policy]}, '
+            f'random seeded weights')
 
 
 def profile_phase(name, engine, prompts, new_tokens):
@@ -832,15 +1054,17 @@ def _plain_kernels():
     from lmdeploy_tpu_torch.nn import linear
     from lmdeploy_tpu_torch.ops import attention, moe, paged_decode
     from lmdeploy_tpu_torch.ops.flash_prefill import flash_prefill_attention_plain
+    from lmdeploy_tpu_torch.ops.kv_quant import QuantKV, QuantKV4, QuantKVTurbo
     from lmdeploy_tpu_torch.ops.quant_bmm import mxfp4_bmm_plain
-    from lmdeploy_tpu_torch.ops.kv_quant import QuantKV
     from lmdeploy_tpu_torch.ops.quant_matmul import w4a16_matmul_gd_plain
+    quantized = {QuantKV: paged_decode.paged_decode_attention_int8_plain,
+                 QuantKV4: paged_decode.paged_decode_attention_int4_plain,
+                 QuantKVTurbo: paged_decode.paged_decode_attention_turbo_plain}
 
     def decode_plain(q, kv, tables, lens, layer, scale, hkv, logit_softcap=None,
                      window=None, sinks=None):
-        if isinstance(kv, QuantKV):
-            return paged_decode.paged_decode_attention_int8_plain(
-                q, kv, tables, lens, layer, scale, hkv, logit_softcap)
+        if type(kv) in quantized:
+            return quantized[type(kv)](q, kv, tables, lens, layer, scale, hkv, logit_softcap)
         return paged_decode.paged_decode_attention_plain(
             q, kv, tables, lens, layer, scale, hkv, logit_softcap, window, sinks)
     return _swapped((attention, 'flash_prefill_attention', flash_prefill_attention_plain),
@@ -849,13 +1073,27 @@ def _plain_kernels():
                     (moe, 'mxfp4_bmm', mxfp4_bmm_plain))
 
 
-def _parity_traps(cfg16):
+def _parity_traps(cfg16, policy: int):
     """[(trap, swap, side)] ('card' or 'cpu'): the numerical traps of the config's quantized kernel,
     each planted in the plain version (W4_TRAPS in the decode steps' group-dot, on
     the CPU for 'xg_unrounded', the only side with an x wider than bf16; MX_TRAPS in
-    every MXFP4 product of the card's run)."""
+    every MXFP4 product of the card's run; KV_TRAPS in the decode steps' attention
+    over the cache of ``policy``)."""
     from lmdeploy_tpu_torch.nn import linear
-    from lmdeploy_tpu_torch.ops import moe
+    from lmdeploy_tpu_torch.ops import attention, moe
+    if policy in KV_POLICIES:
+        kernel = KV_POLICIES[policy]
+        _, plain = _kv_decode_fns(kernel)
+
+        def trapped(trap):
+            def decode(q, kv, tables, lens, layer, scale, hkv, logit_softcap=None,
+                       window=None, sinks=None):
+                extra = {'window': window, 'sinks': sinks} if kernel == 'paged_decode_fp8' else {}
+                return plain(q, _kv_trapped(trap, kv), tables, lens, layer, scale, hkv,
+                             logit_softcap=logit_softcap, **extra)
+            return decode
+        return [(t, (attention, 'paged_decode_attention', trapped(t)), 'card')
+                for t in KV_TRAPS[kernel]]
     method = (cfg16.quantization_config or {}).get('quant_method')
     if method == 'mxfp4':
         return [(t, (moe, 'mxfp4_bmm', _mx_trapped(t)), 'card') for t in MX_TRAPS]
@@ -865,7 +1103,7 @@ def _parity_traps(cfg16):
     return []
 
 
-def parity_phase(name: str, cfg16, tol: float, kv_int8: bool):
+def parity_phase(name: str, cfg16, tol: float, policy: int = 0):
     """2 full-width layers: the card (bf16, kernels) against the port on the CPU (f32,
     plain paths) on the same weights, prefill logits and 8 teacher-forced decode
     steps.  W4A16 leaves are the same int32 words and f32 scales on both sides; MXFP4
@@ -885,46 +1123,27 @@ def parity_phase(name: str, cfg16, tol: float, kv_int8: bool):
     Beside it, what the same comparison reads (max |logit error|): ``floor`` -- the
     card with every kernel swapped for its plain version (bf16 activations alone);
     and each trap of ``_parity_traps``.  The allowance must lie above ``floor`` and
-    below every trap."""
-    import dataclasses
-
+    below every trap.  ``policy`` is the KV cache's quant_policy on both sides.  With
+    one of the caches this slice adds, the card's prefill attends the chunk's exact K/V
+    (flash_prefill) while the CPU's attends the quantized cache, as in the reference:
+    the prefill logits then differ by the quantization error itself
+    (``prefill_logit_err``), so the phase holds the decode steps, where the policy's
+    kernel runs, and its traps are planted.  Weights are built once for consecutive
+    phases of one config."""
     from lmdeploy_tpu_torch.models import build_model
     from lmdeploy_tpu_torch.models.llama import AttnMeta
     from lmdeploy_tpu_torch.nn.layers import make_rope_table
-    from lmdeploy_tpu_torch.ops.kv_quant import QuantKV
-    from lmdeploy_tpu_torch.ops.quant_bmm import widen_mxfp4
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     m16 = build_model(cfg16)
     m32 = build_model(dataclasses.replace(cfg16, dtype='float32'))
-
-    # identical weights on both sides: bf16-representable dense weights, the same
-    # quantized words, codes and f32 scales
-    w = m32.init_params(SEED, device='cpu', dtype=torch.float32)
-    w_cpu = m32.prep_quant_leaves(m32.fuse_projections(_bf16_tree(w, 'cpu', torch.float32)))
-    for key, leaf in list(w_cpu['layers'].items()):
-        if isinstance(leaf, dict) and 'nib' in leaf:
-            w_cpu['layers'][key] = torch.stack([
-                widen_mxfp4(n.cuda(), s.cuda(), torch.float32).cpu()
-                for n, s in zip(leaf['nib'], leaf['scale'])])
-    w_gpu = m16.prep_quant_leaves(m16.fuse_projections(_bf16_tree(w, 'cuda',
-                                                                  torch.bfloat16)))
-    del w
+    w_cpu, w_gpu = _parity_weights(cfg16, m16, m32)
     B, T, BS, steps = 2, 256, 128, 8
     pages = (T + steps + BS - 1) // BS
     NB = 1 + B * pages
-    Hkv = cfg16.num_key_value_heads
-    shape = (2, NB, 2, BS, Hkv * cfg16.head_dim)
 
     def new_cache(dev):
-        if kv_int8:
-            return QuantKV(torch.zeros(shape, dtype=torch.int8, device=dev),
-                           torch.zeros(shape[:4] + (Hkv,), device=dev))
-        return torch.zeros(shape, dtype=torch.float32 if dev == 'cpu' else torch.bfloat16,
-                           device=dev)
-
-    def clone(kv):
-        return QuantKV(kv.data.clone(), kv.scale.clone()) if kv_int8 else kv.clone()
+        return new_kv_cache(m32.config if dev == 'cpu' else cfg16, NB, BS, policy, dev)
     tables = (1 + torch.arange(B * pages)).reshape(B, pages).int()
     cos, sin = make_rope_table(cfg16.rope_dim, 1024, cfg16.rope_theta, cfg16.rope_scaling)
     rng = np.random.RandomState(SEED)
@@ -965,13 +1184,13 @@ def parity_phase(name: str, cfg16, tol: float, kv_int8: bool):
 
     # the f32 CPU run teacher-forces its own argmax tokens; every other run takes them
     lc0, kv_cpu = prefill('cpu')
-    kv_cpu0, cpu, toks = clone(kv_cpu), [lc0], []
+    kv_cpu0, cpu, toks = kv_cpu.clone(), [lc0], []
     for i in range(steps):
         toks.append(cpu[-1].argmax(-1, keepdim=True).int())
         cpu.append(step('cpu', kv_cpu, toks[-1], T + i, 1, False))
     route['force'] = moe
     lg0, kv_gpu = prefill('card')
-    kv_gpu0 = clone(kv_gpu)
+    kv_gpu0 = kv_gpu.clone()
     card = [lg0] + decode('card', kv_gpu, toks)
     route['record'] = False
 
@@ -989,14 +1208,18 @@ def parity_phase(name: str, cfg16, tol: float, kv_int8: bool):
             worst = max(worst, margins.max().item() / err_j)
             flips_ok &= bool((margins <= 2 * err_j).all())
 
+    held = 1 if policy in KV_POLICIES else 0     # the first step held
+
     def max_err(a, b):
-        return max((x - y).abs().max().item() for x, y in zip(a, b))
+        return max((x - y).abs().max().item() for x, y in list(zip(a, b))[held:])
     errs, agree, decided = [], 0, 0
     for i, (lc, lg) in enumerate(zip(cpu, card)):
         errs.append((lg - lc).abs().max().item())
         top2 = lc.topk(2, dim=-1).values
         margin_ok = (top2[:, 0] - top2[:, 1]) > 2 * tol
         same = lc.argmax(-1) == lg.argmax(-1)
+        if i < held:
+            continue
         agree += int(same.sum())
         decided += int(margin_ok.sum())
         if not bool(same[margin_ok].all()):
@@ -1013,22 +1236,24 @@ def parity_phase(name: str, cfg16, tol: float, kv_int8: bool):
         lf0, kv_f = prefill('card')
         floor = max_err([lf0] + decode('card', kv_f, toks), cpu)
     traps = {}
-    for trap, swap, which in _parity_traps(cfg16):
+    for trap, swap, which in _parity_traps(cfg16, policy):
         with _swapped(swap):
             if which == 'cpu':
-                traps[trap] = max_err([lc0] + decode('cpu', clone(kv_cpu0), toks), card)
+                traps[trap] = max_err([lc0] + decode('cpu', kv_cpu0.clone(), toks), card)
             elif moe:                    # every MXFP4 product of the run is planted
                 lt0, kv_t = prefill('card')
                 traps[trap] = max_err([lt0] + decode('card', kv_t, toks), cpu)
             else:
-                traps[trap] = max_err([lg0] + decode('card', clone(kv_gpu0), toks), cpu)
-    ok = max(errs) <= tol and all(v > tol for v in traps.values()) and flips_ok
-    row = {'phase': name, 'layers': 2, 'model': model_label(cfg16), 'batch': B,
+                traps[trap] = max_err([lg0] + decode('card', kv_gpu0.clone(), toks), cpu)
+    ok = max(errs[held:]) <= tol and all(v > tol for v in traps.values()) and flips_ok
+    row = {'phase': name, 'layers': 2, 'model': model_label(cfg16, policy), 'batch': B,
            'prompt': T, 'decode_steps': steps, 'vocab': cfg16.vocab_size,
-           'max_abs_logit_err': max(errs), 'per_step_err': errs, 'tol': tol,
+           'held_steps': 'decode' if held else 'prefill and decode',
+           'max_abs_logit_err': max(errs[held:]), 'prefill_logit_err': errs[0],
+           'per_step_err': errs, 'tol': tol,
            'floor_bf16_plain': floor, 'trap_max_abs_logit_err': traps,
            'logit_abs_max': cpu[-1].abs().max().item(),
-           'argmax_agree': agree, 'positions': B * (steps + 1),
+           'argmax_agree': agree, 'positions': B * (steps + 1 - held),
            'positions_with_margin': decided, 'ok': ok}
     if moe:
         row.update(routing='card runs take the CPU run\'s expert choices',
@@ -1043,6 +1268,31 @@ def parity_phase(name: str, cfg16, tol: float, kv_int8: bool):
     if not row['ok']:
         raise SystemExit(f'{name} failed (over its allowance, a trap reads within it, or '
                          f'a routing flip beyond the bf16 error): {row}')
+
+
+_PARITY_WEIGHTS = {}
+
+
+def _parity_weights(cfg16, m16, m32):
+    """(CPU f32, card bf16) parameter trees with identical values: bf16-representable
+    dense weights, the same quantized words, codes and f32 scales.  Kept for the next
+    parity phase of the same config (the three KV policies share one)."""
+    from lmdeploy_tpu_torch.ops.quant_bmm import widen_mxfp4
+    key = json.dumps(dataclasses.asdict(cfg16), sort_keys=True, default=str)
+    if key in _PARITY_WEIGHTS:
+        return _PARITY_WEIGHTS[key]
+    _PARITY_WEIGHTS.clear()
+    w = m32.init_params(SEED, device='cpu', dtype=torch.float32)
+    w_cpu = m32.prep_quant_leaves(m32.fuse_projections(_bf16_tree(w, 'cpu', torch.float32)))
+    for key_, leaf in list(w_cpu['layers'].items()):
+        if isinstance(leaf, dict) and 'nib' in leaf:
+            w_cpu['layers'][key_] = torch.stack([
+                widen_mxfp4(n.cuda(), s.cuda(), torch.float32).cpu()
+                for n, s in zip(leaf['nib'], leaf['scale'])])
+    w_gpu = m16.prep_quant_leaves(m16.fuse_projections(_bf16_tree(w, 'cuda',
+                                                                  torch.bfloat16)))
+    _PARITY_WEIGHTS[key] = (w_cpu, w_gpu)
+    return w_cpu, w_gpu
 
 
 def _bf16_tree(params, device, dtype):
@@ -1062,7 +1312,7 @@ def _bf16_tree(params, device, dtype):
     return out
 
 
-def kernel_line(flash, decode, decode8, w4, mx):
+def kernel_line(flash, decode, decode8, w4, mx, kv):
     def entry(name, source, replaces, rows, lead, library_ms):
         return {'name': name, 'route': 'cuda', 'source': f'lmdeploy_tpu_torch/csrc/{source}',
                 'replaces': replaces, 'launches': None,
@@ -1084,7 +1334,18 @@ def kernel_line(flash, decode, decode8, w4, mx):
     mx_lead = {k: sum(r[k] for r in mx_layer) for k in ('kernel_ms', 'plain_ms', 'bound_ms')}
     mx_lead['bound_by'] = 'bytes' if all(r['bound_by'] == 'bytes' for r in mx_layer) \
         else 'operations'
-    return [
+    # the KV policies' decode kernels: the e2e_llama31 decode shape
+    kv_lead = {name: next(r for r in rows if r['case'] == 'e2e_shape_llama31')
+               for name, rows in kv.items()}
+    kv_entries = [
+        dict(entry(name, source, f'lmdeploy_tpu/ops/pallas/paged_decode.py:{line}', kv[name],
+                   kv_lead[name], None),
+             shape='e2e_llama31 decode: B 64, Hq 32, Hkv 8, D 128, BS 128, '
+                   f'{kv_lead[name]["mean_kv_len"]:.0f} mean kv tokens')
+        for name, source, line in (('paged_decode_int4', 'paged_decode_int4.cu', 499),
+                                   ('paged_decode_turbo', 'paged_decode_turbo.cu', 371),
+                                   ('paged_decode_fp8', 'paged_decode.cu', 155))]
+    return kv_entries + [
         entry('flash_prefill', 'flash_prefill.cu',
               'lmdeploy_tpu/ops/pallas/flash_prefill.py:76', flash, flash[0],
               flash[0]['library_ms']),
@@ -1111,33 +1372,57 @@ def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
         return 1
+    seconds = {}
+    t_start = time.perf_counter()
+
+    def timed(name, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
     info = device_phase()
-    build_phase()
-    kernels = kernel_line(flash_phase(), decode_phase(), decode_int8_phase(), w4a16_phase(),
-                          mxfp4_phase())
-    parity_phase('parity', tinyllama_config(num_layers=2), LOGIT_TOL, kv_int8=False)
-    parity_phase('parity_w4a16_kv8', llama7b_w4_config(num_layers=2), LOGIT_TOL_W4,
-                 kv_int8=True)
-    parity_phase('parity_gptoss', gptoss_config(num_layers=2), LOGIT_TOL_GPTOSS,
-                 kv_int8=False)
-    L1, L7, LG = (tinyllama_config().num_layers, llama7b_w4_config().num_layers,
-                  gptoss_config().num_layers)
+    timed('build', build_phase)
+    kernels = kernel_line(timed('flash_prefill', flash_phase), timed('paged_decode', decode_phase),
+                          timed('paged_decode_int8', decode_int8_phase),
+                          timed('w4a16_gemm', w4a16_phase), timed('mxfp4_bmm', mxfp4_phase),
+                          timed('paged_decode_kv', decode_kv_phase))
+    timed('parity', parity_phase, 'parity', tinyllama_config(num_layers=2), LOGIT_TOL)
+    timed('parity_w4a16_kv8', parity_phase, 'parity_w4a16_kv8',
+          llama7b_w4_config(num_layers=2), LOGIT_TOL_W4, policy=4)
+    timed('parity_gptoss', parity_phase, 'parity_gptoss', gptoss_config(num_layers=2),
+          LOGIT_TOL_GPTOSS)
+    for policy, tol in LOGIT_TOL_KV.items():
+        name = f'parity_llama31_{KV_PHASE[policy]}'
+        timed(name, parity_phase, name, llama31_config(num_layers=2), tol, policy=policy)
+    _PARITY_WEIGHTS.clear()
+    L1, L7, LG, L31 = (tinyllama_config().num_layers, llama7b_w4_config().num_layers,
+                       gptoss_config().num_layers, llama31_config().num_layers)
     # launches each (prefill step, decode step) needs on each path, and the path whose
-    # launches each kernel's entry reports
-    paths = {
-        'e2e': e2e_phase('e2e', tinyllama_config(), 64, 0, 8,
+    # launches each kernel's entry reports; the Llama-3.1-8B phases share one set of
+    # seeded weights and must launch exactly that many
+    shared = {}
+    paths = {}
+    for policy in KV_POLICIES:
+        name = f'e2e_llama31_8b_{KV_PHASE[policy]}'
+        paths[name] = timed(name, e2e_phase, name, llama31_config(), 64, policy, 63,
+                            {'flash_prefill': (L31, 0), KV_POLICIES[policy]: (0, L31)},
+                            info['nvidia_smi'], short_len=1024, long_len=4096, exact=True,
+                            shared=shared)
+    shared.clear()
+    paths['e2e'] = timed('e2e', e2e_phase, 'e2e', tinyllama_config(), 64, 0, 8,
                          {'flash_prefill': (L1, 0), 'paged_decode': (0, L1)},
-                         info['nvidia_smi']),
-        'e2e_w4a16_kv8': e2e_phase('e2e_w4a16_kv8', llama7b_w4_config(), 128, 4, 64,
-                                   {'flash_prefill': (L7, 0), 'paged_decode_int8': (0, L7),
-                                    'w4a16_gemm': (0, 4 * L7)}, info['nvidia_smi']),
-        'e2e_gptoss_mxfp4': e2e_phase('e2e_gptoss_mxfp4', gptoss_config(), 64, 0, 32,
-                                      {'paged_decode': (0, LG), 'mxfp4_bmm': (0, 3 * LG)},
-                                      info['nvidia_smi']),
-    }
+                         info['nvidia_smi'])
+    paths['e2e_w4a16_kv8'] = timed(
+        'e2e_w4a16_kv8', e2e_phase, 'e2e_w4a16_kv8', llama7b_w4_config(), 128, 4, 64,
+        {'flash_prefill': (L7, 0), 'paged_decode_int8': (0, L7), 'w4a16_gemm': (0, 4 * L7)},
+        info['nvidia_smi'])
+    paths['e2e_gptoss_mxfp4'] = timed(
+        'e2e_gptoss_mxfp4', e2e_phase, 'e2e_gptoss_mxfp4', gptoss_config(), 64, 0, 32,
+        {'paged_decode': (0, LG), 'mxfp4_bmm': (0, 3 * LG)}, info['nvidia_smi'])
     main_path = {'flash_prefill': 'e2e', 'paged_decode': 'e2e',
                  'paged_decode_int8': 'e2e_w4a16_kv8', 'w4a16_gemm': 'e2e_w4a16_kv8',
-                 'mxfp4_bmm': 'e2e_gptoss_mxfp4'}
+                 'mxfp4_bmm': 'e2e_gptoss_mxfp4',
+                 **{kernel: f'e2e_llama31_8b_{KV_PHASE[p]}' for p, kernel in KV_POLICIES.items()}}
     for k in kernels:
         name = k['name']
         k['launches_by_path'] = {p: row['launches'][name] for p, row in paths.items()}
@@ -1145,7 +1430,9 @@ def main():
         rows = paths[main_path[name]]['rows_by_kernel'].get(name)
         if rows:
             k['launches_by_rows'] = rows
-    emit({'kernels': kernels})
+    emit({'phase': 'timing', 'seconds': seconds,
+          'total_s': round(time.perf_counter() - t_start, 1)})
+    emit({'kernels': kernels, 'main_path': main_path})
     print(info['nvidia_smi'], flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': info['kind'],
                                  'count': info['count']}})

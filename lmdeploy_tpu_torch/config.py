@@ -166,10 +166,10 @@ class MiscConfig:
 _UNPORTED_FIELDS = ('tp', 'dp', 'ep', 'cp', 'attn_tp_size', 'mlp_tp_size',
                     'num_cpu_blocks', 'eager_mode', 'role', 'adapters',
                     'dllm_block_length', 'memdecode', 'revision', 'download_dir')
-# the KV cache policies and checkpoint formats the port serves: plain and int8 KV,
-# dense and AWQ / GPTQ W4A16 weights (the format comes from the checkpoint's
-# quantization_config; model_format only names it)
-_PORTED_VALUES = {'quant_policy': (QuantPolicy.NONE, QuantPolicy.KV_INT8),
+# the KV cache policies and checkpoint formats the port serves: every KV policy
+# (plain, int8, int4, fp8, TurboQuant), dense and AWQ / GPTQ W4A16 weights (the format
+# comes from the checkpoint's quantization_config; model_format only names it)
+_PORTED_VALUES = {'quant_policy': tuple(QuantPolicy),
                   'model_format': (None, 'awq', 'gptq')}
 
 

@@ -1,7 +1,8 @@
-// T = 1 attention over a paged bf16 KV cache, for Hopper (sm_90a).
+// T = 1 attention over a paged bf16 or fp8-e4m3 KV cache, for Hopper (sm_90a).
 //
 // Replaces the plain branch of the TPU kernel lmdeploy_tpu/ops/pallas/paged_decode.py
-// (paged_decode_attention, body _decode_kernel).  Same function, same edge cases:
+// (paged_decode_attention, body _decode_kernel), which serves bf16 pages and, with
+// quant_policy 16, fp8-e4m3 pages.  Same function, same edge cases:
 //   * kv_lens[b] counts the token just filled; 0 marks an inactive row, whose
 //     output is 0 (never NaN);
 //   * a sliding window keeps positions pos >= max(len - window, 0) when window > 0;
@@ -10,14 +11,18 @@
 //     row max m is above 0.5 * MASK_VALUE;
 //   * MASK_VALUE = -0.7 * FLT_MAX for masked scores, not -inf.
 //
-// Cache layout: [L, NB, 2, BS, Hkv * D] bf16 -- each page holds a K plane and a V
-// plane of head-major token rows (the reference layout without its 128-lane
+// Cache layout: [L, NB, 2, BS, Hkv * D] bf16 or e4m3 -- each page holds a K plane and
+// a V plane of head-major token rows (the reference layout without its 128-lane
 // padding).  Block 0 is the padding block; tables [B, W] i32 map a row's page
-// index to its block.
+// index to its block.  The element type is a template parameter: e4m3 widens to f32
+// on load (through fp16, exactly), and everything else is the bf16 kernel's.  P stays
+// f32 for the P.V product with either type: the TPU kernel's rounding of P to the
+// page type (pr.astype(v.dtype), e4m3 there) is not copied.
 //
 // What bounds it on an H100: bytes of K/V read.  At bs 64 with ~384 tokens a row,
-// TinyLlama's K+V is 1 KiB per token per layer, 25 MB per layer: ~7.5 us at
-// 3.35 TB/s, against ~0.1 MFLOP of arithmetic per row and head.
+// TinyLlama's bf16 K+V is 1 KiB per token per layer, 25 MB per layer: ~7.5 us at
+// 3.35 TB/s, against ~0.1 MFLOP of arithmetic per row and head.  An e4m3 page is half
+// the bytes: 2,048 per token at Llama-3.1-8B (Hkv 8, D 128).
 //
 // Design (simple and right first; a split over pages, TMA and a pipelined page
 // walk are later work):
@@ -31,6 +36,8 @@
 //     reductions over the page); P.V with one thread per (head, column) and the
 //     accumulator in shared memory, so any G and D in {64, 128} fit.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -51,16 +58,36 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// the page element types: bf16 and e4m3 (its raw byte)
+using fp8_t = __nv_fp8_storage_t;
+
+// elements 2j, 2j+1 of a row held as 32-bit words, widened to f32 (a bf16 is the
+// high half of its f32)
+__device__ __forceinline__ float2 pair_f2(const uint32_t* w, int j, __nv_bfloat16) {
+  return make_float2(__uint_as_float(w[j] << 16), __uint_as_float(w[j] & 0xFFFF0000u));
+}
+
+__device__ __forceinline__ float2 pair_f2(const uint32_t* w, int j, fp8_t) {
+  const __nv_fp8x2_storage_t x2 = static_cast<__nv_fp8x2_storage_t>(w[j >> 1] >> ((j & 1) * 16));
+  return __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(x2, __NV_E4M3)));
+}
+
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+__device__ __forceinline__ float to_f(fp8_t x) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(x, __NV_E4M3)));
+}
+
 __host__ __device__ inline int float_words(int G, int D, int BS) {
   // qs [G][D] + os [G][D] + ps [G][BS] + m, l, alpha [G], rounded to 16 bytes
   return (2 * G * D + G * BS + 3 * G + 3) & ~3;
 }
 
-template <int D>
+template <typename T, int D>
 size_t smem_bytes(int G, int BS) {
   return (size_t)float_words(G, D, BS) * sizeof(float)
-       + (size_t)BS * (D + 8) * sizeof(__nv_bfloat16)      // K slice, padded rows
-       + (size_t)BS * D * sizeof(__nv_bfloat16);           // V slice
+       + (size_t)BS * (D + 16 / sizeof(T)) * sizeof(T)     // K slice, padded rows
+       + (size_t)BS * D * sizeof(T);                       // V slice
 }
 
 // the finished output of one query head from its (acc, m, l), sinks applied
@@ -70,18 +97,19 @@ __device__ __forceinline__ float finish(float acc, float m, float l,
   return acc / (l == 0.f ? 1.f : l);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hq, D]
-                    const __nv_bfloat16* __restrict__ cache,  // [L, NB, 2, BS, Hkv*D]
+                    const T* __restrict__ cache,              // [L, NB, 2, BS, Hkv*D]
                     const int* __restrict__ tables,           // [B, W]
                     const int* __restrict__ kv_lens,          // [B]
                     const float* __restrict__ sinks,          // [Hq] or null
                     __nv_bfloat16* __restrict__ out,          // [B, Hq, D]
                     int Hq, int Hkv, int NB, int BS, int W, int layer,
                     float scale, float softcap, int window) {
-  constexpr int KSTR = D + 8;     // 16-byte padded K rows: conflict-free row reads
-  constexpr int CH = D / 8;       // 16-byte chunks per head row
+  constexpr int EPC = 16 / sizeof(T);   // elements per 16-byte chunk
+  constexpr int KSTR = D + EPC;   // 16-byte padded K rows: conflict-free row reads
+  constexpr int CH = D / EPC;     // 16-byte chunks per head row
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int G = Hq / Hkv;
@@ -97,8 +125,8 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hq, D]
   float* ms = ps + G * BS;          // [G]
   float* ls = ms + G;               // [G]
   float* as = ls + G;               // [G]
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + float_words(G, D, BS));
-  __nv_bfloat16* vs = ks + BS * KSTR;
+  T* ks = reinterpret_cast<T*>(smem + float_words(G, D, BS));
+  T* vs = ks + BS * KSTR;
 
   const __nv_bfloat16* qrow = q + ((long long)b * Hq + (long long)h * G) * D;
   for (int i = tid; i < G * D; i += NT) {
@@ -118,28 +146,29 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hq, D]
     const long long plane = (long long)BS * HD;
     for (int p = ws / BS; p < p_hi; ++p) {
       const int blk = min(max(tables[(long long)b * W + p], 0), NB - 1);
-      const __nv_bfloat16* kpage = cache + ((long long)layer * NB + blk) * 2 * plane + (long long)h * D;
-      const __nv_bfloat16* vpage = kpage + plane;
+      const T* kpage = cache + ((long long)layer * NB + blk) * 2 * plane + (long long)h * D;
+      const T* vpage = kpage + plane;
       for (int i = tid; i < BS * CH; i += NT) {
         const int t = i / CH;
         const int c = i - t * CH;
-        const uint4 kx = *reinterpret_cast<const uint4*>(kpage + (long long)t * HD + c * 8);
-        const uint4 vx = *reinterpret_cast<const uint4*>(vpage + (long long)t * HD + c * 8);
-        *reinterpret_cast<uint4*>(ks + t * KSTR + c * 8) = kx;
-        *reinterpret_cast<uint4*>(vs + t * D + c * 8) = vx;
+        const uint4 kx = *reinterpret_cast<const uint4*>(kpage + (long long)t * HD + c * EPC);
+        const uint4 vx = *reinterpret_cast<const uint4*>(vpage + (long long)t * HD + c * EPC);
+        *reinterpret_cast<uint4*>(ks + t * KSTR + c * EPC) = kx;
+        *reinterpret_cast<uint4*>(vs + t * D + c * EPC) = vx;
       }
       __syncthreads();
 
       for (int t = tid; t < BS; t += NT) {
         const int pos = p * BS + t;
         const bool valid = pos < len && pos >= ws;
-        __nv_bfloat162 kr[D / 2];
+        uint32_t kr[CH * 4];          // the token's K row as raw 32-bit words
 #pragma unroll
         for (int c = 0; c < CH; ++c) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(ks + t * KSTR + c * 8);
-          const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) kr[c * 4 + e] = k2[e];
+          const uint4 raw = *reinterpret_cast<const uint4*>(ks + t * KSTR + c * EPC);
+          kr[c * 4 + 0] = raw.x;
+          kr[c * 4 + 1] = raw.y;
+          kr[c * 4 + 2] = raw.z;
+          kr[c * 4 + 3] = raw.w;
         }
         for (int g = 0; g < G; ++g) {
           const float* qg = qs + g * D;
@@ -147,8 +176,8 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hq, D]
 #pragma unroll
           for (int d = 0; d < D; d += 4) {
             const float4 qv = *reinterpret_cast<const float4*>(qg + d);
-            const float2 ka = __bfloat1622float2(kr[d / 2]);
-            const float2 kb = __bfloat1622float2(kr[d / 2 + 1]);
+            const float2 ka = pair_f2(kr, d / 2, T());
+            const float2 kb = pair_f2(kr, d / 2 + 1, T());
             acc = fmaf(qv.x, ka.x, fmaf(qv.y, ka.y, fmaf(qv.z, kb.x, fmaf(qv.w, kb.y, acc))));
           }
           float s = acc * scale;
@@ -186,7 +215,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hq, D]
         const int d = i - g * D;
         const float* prow = ps + g * BS;
         float acc = os[i] * as[g];
-        for (int t = 0; t < BS; ++t) acc = fmaf(prow[t], __bfloat162float(vs[t * D + d]), acc);
+        for (int t = 0; t < BS; ++t) acc = fmaf(prow[t], to_f(vs[t * D + d]), acc);
         os[i] = acc;
       }
       __syncthreads();
@@ -200,38 +229,31 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hq, D]
   }
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* cache, const int* tables, const int* kv_lens,
                    const float* sinks, void* out, int B, int Hq, int Hkv, int NB, int BS,
                    int W, int layer, float scale, float softcap, int window,
                    cudaStream_t stream) {
-  const size_t bytes = smem_bytes<D>(Hq / Hkv, BS);
+  const size_t bytes = smem_bytes<T, D>(Hq / Hkv, BS);
   static size_t configured = 48 * 1024;
   if (bytes > configured) {
-    cudaError_t e = cudaFuncSetAttribute(paged_decode_kernel<D>,
+    cudaError_t e = cudaFuncSetAttribute(paged_decode_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
     if (e != cudaSuccess) return e;
     configured = bytes;
   }
-  paged_decode_kernel<D><<<dim3(Hkv, B), NT, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(cache),
+  paged_decode_kernel<T, D><<<dim3(Hkv, B), NT, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(cache),
       tables, kv_lens, sinks, static_cast<__nv_bfloat16*>(out),
       Hq, Hkv, NB, BS, W, layer, scale, softcap, window);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// q [B,Hq,D] bf16 contiguous; cache [L,NB,2,BS,Hkv*D] bf16 contiguous; tables [B,W] i32;
-// kv_lens [B] i32; sinks [Hq] f32 or null; out [B,Hq,D] bf16.  softcap <= 0 and
-// window <= 0 disable those options.  Returns the CUDA error code of the launch
-// (0 = launched).
-extern "C" int paged_decode_bf16(const void* q, const void* cache, const void* tables,
-                                 const void* kv_lens, const void* sinks, void* out,
-                                 int B, int Hq, int Hkv, int D, int NB, int BS, int W,
-                                 int layer, float scale, float softcap, int window,
-                                 void* stream) {
+template <typename T>
+int dispatch(const void* q, const void* cache, const void* tables, const void* kv_lens,
+             const void* sinks, void* out, int B, int Hq, int Hkv, int D, int NB, int BS,
+             int W, int layer, float scale, float softcap, int window, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   if (Hkv <= 0 || Hq % Hkv != 0 || BS <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -240,12 +262,36 @@ extern "C" int paged_decode_bf16(const void* q, const void* cache, const void* t
   const float* sk = static_cast<const float*>(sinks);
   switch (D) {
     case 64:
-      return (int)launch<64>(q, cache, tb, kl, sk, out, B, Hq, Hkv, NB, BS, W, layer,
-                             scale, softcap, window, s);
+      return (int)launch<T, 64>(q, cache, tb, kl, sk, out, B, Hq, Hkv, NB, BS, W, layer,
+                                scale, softcap, window, s);
     case 128:
-      return (int)launch<128>(q, cache, tb, kl, sk, out, B, Hq, Hkv, NB, BS, W, layer,
-                              scale, softcap, window, s);
+      return (int)launch<T, 128>(q, cache, tb, kl, sk, out, B, Hq, Hkv, NB, BS, W, layer,
+                                 scale, softcap, window, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// q [B,Hq,D] bf16 contiguous; cache [L,NB,2,BS,Hkv*D] bf16 (paged_decode_bf16) or e4m3
+// (paged_decode_fp8) contiguous; tables [B,W] i32; kv_lens [B] i32; sinks [Hq] f32 or
+// null; out [B,Hq,D] bf16.  softcap <= 0 and window <= 0 disable those options.
+// Returns the CUDA error code of the launch (0 = launched).
+extern "C" int paged_decode_bf16(const void* q, const void* cache, const void* tables,
+                                 const void* kv_lens, const void* sinks, void* out,
+                                 int B, int Hq, int Hkv, int D, int NB, int BS, int W,
+                                 int layer, float scale, float softcap, int window,
+                                 void* stream) {
+  return dispatch<__nv_bfloat16>(q, cache, tables, kv_lens, sinks, out, B, Hq, Hkv, D, NB,
+                                 BS, W, layer, scale, softcap, window, stream);
+}
+
+extern "C" int paged_decode_fp8(const void* q, const void* cache, const void* tables,
+                                const void* kv_lens, const void* sinks, void* out,
+                                int B, int Hq, int Hkv, int D, int NB, int BS, int W,
+                                int layer, float scale, float softcap, int window,
+                                void* stream) {
+  return dispatch<fp8_t>(q, cache, tables, kv_lens, sinks, out, B, Hq, Hkv, D, NB, BS, W,
+                         layer, scale, softcap, window, stream);
 }

@@ -1,0 +1,285 @@
+// T = 1 attention over a paged int4 KV cache, for Hopper (sm_90a).
+//
+// Replaces the int4 branch of the TPU kernel lmdeploy_tpu/ops/pallas/paged_decode.py
+// (paged_decode_attention, body _decode_kernel_quant4, softmax step _softmax_update).
+// Same function, in the same order:
+//   qs = q * scale;  s = (qs . k_q) * ksc + (sum_d qs) * kmin, the sum over the head's
+//   own D dims (what the reference's zero-padded block-diagonal q gives);  optional
+//   softcap tanh(s / c) * c;  mask by kv_len (MASK_VALUE = -0.7 * FLT_MAX, not -inf);
+//   online softmax in f32 with l summing the unscaled p;
+//   acc += (p * vsc) @ v_q + rowsum(p * vmin);  out = acc / l  (l == 0 -> 1).
+// k_q, v_q are the 4-bit codes 0..15, unpacked with integer ops.  kv_lens[b] counts
+// the token just filled; 0 marks an inactive row, whose output is 0.  No window and
+// no sinks: the reference never sends those to this kernel.
+//
+// Cache layout (the port's, ops/kv_quant.py): data u8 [L, NB, 2, BS, Hkv * D / 2] -- a
+// K plane and a V plane per page, byte j of a token's head-major row holding dim 2j
+// in its low nibble and dim 2j+1 in its high one, so a head's D / 2 bytes are
+// contiguous and every token owns its bytes; scale and minv f32 [L, NB, 2, BS, Hkv],
+// token-major.  (The reference packs token pairs into one byte row and keeps
+// de-interleaved head-major scales, shapes Mosaic forced; weight_convert maps the two.)
+// Block 0 is the padding block; tables [B, W] i32 map a row's page index to its block.
+//
+// What bounds it on an H100: bytes of K/V read.  Per token and layer:
+// Hkv * (2 * D / 2 code bytes + 4 * 4 scale and min bytes) -- 1,152 bytes at
+// Llama-3.1-8B (Hkv 8, D 128), 28% of the bf16 cache's 4,096.
+//
+// Design (paged_decode_int8.cu's, with nibble pages; a split over pages, TMA and
+// tensor-core scores are later work):
+//   * One block per (kv head, batch row) walks the row's pages up to its length.
+//   * The G query heads of the GQA group share every page the block loads.
+//   * Per page: the head's [BS, D / 2] byte slices of the K and V planes go to shared
+//     memory with 16-byte loads, the page's BS K and V scales and mins of this head
+//     beside them; scores with one thread per token (a 32-bit word holds 8 codes,
+//     code i at bits 4i..4i+3 is dim 8w + i); online softmax per query head (warp
+//     reductions), which also sums p * vmin; P.V with one thread per (head, column),
+//     accumulator in shared memory.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int NT = 128;
+constexpr float MASK_VALUE = -0.7f * 3.402823466e38f;
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// code i (0..7) of a packed word, as float
+__device__ __forceinline__ float nib_f(uint32_t w, int i) {
+  return static_cast<float>((w >> (4 * i)) & 0xFu);
+}
+
+__host__ __device__ inline int float_words(int G, int D, int BS) {
+  // qs [G][D] + os [G][D] + ps [G][BS] + m, l, alpha, qsum, pmin [G]
+  // + ksc, kmn, vsc, vmn [BS], rounded to 16 bytes
+  return (2 * G * D + G * BS + 5 * G + 4 * BS + 3) & ~3;
+}
+
+template <int D>
+size_t smem_bytes(int G, int BS) {
+  return (size_t)float_words(G, D, BS) * sizeof(float)
+       + (size_t)BS * (D / 2 + 16)      // K slice, 16-byte padded rows
+       + (size_t)BS * (D / 2);          // V slice
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT)
+paged_decode_int4_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
+                         const uint8_t* __restrict__ data,      // [L, NB, 2, BS, Hkv*D/2]
+                         const float* __restrict__ scales,      // [L, NB, 2, BS, Hkv]
+                         const float* __restrict__ minv,        // [L, NB, 2, BS, Hkv]
+                         const int* __restrict__ tables,        // [B, W]
+                         const int* __restrict__ kv_lens,       // [B]
+                         __nv_bfloat16* __restrict__ out,       // [B, Hq, D]
+                         int Hq, int Hkv, int NB, int BS, int W, int layer,
+                         float scale, float softcap) {
+  constexpr int DB = D / 2;       // code bytes per head row
+  constexpr int KSTR = DB + 16;   // padded K rows: conflict-free 16-byte row reads
+  constexpr int CH = DB / 16;     // 16-byte chunks per head row
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int G = Hq / Hkv;
+  const int RB = Hkv * DB;        // bytes per token row of a plane
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                 // [G][D]  q * scale
+  float* os = qs + G * D;           // [G][D]
+  float* ps = os + G * D;           // [G][BS]
+  float* ms = ps + G * BS;          // [G]
+  float* ls = ms + G;               // [G]
+  float* as = ls + G;               // [G]
+  float* qsum = as + G;             // [G]  sum_d qs
+  float* pmin = qsum + G;           // [G]  this page's sum_t p * vmin
+  float* ksc = pmin + G;            // [BS]
+  float* kmn = ksc + BS;            // [BS]
+  float* vsc = kmn + BS;            // [BS]
+  float* vmn = vsc + BS;            // [BS]
+  uint8_t* ks = reinterpret_cast<uint8_t*>(smem + float_words(G, D, BS));
+  uint8_t* vs = ks + BS * KSTR;
+
+  const __nv_bfloat16* qrow = q + ((long long)b * Hq + (long long)h * G) * D;
+  for (int i = tid; i < G * D; i += NT) {
+    qs[i] = __bfloat162float(qrow[i]) * scale;
+    os[i] = 0.f;
+  }
+  for (int g = tid; g < G; g += NT) {
+    ms[g] = MASK_VALUE;
+    ls[g] = 0.f;
+  }
+  __syncthreads();
+  for (int g = warp; g < G; g += NT / 32) {
+    float sum = 0.f;
+    for (int d = lane; d < D; d += 32) sum += qs[g * D + d];
+    sum = warp_sum(sum);
+    if (lane == 0) qsum[g] = sum;
+  }
+  __syncthreads();
+
+  const int len = kv_lens[b];
+  const int p_hi = min((len + BS - 1) / BS, W);
+  const long long plane = (long long)BS * RB;
+  const long long splane = (long long)BS * Hkv;
+  for (int p = 0; p < p_hi; ++p) {
+    const int blk = min(max(tables[(long long)b * W + p], 0), NB - 1);
+    const long long page = (long long)layer * NB + blk;
+    const uint8_t* kpage = data + page * 2 * plane + (long long)h * DB;
+    const uint8_t* vpage = kpage + plane;
+    const long long soff = page * 2 * splane + h;
+    for (int i = tid; i < BS * CH; i += NT) {
+      const int t = i / CH;
+      const int c = i - t * CH;
+      *reinterpret_cast<uint4*>(ks + t * KSTR + c * 16) =
+          *reinterpret_cast<const uint4*>(kpage + (long long)t * RB + c * 16);
+      *reinterpret_cast<uint4*>(vs + t * DB + c * 16) =
+          *reinterpret_cast<const uint4*>(vpage + (long long)t * RB + c * 16);
+    }
+    for (int t = tid; t < BS; t += NT) {
+      ksc[t] = scales[soff + (long long)t * Hkv];
+      kmn[t] = minv[soff + (long long)t * Hkv];
+      vsc[t] = scales[soff + splane + (long long)t * Hkv];
+      vmn[t] = minv[soff + splane + (long long)t * Hkv];
+    }
+    __syncthreads();
+
+    for (int t = tid; t < BS; t += NT) {
+      const bool valid = p * BS + t < len;
+      uint32_t kr[D / 8];
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(ks + t * KSTR + c * 16);
+        kr[c * 4 + 0] = raw.x;
+        kr[c * 4 + 1] = raw.y;
+        kr[c * 4 + 2] = raw.z;
+        kr[c * 4 + 3] = raw.w;
+      }
+      for (int g = 0; g < G; ++g) {
+        const float* qg = qs + g * D;
+        float acc = 0.f;
+#pragma unroll
+        for (int w = 0; w < D / 8; ++w) {
+          const float4 qa = *reinterpret_cast<const float4*>(qg + 8 * w);
+          const float4 qb = *reinterpret_cast<const float4*>(qg + 8 * w + 4);
+          const uint32_t k = kr[w];
+          acc = fmaf(qa.x, nib_f(k, 0), acc);
+          acc = fmaf(qa.y, nib_f(k, 1), acc);
+          acc = fmaf(qa.z, nib_f(k, 2), acc);
+          acc = fmaf(qa.w, nib_f(k, 3), acc);
+          acc = fmaf(qb.x, nib_f(k, 4), acc);
+          acc = fmaf(qb.y, nib_f(k, 5), acc);
+          acc = fmaf(qb.z, nib_f(k, 6), acc);
+          acc = fmaf(qb.w, nib_f(k, 7), acc);
+        }
+        float s = acc * ksc[t] + qsum[g] * kmn[t];
+        if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
+        ps[g * BS + t] = valid ? s : MASK_VALUE;
+      }
+    }
+    __syncthreads();
+
+    for (int g = warp; g < G; g += NT / 32) {
+      float* prow = ps + g * BS;
+      float mx = MASK_VALUE;
+      for (int t = lane; t < BS; t += 32) mx = fmaxf(mx, prow[t]);
+      mx = warp_max(mx);
+      const float m_old = ms[g];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f, smin = 0.f;
+      for (int t = lane; t < BS; t += 32) {
+        const float e = expf(prow[t] - m_new);
+        sum += e;                     // l sums the unscaled p
+        smin = fmaf(e, vmn[t], smin); // rowsum(p * vmin)
+        prow[t] = e * vsc[t];         // P.V takes p * vsc
+      }
+      sum = warp_sum(sum);
+      smin = warp_sum(smin);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        as[g] = alpha;
+        ls[g] = ls[g] * alpha + sum;
+        ms[g] = m_new;
+        pmin[g] = smin;
+      }
+    }
+    __syncthreads();
+
+    for (int i = tid; i < G * D; i += NT) {
+      const int g = i / D;
+      const int d = i - g * D;
+      const float* prow = ps + g * BS;
+      const uint8_t* vcol = vs + (d >> 1);
+      const int shift = (d & 1) * 4;
+      float acc = 0.f;
+      for (int t = 0; t < BS; ++t)
+        acc = fmaf(prow[t], static_cast<float>((vcol[t * DB] >> shift) & 0xF), acc);
+      os[i] = os[i] * as[g] + (acc + pmin[g]);
+    }
+    __syncthreads();
+  }
+
+  __nv_bfloat16* orow = out + ((long long)b * Hq + (long long)h * G) * D;
+  for (int i = tid; i < G * D; i += NT) {
+    const float l = ls[i / D];
+    orow[i] = __float2bfloat16(len > 0 ? os[i] / (l == 0.f ? 1.f : l) : 0.f);
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* data, const void* scales, const void* minv,
+                   const int* tables, const int* kv_lens, void* out, int B, int Hq, int Hkv,
+                   int NB, int BS, int W, int layer, float scale, float softcap,
+                   cudaStream_t stream) {
+  const size_t bytes = smem_bytes<D>(Hq / Hkv, BS);
+  static size_t configured = 48 * 1024;
+  if (bytes > configured) {
+    cudaError_t e = cudaFuncSetAttribute(paged_decode_int4_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+    if (e != cudaSuccess) return e;
+    configured = bytes;
+  }
+  paged_decode_int4_kernel<D><<<dim3(Hkv, B), NT, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(data),
+      static_cast<const float*>(scales), static_cast<const float*>(minv), tables, kv_lens,
+      static_cast<__nv_bfloat16*>(out), Hq, Hkv, NB, BS, W, layer, scale, softcap);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q [B,Hq,D] bf16; data [L,NB,2,BS,Hkv*D/2] u8; scales, minv [L,NB,2,BS,Hkv] f32;
+// tables [B,W] i32; kv_lens [B] i32; out [B,Hq,D] bf16; all contiguous.  softcap <= 0
+// disables it.  Returns the CUDA error code of the launch (0 = launched).
+extern "C" int paged_decode_int4(const void* q, const void* data, const void* scales,
+                                 const void* minv, const void* tables, const void* kv_lens,
+                                 void* out, int B, int Hq, int Hkv, int D, int NB, int BS,
+                                 int W, int layer, float scale, float softcap, void* stream) {
+  if (B <= 0) return (int)cudaSuccess;
+  if (Hkv <= 0 || Hq % Hkv != 0 || BS <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* tb = static_cast<const int*>(tables);
+  const int* kl = static_cast<const int*>(kv_lens);
+  switch (D) {
+    case 64:
+      return (int)launch<64>(q, data, scales, minv, tb, kl, out, B, Hq, Hkv, NB, BS, W,
+                             layer, scale, softcap, s);
+    case 128:
+      return (int)launch<128>(q, data, scales, minv, tb, kl, out, B, Hq, Hkv, NB, BS, W,
+                              layer, scale, softcap, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}

@@ -1,14 +1,22 @@
 """Paged KV-cache allocation in device memory.
 
-Port of the plain and int8 parts of ``lmdeploy_tpu/engine/cache_engine.py``.  The
-cache is ONE tensor ``[num_layers, num_blocks, 2, block_size, Hkv*D]`` (see
-``ops/attention.py``), allocated once and written in place by every step; with
-``quant_policy=4`` (KV int8) it is a ``QuantKV`` of int8 pages of that shape plus f32
-scales ``[num_layers, num_blocks, 2, block_size, Hkv]`` (``ops/kv_quant.py``).  Block 0
-is the reserved padding block (``paging/block_manager.py``).  The block budget comes
-from the device's free memory (``torch.cuda.mem_get_info``) times
-``cache_max_entry_count``, after the weights are resident.  Host swap pools and the
-int4, fp8 and TurboQuant caches are later slices.
+Port of ``lmdeploy_tpu/engine/cache_engine.py``.  The cache is ONE tensor
+``[num_layers, num_blocks, 2, block_size, Hkv*D]`` (see ``ops/attention.py``),
+allocated once and written in place by every step.  ``quant_policy`` picks its type
+(``ops/kv_quant.py`` has the layouts):
+  * 0: the model's dtype;
+  * 4 (KV int8): a ``QuantKV`` of int8 pages of that shape plus f32 scales
+    ``[num_layers, num_blocks, 2, block_size, Hkv]``;
+  * 8 (KV int4): a ``QuantKV4`` of u8 pages ``[..., Hkv*D/2]`` (two codes a byte) plus
+    f32 scales and mins of the int8 scales' shape;
+  * 16 (KV fp8): the plain layout in ``float8_e4m3fn``;
+  * 42 (TurboQuant k4v2): a ``QuantKVTurbo`` of u8 token rows
+    ``[num_layers, num_blocks, block_size, 3*Hkv*D/4]`` (K codes, then V codes) plus
+    f32 meta ``[num_layers, num_blocks, block_size, 3, Hkv]``.
+Block 0 is the reserved padding block (``paging/block_manager.py``).  The block budget
+comes from the device's free memory (``torch.cuda.mem_get_info``) times
+``cache_max_entry_count``, after the weights are resident; ``block_bytes`` counts
+the bytes the chosen layout really takes.  Host swap pools are a later slice.
 """
 from __future__ import annotations
 
@@ -16,7 +24,7 @@ import torch
 
 from ..config import CacheConfig, ModelConfig
 from ..messages import QuantPolicy
-from ..ops.kv_quant import QuantKV
+from ..ops.kv_quant import QuantKV, QuantKV4, QuantKVTurbo
 
 CPU_CACHE_BYTES = 256 * 1024 * 1024     # budget when serving on the CPU (tests)
 
@@ -25,41 +33,53 @@ class CacheEngine:
 
     def __init__(self, model_config: ModelConfig, cache_config: CacheConfig,
                  device: torch.device):
-        if cache_config.quant_policy not in (QuantPolicy.NONE, QuantPolicy.KV_INT8):
-            raise NotImplementedError(f'quant_policy={int(cache_config.quant_policy)} '
-                                      f'KV caches are not ported yet')
         self.model_config = model_config
         self.cache_config = cache_config
         self.device = device
+        cfg = model_config
+        self.policy = QuantPolicy(cache_config.quant_policy)
+        if self.policy == QuantPolicy.TURBO_QUANT and (
+                cfg.head_dim % 4 or cfg.head_dim & (cfg.head_dim - 1)):
+            raise ValueError(f'TurboQuant needs a power-of-two head_dim, got {cfg.head_dim}')
         if cache_config.num_gpu_blocks <= 0:
             cache_config.num_gpu_blocks = self._derive_num_blocks()
         self.num_blocks = cache_config.num_gpu_blocks
-        cfg = model_config
         self.row_width = cfg.num_key_value_heads * cfg.head_dim
-        shape = (cfg.num_layers, self.num_blocks, 2, cache_config.block_size,
-                 self.row_width)
-        if self.quantized:
-            self.kv_cache = QuantKV(
-                torch.zeros(shape, dtype=torch.int8, device=device),
-                torch.zeros(shape[:4] + (cfg.num_key_value_heads,), dtype=torch.float32,
-                            device=device))
-        else:
-            self.kv_cache = torch.zeros(shape, dtype=cfg.torch_dtype(), device=device)
+        self.kv_cache = self._alloc()
 
-    @property
-    def quantized(self) -> bool:
-        return self.cache_config.quant_policy == QuantPolicy.KV_INT8
+    def _alloc(self):
+        cfg = self.model_config
+        L, NB, BS, hkv = (cfg.num_layers, self.num_blocks, self.cache_config.block_size,
+                          cfg.num_key_value_heads)
+        hd = self.row_width
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        if self.policy == QuantPolicy.KV_INT8:
+            return QuantKV(zeros(L, NB, 2, BS, hd, dtype=torch.int8), zeros(L, NB, 2, BS, hkv))
+        if self.policy == QuantPolicy.KV_INT4:
+            return QuantKV4(zeros(L, NB, 2, BS, hd // 2, dtype=torch.uint8),
+                            zeros(L, NB, 2, BS, hkv), zeros(L, NB, 2, BS, hkv))
+        if self.policy == QuantPolicy.TURBO_QUANT:
+            return QuantKVTurbo(zeros(L, NB, BS, 3 * hd // 4, dtype=torch.uint8),
+                                zeros(L, NB, BS, 3, hkv))
+        dtype = torch.float8_e4m3fn if self.policy == QuantPolicy.KV_FP8 else cfg.torch_dtype()
+        return zeros(L, NB, 2, BS, hd, dtype=dtype)
 
     def block_bytes(self) -> int:
+        """Device bytes of one block across all layers, in the allocated layout."""
         cfg = self.model_config
-        itemsize = 1 if self.quantized else torch.tensor(
-            [], dtype=cfg.torch_dtype()).element_size()
-        per = (cfg.num_layers * 2 * self.cache_config.block_size
-               * cfg.num_key_value_heads * cfg.head_dim * itemsize)
-        if self.quantized:          # + one f32 scale per (token, head, plane)
-            per += (cfg.num_layers * 2 * self.cache_config.block_size
-                    * cfg.num_key_value_heads * 4)
-        return per
+        tokens = cfg.num_layers * self.cache_config.block_size   # token rows per block
+        hkv, hd = cfg.num_key_value_heads, cfg.num_key_value_heads * cfg.head_dim
+        if self.policy == QuantPolicy.KV_INT8:       # int8 K and V + f32 scales
+            return tokens * 2 * (hd + 4 * hkv)
+        if self.policy == QuantPolicy.KV_INT4:       # nibble K and V + f32 scales, mins
+            return tokens * 2 * (hd // 2 + 8 * hkv)
+        if self.policy == QuantPolicy.TURBO_QUANT:   # 4-bit K, 2-bit V + 3 f32 metas
+            return tokens * (3 * hd // 4 + 12 * hkv)
+        if self.policy == QuantPolicy.KV_FP8:
+            return tokens * 2 * hd
+        return tokens * 2 * hd * torch.tensor([], dtype=cfg.torch_dtype()).element_size()
 
     def _derive_num_blocks(self) -> int:
         """Free device memory -> block count (call after the weights are resident)."""

@@ -119,7 +119,9 @@ class ModelAgent:
 
     @property
     def kv_cache(self):
-        """The paged cache: a tensor, or a ``QuantKV`` with ``quant_policy=4``."""
+        """The paged cache (``engine/cache_engine.py``): a tensor with quant_policy 0
+        (model dtype) or 16 (fp8-e4m3), a ``QuantKV`` with 4, a ``QuantKV4`` with 8, a
+        ``QuantKVTurbo`` with 42."""
         return self.cache_engine.kv_cache
 
     # -- slot management --------------------------------------------------------------

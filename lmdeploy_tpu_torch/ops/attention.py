@@ -1,6 +1,6 @@
 """Paged attention over a block-table KV cache: cache layout, fill, gather, dispatch.
 
-Port of the plain-cache and int8-cache parts of ``lmdeploy_tpu/ops/attention.py``.
+Port of ``lmdeploy_tpu/ops/attention.py``.
 
 The cache is ONE tensor ``[L, num_blocks, 2, block_size, Hkv*D]``: each page holds a K
 plane and a V plane of head-major token rows, as in the reference but without its
@@ -10,17 +10,24 @@ padding block: padded rows and padded tokens write there and read from there, so
 index ever leaves the cache.  Writes are in place (``index_copy_``); there is no
 buffer donation to lean on, so nothing here returns a new cache.
 
-An int8 cache (``ops/kv_quant.QuantKV``, quant_policy 4) holds int8 pages of the same
-geometry plus f32 scales ``[L, NB, 2, BS, Hkv]``: the fill quantizes each (token,
-head) row and scatters the int8 rows and the ``[Hkv]`` scale rows at the same row
-indices; the gather dequantizes.
+The quantized caches (``ops/kv_quant.py`` has their layouts) are filled by
+quantizing each (token, head) row and scattering every tensor of the cache at the
+token's row index, one ``index_copy_`` each:
+  * int8 ``QuantKV`` (quant_policy 4) and int4 ``QuantKV4`` (8): code planes plus
+    token-major scale (and min) rows; the gather dequantizes in f32;
+  * fp8 (16): the plain cache in ``float8_e4m3fn``, written through its byte view
+    (the CPU has no ``index_copy_`` for fp8) with the reference's cast
+    (``kv_quant.to_fp8``: NaN past the e4m3 range, as JAX gives);
+  * TurboQuant ``QuantKVTurbo`` (42): K and V rows Hadamard-rotated per head, then
+    coded; the cache lives in the rotated domain, so every path that reads it rotates
+    q in and the output back (the reference's :501-533).
 
 ``paged_attention`` picks the path from the tensor's device (the rules of the
-reference's ``paged_attention`` :584-629):
-  * CUDA, T == 1 (decode)                    -> ``ops/paged_decode.py`` kernel (on an
-    int8 cache only without window and sinks)
+reference's ``paged_attention`` :475-629):
+  * CUDA, T == 1 (decode)                    -> an ``ops/paged_decode.py`` kernel (on
+    an int8, int4 or TurboQuant cache only without window and sinks)
   * CUDA, fresh prefill, no softcap/window   -> ``ops/flash_prefill.py`` kernel, over
-    the chunk's exact K/V also with an int8 cache
+    the chunk's exact K/V also with a quantized cache
   * everything else (chunked continuation, prefix hits, CPU) -> gather + dense torch,
     as the reference does in XLA.
 """
@@ -31,11 +38,16 @@ from typing import Optional, Tuple
 import torch
 
 from .flash_prefill import flash_prefill_attention
-from .kv_quant import QuantKV, quantize_rows
+from .kv_quant import (QuantKV, QuantKV4, QuantKVTurbo, dequantize_turbo_k,
+                       dequantize_turbo_v, hadamard_rotate, hadamard_rotate_inv,
+                       pack_2bit, pack_nibbles, quantize_rows, quantize_rows_int4,
+                       quantize_rows_turbo_k, quantize_rows_turbo_v, to_fp8,
+                       unpack_2bit, unpack_nibbles)
 from .paged_decode import paged_decode_attention
 
 # the dense path's score tensor per query tile, f32 bytes
 SCORE_TILE_BYTES = 512 * 1024 * 1024
+QUANT_CACHES = (QuantKV, QuantKV4, QuantKVTurbo)
 
 
 def compute_slot_mapping(block_tables: torch.Tensor, history_lens: torch.Tensor,
@@ -55,21 +67,30 @@ def compute_slot_mapping(block_tables: torch.Tensor, history_lens: torch.Tensor,
     return torch.where(valid, slots, blk_off).reshape(B * T)
 
 
-def fill_kv_cache(kv_cache: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+def _as_stored(kv_cache: torch.Tensor, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the cache's writable view, ``x`` in the cache's type): an fp8 cache is written
+    through its byte view with the reference's cast."""
+    if kv_cache.dtype == torch.float8_e4m3fn:
+        return kv_cache.view(torch.uint8), to_fp8(x)
+    return kv_cache, x.to(kv_cache.dtype)
+
+
+def fill_kv_cache(kv_cache, k_new: torch.Tensor, v_new: torch.Tensor,
                   slot_mapping: torch.Tensor, layer: int,
                   page_tables: Optional[torch.Tensor] = None) -> None:
     """Write new K/V rows into layer ``layer`` of the cache, in place.
 
     k_new/v_new: [N, Hkv, D]; slot_mapping: [N] flat slots (block * BS + offset).
     ``page_tables`` [B, W] is passed only for fresh prefill (history 0, contiguous
-    positions): whole [2, BS, HD] pages are then written at once, as the reference's
-    page-granular path does.  Rows shorter than T write garbage into their last
-    partial page beyond q_len (masked by length, overwritten later) and into block 0.
-    An int8 cache always takes the row scatter (reference :110-111, :136-162).
+    positions): whole [2, BS, HD] pages of a plain (or fp8) cache are then written at
+    once, as the reference's page-granular path does.  Rows shorter than T write
+    garbage into their last partial page beyond q_len (masked by length, overwritten
+    later) and into block 0.  A quantized cache always takes the row scatter
+    (reference :110-127).
     """
     L, nb, _, bs, hd = kv_cache.shape
     N = k_new.shape[0]
-    if page_tables is not None and not isinstance(kv_cache, QuantKV):
+    if page_tables is not None and not isinstance(kv_cache, QUANT_CACHES):
         B = page_tables.shape[0]
         T = N // B
         if T % bs == 0 and page_tables.shape[1] >= T // bs:
@@ -78,7 +99,8 @@ def fill_kv_cache(kv_cache: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tens
             rows_v = v_new.reshape(B, n_pages, bs, hd)
             upd = torch.stack([rows_k, rows_v], dim=2).reshape(B * n_pages, 2, bs, hd)
             idx = page_tables[:, :n_pages].reshape(-1).long().clamp(0, nb - 1)
-            kv_cache[layer].index_copy_(0, idx, upd.to(kv_cache.dtype))
+            dst, upd = _as_stored(kv_cache, upd)
+            dst[layer].index_copy_(0, idx, upd)
             return
     # row scatter; the reference drops out-of-range slots (mode='drop'): here
     # they are sent to the padding block, whose contents are don't-care
@@ -86,42 +108,75 @@ def fill_kv_cache(kv_cache: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tens
     block = slots // bs
     off = slots % bs
     block = torch.where((block >= 0) & (block < nb), block, torch.zeros_like(block))
+    if isinstance(kv_cache, QuantKVTurbo):
+        _fill_turbo(kv_cache, k_new, v_new, (layer * nb + block) * bs + off)
+        return
     k_idx = ((layer * nb + block) * 2) * bs + off
     rows = torch.cat([k_idx, k_idx + bs])
-    if isinstance(kv_cache, QuantKV):
-        # per-(token, head) int8; the [L, NB, 2, BS, Hkv] scales share the data's
-        # leading dims, so one [Hkv] scale row lands at the same row index
-        kq, ksc = quantize_rows(k_new)                      # [N, Hkv, D], [N, Hkv]
-        vq, vsc = quantize_rows(v_new)
-        hkv = kv_cache.scale.shape[-1]
-        kv_cache.data.view(L * nb * 2 * bs, hd).index_copy_(
-            0, rows, torch.cat([kq.reshape(N, hd), vq.reshape(N, hd)]))
-        kv_cache.scale.view(L * nb * 2 * bs, hkv).index_copy_(
-            0, rows, torch.cat([ksc, vsc]))
+    if isinstance(kv_cache, (QuantKV, QuantKV4)):
+        # per-(token, head) codes; the [L, NB, 2, BS, Hkv] scale (and min) pages share
+        # the data's leading dims, so one [Hkv] row of each lands at the same row index
+        if isinstance(kv_cache, QuantKV):
+            (kq, *kpar), (vq, *vpar) = quantize_rows(k_new), quantize_rows(v_new)
+        else:
+            (kq, *kpar), (vq, *vpar) = quantize_rows_int4(k_new), quantize_rows_int4(v_new)
+            kq, vq = pack_nibbles(kq), pack_nibbles(vq)
+        data, *params = kv_cache.tensors()
+        width = data.shape[-1]
+        data.view(-1, width).index_copy_(
+            0, rows, torch.cat([kq.reshape(N, width), vq.reshape(N, width)]))
+        for dst, kp, vp in zip(params, kpar, vpar):
+            dst.view(-1, dst.shape[-1]).index_copy_(0, rows, torch.cat([kp, vp]))
         return
-    flat = kv_cache.view(L * nb * 2 * bs, hd)
-    flat.index_copy_(0, rows, torch.cat([k_new.reshape(N, hd), v_new.reshape(N, hd)]
-                                        ).to(kv_cache.dtype))
+    dst, upd = _as_stored(kv_cache, torch.cat([k_new.reshape(N, hd), v_new.reshape(N, hd)]))
+    dst.view(L * nb * 2 * bs, hd).index_copy_(0, rows, upd)
 
 
-def gather_layer_kv(kv_cache: torch.Tensor, layer: int, block_tables: torch.Tensor,
+def _fill_turbo(kv: QuantKVTurbo, k_new: torch.Tensor, v_new: torch.Tensor,
+                rows: torch.Tensor):
+    """TurboQuant k4v2 rows at token row indices ``rows`` of the ``[L*NB*BS, ...]``
+    views: K and V rotated per head, then coded (the reference's ``_fill_turbo``)."""
+    N = k_new.shape[0]
+    kc, mse, qjl = quantize_rows_turbo_k(hadamard_rotate(k_new))     # [N, Hkv, D]
+    vc, vnorm = quantize_rows_turbo_v(hadamard_rotate(v_new))
+    codes = torch.cat([pack_nibbles(kc).reshape(N, -1), pack_2bit(vc).reshape(N, -1)], 1)
+    kv.data.view(-1, kv.data.shape[-1]).index_copy_(0, rows, codes)
+    kv.meta.view(-1, *kv.meta.shape[-2:]).index_copy_(0, rows,
+                                                      torch.stack([mse, qjl, vnorm], 1))
+
+
+def gather_layer_kv(kv_cache, layer: int, block_tables: torch.Tensor,
                     num_kv_heads: int, head_dim: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One layer's pages for the chunk's rows as (k, v) [Hkv, B, W*BS, D]; an int8
-    cache comes back dequantized, in f32."""
+    """One layer's pages for the chunk's rows as (k, v) [Hkv, B, W*BS, D]; a quantized
+    cache comes back dequantized in f32 (a TurboQuant one in the rotated domain), a
+    plain or fp8 one in its own type."""
     B, W = block_tables.shape
-    quant = isinstance(kv_cache, QuantKV)
-    pages = kv_cache.data[layer] if quant else kv_cache[layer]
-    NB, _, bs, _ = pages.shape
+    Hkv, D = num_kv_heads, head_dim
+    data = kv_cache.data if isinstance(kv_cache, QUANT_CACHES) else kv_cache
+    NB = data.shape[1]
     tables = block_tables.long().clamp(0, NB - 1)
-    g = pages[tables]                                             # [B, W, 2, BS, HD]
-    if quant:
+    g = data[layer][tables]                     # [B, W, 2, BS, row] or turbo [B, W, BS, row]
+    if isinstance(kv_cache, QuantKVTurbo):
+        bs, hd = g.shape[2], Hkv * D
+        meta = kv_cache.meta[layer][tables]                       # [B, W, BS, 3, Hkv]
+        kc = unpack_nibbles(g[..., :hd // 2]).reshape(B, W, bs, Hkv, D)
+        vc = unpack_2bit(g[..., hd // 2:]).reshape(B, W, bs, Hkv, D)
+        g = torch.stack([dequantize_turbo_k(kc, meta[..., 0, :], meta[..., 1, :]),
+                         dequantize_turbo_v(vc, meta[..., 2, :])], dim=2)
+    elif isinstance(kv_cache, QuantKV):
         sc = kv_cache.scale[layer][tables]                        # [B, W, 2, BS, Hkv]
-        g = (g.float().reshape(B, W, 2, bs, num_kv_heads, head_dim) * sc[..., None])
+        g = g.float().reshape(*g.shape[:4], Hkv, D) * sc[..., None]
+    elif isinstance(kv_cache, QuantKV4):
+        sc = kv_cache.scale[layer][tables]
+        mn = kv_cache.minv[layer][tables]
+        g = (unpack_nibbles(g).float().reshape(*g.shape[:4], Hkv, D) * sc[..., None]
+             + mn[..., None])
+    bs = g.shape[3]
 
     def to_heads(x):
-        x = x.reshape(B, W, bs, num_kv_heads, head_dim)
-        return x.permute(3, 0, 1, 2, 4).reshape(num_kv_heads, B, W * bs, head_dim)
+        x = x.reshape(B, W, bs, Hkv, D)
+        return x.permute(3, 0, 1, 2, 4).reshape(Hkv, B, W * bs, D)
     return to_heads(g[:, :, 0]), to_heads(g[:, :, 1])
 
 
@@ -170,7 +225,7 @@ def attention_dense_gathered(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, T, Hq, D).to(q.dtype)
 
 
-def paged_attention(q: torch.Tensor, kv_cache: torch.Tensor, block_tables: torch.Tensor,
+def paged_attention(q: torch.Tensor, kv_cache, block_tables: torch.Tensor,
                     history_lens: torch.Tensor, q_lens: torch.Tensor, scale: float,
                     layer: int, num_kv_heads: int,
                     logit_softcap: Optional[float] = None,
@@ -182,19 +237,25 @@ def paged_attention(q: torch.Tensor, kv_cache: torch.Tensor, block_tables: torch
 
     ``chunk_kv`` = the chunk's own (k, v) [B, T, Hkv, D], used by fresh prefill."""
     T, D = q.shape[1], q.shape[3]
-    # an int8 cache's decode kernel has no window and no sinks (reference :584-609)
-    quant_extras = isinstance(kv_cache, QuantKV) and (window_size is not None
-                                                      or sinks is not None)
-    if q.is_cuda and T == 1 and not quant_extras:
+    windowed = window_size is not None and window_size > 0
+    # a quantized cache's decode kernel has no window and no sinks (reference :584-609)
+    quant_extras = isinstance(kv_cache, QUANT_CACHES) and (windowed or sinks is not None)
+    decode = q.is_cuda and T == 1 and not quant_extras
+    if (not decode and q.is_cuda and fresh_prefill and chunk_kv is not None
+            and logit_softcap is None and window_size is None and sinks is None):
+        return flash_prefill_attention(q, chunk_kv[0], chunk_kv[1], scale)
+    turbo = isinstance(kv_cache, QuantKVTurbo)
+    if turbo:
+        q_in = q
+        q = hadamard_rotate(q).to(q.dtype)       # into the cache's rotated domain
+    if decode:
         out = paged_decode_attention(
             q[:, 0].contiguous(), kv_cache, block_tables,
             (history_lens + 1).int(),        # kv length includes the token just filled
             layer, scale, num_kv_heads, logit_softcap=logit_softcap,
-            window=window_size, sinks=sinks)
-        return out[:, None]
-    if (q.is_cuda and fresh_prefill and chunk_kv is not None and logit_softcap is None
-            and window_size is None and sinks is None):
-        return flash_prefill_attention(q, chunk_kv[0], chunk_kv[1], scale)
-    k, v = gather_layer_kv(kv_cache, layer, block_tables, num_kv_heads, D)
-    return attention_dense_gathered(q, k, v, history_lens, scale,
-                                    logit_softcap, window_size, sinks)
+            window=window_size, sinks=sinks)[:, None]
+    else:
+        k, v = gather_layer_kv(kv_cache, layer, block_tables, num_kv_heads, D)
+        out = attention_dense_gathered(q, k, v, history_lens, scale,
+                                       logit_softcap, window_size, sinks)
+    return hadamard_rotate_inv(out).to(q_in.dtype) if turbo else out

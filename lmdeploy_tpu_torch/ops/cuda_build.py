@@ -21,7 +21,8 @@ from typing import Dict, Iterable
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
-SOURCES = ('flash_prefill', 'paged_decode', 'paged_decode_int8', 'w4a16_gemm', 'mxfp4_bmm')
+SOURCES = ('flash_prefill', 'paged_decode', 'paged_decode_int8', 'paged_decode_int4',
+           'paged_decode_turbo', 'w4a16_gemm', 'mxfp4_bmm')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-lineinfo', '-Xptxas', '-v']
 

@@ -1,21 +1,30 @@
 """T=1 attention over the paged KV cache (decode).
 
-Replaces the plain branch of the TPU kernel ``lmdeploy_tpu/ops/pallas/paged_decode.py``
-(``paged_decode_attention``, body ``_decode_kernel``).  On a CUDA tensor the wrapper
-launches the hand-written Hopper kernel in ``csrc/paged_decode.cu`` (its header says
-what bounds it and how it is laid out); on a CPU tensor it runs
-``paged_decode_attention_plain``, the same function in plain PyTorch.  There is no
-fallback: a CUDA tensor the kernel does not take raises.
+Replaces the TPU kernels of ``lmdeploy_tpu/ops/pallas/paged_decode.py``
+(``paged_decode_attention`` and its bodies).  On a CUDA tensor each wrapper launches
+its hand-written Hopper kernel (the ``.cu`` header says what bounds it and how it is
+laid out); on a CPU tensor it runs its ``*_plain`` version, the same function in plain
+PyTorch.  There is no fallback: a CUDA tensor a kernel does not take raises.
 
-Cache layout ``[L, NB, 2, BS, Hkv*D]``: a K plane and a V plane of head-major token
-rows per page (``ops/attention.py``).  ``kv_lens`` counts the token just filled; 0
-marks an inactive row, whose output is 0.
-
-An int8 cache (``ops/kv_quant.QuantKV``) takes ``paged_decode_attention_int8``, the
-port of the same wrapper's int8 branch (body ``_decode_kernel_quant``), whose kernel
-is ``csrc/paged_decode_int8.cu``: the per-(token, head) f32 scales apply on the
-score side (``s = (q*scale)·k_i8 * ksc``, ``acc += (p*vsc) @ v_i8``).  It has a logit
-softcap but no window and no sinks, as the reference never sends those to it.
+``paged_decode_attention`` dispatches on the cache:
+  * bf16 pages ``[L, NB, 2, BS, Hkv*D]`` (body ``_decode_kernel``) -> ``csrc/paged_decode.cu``;
+  * fp8-e4m3 pages of the same layout (quant_policy 16; the reference sends them
+    through ``_decode_kernel`` too) -> ``paged_decode_attention_fp8``, the e4m3
+    instantiation of the same kernel.  Window, softcap and sinks as for bf16.  P stays
+    f32 for the P.V product: the TPU kernel's rounding of P to the page type
+    (``pr.astype(v.dtype)``, e4m3 there) is not copied;
+  * int8 ``QuantKV`` (``_decode_kernel_quant``) -> ``paged_decode_attention_int8``,
+    ``csrc/paged_decode_int8.cu``: ``s = (q*scale)·k_i8 * ksc``, ``acc += (p*vsc) @ v_i8``;
+  * int4 ``QuantKV4`` (``_decode_kernel_quant4``) -> ``paged_decode_attention_int4``,
+    ``csrc/paged_decode_int4.cu``: ``s = (q*scale)·k_q * ksc + Σ(q*scale) * kmin``,
+    ``acc += (p*vsc) @ v_q + Σ p*vmin``, with Σ(q*scale) over the head's own D dims;
+  * TurboQuant ``QuantKVTurbo`` (``_decode_kernel_turbo``) ->
+    ``paged_decode_attention_turbo``, ``csrc/paged_decode_turbo.cu``: q arrives
+    rotated into the cache's domain, ``s = ((q*scale)·cent + qjl * (q*scale)·sgn) * mse``,
+    ``acc += (p*vnorm) @ vcent``; the caller rotates the output back.
+The quantized kernels have a logit softcap but no window and no sinks, as the
+reference never sends those to them.  ``kv_lens`` counts the token just filled; 0 marks
+an inactive row, whose output is 0.  Each wrapper counts its own launches.
 """
 from __future__ import annotations
 
@@ -25,25 +34,94 @@ from typing import Optional
 import torch
 
 from . import cuda_build
-from .kv_quant import QuantKV
+from .kv_quant import (QuantKV, QuantKV4, QuantKVTurbo, turbo_codebooks, turbo_sigma,
+                       unpack_2bit, unpack_nibbles)
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# paged_decode_bf16(q, cache, tables, kv_lens, sinks, out, B, Hq, Hkv, D, NB, BS, W,
-#                   layer, scale, softcap, window, stream)
+# paged_decode_{bf16,fp8}(q, cache, tables, kv_lens, sinks, out, B, Hq, Hkv, D, NB, BS,
+#                         W, layer, scale, softcap, window, stream)
 _ARGTYPES = [_P] * 6 + [_I] * 8 + [_F, _F, _I, _P]
 # paged_decode_int8(q, data, scale, tables, kv_lens, out, B, Hq, Hkv, D, NB, BS, W,
 #                   layer, scale, softcap, stream)
 _ARGTYPES_INT8 = [_P] * 6 + [_I] * 8 + [_F, _F, _P]
+# paged_decode_int4(q, data, scale, minv, tables, kv_lens, out, B, Hq, Hkv, D, NB, BS,
+#                   W, layer, scale, softcap, stream)
+_ARGTYPES_INT4 = [_P] * 7 + [_I] * 8 + [_F, _F, _P]
+# paged_decode_turbo(q, data, meta, tables, kv_lens, out, B, Hq, Hkv, D, NB, BS, W,
+#                    layer, scale, softcap, sigma, stream)
+_ARGTYPES_TURBO = [_P] * 6 + [_I] * 8 + [_F, _F, _F, _P]
 
 
+def _softmax_out(s: torch.Tensor, kv_lens: torch.Tensor, pv, B: int, Hq: int, D: int,
+                 dtype, sk: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain versions' shared tail: masked scores s [B, Hkv, G, S] -> softmax
+    (one pass, f32), ``pv(p)`` -> unnormalized [B, Hkv, G, D], sinks in the
+    denominator while the row max is real, l == 0 -> 1, inactive rows -> 0."""
+    valid = torch.arange(s.shape[-1], device=s.device)[None, :] < kv_lens.long()[:, None]
+    s = torch.where(valid[:, None, None, :], s, torch.full((), MASK_VALUE, device=s.device))
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    lsum = p.sum(-1)
+    if sk is not None:
+        lsum = lsum + torch.where(m > 0.5 * MASK_VALUE, torch.exp(sk - m),
+                                  torch.zeros_like(m))
+    out = pv(p) / torch.where(lsum == 0, torch.ones_like(lsum), lsum)[..., None]
+    out = torch.where((kv_lens > 0)[:, None, None, None], out, torch.zeros_like(out))
+    return out.reshape(B, Hq, D).to(dtype)
+
+
+def _softcap(s: torch.Tensor, logit_softcap: Optional[float]) -> torch.Tensor:
+    if logit_softcap is not None and logit_softcap > 0:
+        return torch.tanh(s / logit_softcap) * logit_softcap
+    return s
+
+
+def _token_major(x: torch.Tensor, B: int, S: int, Hkv: int) -> torch.Tensor:
+    """Gathered per-token rows [B, W, BS, Hkv] -> [B, Hkv, 1, S] (broadcast over G)."""
+    return x.reshape(B, S, Hkv).permute(0, 2, 1)[:, :, None]
+
+
+def _check(kernel: str, q: torch.Tensor, pages: torch.Tensor, block_tables: torch.Tensor,
+           kv_lens: torch.Tensor, layer: int, num_kv_heads: int, extras=(),
+           block_multiple: int = 1):
+    """The checks every decode wrapper makes before a launch; ``pages`` is the code
+    tensor, ``extras`` the cache's other tensors.  Returns (B, Hq, D, NB, BS, W)."""
+    B, Hq, D = q.shape
+    L, NB, BS, W = pages.shape[0], pages.shape[1], pages.shape[-2], block_tables.shape[1]
+    if D not in (64, 128) or BS % block_multiple:
+        raise ValueError(f'{kernel} kernel takes head_dim 64 or 128 and a block size '
+                         f'that is a multiple of {block_multiple}, got {D} / {BS}')
+    if Hq % num_kv_heads or not 0 <= layer < L:
+        raise ValueError(f'{kernel}: bad shapes q {tuple(q.shape)} cache '
+                         f'{tuple(pages.shape)} kv heads {num_kv_heads} layer {layer}')
+    for name, t, dt in (('block_tables', block_tables, torch.int32),
+                        ('kv_lens', kv_lens, torch.int32)):
+        if t.dtype != dt or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f'{kernel}: {name} must be contiguous {dt} on {q.device}')
+    if block_tables.shape[0] != B or kv_lens.shape != (B,):
+        raise ValueError(f'{kernel}: block_tables / kv_lens batch mismatch')
+    for t in (q, pages, *extras):
+        if not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f'{kernel}: q and the cache must be contiguous on one device')
+    return B, Hq, D, NB, BS, W
+
+
+def _no_window_or_sinks(kind: str, window, sinks):
+    if (window is not None and window > 0) or sinks is not None:
+        raise ValueError(f'paged_decode: an {kind} cache takes no window and no sinks '
+                         f'(the dense path serves them)')
+
+
+# ---------------------------------------------------------------- bf16 and fp8 pages --
 def paged_decode_attention_plain(q: torch.Tensor, kv_cache: torch.Tensor,
                                  block_tables: torch.Tensor, kv_lens: torch.Tensor,
                                  layer: int, scale: float, num_kv_heads: int,
                                  logit_softcap: Optional[float] = None,
                                  window: Optional[int] = None,
                                  sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q [B,Hq,D] -> [B,Hq,D], f32 softmax with the kernel's masking and sink rules."""
+    """q [B,Hq,D] over bf16, f32 or fp8 pages -> [B,Hq,D], f32 softmax with the
+    kernel's masking and sink rules."""
     B, Hq, D = q.shape
     G = Hq // num_kv_heads
     _, NB, _, BS, _ = kv_cache.shape
@@ -53,80 +131,47 @@ def paged_decode_attention_plain(q: torch.Tensor, kv_cache: torch.Tensor,
     k = pages[:, :, 0].reshape(B, W * BS, num_kv_heads, D).float()
     v = pages[:, :, 1].reshape(B, W * BS, num_kv_heads, D).float()
     qg = q.float().reshape(B, num_kv_heads, G, D)
-    s = torch.einsum('bhgd,bshd->bhgs', qg, k) * scale
-    if logit_softcap is not None and logit_softcap > 0:
-        s = torch.tanh(s / logit_softcap) * logit_softcap
-    lens = kv_lens.long()[:, None]
-    pos = torch.arange(W * BS, device=q.device)[None, :]
-    valid = pos < lens
+    s = _softcap(torch.einsum('bhgd,bshd->bhgs', qg, k) * scale, logit_softcap)
     if window is not None and window > 0:
-        valid &= pos >= (lens - window).clamp(min=0)
-    s = torch.where(valid[:, None, None, :], s, torch.full((), MASK_VALUE, device=q.device))
-    m = s.amax(-1)
-    p = torch.exp(s - m[..., None])
-    lsum = p.sum(-1)
-    if sinks is not None:
-        sk = sinks.float().reshape(1, num_kv_heads, G)
-        lsum = lsum + torch.where(m > 0.5 * MASK_VALUE, torch.exp(sk - m),
-                                  torch.zeros_like(m))
-    out = torch.einsum('bhgs,bshd->bhgd', p, v)
-    out = out / torch.where(lsum == 0, torch.ones_like(lsum), lsum)[..., None]
-    out = torch.where((kv_lens > 0)[:, None, None, None], out, torch.zeros_like(out))
-    return out.reshape(B, Hq, D).to(q.dtype)
+        # keys before the window start take MASK_VALUE, as those past the length do
+        lens = kv_lens.long()[:, None]
+        early = torch.arange(W * BS, device=q.device)[None, :] < (lens - window).clamp(min=0)
+        s = torch.where(early[:, None, None, :], torch.full((), MASK_VALUE, device=q.device), s)
+    sk = None if sinks is None else sinks.float().reshape(1, num_kv_heads, G)
+    return _softmax_out(s, kv_lens, lambda p: torch.einsum('bhgs,bshd->bhgd', p, v),
+                        B, Hq, D, q.dtype, sk)
 
 
-def paged_decode_attention(q: torch.Tensor, kv_cache: torch.Tensor,
-                           block_tables: torch.Tensor, kv_lens: torch.Tensor,
-                           layer: int, scale: float, num_kv_heads: int,
-                           logit_softcap: Optional[float] = None,
+def paged_decode_attention(q: torch.Tensor, kv_cache, block_tables: torch.Tensor,
+                           kv_lens: torch.Tensor, layer: int, scale: float,
+                           num_kv_heads: int, logit_softcap: Optional[float] = None,
                            window: Optional[int] = None,
                            sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q [B,Hq,D]; kv_cache [L,NB,2,BS,Hkv*D] (or a ``QuantKV``); block_tables [B,W]
-    i32; kv_lens [B] i32; ``layer`` selects the cache layer; ``window`` None/<=0 = full
-    attention; ``sinks`` [Hq] learned sink logits.  Returns [B,Hq,D]."""
-    if isinstance(kv_cache, QuantKV):
-        if (window is not None and window > 0) or sinks is not None:
-            raise ValueError('paged_decode: an int8 cache takes no window and no sinks '
-                             '(the dense path serves them)')
-        return paged_decode_attention_int8(q, kv_cache, block_tables, kv_lens, layer,
-                                           scale, num_kv_heads, logit_softcap)
+    """q [B,Hq,D]; kv_cache [L,NB,2,BS,Hkv*D] bf16 or fp8 (or a quantized cache);
+    block_tables [B,W] i32; kv_lens [B] i32; ``layer`` selects the cache layer;
+    ``window`` None/<=0 = full attention; ``sinks`` [Hq] learned sink logits.
+    Returns [B,Hq,D]."""
+    quantized = {QuantKV: ('int8', paged_decode_attention_int8),
+                 QuantKV4: ('int4', paged_decode_attention_int4),
+                 QuantKVTurbo: ('TurboQuant', paged_decode_attention_turbo)}
+    if type(kv_cache) in quantized:
+        kind, fn = quantized[type(kv_cache)]
+        _no_window_or_sinks(kind, window, sinks)
+        return fn(q, kv_cache, block_tables, kv_lens, layer, scale, num_kv_heads,
+                  logit_softcap)
+    if kv_cache.dtype == torch.float8_e4m3fn:
+        return paged_decode_attention_fp8(q, kv_cache, block_tables, kv_lens, layer,
+                                          scale, num_kv_heads, logit_softcap, window, sinks)
     if not q.is_cuda:
         return paged_decode_attention_plain(q, kv_cache, block_tables, kv_lens, layer,
                                             scale, num_kv_heads, logit_softcap, window,
                                             sinks)
-    B, Hq, D = q.shape
-    L, NB, two, BS, HD = kv_cache.shape
-    W = block_tables.shape[1]
     if q.dtype != torch.bfloat16 or kv_cache.dtype != torch.bfloat16:
         raise TypeError(f'paged_decode kernel takes bf16 q and cache, got '
                         f'{q.dtype}/{kv_cache.dtype}')
-    if D not in (64, 128):
-        raise ValueError(f'paged_decode kernel takes head_dim 64 or 128, got {D}')
-    if two != 2 or HD != num_kv_heads * D or Hq % num_kv_heads or not 0 <= layer < L:
-        raise ValueError(f'paged_decode: bad shapes q {tuple(q.shape)} cache '
-                         f'{tuple(kv_cache.shape)} kv heads {num_kv_heads} layer {layer}')
-    for name, t, dt in (('block_tables', block_tables, torch.int32),
-                        ('kv_lens', kv_lens, torch.int32)):
-        if t.dtype != dt or t.device != q.device or not t.is_contiguous():
-            raise ValueError(f'paged_decode: {name} must be contiguous {dt} on {q.device}')
-    if block_tables.shape[0] != B or kv_lens.shape != (B,):
-        raise ValueError('paged_decode: block_tables / kv_lens batch mismatch')
-    if not q.is_contiguous() or not kv_cache.is_contiguous() or kv_cache.device != q.device:
-        raise ValueError('paged_decode: q and kv_cache must be contiguous on one device')
-    sinks_ptr = None
-    if sinks is not None:
-        sinks = sinks.to(device=q.device, dtype=torch.float32).contiguous()
-        if sinks.shape != (Hq,):
-            raise ValueError(f'paged_decode: sinks must be [{Hq}], got {tuple(sinks.shape)}')
-        sinks_ptr = sinks.data_ptr()
-    out = torch.empty_like(q)
-    fn = cuda_build.entry('paged_decode', 'paged_decode_bf16', _ARGTYPES)
-    rc = fn(q.data_ptr(), kv_cache.data_ptr(), block_tables.data_ptr(),
-            kv_lens.data_ptr(), sinks_ptr, out.data_ptr(),
-            B, Hq, num_kv_heads, D, NB, BS, W, layer, scale,
-            logit_softcap if logit_softcap else 0.0,
-            window if window and window > 0 else 0, cuda_build.stream_handle(q))
-    cuda_build.check(rc, 'paged_decode')
+    out = _launch_plain_layout('paged_decode', 'paged_decode_bf16', q, kv_cache,
+                               block_tables, kv_lens, layer, scale, num_kv_heads,
+                               logit_softcap, window, sinks)
     paged_decode_attention.launches += 1
     return out
 
@@ -134,6 +179,57 @@ def paged_decode_attention(q: torch.Tensor, kv_cache: torch.Tensor,
 paged_decode_attention.launches = 0
 
 
+def paged_decode_attention_fp8(q: torch.Tensor, kv_cache: torch.Tensor,
+                               block_tables: torch.Tensor, kv_lens: torch.Tensor,
+                               layer: int, scale: float, num_kv_heads: int,
+                               logit_softcap: Optional[float] = None,
+                               window: Optional[int] = None,
+                               sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q [B,Hq,D] bf16 over fp8-e4m3 pages [L,NB,2,BS,Hkv*D]; the rest as
+    ``paged_decode_attention``.  Its plain version is ``paged_decode_attention_plain``."""
+    if not q.is_cuda:
+        return paged_decode_attention_plain(q, kv_cache, block_tables, kv_lens, layer,
+                                            scale, num_kv_heads, logit_softcap, window,
+                                            sinks)
+    if q.dtype != torch.bfloat16 or kv_cache.dtype != torch.float8_e4m3fn:
+        raise TypeError(f'paged_decode_fp8 kernel takes bf16 q and an e4m3 cache, got '
+                        f'{q.dtype}/{kv_cache.dtype}')
+    out = _launch_plain_layout('paged_decode_fp8', 'paged_decode_fp8', q, kv_cache,
+                               block_tables, kv_lens, layer, scale, num_kv_heads,
+                               logit_softcap, window, sinks)
+    paged_decode_attention_fp8.launches += 1
+    return out
+
+
+paged_decode_attention_fp8.launches = 0
+
+
+def _launch_plain_layout(kernel, symbol, q, kv_cache, block_tables, kv_lens, layer, scale,
+                         num_kv_heads, logit_softcap, window, sinks) -> torch.Tensor:
+    """Check and launch ``symbol`` of ``csrc/paged_decode.cu`` over plain-layout pages."""
+    B, Hq, D, NB, BS, W = _check(kernel, q, kv_cache, block_tables, kv_lens, layer,
+                                 num_kv_heads)
+    if kv_cache.dim() != 5 or kv_cache.shape[2] != 2 or kv_cache.shape[4] != num_kv_heads * D:
+        raise ValueError(f'{kernel}: cache {tuple(kv_cache.shape)} is not '
+                         f'[L, NB, 2, BS, {num_kv_heads * D}]')
+    sinks_ptr = None
+    if sinks is not None:
+        sinks = sinks.to(device=q.device, dtype=torch.float32).contiguous()
+        if sinks.shape != (Hq,):
+            raise ValueError(f'{kernel}: sinks must be [{Hq}], got {tuple(sinks.shape)}')
+        sinks_ptr = sinks.data_ptr()
+    out = torch.empty_like(q)
+    fn = cuda_build.entry('paged_decode', symbol, _ARGTYPES)
+    rc = fn(q.data_ptr(), kv_cache.data_ptr(), block_tables.data_ptr(),
+            kv_lens.data_ptr(), sinks_ptr, out.data_ptr(),
+            B, Hq, num_kv_heads, D, NB, BS, W, layer, scale,
+            logit_softcap if logit_softcap else 0.0,
+            window if window and window > 0 else 0, cuda_build.stream_handle(q))
+    cuda_build.check(rc, kernel)
+    return out
+
+
+# ----------------------------------------------------------------------------- int8 --
 def paged_decode_attention_int8_plain(q: torch.Tensor, kv: QuantKV,
                                       block_tables: torch.Tensor, kv_lens: torch.Tensor,
                                       layer: int, scale: float, num_kv_heads: int,
@@ -141,29 +237,20 @@ def paged_decode_attention_int8_plain(q: torch.Tensor, kv: QuantKV,
                                       ) -> torch.Tensor:
     """q [B,Hq,D] over an int8 cache -> [B,Hq,D]; f32, scales on the score side."""
     B, Hq, D = q.shape
-    G = Hq // num_kv_heads
+    Hkv, G = num_kv_heads, Hq // num_kv_heads
     _, NB, _, BS, _ = kv.data.shape
-    W = block_tables.shape[1]
+    S = block_tables.shape[1] * BS
     tables = block_tables.long().clamp(0, NB - 1)
     pages = kv.data[layer][tables]                           # [B, W, 2, BS, HD] i8
     scales = kv.scale[layer][tables]                         # [B, W, 2, BS, Hkv]
-    k = pages[:, :, 0].reshape(B, W * BS, num_kv_heads, D).float()
-    v = pages[:, :, 1].reshape(B, W * BS, num_kv_heads, D).float()
-    ksc = scales[:, :, 0].reshape(B, W * BS, num_kv_heads).permute(0, 2, 1)[:, :, None]
-    vsc = scales[:, :, 1].reshape(B, W * BS, num_kv_heads).permute(0, 2, 1)[:, :, None]
-    qg = q.float().reshape(B, num_kv_heads, G, D) * scale
-    s = torch.einsum('bhgd,bshd->bhgs', qg, k) * ksc
-    if logit_softcap is not None and logit_softcap > 0:
-        s = torch.tanh(s / logit_softcap) * logit_softcap
-    valid = torch.arange(W * BS, device=q.device)[None, :] < kv_lens.long()[:, None]
-    s = torch.where(valid[:, None, None, :], s, torch.full((), MASK_VALUE, device=q.device))
-    m = s.amax(-1)
-    p = torch.exp(s - m[..., None])
-    lsum = p.sum(-1)
-    out = torch.einsum('bhgs,bshd->bhgd', p * vsc, v)
-    out = out / torch.where(lsum == 0, torch.ones_like(lsum), lsum)[..., None]
-    out = torch.where((kv_lens > 0)[:, None, None, None], out, torch.zeros_like(out))
-    return out.reshape(B, Hq, D).to(q.dtype)
+    k = pages[:, :, 0].reshape(B, S, Hkv, D).float()
+    v = pages[:, :, 1].reshape(B, S, Hkv, D).float()
+    ksc = _token_major(scales[:, :, 0], B, S, Hkv)
+    vsc = _token_major(scales[:, :, 1], B, S, Hkv)
+    qg = q.float().reshape(B, Hkv, G, D) * scale
+    s = _softcap(torch.einsum('bhgd,bshd->bhgs', qg, k) * ksc, logit_softcap)
+    return _softmax_out(s, kv_lens, lambda p: torch.einsum('bhgs,bshd->bhgd', p * vsc, v),
+                        B, Hq, D, q.dtype)
 
 
 def paged_decode_attention_int8(q: torch.Tensor, kv: QuantKV, block_tables: torch.Tensor,
@@ -175,32 +262,17 @@ def paged_decode_attention_int8(q: torch.Tensor, kv: QuantKV, block_tables: torc
     if not q.is_cuda:
         return paged_decode_attention_int8_plain(q, kv, block_tables, kv_lens, layer,
                                                  scale, num_kv_heads, logit_softcap)
-    B, Hq, D = q.shape
     data, scales = kv.data, kv.scale
-    L, NB, two, BS, HD = data.shape
-    W = block_tables.shape[1]
     if q.dtype != torch.bfloat16 or data.dtype != torch.int8 or scales.dtype != torch.float32:
         raise TypeError(f'paged_decode_int8 kernel takes bf16 q, int8 data and f32 '
                         f'scales, got {q.dtype}/{data.dtype}/{scales.dtype}')
-    if D not in (64, 128) or BS % 16:
-        raise ValueError(f'paged_decode_int8 kernel takes head_dim 64 or 128 and a '
-                         f'block size that is a multiple of 16, got {D} / {BS}')
-    if (two != 2 or HD != num_kv_heads * D or Hq % num_kv_heads or not 0 <= layer < L
+    B, Hq, D, NB, BS, W = _check('paged_decode_int8', q, data, block_tables, kv_lens,
+                                 layer, num_kv_heads, (scales,), block_multiple=16)
+    L = data.shape[0]
+    if (data.shape != (L, NB, 2, BS, num_kv_heads * D)
             or scales.shape != (L, NB, 2, BS, num_kv_heads)):
-        raise ValueError(f'paged_decode_int8: bad shapes q {tuple(q.shape)} data '
-                         f'{tuple(data.shape)} scale {tuple(scales.shape)} kv heads '
-                         f'{num_kv_heads} layer {layer}')
-    for name, t, dt in (('block_tables', block_tables, torch.int32),
-                        ('kv_lens', kv_lens, torch.int32)):
-        if t.dtype != dt or t.device != q.device or not t.is_contiguous():
-            raise ValueError(f'paged_decode_int8: {name} must be contiguous {dt} on '
-                             f'{q.device}')
-    if block_tables.shape[0] != B or kv_lens.shape != (B,):
-        raise ValueError('paged_decode_int8: block_tables / kv_lens batch mismatch')
-    for t in (q, data, scales):
-        if not t.is_contiguous() or t.device != q.device:
-            raise ValueError('paged_decode_int8: q, data and scale must be contiguous '
-                             'on one device')
+        raise ValueError(f'paged_decode_int8: bad shapes data {tuple(data.shape)} scale '
+                         f'{tuple(scales.shape)} for {num_kv_heads} kv heads of {D}')
     out = torch.empty_like(q)
     fn = cuda_build.entry('paged_decode_int8', 'paged_decode_int8', _ARGTYPES_INT8)
     rc = fn(q.data_ptr(), data.data_ptr(), scales.data_ptr(), block_tables.data_ptr(),
@@ -213,3 +285,138 @@ def paged_decode_attention_int8(q: torch.Tensor, kv: QuantKV, block_tables: torc
 
 
 paged_decode_attention_int8.launches = 0
+
+
+# ----------------------------------------------------------------------------- int4 --
+def paged_decode_attention_int4_plain(q: torch.Tensor, kv: QuantKV4,
+                                      block_tables: torch.Tensor, kv_lens: torch.Tensor,
+                                      layer: int, scale: float, num_kv_heads: int,
+                                      logit_softcap: Optional[float] = None
+                                      ) -> torch.Tensor:
+    """q [B,Hq,D] over an int4 cache -> [B,Hq,D]; f32, scale and min on the score
+    side: ``s = (qs·k_q) * ksc + Σqs * kmin`` with qs = q * scale summed over the
+    head's D dims, ``out = ((p*vsc) @ v_q + Σ p*vmin) / l``."""
+    B, Hq, D = q.shape
+    Hkv, G = num_kv_heads, Hq // num_kv_heads
+    NB, BS = kv.data.shape[1], kv.data.shape[3]
+    S = block_tables.shape[1] * BS
+    tables = block_tables.long().clamp(0, NB - 1)
+    pages = unpack_nibbles(kv.data[layer][tables])           # [B, W, 2, BS, HD] 0..15
+    k = pages[:, :, 0].reshape(B, S, Hkv, D).float()
+    v = pages[:, :, 1].reshape(B, S, Hkv, D).float()
+    sc = kv.scale[layer][tables]                             # [B, W, 2, BS, Hkv]
+    mn = kv.minv[layer][tables]
+    ksc, kmn = _token_major(sc[:, :, 0], B, S, Hkv), _token_major(mn[:, :, 0], B, S, Hkv)
+    vsc, vmn = _token_major(sc[:, :, 1], B, S, Hkv), _token_major(mn[:, :, 1], B, S, Hkv)
+    qg = q.float().reshape(B, Hkv, G, D) * scale
+    s = torch.einsum('bhgd,bshd->bhgs', qg, k) * ksc + qg.sum(-1, keepdim=True) * kmn
+    s = _softcap(s, logit_softcap)
+
+    def pv(p):
+        return (torch.einsum('bhgs,bshd->bhgd', p * vsc, v)
+                + (p * vmn).sum(-1, keepdim=True))
+    return _softmax_out(s, kv_lens, pv, B, Hq, D, q.dtype)
+
+
+def paged_decode_attention_int4(q: torch.Tensor, kv: QuantKV4, block_tables: torch.Tensor,
+                                kv_lens: torch.Tensor, layer: int, scale: float,
+                                num_kv_heads: int,
+                                logit_softcap: Optional[float] = None) -> torch.Tensor:
+    """q [B,Hq,D] bf16; ``kv.data`` u8 [L,NB,2,BS,Hkv*D/2], ``kv.scale`` and ``kv.minv``
+    f32 [L,NB,2,BS,Hkv]; block_tables [B,W] i32; kv_lens [B] i32.  Returns [B,Hq,D]."""
+    if not q.is_cuda:
+        return paged_decode_attention_int4_plain(q, kv, block_tables, kv_lens, layer,
+                                                 scale, num_kv_heads, logit_softcap)
+    data, scales, minv = kv.data, kv.scale, kv.minv
+    if (q.dtype != torch.bfloat16 or data.dtype != torch.uint8
+            or scales.dtype != torch.float32 or minv.dtype != torch.float32):
+        raise TypeError(f'paged_decode_int4 kernel takes bf16 q, u8 data and f32 scale '
+                        f'and min, got {q.dtype}/{data.dtype}/{scales.dtype}/{minv.dtype}')
+    B, Hq, D, NB, BS, W = _check('paged_decode_int4', q, data, block_tables, kv_lens,
+                                 layer, num_kv_heads, (scales, minv), block_multiple=16)
+    L = data.shape[0]
+    if (data.shape != (L, NB, 2, BS, num_kv_heads * D // 2)
+            or scales.shape != (L, NB, 2, BS, num_kv_heads) or minv.shape != scales.shape):
+        raise ValueError(f'paged_decode_int4: bad shapes data {tuple(data.shape)} scale '
+                         f'{tuple(scales.shape)} min {tuple(minv.shape)} for '
+                         f'{num_kv_heads} kv heads of {D}')
+    out = torch.empty_like(q)
+    fn = cuda_build.entry('paged_decode_int4', 'paged_decode_int4', _ARGTYPES_INT4)
+    rc = fn(q.data_ptr(), data.data_ptr(), scales.data_ptr(), minv.data_ptr(),
+            block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), B, Hq,
+            num_kv_heads, D, NB, BS, W, layer, scale,
+            logit_softcap if logit_softcap else 0.0, cuda_build.stream_handle(q))
+    cuda_build.check(rc, 'paged_decode_int4')
+    paged_decode_attention_int4.launches += 1
+    return out
+
+
+paged_decode_attention_int4.launches = 0
+
+
+# ----------------------------------------------------------------------- TurboQuant --
+def paged_decode_attention_turbo_plain(q: torch.Tensor, kv: QuantKVTurbo,
+                                       block_tables: torch.Tensor, kv_lens: torch.Tensor,
+                                       layer: int, scale: float, num_kv_heads: int,
+                                       logit_softcap: Optional[float] = None
+                                       ) -> torch.Tensor:
+    """ROTATED q [B,Hq,D] over a TurboQuant cache -> rotated-domain [B,Hq,D]; f32,
+    norms on the score side: ``s = (qs·cent + qjl * qs·sgn) * mse`` with qs = q *
+    scale, ``out = ((p*vnorm) @ vcent) / l``."""
+    B, Hq, D = q.shape
+    Hkv, G = num_kv_heads, Hq // num_kv_heads
+    NB, BS = kv.data.shape[1], kv.data.shape[2]
+    HD = Hkv * D
+    S = block_tables.shape[1] * BS
+    tables = block_tables.long().clamp(0, NB - 1)
+    rows = kv.data[layer][tables]                            # [B, W, BS, 3*HD/4]
+    meta = kv.meta[layer][tables]                            # [B, W, BS, 3, Hkv]
+    kc = unpack_nibbles(rows[..., :HD // 2]).reshape(B, S, Hkv, D)
+    vc = unpack_2bit(rows[..., HD // 2:]).reshape(B, S, Hkv, D)
+    cent3, cent2 = turbo_codebooks(D, q.device)
+    cent = cent3[(kc & 0x7).long()]
+    sgn = ((kc >> 3) & 0x1).float() * 2.0 - 1.0
+    mse, qjl, vnorm = (_token_major(meta[..., i, :], B, S, Hkv) for i in range(3))
+    qg = q.float().reshape(B, Hkv, G, D) * scale
+    s = (torch.einsum('bhgd,bshd->bhgs', qg, cent)
+         + qjl * torch.einsum('bhgd,bshd->bhgs', qg, sgn)) * mse
+    s = _softcap(s, logit_softcap)
+    return _softmax_out(s, kv_lens,
+                        lambda p: torch.einsum('bhgs,bshd->bhgd', p * vnorm,
+                                               cent2[vc.long()]),
+                        B, Hq, D, q.dtype)
+
+
+def paged_decode_attention_turbo(q: torch.Tensor, kv: QuantKVTurbo,
+                                 block_tables: torch.Tensor, kv_lens: torch.Tensor,
+                                 layer: int, scale: float, num_kv_heads: int,
+                                 logit_softcap: Optional[float] = None) -> torch.Tensor:
+    """ROTATED q [B,Hq,D] bf16; ``kv.data`` u8 [L,NB,BS,3*Hkv*D/4], ``kv.meta`` f32
+    [L,NB,BS,3,Hkv]; block_tables [B,W] i32; kv_lens [B] i32.  Returns the
+    rotated-domain [B,Hq,D]."""
+    if not q.is_cuda:
+        return paged_decode_attention_turbo_plain(q, kv, block_tables, kv_lens, layer,
+                                                  scale, num_kv_heads, logit_softcap)
+    data, meta = kv.data, kv.meta
+    if q.dtype != torch.bfloat16 or data.dtype != torch.uint8 or meta.dtype != torch.float32:
+        raise TypeError(f'paged_decode_turbo kernel takes bf16 q, u8 data and f32 meta, '
+                        f'got {q.dtype}/{data.dtype}/{meta.dtype}')
+    B, Hq, D, NB, BS, W = _check('paged_decode_turbo', q, data, block_tables, kv_lens,
+                                 layer, num_kv_heads, (meta,), block_multiple=16)
+    L = data.shape[0]
+    if (data.shape != (L, NB, BS, 3 * num_kv_heads * D // 4)
+            or meta.shape != (L, NB, BS, 3, num_kv_heads)):
+        raise ValueError(f'paged_decode_turbo: bad shapes data {tuple(data.shape)} meta '
+                         f'{tuple(meta.shape)} for {num_kv_heads} kv heads of {D}')
+    out = torch.empty_like(q)
+    fn = cuda_build.entry('paged_decode_turbo', 'paged_decode_turbo', _ARGTYPES_TURBO)
+    rc = fn(q.data_ptr(), data.data_ptr(), meta.data_ptr(), block_tables.data_ptr(),
+            kv_lens.data_ptr(), out.data_ptr(), B, Hq, num_kv_heads, D, NB, BS, W,
+            layer, scale, logit_softcap if logit_softcap else 0.0,
+            float(turbo_sigma(D)), cuda_build.stream_handle(q))
+    cuda_build.check(rc, 'paged_decode_turbo')
+    paged_decode_attention_turbo.launches += 1
+    return out
+
+
+paged_decode_attention_turbo.launches = 0

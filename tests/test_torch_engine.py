@@ -98,7 +98,7 @@ def test_sampled_requests_are_seeded(tiny_model_dir):
 
 @pytest.mark.parametrize('field', [
     dict(tp=2), dict(dp=2), dict(ep=2), dict(cp=2), dict(attn_tp_size=2),
-    dict(num_cpu_blocks=16), dict(quant_policy=8), dict(model_format='fp8'),
+    dict(num_cpu_blocks=16), dict(mlp_tp_size=2), dict(model_format='fp8'),
     dict(eager_mode=True), dict(role='prefill'), dict(adapters={'a': 'path'}),
     dict(dllm_block_length=4), dict(memdecode={'memory_model_path': 'path'}),
     dict(revision='main')])
@@ -134,6 +134,27 @@ def test_kv_int8_engine_config_accepted(tiny_model_dir):
     engine = Engine(None, TpuEngineConfig(quant_policy=4, model_format='gptq'),
                     configs=bundle, device='cpu')
     assert isinstance(engine.model_agent.kv_cache, QuantKV)
+    engine.close()
+
+
+@pytest.mark.parametrize('policy', [8, 16, 42])
+def test_kv_quant_policies_accepted(tiny_model_dir, policy):
+    """quant_policy 8 (int4), 16 (fp8) and 42 (TurboQuant) are served, on both ways
+    into the Engine, each with its own cache type."""
+    from lmdeploy_tpu_torch.config import EngineConfigBundle
+    from lmdeploy_tpu_torch.engine.engine import Engine
+    from lmdeploy_tpu_torch.messages import QuantPolicy, TpuEngineConfig
+    from lmdeploy_tpu_torch.ops.kv_quant import QuantKV4, QuantKVTurbo
+    cfg = TpuEngineConfig(**ENGINE_KW, quant_policy=policy)
+    engine = Engine.from_pretrained(tiny_model_dir, cfg, device='cpu')
+    kv = engine.model_agent.kv_cache
+    assert engine.configs.cache.quant_policy == QuantPolicy(policy)
+    assert {8: isinstance(kv, QuantKV4), 16: getattr(kv, 'dtype', None) == torch.float8_e4m3fn,
+            42: isinstance(kv, QuantKVTurbo)}[policy]
+    engine.close()
+    bundle = EngineConfigBundle.build(tiny_model_dir, cfg)
+    engine = Engine(None, TpuEngineConfig(quant_policy=policy), configs=bundle, device='cpu')
+    assert type(engine.model_agent.kv_cache) is type(kv)
     engine.close()
 
 

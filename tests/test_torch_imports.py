@@ -21,7 +21,9 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 assert len(names) >= 28, names
 assert {'lmdeploy_tpu_torch.ops.moe', 'lmdeploy_tpu_torch.ops.quant_bmm',
-        'lmdeploy_tpu_torch.models.gpt_oss'} <= set(names), names
+        'lmdeploy_tpu_torch.models.gpt_oss', 'lmdeploy_tpu_torch.ops.kv_quant',
+        'lmdeploy_tpu_torch.ops.paged_decode'} <= set(names), names
+from lmdeploy_tpu_torch.ops.kv_quant import QuantKV4, QuantKVTurbo, to_fp8
 print(len(names))
 '''
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -36,4 +38,17 @@ def test_every_kernel_source_is_built():
     from lmdeploy_tpu_torch.ops import cuda_build
     on_disk = sorted(f[:-3] for f in os.listdir(cuda_build.CSRC_DIR) if f.endswith('.cu'))
     assert sorted(cuda_build.SOURCES) == on_disk
-    assert 'mxfp4_bmm' in on_disk
+    assert {'mxfp4_bmm', 'paged_decode_int4', 'paged_decode_turbo'} <= set(on_disk)
+
+
+def test_every_decode_wrapper_counts_and_has_a_plain_version():
+    """Each cache type's decode wrapper keeps its own launch count and a plain
+    version (the fp8 route's is the plain-layout one)."""
+    from lmdeploy_tpu_torch.ops import paged_decode as pd
+    for kind in ('', '_fp8', '_int8', '_int4', '_turbo'):
+        wrapper = getattr(pd, 'paged_decode_attention' + kind)
+        assert isinstance(wrapper.launches, int)
+        assert callable(getattr(pd, f'paged_decode_attention{kind}_plain',
+                                pd.paged_decode_attention_plain))
+    assert len({id(getattr(pd, 'paged_decode_attention' + k)) for k in
+                ('', '_fp8', '_int8', '_int4', '_turbo')}) == 5

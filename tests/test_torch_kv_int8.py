@@ -170,10 +170,12 @@ def test_cache_engine_int8():
     assert tuple(kv.scale.shape) == (2, 8, 2, 16, 2)
     # per block: 2 layers x 2 planes x 16 tokens x (32 int8 + 2 f32 scales)
     assert ce.block_bytes() == 2 * 2 * 16 * (32 + 2 * 4) == kv.nbytes // 8
+    # the int4 and TurboQuant caches (test_torch_kv_int4.py, test_torch_kv_turbo.py)
+    # take fewer bytes a block
     for policy in (QuantPolicy.KV_INT4, QuantPolicy.TURBO_QUANT):
-        with pytest.raises(NotImplementedError):
-            CacheEngine(cfg, CacheConfig(num_gpu_blocks=8, quant_policy=policy),
-                        torch.device('cpu'))
+        other = CacheEngine(cfg, CacheConfig(block_size=16, num_gpu_blocks=8,
+                                             quant_policy=policy), torch.device('cpu'))
+        assert other.block_bytes() < ce.block_bytes()
 
 
 @pytest.mark.parametrize('case', ['batch', 'preempt'])
