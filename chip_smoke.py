@@ -18,14 +18,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  paged_decode_int4, paged_decode_turbo and paged_decode_fp8 (caches
                  filled by the port's fill; the e2e_llama31 decode shape, llama2-7b
                  and TinyLlama heads; planted traps in the cache bytes);
+                 w4a16_szc (fast / precise) and w4a16_unprepared (raw scales and zeros)
+                 at Mixtral-8x7B's and llama2-7b's projections, M 1 to 256, each with
+                 its planted traps;
   4. parity   -- full width, 2 layers: prefill logits and 8 decode steps on the card
                  (bf16, kernels) against the port on the CPU (f32, plain paths), for
                  TinyLlama bf16, for llama2-7b W4A16 with an int8 KV cache and for
                  gpt-oss-20b with MXFP4 experts (one sliding, one full layer; the CPU
                  runs the experts widened to f32, and the routing flips between the two
                  sides are counted), and for Llama-3.1-8B with the int4, TurboQuant and
-                 fp8 KV caches; beside it the bf16 floor (plain versions on the
-                 card) and what each planted trap reads, which must exceed the allowance;
+                 fp8 KV caches, and for Mixtral-8x7B W4A16 under each W4A16 schedule
+                 (gd, fast, precise, unprepared; the CPU runs the experts widened to
+                 f32); beside it the bf16 floor (plain versions on the card) and what
+                 each planted trap reads, which must exceed the allowance;
   5. e2e      -- the port's Engine at TinyLlama-1.1B width and depth (random seeded
                  bf16 weights): 8 concurrent 128-token prompts plus one 2048-token
                  prompt, 64 greedy tokens each, run twice; every kernel's launch count
@@ -37,12 +42,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  experts, bf16 KV cache: 32 concurrent 128-token prompts plus one
                  2048-token prompt, 64 greedy tokens each (decode in the 64-row bucket),
                  run twice, then traced; the rows of every mxfp4_bmm launch are recorded;
-  8. e2e_llama31_8b_kv4 / _turbo / _fp8kv -- Llama-3.1-8B at full width and depth
-                 (public config, seeded bf16 weights built once for the three) with
-                 quant_policy 8, 42 and 16: 63 concurrent 1024-token prompts plus one
-                 4096-token prompt, 64 greedy tokens each, run twice, then traced; each
-                 decode step launches the policy's kernel 32 times, each prefill step
-                 whose chunks all start their prompts flash_prefill 32 times, exactly.
+  8. e2e_llama31_8b_kv4 / _turbo / _fp8kv -- Llama-3.1-8B at full width and 16 of its
+                 32 layers (public config, seeded bf16 weights built once for the three)
+                 with quant_policy 8, 42 and 16: 63 concurrent 1024-token prompts plus
+                 one 4096-token prompt, 64 greedy tokens each, run twice, then traced;
+                 each decode step launches the policy's kernel once a layer, each
+                 prefill step whose chunks all start their prompts flash_prefill once a
+                 layer, exactly;
+  9. e2e_mixtral8x7b_w4a16 (+ _fast / _precise / _unprepared) -- Mixtral-8x7B at full
+                 width and depth (public config, seeded AWQ-form W4A16 weights, ~25 GB,
+                 built once for the four), bf16 KV: 63 concurrent 256-token prompts plus
+                 one 2048-token prompt (one 64-row wave, as the Llama-3.1-8B cells);
+                 under gd 64 greedy tokens each, run twice, then
+                 traced; under the other three schedules one run of 16 tokens.  Each
+                 decode step (and prefill step of at most 256 rows) launches the
+                 schedule's W4A16 kernel 64 times and no other W4A16 kernel, exactly.
 The line before the last lists every kernel; the last line is the result.
 It imports nothing of jax or lmdeploy_tpu.
 """
@@ -87,6 +101,9 @@ PEAK_BYTES_S = 3.35e12
 # the allowance is 1e-4 + 1e-4 |ref|
 # paged_decode_int4, _turbo and _fp8 are held like paged_decode (both sides f32, one
 # bf16 rounding)
+# w4a16_szc and w4a16_unprepared are held like w4a16_gemm: both sides take the same
+# bf16 operands (fast / precise: the same bf16 products of each weight with its scale)
+# and the same correction, sum in f32 in another order, and round once to bf16
 KERNEL_TOL = {'flash_prefill': {'atol': 1e-2, 'rtol': 1e-2},
               'paged_decode': {'atol': 1e-3, 'rtol': 1e-2},
               'paged_decode_int8': {'atol': 1e-3, 'rtol': 1e-2},
@@ -94,6 +111,8 @@ KERNEL_TOL = {'flash_prefill': {'atol': 1e-2, 'rtol': 1e-2},
               'paged_decode_turbo': {'atol': 1e-3, 'rtol': 1e-2},
               'paged_decode_fp8': {'atol': 1e-3, 'rtol': 1e-2},
               'w4a16_gemm': {'atol': 2e-3, 'rtol': 1e-2},
+              'w4a16_szc': {'atol': 2e-3, 'rtol': 1e-2},
+              'w4a16_unprepared': {'atol': 2e-3, 'rtol': 1e-2},
               'mxfp4_bmm': {'atol': 1e-4, 'rtol': 1e-4}}
 LOGIT_TOL = 0.1          # bf16 activations through 2 full-width layers vs f32
 # llama2-7b width, W4A16 + int8 KV: logits reach ~6 (TinyLlama's ~4), and bf16
@@ -121,6 +140,15 @@ LOGIT_TOL_GPTOSS = 0.3
 # twice its floor (TurboQuant's midway to its mildest trap)
 LOGIT_TOL_KV = {8: 1.8, 42: 2.0, 16: 0.8}
 KV_PHASE = {8: 'kv4', 42: 'turbo', 16: 'fp8kv'}
+# Mixtral-8x7B W4A16, 2 layers, per W4A16 schedule, the card on the CPU's expert
+# choices: logits reach ~5.2-5.7.  The phase read (H100 80GB HBM3, 700 W) floor (plain
+# versions on the card) / kernels / held traps: gd 0.119 / 0.107 / 0.219 (TF32
+# correction), 1.36, 2.40; fast 0.109 / 0.118 / 0.344 (TF32 correction), 2.48 (corr
+# from unrounded scales), 1.45 (scale on the dot outputs); precise 0.122 / 0.115 / 8.23
+# (subtrahend 128; its scale on the dot outputs reads 0.121, within the floor, and is
+# reported only); unprepared as gd (the same arithmetic) / 8.22 (zeros ignored), 8.41
+# (planes swapped).  One allowance sits between every floor and the mildest trap
+LOGIT_TOL_MIXTRAL = {'gd': 0.17, 'fast': 0.17, 'precise': 0.17, 'unprepared': 0.17}
 SEED = 1234
 # the public config.json of openai/gpt-oss-20b (its fields the port reads)
 GPT_OSS_20B = {
@@ -153,6 +181,29 @@ LLAMA31_8B = {
     'tie_word_embeddings': False, 'attention_bias': False, 'bos_token_id': 128000,
     'eos_token_id': [128001, 128008, 128009], 'torch_dtype': 'bfloat16',
 }
+
+
+# the public config.json of mistralai/Mixtral-8x7B-Instruct-v0.1 (its fields the port
+# reads), with the quantization_config of its AWQ release (4 bits, group 128, zero
+# points; the GEMM packing the port's loader reads)
+MIXTRAL_8X7B = {
+    'architectures': ['MixtralForCausalLM'], 'model_type': 'mixtral',
+    'hidden_size': 4096, 'intermediate_size': 14336, 'num_hidden_layers': 32,
+    'num_attention_heads': 32, 'num_key_value_heads': 8, 'num_local_experts': 8,
+    'num_experts_per_tok': 2, 'vocab_size': 32000, 'max_position_embeddings': 32768,
+    'rms_norm_eps': 1e-05, 'rope_theta': 1e6, 'sliding_window': None,
+    'tie_word_embeddings': False, 'bos_token_id': 1, 'eos_token_id': 2,
+    'torch_dtype': 'bfloat16',
+    'quantization_config': {'quant_method': 'awq', 'bits': 4, 'group_size': 128,
+                            'zero_point': True, 'version': 'gemm'},
+}
+# the engine's switches of each W4A16 schedule (read when the ModelAgent is built), and
+# the kernel each runs
+W4_SCHEDULES = {'gd': {}, 'fast': {'LMDEPLOY_TPU_W4_FAST': '1'},
+                'precise': {'LMDEPLOY_TPU_W4_SCHED': 'precise'},
+                'unprepared': {'LMDEPLOY_TPU_W4_STACKED': '0'}}
+W4_KERNEL_OF = {'gd': 'w4a16_gemm', 'fast': 'w4a16_szc', 'precise': 'w4a16_szc',
+                'unprepared': 'w4a16_unprepared'}
 
 
 def emit(obj):
@@ -222,10 +273,23 @@ def gptoss_config(num_layers: int = 24):
                                            layer_types=GPT_OSS_20B['layer_types'][:num_layers]))
 
 
+# the Llama-3.1-8B e2e phases' depth, cut from the config's 32 layers so the script
+# stays well inside its time limit beside the Mixtral-8x7B phases at full depth; width,
+# heads, vocab and the traffic stay as published
+L31 = 16
+
+
 def llama31_config(num_layers: int = 32):
     """Llama-3.1-8B (its public config), depth cut to ``num_layers``."""
     from lmdeploy_tpu_torch.config import ModelConfig
     return ModelConfig.from_hf_config(dict(LLAMA31_8B, num_hidden_layers=num_layers))
+
+
+def mixtral_config(num_layers: int = 32):
+    """Mixtral-8x7B (its public config) with AWQ W4A16 weights, depth cut to
+    ``num_layers``."""
+    from lmdeploy_tpu_torch.config import ModelConfig
+    return ModelConfig.from_hf_config(dict(MIXTRAL_8X7B, num_hidden_layers=num_layers))
 
 
 def llama7b_w4_config(num_layers: int = 32, max_len: int = 2304):
@@ -424,13 +488,13 @@ def _gd_trapped(trap: str):
     given instead of from the bf16 x the main product reads (trap 3; it shows only
     where x is wider than bf16); 'rounded_before_correction' rounds the ~50x-larger
     main product to x.dtype before corr is subtracted."""
-    from lmdeploy_tpu_torch.ops.quant_matmul import _unpack_planes, _xg
+    from lmdeploy_tpu_torch.ops.quant_matmul import _nibbles_u8, _xg
 
     def gd(x, packed, sb, corr, gs):
         M, K = x.shape
         G, N = K // gs, packed.shape[1]
         xb = x.to(torch.bfloat16)
-        w = (_unpack_planes(packed).float() + 128.0).view(G, gs, N)
+        w = (_nibbles_u8(packed).float() + 128.0).view(G, gs, N)
         acc = (torch.bmm(xb.float().view(M, G, gs).transpose(0, 1), w)
                * sb[:, None, :]).sum(0)
         xg, cz = _xg(xb, gs), corr
@@ -448,9 +512,9 @@ def _int4pack_library(x, packed, scales, zeros, gs):
     """One PyTorch call for the same product, as a yardstick only:
     torch._weight_int4pack_mm computes x @ ((q - 8) * s + zero), so zero = (8 - z) * s
     maps the zero points.  Returns (fn, None) or (None, error text)."""
-    from lmdeploy_tpu_torch.ops.quant_matmul import _unpack_planes
+    from lmdeploy_tpu_torch.ops.quant_matmul import _nibbles_u8
     try:
-        q = _unpack_planes(packed).t().contiguous()                  # [N, K] 0..15
+        q = _nibbles_u8(packed).t().contiguous()                     # [N, K] 0..15
         u8 = (q[:, ::2] << 4 | q[:, 1::2]).to(torch.uint8)
         wpack = torch._convert_weight_to_int4pack(u8, 8)
         sz = torch.stack([scales, (8.0 - zeros) * scales], dim=-1).bfloat16().contiguous()
@@ -476,7 +540,7 @@ def w4a16_phase():
     for label, M, K, N in W4_SHAPES:
         w = (torch.randn(K, N, device='cuda', generator=gen) * 0.02).bfloat16()
         packed, scales, zeros = quantize_w4(w, gs)
-        sb, corr = prep_w4(scales, zeros)
+        sb, corr = prep_w4(scales, zeros, mode='gd')
         x32 = torch.randn(M, K, device='cuda', generator=gen)
         x = x32.bfloat16()
         out = w4a16_matmul_gd(x, packed, sb, corr, gs)
@@ -524,6 +588,162 @@ def w4a16_phase():
             raise SystemExit(f'w4a16_gemm disagrees with its plain version at some split, '
                              f'or its check misses a trap: {row}')
     return results
+
+
+# one Mixtral-8x7B layer's W4A16 attention projections (fused wqkv, wo), K x N; its
+# e2e phases decode in the 64-row bucket.  Beside them llama2-7b's projections but its
+# wo, which has Mixtral's shape
+MIX_LAYER = (('mixtral_wqkv', 4096, 6144), ('mixtral_wo', 4096, 4096))
+MIX_MAIN_M = 64
+W4_MODE_SHAPES = tuple((f'{n}_m{M}', M, K, N)
+                       for n, K, N in MIX_LAYER + tuple(('7b_' + n, K, N) for n, K, N in W4_LAYER
+                                                        if n != 'wo')
+                       for M in (1, 8, 37, MIX_MAIN_M, 128, 256))
+# numerical traps planted in the plain versions (ROADMAP section 3), each of which the
+# check must read above its allowance: fast's corr from the unrounded scales (trap 2),
+# xg from unrounded x (trap 3) and a TF32 correction (trap 1), all on its ~30x bias
+# term, and its bf16 scale applied in f32 to each group's dot output (the gd numerics)
+# instead of to each weight with a bf16 rounding; precise's subtrahend 128 instead of
+# 135.  Precise's corr (z - 7)*s is signal-sized by design, so traps 1-3 move it by a
+# fraction of a bf16 ulp and are not planted there, and its weights (q - 7)*s round at
+# 1/18 of fast's (128 + q)*s: its scale-on-the-dot-outputs trap is reported, not held
+# (2.1-5.8x the kernel allowance, within the parity floor, on an H100 80GB HBM3).  The
+# unprepared product: zeros ignored, planes 1 and 2 swapped, a TF32 correction
+SZC_TRAPS = {'fast': ('corr_unrounded_scales', 'xg_unrounded', 'tf32_correction',
+                      'scale_on_dot_outputs'),
+             'precise': ('subtrahend_128',)}
+SZC_REPORTED = {'fast': (), 'precise': ('scale_on_dot_outputs',)}
+UNPREP_TRAPS = ('zeros_ignored', 'plane_order_swapped', 'tf32_correction')
+
+
+def _szc_trapped(trap: str, scales=None, zeros=None):
+    """``w4a16_matmul_szc_plain`` with one trap planted; 'corr_unrounded_scales' builds
+    corr from the raw f32 ``scales`` and ``zeros``."""
+    from lmdeploy_tpu_torch.ops.quant_matmul import C135, _nibbles_u8, _xg, schedule_of
+
+    def szc(x, packed, sb, corr, gs):
+        precise = schedule_of(sb, corr) == 'precise'
+        M, K = x.shape
+        G, N = K // gs, packed.shape[1]
+        xb = x.to(torch.bfloat16)
+        sub = 128.0 if trap == 'subtrahend_128' else C135 if precise else 0.0
+        q = (_nibbles_u8(packed).float() + (128.0 - sub)).view(G, gs, N)
+        s = sb.float()[:, None, :]
+        if trap == 'scale_on_dot_outputs':
+            acc = (torch.bmm(xb.float().view(M, G, gs).transpose(0, 1), q) * s).sum(0)
+        else:
+            acc = xb.float() @ (q * s).to(torch.bfloat16).float().view(K, N)
+        xg = x.float().view(M, G, gs).sum(-1) if trap == 'xg_unrounded' else _xg(xb, gs)
+        if precise:
+            xg = xg.to(torch.bfloat16).float()
+        cz = corr.float()
+        if trap == 'corr_unrounded_scales':
+            raw = scales.float()
+            cz = (((zeros.float() - 7.0) * raw).to(torch.bfloat16).float() if precise
+                  else (zeros.float() + 128.0) * raw)
+        if trap == 'tf32_correction':
+            xg, cz = _tf32(xg), _tf32(cz)
+        return (acc - (xg[:, :, None] * cz[None]).sum(1)).to(x.dtype)
+    return szc
+
+
+def _unprep_trapped(trap: str):
+    """``w4a16_matmul_plain`` with one trap planted in its group-dot (the dense route
+    above 256 rows is the reference's and stays as it is)."""
+    from lmdeploy_tpu_torch.ops.quant_matmul import (_dense_route, _nibbles_u8, _xg,
+                                                     w4a16_dense)
+
+    def mm(x, packed, scales, zeros, gs):
+        if _dense_route(x, gs):
+            return w4a16_dense(x, packed, scales, zeros, gs)
+        M, K = x.shape
+        G, N = K // gs, packed.shape[1]
+        xb = x.to(torch.bfloat16)
+        q = _nibbles_u8(packed).float()
+        if trap == 'plane_order_swapped':
+            q = q.view(4, K // 4, N)[[0, 2, 1, 3]].reshape(K, N)
+        s = scales.float()
+        acc = (torch.bmm(xb.float().view(M, G, gs).transpose(0, 1),
+                         (q + 128.0).view(G, gs, N)) * s[:, None, :]).sum(0)
+        z = torch.zeros_like(s) if trap == 'zeros_ignored' else zeros.float()
+        xg, cz = _xg(xb, gs), (z + 128.0) * s
+        if trap == 'tf32_correction':
+            xg, cz = _tf32(xg), _tf32(cz)
+        return (acc - (xg[:, :, None] * cz[None]).sum(1)).to(x.dtype)
+    return mm
+
+
+def w4a16_modes_phase():
+    """w4a16_szc (fast and precise) and w4a16_unprepared against their plain versions
+    on the card, at Mixtral-8x7B's fused wqkv and wo and llama2-7b's four projections,
+    M 1 to 256, with each mode's planted traps; beside each, the bound, the plain
+    version's time, torch._weight_int4pack_mm's and a dense bf16 GEMM's on the same
+    weights.  Returns (szc rows, unprepared rows)."""
+    from lmdeploy_tpu_torch.ops.quant_matmul import (dequant_w4, prep_w4, quantize_w4,
+                                                     w4a16_matmul, w4a16_matmul_plain,
+                                                     w4a16_matmul_szc,
+                                                     w4a16_matmul_szc_plain, w4a16_splits)
+    torch.backends.cuda.matmul.allow_tf32 = False     # the corrections must stay f32
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gs = 128
+    out_rows = {'w4a16_szc': [], 'w4a16_unprepared': []}
+    weights = {}
+    for label, M, K, N in W4_MODE_SHAPES:
+        if (K, N) not in weights:
+            weights.clear()
+            torch.cuda.empty_cache()
+            w = (torch.randn(K, N, device='cuda', generator=gen) * 0.02).bfloat16()
+            packed, scales, zeros = quantize_w4(w, gs)
+            weights[(K, N)] = (packed, scales, zeros, dequant_w4(packed, scales, zeros, gs),
+                               {m: prep_w4(scales, zeros, mode=m) for m in ('fast', 'precise')})
+            del w
+        packed, scales, zeros, wd, prepped = weights[(K, N)]
+        G = K // gs
+        x32 = torch.randn(M, K, device='cuda', generator=gen)
+        x = x32.bfloat16()
+        lib, lib_error = _int4pack_library(x, packed, scales, zeros, gs)
+        common = {'phase': 'kernel', 'case': label, 'shape': [M, K, N, gs], 'tf32': False,
+                  'splits': w4a16_splits(M, N, G, sms),
+                  'library_ms': time_ms(lib) if lib is not None else None,
+                  'library': 'torch._weight_int4pack_mm', 'library_error': lib_error,
+                  'dense_bf16_ms': time_ms(lambda: torch.matmul(x, wd))}
+        cases = [('w4a16_szc', mode, (sb, corr), w4a16_matmul_szc, w4a16_matmul_szc_plain,
+                  {t: _szc_trapped(t, scales, zeros)
+                   for t in SZC_TRAPS[mode] + SZC_REPORTED[mode]},
+                  G * N * (2 + corr.element_size()))
+                 for mode, (sb, corr) in prepped.items()]
+        cases.append(('w4a16_unprepared', 'unprepared', (scales, zeros), w4a16_matmul,
+                      w4a16_matmul_plain, {t: _unprep_trapped(t) for t in UNPREP_TRAPS},
+                      G * N * 8))
+        for kernel, mode, (ta, tb), kern, plain, traps, table_bytes in cases:
+            out = kern(x, packed, ta, tb, gs)
+            ref = plain(x, packed, ta, tb, gs)
+            torch.cuda.synchronize()
+            tol = KERNEL_TOL[kernel]
+            err, rel, frac = compare(out, ref, tol)
+            ok = bool(torch.isfinite(out.float()).all()) and frac <= 1.0
+            reads = {t: compare(fn(x32 if t == 'xg_unrounded' else x, packed, ta, tb,
+                                   gs).bfloat16(), ref, tol)[2]
+                     for t, fn in traps.items()}
+            ok = ok and min(v for t, v in reads.items()
+                            if t not in SZC_REPORTED.get(mode, ())) > 1.0
+            nbytes = K * N // 2 + table_bytes + 2 * M * K + 2 * M * N + 4 * M * G
+            bound_ms, bound_by = bound(2 * M * K * N, nbytes)
+            row = dict(common, kernel=kernel, mode=mode, max_abs_err=err, max_rel_err=rel,
+                       err_over_tol=frac, tol=tol, ok=ok, trap_err_over_tol=reads,
+                       kernel_ms=time_ms(lambda: kern(x, packed, ta, tb, gs)),
+                       plain_ms=time_ms(lambda: plain(x, packed, ta, tb, gs), **PLAIN_TIMING),
+                       bound_ms=bound_ms, bound_by=bound_by, mbytes=nbytes / 1e6)
+            emit(row)
+            out_rows[kernel].append(row)
+            if not ok:
+                raise SystemExit(f'{kernel} ({mode}) disagrees with its plain version, or '
+                                 f'its check misses a trap: {row}')
+    weights.clear()
+    torch.cuda.empty_cache()
+    return out_rows['w4a16_szc'], out_rows['w4a16_unprepared']
 
 
 def _int8_decode_inputs(gen, B, Hq, Hkv, D, BS, W, lens, L=2):
@@ -887,9 +1107,11 @@ def _kernel_counters():
     from lmdeploy_tpu_torch.ops.paged_decode import (paged_decode_attention,
                                                      paged_decode_attention_int8)
     from lmdeploy_tpu_torch.ops.quant_bmm import mxfp4_bmm
-    from lmdeploy_tpu_torch.ops.quant_matmul import w4a16_matmul_gd
+    from lmdeploy_tpu_torch.ops.quant_matmul import (w4a16_matmul, w4a16_matmul_gd,
+                                                     w4a16_matmul_szc)
     return {'flash_prefill': flash_prefill_attention, 'paged_decode': paged_decode_attention,
             'paged_decode_int8': paged_decode_attention_int8, 'w4a16_gemm': w4a16_matmul_gd,
+            'w4a16_szc': w4a16_matmul_szc, 'w4a16_unprepared': w4a16_matmul,
             'mxfp4_bmm': mxfp4_bmm,
             **{kernel: _kv_decode_fns(kernel)[0] for kernel in KV_POLICIES.values()}}
 
@@ -900,35 +1122,56 @@ def _row_recorders():
     from lmdeploy_tpu_torch.nn import linear
     from lmdeploy_tpu_torch.ops import moe
     return {'w4a16_gemm': (linear, 'w4a16_matmul_gd', lambda x: x.shape[0]),
+            'w4a16_szc': (linear, 'w4a16_matmul_szc', lambda x: x.shape[0]),
+            'w4a16_unprepared': (linear, 'w4a16_matmul', lambda x: x.shape[0]),
             'mxfp4_bmm': (moe, 'mxfp4_bmm', lambda x: x.shape[-2])}
 
 
 def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
               need_per_step, card: str, short_len: int = 128, long_len: int = 2048,
-              exact: bool = False, shared: dict = None) -> dict:
-    """Drive the Engine twice on the same requests (launch counts from the first run,
-    card numbers from the second), then a traced run: ``n_short`` prompts of
-    ``short_len`` tokens and one of ``long_len``.  ``need_per_step`` maps each kernel
-    of the path to its launches per (fresh prefill, decode) step; with ``exact`` the
-    first run must launch exactly that many, else at least.  ``shared`` carries the seeded
-    weights from one phase's engine to the next one of the same model.  Returns the
+              exact: bool = False, shared: dict = None,
+              env: dict = None, forbid=(), runs: int = 2, new_tokens: int = 64,
+              trace: bool = True) -> dict:
+    """Drive the Engine ``runs`` times on the same requests (launch counts from the
+    first run, card numbers from the last; two runs must give equal greedy tokens),
+    then, with ``trace``, a traced run: ``n_short`` prompts of ``short_len`` tokens and
+    one of ``long_len``, ``new_tokens`` greedy tokens each.  ``need_per_step`` maps
+    each kernel of the path to its launches per (fresh prefill, decode[, prefill of
+    at most 256 rows]) step; with ``exact`` the first run must launch exactly that
+    many, else at least; each kernel of ``forbid`` must not launch at all.
+    ``shared`` carries the raw seeded weights from one phase's engine to the next one
+    of the same model; each engine fuses and prepares them itself.  ``env`` holds the
+    engine switches (``LMDEPLOY_TPU_*``) set while the engine is built.  Returns the
     phase's row."""
+    from lmdeploy_tpu_torch.config import bucketize
     from lmdeploy_tpu_torch.models.llama import LlamaModel
-    new_tokens = 64
     rng = np.random.RandomState(SEED)
     prompts = [rng.randint(3, 32000, size=short_len).tolist() for _ in range(n_short)]
     prompts.append(rng.randint(3, 32000, size=long_len).tolist())
     t_build = time.perf_counter()
-    reuse = shared is not None and 'params' in shared
-    with _swapped(*[(LlamaModel, 'init_params', lambda *a, **k: shared['params'])]
-                  if reuse else []):
-        engine = build_engine(model, max_batch, quant_policy,
-                              session_len=max(2048, long_len) + 128)
+    reuse = shared is not None and 'init' in shared
+    init = LlamaModel.init_params
+
+    def init_once(self, *args, **kwargs):
+        if 'init' not in shared:
+            shared['init'] = init(self, *args, **kwargs)
+        return shared['init']
+    swaps = [(LlamaModel, 'init_params', init_once)] if shared is not None else []
+    saved_env = {k: os.environ.get(k) for k in env or {}}
+    os.environ.update(env or {})
+    try:
+        with _swapped(*swaps):
+            engine = build_engine(model, max_batch, quant_policy,
+                                  session_len=max(2048, long_len) + 128)
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     build_s = time.perf_counter() - t_build
     agent = engine.model_agent
-    if shared is not None:
-        shared['params'] = agent.params
-    steps = {'prefill': 0, 'fresh_prefill': 0, 'decode': 0}
+    steps = {'prefill': 0, 'fresh_prefill': 0, 'small_prefill': 0, 'decode': 0}
     prefill, decode_run = agent.prefill, agent.decode_run
 
     def counted_prefill(chunks):
@@ -937,6 +1180,11 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
         # continuation chunk of a prompt longer than the token budget takes the dense
         # gathered path (ops/attention.py)
         steps['fresh_prefill'] += all(c.start == 0 for c in chunks)
+        # the rows of the step's padded batch (ModelAgent._run): at most 256 take the
+        # W4A16 kernels, more the dense route
+        rows = (bucketize(len(chunks), agent.batch_buckets)
+                * bucketize(max(c.length for c in chunks), agent.chunk_buckets))
+        steps['small_prefill'] += rows <= 256
         return prefill(chunks)
 
     def counted_decode_run(num_rows, k=None, *args):
@@ -953,44 +1201,47 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
             return fn(x, *args)
         return seen
     record = [(m, a, recorder(n, getattr(m, a), f)) for n, (m, a, f) in _row_recorders().items()]
-    runs = []
-    for i in range(2):
-        steps.update(prefill=0, fresh_prefill=0, decode=0)
+    results = []
+    for i in range(runs):
+        steps.update(prefill=0, fresh_prefill=0, small_prefill=0, decode=0)
         for fn in counters.values():
             fn.launches = 0
         # the first run also records the rows of every GEMM-kernel call of the path
         with _swapped(*record if i == 0 else []):
             outs, t0, t1 = run_requests(engine, prompts, new_tokens)
-        runs.append({'tokens': [o.token_ids for o in outs], 'outs': outs, 't0': t0,
-                     't1': t1, 'steps': dict(steps),
-                     'launches': {n: fn.launches for n, fn in counters.items()}})
-    profile_phase(name, engine, prompts, new_tokens)
-    first, second = runs
+        results.append({'tokens': [o.token_ids for o in outs], 'outs': outs, 't0': t0,
+                        't1': t1, 'steps': dict(steps),
+                        'launches': {n: fn.launches for n, fn in counters.items()}})
+    if trace:
+        profile_phase(name, engine, prompts, new_tokens)
+    first, last = results[0], results[-1]
     num_blocks = agent.num_blocks
     engine.close()
     del engine, agent, prefill, decode_run, counted_prefill, counted_decode_run
-    lengths_ok = all(len(t) == new_tokens for r in runs for t in r['tokens'])
+    lengths_ok = all(len(t) == new_tokens for r in results for t in r['tokens'])
     finite = all(np.isfinite(lp[tok].logprob)
                  for o in first['outs'] for lp, tok in zip(o.logprobs, o.token_ids))
-    deterministic = first['tokens'] == second['tokens']
-    need = {n: per_prefill * first['steps']['fresh_prefill']
-            + per_decode * first['steps']['decode']
-            for n, (per_prefill, per_decode) in need_per_step.items()}
+    deterministic = all(r['tokens'] == first['tokens'] for r in results)
+    st = first['steps']
+    need = {n: per[0] * st['fresh_prefill'] + per[1] * st['decode']
+            + (per[2] * st['small_prefill'] if len(per) > 2 else 0)
+            for n, per in need_per_step.items()}
     launches_ok = all((first['launches'][n] == need[n] if exact else
                        first['launches'][n] >= need[n]) and need[n] > 0 for n in need)
+    launches_ok = launches_ok and all(first['launches'][n] == 0 for n in forbid)
     row = {'phase': name, 'model': model_label(model, quant_policy), 'card': card,
-           'requests': len(prompts), 'new_tokens': new_tokens,
+           'requests': len(prompts), 'new_tokens': new_tokens, 'runs': runs,
            'engine_build_s': build_s, 'weights_reused': reuse, 'quant_policy': quant_policy,
-           'lengths_ok': lengths_ok, 'logprobs_finite': finite,
+           'env': env or {}, 'lengths_ok': lengths_ok, 'logprobs_finite': finite,
            'deterministic': deterministic, 'steps': first['steps'],
            'launches': first['launches'], 'launches_needed': need,
-           'launches_ok': launches_ok,
+           'launches_forbidden': list(forbid), 'launches_ok': launches_ok,
            'rows_by_kernel': {n: dict(c) for n, c in rows.items() if c},
            'num_blocks': num_blocks,
-           # card numbers from the second run (cuBLAS and allocator warmed by the first)
-           **serving_numbers(second)}
+           # card numbers from the last run (cuBLAS and allocator warmed by the first)
+           **serving_numbers(last)}
     emit(row)
-    del runs, first, second
+    del results, first, last
     gc.collect()
     torch.cuda.empty_cache()          # the next engine's block budget sees free memory
     if not (lengths_ok and finite and deterministic and launches_ok):
@@ -1003,6 +1254,9 @@ KV_LABELS = {0: 'bf16 KV', 4: 'int8 KV', 8: 'int4 KV', 16: 'fp8-e4m3 KV',
 
 
 def model_label(model, policy: int = 0) -> str:
+    if model.model_type == 'mixtral':
+        return (f'mixtral-8x7b geometry, {model.num_layers} layers, AWQ-form W4A16 gs128 '
+                f'(attention and experts) + {KV_LABELS[policy]}, random seeded weights')
     if model.model_type == 'gpt_oss':
         return (f'gpt-oss-20b geometry, {model.num_layers} layers, MXFP4 experts + bf16 '
                 f'KV, random seeded weights')
@@ -1023,15 +1277,23 @@ def profile_phase(name, engine, prompts, new_tokens):
     averages = prof.key_averages()
     events = [e for e in averages if e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    host = sorted(averages, key=lambda e: -e.self_cpu_time_total)[:8]
+
+    def top(items, attr):
+        """The 8 largest (ms, calls) by name cut to 110 characters, summed over the
+        kernels whose names share that start (template instances of one kernel)."""
+        ms, calls = collections.Counter(), collections.Counter()
+        for e in items:
+            ms[e.key[:110]] += getattr(e, attr) / 1e3
+            calls[e.key[:110]] += e.count
+        best = ms.most_common(8)
+        return dict(best), {k: calls[k] for k, _ in best}
+    device_ms, device_calls = top(events, 'self_device_time_total')
+    host_ms, host_calls = top(averages, 'self_cpu_time_total')
     emit({'phase': 'profile', 'of': name, 'wall_ms': (t1 - t0) * 1e3,
           'device_busy_ms': busy_us / 1e3,
           'device_busy_share': busy_us / 1e3 / ((t1 - t0) * 1e3) if busy_us else None,
-          'top_device_ms': {e.key[:60]: e.self_device_time_total / 1e3 for e in top},
-          'top_calls': {e.key[:60]: e.count for e in top},
-          'top_host_self_ms': {e.key[:60]: e.self_cpu_time_total / 1e3 for e in host},
-          'top_host_calls': {e.key[:60]: e.count for e in host}})
+          'top_device_ms': device_ms, 'top_calls': device_calls,
+          'top_host_self_ms': host_ms, 'top_host_calls': host_calls})
 
 
 # -- phase 4 -------------------------------------------------------------------------
@@ -1056,7 +1318,9 @@ def _plain_kernels():
     from lmdeploy_tpu_torch.ops.flash_prefill import flash_prefill_attention_plain
     from lmdeploy_tpu_torch.ops.kv_quant import QuantKV, QuantKV4, QuantKVTurbo
     from lmdeploy_tpu_torch.ops.quant_bmm import mxfp4_bmm_plain
-    from lmdeploy_tpu_torch.ops.quant_matmul import w4a16_matmul_gd_plain
+    from lmdeploy_tpu_torch.ops.quant_matmul import (w4a16_matmul_gd_plain,
+                                                     w4a16_matmul_plain,
+                                                     w4a16_matmul_szc_plain)
     quantized = {QuantKV: paged_decode.paged_decode_attention_int8_plain,
                  QuantKV4: paged_decode.paged_decode_attention_int4_plain,
                  QuantKVTurbo: paged_decode.paged_decode_attention_turbo_plain}
@@ -1070,15 +1334,20 @@ def _plain_kernels():
     return _swapped((attention, 'flash_prefill_attention', flash_prefill_attention_plain),
                     (attention, 'paged_decode_attention', decode_plain),
                     (linear, 'w4a16_matmul_gd', w4a16_matmul_gd_plain),
+                    (linear, 'w4a16_matmul_szc', w4a16_matmul_szc_plain),
+                    (linear, 'w4a16_matmul', w4a16_matmul_plain),
                     (moe, 'mxfp4_bmm', mxfp4_bmm_plain))
 
 
-def _parity_traps(cfg16, policy: int):
-    """[(trap, swap, side)] ('card' or 'cpu'): the numerical traps of the config's quantized kernel,
-    each planted in the plain version (W4_TRAPS in the decode steps' group-dot, on
-    the CPU for 'xg_unrounded', the only side with an x wider than bf16; MX_TRAPS in
-    every MXFP4 product of the card's run; KV_TRAPS in the decode steps' attention
-    over the cache of ``policy``)."""
+def _parity_traps(cfg16, policy: int, schedule: str = 'gd'):
+    """[(trap, swap, side)] ('card', 'cpu' or 'card_params'): the numerical traps of the
+    config's quantized kernel, each planted in the plain version (W4_TRAPS in the
+    decode steps' group-dot, on the CPU for 'xg_unrounded', the only side with an x
+    wider than bf16; the fast / precise and unprepared products' traps of a W4A16
+    ``schedule`` likewise on the card, and for 'corr_unrounded_scales' in the card's
+    prepared leaves (side 'card_params': ``swap`` is then the raw-tree transform);
+    MX_TRAPS in every MXFP4 product of the card's run; KV_TRAPS in the decode steps'
+    attention over the cache of ``policy``)."""
     from lmdeploy_tpu_torch.nn import linear
     from lmdeploy_tpu_torch.ops import attention, moe
     if policy in KV_POLICIES:
@@ -1097,13 +1366,35 @@ def _parity_traps(cfg16, policy: int):
     method = (cfg16.quantization_config or {}).get('quant_method')
     if method == 'mxfp4':
         return [(t, (moe, 'mxfp4_bmm', _mx_trapped(t)), 'card') for t in MX_TRAPS]
+    if method and schedule in ('fast', 'precise'):
+        traps = [(t, (linear, 'w4a16_matmul_szc', _szc_trapped(t)), 'card')
+                 for t in SZC_TRAPS[schedule] + SZC_REPORTED[schedule]
+                 if t not in ('corr_unrounded_scales', 'xg_unrounded')]
+        if schedule == 'fast':
+            traps.append(('corr_unrounded_scales', _corr_unrounded, 'card_params'))
+        return traps
+    if method and schedule == 'unprepared':
+        return [(t, (linear, 'w4a16_matmul', _unprep_trapped(t)), 'card')
+                for t in UNPREP_TRAPS]
     if method:
         return [(t, (linear, 'w4a16_matmul_gd', _gd_trapped(t)),
                  'cpu' if t == 'xg_unrounded' else 'card') for t in W4_TRAPS]
     return []
 
 
-def parity_phase(name: str, cfg16, tol: float, policy: int = 0):
+def _corr_unrounded(raw: dict) -> dict:
+    """The fast schedule's prepared tree with every corr built from the unrounded f32
+    scales (ROADMAP section 3, trap 2), from the raw tree ``raw``."""
+    layers = dict(raw['layers'])
+    for name, leaf in layers.items():
+        if isinstance(leaf, dict) and 'scales' in leaf and leaf['packed'].dim() == 3:
+            s = leaf['scales'].float()
+            layers[name] = {'packed': leaf['packed'], 'sb': s.to(torch.bfloat16),
+                            'corr': (leaf['zeros'].float() + 128.0) * s}
+    return dict(raw, layers=layers)
+
+
+def parity_phase(name: str, cfg16, tol: float, policy: int = 0, schedule: str = 'gd'):
     """2 full-width layers: the card (bf16, kernels) against the port on the CPU (f32,
     plain paths) on the same weights, prefill logits and 8 teacher-forced decode
     steps.  W4A16 leaves are the same int32 words and f32 scales on both sides; MXFP4
@@ -1129,7 +1420,9 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0):
     the prefill logits then differ by the quantization error itself
     (``prefill_logit_err``), so the phase holds the decode steps, where the policy's
     kernel runs, and its traps are planted.  Weights are built once for consecutive
-    phases of one config."""
+    phases of one config.  ``schedule`` names the W4A16 schedule both sides' attention
+    projections take (gd, fast, precise or unprepared), with its own kernel on the card
+    and that kernel's plain version on the CPU."""
     from lmdeploy_tpu_torch.models import build_model
     from lmdeploy_tpu_torch.models.llama import AttnMeta
     from lmdeploy_tpu_torch.nn.layers import make_rope_table
@@ -1137,7 +1430,7 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0):
     torch.backends.cudnn.allow_tf32 = False
     m16 = build_model(cfg16)
     m32 = build_model(dataclasses.replace(cfg16, dtype='float32'))
-    w_cpu, w_gpu = _parity_weights(cfg16, m16, m32)
+    w_cpu, w_gpu, raw_gpu = _parity_weights(cfg16, m16, m32, schedule)
     B, T, BS, steps = 2, 256, 128, 8
     pages = (T + steps + BS - 1) // BS
     NB = 1 + B * pages
@@ -1236,7 +1529,14 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0):
         lf0, kv_f = prefill('card')
         floor = max_err([lf0] + decode('card', kv_f, toks), cpu)
     traps = {}
-    for trap, swap, which in _parity_traps(cfg16, policy):
+    for trap, swap, which in _parity_traps(cfg16, policy, schedule):
+        if which == 'card_params':
+            side['card'] = (m16, swap(raw_gpu), 'cuda')
+            lt0, kv_t = prefill('card')
+            traps[trap] = max_err([lt0] + decode('card', kv_t, toks), cpu)
+            side['card'] = (m16, w_gpu, 'cuda')
+            del kv_t
+            continue
         with _swapped(swap):
             if which == 'cpu':
                 traps[trap] = max_err([lc0] + decode('cpu', kv_cpu0.clone(), toks), card)
@@ -1245,8 +1545,11 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0):
                 traps[trap] = max_err([lt0] + decode('card', kv_t, toks), cpu)
             else:
                 traps[trap] = max_err([lg0] + decode('card', kv_gpu0.clone(), toks), cpu)
-    ok = max(errs[held:]) <= tol and all(v > tol for v in traps.values()) and flips_ok
+    ok = (max(errs[held:]) <= tol and flips_ok
+          and all(v > tol for t, v in traps.items()
+                  if t not in SZC_REPORTED.get(schedule, ())))
     row = {'phase': name, 'layers': 2, 'model': model_label(cfg16, policy), 'batch': B,
+           'w4a16_schedule': schedule if cfg16.quantization_config else None,
            'prompt': T, 'decode_steps': steps, 'vocab': cfg16.vocab_size,
            'held_steps': 'decode' if held else 'prefill and decode',
            'max_abs_logit_err': max(errs[held:]), 'prefill_logit_err': errs[0],
@@ -1262,7 +1565,7 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0):
                    worst_flip_margin_over_layer_err=worst,
                    flips_within_bf16_error=flips_ok, free_routing_max_abs_logit_err=free)
     emit(row)
-    del kv_gpu, kv_gpu0, kv_f, w_gpu, side
+    del kv_gpu, kv_gpu0, kv_f, w_gpu, raw_gpu, side
     gc.collect()
     torch.cuda.empty_cache()
     if not row['ok']:
@@ -1273,26 +1576,39 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0):
 _PARITY_WEIGHTS = {}
 
 
-def _parity_weights(cfg16, m16, m32):
-    """(CPU f32, card bf16) parameter trees with identical values: bf16-representable
-    dense weights, the same quantized words, codes and f32 scales.  Kept for the next
-    parity phase of the same config (the three KV policies share one)."""
+def _parity_weights(cfg16, m16, m32, schedule: str = 'gd'):
+    """(CPU f32, card bf16, card raw) parameter trees with identical values:
+    bf16-representable dense weights, the same quantized words, codes and f32 scales,
+    the W4A16 linears prepared for ``schedule`` on both sides (the raw card tree
+    unprepared).  Expert stacks (MXFP4, W4A16) go to the CPU widened to f32 on the card:
+    exactly the weights the card's products decode, and the CPU's plain products would
+    widen a 1-3.8 GB stack for every call.  The raw trees are kept for the next parity
+    phase of the same config (the three KV policies and the four W4A16 schedules each
+    share one)."""
     from lmdeploy_tpu_torch.ops.quant_bmm import widen_mxfp4
+    from lmdeploy_tpu_torch.ops.quant_matmul import dequant_w4
     key = json.dumps(dataclasses.asdict(cfg16), sort_keys=True, default=str)
-    if key in _PARITY_WEIGHTS:
-        return _PARITY_WEIGHTS[key]
-    _PARITY_WEIGHTS.clear()
-    w = m32.init_params(SEED, device='cpu', dtype=torch.float32)
-    w_cpu = m32.prep_quant_leaves(m32.fuse_projections(_bf16_tree(w, 'cpu', torch.float32)))
-    for key_, leaf in list(w_cpu['layers'].items()):
-        if isinstance(leaf, dict) and 'nib' in leaf:
-            w_cpu['layers'][key_] = torch.stack([
-                widen_mxfp4(n.cuda(), s.cuda(), torch.float32).cpu()
-                for n, s in zip(leaf['nib'], leaf['scale'])])
-    w_gpu = m16.prep_quant_leaves(m16.fuse_projections(_bf16_tree(w, 'cuda',
-                                                                  torch.bfloat16)))
-    _PARITY_WEIGHTS[key] = (w_cpu, w_gpu)
-    return w_cpu, w_gpu
+    if key not in _PARITY_WEIGHTS:
+        _PARITY_WEIGHTS.clear()
+        w = m32.init_params(SEED, device='cpu', dtype=torch.float32)
+        raw_cpu = m32.fuse_projections(_bf16_tree(w, 'cpu', torch.float32))
+        for key_, leaf in list(raw_cpu['layers'].items()):
+            if isinstance(leaf, dict) and 'nib' in leaf:
+                raw_cpu['layers'][key_] = torch.stack([
+                    widen_mxfp4(n.cuda(), s.cuda(), torch.float32).cpu()
+                    for n, s in zip(leaf['nib'], leaf['scale'])])
+            elif isinstance(leaf, dict) and 'packed' in leaf and leaf['packed'].dim() == 4:
+                gs = leaf['packed'].shape[-2] * 8 // leaf['scales'].shape[-2]
+                raw_cpu['layers'][key_] = torch.stack([
+                    dequant_w4(p.cuda(), s.cuda(), z.cuda(), gs, torch.float32).cpu()
+                    for p, s, z in zip(leaf['packed'], leaf['scales'], leaf['zeros'])])
+        raw_gpu = m16.fuse_projections(_bf16_tree(w, 'cuda', torch.bfloat16))
+        _PARITY_WEIGHTS[key] = (raw_cpu, raw_gpu)
+    raw_cpu, raw_gpu = _PARITY_WEIGHTS[key]
+    if schedule == 'unprepared':
+        return raw_cpu, raw_gpu, raw_gpu
+    return (m32.prep_quant_leaves(raw_cpu, mode=schedule),
+            m16.prep_quant_leaves(raw_gpu, mode=schedule), raw_gpu)
 
 
 def _bf16_tree(params, device, dtype):
@@ -1312,7 +1628,19 @@ def _bf16_tree(params, device, dtype):
     return out
 
 
-def kernel_line(flash, decode, decode8, w4, mx, kv):
+def _layer_lead(rows, names, m):
+    """Times and bounds summed over one layer's projections ``names`` at M = ``m``."""
+    layer = [r for r in rows if r['shape'][0] == m and r['case'].rsplit('_m', 1)[0] in names]
+    lead = {k: sum(r[k] for r in layer) for k in ('kernel_ms', 'plain_ms', 'bound_ms')}
+    lead['bound_by'] = 'bytes' if all(r['bound_by'] == 'bytes' for r in layer) \
+        else 'operations'
+    lib = [r['library_ms'] for r in layer]
+    lead['library_ms'] = sum(lib) if None not in lib else None
+    lead['dense_bf16_ms'] = sum(r['dense_bf16_ms'] for r in layer)
+    return lead
+
+
+def kernel_line(flash, decode, decode8, w4, mx, kv, szc, unprep):
     def entry(name, source, replaces, rows, lead, library_ms):
         return {'name': name, 'route': 'cuda', 'source': f'lmdeploy_tpu_torch/csrc/{source}',
                 'replaces': replaces, 'launches': None,
@@ -1345,7 +1673,25 @@ def kernel_line(flash, decode, decode8, w4, mx, kv):
         for name, source, line in (('paged_decode_int4', 'paged_decode_int4.cu', 499),
                                    ('paged_decode_turbo', 'paged_decode_turbo.cu', 371),
                                    ('paged_decode_fp8', 'paged_decode.cu', 155))]
+    # the fast / precise and unprepared W4A16 GEMMs: one Mixtral-8x7B layer's fused
+    # wqkv and wo at the e2e_mixtral phases' decode bucket (fast's times lead, precise's
+    # beside them)
+    mix = [n for n, _, _ in MIX_LAYER]
+    shape = f'mixtral-8x7b layer: wqkv + wo at M = {MIX_MAIN_M}'
+    fast = _layer_lead([r for r in szc if r['mode'] == 'fast'], mix, MIX_MAIN_M)
+    precise = _layer_lead([r for r in szc if r['mode'] == 'precise'], mix, MIX_MAIN_M)
+    raw = _layer_lead(unprep, mix, MIX_MAIN_M)
     return kv_entries + [
+        dict(entry('w4a16_szc', 'w4a16_gemm_szc.cu',
+                   'lmdeploy_tpu/ops/pallas/quant_matmul.py:364', szc, fast,
+                   fast['library_ms']),
+             dense_bf16_ms=fast['dense_bf16_ms'], precise_ms=precise['kernel_ms'],
+             precise_plain_ms=precise['plain_ms'], precise_bound_ms=precise['bound_ms'],
+             shape=shape + ' (fast; precise_* the precise schedule)'),
+        dict(entry('w4a16_unprepared', 'w4a16_gemm_unprepared.cu',
+                   'lmdeploy_tpu/ops/pallas/quant_matmul.py:91', unprep, raw,
+                   raw['library_ms']),
+             dense_bf16_ms=raw['dense_bf16_ms'], shape=shape),
         entry('flash_prefill', 'flash_prefill.cu',
               'lmdeploy_tpu/ops/pallas/flash_prefill.py:76', flash, flash[0],
               flash[0]['library_ms']),
@@ -1385,7 +1731,8 @@ def main():
     kernels = kernel_line(timed('flash_prefill', flash_phase), timed('paged_decode', decode_phase),
                           timed('paged_decode_int8', decode_int8_phase),
                           timed('w4a16_gemm', w4a16_phase), timed('mxfp4_bmm', mxfp4_phase),
-                          timed('paged_decode_kv', decode_kv_phase))
+                          timed('paged_decode_kv', decode_kv_phase),
+                          *timed('w4a16_szc_unprepared', w4a16_modes_phase))
     timed('parity', parity_phase, 'parity', tinyllama_config(num_layers=2), LOGIT_TOL)
     timed('parity_w4a16_kv8', parity_phase, 'parity_w4a16_kv8',
           llama7b_w4_config(num_layers=2), LOGIT_TOL_W4, policy=4)
@@ -1394,9 +1741,12 @@ def main():
     for policy, tol in LOGIT_TOL_KV.items():
         name = f'parity_llama31_{KV_PHASE[policy]}'
         timed(name, parity_phase, name, llama31_config(num_layers=2), tol, policy=policy)
+    for sched, tol in LOGIT_TOL_MIXTRAL.items():
+        name = 'parity_mixtral_w4a16' + ('' if sched == 'gd' else f'_{sched}')
+        timed(name, parity_phase, name, mixtral_config(num_layers=2), tol, schedule=sched)
     _PARITY_WEIGHTS.clear()
-    L1, L7, LG, L31 = (tinyllama_config().num_layers, llama7b_w4_config().num_layers,
-                       gptoss_config().num_layers, llama31_config().num_layers)
+    L1, L7, LG = (tinyllama_config().num_layers, llama7b_w4_config().num_layers,
+                  gptoss_config().num_layers)
     # launches each (prefill step, decode step) needs on each path, and the path whose
     # launches each kernel's entry reports; the Llama-3.1-8B phases share one set of
     # seeded weights and must launch exactly that many
@@ -1404,7 +1754,7 @@ def main():
     paths = {}
     for policy in KV_POLICIES:
         name = f'e2e_llama31_8b_{KV_PHASE[policy]}'
-        paths[name] = timed(name, e2e_phase, name, llama31_config(), 64, policy, 63,
+        paths[name] = timed(name, e2e_phase, name, llama31_config(L31), 64, policy, 63,
                             {'flash_prefill': (L31, 0), KV_POLICIES[policy]: (0, L31)},
                             info['nvidia_smi'], short_len=1024, long_len=4096, exact=True,
                             shared=shared)
@@ -1419,8 +1769,30 @@ def main():
     paths['e2e_gptoss_mxfp4'] = timed(
         'e2e_gptoss_mxfp4', e2e_phase, 'e2e_gptoss_mxfp4', gptoss_config(), 64, 0, 32,
         {'paged_decode': (0, LG), 'mxfp4_bmm': (0, 3 * LG)}, info['nvidia_smi'])
+    # Mixtral-8x7B W4A16 under each schedule, sharing one seeded tree: gd runs as the
+    # other cells do, the other three schedules once with 16 tokens.  63 short prompts
+    # and the long one fill the 64-row batch in one wave (a 65th request would wait for
+    # the whole wave, and decode tok/s would then divide every token by the second
+    # wave's time alone).  Each decode step
+    # launches the schedule's kernel for wqkv and wo on every layer, and no other
+    # W4A16 kernel
+    LM = mixtral_config().num_layers
+    mixtral = {}
+    for sched, env in W4_SCHEDULES.items():
+        name = 'e2e_mixtral8x7b_w4a16' + ('' if sched == 'gd' else f'_{sched}')
+        kernel = W4_KERNEL_OF[sched]
+        gd = sched == 'gd'
+        paths[name] = timed(
+            name, e2e_phase, name, mixtral_config(), 64, 0, 63,
+            {'flash_prefill': (LM, 0), 'paged_decode': (0, LM), kernel: (0, 2 * LM, 2 * LM)},
+            info['nvidia_smi'], short_len=256, long_len=2048, exact=True, shared=mixtral,
+            env=env, forbid=sorted(set(W4_KERNEL_OF.values()) - {kernel}),
+            runs=2 if gd else 1, new_tokens=64 if gd else 16, trace=gd)
+    mixtral.clear()
     main_path = {'flash_prefill': 'e2e', 'paged_decode': 'e2e',
                  'paged_decode_int8': 'e2e_w4a16_kv8', 'w4a16_gemm': 'e2e_w4a16_kv8',
+                 'w4a16_szc': 'e2e_mixtral8x7b_w4a16_fast',
+                 'w4a16_unprepared': 'e2e_mixtral8x7b_w4a16_unprepared',
                  'mxfp4_bmm': 'e2e_gptoss_mxfp4',
                  **{kernel: f'e2e_llama31_8b_{KV_PHASE[p]}' for p, kernel in KV_POLICIES.items()}}
     for k in kernels:

@@ -52,11 +52,14 @@ class ModelConfig:
     sliding_window: Optional[int] = None
     # see lmdeploy_tpu/config.py: True when every layer shares the window
     window_uniform: bool = True
-    # MoE (reference config.py:271-275); the reference's norm_topk_prob and shared
-    # experts come with the first ported family that reads them
+    # MoE (reference config.py:271-275); the reference's shared-expert count comes
+    # with the first ported family that reads it
     num_experts: int = 0
     num_experts_per_tok: int = 0
     moe_intermediate_size: int = 0
+    # top-k on the router logits, then a softmax over the k (True); or a softmax over
+    # all experts, then top-k (False)
+    norm_topk_prob: bool = True
     hf_config: Optional[Dict[str, Any]] = None
     quantization_config: Optional[Dict[str, Any]] = None
 
@@ -103,6 +106,7 @@ class ModelConfig:
             or cfg.get('n_routed_experts') or 0,
             num_experts_per_tok=cfg.get('num_experts_per_tok', 0),
             moe_intermediate_size=cfg.get('moe_intermediate_size', 0),
+            norm_topk_prob=cfg.get('norm_topk_prob', True),
             attention_bias=cfg.get('attention_bias', False)
             or cfg.get('qkv_bias', False),
             partial_rotary_factor=cfg.get('partial_rotary_factor', 1.0),

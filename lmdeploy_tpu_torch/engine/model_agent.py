@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import heapq
 import logging
+import os
 from typing import Optional
 
 import numpy as np
@@ -84,9 +85,18 @@ class ModelAgent:
         else:
             from ..weight_loader import load_params
             params = load_params(self.model, model_path, self.device)
-        # one wide qkv GEMM and one gate/up GEMM per layer; W4A16 leaves then take
-        # the group-dot schedule's prepared form (reference model_agent.py:130-149)
-        self.params = self.model.prep_quant_leaves(self.model.fuse_projections(params))
+        # one wide qkv GEMM and one gate/up GEMM per layer, unless
+        # LMDEPLOY_TPU_FUSE_PROJ=0; W4A16 linears then take a schedule's prepared form
+        # unless LMDEPLOY_TPU_W4_STACKED=0 (they stay unprepared: raw scales and zeros):
+        # the group-dot 'gd' by default, 'fast' with LMDEPLOY_TPU_W4_FAST=1, or the one
+        # LMDEPLOY_TPU_W4_SCHED names (reference model_agent.py:129-149)
+        if os.environ.get('LMDEPLOY_TPU_FUSE_PROJ', '1') != '0':
+            params = self.model.fuse_projections(params)
+        if os.environ.get('LMDEPLOY_TPU_W4_STACKED', '1') != '0':
+            fast = os.environ.get('LMDEPLOY_TPU_W4_FAST', '0') == '1'
+            sched = os.environ.get('LMDEPLOY_TPU_W4_SCHED', 'gd' if not fast else '') or None
+            params = self.model.prep_quant_leaves(params, fast=fast, mode=sched)
+        self.params = params
 
         cos, sin = make_rope_table(cfg.rope_dim, self.max_model_len, cfg.rope_theta,
                                    cfg.rope_scaling, device=self.device)

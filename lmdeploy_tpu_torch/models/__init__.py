@@ -1,8 +1,9 @@
 """Model registry: HF architecture name -> model builder.
 
 Port of the dense-llama part of ``lmdeploy_tpu/models/__init__.py`` (the ``_llama``,
-``_qwen2`` and ``_qwen3`` builders) and its ``_gpt_oss`` entry; the other families are
-later slices.
+``_qwen2`` and ``_qwen3`` builders), its sparse-MoE ``_mixtral``, ``_qwen2_moe`` and
+``_qwen3_moe`` builders and its ``_gpt_oss`` entry; the other families are later
+slices.
 """
 from __future__ import annotations
 
@@ -37,6 +38,26 @@ def _qwen2(config: ModelConfig) -> LlamaModel:
 def _qwen3(config: ModelConfig) -> LlamaModel:
     config.qk_norm = True
     return LlamaModel(config)
+
+
+@register_model('MixtralForCausalLM')
+def _mixtral(config: ModelConfig) -> LlamaModel:
+    from .mixtral import MixtralModel
+    return MixtralModel(config)
+
+
+@register_model('Qwen2MoeForCausalLM')
+def _qwen2_moe(config: ModelConfig) -> LlamaModel:
+    from .mixtral import MixtralModel
+    config.attention_bias = True
+    return MixtralModel(config)
+
+
+@register_model('Qwen3MoeForCausalLM')
+def _qwen3_moe(config: ModelConfig) -> LlamaModel:
+    from .mixtral import MixtralModel
+    config.qk_norm = True
+    return MixtralModel(config)
 
 
 @register_model('GptOssForCausalLM')

@@ -154,9 +154,10 @@ class LlamaModel:
         return torch.full(leaf.shape, fill, dtype=leaf.dtype, device=device)
 
     def make_assign_plan(self) -> Dict[str, Tuple[Tuple, Optional[Callable]]]:
-        """{hf_name: (path, transform)} (or a list of such pairs, when one tensor
-        fills several leaves): the loader writes ``transform(tensor)`` (or the tensor
-        itself) at ``path``, where a layer index selects the stacked row (reference
+        """{hf_name: (path, transform[, column])} (or a list of such entries, when one
+        tensor fills several leaves): the loader writes ``transform(tensor)`` (or the
+        tensor itself) at ``path``, where a layer index selects the stacked row and a
+        column (``models.mixtral.ExpertSlice``) one expert of it (reference
         ``make_assign_plan``, dense and AWQ / GPTQ W4A16 paths)."""
         cfg = self.config
 
@@ -220,7 +221,11 @@ class LlamaModel:
         """wq/wk/wv -> wqkv and w_gate/w_up -> w_gateup along the output dim (one
         wide GEMM instead of three narrow ones), biases likewise.  Quantized dict
         leaves concatenate key by key: every quant layout packs along K and keeps
-        N as the trailing axis.  Gate and up fuse only for the stock ``_mlp``."""
+        N as the trailing axis.  Only the stock ``forward`` knows the fused names, so
+        a class that overrides it keeps its leaves (reference llama.py:389-408); gate
+        and up fuse only for the stock ``_mlp``."""
+        if type(self).forward is not LlamaModel.forward:
+            return params
         lp = dict(params['layers'])
 
         def cat(names):
@@ -236,13 +241,21 @@ class LlamaModel:
             lp['w_gateup'] = cat(['w_gate', 'w_up'])
         return dict(params, layers=lp)
 
-    def prep_quant_leaves(self, params: Dict) -> Dict:
-        """W4A16 leaves -> the group-dot schedule's prepared form
-        ``{'packed', 'sb', 'corr'}`` (reference llama.py:439-459 with mode 'gd')."""
+    def prep_quant_leaves(self, params: Dict, fast: bool = False,
+                          mode: Optional[str] = None) -> Dict:
+        """W4A16 linears -> the prepared form ``{'packed', 'sb', 'corr'}`` of the
+        schedule ``mode`` ('gd', 'fast' or 'precise'; None: fast if ``fast`` else
+        precise, as ``prep_w4`` reads it; reference llama.py:439-459).  Only a class
+        running the stock ``forward`` opts in, and only 3-D ``[L, G, N]`` leaves
+        convert: a MoE model's 4-D expert stacks ``[L, E, G, N]`` stay raw, since its
+        ``_mlp`` widens them with their raw scales and zeros."""
+        if type(self).forward is not LlamaModel.forward:
+            return params
         lp = dict(params['layers'])
         for name, leaf in lp.items():
-            if isinstance(leaf, dict) and 'packed' in leaf and 'scales' in leaf:
-                sb, corr = prep_w4(leaf['scales'], leaf['zeros'])
+            if (isinstance(leaf, dict) and 'packed' in leaf and 'scales' in leaf
+                    and leaf['packed'].dim() == 3):
+                sb, corr = prep_w4(leaf['scales'], leaf['zeros'], not fast, mode=mode)
                 lp[name] = {'packed': leaf['packed'], 'sb': sb, 'corr': corr}
         return dict(params, layers=lp)
 

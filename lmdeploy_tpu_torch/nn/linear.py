@@ -1,23 +1,31 @@
-"""Linear layers: ``lmdeploy_tpu/nn/linear.py`` (``linear`` :43, ``_w4a16`` :66).
+"""Linear layers: ``lmdeploy_tpu/nn/linear.py`` (``linear`` :43, ``_w4a16`` :66,
+``_w4a16_prepped`` :99).
 
-A dense weight goes to ``torch.matmul``, as the reference left it to XLA.  A W4A16
-leaf prepared for the group-dot schedule (``{'packed', 'sb', 'corr'}``,
-``LlamaModel.prep_quant_leaves``) takes the W4A16 GEMM of ``ops/quant_matmul.py`` for
-at most 256 rows and the dequantize-then-``torch.matmul`` route above that.  W8A8,
-fp8, unprepared and fast/precise W4A16 leaves are not ported yet and raise.
+A dense weight goes to ``torch.matmul``, as the reference left it to XLA.  A W4A16 leaf
+takes a W4A16 GEMM of ``ops/quant_matmul.py`` for at most 256 rows and a dequantize-
+then-``torch.matmul`` route above that:
+  * unprepared ``{'packed', 'scales', 'zeros'}``: ``w4a16_matmul`` (raw f32 tables);
+  * prepared ``{'packed', 'sb', 'corr'}`` (``LlamaModel.prep_quant_leaves``): the gd
+    kernel for f32 ``sb``; the fast / precise kernel for bf16 ``sb`` where the
+    reference's kernel takes the shape (``K % (4 gs) == 0`` and ``(K / 4) % 128 == 0``),
+    else ``w4a16_dense_szc``.
+``LMDEPLOY_TPU_W4_DENSE_SWITCH=<n>`` sends products of more than n rows to the dense
+route, as in the reference.  W8A8 and fp8 leaves are not ported yet and raise.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from ..ops.quant_matmul import w4a16_dense_szc, w4a16_matmul_gd
+from ..ops.quant_matmul import (GROUP_DOT_MAX_M, schedule_of, w4a16_dense,
+                                w4a16_dense_szc, w4a16_matmul, w4a16_matmul_gd,
+                                w4a16_matmul_szc)
 
-# rows at or below which the W4A16 kernel runs (reference linear.py _STACKED_MAX_M);
-# above it the product turns compute-bound and one dense GEMM wins
-_STACKED_MAX_M = 256
+# rows above which every W4A16 product takes the dense route (reference linear.py:35)
+_DENSE_SWITCH = int(os.environ.get('LMDEPLOY_TPU_W4_DENSE_SWITCH', str(1 << 30)))
 
 
 def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -38,10 +46,7 @@ def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None) -> torch.Ten
 
 
 def _w4a16(x: torch.Tensor, w: dict) -> torch.Tensor:
-    if 'sb' not in w:
-        raise NotImplementedError('unprepared w4a16 leaf (raw scales / zeros) is not '
-                                  'ported; prepare it with LlamaModel.prep_quant_leaves')
-    packed, sb, corr = w['packed'], w['sb'], w['corr']
+    packed = w['packed']
     lead, K = x.shape[:-1], x.shape[-1]
     x2d = x.reshape(-1, K)
     # K may be padded up to whole quant groups x 4 planes in the leaf
@@ -49,9 +54,24 @@ def _w4a16(x: torch.Tensor, w: dict) -> torch.Tensor:
     Kp = packed.shape[-2] * 8
     if Kp > K:
         x2d = F.pad(x2d, (0, Kp - K))
+    x2d = x2d.contiguous()
+    rows = x2d.shape[0]
+    if 'sb' not in w:
+        scales, zeros = w['scales'], w['zeros']
+        gs = Kp // scales.shape[-2]
+        if rows <= _DENSE_SWITCH:
+            y = w4a16_matmul(x2d, packed, scales, zeros, gs)
+        else:
+            y = w4a16_dense(x2d, packed, scales, zeros, gs)
+        return y.reshape(*lead, -1).to(x.dtype)
+    sb, corr = w['sb'], w['corr']
     gs = Kp // sb.shape[-2]
-    if x2d.shape[0] <= _STACKED_MAX_M:
-        y = w4a16_matmul_gd(x2d.contiguous(), packed, sb, corr, gs)
+    small = rows <= min(GROUP_DOT_MAX_M, _DENSE_SWITCH)
+    if schedule_of(sb, corr) == 'gd':
+        y = (w4a16_matmul_gd(x2d, packed, sb, corr, gs) if small
+             else w4a16_dense_szc(x2d, packed, sb, corr, gs))
+    elif small and Kp % (4 * gs) == 0 and (Kp // 4) % 128 == 0:
+        y = w4a16_matmul_szc(x2d, packed, sb, corr, gs)
     else:
         y = w4a16_dense_szc(x2d, packed, sb, corr, gs)
     return y.reshape(*lead, -1).to(x.dtype)

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface and loaded with ``ctypes`` (seconds to build, where a
 source that includes PyTorch's headers takes minutes).  The build happens at first use
-into ``lmdeploy_tpu_torch/_build/``, named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one is reused.  ``build()`` starts one ``nvcc``
+into ``lmdeploy_tpu_torch/_build/``, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an unchanged one is
+reused.  ``build()`` starts one ``nvcc``
 per source, all together.
 """
 from __future__ import annotations
@@ -22,7 +23,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
 SOURCES = ('flash_prefill', 'paged_decode', 'paged_decode_int8', 'paged_decode_int4',
-           'paged_decode_turbo', 'w4a16_gemm', 'mxfp4_bmm')
+           'paged_decode_turbo', 'w4a16_gemm', 'w4a16_gemm_szc', 'w4a16_gemm_unprepared',
+           'mxfp4_bmm')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-lineinfo', '-Xptxas', '-v']
 
@@ -39,9 +41,14 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + '.cu'), 'rb') as f:
-        digest = hashlib.sha1(f.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f'lib{name}-{digest[:12]}.so')
+    """The library's path, named by a hash of its source, the shared headers
+    (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha1(' '.join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith('.cuh'))
+    for part in [name + '.cu'] + headers:
+        with open(os.path.join(CSRC_DIR, part), 'rb') as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f'lib{name}-{digest.hexdigest()[:12]}.so')
 
 
 def log_path(name: str) -> str:

@@ -50,7 +50,8 @@ def params_from_jax(params_np: Dict, dtype=None, device='cpu') -> Dict:
     """JAX ``LlamaModel`` parameter tree (numpy leaves, fused or unfused, stacked
     ``[L, ...]``) -> the port's tree of tensors (same names and layout).  ``dtype``
     applies to the dense float leaves; quantized dict leaves (``{'nib', 'scale'}``,
-    ``{'packed', ...}``) keep theirs.  The reference's ``layer_window`` leaf is
+    ``{'packed', ...}`` of any rank, the 4-D expert stacks included, and the prepared
+    leaves of every schedule, bf16 ``sb`` / ``corr`` too) keep theirs, bit for bit.  The reference's ``layer_window`` leaf is
     dropped: the port's model holds its windows as Python ints (``layer_windows``)."""
     out = {}
     for k, v in params_np.items():

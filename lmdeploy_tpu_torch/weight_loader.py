@@ -6,9 +6,10 @@ stacked parameter tree once on the host (typed leaves keep their own dtypes: int
 ``packed``, f32 ``scales`` / ``zeros`` / ``scale``, u8 ``nib``), stream every
 safetensors shard through the model's assign plan (each entry's transform: transposing
 linears to ``[in, out]``, repacking AWQ / GPTQ nibbles to the kernel layout; one
-tensor may fill several leaves), hand every name the plan does not know to the model's
-``load_hook`` (gpt-oss's ``*_blocks`` / ``*_scales`` pairs), then move each leaf to the
-device once.  ``safetensors`` is imported only here, when a checkpoint is read.
+tensor may fill several leaves, or one expert of a stacked layer row), hand every name
+the plan does not know to the model's ``load_hook`` (gpt-oss's ``*_blocks`` /
+``*_scales`` pairs), then move each leaf to the device once.  ``safetensors`` is
+imported only here, when a checkpoint is read.
 """
 from __future__ import annotations
 
@@ -50,19 +51,21 @@ def load_params(model, model_path: str, device) -> Dict:
             if hook is not None:
                 hook(name, tensor, params)
             continue
-        for path, transform in entry if isinstance(entry, list) else [entry]:
-            _assign(params, path, tensor if transform is None else transform(tensor))
+        for path, transform, *col in entry if isinstance(entry, list) else [entry]:
+            _assign(params, path, tensor if transform is None else transform(tensor), *col)
     return _to_device(params, device)
 
 
-def _assign(params: Dict, path, tensor: torch.Tensor):
+def _assign(params: Dict, path, tensor: torch.Tensor, col=None):
     """Write ``tensor`` at ``path``; a trailing int selects the stacked layer row,
-    which keeps its leaf's dtype."""
+    which keeps its leaf's dtype, and an expert column (``col.e``, the plan's
+    ``models.mixtral.ExpertSlice``) the expert within that row."""
     node = params
     for part in path[:-1]:
         node = node[part]
     if isinstance(path[-1], int):
-        node[path[-1]].copy_(tensor)
+        row = node[path[-1]]
+        (row if col is None else row[col.e]).copy_(tensor)
     else:
         node[path[-1]] = tensor.to(node[path[-1]].dtype).contiguous()
 

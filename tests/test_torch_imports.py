@@ -22,7 +22,8 @@ assert not bad, bad
 assert len(names) >= 28, names
 assert {'lmdeploy_tpu_torch.ops.moe', 'lmdeploy_tpu_torch.ops.quant_bmm',
         'lmdeploy_tpu_torch.models.gpt_oss', 'lmdeploy_tpu_torch.ops.kv_quant',
-        'lmdeploy_tpu_torch.ops.paged_decode'} <= set(names), names
+        'lmdeploy_tpu_torch.ops.paged_decode', 'lmdeploy_tpu_torch.models.mixtral',
+        'lmdeploy_tpu_torch.ops.quant_matmul'} <= set(names), names
 from lmdeploy_tpu_torch.ops.kv_quant import QuantKV4, QuantKVTurbo, to_fp8
 print(len(names))
 '''
@@ -38,7 +39,22 @@ def test_every_kernel_source_is_built():
     from lmdeploy_tpu_torch.ops import cuda_build
     on_disk = sorted(f[:-3] for f in os.listdir(cuda_build.CSRC_DIR) if f.endswith('.cu'))
     assert sorted(cuda_build.SOURCES) == on_disk
-    assert {'mxfp4_bmm', 'paged_decode_int4', 'paged_decode_turbo'} <= set(on_disk)
+    assert {'mxfp4_bmm', 'paged_decode_int4', 'paged_decode_turbo', 'w4a16_gemm_szc',
+            'w4a16_gemm_unprepared'} <= set(on_disk)
+
+
+def test_every_w4a16_wrapper_counts_and_has_a_plain_version():
+    """The three W4A16 GEMMs (gd, fast / precise, unprepared) keep their own launch
+    counts and plain versions, and the shared device header is part of each
+    library's hash."""
+    from lmdeploy_tpu_torch.ops import cuda_build
+    from lmdeploy_tpu_torch.ops import quant_matmul as qm
+    wrappers = (qm.w4a16_matmul_gd, qm.w4a16_matmul_szc, qm.w4a16_matmul)
+    for wrapper in wrappers:
+        assert isinstance(wrapper.launches, int)
+        assert callable(getattr(qm, wrapper.__name__ + '_plain'))
+    assert len({id(w) for w in wrappers}) == 3
+    assert os.path.exists(os.path.join(cuda_build.CSRC_DIR, 'w4a16_gemm.cuh'))
 
 
 def test_every_decode_wrapper_counts_and_has_a_plain_version():

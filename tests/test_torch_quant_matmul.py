@@ -90,7 +90,7 @@ def test_quantize_and_prep_match_jax_bit_for_bit():
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     np.testing.assert_array_equal(tz.numpy(), np.asarray(jz))
     jsb, jc = jqm.prep_w4(js, jz, mode='gd')
-    tsb, tc = tqm.prep_w4(ts, tz)
+    tsb, tc = tqm.prep_w4(ts, tz, mode='gd')
     assert tsb.dtype == tc.dtype == torch.float32
     np.testing.assert_array_equal(tsb.numpy(), np.asarray(jsb))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
@@ -110,7 +110,7 @@ def _quantized(rng, K, N, gs, k_valid=None):
     w = _bf16(rng, k_valid, N, scale=0.02)
     p, s, z = tqm.quantize_w4(torch.from_numpy(w).bfloat16(), gs)
     if k_valid < K:
-        q = tqm._unpack_planes(p).numpy().astype(np.uint8)
+        q = tqm._nibbles_u8(p).numpy()
         q = np.concatenate([q, np.zeros((K - k_valid, N), np.uint8)])
         p = torch.from_numpy(tformats.to_kernel_packed(q).copy())
         s = torch.from_numpy(tformats.pad_groups(s.numpy(), K // gs, 1.0))
@@ -129,7 +129,7 @@ def test_group_dot_plain_matches_pallas(M, K, N, gs, k_valid):
     rng = np.random.RandomState(2)
     L, layer = 2, 1
     leaves = [_quantized(rng, K, N, gs, k_valid) for _ in range(L)]
-    preps = [tqm.prep_w4(s, z) for _, s, z in leaves]
+    preps = [tqm.prep_w4(s, z, mode='gd') for _, s, z in leaves]
     x = _bf16(rng, M, K)
     if k_valid:
         x[:, k_valid:] = 0              # the activation pads with zeros (pad_k4)
@@ -157,7 +157,7 @@ def test_linear_on_prepared_leaf_matches_jax(M):
     rng = np.random.RandomState(3)
     K_in, K, N, gs = 384, 512, 256, 128
     p, s, z = _quantized(rng, K, N, gs, k_valid=K_in)
-    sb, c = tqm.prep_w4(s, z)
+    sb, c = tqm.prep_w4(s, z, mode='gd')
     x = _bf16(rng, M, K_in)
     out = tlinear(torch.from_numpy(x), {'packed': p, 'sb': sb, 'corr': c}).numpy()
     jleaf = {'packed': jnp.asarray(p.numpy()), 'sb': jnp.asarray(sb.numpy()),
@@ -178,16 +178,19 @@ def test_linear_on_prepared_leaf_matches_jax(M):
 
 
 def test_unported_leaves_raise():
+    """W8A8 and fp8 weight-only leaves are not ported; every W4A16 leaf form is (the
+    unprepared and fast / precise forms are held in tests/test_torch_w4a16_modes.py)."""
     from lmdeploy_tpu_torch.nn.linear import linear
     x = torch.zeros(2, 512)
-    p = torch.zeros(64, 8, dtype=torch.int32)
     s = torch.ones(4, 8)
     with pytest.raises(NotImplementedError):
-        linear(x, {'packed': p, 'scales': s, 'zeros': s})            # unprepared
-    with pytest.raises(NotImplementedError):
-        linear(x, {'packed': p, 'sb': s.bfloat16(), 'corr': s})     # fast / precise
-    with pytest.raises(NotImplementedError):
         linear(x, {'w8': torch.zeros(512, 8, dtype=torch.int8), 'scale': s[0]})
+    with pytest.raises(NotImplementedError):
+        linear(x, {'w8': torch.zeros(512, 8, dtype=torch.float8_e4m3fn), 'scale': s[0]})
+    p = torch.zeros(64, 8, dtype=torch.int32)
+    for leaf in ({'packed': p, 'scales': s, 'zeros': s},
+                 {'packed': p, 'sb': s.bfloat16(), 'corr': s}):
+        assert linear(x, leaf).shape == (2, 8)
 
 
 # the K splits that chip_smoke.py's sweep timed fastest on an H100 (132 SMs) for
@@ -276,7 +279,7 @@ def test_awq_loader_matches_jax(awq_models):
             assert leaf['packed'].dtype == torch.int32 and leaf['packed'].shape[1] * 8 == 128
             for k in ('packed', 'scales', 'zeros'):
                 assert torch.equal(leaf[k], conv['layers'][name][k]), (name, k)
-    prepped = tm.prep_quant_leaves(tm.fuse_projections(tp))['layers']['wqkv']
+    prepped = tm.prep_quant_leaves(tm.fuse_projections(tp), mode='gd')['layers']['wqkv']
     assert set(prepped) == {'packed', 'sb', 'corr'} and prepped['packed'].shape[-1] == 128
     back = tm.unfuse_projections(tm.fuse_projections(tp))['layers']
     assert all(torch.equal(back['wk'][k], tp['layers']['wk'][k]) for k in back['wk'])
@@ -312,7 +315,7 @@ def test_w4a16_kv8_logits_match_jax(awq_models):
     from lmdeploy_tpu_torch.weight_convert import cache_from_reference, cache_to_reference
     jm, jp, tm, tp = awq_models
     jp = jm.prep_quant_leaves(jm.fuse_projections(jp), mode='gd')
-    tp = tm.prep_quant_leaves(tm.fuse_projections(tp))
+    tp = tm.prep_quant_leaves(tm.fuse_projections(tp), mode='gd')
     cfg = jm.config
     L, BS, NB, Hkv = cfg.num_layers, 16, 12, cfg.num_key_value_heads
     _, hdp = kv_row_width(Hkv, cfg.head_dim)
