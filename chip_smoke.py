@@ -20,7 +20,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  and TinyLlama heads; planted traps in the cache bytes);
                  w4a16_szc (fast / precise) and w4a16_unprepared (raw scales and zeros)
                  at Mixtral-8x7B's and llama2-7b's projections, M 1 to 256, each with
-                 its planted traps;
+                 its planted traps; fp8_bmm (DeepSeek-V2-Lite's gate and down products at
+                 M 8 / 37 / 64 / 128 and V3's at 64; the check must catch each planted
+                 trap); flash_prefill and paged_decode also at MLA's latent head (one kv
+                 head of 576 under 16 and 128 query heads) and at D 80 / 96 / 192 / 256,
+                 in f16 and f32;
   4. parity   -- full width, 2 layers: prefill logits and 8 decode steps on the card
                  (bf16, kernels) against the port on the CPU (f32, plain paths), for
                  TinyLlama bf16, for llama2-7b W4A16 with an int8 KV cache and for
@@ -29,8 +33,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  sides are counted), and for Llama-3.1-8B with the int4, TurboQuant and
                  fp8 KV caches, and for Mixtral-8x7B W4A16 under each W4A16 schedule
                  (gd, fast, precise, unprepared; the CPU runs the experts widened to
-                 f32); beside it the bf16 floor (plain versions on the card) and what
-                 each planted trap reads, which must exceed the allowance;
+                 f32), and for DeepSeek-V2-Lite with blocked-fp8 experts (the dense
+                 layer and one MoE layer); beside it the bf16 floor (plain versions on
+                 the card) and what each planted trap reads, which must exceed the
+                 allowance;
   5. e2e      -- the port's Engine at TinyLlama-1.1B width and depth (random seeded
                  bf16 weights): 8 concurrent 128-token prompts plus one 2048-token
                  prompt, 64 greedy tokens each, run twice; every kernel's launch count
@@ -38,8 +44,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
   6. e2e_w4a16_kv8 -- the same at llama2-7b geometry, AWQ-style W4A16 weights (group
                  128, seeded) and quant_policy=4: 64 concurrent 128-token prompts plus
                  one 2048-token prompt, 64 greedy tokens each, run twice, then traced;
-  7. e2e_gptoss_mxfp4 -- gpt-oss-20b width and depth (public config), seeded MXFP4
-                 experts, bf16 KV cache: 32 concurrent 128-token prompts plus one
+  7. e2e_gptoss_mxfp4 -- gpt-oss-20b at full width and 12 of its 24 layers (public
+                 config), seeded MXFP4 experts, bf16 KV cache: 32 concurrent 128-token prompts plus one
                  2048-token prompt, 64 greedy tokens each (decode in the 64-row bucket),
                  run twice, then traced; the rows of every mxfp4_bmm launch are recorded;
   8. e2e_llama31_8b_kv4 / _turbo / _fp8kv -- Llama-3.1-8B at full width and 16 of its
@@ -50,13 +56,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  prefill step whose chunks all start their prompts flash_prefill once a
                  layer, exactly;
   9. e2e_mixtral8x7b_w4a16 (+ _fast / _precise / _unprepared) -- Mixtral-8x7B at full
-                 width and depth (public config, seeded AWQ-form W4A16 weights, ~25 GB,
-                 built once for the four), bf16 KV: 63 concurrent 256-token prompts plus
+                 width and 16 of its 32 layers (public config, seeded AWQ-form W4A16
+                 weights, ~12.7 GB, built once for the four), bf16 KV: 63 concurrent 256-token prompts plus
                  one 2048-token prompt (one 64-row wave, as the Llama-3.1-8B cells);
                  under gd 64 greedy tokens each, run twice, then
                  traced; under the other three schedules one run of 16 tokens.  Each
                  decode step (and prefill step of at most 256 rows) launches the
-                 schedule's W4A16 kernel 64 times and no other W4A16 kernel, exactly.
+                 schedule's W4A16 kernel twice a layer and no other W4A16 kernel, exactly;
+ 10. e2e_deepseek_v2_lite_fp8 -- DeepSeek-V2-Lite at full width and depth (public
+                 config, 27 layers, seeded blocked-fp8 routed experts, ~17.5 GB), bf16
+                 MLA cache: 63 concurrent 1024-token prompts plus one 4096-token prompt,
+                 64 greedy tokens each, run twice, then traced; each decode step launches
+                 fp8_bmm 78 times and paged_decode 27 times, each fresh prefill step
+                 flash_prefill 27 times, exactly.
 The line before the last lists every kernel; the last line is the result.
 It imports nothing of jax or lmdeploy_tpu.
 """
@@ -99,6 +111,9 @@ PEAK_BYTES_S = 3.35e12
 # ~0.2, outputs ~1-10), and the tensor cores' f32 accumulation may truncate on
 # alignment.  The first card run read at most 1.6e-5 (H100 80GB HBM3, 700 W);
 # the allowance is 1e-4 + 1e-4 |ref|
+# fp8_bmm is held like mxfp4_bmm: both sides multiply the same bf16 operands (x
+# rounded, each weight bf16(decode(w8) * scale)) and write f32, in another order of
+# the K f32 additions (terms ~0.02, outputs ~1 on the seeded stacks)
 # paged_decode_int4, _turbo and _fp8 are held like paged_decode (both sides f32, one
 # bf16 rounding)
 # w4a16_szc and w4a16_unprepared are held like w4a16_gemm: both sides take the same
@@ -113,7 +128,8 @@ KERNEL_TOL = {'flash_prefill': {'atol': 1e-2, 'rtol': 1e-2},
               'w4a16_gemm': {'atol': 2e-3, 'rtol': 1e-2},
               'w4a16_szc': {'atol': 2e-3, 'rtol': 1e-2},
               'w4a16_unprepared': {'atol': 2e-3, 'rtol': 1e-2},
-              'mxfp4_bmm': {'atol': 1e-4, 'rtol': 1e-4}}
+              'mxfp4_bmm': {'atol': 1e-4, 'rtol': 1e-4},
+              'fp8_bmm': {'atol': 1e-4, 'rtol': 1e-4}}
 LOGIT_TOL = 0.1          # bf16 activations through 2 full-width layers vs f32
 # llama2-7b width, W4A16 + int8 KV: logits reach ~6 (TinyLlama's ~4), and bf16
 # activations alone move them more at this width.  The phase reads (H100 80GB HBM3,
@@ -149,6 +165,15 @@ KV_PHASE = {8: 'kv4', 42: 'turbo', 16: 'fp8kv'}
 # reported only); unprepared as gd (the same arithmetic) / 8.22 (zeros ignored), 8.41
 # (planes swapped).  One allowance sits between every floor and the mildest trap
 LOGIT_TOL_MIXTRAL = {'gd': 0.17, 'fast': 0.17, 'precise': 0.17, 'unprepared': 0.17}
+# DeepSeek-V2-Lite, 2 layers (the dense one and one MoE layer), blocked-fp8 experts, the
+# card on the CPU's expert choices: logits reach ~4.3.  The phase read (H100 80GB HBM3,
+# 700 W) 0.0440 with every kernel swapped for its plain version, 0.0467 with the
+# kernels; held traps 4.79 (rope dims not de-interleaved) and 0.218 (each group read
+# with the next group's scale row); the two reported ones about the floor (x unrounded
+# 0.0466, V plane not zero-padded 0.0467, which is held on the attention output's rope
+# columns instead).  The allowance is about twice the floor, below half the mildest
+# held trap
+LOGIT_TOL_DEEPSEEK = 0.1
 SEED = 1234
 # the public config.json of openai/gpt-oss-20b (its fields the port reads)
 GPT_OSS_20B = {
@@ -196,6 +221,46 @@ MIXTRAL_8X7B = {
     'torch_dtype': 'bfloat16',
     'quantization_config': {'quant_method': 'awq', 'bits': 4, 'group_size': 128,
                             'zero_point': True, 'version': 'gemm'},
+}
+# the public config.json of deepseek-ai/DeepSeek-V2-Lite (its fields the port reads)
+DEEPSEEK_V2_LITE = {
+    'architectures': ['DeepseekV2ForCausalLM'], 'model_type': 'deepseek_v2',
+    'hidden_size': 2048, 'intermediate_size': 10944, 'moe_intermediate_size': 1408,
+    'num_hidden_layers': 27, 'first_k_dense_replace': 1, 'num_attention_heads': 16,
+    'num_key_value_heads': 16, 'q_lora_rank': None, 'kv_lora_rank': 512,
+    'qk_nope_head_dim': 128, 'qk_rope_head_dim': 64, 'v_head_dim': 128,
+    'n_routed_experts': 64, 'n_shared_experts': 2, 'num_experts_per_tok': 6,
+    'moe_layer_freq': 1, 'topk_method': 'greedy', 'n_group': 1, 'topk_group': 1,
+    'norm_topk_prob': False, 'routed_scaling_factor': 1.0, 'scoring_func': 'softmax',
+    'vocab_size': 102400, 'max_position_embeddings': 163840, 'rms_norm_eps': 1e-06,
+    'rope_theta': 10000,
+    'rope_scaling': {'beta_fast': 32, 'beta_slow': 1, 'factor': 40, 'mscale': 0.707,
+                     'mscale_all_dim': 0.707, 'original_max_position_embeddings': 4096,
+                     'type': 'yarn'},
+    'attention_bias': False, 'tie_word_embeddings': False, 'bos_token_id': 100000,
+    'eos_token_id': 100001, 'torch_dtype': 'bfloat16',
+}
+# the quantization_config of deepseek-ai/DeepSeek-V3's native release: e4m3 weights
+# with one f32 scale_inv per 128 x 128 block; V2-Lite's routed experts are seeded in
+# this form on the card
+FP8_BLOCKED = {'activation_scheme': 'dynamic', 'fmt': 'e4m3', 'quant_method': 'fp8',
+               'weight_block_size': [128, 128]}
+# the public config.json of deepseek-ai/DeepSeek-V3 (its fields the port reads)
+DEEPSEEK_V3 = {
+    'architectures': ['DeepseekV3ForCausalLM'], 'model_type': 'deepseek_v3',
+    'hidden_size': 7168, 'intermediate_size': 18432, 'moe_intermediate_size': 2048,
+    'num_hidden_layers': 61, 'first_k_dense_replace': 3, 'num_attention_heads': 128,
+    'num_key_value_heads': 128, 'q_lora_rank': 1536, 'kv_lora_rank': 512,
+    'qk_nope_head_dim': 128, 'qk_rope_head_dim': 64, 'v_head_dim': 128,
+    'n_routed_experts': 256, 'n_shared_experts': 1, 'num_experts_per_tok': 8,
+    'n_group': 8, 'topk_group': 4, 'topk_method': 'noaux_tc', 'norm_topk_prob': True,
+    'routed_scaling_factor': 2.5, 'scoring_func': 'sigmoid', 'vocab_size': 129280,
+    'max_position_embeddings': 163840, 'rms_norm_eps': 1e-06, 'rope_theta': 10000,
+    'rope_scaling': {'beta_fast': 32, 'beta_slow': 1, 'factor': 40, 'mscale': 1.0,
+                     'mscale_all_dim': 1.0, 'original_max_position_embeddings': 4096,
+                     'type': 'yarn'},
+    'tie_word_embeddings': False, 'bos_token_id': 0, 'eos_token_id': 1,
+    'torch_dtype': 'bfloat16', 'quantization_config': FP8_BLOCKED,
 }
 # the engine's switches of each W4A16 schedule (read when the ModelAgent is built), and
 # the kernel each runs
@@ -274,9 +339,14 @@ def gptoss_config(num_layers: int = 24):
 
 
 # the Llama-3.1-8B e2e phases' depth, cut from the config's 32 layers so the script
-# stays well inside its time limit beside the Mixtral-8x7B phases at full depth; width,
-# heads, vocab and the traffic stay as published
+# stays well inside its time limit; width, heads, vocab and the traffic stay as
+# published
 L31 = 16
+# the Mixtral-8x7B and gpt-oss-20b e2e phases' depth, cut from 32 and 24 layers beside
+# the DeepSeek-V2-Lite phases at full depth, for the same reason; width, experts, vocab
+# and traffic stay as published
+LMIX = 16
+LGPT = 12
 
 
 def llama31_config(num_layers: int = 32):
@@ -290,6 +360,15 @@ def mixtral_config(num_layers: int = 32):
     ``num_layers``."""
     from lmdeploy_tpu_torch.config import ModelConfig
     return ModelConfig.from_hf_config(dict(MIXTRAL_8X7B, num_hidden_layers=num_layers))
+
+
+def deepseek_config(num_layers: int = 27):
+    """DeepSeek-V2-Lite (its public config) with its routed experts in DeepSeek-V3's
+    native blocked-fp8 form, depth cut to ``num_layers`` (at 2: the dense layer and one
+    MoE layer)."""
+    from lmdeploy_tpu_torch.config import ModelConfig
+    return ModelConfig.from_hf_config(dict(DEEPSEEK_V2_LITE, num_hidden_layers=num_layers,
+                                           quantization_config=FP8_BLOCKED))
 
 
 def llama7b_w4_config(num_layers: int = 32, max_len: int = 2304):
@@ -333,13 +412,29 @@ def flash_phase():
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     results = []
     # TinyLlama at T=2048 (the main path's long prompt), a ragged T with D=128 and
-    # G=1 (llama2-7b heads), and the 8x128 prefill batch of the e2e phase
-    for B, T, Hq, Hkv, D in ((1, 2048, 32, 4, 64), (1, 1000, 32, 32, 128),
-                             (8, 128, 32, 4, 64)):
-        q = torch.randn(B, T, Hq, D, device='cuda', generator=gen).bfloat16()
-        k = torch.randn(B, T, Hkv, D, device='cuda', generator=gen).bfloat16()
-        v = torch.randn(B, T, Hkv, D, device='cuda', generator=gen).bfloat16()
+    # G=1 (llama2-7b heads), and the 8x128 prefill batch of the e2e phase; MLA's latent
+    # head (one kv head of 576, V the latent and 64 zeros, scale 1/sqrt(192)) under
+    # DeepSeek-V2-Lite's 16 and V3's 128 query heads at the e2e phase's 1024-token
+    # chunks; the other head dims the kernel takes (96, 256) and the f16 and f32 models
+    for label, B, T, Hq, Hkv, D, dtype in (
+            ('tinyllama_t2048', 1, 2048, 32, 4, 64, 'bfloat16'),
+            ('d128_g1', 1, 1000, 32, 32, 128, 'bfloat16'),
+            ('e2e_batch', 8, 128, 32, 4, 64, 'bfloat16'),
+            ('mla_v2_lite', 1, 1024, 16, 1, 576, 'bfloat16'),
+            ('mla_v3', 1, 1024, 128, 1, 576, 'bfloat16'),
+            ('d96', 2, 500, 32, 32, 96, 'bfloat16'), ('d256', 2, 500, 8, 4, 256, 'bfloat16'),
+            ('d80_f16', 2, 300, 32, 32, 80, 'float16'),
+            ('mla_v2_lite_f16', 1, 300, 16, 1, 576, 'float16'),
+            ('d192_f32', 1, 200, 8, 2, 192, 'float32'),
+            ('mla_v2_lite_f32', 1, 200, 16, 1, 576, 'float32')):
+        dt = getattr(torch, dtype)
+        q = torch.randn(B, T, Hq, D, device='cuda', generator=gen).to(dt)
+        k = torch.randn(B, T, Hkv, D, device='cuda', generator=gen).to(dt)
+        v = torch.randn(B, T, Hkv, D, device='cuda', generator=gen).to(dt)
         scale = D ** -0.5
+        if label.startswith('mla'):
+            v[..., 512:] = 0
+            scale = 192 ** -0.5
         out = flash_prefill_attention(q, k, v, scale)
         ref = flash_prefill_attention_plain(q, k, v, scale)
         torch.cuda.synchronize()
@@ -347,17 +442,25 @@ def flash_phase():
         err, rel, frac = compare(out, ref, tol)
         ok = bool(torch.isfinite(out.float()).all()) and frac <= 1.0
         flops = 2 * 2 * B * Hq * D * T * (T + 1) / 2           # QK^T and PV, causal
-        nbytes = 2 * (2 * B * T * Hq * D + 2 * B * T * Hkv * D)  # q, o, k, v in bf16
+        # q, o, k, v in their dtype
+        nbytes = q.element_size() * (2 * B * T * Hq * D + 2 * B * T * Hkv * D)
         bound_ms, bound_by = bound(flops, nbytes)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         lib = torch.nn.functional.scaled_dot_product_attention
-        row = {'phase': 'kernel', 'kernel': 'flash_prefill', 'shape': [B, T, Hq, Hkv, D],
+        try:           # a yardstick only: SDPA's backends may refuse a head dim
+            library_ms = time_ms(lambda: lib(qt, kt, vt, is_causal=True, scale=scale,
+                                             enable_gqa=True))
+        except RuntimeError as e:
+            library_ms = None
+            emit({'phase': 'kernel', 'kernel': 'flash_prefill', 'case': label,
+                  'library': f'SDPA refused: {str(e)[:200]}'})
+        row = {'phase': 'kernel', 'kernel': 'flash_prefill', 'case': label,
+               'shape': [B, T, Hq, Hkv, D], 'dtype': dtype,
                'max_abs_err': err, 'max_rel_err': rel, 'err_over_tol': frac, 'tol': tol, 'ok': ok,
                'kernel_ms': time_ms(lambda: flash_prefill_attention(q, k, v, scale)),
                'plain_ms': time_ms(lambda: flash_prefill_attention_plain(q, k, v, scale),
                                    **PLAIN_TIMING),
-               'library_ms': time_ms(lambda: lib(qt, kt, vt, is_causal=True, scale=scale,
-                                                 enable_gqa=True)),
+               'library_ms': library_ms,
                'bound_ms': bound_ms, 'bound_by': bound_by, 'gflop': flops / 1e9}
         emit(row)
         results.append(row)
@@ -366,18 +469,18 @@ def flash_phase():
     return results
 
 
-def _decode_inputs(gen, B, Hq, Hkv, D, BS, W, lens, L=2):
+def _decode_inputs(gen, B, Hq, Hkv, D, BS, W, lens, L=2, dtype=torch.bfloat16):
     """A 2-layer cache with ragged rows on disjoint random pages, trailing padding
     rows on block 0 (kv_len 1, as the engine pads), and kv_len 0 where ``lens`` says."""
     NB = 1 + B * W
-    cache = torch.randn(L, NB, 2, BS, Hkv * D, device='cuda', generator=gen).bfloat16()
+    cache = torch.randn(L, NB, 2, BS, Hkv * D, device='cuda', generator=gen).to(dtype)
     perm = torch.randperm(NB - 1, device='cuda', generator=gen) + 1
     tables = perm[:B * W].reshape(B, W).int()
     kv_lens = torch.tensor(lens, dtype=torch.int32, device='cuda')
     pad_rows = kv_lens < 0
     tables[pad_rows] = 0
     kv_lens[pad_rows] = 1
-    q = torch.randn(B, Hq, D, device='cuda', generator=gen).bfloat16()
+    q = torch.randn(B, Hq, D, device='cuda', generator=gen).to(dtype)
     return q, cache, tables.contiguous(), kv_lens
 
 
@@ -403,6 +506,11 @@ def decode_phase():
     # full layers' none
     lens_gptoss = np.concatenate([rng.randint(129, 193, size=32), rng.randint(2049, 2113, 1),
                                   -np.ones(31, int)])
+    # e2e_deepseek_v2_lite_fp8's decode shape: MLA's one latent kv head of 576 under
+    # 16 query heads (V3: 128), the 64-row bucket with 63 rows of 1,025-1,088 tokens and
+    # one of 4,097-4,160, the session-wide table width
+    lens_mla = np.concatenate([rng.randint(1025, 1089, size=63), rng.randint(4097, 4161, 1)])
+    w_mla = (4096 + 128 + 127) // 128
     cases = [
         ('plain', 64, 32, 4, 64, lens64, 8, {}),
         ('window', 64, 32, 4, 64, lens64, 8, {'window': 200}),
@@ -414,13 +522,25 @@ def decode_phase():
         ('e2e_long', 16, 32, 4, 64, lens16, 17, {}),
         ('gptoss_sliding', 64, 64, 8, 64, lens_gptoss, 17, {'window': 128, 'sinks': True}),
         ('gptoss_full', 64, 64, 8, 64, lens_gptoss, 17, {'sinks': True}),
+        ('mla_v2_lite', 64, 16, 1, 576, lens_mla, w_mla, {}),
+        ('mla_v3', 64, 128, 1, 576, lens_mla, w_mla, {}),
+        ('d96', 16, 32, 32, 96, lens16, 17, {}),
+        ('d256_window', 16, 8, 4, 256, lens16, 17, {'window': 300, 'sinks': True}),
+        ('d80_f16', 16, 32, 32, 80, lens16, 17, {'dtype': torch.float16}),
+        ('mla_v2_lite_f16', 16, 16, 1, 576, lens16, 17, {'dtype': torch.float16}),
+        ('d192_f32', 16, 8, 2, 192, lens16, 17, {'dtype': torch.float32}),
+        ('mla_v2_lite_f32', 16, 16, 1, 576, lens16, 17, {'dtype': torch.float32}),
     ]
     for label, B, Hq, Hkv, D, lens, W, opts in cases:
-        q, cache, tables, kv_lens = _decode_inputs(gen, B, Hq, Hkv, D, BS, W, lens)
         opts = dict(opts)
+        dtype = opts.pop('dtype', torch.bfloat16)
+        q, cache, tables, kv_lens = _decode_inputs(gen, B, Hq, Hkv, D, BS, W, lens,
+                                                   dtype=dtype)
+        if label.startswith('mla'):
+            cache[:, :, 1, :, 512:] = 0          # the V plane: the latent and 64 zeros
         if opts.get('sinks'):
             opts['sinks'] = torch.randn(Hq, device='cuda', generator=gen) * 2
-        scale = D ** -0.5
+        scale = 192 ** -0.5 if label.startswith('mla') else D ** -0.5
         layer = 1
 
         def kern():
@@ -440,11 +560,13 @@ def decode_phase():
         lens_np = kv_lens.cpu().numpy().astype(np.int64)
         win = opts.get('window') or 0
         toks = np.minimum(lens_np, win) if win else lens_np
-        nbytes = toks.sum() * Hkv * D * 2 * 2 + 2 * (2 * B * Hq * D)
+        el = cache.element_size()
+        nbytes = toks.sum() * Hkv * D * 2 * el + el * (2 * B * Hq * D)
         flops = 4 * Hq * D * toks.sum()
         bound_ms, bound_by = bound(flops, nbytes)
         row = {'phase': 'kernel', 'kernel': 'paged_decode', 'case': label,
-               'shape': [B, Hq, Hkv, D, BS, W], 'mean_kv_len': float(lens_np.mean()),
+               'shape': [B, Hq, Hkv, D, BS, W], 'dtype': str(dtype).split('.')[-1],
+               'mean_kv_len': float(lens_np.mean()),
                'max_abs_err': err, 'max_rel_err': rel, 'err_over_tol': frac, 'tol': tol,
                'zero_rows_ok': zero_ok, 'ok': ok,
                'kernel_ms': time_ms(kern), 'plain_ms': time_ms(plain, **PLAIN_TIMING),
@@ -911,6 +1033,141 @@ def mxfp4_phase():
     return results
 
 
+# fp8_bmm's shapes: DeepSeek-V2-Lite's experts (E 64, H 2048, Ie 1408) at the e2e decode
+# bucket M = 64 and at 8, 37 and 128, gate (x shared) and down (x per expert); and
+# DeepSeek-V3's (E 256, H 7168, Ie 2048) at M = 64
+FP8_MAIN_M = 64
+FP8_V2L = (64, 2048, 1408)
+FP8_V3 = (256, 7168, 2048)
+FP8_SHAPES = tuple((f'v2_lite_{kind}_m{M}', FP8_V2L, kind, M)
+                   for M in (FP8_MAIN_M, 8, 37, 128) for kind in ('gate', 'down')) \
+    + tuple((f'v3_{kind}_m{FP8_MAIN_M}', FP8_V3, kind, FP8_MAIN_M) for kind in ('gate', 'down'))
+# numerical traps the check must catch, each planted in the plain version: x left
+# unrounded (the rows check with an f32 x, which the kernel rounds to bf16); each group
+# read with the next group's scale row; the e4m3 NaN code decoded natively (NaN, where
+# the reference reads +-480; planted as 0x7f / 0xff bytes in a copy of w8)
+FP8_TRAPS = ('x_unrounded', 'next_group_scale', 'native_nan')
+# experts the plain version takes at once at V3's width (its f32 temporaries)
+FP8_PLAIN_EXPERTS = 32
+
+
+def _fp8_trapped(trap: str):
+    """``fp8_bmm_plain`` with one trap planted."""
+    from lmdeploy_tpu_torch.ops.quant_bmm import decode_fp8_e4m3
+
+    def bmm(x, w8, gscale):
+        K = w8.shape[-2]
+        if trap == 'next_group_scale':
+            gscale = torch.roll(gscale, -1, dims=-2)
+        vals = w8.float() if trap == 'native_nan' else decode_fp8_e4m3(w8)
+        w = (vals * gscale.float().repeat_interleave(K // gscale.shape[-2], dim=-2))
+        xr = x.float() if trap == 'x_unrounded' else x.to(torch.bfloat16).float()
+        return torch.matmul(xr, w.to(torch.bfloat16).float())
+    return bmm
+
+
+def _fp8_seeded(gen, E, K, N, group=128):
+    """Expert stacks [E, K, N] in the model's seeded blocked-fp8 form."""
+    from lmdeploy_tpu_torch.models.deepseek import init_fp8_leaf
+    return (init_fp8_leaf('w8', (E, K, N), gen, 'cuda'),
+            init_fp8_leaf('gscale', (E, K // group, N), gen, 'cuda'))
+
+
+def _fp8_plain_chunked(x, w8, gscale):
+    """``fp8_bmm_plain`` over FP8_PLAIN_EXPERTS experts at a time (the same function;
+    V3's whole stacks would need ~60 GB of f32 temporaries)."""
+    from lmdeploy_tpu_torch.ops.quant_bmm import fp8_bmm_plain
+    E = w8.shape[0]
+    step = FP8_PLAIN_EXPERTS
+    return torch.cat([fp8_bmm_plain(x if x.dim() == 2 else x[e:e + step], w8[e:e + step],
+                                    gscale[e:e + step]) for e in range(0, E, step)])
+
+
+def eager_ms(fn, warmup: int = 1) -> float:
+    """Device time of one eager ``fn`` call between two CUDA events (for a yardstick
+    whose temporaries are too large to keep inside a CUDA graph)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def fp8_phase():
+    """fp8_bmm against its plain version at DeepSeek-V2-Lite's and V3's expert
+    products, with the traps of FP8_TRAPS at V2-Lite's; kernel times with the bf16 x of
+    the model's path."""
+    from lmdeploy_tpu_torch.ops.quant_bmm import fp8_bmm, fp8_bmm_plain, widen_fp8
+    torch.backends.cuda.matmul.allow_tf32 = False     # the plain version's sums are f32
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    results, stacks = [], {}
+    tol = KERNEL_TOL['fp8_bmm']
+    for label, (E, H, Ie), kind, M in FP8_SHAPES:
+        K, N = (H, Ie) if kind == 'gate' else (Ie, H)
+        key = (E, K, N)
+        if key not in stacks:
+            stacks.clear()
+            torch.cuda.empty_cache()
+            w8, gs = _fp8_seeded(gen, E, K, N)
+            stacks[key] = (w8, gs, widen_fp8(w8, gs))     # bf16 [E, K, N], the yardstick's
+        w8, gs, wd = stacks[key]
+        v3 = E == FP8_V3[0]
+        x32 = torch.randn((M, K) if kind == 'gate' else (E, M, K), device='cuda',
+                          generator=gen)
+        x = x32.bfloat16()
+        out = fp8_bmm(x32, w8, gs)                        # the wrapper rounds x
+        plain = _fp8_plain_chunked if v3 else fp8_bmm_plain
+        ref = plain(x32, w8, gs)
+        torch.cuda.synchronize()
+        err, rel, frac = compare(out, ref, tol)
+        ok = bool(torch.isfinite(out).all()) and out.shape == (E, M, N) and frac <= 1.0
+        traps, nan_frac = {}, None
+        if not v3:
+            w8n = w8.clone()
+            bytes_ = w8n.view(torch.uint8)
+            bytes_[0, :9, :5] = 0x7F
+            bytes_[E // 2, 5:9, 77] = 0xFF
+            ref_n = fp8_bmm_plain(x32, w8n, gs)
+            nan_frac = compare(fp8_bmm(x32, w8n, gs), ref_n, tol)[2]
+            for t in FP8_TRAPS:
+                w_t = w8n if t == 'native_nan' else w8
+                got = _fp8_trapped(t)(x32, w_t, gs)
+                traps[t] = compare(got.nan_to_num(nan=3e38), ref_n if t == 'native_nan'
+                                   else ref, tol)[2]
+            ok = ok and nan_frac <= 1.0 and min(traps.values()) > 1.0
+            del w8n, ref_n
+        nbytes = w8.numel() + 4 * gs.numel() + 2 * x.numel() + 4 * E * M * N
+        bound_ms, bound_by = bound(2 * E * M * K * N, nbytes)
+        dense = (lambda: torch.matmul(x, wd)) if kind == 'gate' else (lambda: torch.bmm(x, wd))
+        row = {'phase': 'kernel', 'kernel': 'fp8_bmm', 'case': label,
+               'shape': [E, M, K, N], 'group': K // gs.shape[1],
+               'x': 'shared' if kind == 'gate' else 'per expert',
+               'max_abs_err': err, 'max_rel_err': rel, 'err_over_tol': frac, 'tol': tol,
+               'nan_code_err_over_tol': nan_frac, 'ok': ok, 'tf32': False,
+               'trap_err_over_tol': traps,
+               'kernel_ms': time_ms(lambda: fp8_bmm(x, w8, gs)),
+               'plain_ms': (eager_ms(lambda: plain(x, w8, gs)) if v3 else
+                            time_ms(lambda: plain(x, w8, gs), **PLAIN_TIMING)),
+               'library_ms': None,
+               'library': 'none: no PyTorch call multiplies blocked-fp8 weights by a bf16 x',
+               'dense_bf16_ms': time_ms(dense),
+               'bound_ms': bound_ms, 'bound_by': bound_by, 'mbytes': nbytes / 1e6}
+        emit(row)
+        results.append(row)
+        del out, ref
+        if not ok:
+            raise SystemExit(f'fp8_bmm disagrees with its plain version, or its check '
+                             f'misses a trap: {row}')
+    stacks.clear()
+    torch.cuda.empty_cache()
+    return results
+
+
 # the decode kernel of each KV policy this slice adds, and the bytes its cache holds a
 # token and kv head at head_dim D (codes of K and V, and f32 metadata)
 KV_POLICIES = {8: 'paged_decode_int4', 42: 'paged_decode_turbo', 16: 'paged_decode_fp8'}
@@ -1106,13 +1363,13 @@ def _kernel_counters():
     from lmdeploy_tpu_torch.ops.flash_prefill import flash_prefill_attention
     from lmdeploy_tpu_torch.ops.paged_decode import (paged_decode_attention,
                                                      paged_decode_attention_int8)
-    from lmdeploy_tpu_torch.ops.quant_bmm import mxfp4_bmm
+    from lmdeploy_tpu_torch.ops.quant_bmm import fp8_bmm, mxfp4_bmm
     from lmdeploy_tpu_torch.ops.quant_matmul import (w4a16_matmul, w4a16_matmul_gd,
                                                      w4a16_matmul_szc)
     return {'flash_prefill': flash_prefill_attention, 'paged_decode': paged_decode_attention,
             'paged_decode_int8': paged_decode_attention_int8, 'w4a16_gemm': w4a16_matmul_gd,
             'w4a16_szc': w4a16_matmul_szc, 'w4a16_unprepared': w4a16_matmul,
-            'mxfp4_bmm': mxfp4_bmm,
+            'mxfp4_bmm': mxfp4_bmm, 'fp8_bmm': fp8_bmm,
             **{kernel: _kv_decode_fns(kernel)[0] for kernel in KV_POLICIES.values()}}
 
 
@@ -1124,7 +1381,8 @@ def _row_recorders():
     return {'w4a16_gemm': (linear, 'w4a16_matmul_gd', lambda x: x.shape[0]),
             'w4a16_szc': (linear, 'w4a16_matmul_szc', lambda x: x.shape[0]),
             'w4a16_unprepared': (linear, 'w4a16_matmul', lambda x: x.shape[0]),
-            'mxfp4_bmm': (moe, 'mxfp4_bmm', lambda x: x.shape[-2])}
+            'mxfp4_bmm': (moe, 'mxfp4_bmm', lambda x: x.shape[-2]),
+            'fp8_bmm': (moe, 'fp8_bmm', lambda x: x.shape[-2])}
 
 
 def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
@@ -1254,6 +1512,10 @@ KV_LABELS = {0: 'bf16 KV', 4: 'int8 KV', 8: 'int4 KV', 16: 'fp8-e4m3 KV',
 
 
 def model_label(model, policy: int = 0) -> str:
+    if model.is_mla:
+        return (f'deepseek-v2-lite geometry, {model.num_layers} layers, MLA (one latent kv '
+                f'head of 576), blocked-fp8 e4m3 128x128 routed experts + '
+                f'{KV_LABELS[policy]}, random seeded weights')
     if model.model_type == 'mixtral':
         return (f'mixtral-8x7b geometry, {model.num_layers} layers, AWQ-form W4A16 gs128 '
                 f'(attention and experts) + {KV_LABELS[policy]}, random seeded weights')
@@ -1317,7 +1579,7 @@ def _plain_kernels():
     from lmdeploy_tpu_torch.ops import attention, moe, paged_decode
     from lmdeploy_tpu_torch.ops.flash_prefill import flash_prefill_attention_plain
     from lmdeploy_tpu_torch.ops.kv_quant import QuantKV, QuantKV4, QuantKVTurbo
-    from lmdeploy_tpu_torch.ops.quant_bmm import mxfp4_bmm_plain
+    from lmdeploy_tpu_torch.ops.quant_bmm import fp8_bmm_plain, mxfp4_bmm_plain
     from lmdeploy_tpu_torch.ops.quant_matmul import (w4a16_matmul_gd_plain,
                                                      w4a16_matmul_plain,
                                                      w4a16_matmul_szc_plain)
@@ -1336,7 +1598,44 @@ def _plain_kernels():
                     (linear, 'w4a16_matmul_gd', w4a16_matmul_gd_plain),
                     (linear, 'w4a16_matmul_szc', w4a16_matmul_szc_plain),
                     (linear, 'w4a16_matmul', w4a16_matmul_plain),
-                    (moe, 'mxfp4_bmm', mxfp4_bmm_plain))
+                    (moe, 'mxfp4_bmm', mxfp4_bmm_plain),
+                    (moe, 'fp8_bmm', fp8_bmm_plain))
+
+
+# DeepSeek's parity traps whose logit error is reported, not held: an unrounded x
+# before fp8_bmm is a no-op on the card (its x is bf16 by type), so it is planted on the
+# CPU, where rounding or not moves the f32 logits by about the bf16 floor itself (the
+# kernel phase holds the trap, on an f32 x); a V plane that is not zero-padded moves
+# only the attention output's discarded rope columns, so it is held on those columns
+# (``attn_tail_abs_max``: exactly 0 on the card's run, above 0 under the trap)
+DS_REPORTED = ('x_unrounded', 'v_plane_not_zero_padded')
+
+
+def _fp8_cpu_cached():
+    """``moe.fp8_bmm`` for the parity phases: the kernel on a CUDA tensor; on the CPU
+    ``fp8_bmm_plain``'s function with each stack widened once, on the card (the plain
+    version re-widens a 185 M-weight stack per call, seconds on the host), and the
+    'x_unrounded' trap as a variant."""
+    from lmdeploy_tpu_torch.ops import quant_bmm
+    from lmdeploy_tpu_torch.ops.quant_bmm import decode_fp8_e4m3
+    cache = {}
+
+    def widened(w8, gscale):
+        key = (w8.data_ptr(), tuple(w8.shape))
+        if key not in cache:
+            K = w8.shape[-2]
+            g = gscale.cuda().float().repeat_interleave(K // gscale.shape[-2], dim=-2)
+            cache[key] = (decode_fp8_e4m3(w8.cuda()) * g).to(torch.bfloat16).float().cpu()
+        return cache[key]
+
+    def make(round_x):
+        def bmm(x, w8, gscale):
+            if x.is_cuda:
+                return quant_bmm.fp8_bmm(x, w8, gscale)
+            xr = x.to(torch.bfloat16).float() if round_x else x.float()
+            return torch.matmul(xr, widened(w8, gscale))
+        return bmm
+    return make(True), make(False)
 
 
 def _parity_traps(cfg16, policy: int, schedule: str = 'gd'):
@@ -1350,6 +1649,22 @@ def _parity_traps(cfg16, policy: int, schedule: str = 'gd'):
     attention over the cache of ``policy``)."""
     from lmdeploy_tpu_torch.nn import linear
     from lmdeploy_tpu_torch.ops import attention, moe
+    if cfg16.is_mla:
+        from lmdeploy_tpu_torch.models import deepseek
+        orig = deepseek.DeepseekV2Model._mla_qkv
+
+        def v_not_padded(self, w, x, cos, sin):
+            q, k, _ = orig(self, w, x, cos, sin)
+            return q, k, k
+
+        def next_group(x, w8, gscale):
+            return _fp8_trapped('next_group_scale')(x, w8, gscale) if x.is_cuda \
+                else _fp8_cpu_cached()[0](x, w8, gscale)
+        return [('rope_not_deinterleaved', (deepseek, '_deinterleave', lambda x: x), 'card'),
+                ('v_plane_not_zero_padded',
+                 (deepseek.DeepseekV2Model, '_mla_qkv', v_not_padded), 'card'),
+                ('next_group_scale', (moe, 'fp8_bmm', next_group), 'card'),
+                ('x_unrounded', (moe, 'fp8_bmm', _fp8_cpu_cached()[1]), 'cpu')]
     if policy in KV_POLICIES:
         kernel = KV_POLICIES[policy]
         _, plain = _kv_decode_fns(kernel)
@@ -1426,11 +1741,27 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0, schedule: str = 
     from lmdeploy_tpu_torch.models import build_model
     from lmdeploy_tpu_torch.models.llama import AttnMeta
     from lmdeploy_tpu_torch.nn.layers import make_rope_table
+    from lmdeploy_tpu_torch.ops import moe as moe_ops
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     m16 = build_model(cfg16)
     m32 = build_model(dataclasses.replace(cfg16, dtype='float32'))
     w_cpu, w_gpu, raw_gpu = _parity_weights(cfg16, m16, m32, schedule)
+    # MLA: the CPU's fp8 expert products through stacks widened once, and the card's
+    # attention outputs' rope columns (the V plane's zero tail) recorded
+    restore = contextlib.ExitStack()
+    tail = {'max': 0.0}
+    if cfg16.is_mla:
+        from lmdeploy_tpu_torch.models import deepseek
+        attend = deepseek.paged_attention
+
+        def attend_rec(q, *args, **kwargs):
+            out = attend(q, *args, **kwargs)
+            if out.is_cuda:
+                tail['max'] = max(tail['max'], out[..., cfg16.kv_lora_rank:].abs().max().item())
+            return out
+        restore.enter_context(_swapped((moe_ops, 'fp8_bmm', _fp8_cpu_cached()[0]),
+                                       (deepseek, 'paged_attention', attend_rec)))
     B, T, BS, steps = 2, 256, 128, 8
     pages = (T + steps + BS - 1) // BS
     NB = 1 + B * pages
@@ -1448,14 +1779,17 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0, schedule: str = 
     moe = hasattr(m16, 'route')
     for name_, (model, _, _) in side.items():
         if moe:
-            def rec(w_, xf, _route=model.route, _log=routes[name_], _card=name_ == 'card'):
+            def rec(w_, xf, _route=model.route, _log=routes[name_], _card=name_ == 'card',
+                    _model=model):
                 logits, idx, wts = _route(w_, xf)
                 if route['record']:
                     _log.append((logits.float().cpu(), idx.cpu()))
                 if _card and route['force']:
                     idx = routes['cpu'][route['j']][1].to(idx.device)
                     route['j'] += 1
-                    wts = torch.softmax(logits.gather(-1, idx), dim=-1)
+                    wts = (_model.route_weights(w_, logits, idx)
+                           if hasattr(_model, 'route_weights')
+                           else torch.softmax(logits.gather(-1, idx), dim=-1))
                 return logits, idx, wts
             model.route = rec
 
@@ -1482,13 +1816,16 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0, schedule: str = 
         toks.append(cpu[-1].argmax(-1, keepdim=True).int())
         cpu.append(step('cpu', kv_cpu, toks[-1], T + i, 1, False))
     route['force'] = moe
+    tail['max'] = 0.0
     lg0, kv_gpu = prefill('card')
     kv_gpu0 = kv_gpu.clone()
     card = [lg0] + decode('card', kv_gpu, toks)
+    card_tail = tail['max']
     route['record'] = False
 
-    # routing flips: the card's own choices against the CPU's, per layer and step
-    flips, flips_ok, worst, router_err = [0] * cfg16.num_layers, True, 0.0, 0.0
+    # routing flips: the card's own choices against the CPU's, per routed layer and step
+    n_routed = len(routes['cpu']) // (steps + 1)
+    flips, flips_ok, worst, router_err = [0] * n_routed, True, 0.0, 0.0
     for j, ((lc, ic), (lg, ig)) in enumerate(zip(routes['cpu'], routes['card'])):
         err_j = (lg - lc).abs().max().item()
         router_err = max(router_err, err_j)
@@ -1496,7 +1833,7 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0, schedule: str = 
         k = cfg16.num_experts_per_tok
         top = lc.sort(-1, descending=True).values
         margins = (top[:, k - 1] - top[:, k])[diff]
-        flips[j % cfg16.num_layers] += int(diff.sum())
+        flips[j % n_routed] += int(diff.sum())
         if diff.any():
             worst = max(worst, margins.max().item() / err_j)
             flips_ok &= bool((margins <= 2 * err_j).all())
@@ -1528,8 +1865,9 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0, schedule: str = 
     with _plain_kernels():
         lf0, kv_f = prefill('card')
         floor = max_err([lf0] + decode('card', kv_f, toks), cpu)
-    traps = {}
+    traps, trap_tails = {}, {}
     for trap, swap, which in _parity_traps(cfg16, policy, schedule):
+        tail['max'] = 0.0
         if which == 'card_params':
             side['card'] = (m16, swap(raw_gpu), 'cuda')
             lt0, kv_t = prefill('card')
@@ -1545,9 +1883,14 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0, schedule: str = 
                 traps[trap] = max_err([lt0] + decode('card', kv_t, toks), cpu)
             else:
                 traps[trap] = max_err([lg0] + decode('card', kv_gpu0.clone(), toks), cpu)
+        if cfg16.is_mla and which == 'card':
+            trap_tails[trap] = tail['max']
+    restore.close()
+    reported = SZC_REPORTED.get(schedule, ()) + (DS_REPORTED if cfg16.is_mla else ())
     ok = (max(errs[held:]) <= tol and flips_ok
-          and all(v > tol for t, v in traps.items()
-                  if t not in SZC_REPORTED.get(schedule, ())))
+          and all(v > tol for t, v in traps.items() if t not in reported))
+    if cfg16.is_mla:
+        ok = ok and card_tail == 0.0 and trap_tails['v_plane_not_zero_padded'] > 0.0
     row = {'phase': name, 'layers': 2, 'model': model_label(cfg16, policy), 'batch': B,
            'w4a16_schedule': schedule if cfg16.quantization_config else None,
            'prompt': T, 'decode_steps': steps, 'vocab': cfg16.vocab_size,
@@ -1558,6 +1901,9 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0, schedule: str = 
            'logit_abs_max': cpu[-1].abs().max().item(),
            'argmax_agree': agree, 'positions': B * (steps + 1 - held),
            'positions_with_margin': decided, 'ok': ok}
+    if cfg16.is_mla:
+        row.update(traps_reported=list(DS_REPORTED), attn_tail_abs_max=card_tail,
+                   trap_attn_tail_abs_max=trap_tails)
     if moe:
         row.update(routing='card runs take the CPU run\'s expert choices',
                    routing_decisions=sum(int(ic.shape[0]) for _, ic in routes['cpu']),
@@ -1617,7 +1963,7 @@ def _bf16_tree(params, device, dtype):
     leaves move unchanged."""
     out = {}
     for k, v in params.items():
-        if isinstance(v, dict) and ('packed' in v or 'nib' in v):
+        if isinstance(v, dict) and ('packed' in v or 'nib' in v or 'w8' in v):
             out[k] = {k2: v2.to(device) for k2, v2 in v.items()}
         elif isinstance(v, dict):
             out[k] = _bf16_tree(v, device, dtype)
@@ -1640,7 +1986,24 @@ def _layer_lead(rows, names, m):
     return lead
 
 
-def kernel_line(flash, decode, decode8, w4, mx, kv, szc, unprep):
+def deepseek_e2e_phase(card: str) -> dict:
+    """e2e_deepseek_v2_lite_fp8: DeepSeek-V2-Lite at full width and depth (27 layers:
+    1 dense, 26 MoE) with seeded blocked-fp8 routed experts and a bf16 MLA cache, 63
+    concurrent 1024-token prompts and one of 4096, 64 greedy tokens each, run twice, then
+    traced.  Each decode step (64 rows) launches fp8_bmm three times a MoE layer (the
+    dense combine's gate, up and down) and paged_decode once a layer; each prefill step
+    whose chunks all start their prompts launches flash_prefill once a layer, exactly;
+    every prefill step has >= 768 rows, so its experts are widened for the grouped GEMM
+    and fp8_bmm does not launch there."""
+    cfg = deepseek_config()
+    L, moe_layers = cfg.num_layers, cfg.num_layers - cfg.first_k_dense_replace
+    return e2e_phase('e2e_deepseek_v2_lite_fp8', cfg, 64, 0, 63,
+                     {'flash_prefill': (L, 0), 'paged_decode': (0, L),
+                      'fp8_bmm': (0, 3 * moe_layers)},
+                     card, short_len=1024, long_len=4096, exact=True)
+
+
+def kernel_line(flash, decode, decode8, w4, mx, kv, szc, unprep, fp8):
     def entry(name, source, replaces, rows, lead, library_ms):
         return {'name': name, 'route': 'cuda', 'source': f'lmdeploy_tpu_torch/csrc/{source}',
                 'replaces': replaces, 'launches': None,
@@ -1681,7 +2044,31 @@ def kernel_line(flash, decode, decode8, w4, mx, kv, szc, unprep):
     fast = _layer_lead([r for r in szc if r['mode'] == 'fast'], mix, MIX_MAIN_M)
     precise = _layer_lead([r for r in szc if r['mode'] == 'precise'], mix, MIX_MAIN_M)
     raw = _layer_lead(unprep, mix, MIX_MAIN_M)
+    # fp8_bmm: one DeepSeek-V2-Lite layer's three expert products (gate, up: x shared;
+    # down: x per expert) at the e2e decode bucket
+    fp8_main = {r['case']: r for r in fp8}
+    fp8_layer = [fp8_main[f'v2_lite_gate_m{FP8_MAIN_M}']] * 2 \
+        + [fp8_main[f'v2_lite_down_m{FP8_MAIN_M}']]
+    fp8_lead = {k: sum(r[k] for r in fp8_layer) for k in ('kernel_ms', 'plain_ms', 'bound_ms')}
+    fp8_lead['bound_by'] = 'bytes' if all(r['bound_by'] == 'bytes' for r in fp8_layer) \
+        else 'operations'
+    v3 = [fp8_main[f'v3_gate_m{FP8_MAIN_M}']] * 2 + [fp8_main[f'v3_down_m{FP8_MAIN_M}']]
+
+    def shapes(rows, prefix):
+        """The MLA rows of an attention kernel, by case."""
+        return {r['case']: {k: r[k] for k in ('shape', 'kernel_ms', 'plain_ms', 'bound_ms',
+                                              'bound_by', 'library_ms', 'max_abs_err')}
+                for r in rows if r['case'].startswith(prefix)}
     return kv_entries + [
+        dict(entry('fp8_bmm', 'fp8_bmm.cu', 'lmdeploy_tpu/ops/pallas/quant_bmm.py:153', fp8,
+                   fp8_lead, None),
+             dense_bf16_ms=sum(r['dense_bf16_ms'] for r in fp8_layer),
+             library=fp8_layer[0]['library'],
+             shape=f'deepseek-v2-lite layer: gate + up (x shared) + down (x per expert), '
+                   f'E {FP8_V2L[0]}, H {FP8_V2L[1]}, Ie {FP8_V2L[2]}, group 128, '
+                   f'M = {FP8_MAIN_M}',
+             v3_layer={k: sum(r[k] for r in v3) for k in ('kernel_ms', 'plain_ms',
+                                                           'bound_ms', 'dense_bf16_ms')}),
         dict(entry('w4a16_szc', 'w4a16_gemm_szc.cu',
                    'lmdeploy_tpu/ops/pallas/quant_matmul.py:364', szc, fast,
                    fast['library_ms']),
@@ -1692,11 +2079,12 @@ def kernel_line(flash, decode, decode8, w4, mx, kv, szc, unprep):
                    'lmdeploy_tpu/ops/pallas/quant_matmul.py:91', unprep, raw,
                    raw['library_ms']),
              dense_bf16_ms=raw['dense_bf16_ms'], shape=shape),
-        entry('flash_prefill', 'flash_prefill.cu',
-              'lmdeploy_tpu/ops/pallas/flash_prefill.py:76', flash, flash[0],
-              flash[0]['library_ms']),
-        entry('paged_decode', 'paged_decode.cu',
-              'lmdeploy_tpu/ops/pallas/paged_decode.py:866', decode, decode[0], None),
+        dict(entry('flash_prefill', 'flash_prefill.cu',
+                   'lmdeploy_tpu/ops/pallas/flash_prefill.py:76', flash, flash[0],
+                   flash[0]['library_ms']), mla=shapes(flash, 'mla')),
+        dict(entry('paged_decode', 'paged_decode.cu',
+                   'lmdeploy_tpu/ops/pallas/paged_decode.py:866', decode, decode[0], None),
+             mla=shapes(decode, 'mla')),
         entry('paged_decode_int8', 'paged_decode_int8.cu',
               'lmdeploy_tpu/ops/pallas/paged_decode.py:286', decode8, decode8[0], None),
         dict(entry('w4a16_gemm', 'w4a16_gemm.cu',
@@ -1732,7 +2120,8 @@ def main():
                           timed('paged_decode_int8', decode_int8_phase),
                           timed('w4a16_gemm', w4a16_phase), timed('mxfp4_bmm', mxfp4_phase),
                           timed('paged_decode_kv', decode_kv_phase),
-                          *timed('w4a16_szc_unprepared', w4a16_modes_phase))
+                          *timed('w4a16_szc_unprepared', w4a16_modes_phase),
+                          timed('fp8_bmm', fp8_phase))
     timed('parity', parity_phase, 'parity', tinyllama_config(num_layers=2), LOGIT_TOL)
     timed('parity_w4a16_kv8', parity_phase, 'parity_w4a16_kv8',
           llama7b_w4_config(num_layers=2), LOGIT_TOL_W4, policy=4)
@@ -1744,9 +2133,10 @@ def main():
     for sched, tol in LOGIT_TOL_MIXTRAL.items():
         name = 'parity_mixtral_w4a16' + ('' if sched == 'gd' else f'_{sched}')
         timed(name, parity_phase, name, mixtral_config(num_layers=2), tol, schedule=sched)
+    timed('parity_deepseek_v2_lite', parity_phase, 'parity_deepseek_v2_lite',
+          deepseek_config(num_layers=2), LOGIT_TOL_DEEPSEEK)
     _PARITY_WEIGHTS.clear()
-    L1, L7, LG = (tinyllama_config().num_layers, llama7b_w4_config().num_layers,
-                  gptoss_config().num_layers)
+    L1, L7 = tinyllama_config().num_layers, llama7b_w4_config().num_layers
     # launches each (prefill step, decode step) needs on each path, and the path whose
     # launches each kernel's entry reports; the Llama-3.1-8B phases share one set of
     # seeded weights and must launch exactly that many
@@ -1767,8 +2157,8 @@ def main():
         {'flash_prefill': (L7, 0), 'paged_decode_int8': (0, L7), 'w4a16_gemm': (0, 4 * L7)},
         info['nvidia_smi'])
     paths['e2e_gptoss_mxfp4'] = timed(
-        'e2e_gptoss_mxfp4', e2e_phase, 'e2e_gptoss_mxfp4', gptoss_config(), 64, 0, 32,
-        {'paged_decode': (0, LG), 'mxfp4_bmm': (0, 3 * LG)}, info['nvidia_smi'])
+        'e2e_gptoss_mxfp4', e2e_phase, 'e2e_gptoss_mxfp4', gptoss_config(LGPT), 64, 0, 32,
+        {'paged_decode': (0, LGPT), 'mxfp4_bmm': (0, 3 * LGPT)}, info['nvidia_smi'])
     # Mixtral-8x7B W4A16 under each schedule, sharing one seeded tree: gd runs as the
     # other cells do, the other three schedules once with 16 tokens.  63 short prompts
     # and the long one fill the 64-row batch in one wave (a 65th request would wait for
@@ -1776,20 +2166,22 @@ def main():
     # wave's time alone).  Each decode step
     # launches the schedule's kernel for wqkv and wo on every layer, and no other
     # W4A16 kernel
-    LM = mixtral_config().num_layers
+    LM = LMIX
     mixtral = {}
     for sched, env in W4_SCHEDULES.items():
         name = 'e2e_mixtral8x7b_w4a16' + ('' if sched == 'gd' else f'_{sched}')
         kernel = W4_KERNEL_OF[sched]
         gd = sched == 'gd'
         paths[name] = timed(
-            name, e2e_phase, name, mixtral_config(), 64, 0, 63,
+            name, e2e_phase, name, mixtral_config(LMIX), 64, 0, 63,
             {'flash_prefill': (LM, 0), 'paged_decode': (0, LM), kernel: (0, 2 * LM, 2 * LM)},
             info['nvidia_smi'], short_len=256, long_len=2048, exact=True, shared=mixtral,
             env=env, forbid=sorted(set(W4_KERNEL_OF.values()) - {kernel}),
             runs=2 if gd else 1, new_tokens=64 if gd else 16, trace=gd)
     mixtral.clear()
-    main_path = {'flash_prefill': 'e2e', 'paged_decode': 'e2e',
+    paths['e2e_deepseek_v2_lite_fp8'] = timed(
+        'e2e_deepseek_v2_lite_fp8', deepseek_e2e_phase, info['nvidia_smi'])
+    main_path = {'fp8_bmm': 'e2e_deepseek_v2_lite_fp8','flash_prefill': 'e2e', 'paged_decode': 'e2e',
                  'paged_decode_int8': 'e2e_w4a16_kv8', 'w4a16_gemm': 'e2e_w4a16_kv8',
                  'w4a16_szc': 'e2e_mixtral8x7b_w4a16_fast',
                  'w4a16_unprepared': 'e2e_mixtral8x7b_w4a16_unprepared',

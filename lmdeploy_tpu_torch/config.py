@@ -1,10 +1,9 @@
 """Internal engine configuration derived from user configs + HF model configs.
 
 Port of ``lmdeploy_tpu/config.py`` for the families the port serves (the dense llama
-family: ``LlamaForCausalLM``, ``MistralForCausalLM``, ``Qwen2ForCausalLM``,
-``Qwen3ForCausalLM``; and ``GptOssForCausalLM``), with the reference's MoE fields.
-Dtypes are torch dtypes; the multimodal and MLA config fields of the reference are not
-carried until a slice ports those models.
+family, the Mixtral / Qwen-MoE family, gpt-oss and DeepSeek-V2 / V3), with the
+reference's MoE and MLA fields.  Dtypes are torch dtypes; the multimodal config fields
+of the reference are not carried until a slice ports those models.
 """
 from __future__ import annotations
 
@@ -52,19 +51,52 @@ class ModelConfig:
     sliding_window: Optional[int] = None
     # see lmdeploy_tpu/config.py: True when every layer shares the window
     window_uniform: bool = True
-    # MoE (reference config.py:271-275); the reference's shared-expert count comes
-    # with the first ported family that reads it
+    # MoE (reference config.py:271-275)
     num_experts: int = 0
     num_experts_per_tok: int = 0
     moe_intermediate_size: int = 0
     # top-k on the router logits, then a softmax over the k (True); or a softmax over
-    # all experts, then top-k (False)
+    # all experts, then top-k (False).  DeepSeek reads it as: renormalize the k chosen
+    # scores to sum 1 (True) or keep them (False)
     norm_topk_prob: bool = True
+    # always-on shared experts (DeepSeek), each of moe_intermediate_size
+    num_shared_experts: int = 0
+    # MLA (DeepSeek-V2/V3, reference config.py:67-80): attention over a compressed
+    # latent; the cache holds [c_kv | k_rope] under one kv head, and the rope tables are
+    # built for the rope sub-dimension
+    q_lora_rank: Optional[int] = None
+    kv_lora_rank: Optional[int] = None
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    first_k_dense_replace: int = 0
+    # DeepSeek-MoE routing: scores (softmax or sigmoid), group-limited top-k over n_group
+    # groups of which topk_group are kept, and a factor on the routed weights
+    routed_scaling_factor: float = 1.0
+    scoring_func: str = 'softmax'
+    n_group: int = 0
+    topk_group: int = 0
     hf_config: Optional[Dict[str, Any]] = None
     quantization_config: Optional[Dict[str, Any]] = None
 
     @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank is not None
+
+    @property
+    def cache_head_dim(self) -> int:
+        """Per-head KV-cache row width: the latent plus the rope dims under MLA
+        (512 + 64 = 576 on DeepSeek-V2/V3), else head_dim."""
+        if self.is_mla:
+            return self.kv_lora_rank + self.qk_rope_head_dim
+        return self.head_dim
+
+    @property
     def rope_dim(self) -> int:
+        """The dimension the rotary tables are built for: the rope sub-dimension under
+        MLA, the partial-rotary fraction of head_dim otherwise."""
+        if self.is_mla:
+            return self.qk_rope_head_dim
         return int(self.head_dim * self.partial_rotary_factor)
 
     @classmethod
@@ -117,6 +149,17 @@ class ModelConfig:
                 and cfg.get('model_type') not in ('gemma2', 'gpt_oss')),
             hf_config=cfg,
             quantization_config=cfg.get('quantization_config'),
+            num_shared_experts=cfg.get('n_shared_experts', 0) or 0,
+            q_lora_rank=cfg.get('q_lora_rank'),
+            kv_lora_rank=cfg.get('kv_lora_rank'),
+            qk_nope_head_dim=cfg.get('qk_nope_head_dim', 0),
+            qk_rope_head_dim=cfg.get('qk_rope_head_dim', 0),
+            v_head_dim=cfg.get('v_head_dim', 0),
+            first_k_dense_replace=cfg.get('first_k_dense_replace', 0),
+            routed_scaling_factor=cfg.get('routed_scaling_factor', 1.0),
+            scoring_func=cfg.get('scoring_func', 'softmax'),
+            n_group=cfg.get('n_group', 0) or 0,
+            topk_group=cfg.get('topk_group', 0) or 0,
         )
 
     @classmethod

@@ -38,6 +38,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "attn_types.cuh"
+
 namespace {
 
 constexpr int NT = 128;
@@ -60,6 +62,15 @@ __device__ __forceinline__ float nib_f(uint32_t w, int i) {
   return static_cast<float>((w >> (4 * i)) & 0xFu);
 }
 
+// CB bytes global -> shared (CB 16 or 8, both sides aligned to CB)
+template <int CB>
+__device__ __forceinline__ void copy_chunk(uint8_t* dst, const uint8_t* src) {
+  if constexpr (CB == 16)
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+  else
+    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+}
+
 __host__ __device__ inline int float_words(int G, int D, int BS) {
   // qs [G][D] + os [G][D] + ps [G][BS] + m, l, alpha, qsum, pmin [G]
   // + ksc, kmn, vsc, vmn [BS], rounded to 16 bytes
@@ -73,20 +84,24 @@ size_t smem_bytes(int G, int BS) {
        + (size_t)BS * (D / 2);          // V slice
 }
 
-template <int D>
+template <typename TQ, int D>
 __global__ void __launch_bounds__(NT)
-paged_decode_int4_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
+paged_decode_int4_kernel(const TQ* __restrict__ q,   // [B, Hq, D]
                          const uint8_t* __restrict__ data,      // [L, NB, 2, BS, Hkv*D/2]
                          const float* __restrict__ scales,      // [L, NB, 2, BS, Hkv]
                          const float* __restrict__ minv,        // [L, NB, 2, BS, Hkv]
                          const int* __restrict__ tables,        // [B, W]
                          const int* __restrict__ kv_lens,       // [B]
-                         __nv_bfloat16* __restrict__ out,       // [B, Hq, D]
+                         TQ* __restrict__ out,       // [B, Hq, D]
                          int Hq, int Hkv, int NB, int BS, int W, int layer,
                          float scale, float softcap) {
   constexpr int DB = D / 2;       // code bytes per head row
   constexpr int KSTR = DB + 16;   // padded K rows: conflict-free 16-byte row reads
-  constexpr int CH = DB / 16;     // 16-byte chunks per head row
+  // 16-byte chunks per head row, or 8-byte ones where a head row is not a multiple of
+  // 16 bytes (D = 80: 40 bytes, and each head's row starts 8-byte aligned)
+  constexpr int CB = DB % 16 == 0 ? 16 : 8;
+  constexpr int CH = DB / CB;
+  static_assert(DB % CB == 0, "head rows of whole 8-byte chunks");
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int G = Hq / Hkv;
@@ -111,9 +126,9 @@ paged_decode_int4_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
   uint8_t* ks = reinterpret_cast<uint8_t*>(smem + float_words(G, D, BS));
   uint8_t* vs = ks + BS * KSTR;
 
-  const __nv_bfloat16* qrow = q + ((long long)b * Hq + (long long)h * G) * D;
+  const TQ* qrow = q + ((long long)b * Hq + (long long)h * G) * D;
   for (int i = tid; i < G * D; i += NT) {
-    qs[i] = __bfloat162float(qrow[i]) * scale;
+    qs[i] = attn::to_f(qrow[i]) * scale;
     os[i] = 0.f;
   }
   for (int g = tid; g < G; g += NT) {
@@ -142,10 +157,8 @@ paged_decode_int4_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
     for (int i = tid; i < BS * CH; i += NT) {
       const int t = i / CH;
       const int c = i - t * CH;
-      *reinterpret_cast<uint4*>(ks + t * KSTR + c * 16) =
-          *reinterpret_cast<const uint4*>(kpage + (long long)t * RB + c * 16);
-      *reinterpret_cast<uint4*>(vs + t * DB + c * 16) =
-          *reinterpret_cast<const uint4*>(vpage + (long long)t * RB + c * 16);
+      copy_chunk<CB>(ks + t * KSTR + c * CB, kpage + (long long)t * RB + c * CB);
+      copy_chunk<CB>(vs + t * DB + c * CB, vpage + (long long)t * RB + c * CB);
     }
     for (int t = tid; t < BS; t += NT) {
       ksc[t] = scales[soff + (long long)t * Hkv];
@@ -160,11 +173,18 @@ paged_decode_int4_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
       uint32_t kr[D / 8];
 #pragma unroll
       for (int c = 0; c < CH; ++c) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(ks + t * KSTR + c * 16);
-        kr[c * 4 + 0] = raw.x;
-        kr[c * 4 + 1] = raw.y;
-        kr[c * 4 + 2] = raw.z;
-        kr[c * 4 + 3] = raw.w;
+        const uint8_t* src = ks + t * KSTR + c * CB;
+        if constexpr (CB == 16) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(src);
+          kr[c * 4 + 0] = raw.x;
+          kr[c * 4 + 1] = raw.y;
+          kr[c * 4 + 2] = raw.z;
+          kr[c * 4 + 3] = raw.w;
+        } else {
+          const uint2 raw = *reinterpret_cast<const uint2*>(src);
+          kr[c * 2 + 0] = raw.x;
+          kr[c * 2 + 1] = raw.y;
+        }
       }
       for (int g = 0; g < G; ++g) {
         const float* qg = qs + g * D;
@@ -230,14 +250,14 @@ paged_decode_int4_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
     __syncthreads();
   }
 
-  __nv_bfloat16* orow = out + ((long long)b * Hq + (long long)h * G) * D;
+  TQ* orow = out + ((long long)b * Hq + (long long)h * G) * D;
   for (int i = tid; i < G * D; i += NT) {
     const float l = ls[i / D];
-    orow[i] = __float2bfloat16(len > 0 ? os[i] / (l == 0.f ? 1.f : l) : 0.f);
+    orow[i] = attn::from_f<TQ>(len > 0 ? os[i] / (l == 0.f ? 1.f : l) : 0.f);
   }
 }
 
-template <int D>
+template <typename TQ, int D>
 cudaError_t launch(const void* q, const void* data, const void* scales, const void* minv,
                    const int* tables, const int* kv_lens, void* out, int B, int Hq, int Hkv,
                    int NB, int BS, int W, int layer, float scale, float softcap,
@@ -245,40 +265,66 @@ cudaError_t launch(const void* q, const void* data, const void* scales, const vo
   const size_t bytes = smem_bytes<D>(Hq / Hkv, BS);
   static size_t configured = 48 * 1024;
   if (bytes > configured) {
-    cudaError_t e = cudaFuncSetAttribute(paged_decode_int4_kernel<D>,
+    cudaError_t e = cudaFuncSetAttribute(paged_decode_int4_kernel<TQ, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
     if (e != cudaSuccess) return e;
     configured = bytes;
   }
-  paged_decode_int4_kernel<D><<<dim3(Hkv, B), NT, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(data),
+  paged_decode_int4_kernel<TQ, D><<<dim3(Hkv, B), NT, bytes, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const uint8_t*>(data),
       static_cast<const float*>(scales), static_cast<const float*>(minv), tables, kv_lens,
-      static_cast<__nv_bfloat16*>(out), Hq, Hkv, NB, BS, W, layer, scale, softcap);
+      static_cast<TQ*>(out), Hq, Hkv, NB, BS, W, layer, scale, softcap);
   return cudaGetLastError();
+}
+
+template <typename TQ>
+int by_dim(const void* q, const void* data, const void* scales, const void* minv,
+           const int* tb, const int* kl, void* out, int B, int Hq, int Hkv, int D, int NB,
+           int BS, int W, int layer, float scale, float softcap, cudaStream_t s) {
+#define INT4_CASE(DIM)                                                                 \
+  case DIM:                                                                            \
+    return (int)launch<TQ, DIM>(q, data, scales, minv, tb, kl, out, B, Hq, Hkv, NB,   \
+                                BS, W, layer, scale, softcap, s);
+  switch (D) {
+    INT4_CASE(64)
+    INT4_CASE(80)
+    INT4_CASE(96)
+    INT4_CASE(128)
+    INT4_CASE(192)
+    INT4_CASE(256)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef INT4_CASE
 }
 
 }  // namespace
 
-// q [B,Hq,D] bf16; data [L,NB,2,BS,Hkv*D/2] u8; scales, minv [L,NB,2,BS,Hkv] f32;
-// tables [B,W] i32; kv_lens [B] i32; out [B,Hq,D] bf16; all contiguous.  softcap <= 0
-// disables it.  Returns the CUDA error code of the launch (0 = launched).
+// q [B,Hq,D] of dtype 0 bf16, 1 f16 or 2 f32; data [L,NB,2,BS,Hkv*D/2] u8; scales,
+// minv [L,NB,2,BS,Hkv] f32; tables [B,W] i32; kv_lens [B] i32; out [B,Hq,D] in q's
+// dtype; all contiguous.  D in {64, 80, 96, 128, 192, 256}.  softcap <= 0 disables
+// it.  Returns the CUDA error code of the launch (0 = launched).
 extern "C" int paged_decode_int4(const void* q, const void* data, const void* scales,
                                  const void* minv, const void* tables, const void* kv_lens,
-                                 void* out, int B, int Hq, int Hkv, int D, int NB, int BS,
-                                 int W, int layer, float scale, float softcap, void* stream) {
+                                 void* out, int dtype, int B, int Hq, int Hkv, int D,
+                                 int NB, int BS, int W, int layer, float scale,
+                                 float softcap, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   if (Hkv <= 0 || Hq % Hkv != 0 || BS <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* tb = static_cast<const int*>(tables);
   const int* kl = static_cast<const int*>(kv_lens);
-  switch (D) {
-    case 64:
-      return (int)launch<64>(q, data, scales, minv, tb, kl, out, B, Hq, Hkv, NB, BS, W,
-                             layer, scale, softcap, s);
-    case 128:
-      return (int)launch<128>(q, data, scales, minv, tb, kl, out, B, Hq, Hkv, NB, BS, W,
-                              layer, scale, softcap, s);
+  switch (dtype) {
+    case 0:
+      return by_dim<__nv_bfloat16>(q, data, scales, minv, tb, kl, out, B, Hq, Hkv, D, NB,
+                                   BS, W, layer, scale, softcap, s);
+    case 1:
+      return by_dim<__half>(q, data, scales, minv, tb, kl, out, B, Hq, Hkv, D, NB, BS, W,
+                            layer, scale, softcap, s);
+    case 2:
+      return by_dim<float>(q, data, scales, minv, tb, kl, out, B, Hq, Hkv, D, NB, BS, W,
+                           layer, scale, softcap, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -32,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attn_types.cuh"
+
 namespace {
 
 constexpr int NT = 128;
@@ -66,14 +68,14 @@ size_t smem_bytes(int G, int BS) {
        + (size_t)BS * D;                // V slice
 }
 
-template <int D>
+template <typename TQ, int D>
 __global__ void __launch_bounds__(NT)
-paged_decode_int8_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
+paged_decode_int8_kernel(const TQ* __restrict__ q,   // [B, Hq, D]
                          const int8_t* __restrict__ data,       // [L, NB, 2, BS, Hkv*D]
                          const float* __restrict__ scales,      // [L, NB, 2, BS, Hkv]
                          const int* __restrict__ tables,        // [B, W]
                          const int* __restrict__ kv_lens,       // [B]
-                         __nv_bfloat16* __restrict__ out,       // [B, Hq, D]
+                         TQ* __restrict__ out,       // [B, Hq, D]
                          int Hq, int Hkv, int NB, int BS, int W, int layer,
                          float scale, float softcap) {
   constexpr int KSTR = D + 16;    // padded K rows: conflict-free 16-byte row reads
@@ -98,9 +100,9 @@ paged_decode_int8_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
   int8_t* ks = reinterpret_cast<int8_t*>(smem + float_words(G, D, BS));
   int8_t* vs = ks + BS * KSTR;
 
-  const __nv_bfloat16* qrow = q + ((long long)b * Hq + (long long)h * G) * D;
+  const TQ* qrow = q + ((long long)b * Hq + (long long)h * G) * D;
   for (int i = tid; i < G * D; i += NT) {
-    qs[i] = __bfloat162float(qrow[i]) * scale;
+    qs[i] = attn::to_f(qrow[i]) * scale;
     os[i] = 0.f;
   }
   for (int g = tid; g < G; g += NT) {
@@ -197,54 +199,80 @@ paged_decode_int8_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
     __syncthreads();
   }
 
-  __nv_bfloat16* orow = out + ((long long)b * Hq + (long long)h * G) * D;
+  TQ* orow = out + ((long long)b * Hq + (long long)h * G) * D;
   for (int i = tid; i < G * D; i += NT) {
     const float l = ls[i / D];
-    orow[i] = __float2bfloat16(len > 0 ? os[i] / (l == 0.f ? 1.f : l) : 0.f);
+    orow[i] = attn::from_f<TQ>(len > 0 ? os[i] / (l == 0.f ? 1.f : l) : 0.f);
   }
 }
 
-template <int D>
+template <typename TQ, int D>
 cudaError_t launch(const void* q, const void* data, const void* scales, const int* tables,
                    const int* kv_lens, void* out, int B, int Hq, int Hkv, int NB, int BS,
                    int W, int layer, float scale, float softcap, cudaStream_t stream) {
   const size_t bytes = smem_bytes<D>(Hq / Hkv, BS);
   static size_t configured = 48 * 1024;
   if (bytes > configured) {
-    cudaError_t e = cudaFuncSetAttribute(paged_decode_int8_kernel<D>,
+    cudaError_t e = cudaFuncSetAttribute(paged_decode_int8_kernel<TQ, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
     if (e != cudaSuccess) return e;
     configured = bytes;
   }
-  paged_decode_int8_kernel<D><<<dim3(Hkv, B), NT, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(data),
+  paged_decode_int8_kernel<TQ, D><<<dim3(Hkv, B), NT, bytes, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const int8_t*>(data),
       static_cast<const float*>(scales), tables, kv_lens,
-      static_cast<__nv_bfloat16*>(out), Hq, Hkv, NB, BS, W, layer, scale, softcap);
+      static_cast<TQ*>(out), Hq, Hkv, NB, BS, W, layer, scale, softcap);
   return cudaGetLastError();
+}
+
+template <typename TQ>
+int by_dim(const void* q, const void* data, const void* scales, const int* tb,
+           const int* kl, void* out, int B, int Hq, int Hkv, int D, int NB, int BS, int W,
+           int layer, float scale, float softcap, cudaStream_t s) {
+#define INT8_CASE(DIM)                                                                 \
+  case DIM:                                                                            \
+    return (int)launch<TQ, DIM>(q, data, scales, tb, kl, out, B, Hq, Hkv, NB, BS, W,  \
+                                layer, scale, softcap, s);
+  switch (D) {
+    INT8_CASE(64)
+    INT8_CASE(80)
+    INT8_CASE(96)
+    INT8_CASE(128)
+    INT8_CASE(192)
+    INT8_CASE(256)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef INT8_CASE
 }
 
 }  // namespace
 
-// q [B,Hq,D] bf16; data [L,NB,2,BS,Hkv*D] int8; scales [L,NB,2,BS,Hkv] f32; tables
-// [B,W] i32; kv_lens [B] i32; out [B,Hq,D] bf16; all contiguous.  softcap <= 0
-// disables it.  Returns the CUDA error code of the launch (0 = launched).
+// q [B,Hq,D] of dtype 0 bf16, 1 f16 or 2 f32; data [L,NB,2,BS,Hkv*D] int8; scales
+// [L,NB,2,BS,Hkv] f32; tables [B,W] i32; kv_lens [B] i32; out [B,Hq,D] in q's dtype;
+// all contiguous.  D in {64, 80, 96, 128, 192, 256}.  softcap <= 0 disables it.
+// Returns the CUDA error code of the launch (0 = launched).
 extern "C" int paged_decode_int8(const void* q, const void* data, const void* scales,
                                  const void* tables, const void* kv_lens, void* out,
-                                 int B, int Hq, int Hkv, int D, int NB, int BS, int W,
-                                 int layer, float scale, float softcap, void* stream) {
+                                 int dtype, int B, int Hq, int Hkv, int D, int NB, int BS,
+                                 int W, int layer, float scale, float softcap,
+                                 void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   if (Hkv <= 0 || Hq % Hkv != 0 || BS <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* tb = static_cast<const int*>(tables);
   const int* kl = static_cast<const int*>(kv_lens);
-  switch (D) {
-    case 64:
-      return (int)launch<64>(q, data, scales, tb, kl, out, B, Hq, Hkv, NB, BS, W, layer,
-                             scale, softcap, s);
-    case 128:
-      return (int)launch<128>(q, data, scales, tb, kl, out, B, Hq, Hkv, NB, BS, W, layer,
-                              scale, softcap, s);
+  switch (dtype) {
+    case 0:
+      return by_dim<__nv_bfloat16>(q, data, scales, tb, kl, out, B, Hq, Hkv, D, NB, BS, W,
+                                   layer, scale, softcap, s);
+    case 1:
+      return by_dim<__half>(q, data, scales, tb, kl, out, B, Hq, Hkv, D, NB, BS, W, layer,
+                            scale, softcap, s);
+    case 2:
+      return by_dim<float>(q, data, scales, tb, kl, out, B, Hq, Hkv, D, NB, BS, W, layer,
+                           scale, softcap, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

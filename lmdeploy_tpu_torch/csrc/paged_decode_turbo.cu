@@ -45,6 +45,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "attn_types.cuh"
+
 namespace {
 
 constexpr int NT = 128;
@@ -122,14 +124,14 @@ size_t smem_bytes(int G, int BS) {
        + (size_t)BS * (D / 4);          // V slice
 }
 
-template <int D, int CW>
+template <typename TQ, int D, int CW>
 __global__ void __launch_bounds__(NT)
-paged_decode_turbo_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D] rotated
+paged_decode_turbo_kernel(const TQ* __restrict__ q,  // [B, Hq, D] rotated
                           const uint8_t* __restrict__ data,     // [L, NB, BS, 3*Hkv*D/4]
                           const float* __restrict__ meta,       // [L, NB, BS, 3, Hkv]
                           const int* __restrict__ tables,       // [B, W]
                           const int* __restrict__ kv_lens,      // [B]
-                          __nv_bfloat16* __restrict__ out,      // [B, Hq, D]
+                          TQ* __restrict__ out,      // [B, Hq, D]
                           int Hq, int Hkv, int NB, int BS, int W, int layer,
                           float scale, float softcap, float sigma) {
   constexpr int KB = D / 2;       // K code bytes per head row
@@ -161,12 +163,12 @@ paged_decode_turbo_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D] ro
   uint8_t* ks = reinterpret_cast<uint8_t*>(smem + float_words(G, D, BS, CW));
   uint8_t* vs = ks + BS * KSTR;
 
-  const __nv_bfloat16* qrow = q + ((long long)b * Hq + (long long)h * G) * D;
+  const TQ* qrow = q + ((long long)b * Hq + (long long)h * G) * D;
   for (int i = tid; i < C * D * CW; i += NT) {
     const int c = i / (D * CW);
     const int d = (i / CW) % D;
     const int g = CW * c + i % CW;
-    qs[i] = g < G ? __bfloat162float(qrow[g * D + d]) * scale : 0.f;
+    qs[i] = g < G ? attn::to_f(qrow[g * D + d]) * scale : 0.f;
     os[i] = 0.f;
   }
   for (int g = tid; g < C * CW; g += NT) {
@@ -286,17 +288,17 @@ paged_decode_turbo_kernel(const __nv_bfloat16* __restrict__ q,  // [B, Hq, D] ro
     __syncthreads();
   }
 
-  __nv_bfloat16* orow = out + ((long long)b * Hq + (long long)h * G) * D;
+  TQ* orow = out + ((long long)b * Hq + (long long)h * G) * D;
   for (int i = tid; i < G * D; i += NT) {
     const int g = i / D;
     const int d = i - g * D;
     const float l = ls[g];
     const float o = os[((g / CW) * D + d) * CW + g % CW];
-    orow[i] = __float2bfloat16(len > 0 ? o / (l == 0.f ? 1.f : l) : 0.f);
+    orow[i] = attn::from_f<TQ>(len > 0 ? o / (l == 0.f ? 1.f : l) : 0.f);
   }
 }
 
-template <int D, int CW>
+template <typename TQ, int D, int CW>
 cudaError_t launch(const void* q, const void* data, const void* meta, const int* tables,
                    const int* kv_lens, void* out, int B, int Hq, int Hkv, int NB, int BS,
                    int W, int layer, float scale, float softcap, float sigma,
@@ -304,54 +306,77 @@ cudaError_t launch(const void* q, const void* data, const void* meta, const int*
   const size_t bytes = smem_bytes<D, CW>(Hq / Hkv, BS);
   static size_t configured = 48 * 1024;
   if (bytes > configured) {
-    cudaError_t e = cudaFuncSetAttribute(paged_decode_turbo_kernel<D, CW>,
+    cudaError_t e = cudaFuncSetAttribute(paged_decode_turbo_kernel<TQ, D, CW>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
     if (e != cudaSuccess) return e;
     configured = bytes;
   }
-  paged_decode_turbo_kernel<D, CW><<<dim3(Hkv, B), NT, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(data),
-      static_cast<const float*>(meta), tables, kv_lens, static_cast<__nv_bfloat16*>(out),
+  paged_decode_turbo_kernel<TQ, D, CW><<<dim3(Hkv, B), NT, bytes, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const uint8_t*>(data),
+      static_cast<const float*>(meta), tables, kv_lens, static_cast<TQ*>(out),
       Hq, Hkv, NB, BS, W, layer, scale, softcap, sigma);
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename TQ, int D>
 cudaError_t launch_g(const void* q, const void* data, const void* meta, const int* tables,
                      const int* kv_lens, void* out, int B, int Hq, int Hkv, int NB, int BS,
                      int W, int layer, float scale, float softcap, float sigma,
                      cudaStream_t stream) {
   if (Hq == Hkv)       // one query head a group: no chunk padding
-    return launch<D, 1>(q, data, meta, tables, kv_lens, out, B, Hq, Hkv, NB, BS, W, layer,
+    return launch<TQ, D, 1>(q, data, meta, tables, kv_lens, out, B, Hq, Hkv, NB, BS, W, layer,
                         scale, softcap, sigma, stream);
-  return launch<D, 4>(q, data, meta, tables, kv_lens, out, B, Hq, Hkv, NB, BS, W, layer,
+  return launch<TQ, D, 4>(q, data, meta, tables, kv_lens, out, B, Hq, Hkv, NB, BS, W, layer,
                       scale, softcap, sigma, stream);
+}
+
+template <typename TQ>
+int by_dim(const void* q, const void* data, const void* meta, const int* tb,
+           const int* kl, void* out, int B, int Hq, int Hkv, int D, int NB, int BS, int W,
+           int layer, float scale, float softcap, float sigma, cudaStream_t s) {
+  switch (D) {
+    case 64:
+      return (int)launch_g<TQ, 64>(q, data, meta, tb, kl, out, B, Hq, Hkv, NB, BS, W,
+                                   layer, scale, softcap, sigma, s);
+    case 128:
+      return (int)launch_g<TQ, 128>(q, data, meta, tb, kl, out, B, Hq, Hkv, NB, BS, W,
+                                    layer, scale, softcap, sigma, s);
+    case 256:
+      return (int)launch_g<TQ, 256>(q, data, meta, tb, kl, out, B, Hq, Hkv, NB, BS, W,
+                                    layer, scale, softcap, sigma, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// q [B,Hq,D] bf16 (rotated); data [L,NB,BS,3*Hkv*D/4] u8; meta [L,NB,BS,3,Hkv] f32;
-// tables [B,W] i32; kv_lens [B] i32; out [B,Hq,D] bf16 (rotated domain); all
-// contiguous.  softcap <= 0 disables it; sigma = f32(1 / sqrt(D)).  Returns the CUDA
-// error code of the launch (0 = launched).
+// q [B,Hq,D] (rotated) of dtype 0 bf16, 1 f16 or 2 f32; data [L,NB,BS,3*Hkv*D/4] u8;
+// meta [L,NB,BS,3,Hkv] f32; tables [B,W] i32; kv_lens [B] i32; out [B,Hq,D] in q's
+// dtype (rotated domain); all contiguous.  D in {64, 128, 256} (the cache needs a
+// power of two).  softcap <= 0 disables it; sigma = f32(1 / sqrt(D)).  Returns the
+// CUDA error code of the launch (0 = launched).
 extern "C" int paged_decode_turbo(const void* q, const void* data, const void* meta,
                                   const void* tables, const void* kv_lens, void* out,
-                                  int B, int Hq, int Hkv, int D, int NB, int BS, int W,
-                                  int layer, float scale, float softcap, float sigma,
+                                  int dtype, int B, int Hq, int Hkv, int D, int NB, int BS,
+                                  int W, int layer, float scale, float softcap, float sigma,
                                   void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   if (Hkv <= 0 || Hq % Hkv != 0 || BS <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* tb = static_cast<const int*>(tables);
   const int* kl = static_cast<const int*>(kv_lens);
-  switch (D) {
-    case 64:
-      return (int)launch_g<64>(q, data, meta, tb, kl, out, B, Hq, Hkv, NB, BS, W, layer,
-                               scale, softcap, sigma, s);
-    case 128:
-      return (int)launch_g<128>(q, data, meta, tb, kl, out, B, Hq, Hkv, NB, BS, W, layer,
-                                scale, softcap, sigma, s);
+  switch (dtype) {
+    case 0:
+      return by_dim<__nv_bfloat16>(q, data, meta, tb, kl, out, B, Hq, Hkv, D, NB, BS, W,
+                                   layer, scale, softcap, sigma, s);
+    case 1:
+      return by_dim<__half>(q, data, meta, tb, kl, out, B, Hq, Hkv, D, NB, BS, W, layer,
+                            scale, softcap, sigma, s);
+    case 2:
+      return by_dim<float>(q, data, meta, tb, kl, out, B, Hq, Hkv, D, NB, BS, W, layer,
+                           scale, softcap, sigma, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

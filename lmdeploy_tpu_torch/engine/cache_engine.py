@@ -1,7 +1,8 @@
 """Paged KV-cache allocation in device memory.
 
 Port of ``lmdeploy_tpu/engine/cache_engine.py``.  The cache is ONE tensor
-``[num_layers, num_blocks, 2, block_size, Hkv*D]`` (see ``ops/attention.py``),
+``[num_layers, num_blocks, 2, block_size, Hkv*D]`` (see ``ops/attention.py``; D is
+``cache_head_dim``, MLA's one latent kv head of 576 on DeepSeek-V2/V3),
 allocated once and written in place by every step.  ``quant_policy`` picks its type
 (``ops/kv_quant.py`` has the layouts):
   * 0: the model's dtype;
@@ -38,13 +39,13 @@ class CacheEngine:
         self.device = device
         cfg = model_config
         self.policy = QuantPolicy(cache_config.quant_policy)
-        if self.policy == QuantPolicy.TURBO_QUANT and (
-                cfg.head_dim % 4 or cfg.head_dim & (cfg.head_dim - 1)):
-            raise ValueError(f'TurboQuant needs a power-of-two head_dim, got {cfg.head_dim}')
+        D = cfg.cache_head_dim
+        if self.policy == QuantPolicy.TURBO_QUANT and (D % 4 or D & (D - 1)):
+            raise ValueError(f'TurboQuant needs a power-of-two head_dim, got {D}')
         if cache_config.num_gpu_blocks <= 0:
             cache_config.num_gpu_blocks = self._derive_num_blocks()
         self.num_blocks = cache_config.num_gpu_blocks
-        self.row_width = cfg.num_key_value_heads * cfg.head_dim
+        self.row_width = cfg.num_key_value_heads * D
         self.kv_cache = self._alloc()
 
     def _alloc(self):
@@ -70,7 +71,7 @@ class CacheEngine:
         """Device bytes of one block across all layers, in the allocated layout."""
         cfg = self.model_config
         tokens = cfg.num_layers * self.cache_config.block_size   # token rows per block
-        hkv, hd = cfg.num_key_value_heads, cfg.num_key_value_heads * cfg.head_dim
+        hkv, hd = cfg.num_key_value_heads, cfg.num_key_value_heads * cfg.cache_head_dim
         if self.policy == QuantPolicy.KV_INT8:       # int8 K and V + f32 scales
             return tokens * 2 * (hd + 4 * hkv)
         if self.policy == QuantPolicy.KV_INT4:       # nibble K and V + f32 scales, mins

@@ -1,9 +1,9 @@
 """Model registry: HF architecture name -> model builder.
 
-Port of the dense-llama part of ``lmdeploy_tpu/models/__init__.py`` (the ``_llama``,
-``_qwen2`` and ``_qwen3`` builders), its sparse-MoE ``_mixtral``, ``_qwen2_moe`` and
-``_qwen3_moe`` builders and its ``_gpt_oss`` entry; the other families are later
-slices.
+Port of ``lmdeploy_tpu/models/__init__.py`` for the families ported so far: the dense
+llama builders (``_llama``, ``_qwen2``, ``_qwen3``), the sparse-MoE ones (``_mixtral``,
+``_qwen2_moe``, ``_qwen3_moe``), ``_gpt_oss`` and ``_deepseek`` (DeepSeek-V2 / V3 with
+MLA); the other families are later slices.
 """
 from __future__ import annotations
 
@@ -65,6 +65,14 @@ def _gpt_oss(config: ModelConfig) -> LlamaModel:
     from .gpt_oss import GptOssModel
     config.attention_bias = True
     return GptOssModel(config)
+
+
+@register_model('DeepseekV2ForCausalLM', 'DeepseekV3ForCausalLM')
+def _deepseek(config: ModelConfig) -> LlamaModel:
+    from .deepseek import DeepseekV2Model
+    # MLA: one latent kv head; the cache row width comes from cache_head_dim
+    config.num_key_value_heads = 1
+    return DeepseekV2Model(config)
 
 
 def build_model(config: ModelConfig) -> LlamaModel:

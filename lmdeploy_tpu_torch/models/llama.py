@@ -78,11 +78,21 @@ class LlamaModel:
         if method in ('awq', 'gptq'):
             self.quant_method = 'w4a16'
             self.group_size = qcfg.get('group_size') or qcfg.get('q_group_size', 128)
+        elif method == 'fp8' and qcfg.get('weight_block_size'):
+            # DeepSeek-V3's native format: e4m3 weights with a 128 x 128 block grid of
+            # scales (reference llama.py:100-109); DeepseekV2Model keeps its experts
+            # fp8 and dequantizes the rest at load, the dense llama leaves raise
+            # (_linear_shape)
+            self.quant_method = 'fp8_blocked'
+            self.fp8_block = tuple(qcfg['weight_block_size'])
         elif method is not None and method not in self.EXPERT_QUANT_METHODS:
             raise NotImplementedError(f'{method!r} checkpoints are not ported yet')
 
     # -- parameters -------------------------------------------------------------------
     def _linear_shape(self, L: int, K: int, N: int):
+        if self.quant_method == 'fp8_blocked':
+            raise NotImplementedError('blocked-fp8 linear leaves of the llama family are '
+                                      'not ported yet (ROADMAP.md section 1, item 4)')
         if self.quant_method == 'w4a16':
             gs = self.group_size
             Kp = formats.pad_k4(K, gs)     # plane-packed layout: K in whole groups x4

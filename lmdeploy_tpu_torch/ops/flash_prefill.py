@@ -15,10 +15,15 @@ import torch
 from . import cuda_build
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+# the head dims the attention kernels are built for: the served families' and MLA's
+# latent 576 (kv_lora_rank 512 + rope 64)
+HEAD_DIMS = (64, 80, 96, 128, 192, 256, 576)
+# q / k / v (and output) dtypes, as the kernels' dtype argument numbers them
+KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# flash_prefill_bf16(q, k, v, out, B, T, Hq, Hkv, D, q/k/v token strides, scale, stream)
-_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong,
-             ctypes.c_longlong, ctypes.c_float, _P]
+# flash_prefill(q, k, v, out, dtype, B, T, Hq, Hkv, D, q/k/v token strides, scale, stream)
+_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_longlong,
+             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_float, _P]
 
 
 def flash_prefill_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -44,7 +49,7 @@ def _token_stride(x: torch.Tensor, name: str) -> int:
     if x.stride(3) != 1 or x.stride(2) != D or (B > 1 and x.stride(0) != T * x.stride(1)):
         raise ValueError(f'flash_prefill: {name} needs contiguous heads inside a token '
                          f'and batch-major tokens, got strides {x.stride()}')
-    if x.data_ptr() % 16 or (T > 1 and x.stride(1) % 8):
+    if x.data_ptr() % 16 or (T > 1 and x.stride(1) * x.element_size() % 16):
         raise ValueError(f'flash_prefill: {name} rows must be 16-byte aligned '
                          f'(16-byte vector loads), got strides {x.stride()}')
     return x.stride(1)
@@ -57,20 +62,22 @@ def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_prefill_attention_plain(q, k, v, scale)
     B, T, Hq, D = q.shape
     Hkv = k.shape[2]
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f'flash_prefill kernel takes bf16, got {q.dtype}/{k.dtype}/{v.dtype}')
+    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f'flash_prefill kernel takes one of bf16, f16 and f32 for q, k '
+                        f'and v, got {q.dtype}/{k.dtype}/{v.dtype}')
     if k.device != q.device or v.device != q.device:
         raise ValueError('flash_prefill: q, k and v must be on one device')
     if k.shape != (B, T, Hkv, D) or v.shape != k.shape or Hq % Hkv:
         raise ValueError(f'flash_prefill: bad shapes q {tuple(q.shape)} '
                          f'k {tuple(k.shape)} v {tuple(v.shape)}')
-    if D not in (64, 128):
-        raise ValueError(f'flash_prefill kernel takes head_dim 64 or 128, got {D}')
+    if D not in HEAD_DIMS:
+        raise ValueError(f'flash_prefill kernel is built for head_dim in {HEAD_DIMS}, '
+                         f'got {D}')
     strides = [_token_stride(x, n) for x, n in ((q, 'q'), (k, 'k'), (v, 'v'))]
     out = torch.empty((B, T, Hq, D), dtype=q.dtype, device=q.device)
-    fn = cuda_build.entry('flash_prefill', 'flash_prefill_bf16', _ARGTYPES)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, Hq, Hkv, D,
-            *strides, scale, cuda_build.stream_handle(q))
+    fn = cuda_build.entry('flash_prefill', 'flash_prefill', _ARGTYPES)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), KERNEL_DTYPES[q.dtype],
+            B, T, Hq, Hkv, D, *strides, scale, cuda_build.stream_handle(q))
     cuda_build.check(rc, 'flash_prefill')
     flash_prefill_attention.launches += 1
     return out

@@ -3,12 +3,12 @@
 Port of ``lmdeploy_tpu/ops/moe.py`` (``moe_ffn`` and the single-device routes of
 ``_moe_ffn_one``).  The route depends on the step's token count N and on the stacks:
 
-  * quantized stacks (MXFP4 ``{'nib', 'scale'}`` dict leaves), N >= 768: widen the three
-    stacks to ``out_dtype`` (``_dequant_stack``) and take the grouped GEMM; x is not
-    rounded on this route;
+  * quantized stacks (MXFP4 ``{'nib', 'scale'}`` or blocked-fp8 ``{'w8', 'gscale'}``
+    dict leaves), N >= 768: widen the three stacks to ``out_dtype`` (``_dequant_stack``)
+    and take the grouped GEMM; x is not rounded on this route;
   * quantized stacks below 768: the dense combine over the resident stacks
-    (``_moe_dense``), every product on ``ops/quant_bmm.mxfp4_bmm`` (the CUDA kernel
-    on the card), which rounds x to bf16;
+    (``_moe_dense``), every product on ``ops/quant_bmm.mxfp4_bmm`` or ``fp8_bmm`` (the
+    CUDA kernels on the card), which round x to bf16;
   * dense stacks, N >= 128: the grouped GEMM (``_moe_ragged``), else the dense combine
     (``_moe_dense``).
 
@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .quant_bmm import mxfp4_bmm, widen_mxfp4
+from .quant_bmm import fp8_bmm, mxfp4_bmm, widen_fp8, widen_mxfp4
 
 # token counts at which the grouped GEMM takes over (reference moe.py:29-36)
 RAGGED_MIN_TOKENS = 128
@@ -56,13 +56,10 @@ def moe_ffn(xf: torch.Tensor, top_idx: torch.Tensor, top_w: torch.Tensor,
     """Routed-expert FFN: ``act(x @ We_g, x @ We_u) @ We_d`` combined by ``top_w``.
 
     xf [N, H]; top_idx [N, k] expert choices; top_w [N, k] routing weights; stacks
-    [E, H, Ie], [E, H, Ie], [E, Ie, H], or MXFP4 dict leaves; ``biases`` (bg [E, Ie],
-    bu [E, Ie], bd [E, H]) or None.  Returns f32 [N, H]."""
+    [E, H, Ie], [E, H, Ie], [E, Ie, H], or MXFP4 / blocked-fp8 dict leaves; ``biases``
+    (bg [E, Ie], bu [E, Ie], bd [E, H]) or None.  Returns f32 [N, H]."""
     N = xf.shape[0]
     if isinstance(we_gate, dict):
-        if 'nib' not in we_gate:
-            raise NotImplementedError(f'quantized expert leaf {sorted(we_gate)} is not '
-                                      f'ported (blocked fp8 waits for the MLA slice)')
         if allow_ragged and N >= QUANT_RAGGED_MIN_TOKENS:
             return _moe_ragged(xf, top_idx, top_w, _dequant_stack(we_gate, out_dtype),
                                _dequant_stack(we_up, out_dtype),
@@ -78,7 +75,10 @@ def moe_ffn(xf: torch.Tensor, top_idx: torch.Tensor, top_w: torch.Tensor,
 def _dequant_stack(leaf: dict, out_dtype: torch.dtype) -> torch.Tensor:
     """A resident quantized stack widened to a dense [E, K, N] (the long-prefill
     route; the round trip amortizes over the chunk).  Bit-equal to the weights the
-    kernel decodes."""
+    kernel decodes (blocked fp8: but for the NaN code, which the reference's widening
+    keeps as NaN)."""
+    if 'w8' in leaf:
+        return widen_fp8(leaf['w8'], leaf['gscale'], out_dtype)
     return widen_mxfp4(leaf['nib'], leaf['scale'], out_dtype)
 
 
@@ -132,7 +132,9 @@ def _moe_ragged(xf, top_idx, top_w, we_gate, we_up, we_down, out_dtype,
 
 def _quant_bmm(x: torch.Tensor, leaf: dict) -> torch.Tensor:
     """A quantized expert batched product: the CUDA kernel on a CUDA tensor, its plain
-    version on the CPU (``mxfp4_bmm`` dispatches)."""
+    version on the CPU (``fp8_bmm`` and ``mxfp4_bmm`` dispatch)."""
+    if 'w8' in leaf:
+        return fp8_bmm(x, leaf['w8'], leaf['gscale'])
     return mxfp4_bmm(x, leaf['nib'], leaf['scale'])
 
 
@@ -142,13 +144,15 @@ def _moe_dense(xf, top_idx, top_w, we_gate, we_up, we_down, out_dtype,
     expert's product runs on every row, on the resident codes for MXFP4 stacks (0.625
     B a weight from device memory), the combine weights apply before the down
     product, and the expert axis is summed at the end
-    (sum_e cc[n, e] * (act(..)[e, n] @ Wd[e])).  Rows go in chunks that keep the
+    (sum_e cc[n, e] * (act(..)[e, n] @ Wd[e])); blocked-fp8 stacks likewise (1 B a
+    weight).  Rows go in chunks that keep the
     [E, Nc, Ie] activations (f32 for quantized stacks, bf16 for dense ones in the
     reference's accounting) to ~64 MB."""
     N, H = xf.shape
     quant = isinstance(we_gate, dict)
     product = _quant_bmm if quant else _dot
-    E, _, Ie = (we_gate['scale'] if quant else we_gate).shape
+    E, _, Ie = ((we_gate['w8'] if 'w8' in we_gate else we_gate['scale']) if quant
+                else we_gate).shape
     # scatter-add, as the reference's .at[].add: a token that picks one expert twice
     # gets the sum of the two weights
     combine = torch.zeros((N, E), dtype=torch.float32, device=xf.device).scatter_add_(

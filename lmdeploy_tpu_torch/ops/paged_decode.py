@@ -7,12 +7,13 @@ laid out); on a CPU tensor it runs its ``*_plain`` version, the same function in
 PyTorch.  There is no fallback: a CUDA tensor a kernel does not take raises.
 
 ``paged_decode_attention`` dispatches on the cache:
-  * bf16 pages ``[L, NB, 2, BS, Hkv*D]`` (body ``_decode_kernel``) -> ``csrc/paged_decode.cu``;
+  * pages in the model's dtype ``[L, NB, 2, BS, Hkv*D]`` (body ``_decode_kernel``) ->
+    ``csrc/paged_decode.cu``;
   * fp8-e4m3 pages of the same layout (quant_policy 16; the reference sends them
     through ``_decode_kernel`` too) -> ``paged_decode_attention_fp8``, the e4m3
-    instantiation of the same kernel.  Window, softcap and sinks as for bf16.  P stays
-    f32 for the P.V product: the TPU kernel's rounding of P to the page type
-    (``pr.astype(v.dtype)``, e4m3 there) is not copied;
+    instantiation of the same kernel.  Window, softcap and sinks as for the model's
+    dtype.  P stays f32 for the P.V product: the TPU kernel's rounding of P to the page
+    type (``pr.astype(v.dtype)``, e4m3 there) is not copied;
   * int8 ``QuantKV`` (``_decode_kernel_quant``) -> ``paged_decode_attention_int8``,
     ``csrc/paged_decode_int8.cu``: ``s = (q*scale)·k_i8 * ksc``, ``acc += (p*vsc) @ v_i8``;
   * int4 ``QuantKV4`` (``_decode_kernel_quant4``) -> ``paged_decode_attention_int4``,
@@ -34,23 +35,33 @@ from typing import Optional
 import torch
 
 from . import cuda_build
+from .flash_prefill import HEAD_DIMS, KERNEL_DTYPES
 from .kv_quant import (QuantKV, QuantKV4, QuantKVTurbo, turbo_codebooks, turbo_sigma,
                        unpack_2bit, unpack_nibbles)
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# paged_decode_{bf16,fp8}(q, cache, tables, kv_lens, sinks, out, B, Hq, Hkv, D, NB, BS,
-#                         W, layer, scale, softcap, window, stream)
-_ARGTYPES = [_P] * 6 + [_I] * 8 + [_F, _F, _I, _P]
-# paged_decode_int8(q, data, scale, tables, kv_lens, out, B, Hq, Hkv, D, NB, BS, W,
-#                   layer, scale, softcap, stream)
-_ARGTYPES_INT8 = [_P] * 6 + [_I] * 8 + [_F, _F, _P]
-# paged_decode_int4(q, data, scale, minv, tables, kv_lens, out, B, Hq, Hkv, D, NB, BS,
+# every kernel takes q (and gives its output) in bf16, f16 or f32 (its dtype argument,
+# KERNEL_DTYPES); head dims: the plain-layout kernels HEAD_DIMS, the int8 and int4 ones
+# those up to 256 (MLA's latent 576 on those caches is ROADMAP kernel item 3b), the
+# TurboQuant one the powers of two among them (its cache needs one)
+QUANT_HEAD_DIMS = tuple(d for d in HEAD_DIMS if d <= 256)
+TURBO_HEAD_DIMS = tuple(d for d in QUANT_HEAD_DIMS if d & (d - 1) == 0)
+# paged_decode{,_fp8}(q, cache, tables, kv_lens, sinks, out, part, dtype, B, Hq, Hkv, D,
+#                     NB, BS, W, layer, scale, softcap, window, splits, stream)
+_ARGTYPES = [_P] * 7 + [_I] * 9 + [_F, _F, _I, _I, _P]
+# the plain-layout kernel's wide path (D > 128, or f32 pages) splits each row's pages
+# over blocks of about this many tokens, then combines the splits
+SPLIT_TOKENS = 512
+# paged_decode_int8(q, data, scale, tables, kv_lens, out, dtype, B, Hq, Hkv, D, NB, BS,
 #                   W, layer, scale, softcap, stream)
-_ARGTYPES_INT4 = [_P] * 7 + [_I] * 8 + [_F, _F, _P]
-# paged_decode_turbo(q, data, meta, tables, kv_lens, out, B, Hq, Hkv, D, NB, BS, W,
-#                    layer, scale, softcap, sigma, stream)
-_ARGTYPES_TURBO = [_P] * 6 + [_I] * 8 + [_F, _F, _F, _P]
+_ARGTYPES_INT8 = [_P] * 6 + [_I] * 9 + [_F, _F, _P]
+# paged_decode_int4(q, data, scale, minv, tables, kv_lens, out, dtype, B, Hq, Hkv, D, NB,
+#                   BS, W, layer, scale, softcap, stream)
+_ARGTYPES_INT4 = [_P] * 7 + [_I] * 9 + [_F, _F, _P]
+# paged_decode_turbo(q, data, meta, tables, kv_lens, out, dtype, B, Hq, Hkv, D, NB, BS,
+#                    W, layer, scale, softcap, sigma, stream)
+_ARGTYPES_TURBO = [_P] * 6 + [_I] * 9 + [_F, _F, _F, _P]
 
 
 def _softmax_out(s: torch.Tensor, kv_lens: torch.Tensor, pv, B: int, Hq: int, D: int,
@@ -84,14 +95,19 @@ def _token_major(x: torch.Tensor, B: int, S: int, Hkv: int) -> torch.Tensor:
 
 def _check(kernel: str, q: torch.Tensor, pages: torch.Tensor, block_tables: torch.Tensor,
            kv_lens: torch.Tensor, layer: int, num_kv_heads: int, extras=(),
-           block_multiple: int = 1):
+           block_multiple: int = 1, head_dims=HEAD_DIMS):
     """The checks every decode wrapper makes before a launch; ``pages`` is the code
     tensor, ``extras`` the cache's other tensors.  Returns (B, Hq, D, NB, BS, W)."""
     B, Hq, D = q.shape
     L, NB, BS, W = pages.shape[0], pages.shape[1], pages.shape[-2], block_tables.shape[1]
-    if D not in (64, 128) or BS % block_multiple:
-        raise ValueError(f'{kernel} kernel takes head_dim 64 or 128 and a block size '
-                         f'that is a multiple of {block_multiple}, got {D} / {BS}')
+    if q.dtype not in KERNEL_DTYPES:
+        raise TypeError(f'{kernel} kernel takes a bf16, f16 or f32 q, got {q.dtype}')
+    if D not in head_dims or BS % block_multiple:
+        waits = (' (MLA on the int8 / int4 caches: ROADMAP.md section 2, kernel item 3b)'
+                 if D == 576 and head_dims == QUANT_HEAD_DIMS else '')
+        raise ValueError(f'{kernel} kernel is built for head_dim in {head_dims} and a '
+                         f'block size that is a multiple of {block_multiple}, got {D} / '
+                         f'{BS}{waits}')
     if Hq % num_kv_heads or not 0 <= layer < L:
         raise ValueError(f'{kernel}: bad shapes q {tuple(q.shape)} cache '
                          f'{tuple(pages.shape)} kv heads {num_kv_heads} layer {layer}')
@@ -120,7 +136,7 @@ def paged_decode_attention_plain(q: torch.Tensor, kv_cache: torch.Tensor,
                                  logit_softcap: Optional[float] = None,
                                  window: Optional[int] = None,
                                  sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q [B,Hq,D] over bf16, f32 or fp8 pages -> [B,Hq,D], f32 softmax with the
+    """q [B,Hq,D] over bf16, f16, f32 or fp8 pages -> [B,Hq,D], f32 softmax with the
     kernel's masking and sink rules."""
     B, Hq, D = q.shape
     G = Hq // num_kv_heads
@@ -147,7 +163,7 @@ def paged_decode_attention(q: torch.Tensor, kv_cache, block_tables: torch.Tensor
                            num_kv_heads: int, logit_softcap: Optional[float] = None,
                            window: Optional[int] = None,
                            sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q [B,Hq,D]; kv_cache [L,NB,2,BS,Hkv*D] bf16 or fp8 (or a quantized cache);
+    """q [B,Hq,D]; kv_cache [L,NB,2,BS,Hkv*D] in q's dtype or fp8 (or a quantized cache);
     block_tables [B,W] i32; kv_lens [B] i32; ``layer`` selects the cache layer;
     ``window`` None/<=0 = full attention; ``sinks`` [Hq] learned sink logits.
     Returns [B,Hq,D]."""
@@ -166,10 +182,10 @@ def paged_decode_attention(q: torch.Tensor, kv_cache, block_tables: torch.Tensor
         return paged_decode_attention_plain(q, kv_cache, block_tables, kv_lens, layer,
                                             scale, num_kv_heads, logit_softcap, window,
                                             sinks)
-    if q.dtype != torch.bfloat16 or kv_cache.dtype != torch.bfloat16:
-        raise TypeError(f'paged_decode kernel takes bf16 q and cache, got '
+    if kv_cache.dtype != q.dtype:
+        raise TypeError(f'paged_decode kernel takes a cache in q\'s dtype, got '
                         f'{q.dtype}/{kv_cache.dtype}')
-    out = _launch_plain_layout('paged_decode', 'paged_decode_bf16', q, kv_cache,
+    out = _launch_plain_layout('paged_decode', 'paged_decode', q, kv_cache,
                                block_tables, kv_lens, layer, scale, num_kv_heads,
                                logit_softcap, window, sinks)
     paged_decode_attention.launches += 1
@@ -185,15 +201,14 @@ def paged_decode_attention_fp8(q: torch.Tensor, kv_cache: torch.Tensor,
                                logit_softcap: Optional[float] = None,
                                window: Optional[int] = None,
                                sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q [B,Hq,D] bf16 over fp8-e4m3 pages [L,NB,2,BS,Hkv*D]; the rest as
+    """q [B,Hq,D] (bf16, f16 or f32) over fp8-e4m3 pages [L,NB,2,BS,Hkv*D]; the rest as
     ``paged_decode_attention``.  Its plain version is ``paged_decode_attention_plain``."""
     if not q.is_cuda:
         return paged_decode_attention_plain(q, kv_cache, block_tables, kv_lens, layer,
                                             scale, num_kv_heads, logit_softcap, window,
                                             sinks)
-    if q.dtype != torch.bfloat16 or kv_cache.dtype != torch.float8_e4m3fn:
-        raise TypeError(f'paged_decode_fp8 kernel takes bf16 q and an e4m3 cache, got '
-                        f'{q.dtype}/{kv_cache.dtype}')
+    if kv_cache.dtype != torch.float8_e4m3fn:
+        raise TypeError(f'paged_decode_fp8 kernel takes an e4m3 cache, got {kv_cache.dtype}')
     out = _launch_plain_layout('paged_decode_fp8', 'paged_decode_fp8', q, kv_cache,
                                block_tables, kv_lens, layer, scale, num_kv_heads,
                                logit_softcap, window, sinks)
@@ -219,12 +234,17 @@ def _launch_plain_layout(kernel, symbol, q, kv_cache, block_tables, kv_lens, lay
             raise ValueError(f'{kernel}: sinks must be [{Hq}], got {tuple(sinks.shape)}')
         sinks_ptr = sinks.data_ptr()
     out = torch.empty_like(q)
+    wide = D > 128 or kv_cache.element_size() == 4
+    splits = -(-W // max(1, SPLIT_TOKENS // BS)) if wide else 1
+    part = (torch.empty(B * splits * Hq * (D + 2), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
     fn = cuda_build.entry('paged_decode', symbol, _ARGTYPES)
     rc = fn(q.data_ptr(), kv_cache.data_ptr(), block_tables.data_ptr(),
             kv_lens.data_ptr(), sinks_ptr, out.data_ptr(),
+            None if part is None else part.data_ptr(), KERNEL_DTYPES[q.dtype],
             B, Hq, num_kv_heads, D, NB, BS, W, layer, scale,
             logit_softcap if logit_softcap else 0.0,
-            window if window and window > 0 else 0, cuda_build.stream_handle(q))
+            window if window and window > 0 else 0, splits, cuda_build.stream_handle(q))
     cuda_build.check(rc, kernel)
     return out
 
@@ -257,17 +277,18 @@ def paged_decode_attention_int8(q: torch.Tensor, kv: QuantKV, block_tables: torc
                                 kv_lens: torch.Tensor, layer: int, scale: float,
                                 num_kv_heads: int,
                                 logit_softcap: Optional[float] = None) -> torch.Tensor:
-    """q [B,Hq,D] bf16; ``kv.data`` int8 [L,NB,2,BS,Hkv*D], ``kv.scale`` f32
+    """q [B,Hq,D] (bf16, f16 or f32); ``kv.data`` int8 [L,NB,2,BS,Hkv*D], ``kv.scale`` f32
     [L,NB,2,BS,Hkv]; block_tables [B,W] i32; kv_lens [B] i32.  Returns [B,Hq,D]."""
     if not q.is_cuda:
         return paged_decode_attention_int8_plain(q, kv, block_tables, kv_lens, layer,
                                                  scale, num_kv_heads, logit_softcap)
     data, scales = kv.data, kv.scale
-    if q.dtype != torch.bfloat16 or data.dtype != torch.int8 or scales.dtype != torch.float32:
-        raise TypeError(f'paged_decode_int8 kernel takes bf16 q, int8 data and f32 '
-                        f'scales, got {q.dtype}/{data.dtype}/{scales.dtype}')
+    if data.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError(f'paged_decode_int8 kernel takes int8 data and f32 scales, got '
+                        f'{data.dtype}/{scales.dtype}')
     B, Hq, D, NB, BS, W = _check('paged_decode_int8', q, data, block_tables, kv_lens,
-                                 layer, num_kv_heads, (scales,), block_multiple=16)
+                                 layer, num_kv_heads, (scales,), block_multiple=16,
+                                 head_dims=QUANT_HEAD_DIMS)
     L = data.shape[0]
     if (data.shape != (L, NB, 2, BS, num_kv_heads * D)
             or scales.shape != (L, NB, 2, BS, num_kv_heads)):
@@ -276,9 +297,9 @@ def paged_decode_attention_int8(q: torch.Tensor, kv: QuantKV, block_tables: torc
     out = torch.empty_like(q)
     fn = cuda_build.entry('paged_decode_int8', 'paged_decode_int8', _ARGTYPES_INT8)
     rc = fn(q.data_ptr(), data.data_ptr(), scales.data_ptr(), block_tables.data_ptr(),
-            kv_lens.data_ptr(), out.data_ptr(), B, Hq, num_kv_heads, D, NB, BS, W,
-            layer, scale, logit_softcap if logit_softcap else 0.0,
-            cuda_build.stream_handle(q))
+            kv_lens.data_ptr(), out.data_ptr(), KERNEL_DTYPES[q.dtype], B, Hq,
+            num_kv_heads, D, NB, BS, W, layer, scale,
+            logit_softcap if logit_softcap else 0.0, cuda_build.stream_handle(q))
     cuda_build.check(rc, 'paged_decode_int8')
     paged_decode_attention_int8.launches += 1
     return out
@@ -322,18 +343,19 @@ def paged_decode_attention_int4(q: torch.Tensor, kv: QuantKV4, block_tables: tor
                                 kv_lens: torch.Tensor, layer: int, scale: float,
                                 num_kv_heads: int,
                                 logit_softcap: Optional[float] = None) -> torch.Tensor:
-    """q [B,Hq,D] bf16; ``kv.data`` u8 [L,NB,2,BS,Hkv*D/2], ``kv.scale`` and ``kv.minv``
+    """q [B,Hq,D] (bf16, f16 or f32); ``kv.data`` u8 [L,NB,2,BS,Hkv*D/2], ``kv.scale`` and ``kv.minv``
     f32 [L,NB,2,BS,Hkv]; block_tables [B,W] i32; kv_lens [B] i32.  Returns [B,Hq,D]."""
     if not q.is_cuda:
         return paged_decode_attention_int4_plain(q, kv, block_tables, kv_lens, layer,
                                                  scale, num_kv_heads, logit_softcap)
     data, scales, minv = kv.data, kv.scale, kv.minv
-    if (q.dtype != torch.bfloat16 or data.dtype != torch.uint8
-            or scales.dtype != torch.float32 or minv.dtype != torch.float32):
-        raise TypeError(f'paged_decode_int4 kernel takes bf16 q, u8 data and f32 scale '
-                        f'and min, got {q.dtype}/{data.dtype}/{scales.dtype}/{minv.dtype}')
+    if (data.dtype != torch.uint8 or scales.dtype != torch.float32
+            or minv.dtype != torch.float32):
+        raise TypeError(f'paged_decode_int4 kernel takes u8 data and f32 scale and min, '
+                        f'got {data.dtype}/{scales.dtype}/{minv.dtype}')
     B, Hq, D, NB, BS, W = _check('paged_decode_int4', q, data, block_tables, kv_lens,
-                                 layer, num_kv_heads, (scales, minv), block_multiple=16)
+                                 layer, num_kv_heads, (scales, minv), block_multiple=16,
+                                 head_dims=QUANT_HEAD_DIMS)
     L = data.shape[0]
     if (data.shape != (L, NB, 2, BS, num_kv_heads * D // 2)
             or scales.shape != (L, NB, 2, BS, num_kv_heads) or minv.shape != scales.shape):
@@ -343,7 +365,8 @@ def paged_decode_attention_int4(q: torch.Tensor, kv: QuantKV4, block_tables: tor
     out = torch.empty_like(q)
     fn = cuda_build.entry('paged_decode_int4', 'paged_decode_int4', _ARGTYPES_INT4)
     rc = fn(q.data_ptr(), data.data_ptr(), scales.data_ptr(), minv.data_ptr(),
-            block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), B, Hq,
+            block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+            KERNEL_DTYPES[q.dtype], B, Hq,
             num_kv_heads, D, NB, BS, W, layer, scale,
             logit_softcap if logit_softcap else 0.0, cuda_build.stream_handle(q))
     cuda_build.check(rc, 'paged_decode_int4')
@@ -391,18 +414,19 @@ def paged_decode_attention_turbo(q: torch.Tensor, kv: QuantKVTurbo,
                                  block_tables: torch.Tensor, kv_lens: torch.Tensor,
                                  layer: int, scale: float, num_kv_heads: int,
                                  logit_softcap: Optional[float] = None) -> torch.Tensor:
-    """ROTATED q [B,Hq,D] bf16; ``kv.data`` u8 [L,NB,BS,3*Hkv*D/4], ``kv.meta`` f32
+    """ROTATED q [B,Hq,D] (bf16, f16 or f32); ``kv.data`` u8 [L,NB,BS,3*Hkv*D/4], ``kv.meta`` f32
     [L,NB,BS,3,Hkv]; block_tables [B,W] i32; kv_lens [B] i32.  Returns the
     rotated-domain [B,Hq,D]."""
     if not q.is_cuda:
         return paged_decode_attention_turbo_plain(q, kv, block_tables, kv_lens, layer,
                                                   scale, num_kv_heads, logit_softcap)
     data, meta = kv.data, kv.meta
-    if q.dtype != torch.bfloat16 or data.dtype != torch.uint8 or meta.dtype != torch.float32:
-        raise TypeError(f'paged_decode_turbo kernel takes bf16 q, u8 data and f32 meta, '
-                        f'got {q.dtype}/{data.dtype}/{meta.dtype}')
+    if data.dtype != torch.uint8 or meta.dtype != torch.float32:
+        raise TypeError(f'paged_decode_turbo kernel takes u8 data and f32 meta, got '
+                        f'{data.dtype}/{meta.dtype}')
     B, Hq, D, NB, BS, W = _check('paged_decode_turbo', q, data, block_tables, kv_lens,
-                                 layer, num_kv_heads, (meta,), block_multiple=16)
+                                 layer, num_kv_heads, (meta,), block_multiple=16,
+                                 head_dims=TURBO_HEAD_DIMS)
     L = data.shape[0]
     if (data.shape != (L, NB, BS, 3 * num_kv_heads * D // 4)
             or meta.shape != (L, NB, BS, 3, num_kv_heads)):
@@ -411,7 +435,8 @@ def paged_decode_attention_turbo(q: torch.Tensor, kv: QuantKVTurbo,
     out = torch.empty_like(q)
     fn = cuda_build.entry('paged_decode_turbo', 'paged_decode_turbo', _ARGTYPES_TURBO)
     rc = fn(q.data_ptr(), data.data_ptr(), meta.data_ptr(), block_tables.data_ptr(),
-            kv_lens.data_ptr(), out.data_ptr(), B, Hq, num_kv_heads, D, NB, BS, W,
+            kv_lens.data_ptr(), out.data_ptr(), KERNEL_DTYPES[q.dtype], B, Hq,
+            num_kv_heads, D, NB, BS, W,
             layer, scale, logit_softcap if logit_softcap else 0.0,
             float(turbo_sigma(D)), cuda_build.stream_handle(q))
     cuda_build.check(rc, 'paged_decode_turbo')

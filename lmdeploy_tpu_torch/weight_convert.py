@@ -3,8 +3,8 @@
 The port keeps the reference's parameter tree (names, ``[L, ...]`` stacking and the
 ``[in, out]`` weight layout), so parameters convert leaf by leaf; quantized linears
 and expert stacks are dict leaves on both sides (``packed`` / ``scales`` / ``zeros``,
-the prepared ``packed`` / ``sb`` / ``corr``, MXFP4 ``nib`` / ``scale``) and convert key
-by key.  The caches convert bit for bit both ways (``ops/kv_quant.py`` has the port's
+the prepared ``packed`` / ``sb`` / ``corr``, MXFP4 ``nib`` / ``scale``, blocked-fp8
+``w8`` / ``gscale``) and convert key by key; fp8 goes as its e4m3 bytes.  The caches convert bit for bit both ways (``ops/kv_quant.py`` has the port's
 layouts); the port drops the reference's 128-lane row padding everywhere:
   * plain and fp8: ``[L, NB, 2, BS, Hkv*D]`` here against ``[L, NB, 2, BS, HDp]`` there,
     ``HDp`` the row width rounded up to 128; fp8 goes as its e4m3 bytes (u8);
@@ -35,22 +35,24 @@ from .ops.kv_quant import (QuantKV, QuantKV4, QuantKVTurbo, deint_scale_pos, pac
 
 def _to_torch(x, dtype=None, device='cpu') -> torch.Tensor:
     a = np.asarray(x)
-    if a.dtype.kind == 'V' or a.dtype.name == 'bfloat16':     # ml_dtypes bfloat16
+    if a.dtype.name == 'float8_e4m3fn':                       # ml_dtypes e4m3: its bytes
+        t = torch.from_numpy(np.array(a.view(np.uint8))).view(torch.float8_e4m3fn)
+    elif a.dtype.kind == 'V' or a.dtype.name == 'bfloat16':   # ml_dtypes bfloat16
         t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a))          # a writable copy
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-# leaves of a quantized dict (W4A16, MXFP4) keep their own dtypes
-_QUANT_KEYS = {'packed', 'scales', 'zeros', 'sb', 'corr', 'nib', 'scale'}
+# leaves of a quantized dict (W4A16, MXFP4, blocked fp8) keep their own dtypes
+_QUANT_KEYS = {'packed', 'scales', 'zeros', 'sb', 'corr', 'nib', 'scale', 'w8', 'gscale'}
 
 
 def params_from_jax(params_np: Dict, dtype=None, device='cpu') -> Dict:
     """JAX ``LlamaModel`` parameter tree (numpy leaves, fused or unfused, stacked
     ``[L, ...]``) -> the port's tree of tensors (same names and layout).  ``dtype``
     applies to the dense float leaves; quantized dict leaves (``{'nib', 'scale'}``,
-    ``{'packed', ...}`` of any rank, the 4-D expert stacks included, and the prepared
+    ``{'w8', 'gscale'}``, ``{'packed', ...}`` of any rank, the 4-D expert stacks included, and the prepared
     leaves of every schedule, bf16 ``sb`` / ``corr`` too) keep theirs, bit for bit.  The reference's ``layer_window`` leaf is
     dropped: the port's model holds its windows as Python ints (``layer_windows``)."""
     out = {}

@@ -1,5 +1,5 @@
-"""Safetensors -> parameter tree loader (dense f32 / bf16 / f16, AWQ / GPTQ and
-MXFP4 checkpoints).
+"""Safetensors -> parameter tree loader (dense f32 / bf16 / f16, AWQ / GPTQ, MXFP4 and
+blocked-fp8 checkpoints).
 
 Port of ``lmdeploy_tpu/weight_loader.py`` (``load_params_np``): allocate the model's
 stacked parameter tree once on the host (typed leaves keep their own dtypes: int32
@@ -8,16 +8,22 @@ safetensors shard through the model's assign plan (each entry's transform: trans
 linears to ``[in, out]``, repacking AWQ / GPTQ nibbles to the kernel layout; one
 tensor may fill several leaves, or one expert of a stacked layer row), hand every name
 the plan does not know to the model's ``load_hook`` (gpt-oss's ``*_blocks`` /
-``*_scales`` pairs), then move each leaf to the device once.  ``safetensors`` is
-imported only here, when a checkpoint is read.
+``*_scales`` pairs), then move each leaf to the device once.  A model that sets
+``dequant_on_load`` (DeepSeek on a native blocked-fp8 checkpoint) reads its fp8
+weights through ``_dequant_blocked_fp8``, which widens each with its
+``weight_scale_inv`` grid, except the names its ``keep_fp8`` predicate lets through
+(the routed expert stacks, which stay fp8-resident).  ``safetensors`` is imported only
+here, when a checkpoint is read.
 """
 from __future__ import annotations
 
 import glob
 import os
-from typing import Dict
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
+
+_FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
 
 
 def iter_safetensors(model_path: str):
@@ -30,6 +36,49 @@ def iter_safetensors(model_path: str):
         with safe_open(path, framework='pt') as f:
             for name in f.keys():
                 yield name, f.get_tensor(name)
+
+
+def _dequant_blocked_fp8(it: Iterable, keep: Optional[Callable[[str], bool]] = None):
+    """Stream adapter (reference ``weight_loader._dequant_blocked_fp8``): pair each fp8
+    ``X.weight`` with its ``X.weight_scale_inv`` (in either order) and yield the f32
+    weight ``w8 * scale`` under ``X.weight``, the [ceil(N/bn), ceil(K/bk)] scale grid
+    expanded over its blocks.  Names ``keep`` accepts pass through untouched, weight
+    and scale alike; an unpaired fp8 weight or scale passes through at the end."""
+    def deq(w8, s):
+        n, k = w8.shape
+        s = s.float()
+        bn, bk = -(-n // s.shape[0]), -(-k // s.shape[1])
+        sf = s.repeat_interleave(bn, 0)[:n].repeat_interleave(bk, 1)[:, :k]
+        return w8.float() * sf
+
+    pending_w: Dict[str, torch.Tensor] = {}
+    pending_s: Dict[str, torch.Tensor] = {}
+    for name, tensor in it:
+        if keep is not None and keep(name):
+            yield name, tensor
+        elif name.endswith('.weight_scale_inv'):
+            base = name[:-len('_scale_inv')]
+            if base in pending_w:
+                yield base, deq(pending_w.pop(base), tensor)
+            else:
+                pending_s[base] = tensor
+        elif name.endswith('.weight') and tensor.dtype in _FP8_DTYPES:
+            if name in pending_s:
+                yield name, deq(tensor, pending_s.pop(name))
+            else:
+                pending_w[name] = tensor
+        else:
+            yield name, tensor
+    yield from pending_w.items()
+    for name, s in pending_s.items():
+        yield name + '_scale_inv', s
+
+
+def _weight_stream(model, model_path: str):
+    it = iter_safetensors(model_path)
+    if getattr(model, 'dequant_on_load', False):
+        it = _dequant_blocked_fp8(it, keep=getattr(model, 'keep_fp8', None))
+    return it
 
 
 def _alloc_tree(shapes: Dict, dtype: torch.dtype) -> Dict:
@@ -45,7 +94,7 @@ def load_params(model, model_path: str, device) -> Dict:
     params = _alloc_tree(model.param_shapes(), dtype)
     plan = model.make_assign_plan()
     hook = getattr(model, 'load_hook', None)
-    for name, tensor in iter_safetensors(model_path):
+    for name, tensor in _weight_stream(model, model_path):
         entry = plan.get(name)
         if entry is None:
             if hook is not None:

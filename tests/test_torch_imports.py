@@ -19,11 +19,14 @@ bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'lmdeploy_tpu'
              or m.startswith('lmdeploy_tpu.'))
 assert not bad, bad
-assert len(names) >= 28, names
+assert len(names) >= 29, names
 assert {'lmdeploy_tpu_torch.ops.moe', 'lmdeploy_tpu_torch.ops.quant_bmm',
         'lmdeploy_tpu_torch.models.gpt_oss', 'lmdeploy_tpu_torch.ops.kv_quant',
         'lmdeploy_tpu_torch.ops.paged_decode', 'lmdeploy_tpu_torch.models.mixtral',
-        'lmdeploy_tpu_torch.ops.quant_matmul'} <= set(names), names
+        'lmdeploy_tpu_torch.ops.quant_matmul', 'lmdeploy_tpu_torch.models.deepseek',
+        'lmdeploy_tpu_torch.weight_loader'} <= set(names), names
+from lmdeploy_tpu_torch.models.deepseek import DeepseekV2Model
+from lmdeploy_tpu_torch.ops.quant_bmm import fp8_bmm, fp8_bmm_plain, widen_fp8
 from lmdeploy_tpu_torch.ops.kv_quant import QuantKV4, QuantKVTurbo, to_fp8
 print(len(names))
 '''
@@ -40,7 +43,7 @@ def test_every_kernel_source_is_built():
     on_disk = sorted(f[:-3] for f in os.listdir(cuda_build.CSRC_DIR) if f.endswith('.cu'))
     assert sorted(cuda_build.SOURCES) == on_disk
     assert {'mxfp4_bmm', 'paged_decode_int4', 'paged_decode_turbo', 'w4a16_gemm_szc',
-            'w4a16_gemm_unprepared'} <= set(on_disk)
+            'w4a16_gemm_unprepared', 'fp8_bmm'} <= set(on_disk)
 
 
 def test_every_w4a16_wrapper_counts_and_has_a_plain_version():
@@ -68,3 +71,13 @@ def test_every_decode_wrapper_counts_and_has_a_plain_version():
                                 pd.paged_decode_attention_plain))
     assert len({id(getattr(pd, 'paged_decode_attention' + k)) for k in
                 ('', '_fp8', '_int8', '_int4', '_turbo')}) == 5
+
+
+def test_every_expert_bmm_wrapper_counts_and_has_a_plain_version():
+    """The two expert-batched products (MXFP4, blocked fp8) keep their own launch
+    counts and plain versions."""
+    from lmdeploy_tpu_torch.ops import quant_bmm as qb
+    for wrapper in (qb.mxfp4_bmm, qb.fp8_bmm):
+        assert isinstance(wrapper.launches, int)
+        assert callable(getattr(qb, wrapper.__name__ + '_plain'))
+    assert qb.mxfp4_bmm is not qb.fp8_bmm

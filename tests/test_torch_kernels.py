@@ -4,7 +4,11 @@ The Pallas kernels run in TPU interpret mode on the CPU, as the JAX package's ow
 tests run them (tests/test_pallas_flash_prefill.py, tests/test_pallas_paged_decode.py).
 The CUDA kernels themselves are held against these plain versions on the card by
 chip_smoke.py.  Tolerance: f32 allclose at 2e-5 (the Pallas kernels use an online
-softmax, the plain versions a one-pass softmax).
+softmax, the plain versions a one-pass softmax); f16 at 2e-3 (one f16 ulp of outputs
+~1: the plain versions compute in f32 and round once, the Pallas kernels feed f16
+operands and round P to f16).  Besides the head dims 32 / 64 of the first slices the
+cases cover the kernels' other served dims at one kv head (96, 256, and MLA's latent
+576 with 16 query heads on it).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +23,7 @@ from lmdeploy_tpu_torch.ops.paged_decode import (paged_decode_attention,
 from lmdeploy_tpu_torch.weight_convert import cache_from_reference
 
 TOL = dict(rtol=2e-5, atol=2e-5)
+TOLS = {'float32': TOL, 'float16': dict(rtol=2e-3, atol=2e-3)}
 
 
 @pytest.fixture(autouse=True)
@@ -28,41 +33,58 @@ def interpret_mode():
         yield
 
 
-@pytest.mark.parametrize('B,T,Hq,Hkv,D', [(2, 128, 4, 2, 64), (1, 256, 8, 1, 32)])
-def test_flash_prefill_plain_matches_pallas(B, T, Hq, Hkv, D):
+@pytest.mark.parametrize('B,T,Hq,Hkv,D,dtype', [
+    pytest.param(2, 128, 4, 2, 64, 'float32', id='2-128-4-2-64'),
+    pytest.param(1, 256, 8, 1, 32, 'float32', id='1-256-8-1-32'),
+    pytest.param(1, 128, 4, 1, 96, 'float32', id='1-128-4-1-96'),
+    pytest.param(1, 64, 4, 1, 256, 'float32', id='1-64-4-1-256'),
+    pytest.param(1, 64, 16, 1, 576, 'float32', id='1-64-16-1-576'),
+    pytest.param(2, 64, 4, 1, 96, 'float16', id='2-64-4-1-96-f16'),
+    pytest.param(1, 64, 16, 1, 576, 'float16', id='1-64-16-1-576-f16')])
+def test_flash_prefill_plain_matches_pallas(B, T, Hq, Hkv, D, dtype):
     from lmdeploy_tpu.ops.pallas.flash_prefill import flash_prefill_attention as jflash
     rng = np.random.RandomState(0)
-    q = rng.randn(B, T, Hq, D).astype(np.float32)
-    k = rng.randn(B, T, Hkv, D).astype(np.float32)
-    v = rng.randn(B, T, Hkv, D).astype(np.float32)
+    q = rng.randn(B, T, Hq, D).astype(dtype)
+    k = rng.randn(B, T, Hkv, D).astype(dtype)
+    v = rng.randn(B, T, Hkv, D).astype(dtype)
     ref = np.asarray(jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), D ** -0.5,
-                            tile_q=64, tile_k=64))
+                            tile_q=64, tile_k=64)).astype(np.float32)
     args = (torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), D ** -0.5)
-    np.testing.assert_allclose(flash_prefill_attention_plain(*args).numpy(), ref, **TOL)
+    out = flash_prefill_attention_plain(*args)
+    assert out.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(out.float().numpy(), ref, **TOLS[dtype])
     # on a CPU tensor the wrapper takes the plain version and counts no launch
     before = flash_prefill_attention.launches
-    np.testing.assert_allclose(flash_prefill_attention(*args).numpy(), ref, **TOL)
+    np.testing.assert_allclose(flash_prefill_attention(*args).float().numpy(), ref,
+                               **TOLS[dtype])
     assert flash_prefill_attention.launches == before
 
 
-@pytest.mark.parametrize('opts', [
-    {},
-    {'window': 40},
-    {'logit_softcap': 4.0},
-    {'sinks': True},
-    {'window': 23, 'logit_softcap': 2.5, 'sinks': True},
+@pytest.mark.parametrize('opts,Hkv,G,D,dtype', [
+    pytest.param({}, 2, 4, 64, 'float32', id='opts0'),
+    pytest.param({'window': 40}, 2, 4, 64, 'float32', id='opts1'),
+    pytest.param({'logit_softcap': 4.0}, 2, 4, 64, 'float32', id='opts2'),
+    pytest.param({'sinks': True}, 2, 4, 64, 'float32', id='opts3'),
+    pytest.param({'window': 23, 'logit_softcap': 2.5, 'sinks': True}, 2, 4, 64, 'float32',
+                 id='opts4'),
+    pytest.param({}, 1, 4, 96, 'float32', id='d96-g4'),
+    pytest.param({'window': 40}, 1, 4, 256, 'float32', id='d256-g4-window'),
+    pytest.param({}, 1, 16, 576, 'float32', id='d576-g16'),
+    pytest.param({'sinks': True}, 1, 4, 576, 'float32', id='d576-g4-sinks'),
+    pytest.param({}, 2, 4, 96, 'float16', id='d96-g4-f16'),
+    pytest.param({}, 1, 16, 576, 'float16', id='d576-g16-f16'),
 ])
-def test_paged_decode_plain_matches_pallas(opts):
+def test_paged_decode_plain_matches_pallas(opts, Hkv, G, D, dtype):
     from lmdeploy_tpu.ops.pallas.paged_decode import paged_decode_attention as jdecode
     rng = np.random.RandomState(1)
     L, layer, NB, BS, W = 3, 1, 40, 16, 6
-    B, Hkv, G, D = 5, 2, 4, 64
+    B = 5
     _, hdp = kv_row_width(Hkv, D)
-    cache = rng.randn(L, NB, 2, BS, hdp).astype(np.float32)
+    cache = rng.randn(L, NB, 2, BS, hdp).astype(dtype)
     cache[..., Hkv * D:] = 0
     tables = rng.permutation(np.arange(1, NB))[:B * W].reshape(B, W).astype(np.int32)
     kv_lens = np.array([1, 37, 0, 96, 64], np.int32)     # row 2 is inactive
-    q = rng.randn(B, Hkv * G, D).astype(np.float32)
+    q = rng.randn(B, Hkv * G, D).astype(dtype)
     scale = D ** -0.5
     jopts, topts = {}, {}
     if 'window' in opts:
@@ -73,21 +95,23 @@ def test_paged_decode_plain_matches_pallas(opts):
         sinks = rng.randn(Hkv * G).astype(np.float32)
         jopts['sinks'], topts['sinks'] = jnp.asarray(sinks), torch.from_numpy(sinks)
     ref = np.asarray(jdecode(jnp.asarray(q), jnp.asarray(cache), jnp.asarray(tables),
-                             jnp.asarray(kv_lens), jnp.int32(layer), scale, Hkv, **jopts))
+                             jnp.asarray(kv_lens), jnp.int32(layer), scale, Hkv,
+                             **jopts)).astype(np.float32)
     port_cache = cache_from_reference(cache, Hkv, D)
+    assert port_cache.dtype == getattr(torch, dtype)
     out = paged_decode_attention_plain(torch.from_numpy(q), port_cache,
                                        torch.from_numpy(tables), torch.from_numpy(kv_lens),
-                                       layer, scale, Hkv, **topts).numpy()
+                                       layer, scale, Hkv, **topts).float().numpy()
     # active rows match; an inactive row (kv_len 0) is zero in the port, while the
     # reference's row-batched program leaves it finite but filled from its
     # neighbours' pages (the engine discards that row either way)
     active = kv_lens > 0
-    np.testing.assert_allclose(out[active], ref[active], **TOL)
+    np.testing.assert_allclose(out[active], ref[active], **TOLS[dtype])
     assert np.all(out[~active] == 0) and np.isfinite(ref).all()
     before = paged_decode_attention.launches
     out2 = paged_decode_attention(torch.from_numpy(q), port_cache, torch.from_numpy(tables),
                                   torch.from_numpy(kv_lens), layer, scale, Hkv, **topts)
-    np.testing.assert_array_equal(out2.numpy(), out)
+    np.testing.assert_array_equal(out2.float().numpy(), out)
     assert paged_decode_attention.launches == before
 
 
@@ -101,3 +125,26 @@ def test_cuda_sources_present():
         src = open(path).read()
         assert 'extern "C"' in src and 'lmdeploy_tpu/ops/pallas/' in src
         assert cuda_build.lib_path(name).startswith(cuda_build.BUILD_DIR)
+
+
+def test_kernel_head_dims_match_sources():
+    """The head dims each wrapper admits are the ones its CUDA source instantiates
+    (the int8 / int4 decodes up to 256, TurboQuant the powers of two)."""
+    import os
+    import re
+
+    from lmdeploy_tpu_torch.ops import cuda_build
+    from lmdeploy_tpu_torch.ops import paged_decode as pd
+    from lmdeploy_tpu_torch.ops.flash_prefill import HEAD_DIMS
+
+    def dims(name):
+        src = open(os.path.join(cuda_build.CSRC_DIR, name + '.cu')).read()
+        found = re.findall(r'(?:case|_CASE\()\s*(\d+)', src.split('}  // namespace')[-2]
+                           + src.split('}  // namespace')[-1])
+        return tuple(sorted({int(d) for d in found if int(d) >= 32}))
+    assert HEAD_DIMS == (64, 80, 96, 128, 192, 256, 576)
+    assert dims('flash_prefill') == HEAD_DIMS
+    assert dims('paged_decode') == HEAD_DIMS
+    assert dims('paged_decode_int8') == dims('paged_decode_int4') == pd.QUANT_HEAD_DIMS
+    assert pd.QUANT_HEAD_DIMS == (64, 80, 96, 128, 192, 256)
+    assert dims('paged_decode_turbo') == pd.TURBO_HEAD_DIMS == (64, 128, 256)

@@ -100,18 +100,27 @@ def test_mxfp4_bmm_plain_matches_pallas(per_expert, M, N):
 
 
 def test_mxfp4_bmm_rejects_bad_shapes_and_fp8_is_queued():
+    """Both expert-batched products reject bad shapes.  The blocked-fp8 half, queued
+    when this test was written, is ported since: ``fp8_bmm`` and ``moe_ffn`` take
+    ``{'w8', 'gscale'}`` leaves (tests/test_torch_fp8_bmm.py holds their numbers)."""
     nib = torch.zeros(2, 64, 32, dtype=torch.uint8)
     scale = torch.ones(2, 4, 32)
     with pytest.raises(ValueError):
         tqb.mxfp4_bmm(torch.zeros(3, 100), nib, scale)                # K mismatch
     with pytest.raises(ValueError):
         tqb.mxfp4_bmm(torch.zeros(3, 5, 128), nib, scale)             # E mismatch
-    with pytest.raises(NotImplementedError, match='queue item 7'):
-        tqb.fp8_bmm(torch.zeros(2, 128), None, None)
-    with pytest.raises(NotImplementedError):
-        tmoe.moe_ffn(torch.zeros(2, 128), torch.zeros(2, 1, dtype=torch.int64),
-                     torch.ones(2, 1), {'w8': None, 'gscale': None}, None, None,
-                     torch.float32)
+    w8 = torch.zeros(2, 128, 32, dtype=torch.uint8).view(torch.float8_e4m3fn)
+    gscale = torch.ones(2, 4, 32)
+    with pytest.raises(ValueError):
+        tqb.fp8_bmm(torch.zeros(3, 100), w8, gscale)                  # K mismatch
+    with pytest.raises(ValueError):
+        tqb.fp8_bmm(torch.zeros(2, 128), w8, torch.ones(2, 3, 32))    # 3 groups of 128
+    leaf = {'w8': w8, 'gscale': gscale}
+    down = {'w8': torch.zeros(2, 32, 128, dtype=torch.uint8).view(torch.float8_e4m3fn),
+            'gscale': torch.ones(2, 1, 128)}
+    out = tmoe.moe_ffn(torch.ones(2, 128), torch.zeros(2, 1, dtype=torch.int64),
+                       torch.ones(2, 1), leaf, leaf, down, torch.float32)
+    assert out.shape == (2, 128) and bool(torch.isfinite(out).all())
 
 
 # -- moe_ffn on all four routes ----------------------------------------------------------
