@@ -2,7 +2,7 @@
 
 Port of ``lmdeploy_tpu/config.py`` for the families the port serves (the dense llama
 family, the Mixtral / Qwen-MoE family, gpt-oss and DeepSeek-V2 / V3), with the
-reference's MoE and MLA fields.  Dtypes are torch dtypes; the multimodal config fields
+reference's MoE and MLA fields and its mesh geometry (``DistConfig``).  Dtypes are torch dtypes; the multimodal config fields
 of the reference are not carried until a slice ports those models.
 """
 from __future__ import annotations
@@ -201,6 +201,34 @@ class SchedulerConfig:
 
 
 @dataclass
+class DistConfig:
+    """Mesh geometry, axes ('dp', 'ep', 'cp', 'tp') (reference: lmdeploy_tpu/config.py
+    ``DistConfig``).  The port serves context parallelism (``cp``: every page's token
+    slots striped over the ranks, ``parallel/mesh.py``); the other axes raise in
+    ``check_ported``."""
+
+    dp: int = 1
+    tp: int = 1
+    ep: int = 1
+    cp: int = 1
+    attn_tp: Optional[int] = None
+    mlp_tp: Optional[int] = None
+
+    def __post_init__(self):
+        if self.attn_tp is None:
+            self.attn_tp = self.tp
+        if self.mlp_tp is None:
+            self.mlp_tp = self.tp
+
+    @property
+    def world_size(self) -> int:
+        return self.dp * self.tp * self.ep * self.cp
+
+    def mesh_shape(self):
+        return {'dp': self.dp, 'ep': self.ep, 'cp': self.cp, 'tp': self.tp}
+
+
+@dataclass
 class MiscConfig:
     empty_init: bool = False
     prefill_buckets: Optional[List[int]] = None
@@ -208,9 +236,10 @@ class MiscConfig:
 
 
 # TpuEngineConfig fields the port does not read yet: a value other than the default
-# would ask for parallelism, KV roles, swap, LoRA, diffusion decoding, MemDecode or
-# model download, none of which the port does
-_UNPORTED_FIELDS = ('tp', 'dp', 'ep', 'cp', 'attn_tp_size', 'mlp_tp_size',
+# would ask for tensor, data or expert parallelism, KV roles, swap, LoRA, diffusion
+# decoding, MemDecode or model download, none of which the port does ('cp' is served,
+# within the limits check_ported names)
+_UNPORTED_FIELDS = ('tp', 'dp', 'ep', 'attn_tp_size', 'mlp_tp_size',
                     'num_cpu_blocks', 'eager_mode', 'role', 'adapters',
                     'dllm_block_length', 'memdecode', 'revision', 'download_dir')
 # the KV cache policies and checkpoint formats the port serves: every KV policy
@@ -220,9 +249,28 @@ _PORTED_VALUES = {'quant_policy': tuple(QuantPolicy),
                   'model_format': (None, 'awq', 'gptq')}
 
 
-def check_ported(engine_config: TpuEngineConfig):
+def cp_unported(cp: int, quant_policy, block_size: int,
+                model: Optional[ModelConfig] = None) -> List[str]:
+    """What of a context-parallel (``cp`` > 1) configuration the port does not serve
+    yet: a quantized KV cache, an MLA model (the reference takes its gather path for
+    both; ROADMAP.md section 1, item 16) or a block size the ranks do not divide."""
+    if cp <= 1:
+        return []
+    out = []
+    if quant_policy != QuantPolicy.NONE:
+        out.append(f'cp={cp} with quant_policy={int(quant_policy)}')
+    if model is not None and model.is_mla:
+        out.append(f'cp={cp} with an MLA model ({model.hf_arch})')
+    if block_size % cp:
+        out.append(f'cp={cp} with block_size={block_size} (the ranks split each '
+                   f'page\'s slots evenly)')
+    return out
+
+
+def check_ported(engine_config: TpuEngineConfig, model: Optional[ModelConfig] = None):
     """Validate ``engine_config`` and raise ``NotImplementedError`` for each field
-    set to a value the port does not serve yet."""
+    set to a value the port does not serve yet, context parallelism within the limits
+    of ``cp_unported`` (whose MLA check needs ``model``)."""
     engine_config.validate()
     default = TpuEngineConfig()
     unported = [f'{name}={getattr(engine_config, name)!r}' for name in _UNPORTED_FIELDS
@@ -230,6 +278,8 @@ def check_ported(engine_config: TpuEngineConfig):
     unported += [f'{name}={getattr(engine_config, name)!r}'
                  for name, ok in _PORTED_VALUES.items()
                  if getattr(engine_config, name) not in ok]
+    unported += cp_unported(engine_config.cp, engine_config.quant_policy,
+                            engine_config.block_size, model)
     if unported:
         raise NotImplementedError(f'not ported yet: {", ".join(unported)}')
 
@@ -242,12 +292,13 @@ class EngineConfigBundle:
     cache: CacheConfig
     scheduler: SchedulerConfig
     misc: MiscConfig
+    dist: DistConfig = field(default_factory=DistConfig)
 
     @classmethod
     def build(cls, model_path: str, engine_config: TpuEngineConfig) -> 'EngineConfigBundle':
-        check_ported(engine_config)
         model = ModelConfig.from_pretrained(model_path, dtype=engine_config.dtype,
                                             hf_overrides=engine_config.hf_overrides)
+        check_ported(engine_config, model)
         session_len = engine_config.session_len or model.max_position_embeddings
         cache = CacheConfig(
             block_size=engine_config.block_size,
@@ -267,7 +318,10 @@ class EngineConfigBundle:
         misc = MiscConfig(empty_init=engine_config.empty_init,
                           prefill_buckets=engine_config.prefill_buckets,
                           decode_buckets=engine_config.decode_buckets)
-        return cls(model=model, cache=cache, scheduler=sched, misc=misc)
+        dist = DistConfig(dp=engine_config.dp, tp=engine_config.tp, ep=engine_config.ep,
+                          cp=engine_config.cp, attn_tp=engine_config.attn_tp_size,
+                          mlp_tp=engine_config.mlp_tp_size)
+        return cls(model=model, cache=cache, scheduler=sched, misc=misc, dist=dist)
 
 
 def make_buckets(max_value: int, minimum: int = 1) -> List[int]:

@@ -1,0 +1,44 @@
+// The second pass of the paged decodes that split a row's pages over blocks
+// (paged_decode.cu's wide path and the int8 / int4 wide paths).  Each block of the
+// first pass writes the unnormalized (acc, m, l) of its query heads over its share of
+// the row's pages to part [B, S, Hq, D + 2]; decode_split_combine joins a (row, query
+// head)'s S splits in a fixed order -- m = max m_s, l = sum l_s e^(m_s - m), acc
+// likewise, no atomics -- then adds the sinks, if any, and divides (l == 0 -> 1).
+#pragma once
+
+#include "attn_types.cuh"
+
+namespace attn {
+
+constexpr float MASK_VALUE = -0.7f * 3.402823466e38f;
+
+// the finished output of one query head from its (acc, m, l): sink logits join the
+// denominator only while the row max m is above 0.5 * MASK_VALUE
+__device__ __forceinline__ float finish(float acc, float m, float l, const float* sinks,
+                                        int h) {
+  if (sinks != nullptr && m > 0.5f * MASK_VALUE) l += expf(sinks[h] - m);
+  return acc / (l == 0.f ? 1.f : l);
+}
+
+// one block per (query head, row); sinks [Hq] f32 or null
+template <typename TQ>
+__global__ void __launch_bounds__(128)
+decode_split_combine(const float* __restrict__ part, const float* __restrict__ sinks,
+                     TQ* __restrict__ out, int Hq, int D, int S) {
+  const int hq = blockIdx.x;
+  const int b = blockIdx.y;
+  const float* pr = part + ((long long)b * S * Hq + hq) * (D + 2);
+  const long long sstride = (long long)Hq * (D + 2);
+  float m = MASK_VALUE;
+  for (int s = 0; s < S; ++s) m = fmaxf(m, pr[s * sstride + D]);
+  float l = 0.f;
+  for (int s = 0; s < S; ++s) l += pr[s * sstride + D + 1] * expf(pr[s * sstride + D] - m);
+  TQ* orow = out + ((long long)b * Hq + hq) * D;
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float acc = 0.f;
+    for (int s = 0; s < S; ++s) acc += pr[s * sstride + d] * expf(pr[s * sstride + D] - m);
+    orow[d] = from_f<TQ>(finish(acc, m, l, sinks, hq));
+  }
+}
+
+}  // namespace attn

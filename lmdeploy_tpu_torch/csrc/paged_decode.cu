@@ -55,15 +55,17 @@
 #include <stdint.h>
 
 #include "attn_types.cuh"
+#include "decode_split.cuh"
 
 namespace {
 
+using attn::finish;
 using attn::fp8_t;
+using attn::MASK_VALUE;
 
 constexpr int NT = 128;           // narrow kernel threads
 constexpr int NTW = 512;          // wide kernel threads
 constexpr int GB = 16;            // query heads per wide block at most
-constexpr float MASK_VALUE = -0.7f * 3.402823466e38f;
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -75,13 +77,6 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
-}
-
-// the finished output of one query head from its (acc, m, l), sinks applied
-__device__ __forceinline__ float finish(float acc, float m, float l,
-                                        const float* sinks, int h) {
-  if (sinks != nullptr && m > 0.5f * MASK_VALUE) l += expf(sinks[h] - m);
-  return acc / (l == 0.f ? 1.f : l);
 }
 
 // ---------------------------------------------------------------------- narrow kernel
@@ -430,27 +425,6 @@ paged_decode_wide(const TQ* __restrict__ q,                 // [B, Hq, D]
   }
 }
 
-// the splits of one (row, query head) combined in order: one block per (head, row)
-template <typename TQ>
-__global__ void __launch_bounds__(128)
-paged_decode_combine(const float* __restrict__ part, const float* __restrict__ sinks,
-                     TQ* __restrict__ out, int Hq, int D, int S) {
-  const int hq = blockIdx.x;
-  const int b = blockIdx.y;
-  const float* pr = part + ((long long)b * S * Hq + hq) * (D + 2);
-  const long long sstride = (long long)Hq * (D + 2);
-  float m = MASK_VALUE;
-  for (int s = 0; s < S; ++s) m = fmaxf(m, pr[s * sstride + D]);
-  float l = 0.f;
-  for (int s = 0; s < S; ++s) l += pr[s * sstride + D + 1] * expf(pr[s * sstride + D] - m);
-  TQ* orow = out + ((long long)b * Hq + hq) * D;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float acc = 0.f;
-    for (int s = 0; s < S; ++s) acc += pr[s * sstride + d] * expf(pr[s * sstride + D] - m);
-    orow[d] = attn::from_f<TQ>(finish(acc, m, l, sinks, hq));
-  }
-}
-
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes, size_t& configured) {
   if (bytes <= configured) return cudaSuccess;
@@ -494,7 +468,7 @@ cudaError_t launch_wide(const void* q, const void* cache, const int* tables,
       split_pages);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
-  paged_decode_combine<TQ><<<dim3(Hq, B), 128, 0, stream>>>(
+  attn::decode_split_combine<TQ><<<dim3(Hq, B), 128, 0, stream>>>(
       part, sinks, static_cast<TQ*>(out), Hq, D, splits);
   return cudaGetLastError();
 }

@@ -24,26 +24,34 @@
 // Hkv * (2 * D / 2 code bytes + 4 * 4 scale and min bytes) -- 1,152 bytes at
 // Llama-3.1-8B (Hkv 8, D 128), 28% of the bf16 cache's 4,096.
 //
-// Design (paged_decode_int8.cu's, with nibble pages; a split over pages, TMA and
-// tensor-core scores are later work):
-//   * One block per (kv head, batch row) walks the row's pages up to its length.
-//   * The G query heads of the GQA group share every page the block loads.
-//   * Per page: the head's [BS, D / 2] byte slices of the K and V planes go to shared
-//     memory with 16-byte loads, the page's BS K and V scales and mins of this head
-//     beside them; scores with one thread per token (a 32-bit word holds 8 codes,
-//     code i at bits 4i..4i+3 is dim 8w + i); online softmax per query head (warp
-//     reductions), which also sums p * vmin; P.V with one thread per (head, column),
-//     accumulator in shared memory.
+// Design (paged_decode_int8.cu's, with nibble pages; TMA and tensor-core scores are
+// later work):
+//   * Narrow (D <= 256; D a template parameter): one block per (kv head, batch row)
+//     walks the row's pages up to its length.  The G query heads of the GQA group
+//     share every page the block loads.  Per page: the head's [BS, D / 2] byte slices
+//     of the K and V planes go to shared memory with 16-byte loads, the page's BS K
+//     and V scales and mins of this head beside them; scores with one thread per
+//     token (a 32-bit word holds 8 codes, code i at bits 4i..4i+3 is dim 8w + i);
+//     online softmax per query head (warp reductions), which also sums p * vmin; P.V
+//     with one thread per (head, column), accumulator in shared memory.
+//   * Wide (MLA's latent D = 576, one kv head under 16 or 128 query heads): as
+//     paged_decode_int8.cu's wide path -- 512 threads and up to 16 query heads a
+//     block, 32-token sub-chunks of the [*, D / 2] byte slices and their scales and
+//     mins in shared memory, one thread per (token, head) for the scores, a row's
+//     pages split over blocks whose (acc, m, l) a second kernel combines in a fixed
+//     order (no atomics).  The arithmetic is the narrow path's, term for term.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "attn_types.cuh"
+#include "decode_split.cuh"
 
 namespace {
 
+using attn::MASK_VALUE;
+
 constexpr int NT = 128;
-constexpr float MASK_VALUE = -0.7f * 3.402823466e38f;
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -257,6 +265,259 @@ paged_decode_int4_kernel(const TQ* __restrict__ q,   // [B, Hq, D]
   }
 }
 
+// ------------------------------------------------------------------------ wide kernel
+constexpr int NTW = 512;          // wide kernel threads
+constexpr int TCW = 32;           // tokens a sub-chunk
+constexpr int HPW = NTW / TCW;    // head parts: the threads that share a token
+constexpr int GB = 16;            // query heads a wide block at most
+constexpr int ACCW = (GB + HPW - 1) / HPW;
+
+__host__ __device__ inline int wide_words(int gb, int D) {
+  // qs [gb][D] + os [gb][D] + ps [gb][TCW] + m, l, alpha, qsum, pmin [gb]
+  // + ksc, kmn, vsc, vmn [TCW], rounded to 16 bytes
+  return (2 * gb * D + gb * TCW + 5 * gb + 4 * TCW + 3) & ~3;
+}
+
+inline size_t wide_smem(int gb, int D) {
+  return (size_t)wide_words(gb, D) * sizeof(float)
+       + (size_t)TCW * (D / 2 + 16)     // K slice, 16-byte padded rows
+       + (size_t)TCW * (D / 2);         // V slice
+}
+
+template <typename TQ>
+__global__ void __launch_bounds__(NTW)
+paged_decode_int4_wide(const TQ* __restrict__ q,                // [B, Hq, D]
+                       const uint8_t* __restrict__ data,        // [L, NB, 2, BS, Hkv*D/2]
+                       const float* __restrict__ scales,        // [L, NB, 2, BS, Hkv]
+                       const float* __restrict__ minv,          // [L, NB, 2, BS, Hkv]
+                       const int* __restrict__ tables,          // [B, W]
+                       const int* __restrict__ kv_lens,         // [B]
+                       TQ* __restrict__ out,                    // [B, Hq, D]
+                       float* __restrict__ part,                // [B, S, Hq, D + 2] or null
+                       int Hq, int Hkv, int D, int NB, int BS, int W, int layer,
+                       float scale, float softcap, int split_pages) {
+  const int DB = D / 2;           // code bytes per head row
+  const int KSTR = DB + 16;       // padded K rows: conflict-free 16-byte row reads
+  const int CH = DB / 16;         // 16-byte chunks (32 codes) per head row
+  const int G = Hq / Hkv;
+  const int hsplits = (G + GB - 1) / GB;
+  const int h = blockIdx.x / hsplits;
+  const int g0 = (blockIdx.x - h * hsplits) * GB;
+  const int gb = min(GB, G - g0);
+  const int b = blockIdx.y;
+  const int S = gridDim.z;
+  const int sp = blockIdx.z;
+  const int RB = Hkv * DB;        // bytes per token row of a plane
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                 // [gb][D]  q * scale
+  float* os = qs + gb * D;          // [gb][D]
+  float* ps = os + gb * D;          // [gb][TCW]
+  float* ms = ps + gb * TCW;        // [gb]
+  float* ls = ms + gb;              // [gb]
+  float* as = ls + gb;              // [gb]
+  float* qsum = as + gb;            // [gb]  sum_d qs
+  float* pmin = qsum + gb;          // [gb]  this sub-chunk's sum_t p * vmin
+  float* ksc = pmin + gb;           // [TCW]
+  float* kmn = ksc + TCW;           // [TCW]
+  float* vsc = kmn + TCW;           // [TCW]
+  float* vmn = vsc + TCW;           // [TCW]
+  uint8_t* ks = reinterpret_cast<uint8_t*>(smem + wide_words(gb, D));
+  uint8_t* vs = ks + TCW * KSTR;
+
+  const long long head0 = (long long)b * Hq + (long long)h * G + g0;
+  const TQ* qrow = q + head0 * D;
+  for (int i = tid; i < gb * D; i += NTW) {
+    qs[i] = attn::to_f(qrow[i]) * scale;
+    os[i] = 0.f;
+  }
+  for (int g = tid; g < gb; g += NTW) {
+    ms[g] = MASK_VALUE;
+    ls[g] = 0.f;
+  }
+  __syncthreads();
+  for (int g = warp; g < gb; g += NTW / 32) {
+    float sum = 0.f;
+    for (int d = lane; d < D; d += 32) sum += qs[g * D + d];
+    sum = warp_sum(sum);
+    if (lane == 0) qsum[g] = sum;
+  }
+  __syncthreads();
+
+  const int len = kv_lens[b];
+  const int p_lo = sp * split_pages;
+  const int p_hi = min(min((len + BS - 1) / BS, W), (sp + 1) * split_pages);
+  const long long plane = (long long)BS * RB;
+  const long long splane = (long long)BS * Hkv;
+  const int tt = tid % TCW;         // this thread's token in the sub-chunk
+  const int hp = tid / TCW;         // and its heads hp, hp + HPW, ...
+  for (int p = p_lo; p < p_hi; ++p) {
+    const int blk = min(max(tables[(long long)b * W + p], 0), NB - 1);
+    const long long page = (long long)layer * NB + blk;
+    const uint8_t* kpage = data + page * 2 * plane + (long long)h * DB;
+    const uint8_t* vpage = kpage + plane;
+    const long long soff = page * 2 * splane + h;
+    for (int t0 = 0; t0 < BS; t0 += TCW) {
+      const int c0 = p * BS + t0;                 // the sub-chunk's first position
+      if (c0 >= len) break;
+      const int nt = min(TCW, BS - t0);
+      for (int i = tid; i < nt * CH; i += NTW) {
+        const int t = i / CH;
+        const int c = i - t * CH;
+        const long long off = (long long)(t0 + t) * RB + c * 16;
+        *reinterpret_cast<uint4*>(ks + t * KSTR + c * 16) =
+            *reinterpret_cast<const uint4*>(kpage + off);
+        *reinterpret_cast<uint4*>(vs + t * DB + c * 16) =
+            *reinterpret_cast<const uint4*>(vpage + off);
+      }
+      for (int t = tid; t < nt; t += NTW) {
+        const long long o = soff + (long long)(t0 + t) * Hkv;
+        ksc[t] = scales[o];
+        kmn[t] = minv[o];
+        vsc[t] = scales[o + splane];
+        vmn[t] = minv[o + splane];
+      }
+      __syncthreads();
+
+      {
+        const bool valid = tt < nt && c0 + tt < len;
+        float acc[ACCW];
+#pragma unroll
+        for (int j = 0; j < ACCW; ++j) acc[j] = 0.f;
+        if (tt < nt) {
+          const uint8_t* kr = ks + tt * KSTR;
+          for (int c = 0; c < CH; ++c) {
+            const uint4 raw = *reinterpret_cast<const uint4*>(kr + c * 16);
+            const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+            for (int j = 0; j < ACCW; ++j) {
+              const int g = hp + HPW * j;
+              if (g < gb) {
+                const float* qg = qs + g * D + c * 32;
+                float a = acc[j];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const float4 qa = *reinterpret_cast<const float4*>(qg + 8 * e);
+                  const float4 qb = *reinterpret_cast<const float4*>(qg + 8 * e + 4);
+                  const uint32_t k = w[e];
+                  a = fmaf(qa.x, nib_f(k, 0), a);
+                  a = fmaf(qa.y, nib_f(k, 1), a);
+                  a = fmaf(qa.z, nib_f(k, 2), a);
+                  a = fmaf(qa.w, nib_f(k, 3), a);
+                  a = fmaf(qb.x, nib_f(k, 4), a);
+                  a = fmaf(qb.y, nib_f(k, 5), a);
+                  a = fmaf(qb.z, nib_f(k, 6), a);
+                  a = fmaf(qb.w, nib_f(k, 7), a);
+                }
+                acc[j] = a;
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < ACCW; ++j) {
+          const int g = hp + HPW * j;
+          if (g < gb) {
+            float s = tt < nt ? acc[j] * ksc[tt] + qsum[g] * kmn[tt] : 0.f;
+            if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
+            ps[g * TCW + tt] = valid ? s : MASK_VALUE;
+          }
+        }
+      }
+      __syncthreads();
+
+      for (int g = warp; g < gb; g += NTW / 32) {
+        float* prow = ps + g * TCW;
+        float mx = MASK_VALUE;
+        for (int t = lane; t < TCW; t += 32) mx = fmaxf(mx, prow[t]);
+        mx = warp_max(mx);
+        const float m_old = ms[g];
+        const float m_new = fmaxf(m_old, mx);
+        float sum = 0.f, smin = 0.f;
+        for (int t = lane; t < TCW; t += 32) {
+          const float e = t < nt ? expf(prow[t] - m_new) : 0.f;
+          sum += e;                                   // l sums the unscaled p
+          smin = t < nt ? fmaf(e, vmn[t], smin) : smin;   // rowsum(p * vmin)
+          prow[t] = t < nt ? e * vsc[t] : 0.f;        // P.V takes p * vsc
+        }
+        sum = warp_sum(sum);
+        smin = warp_sum(smin);
+        if (lane == 0) {
+          const float alpha = expf(m_old - m_new);
+          as[g] = alpha;
+          ls[g] = ls[g] * alpha + sum;
+          ms[g] = m_new;
+          pmin[g] = smin;
+        }
+      }
+      __syncthreads();
+
+      for (int i = tid; i < gb * D; i += NTW) {
+        const int g = i / D;
+        const int d = i - g * D;
+        const float* prow = ps + g * TCW;
+        const uint8_t* vcol = vs + (d >> 1);
+        const int shift = (d & 1) * 4;
+        float a = 0.f;
+        for (int t = 0; t < nt; ++t)
+          a = fmaf(prow[t], static_cast<float>((vcol[t * DB] >> shift) & 0xF), a);
+        os[i] = os[i] * as[g] + (a + pmin[g]);
+      }
+      __syncthreads();
+    }
+  }
+
+  if (S == 1) {
+    TQ* orow = out + head0 * D;
+    for (int i = tid; i < gb * D; i += NTW) {
+      const float l = ls[i / D];
+      orow[i] = attn::from_f<TQ>(len > 0 ? os[i] / (l == 0.f ? 1.f : l) : 0.f);
+    }
+    return;
+  }
+  // this split's unnormalized (acc, m, l) for the combine
+  for (int i = tid; i < gb * (D + 2); i += NTW) {
+    const int g = i / (D + 2);
+    const int d = i - g * (D + 2);
+    const float v = d < D ? os[g * D + d] : (d == D ? ms[g] : ls[g]);
+    part[(((long long)b * S + sp) * Hq + h * G + g0 + g) * (D + 2) + d] = v;
+  }
+}
+
+template <typename TQ>
+cudaError_t launch_wide(const void* q, const void* data, const void* scales,
+                        const void* minv, const int* tables, const int* kv_lens, void* out,
+                        float* part, int B, int Hq, int Hkv, int D, int NB, int BS, int W,
+                        int layer, float scale, float softcap, int splits,
+                        cudaStream_t stream) {
+  if (splits <= 0 || (splits > 1 && part == nullptr)) return cudaErrorInvalidValue;
+  const int G = Hq / Hkv;
+  const int hsplits = (G + GB - 1) / GB;
+  const size_t bytes = wide_smem(G < GB ? G : GB, D);
+  static size_t configured = 48 * 1024;
+  if (bytes > configured) {
+    cudaError_t e = cudaFuncSetAttribute(paged_decode_int4_wide<TQ>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+    if (e != cudaSuccess) return e;
+    configured = bytes;
+  }
+  const int split_pages = (W + splits - 1) / splits;
+  paged_decode_int4_wide<TQ><<<dim3(Hkv * hsplits, B, splits), NTW, bytes, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const uint8_t*>(data),
+      static_cast<const float*>(scales), static_cast<const float*>(minv), tables, kv_lens,
+      static_cast<TQ*>(out), part, Hq, Hkv, D, NB, BS, W, layer, scale, softcap,
+      split_pages);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  attn::decode_split_combine<TQ><<<dim3(Hq, B), 128, 0, stream>>>(
+      part, nullptr, static_cast<TQ*>(out), Hq, D, splits);
+  return cudaGetLastError();
+}
+
 template <typename TQ, int D>
 cudaError_t launch(const void* q, const void* data, const void* scales, const void* minv,
                    const int* tables, const int* kv_lens, void* out, int B, int Hq, int Hkv,
@@ -280,8 +541,9 @@ cudaError_t launch(const void* q, const void* data, const void* scales, const vo
 
 template <typename TQ>
 int by_dim(const void* q, const void* data, const void* scales, const void* minv,
-           const int* tb, const int* kl, void* out, int B, int Hq, int Hkv, int D, int NB,
-           int BS, int W, int layer, float scale, float softcap, cudaStream_t s) {
+           const int* tb, const int* kl, void* out, float* part, int B, int Hq, int Hkv,
+           int D, int NB, int BS, int W, int layer, float scale, float softcap, int splits,
+           cudaStream_t s) {
 #define INT4_CASE(DIM)                                                                 \
   case DIM:                                                                            \
     return (int)launch<TQ, DIM>(q, data, scales, minv, tb, kl, out, B, Hq, Hkv, NB,   \
@@ -293,6 +555,9 @@ int by_dim(const void* q, const void* data, const void* scales, const void* minv
     INT4_CASE(128)
     INT4_CASE(192)
     INT4_CASE(256)
+    case 576:
+      return (int)launch_wide<TQ>(q, data, scales, minv, tb, kl, out, part, B, Hq, Hkv, D,
+                                  NB, BS, W, layer, scale, softcap, splits, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -303,28 +568,32 @@ int by_dim(const void* q, const void* data, const void* scales, const void* minv
 
 // q [B,Hq,D] of dtype 0 bf16, 1 f16 or 2 f32; data [L,NB,2,BS,Hkv*D/2] u8; scales,
 // minv [L,NB,2,BS,Hkv] f32; tables [B,W] i32; kv_lens [B] i32; out [B,Hq,D] in q's
-// dtype; all contiguous.  D in {64, 80, 96, 128, 192, 256}.  softcap <= 0 disables
-// it.  Returns the CUDA error code of the launch (0 = launched).
+// dtype; all contiguous.  D in {64, 80, 96, 128, 192, 256} (the narrow kernel) or 576
+// (the wide one).  softcap <= 0 disables it.  splits: the wide kernel's split of each
+// row's W pages over blocks (1 for none; the narrow kernel ignores it), with part f32
+// [B, splits, Hq, D + 2] scratch when it is above 1.  Returns the CUDA error code of
+// the launch (0 = launched).
 extern "C" int paged_decode_int4(const void* q, const void* data, const void* scales,
                                  const void* minv, const void* tables, const void* kv_lens,
-                                 void* out, int dtype, int B, int Hq, int Hkv, int D,
-                                 int NB, int BS, int W, int layer, float scale,
-                                 float softcap, void* stream) {
+                                 void* out, void* part, int dtype, int B, int Hq, int Hkv,
+                                 int D, int NB, int BS, int W, int layer, float scale,
+                                 float softcap, int splits, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   if (Hkv <= 0 || Hq % Hkv != 0 || BS <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* tb = static_cast<const int*>(tables);
   const int* kl = static_cast<const int*>(kv_lens);
+  float* pt = static_cast<float*>(part);
   switch (dtype) {
     case 0:
-      return by_dim<__nv_bfloat16>(q, data, scales, minv, tb, kl, out, B, Hq, Hkv, D, NB,
-                                   BS, W, layer, scale, softcap, s);
+      return by_dim<__nv_bfloat16>(q, data, scales, minv, tb, kl, out, pt, B, Hq, Hkv, D,
+                                   NB, BS, W, layer, scale, softcap, splits, s);
     case 1:
-      return by_dim<__half>(q, data, scales, minv, tb, kl, out, B, Hq, Hkv, D, NB, BS, W,
-                            layer, scale, softcap, s);
+      return by_dim<__half>(q, data, scales, minv, tb, kl, out, pt, B, Hq, Hkv, D, NB, BS,
+                            W, layer, scale, softcap, splits, s);
     case 2:
-      return by_dim<float>(q, data, scales, minv, tb, kl, out, B, Hq, Hkv, D, NB, BS, W,
-                           layer, scale, softcap, s);
+      return by_dim<float>(q, data, scales, minv, tb, kl, out, pt, B, Hq, Hkv, D, NB, BS,
+                           W, layer, scale, softcap, splits, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -18,14 +18,24 @@ Block 0 is the reserved padding block (``paging/block_manager.py``).  The block 
 comes from the device's free memory (``torch.cuda.mem_get_info``) times
 ``cache_max_entry_count``, after the weights are resident; ``block_bytes`` counts
 the bytes the chosen layout really takes.  Host swap pools are a later slice.
+
+Under a mesh with context parallelism (cp > 1, plain caches only) the cache is a
+``parallel.mesh.StripedKV``: one ``[num_layers, num_blocks, 2, block_size/cp, Hkv*D]``
+stripe per 'cp' rank on that rank's device, and the block budget is the smallest any
+device allows for the stripes it holds (a card that holds k ranks holds k stripes).
+``to_reference_layout`` / ``from_reference_layout`` join or split the stripes on the
+slot axis without loss.
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
-from ..config import CacheConfig, ModelConfig
+from ..config import CacheConfig, ModelConfig, cp_unported
 from ..messages import QuantPolicy
 from ..ops.kv_quant import QuantKV, QuantKV4, QuantKVTurbo
+from ..parallel.mesh import StripedKV, cache_sharding
 
 CPU_CACHE_BYTES = 256 * 1024 * 1024     # budget when serving on the CPU (tests)
 
@@ -33,7 +43,7 @@ CPU_CACHE_BYTES = 256 * 1024 * 1024     # budget when serving on the CPU (tests)
 class CacheEngine:
 
     def __init__(self, model_config: ModelConfig, cache_config: CacheConfig,
-                 device: torch.device):
+                 device: torch.device, mesh=None):
         self.model_config = model_config
         self.cache_config = cache_config
         self.device = device
@@ -42,6 +52,14 @@ class CacheEngine:
         D = cfg.cache_head_dim
         if self.policy == QuantPolicy.TURBO_QUANT and (D % 4 or D & (D - 1)):
             raise ValueError(f'TurboQuant needs a power-of-two head_dim, got {D}')
+        # the 'cp' ranks' devices when the slot axis is striped, else None
+        self.cp_devices = None
+        if mesh is not None and mesh.shape['cp'] > 1:
+            unported = cp_unported(mesh.shape['cp'], self.policy, cache_config.block_size,
+                                   model_config)
+            if unported:
+                raise NotImplementedError(f'not ported yet: {", ".join(unported)}')
+            self.cp_devices = mesh.cp_devices
         if cache_config.num_gpu_blocks <= 0:
             cache_config.num_gpu_blocks = self._derive_num_blocks()
         self.num_blocks = cache_config.num_gpu_blocks
@@ -65,7 +83,30 @@ class CacheEngine:
             return QuantKVTurbo(zeros(L, NB, BS, 3 * hd // 4, dtype=torch.uint8),
                                 zeros(L, NB, BS, 3, hkv))
         dtype = torch.float8_e4m3fn if self.policy == QuantPolicy.KV_FP8 else cfg.torch_dtype()
+        if self.cp_devices is not None:
+            cp = len(self.cp_devices)
+            return StripedKV([torch.zeros(L, NB, 2, BS // cp, hd, dtype=dtype, device=d)
+                              for d in self.cp_devices])
         return zeros(L, NB, 2, BS, hd, dtype=dtype)
+
+    def to_reference_layout(self):
+        """The cache in the unsharded layout ``[L, NB, 2, BS, Hkv*D]`` (a striped
+        cache's stripes joined on the slot axis, bit for bit; any other cache as it
+        is)."""
+        if isinstance(self.kv_cache, StripedKV):
+            return self.kv_cache.to_reference_layout()
+        return self.kv_cache
+
+    def from_reference_layout(self, cache: torch.Tensor):
+        """Overwrite the cache, in place, with the unsharded ``cache`` (split into the
+        stripes on the slot axis, bit for bit, when striped)."""
+        if isinstance(self.kv_cache, StripedKV):
+            spec = cache_sharding(self.model_config.num_key_value_heads, self.kv_cache.cp)
+            BS = cache.shape[3]
+            for r, stripe in enumerate(self.kv_cache.stripes):
+                stripe.copy_(cache[:, :, :, spec.stripe(r, BS)])
+        else:
+            self.kv_cache.copy_(cache)
 
     def block_bytes(self) -> int:
         """Device bytes of one block across all layers, in the allocated layout."""
@@ -83,10 +124,17 @@ class CacheEngine:
         return tokens * 2 * hd * torch.tensor([], dtype=cfg.torch_dtype()).element_size()
 
     def _derive_num_blocks(self) -> int:
-        """Free device memory -> block count (call after the weights are resident)."""
-        if self.device.type == 'cuda':
-            free, _total = torch.cuda.mem_get_info(self.device)
-        else:
-            free = CPU_CACHE_BYTES
-        budget = int(free * self.cache_config.cache_max_entry_count)
-        return max(budget // self.block_bytes(), 16)
+        """Free device memory -> block count (call after the weights are resident).
+        Striped, each device holds a stripe (1/cp of a block) for each rank on it, and
+        the device with the least room for its stripes sets the count."""
+        ranks = collections.Counter(self.cp_devices or [self.device])
+        cp = len(self.cp_devices) if self.cp_devices else 1
+        counts = []
+        for dev, k in ranks.items():
+            if dev.type == 'cuda':
+                free, _total = torch.cuda.mem_get_info(dev)
+            else:
+                free = CPU_CACHE_BYTES
+            budget = int(free * self.cache_config.cache_max_entry_count)
+            counts.append(budget * cp // (k * self.block_bytes()))
+        return max(min(counts), 16)

@@ -26,7 +26,8 @@ from ..metrics import MetricsAggregator, RequestStats
 from ..ops.sampling import topk_bucket
 from ..paging.scheduler import Scheduler
 from ..paging.seq import MessageStatus, SamplingParams, SchedulerSequence
-from .model_agent import ModelAgent
+from ..parallel.mesh import build_mesh
+from .model_agent import ModelAgent, resolve_device
 
 logger = logging.getLogger('lmdeploy_tpu_torch')
 
@@ -59,14 +60,19 @@ def _row_top(top, i, seq):
 
 
 class Engine:
-    """One engine = one model on one device, continuous batching.
+    """One engine = one model on one device (or one device mesh), continuous batching.
 
     ``device=None`` serves on the GPU and raises when there is none; pass
-    ``device='cpu'`` to run the plain PyTorch paths on the CPU."""
+    ``device='cpu'`` to run the plain PyTorch paths on the CPU.  ``mesh``
+    (``parallel.mesh.build_mesh``) serves context parallelism: without one, a
+    ``DistConfig`` of more than one rank builds it (reference :133-138), over
+    ``cuda:0 .. cuda:n-1`` (raising with fewer cards) or, with ``device='cpu'``, over
+    that many CPU ranks.  Pass ``mesh=build_mesh(cp=2, devices=['cuda:0', 'cuda:0'])``
+    to put two ranks on one card."""
 
     def __init__(self, model_path: Optional[str], engine_config: TpuEngineConfig,
                  configs: Optional[EngineConfigBundle] = None, tokenizer=None,
-                 device=None):
+                 device=None, mesh=None):
         self.engine_config = engine_config
         self.tokenizer = tokenizer
         if configs is None:
@@ -74,10 +80,18 @@ class Engine:
                 raise ValueError('Engine needs a model_path or a configs bundle')
             configs = EngineConfigBundle.build(model_path, engine_config)
         else:
-            check_ported(engine_config)
+            check_ported(engine_config, configs.model)
         self.configs = configs
+        dist = configs.dist
+        if mesh is None and dist.world_size > 1:
+            dev = resolve_device(device)
+            mesh = build_mesh(dp=dist.dp, tp=dist.tp, ep=dist.ep, cp=dist.cp,
+                              devices=None if dev.type == 'cuda'
+                              else [dev] * dist.world_size)
+        self.mesh = mesh
         self.model_agent = ModelAgent(
-            configs, model_path if not configs.misc.empty_init else None, device=device)
+            configs, model_path if not configs.misc.empty_init else None,
+            device=device, mesh=mesh)
         self.scheduler = Scheduler(configs.scheduler, configs.cache,
                                    num_blocks=self.model_agent.num_blocks)
         self.metrics = MetricsAggregator()

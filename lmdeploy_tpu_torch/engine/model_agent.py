@@ -19,7 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import EngineConfigBundle, bucketize, make_buckets
+from ..config import EngineConfigBundle, bucketize, cp_unported, make_buckets
 from ..models import build_model
 from ..models.llama import AttnMeta
 from ..nn.layers import make_rope_table
@@ -68,8 +68,23 @@ class StepOutput:
 class ModelAgent:
 
     def __init__(self, configs: EngineConfigBundle, model_path: Optional[str] = None,
-                 device=None, init_seed: int = 42):
-        self.device = resolve_device(device)
+                 device=None, init_seed: int = 42, mesh=None):
+        """``mesh`` (``parallel.mesh.Mesh``): the model runs on its first device and
+        the KV cache is striped over its 'cp' ranks; ``device``, if given too, must be
+        that first device."""
+        if mesh is not None:
+            self.device = mesh.devices[0]
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(f'device {device} is not the first device of {mesh}')
+            other = {a: n for a, n in mesh.shape.items() if a != 'cp' and n > 1}
+            unported = [f'{a}={n}' for a, n in other.items()]
+            unported += cp_unported(mesh.shape['cp'], configs.cache.quant_policy,
+                                    configs.cache.block_size, configs.model)
+            if unported:
+                raise NotImplementedError(f'not ported yet: {", ".join(unported)}')
+        else:
+            self.device = resolve_device(device)
+        self.mesh = mesh
         self.configs = configs
         self.model_config = cfg = configs.model
         self.cache_config = configs.cache
@@ -89,10 +104,11 @@ class ModelAgent:
         # LMDEPLOY_TPU_FUSE_PROJ=0; W4A16 linears then take a schedule's prepared form
         # unless LMDEPLOY_TPU_W4_STACKED=0 (they stay unprepared: raw scales and zeros):
         # the group-dot 'gd' by default, 'fast' with LMDEPLOY_TPU_W4_FAST=1, or the one
-        # LMDEPLOY_TPU_W4_SCHED names (reference model_agent.py:129-149)
-        if os.environ.get('LMDEPLOY_TPU_FUSE_PROJ', '1') != '0':
+        # LMDEPLOY_TPU_W4_SCHED names (reference model_agent.py:129-149).  Neither on a
+        # mesh, as in the reference
+        if mesh is None and os.environ.get('LMDEPLOY_TPU_FUSE_PROJ', '1') != '0':
             params = self.model.fuse_projections(params)
-        if os.environ.get('LMDEPLOY_TPU_W4_STACKED', '1') != '0':
+        if mesh is None and os.environ.get('LMDEPLOY_TPU_W4_STACKED', '1') != '0':
             fast = os.environ.get('LMDEPLOY_TPU_W4_FAST', '0') == '1'
             sched = os.environ.get('LMDEPLOY_TPU_W4_SCHED', 'gd' if not fast else '') or None
             params = self.model.prep_quant_leaves(params, fast=fast, mode=sched)
@@ -103,8 +119,10 @@ class ModelAgent:
         self.rope_cos, self.rope_sin = cos, sin
 
         # after the weights are resident, so the free-memory budget sees them
-        self.cache_engine = CacheEngine(cfg, configs.cache, self.device)
+        self.cache_engine = CacheEngine(cfg, configs.cache, self.device, mesh=mesh)
         self.num_blocks = self.cache_engine.num_blocks
+        if mesh is not None and mesh.shape['cp'] > 1:
+            self.model.cp_mesh = mesh
 
         # one extra garbage row for padding slots
         counts_shape = (self.max_batch + 1, cfg.vocab_size)
@@ -131,7 +149,7 @@ class ModelAgent:
     def kv_cache(self):
         """The paged cache (``engine/cache_engine.py``): a tensor with quant_policy 0
         (model dtype) or 16 (fp8-e4m3), a ``QuantKV`` with 4, a ``QuantKV4`` with 8, a
-        ``QuantKVTurbo`` with 42."""
+        ``QuantKVTurbo`` with 42; a ``StripedKV`` under context parallelism."""
         return self.cache_engine.kv_cache
 
     # -- slot management --------------------------------------------------------------

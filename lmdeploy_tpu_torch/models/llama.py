@@ -68,6 +68,9 @@ class LlamaModel:
 
     def __init__(self, config: ModelConfig):
         self.config = config
+        # the mesh whose 'cp' ranks hold the KV cache's stripes (context parallelism;
+        # set by ModelAgent under a mesh), else None
+        self.cp_mesh = None
         self.q_out = config.num_attention_heads * config.head_dim
         self.kv_out = config.num_key_value_heads * config.head_dim
         self.quant_method = None
@@ -358,7 +361,7 @@ class LlamaModel:
                                    meta.q_lens, scale, layer, Hkv,
                                    window_size=windows[layer],
                                    chunk_kv=(k, v), fresh_prefill=fresh_prefill,
-                                   sinks=w.get('sinks'))
+                                   sinks=w.get('sinks'), cp_mesh=self.cp_mesh)
             hidden = hidden + linear(attn.reshape(B, T, self.q_out), w['wo'], w.get('bo'))
             x = rms_norm(hidden, w['mlp_norm'], cfg.rms_norm_eps)
             hidden = hidden + self._mlp(w, x)

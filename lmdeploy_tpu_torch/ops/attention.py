@@ -22,8 +22,16 @@ token's row index, one ``index_copy_`` each:
     coded; the cache lives in the rotated domain, so every path that reads it rotates
     q in and the output back (the reference's :501-533).
 
+Under context parallelism the cache is a ``parallel.mesh.StripedKV`` (each page's
+slots striped over the 'cp' ranks): the fill sends token position ``pos`` to page
+``pos // BS``, rank ``(pos % BS) // BSl`` and local slot ``pos % BSl`` (BSl = BS/cp),
+and the gather joins the ranks' slots back into the unsharded rows (the reference's
+GSPMD gather).
+
 ``paged_attention`` picks the path from the tensor's device (the rules of the
 reference's ``paged_attention`` :475-629):
+  * ``cp_mesh`` given, T == 1                -> ``paged_decode_attention_cp`` (each
+    rank's partials over its stripe, then the combine; on the CPU too)
   * CUDA, T == 1 (decode)                    -> an ``ops/paged_decode.py`` kernel (on
     an int8, int4 or TurboQuant cache only without window and sinks)
   * CUDA, fresh prefill, no softcap/window   -> ``ops/flash_prefill.py`` kernel, over
@@ -37,13 +45,14 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import StripedKV
 from .flash_prefill import flash_prefill_attention
 from .kv_quant import (QuantKV, QuantKV4, QuantKVTurbo, dequantize_turbo_k,
                        dequantize_turbo_v, hadamard_rotate, hadamard_rotate_inv,
                        pack_2bit, pack_nibbles, quantize_rows, quantize_rows_int4,
                        quantize_rows_turbo_k, quantize_rows_turbo_v, to_fp8,
                        unpack_2bit, unpack_nibbles)
-from .paged_decode import paged_decode_attention
+from .paged_decode import paged_decode_attention, paged_decode_attention_cp
 
 # the dense path's score tensor per query tile, f32 bytes
 SCORE_TILE_BYTES = 512 * 1024 * 1024
@@ -88,6 +97,9 @@ def fill_kv_cache(kv_cache, k_new: torch.Tensor, v_new: torch.Tensor,
     later) and into block 0.  A quantized cache always takes the row scatter
     (reference :110-127).
     """
+    if isinstance(kv_cache, StripedKV):
+        _fill_striped(kv_cache, k_new, v_new, slot_mapping, layer, page_tables)
+        return
     L, nb, _, bs, hd = kv_cache.shape
     N = k_new.shape[0]
     if page_tables is not None and not isinstance(kv_cache, QUANT_CACHES):
@@ -132,6 +144,44 @@ def fill_kv_cache(kv_cache, k_new: torch.Tensor, v_new: torch.Tensor,
     dst.view(L * nb * 2 * bs, hd).index_copy_(0, rows, upd)
 
 
+def _fill_striped(kv: StripedKV, k_new: torch.Tensor, v_new: torch.Tensor,
+                  slot_mapping: torch.Tensor, layer: int,
+                  page_tables: Optional[torch.Tensor]) -> None:
+    """``fill_kv_cache`` into a cache striped over 'cp': the same rows as the unsharded
+    fill, each token in its rank's stripe at its local slot.  A fresh prefill of whole
+    pages writes each rank's slice of the pages at once; the row scatter sends a token
+    to every stripe, at its block in its own rank's and at block 0 (the padding block,
+    don't-care) in the others', so no step depends on the data's shape."""
+    L, nb, _, bs, hd = kv.shape
+    cp = kv.cp
+    bsl = bs // cp
+    N = k_new.shape[0]
+    if page_tables is not None:
+        B = page_tables.shape[0]
+        T = N // B
+        if T % bs == 0 and page_tables.shape[1] >= T // bs:
+            n_pages = T // bs
+            upd = torch.stack([k_new.reshape(B, n_pages, cp, bsl, hd),
+                               v_new.reshape(B, n_pages, cp, bsl, hd)], dim=2)
+            idx = page_tables[:, :n_pages].reshape(-1).long().clamp(0, nb - 1)
+            for r, stripe in enumerate(kv.stripes):
+                part = upd[:, :, :, r].reshape(B * n_pages, 2, bsl, hd)
+                stripe[layer].index_copy_(0, idx.to(stripe.device),
+                                          part.to(stripe.device, stripe.dtype))
+            return
+    slots = slot_mapping.long()
+    block = slots // bs
+    off = slots % bs
+    block = torch.where((block >= 0) & (block < nb), block, torch.zeros_like(block))
+    rank, local = off // bsl, off % bsl
+    upd = torch.cat([k_new.reshape(N, hd), v_new.reshape(N, hd)])
+    for r, stripe in enumerate(kv.stripes):
+        k_idx = ((layer * nb + torch.where(rank == r, block, torch.zeros_like(block)))
+                 * 2) * bsl + local
+        rows = torch.cat([k_idx, k_idx + bsl]).to(stripe.device)
+        stripe.view(-1, hd).index_copy_(0, rows, upd.to(stripe.device, stripe.dtype))
+
+
 def _fill_turbo(kv: QuantKVTurbo, k_new: torch.Tensor, v_new: torch.Tensor,
                 rows: torch.Tensor):
     """TurboQuant k4v2 rows at token row indices ``rows`` of the ``[L*NB*BS, ...]``
@@ -153,10 +203,16 @@ def gather_layer_kv(kv_cache, layer: int, block_tables: torch.Tensor,
     plain or fp8 one in its own type."""
     B, W = block_tables.shape
     Hkv, D = num_kv_heads, head_dim
-    data = kv_cache.data if isinstance(kv_cache, QUANT_CACHES) else kv_cache
-    NB = data.shape[1]
+    NB = kv_cache.shape[1]
     tables = block_tables.long().clamp(0, NB - 1)
-    g = data[layer][tables]                     # [B, W, 2, BS, row] or turbo [B, W, BS, row]
+    if isinstance(kv_cache, StripedKV):
+        # the ranks' slots of each page joined in rank order: [B, W, 2, BS, row]
+        dev = block_tables.device
+        g = torch.cat([s[layer][tables.to(s.device)].to(dev) for s in kv_cache.stripes],
+                      dim=3)
+    else:
+        data = kv_cache.data if isinstance(kv_cache, QUANT_CACHES) else kv_cache
+        g = data[layer][tables]                 # [B, W, 2, BS, row] or turbo [B, W, BS, row]
     if isinstance(kv_cache, QuantKVTurbo):
         bs, hd = g.shape[2], Hkv * D
         meta = kv_cache.meta[layer][tables]                       # [B, W, BS, 3, Hkv]
@@ -232,11 +288,26 @@ def paged_attention(q: torch.Tensor, kv_cache, block_tables: torch.Tensor,
                     window_size: Optional[int] = None,
                     chunk_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                     fresh_prefill: bool = False,
-                    sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    sinks: Optional[torch.Tensor] = None,
+                    cp_mesh=None) -> torch.Tensor:
     """Chunk queries q [B, T, Hq, D] against the (already filled) paged cache.
 
-    ``chunk_kv`` = the chunk's own (k, v) [B, T, Hkv, D], used by fresh prefill."""
+    ``chunk_kv`` = the chunk's own (k, v) [B, T, Hkv, D], used by fresh prefill.
+    ``cp_mesh``: the mesh whose 'cp' ranks hold the stripes of a ``StripedKV`` cache
+    (reference :562-598): a decode step runs each rank's partials and combines them; a
+    fresh prefill chunk still takes flash_prefill on its own K/V (it reads no cache, so
+    it gives what the reference's gather path gives), any other chunk the gathered
+    path over the stripes."""
     T, D = q.shape[1], q.shape[3]
+    if cp_mesh is not None:
+        if not isinstance(kv_cache, StripedKV):
+            raise NotImplementedError('context-parallel attention reads a plain cache '
+                                      'striped over the ranks (engine/cache_engine.py)')
+        if T == 1:
+            return paged_decode_attention_cp(
+                q[:, 0].contiguous(), kv_cache, block_tables, (history_lens + 1).int(),
+                layer, scale, num_kv_heads, cp_mesh, logit_softcap=logit_softcap,
+                window=window_size, sinks=sinks)[:, None]
     windowed = window_size is not None and window_size > 0
     # a quantized cache's decode kernel has no window and no sinks (reference :584-609)
     quant_extras = isinstance(kv_cache, QUANT_CACHES) and (windowed or sinks is not None)

@@ -23,8 +23,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
 SOURCES = ('flash_prefill', 'paged_decode', 'paged_decode_int8', 'paged_decode_int4',
-           'paged_decode_turbo', 'w4a16_gemm', 'w4a16_gemm_szc', 'w4a16_gemm_unprepared',
-           'mxfp4_bmm', 'fp8_bmm')
+           'paged_decode_turbo', 'paged_decode_cp', 'w4a16_gemm', 'w4a16_gemm_szc',
+           'w4a16_gemm_unprepared', 'mxfp4_bmm', 'fp8_bmm')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-lineinfo', '-Xptxas', '-v']
 

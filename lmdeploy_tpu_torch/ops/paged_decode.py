@@ -26,6 +26,13 @@ PyTorch.  There is no fallback: a CUDA tensor a kernel does not take raises.
 The quantized kernels have a logit softcap but no window and no sinks, as the
 reference never sends those to them.  ``kv_lens`` counts the token just filled; 0 marks
 an inactive row, whose output is 0.  Each wrapper counts its own launches.
+
+Context parallelism (``paged_decode_attention_cp``, body ``_decode_kernel_cp``): the
+cache is a ``parallel.mesh.StripedKV``, each page's slots striped over the 'cp' ranks.
+``paged_decode_cp_partial`` (``csrc/paged_decode_cp.cu``) gives one rank's
+unnormalized flash partials ``(acc, m, l)`` over its stripe, local slot j of page p at
+position ``p*stride + pos_off + j``; ``cp_combine`` joins the ranks' partials (the
+reference's pmax / psum, :813-821) with the sinks once, after the combine.
 """
 from __future__ import annotations
 
@@ -42,26 +49,31 @@ from .kv_quant import (QuantKV, QuantKV4, QuantKVTurbo, turbo_codebooks, turbo_s
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # every kernel takes q (and gives its output) in bf16, f16 or f32 (its dtype argument,
-# KERNEL_DTYPES); head dims: the plain-layout kernels HEAD_DIMS, the int8 and int4 ones
-# those up to 256 (MLA's latent 576 on those caches is ROADMAP kernel item 3b), the
-# TurboQuant one the powers of two among them (its cache needs one)
-QUANT_HEAD_DIMS = tuple(d for d in HEAD_DIMS if d <= 256)
-TURBO_HEAD_DIMS = tuple(d for d in QUANT_HEAD_DIMS if d & (d - 1) == 0)
+# KERNEL_DTYPES); head dims: the plain-layout, int8 and int4 kernels HEAD_DIMS (MLA's
+# latent 576 through their wide paths), the TurboQuant one the powers of two up to 256
+# (its cache needs one), the context-parallel partial those up to 256 (the families
+# that reach it: MLA never takes cp)
+QUANT_HEAD_DIMS = HEAD_DIMS
+TURBO_HEAD_DIMS = tuple(d for d in HEAD_DIMS if d <= 256 and d & (d - 1) == 0)
+CP_HEAD_DIMS = tuple(d for d in HEAD_DIMS if d <= 256)
 # paged_decode{,_fp8}(q, cache, tables, kv_lens, sinks, out, part, dtype, B, Hq, Hkv, D,
 #                     NB, BS, W, layer, scale, softcap, window, splits, stream)
 _ARGTYPES = [_P] * 7 + [_I] * 9 + [_F, _F, _I, _I, _P]
-# the plain-layout kernel's wide path (D > 128, or f32 pages) splits each row's pages
-# over blocks of about this many tokens, then combines the splits
+# the wide paths (and the context-parallel partial) split each row's pages over
+# blocks of about this many tokens, then combine the splits
 SPLIT_TOKENS = 512
-# paged_decode_int8(q, data, scale, tables, kv_lens, out, dtype, B, Hq, Hkv, D, NB, BS,
-#                   W, layer, scale, softcap, stream)
-_ARGTYPES_INT8 = [_P] * 6 + [_I] * 9 + [_F, _F, _P]
-# paged_decode_int4(q, data, scale, minv, tables, kv_lens, out, dtype, B, Hq, Hkv, D, NB,
-#                   BS, W, layer, scale, softcap, stream)
-_ARGTYPES_INT4 = [_P] * 7 + [_I] * 9 + [_F, _F, _P]
+# paged_decode_int8(q, data, scale, tables, kv_lens, out, part, dtype, B, Hq, Hkv, D,
+#                   NB, BS, W, layer, scale, softcap, splits, stream)
+_ARGTYPES_INT8 = [_P] * 7 + [_I] * 9 + [_F, _F, _I, _P]
+# paged_decode_int4(q, data, scale, minv, tables, kv_lens, out, part, dtype, B, Hq, Hkv,
+#                   D, NB, BS, W, layer, scale, softcap, splits, stream)
+_ARGTYPES_INT4 = [_P] * 8 + [_I] * 9 + [_F, _F, _I, _P]
 # paged_decode_turbo(q, data, meta, tables, kv_lens, out, dtype, B, Hq, Hkv, D, NB, BS,
 #                    W, layer, scale, softcap, sigma, stream)
 _ARGTYPES_TURBO = [_P] * 6 + [_I] * 9 + [_F, _F, _F, _P]
+# paged_decode_cp(q, stripe, tables, kv_lens, acc, m, l, part, dtype, B, Hq, Hkv, D, NB,
+#                 BSl, W, layer, pos_off, stride, scale, softcap, window, splits, stream)
+_ARGTYPES_CP = [_P] * 8 + [_I] * 11 + [_F, _F, _I, _I, _P]
 
 
 def _softmax_out(s: torch.Tensor, kv_lens: torch.Tensor, pv, B: int, Hq: int, D: int,
@@ -103,11 +115,9 @@ def _check(kernel: str, q: torch.Tensor, pages: torch.Tensor, block_tables: torc
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f'{kernel} kernel takes a bf16, f16 or f32 q, got {q.dtype}')
     if D not in head_dims or BS % block_multiple:
-        waits = (' (MLA on the int8 / int4 caches: ROADMAP.md section 2, kernel item 3b)'
-                 if D == 576 and head_dims == QUANT_HEAD_DIMS else '')
         raise ValueError(f'{kernel} kernel is built for head_dim in {head_dims} and a '
                          f'block size that is a multiple of {block_multiple}, got {D} / '
-                         f'{BS}{waits}')
+                         f'{BS}')
     if Hq % num_kv_heads or not 0 <= layer < L:
         raise ValueError(f'{kernel}: bad shapes q {tuple(q.shape)} cache '
                          f'{tuple(pages.shape)} kv heads {num_kv_heads} layer {layer}')
@@ -234,10 +244,7 @@ def _launch_plain_layout(kernel, symbol, q, kv_cache, block_tables, kv_lens, lay
             raise ValueError(f'{kernel}: sinks must be [{Hq}], got {tuple(sinks.shape)}')
         sinks_ptr = sinks.data_ptr()
     out = torch.empty_like(q)
-    wide = D > 128 or kv_cache.element_size() == 4
-    splits = -(-W // max(1, SPLIT_TOKENS // BS)) if wide else 1
-    part = (torch.empty(B * splits * Hq * (D + 2), dtype=torch.float32, device=q.device)
-            if splits > 1 else None)
+    splits, part = _split_scratch(D > 128 or kv_cache.element_size() == 4, q, W, BS)
     fn = cuda_build.entry('paged_decode', symbol, _ARGTYPES)
     rc = fn(q.data_ptr(), kv_cache.data_ptr(), block_tables.data_ptr(),
             kv_lens.data_ptr(), sinks_ptr, out.data_ptr(),
@@ -247,6 +254,17 @@ def _launch_plain_layout(kernel, symbol, q, kv_cache, block_tables, kv_lens, lay
             window if window and window > 0 else 0, splits, cuda_build.stream_handle(q))
     cuda_build.check(rc, kernel)
     return out
+
+
+def _split_scratch(wide: bool, q: torch.Tensor, W: int, BS: int):
+    """(splits, part): a wide path's split of each row's W pages of BS slots over
+    blocks of about ``SPLIT_TOKENS`` tokens, and its f32 [B, splits, Hq, D + 2] scratch
+    (None for one split; the narrow path takes no split)."""
+    B, Hq, D = q.shape
+    splits = -(-W // max(1, SPLIT_TOKENS // BS)) if wide else 1
+    part = (torch.empty(B * splits * Hq * (D + 2), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
+    return splits, part
 
 
 # ----------------------------------------------------------------------------- int8 --
@@ -295,11 +313,12 @@ def paged_decode_attention_int8(q: torch.Tensor, kv: QuantKV, block_tables: torc
         raise ValueError(f'paged_decode_int8: bad shapes data {tuple(data.shape)} scale '
                          f'{tuple(scales.shape)} for {num_kv_heads} kv heads of {D}')
     out = torch.empty_like(q)
+    splits, part = _split_scratch(D > 256, q, W, BS)
     fn = cuda_build.entry('paged_decode_int8', 'paged_decode_int8', _ARGTYPES_INT8)
     rc = fn(q.data_ptr(), data.data_ptr(), scales.data_ptr(), block_tables.data_ptr(),
-            kv_lens.data_ptr(), out.data_ptr(), KERNEL_DTYPES[q.dtype], B, Hq,
-            num_kv_heads, D, NB, BS, W, layer, scale,
-            logit_softcap if logit_softcap else 0.0, cuda_build.stream_handle(q))
+            kv_lens.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(),
+            KERNEL_DTYPES[q.dtype], B, Hq, num_kv_heads, D, NB, BS, W, layer, scale,
+            logit_softcap if logit_softcap else 0.0, splits, cuda_build.stream_handle(q))
     cuda_build.check(rc, 'paged_decode_int8')
     paged_decode_attention_int8.launches += 1
     return out
@@ -363,12 +382,13 @@ def paged_decode_attention_int4(q: torch.Tensor, kv: QuantKV4, block_tables: tor
                          f'{tuple(scales.shape)} min {tuple(minv.shape)} for '
                          f'{num_kv_heads} kv heads of {D}')
     out = torch.empty_like(q)
+    splits, part = _split_scratch(D > 256, q, W, BS)
     fn = cuda_build.entry('paged_decode_int4', 'paged_decode_int4', _ARGTYPES_INT4)
     rc = fn(q.data_ptr(), data.data_ptr(), scales.data_ptr(), minv.data_ptr(),
             block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-            KERNEL_DTYPES[q.dtype], B, Hq,
+            None if part is None else part.data_ptr(), KERNEL_DTYPES[q.dtype], B, Hq,
             num_kv_heads, D, NB, BS, W, layer, scale,
-            logit_softcap if logit_softcap else 0.0, cuda_build.stream_handle(q))
+            logit_softcap if logit_softcap else 0.0, splits, cuda_build.stream_handle(q))
     cuda_build.check(rc, 'paged_decode_int4')
     paged_decode_attention_int4.launches += 1
     return out
@@ -445,3 +465,129 @@ def paged_decode_attention_turbo(q: torch.Tensor, kv: QuantKVTurbo,
 
 
 paged_decode_attention_turbo.launches = 0
+
+
+# ------------------------------------------------------------- context parallelism --
+def paged_decode_cp_partial_plain(q: torch.Tensor, stripe: torch.Tensor,
+                                  block_tables: torch.Tensor, kv_lens: torch.Tensor,
+                                  layer: int, scale: float, num_kv_heads: int,
+                                  pos_off: int, stride: int,
+                                  logit_softcap: Optional[float] = None,
+                                  window: Optional[int] = None):
+    """One rank's flash partials over its stripe [L, NB, 2, BSl, Hkv*D], local slot j of
+    page p at position ``p*stride + pos_off + j``: positions in ``[ws, kv_len)``
+    count (ws = max(kv_len - window, 0) with a window), ``m`` = their max score
+    (MASK_VALUE where there is none), ``l`` = the sum of e^(s - m), ``acc`` = the sum of
+    e^(s - m) v, all f32.  Returns (acc [B,Hq,D], m [B,Hq], l [B,Hq])."""
+    B, Hq, D = q.shape
+    G = Hq // num_kv_heads
+    _, NB, _, BSl, _ = stripe.shape
+    W = block_tables.shape[1]
+    tables = block_tables.long().clamp(0, NB - 1)
+    pages = stripe[layer][tables]                            # [B, W, 2, BSl, HD]
+    k = pages[:, :, 0].reshape(B, W * BSl, num_kv_heads, D).float()
+    v = pages[:, :, 1].reshape(B, W * BSl, num_kv_heads, D).float()
+    qg = q.float().reshape(B, num_kv_heads, G, D)
+    s = _softcap(torch.einsum('bhgd,bshd->bhgs', qg, k) * scale, logit_softcap)
+    pos = (torch.arange(W, device=q.device)[:, None] * stride + pos_off
+           + torch.arange(BSl, device=q.device)[None, :]).reshape(-1)
+    lens = kv_lens.long()[:, None]
+    valid = pos[None, :] < lens
+    if window is not None and window > 0:
+        valid &= pos[None, :] >= (lens - window).clamp(min=0)
+    valid = valid[:, None, None, :]
+    s = torch.where(valid, s, torch.full((), MASK_VALUE, device=q.device))
+    m = s.amax(-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), torch.zeros((), device=q.device))
+    acc = torch.einsum('bhgs,bshd->bhgd', p, v)
+    return acc.reshape(B, Hq, D), m.reshape(B, Hq), p.sum(-1).reshape(B, Hq)
+
+
+def paged_decode_cp_partial(q: torch.Tensor, stripe: torch.Tensor,
+                            block_tables: torch.Tensor, kv_lens: torch.Tensor, layer: int,
+                            scale: float, num_kv_heads: int, pos_off: int, stride: int,
+                            logit_softcap: Optional[float] = None,
+                            window: Optional[int] = None):
+    """q [B,Hq,D] (bf16, f16 or f32) over one rank's stripe [L,NB,2,BSl,Hkv*D] in q's
+    dtype; block_tables [B,W] i32; kv_lens [B] i32 (the whole row's length).  Returns
+    the rank's unnormalized partials (acc f32 [B,Hq,D], m f32 [B,Hq], l f32 [B,Hq]),
+    as ``paged_decode_cp_partial_plain``."""
+    if not q.is_cuda:
+        return paged_decode_cp_partial_plain(q, stripe, block_tables, kv_lens, layer, scale,
+                                             num_kv_heads, pos_off, stride, logit_softcap,
+                                             window)
+    if stripe.dtype != q.dtype:
+        raise TypeError(f'paged_decode_cp kernel takes a stripe in q\'s dtype, got '
+                        f'{q.dtype}/{stripe.dtype}')
+    B, Hq, D, NB, BSl, W = _check('paged_decode_cp', q, stripe, block_tables, kv_lens,
+                                  layer, num_kv_heads, head_dims=CP_HEAD_DIMS)
+    if stripe.dim() != 5 or stripe.shape[2] != 2 or stripe.shape[4] != num_kv_heads * D:
+        raise ValueError(f'paged_decode_cp: stripe {tuple(stripe.shape)} is not '
+                         f'[L, NB, 2, BSl, {num_kv_heads * D}]')
+    if not 0 <= pos_off <= stride - BSl:
+        raise ValueError(f'paged_decode_cp: a stripe of {BSl} slots at offset {pos_off} '
+                         f'does not fit a page of {stride}')
+    acc = torch.empty(B, Hq, D, dtype=torch.float32, device=q.device)
+    m = torch.empty(B, Hq, dtype=torch.float32, device=q.device)
+    lsum = torch.empty(B, Hq, dtype=torch.float32, device=q.device)
+    splits, part = _split_scratch(True, q, W, BSl)
+    fn = cuda_build.entry('paged_decode_cp', 'paged_decode_cp', _ARGTYPES_CP)
+    rc = fn(q.data_ptr(), stripe.data_ptr(), block_tables.data_ptr(), kv_lens.data_ptr(),
+            acc.data_ptr(), m.data_ptr(), lsum.data_ptr(),
+            None if part is None else part.data_ptr(), KERNEL_DTYPES[q.dtype], B, Hq,
+            num_kv_heads, D, NB, BSl, W, layer, pos_off, stride, scale,
+            logit_softcap if logit_softcap else 0.0,
+            window if window and window > 0 else 0, splits, cuda_build.stream_handle(q))
+    cuda_build.check(rc, 'paged_decode_cp')
+    paged_decode_cp_partial.launches += 1
+    return acc, m, lsum
+
+
+paged_decode_cp_partial.launches = 0
+
+
+def cp_combine(parts, sinks: Optional[torch.Tensor], out_dtype: torch.dtype) -> torch.Tensor:
+    """The ranks' partials [(acc [B,Hq,D], m [B,Hq], l [B,Hq]), ...], in rank order and
+    on one device -> the attention output [B,Hq,D] in ``out_dtype`` (reference
+    :813-821): ``m_g = max m``, ``a = exp(m - m_g)``, ``l_g = sum l*a``,
+    ``acc_g = sum acc*a`` (summed in rank order: no atomics), sinks [Hq] add
+    ``exp(sink - m_g)`` to ``l_g`` where ``m_g > 0.5*MASK_VALUE``, and
+    ``out = acc_g / (l_g == 0 ? 1 : l_g)``.  A collective over a process group (an
+    all-reduce of max, then of the weighted sums) can take this function's place."""
+    m_g = torch.stack([m for _, m, _ in parts]).amax(0)
+    l_g = acc_g = None
+    for acc, m, lsum in parts:
+        a = torch.exp(m - m_g)
+        l_g = lsum * a if l_g is None else l_g + lsum * a
+        acc_g = acc * a[..., None] if acc_g is None else acc_g + acc * a[..., None]
+    if sinks is not None:
+        l_g = l_g + torch.where(m_g > 0.5 * MASK_VALUE,
+                                torch.exp(sinks.float().to(m_g.device) - m_g),
+                                torch.zeros_like(m_g))
+    return (acc_g / torch.where(l_g == 0, torch.ones_like(l_g), l_g)[..., None]).to(out_dtype)
+
+
+def paged_decode_attention_cp(q: torch.Tensor, kv_cache, block_tables: torch.Tensor,
+                              kv_lens: torch.Tensor, layer: int, scale: float,
+                              num_kv_heads: int, mesh,
+                              logit_softcap: Optional[float] = None,
+                              window: Optional[int] = None,
+                              sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Context-parallel decode over a ``StripedKV`` cache whose stripes lie on the
+    mesh's 'cp' devices: q [B,Hq,D] on the mesh's first device; each rank's partials
+    run on its own device (the kernel on a card, the plain version on the CPU), then
+    ``cp_combine`` joins them on q's device.  ``sinks`` [Hq] join once, after the
+    combine.  Returns [B,Hq,D] in q's dtype."""
+    if kv_cache.cp != mesh.shape['cp'] or kv_cache.devices != mesh.cp_devices:
+        raise ValueError(f'paged_decode_attention_cp: the cache\'s {kv_cache.cp} stripes '
+                         f'on {kv_cache.devices} are not the mesh\'s cp ranks {mesh}')
+    BS = kv_cache.shape[3]
+    bsl = BS // kv_cache.cp
+    parts = []
+    for r, stripe in enumerate(kv_cache.stripes):
+        dev = stripe.device
+        acc, m, lsum = paged_decode_cp_partial(
+            q.to(dev), stripe, block_tables.to(dev), kv_lens.to(dev), layer, scale,
+            num_kv_heads, r * bsl, BS, logit_softcap, window)
+        parts.append((acc.to(q.device), m.to(q.device), lsum.to(q.device)))
+    return cp_combine(parts, sinks, q.dtype)

@@ -464,6 +464,20 @@ def test_engine_greedy_tokens_match_jax(ckpt, monkeypatch, name, dequant):
     assert quant_bmm.fp8_bmm.launches == 0             # CPU tensors: the plain version
 
 
+@pytest.mark.parametrize('policy', [4, 8])
+def test_engine_kv_quant_greedy_tokens_match_jax(ckpt, policy):
+    """MLA on the int8 (quant_policy 4) and int4 (8) caches: the latent kv head is
+    quantized per token as any kv head, and the port's Engine gives the JAX Engine's
+    greedy tokens (the card serves D 576 through the kernels' wide paths)."""
+    from lmdeploy_tpu_torch.ops.kv_quant import QuantKV, QuantKV4
+    ref, _ = _greedy('jax', ckpt['ds'], _prompts(), quant_policy=policy)
+    out, engine = _greedy('torch', ckpt['ds'], _prompts(), quant_policy=policy)
+    assert out == ref
+    kv = engine.model_agent.kv_cache
+    assert type(kv) is (QuantKV if policy == 4 else QuantKV4)
+    assert kv.shape[-1] == 40 and kv.scale.shape[-1] == 1
+
+
 def test_fp8_resident_footprint_and_dequant_twin(ckpt, monkeypatch):
     """bf16, as the reference's own test: the fp8-resident experts give the
     dequantize-at-load twin's greedy tokens with < 0.65x its expert bytes."""

@@ -19,8 +19,9 @@ bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'lmdeploy_tpu'
              or m.startswith('lmdeploy_tpu.'))
 assert not bad, bad
-assert len(names) >= 29, names
+assert len(names) >= 31, names
 assert {'lmdeploy_tpu_torch.ops.moe', 'lmdeploy_tpu_torch.ops.quant_bmm',
+        'lmdeploy_tpu_torch.parallel', 'lmdeploy_tpu_torch.parallel.mesh',
         'lmdeploy_tpu_torch.models.gpt_oss', 'lmdeploy_tpu_torch.ops.kv_quant',
         'lmdeploy_tpu_torch.ops.paged_decode', 'lmdeploy_tpu_torch.models.mixtral',
         'lmdeploy_tpu_torch.ops.quant_matmul', 'lmdeploy_tpu_torch.models.deepseek',
@@ -28,6 +29,9 @@ assert {'lmdeploy_tpu_torch.ops.moe', 'lmdeploy_tpu_torch.ops.quant_bmm',
 from lmdeploy_tpu_torch.models.deepseek import DeepseekV2Model
 from lmdeploy_tpu_torch.ops.quant_bmm import fp8_bmm, fp8_bmm_plain, widen_fp8
 from lmdeploy_tpu_torch.ops.kv_quant import QuantKV4, QuantKVTurbo, to_fp8
+from lmdeploy_tpu_torch.ops.paged_decode import (cp_combine, paged_decode_attention_cp,
+                                                 paged_decode_cp_partial)
+from lmdeploy_tpu_torch.parallel.mesh import StripedKV, build_mesh, cache_sharding
 print(len(names))
 '''
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -43,7 +47,7 @@ def test_every_kernel_source_is_built():
     on_disk = sorted(f[:-3] for f in os.listdir(cuda_build.CSRC_DIR) if f.endswith('.cu'))
     assert sorted(cuda_build.SOURCES) == on_disk
     assert {'mxfp4_bmm', 'paged_decode_int4', 'paged_decode_turbo', 'w4a16_gemm_szc',
-            'w4a16_gemm_unprepared', 'fp8_bmm'} <= set(on_disk)
+            'w4a16_gemm_unprepared', 'fp8_bmm', 'paged_decode_cp'} <= set(on_disk)
 
 
 def test_every_w4a16_wrapper_counts_and_has_a_plain_version():

@@ -129,7 +129,8 @@ def test_cuda_sources_present():
 
 def test_kernel_head_dims_match_sources():
     """The head dims each wrapper admits are the ones its CUDA source instantiates
-    (the int8 / int4 decodes up to 256, TurboQuant the powers of two)."""
+    (the int8 / int4 decodes every served dim, MLA's 576 through their wide paths;
+    TurboQuant the powers of two; the context-parallel partial the dims up to 256)."""
     import os
     import re
 
@@ -146,5 +147,6 @@ def test_kernel_head_dims_match_sources():
     assert dims('flash_prefill') == HEAD_DIMS
     assert dims('paged_decode') == HEAD_DIMS
     assert dims('paged_decode_int8') == dims('paged_decode_int4') == pd.QUANT_HEAD_DIMS
-    assert pd.QUANT_HEAD_DIMS == (64, 80, 96, 128, 192, 256)
+    assert pd.QUANT_HEAD_DIMS == HEAD_DIMS
     assert dims('paged_decode_turbo') == pd.TURBO_HEAD_DIMS == (64, 128, 256)
+    assert dims('paged_decode_cp') == pd.CP_HEAD_DIMS == (64, 80, 96, 128, 192, 256)

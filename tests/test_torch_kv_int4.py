@@ -81,6 +81,22 @@ def test_int4_decode_plain_matches_pallas(G, softcap):
         paged_decode_attention(t(q), port, t(tables), t(kv_lens), 1, 0.125, 2, window=8)
 
 
+@pytest.mark.parametrize('softcap', [None, 20.0])
+def test_int4_decode_plain_matches_pallas_at_mla(softcap):
+    """MLA's one latent kv head of 576 under 16 query heads (DeepSeek-V2-Lite's
+    geometry), which the CUDA kernel serves through its wide path: the plain version
+    against the Pallas kernel in interpret mode at 2e-5, and the wrapper's checks take
+    the shape (quant_policy 8 serves DeepSeek on the card)."""
+    from lmdeploy_tpu_torch.ops import paged_decode as pd
+    rng = np.random.RandomState(4)
+    port, q, tables, kv_lens, _ = check_decode_vs_pallas(
+        ref_cache(rng, 2, 32, 16, 1, 576), 1, 16, 576, softcap,
+        paged_decode_attention_int4_plain, paged_decode_attention_int4, rng)
+    assert pd._check('paged_decode_int4', t(q), port.data, t(tables), t(kv_lens), 1, 1,
+                     (port.scale, port.minv), block_multiple=16,
+                     head_dims=pd.QUANT_HEAD_DIMS)[2] == 576
+
+
 def test_cache_engine_int4():
     from lmdeploy_tpu_torch.config import CacheConfig, ModelConfig
     from lmdeploy_tpu_torch.engine.cache_engine import CacheEngine

@@ -25,6 +25,11 @@ from lmdeploy_tpu_torch.weight_convert import cache_from_reference, cache_to_ref
 
 from test_torch_engine import generate, make_prompts
 
+
+def jdecode_pallas(*args, **kwargs):
+    from lmdeploy_tpu.ops.pallas.paged_decode import paged_decode_attention
+    return paged_decode_attention(*args, **kwargs)
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 
@@ -153,6 +158,35 @@ def test_int8_decode_plain_matches_pallas(G, softcap):
     with pytest.raises(ValueError):
         paged_decode_attention(t(q), port, t(tables), t(kv_lens), layer, scale, Hkv,
                                window=8)
+
+
+@pytest.mark.parametrize('softcap', [None, 20.0])
+def test_int8_decode_plain_matches_pallas_at_mla(softcap):
+    """MLA's one latent kv head of 576 under 16 query heads (DeepSeek-V2-Lite's
+    geometry), which the CUDA kernel serves through its wide path: the plain version
+    against the Pallas kernel in interpret mode at 2e-5, and the wrapper's checks take
+    the shape (quant_policy 4 serves DeepSeek on the card)."""
+    from lmdeploy_tpu_torch.ops import paged_decode as pd
+    rng = np.random.RandomState(4)
+    L, layer, NB, BS, W = 2, 1, 32, 16, 6
+    B, Hkv, G, D = 5, 1, 16, 576
+    ref = _ref_cache(rng, L, NB, BS, Hkv, D)
+    port = cache_from_reference(ref, Hkv, D)
+    tables = rng.permutation(np.arange(1, NB))[:B * W].reshape(B, W).astype(np.int32)
+    kv_lens = np.array([1, 37, 0, 96, 50], np.int32)
+    q = rng.randn(B, Hkv * G, D).astype(np.float32)
+    scale = 192 ** -0.5
+    out_ref = np.asarray(jdecode_pallas(jnp.asarray(q), ref, jnp.asarray(tables),
+                                        jnp.asarray(kv_lens), jnp.int32(layer), scale, Hkv,
+                                        logit_softcap=softcap))
+    out = paged_decode_attention_int8_plain(t(q), port, t(tables), t(kv_lens), layer,
+                                            scale, Hkv, logit_softcap=softcap).numpy()
+    active = kv_lens > 0
+    np.testing.assert_allclose(out[active], out_ref[active], **TOL)
+    assert np.all(out[~active] == 0)
+    assert pd._check('paged_decode_int8', t(q), port.data, t(tables), t(kv_lens), layer,
+                     Hkv, (port.scale,), block_multiple=16,
+                     head_dims=pd.QUANT_HEAD_DIMS) == (B, Hkv * G, D, NB, BS, W)
 
 
 def test_cache_engine_int8():

@@ -249,3 +249,37 @@ def awq_w4_dir(tiny_model_dir, tmp_path_factory):
     from test_torch_quant_matmul import _write_w4_checkpoint
     return _write_w4_checkpoint(tiny_model_dir, tmp_path_factory.mktemp('tiny_awq_modes'),
                                 'awq')
+
+
+
+def _precise_trap_reading(spread: float) -> float:
+    """What chip_smoke.py's check reads (error over its allowance) for precise with its
+    scale on the dot outputs, at seeded weights whose groups are scaled by
+    10^-U(0, spread) within each column."""
+    from chip_smoke import KERNEL_TOL, _szc_trapped, compare
+    gen = torch.Generator().manual_seed(1234)
+    K, N, M, gs = 4096, 512, 8, 128
+    w = torch.randn(K, N, generator=gen) * 0.02
+    factor = 10 ** (-spread * torch.rand(K // gs, 1, N, generator=gen))
+    w = (w.view(K // gs, gs, N) * factor).view(K, N)
+    packed, scales, zeros = tqm.quantize_w4(w.bfloat16(), gs)
+    sb, corr = tqm.prep_w4(scales, zeros, mode='precise')
+    x = torch.randn(M, K, generator=gen).bfloat16()
+    ref = tqm.w4a16_matmul_szc_plain(x, packed, sb, corr, gs)
+    trap = _szc_trapped('scale_on_dot_outputs')(x, packed, sb, corr, gs)
+    return compare(trap, ref, KERNEL_TOL['w4a16_szc'])[2]
+
+
+@pytest.mark.parametrize('spread', [0.0, 3.0])
+def test_precise_scale_on_dot_outputs_trap(spread):
+    """Precise with its scale on the dot outputs (gd's numerics) differs from precise
+    by the bf16 rounding of each weight (q - 7) * s alone.  chip_smoke.py's check
+    (allowance 2e-3 + 1e-2 |ref|) reads it above the allowance at seeded weights like
+    the kernel phase's, and holds it there.  Groups whose scales differ by orders of
+    magnitude within a column do not make it read higher: each weight's rounding is
+    relative to the weight, so the large groups set both the signal and the error."""
+    reads = _precise_trap_reading(spread)
+    if spread:
+        assert reads < _precise_trap_reading(0.0)
+    else:
+        assert reads > 1.0
