@@ -446,7 +446,10 @@ def flash_phase():
     # G=1 (llama2-7b heads), and the 8x128 prefill batch of the e2e phase; MLA's latent
     # head (one kv head of 576, V the latent and 64 zeros, scale 1/sqrt(192)) under
     # DeepSeek-V2-Lite's 16 and V3's 128 query heads at the e2e phase's 1024-token
-    # chunks; the other head dims the kernel takes (96, 256) and the f16 and f32 models
+    # chunks; the other head dims the kernel takes (96, 256) and the f16 and f32 models;
+    # Llama-3.1-8B's fresh prefill step in the e2e_llama31 cells (8 x 1,024 tokens),
+    # Qwen2-7B's G = 7 (28 / 4 heads) at T 2048 and Qwen2-1.5B's G = 6 (12 / 2) in f16
+    # at a ragged T: 128-row blocks that are not a whole number of positions
     for label, B, T, Hq, Hkv, D, dtype in (
             ('tinyllama_t2048', 1, 2048, 32, 4, 64, 'bfloat16'),
             ('d128_g1', 1, 1000, 32, 32, 128, 'bfloat16'),
@@ -457,7 +460,10 @@ def flash_phase():
             ('d80_f16', 2, 300, 32, 32, 80, 'float16'),
             ('mla_v2_lite_f16', 1, 300, 16, 1, 576, 'float16'),
             ('d192_f32', 1, 200, 8, 2, 192, 'float32'),
-            ('mla_v2_lite_f32', 1, 200, 16, 1, 576, 'float32')):
+            ('mla_v2_lite_f32', 1, 200, 16, 1, 576, 'float32'),
+            ('llama31_8b_b8_t1024', 8, 1024, 32, 8, 128, 'bfloat16'),
+            ('qwen2_7b_g7_t2048', 1, 2048, 28, 4, 128, 'bfloat16'),
+            ('qwen2_1p5b_g6_f16', 2, 300, 12, 2, 128, 'float16')):
         dt = getattr(torch, dtype)
         q = torch.randn(B, T, Hq, D, device='cuda', generator=gen).to(dt)
         k = torch.randn(B, T, Hkv, D, device='cuda', generator=gen).to(dt)
@@ -516,6 +522,7 @@ def _decode_inputs(gen, B, Hq, Hkv, D, BS, W, lens, L=2, dtype=torch.bfloat16):
 
 
 def decode_phase():
+    from lmdeploy_tpu_torch.ops import paged_decode as pd
     from lmdeploy_tpu_torch.ops.paged_decode import (paged_decode_attention,
                                                      paged_decode_attention_plain)
     gen = torch.Generator(device='cuda').manual_seed(SEED)
@@ -603,6 +610,14 @@ def decode_phase():
                'kernel_ms': time_ms(kern), 'plain_ms': time_ms(plain, **PLAIN_TIMING),
                'library_ms': None, 'bound_ms': bound_ms, 'bound_by': bound_by,
                'kv_mbytes': nbytes / 1e6}
+        if label in ('mla_v2_lite', 'mla_v3'):
+            # the tensor-core path's split of a row's pages over blocks, swept
+            chosen = pd.SPLIT_TOKENS_MMA
+            row['split_tokens_ms'] = {}
+            for tokens in (512, 1024, 2048):
+                pd.SPLIT_TOKENS_MMA = tokens
+                row['split_tokens_ms'][tokens] = time_ms(kern)
+            pd.SPLIT_TOKENS_MMA = chosen
         emit(row)
         results.append(row)
         if not ok:

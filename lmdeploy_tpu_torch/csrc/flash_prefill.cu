@@ -8,30 +8,54 @@
 // an l == 0 guard on the final division.  Any head dim of the served families and
 // MLA's latent D = 576 (the set the entry point below lists), and the three model
 // dtypes; the operands enter the products in their own type, as the Pallas kernel
-// feeds them:
-//   * bf16 and f16: both products on the tensor cores, mma.sync m16n8k16 with f32
-//     accumulation (the f16 instruction for f16);
-//   * f32: plain f32 FMA (no TF32: the Pallas kernel's f32 dots are full f32), one warp
-//     per query row with an online softmax over one key at a time.  It serves f32
-//     checkpoints, which are a correctness configuration, not a fast one.
+// feeds them.
 //
 // What bounds it on an H100: operations.  At T = 2048 the causal work is
 // 2 * Hq * D * T^2 = 17.2 GFLOP per layer (TinyLlama geometry) against ~19 MB of
 // q/k/v/o traffic, far above the card's ~295 FLOP/byte balance point.  MLA (Hq 16,
-// Hkv 1, D 576) at T = 1024: 19.3 GFLOP over 40 MB.
+// Hkv 1, D 576) at T = 1024: 19.3 GFLOP over 40 MB.  So the design's job is to keep
+// the tensor cores fed: the products on the instruction that reaches their full rate,
+// the K/V loads off the compute warps' path, and no work on keys the mask removes.
 //
-// Design (right first; wgmma, TMA and a cp.async pipeline are later work).  A query
-// row is one (position, head-of-the-GQA-group) pair, flattened as t * G + g, so one
-// K/V tile in shared memory serves all G heads of the group, and any G >= 1 and any T
-// work without padding: the ragged edge is masked here.  The K/V loop stops at the
-// causal bound of the block's last row; query rows past the chunk's valid length only
-// see causal keys, so they stay finite.  q/k/v are read through a per-token stride
-// (heads contiguous inside a token), so slices of a fused qkv projection need no copy.
-//   * D <= 128 (narrow kernel): one block of 4 warps per 64 flattened query rows;
-//     each warp owns 16 rows and the whole D, its Q fragments and its [16, D] f32
-//     accumulator in registers.  Per 64-key tile: S = Q K^T as 8 m16n8 accumulators,
-//     scale + mask, online softmax with quad shuffles, then P (repacked from the S
-//     accumulators, no shared-memory round trip) times V.
+// A query row is one (position, head-of-the-GQA-group) pair, flattened as t * G + g,
+// so one K/V tile in shared memory serves all G heads of the group, and any G >= 1
+// and any T work without padding: the ragged edge (rows past T * G, and a block's
+// rows that are not a whole number of positions when G does not divide its row
+// count, e.g. Qwen2's G = 7 or 6) is masked here.  The K/V loop stops at the causal
+// bound of the block's last row; query rows past the chunk's valid length only see
+// causal keys, so they stay finite.  q/k/v are read through a per-token stride (heads
+// contiguous inside a token), so slices of a fused qkv projection need no copy.
+//   * bf16 / f16, D = 64 and 128 (wgmma kernel; every served family but MLA and
+//     D 80 / 96): a persistent, warp-specialised block of three warpgroups on each
+//     SM, walking work items of 128 flattened query rows of one (batch row, kv head),
+//     the longest (highest t) first, in a snake order over the blocks so that their
+//     totals even out.  Warpgroup 0 is the producer: it gives up registers (setmaxnreg
+//     40) and one of its threads streams each item's K and V tiles (128 keys) into a
+//     3-stage ring in shared memory (225 KB with Q at D 128) with TMA
+//     (cp.async.bulk.tensor over a [tokens, Hkv, D] tensor map, 128-byte swizzle, one
+//     64-column box per chunk of D), completion on a "full" mbarrier, running on into
+//     the next item while the consumers finish one; the consumers free a stage on its
+//     "empty" mbarrier.  Warpgroups 1 and 2 (setmaxnreg 232) own 64 rows each: Q goes
+//     to shared memory once an item, in the swizzled layout, by plain stores (a TMA
+//     box cannot cut 64 flattened rows out of [position, head] when G does not divide
+//     64); S = Q K^T is one wgmma m64nKk16 a k step with both operands in shared
+//     memory; P is rounded to the model dtype and repacked from the S accumulators
+//     into A fragments in registers (no shared-memory round trip); O += P V is wgmma
+//     m64nDk16 with V from the same stage as the transposed (MN-major) B operand.
+//     Each consumer issues tile j's S together with tile j - 1's P V and runs tile
+//     j's softmax while that P V is in flight, and the two consumers take turns at
+//     issuing (named barriers), so one's softmax overlaps the other's products.  Only
+//     the tiles that cross a warpgroup's diagonal (or the chunk's end) are masked.
+//     The registers setmaxnreg moves to the consumers hold S, P and O of a 128-key
+//     tile at D 128 (~190 a thread); Q stays in shared memory to leave them room.
+//     D 80 and 96 are not multiples of the 64-column swizzle atom the TMA boxes and
+//     wgmma descriptors use, so they keep the mma.sync kernel below.
+//   * bf16 / f16, D = 80 and 96 (narrow mma.sync kernel): one block of 4 warps per 64
+//     flattened query rows; each warp owns 16 rows and the whole D, its Q fragments
+//     and its [16, D] f32 accumulator in registers.  Per 64-key tile: S = Q K^T as 8
+//     m16n8 accumulators, scale + mask, online softmax with quad shuffles, then P
+//     (repacked from the S accumulators) times V.  Its loads go through registers
+//     into shared memory between two __syncthreads.
 //   * D > 128 (wide kernel: 192, 256, 576): a [16, D] f32 accumulator per warp would
 //     not fit in registers, so one block of 4 warps takes 16 query rows, and the warps
 //     split the work twice: for S = Q K^T each warp takes a quarter of the tile's keys
@@ -39,82 +63,533 @@
 //     combined across the warps through shared memory (in a fixed order, so every warp
 //     holds the same m and l), P goes to shared memory in v's type, and for O += P V
 //     each warp owns a quarter of D's columns over all the tile's keys.  Key tiles are
-//     32 wide at D = 576 (two 37 KB planes), 64 below.
-//   * Q, K, V (and P) tiles sit in shared memory as [row][d] with rows padded by 16
-//     bytes: fragments are conflict-free 32-bit loads, V fragments come transposed
-//     from ldmatrix.trans (also conflict-free).
+//     32 wide at D = 576 (two 37 KB planes), 64 below.  It beats SDPA at MLA's 576.
+//   * mma.sync kernels keep Q, K, V (and P) tiles in shared memory as [row][d] with
+//     rows padded by 16 bytes: fragments are conflict-free 32-bit loads, V fragments
+//     come transposed from ldmatrix.trans (also conflict-free).
+//   * f32: plain f32 FMA (no TF32: the Pallas kernel's f32 dots are full f32), one warp
+//     per query row with an online softmax over one key at a time.  It serves f32
+//     checkpoints, which are a correctness configuration, not a fast one.
+#include <cuda.h>           // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "attn_mma.cuh"
 
 namespace {
 
+using attn::ld32;
+using attn::ldsm_x4_trans;
+using attn::Mma;
+using attn::quad_max;
+using attn::quad_sum;
+
 constexpr int NTHREADS = 128;                 // 4 warps
 constexpr float MASK_VALUE = -0.7f * 3.402823466e38f;
-
-template <typename T>
-struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float* c, const uint32_t* a, uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-template <>
-struct Mma<__half> {
-  static __device__ __forceinline__ void run(float* c, const uint32_t* a, uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ uint32_t ld32(const T* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// four 8x8 b16 matrices, transposed: B fragments of two n8 tiles of V
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
+}
+
+// ------------------------------------------------------------------- wgmma: D 64 / 128
+constexpr int WG_ROWS = 128;                  // flattened query rows per block
+constexpr int WG_THREADS = 384;               // producer warpgroup + 2 consumers
+
+constexpr int WG_TK = 128;                    // keys per K / V tile
+constexpr int WG_STAGES = 3;                  // stages of the K / V ring
+
+template <int D>
+__host__ __device__ constexpr int wg_tile_bytes() { return WG_TK * D * 2; }   // K or V
+
+template <int D>
+__host__ __device__ constexpr int wg_smem() {
+  // the K / V ring, each consumer's Q [64 rows][D], slack for 1 KB alignment
+  return WG_STAGES * 2 * wg_tile_bytes<D>() + 2 * 64 * D * 2 + 1024;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// waits for the phase of the given parity to complete; a wait of more than 10 s can
+// only be a lost arrival, and traps (a launch error) rather than hanging the stream
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (global_ns() - t0 > 10000000000ull) __trap();
+}
+
+// one [keys][64 columns] box of a [tokens, Hkv, D] tensor map into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int col,
+                                         int head, int row, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(head), "r"(row),
+         "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: rows of 128 bytes (64
+// 16-bit elements, one swizzle atom wide), 8-row groups `sbo` bytes apart along the
+// rows; `lbo` steps from one 64-element atom to the next across the rows' width, which
+// only a transposed (MN-major) B wider than 64 crosses (a K-major operand ignores it)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo = 1024,
+                                              uint32_t sbo = 1024) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16)
+         | ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// keeps the compiler from moving accesses of wgmma accumulators across the
+// asynchronous issue / wait points
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// D[64 x N] = A[64 x 16] x B[16 x N] + (acc ? D : 0); D as N / 2 f32 a thread (n8 tile
+// j: d[4j], d[4j + 1] in row warp * 16 + lane / 4, d[4j + 2], d[4j + 3] eight rows
+// below, columns 8j + 2 (lane % 4) + 0 / 1).  rs (N = 64, 128): A in registers (the
+// mma.m16n8k16 A layout per warp), B in shared memory, TRANS_B = 0 for B stored [n][k]
+// (K-major), 1 for [k][n]; ss (N = 128): both in shared memory, K-major.
+#define FLASH_WGMMA_RS64(NAME, TY)  \
+  template <int TRANS_B>  \
+  __device__ __forceinline__ void NAME(float (&d)[32], const uint32_t (&a)[4], uint64_t desc, int acc) {  \
+    asm volatile(  \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"  \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"  \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"  \
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"  \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),  \
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),  \
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+          "+f"(d[30]), "+f"(d[31])  \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc), "n"(TRANS_B));  \
+  }
+FLASH_WGMMA_RS64(wgmma_rs64_bf16, "bf16")
+FLASH_WGMMA_RS64(wgmma_rs64_f16, "f16")
+#undef FLASH_WGMMA_RS64
+#define FLASH_WGMMA_RS128(NAME, TY)  \
+  template <int TRANS_B>  \
+  __device__ __forceinline__ void NAME(float (&d)[64], const uint32_t (&a)[4], uint64_t desc, int acc) {  \
+    asm volatile(  \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"  \
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"  \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"  \
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"  \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),  \
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),  \
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),  \
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),  \
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),  \
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),  \
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),  \
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])  \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc), "n"(TRANS_B));  \
+  }
+FLASH_WGMMA_RS128(wgmma_rs128_bf16, "bf16")
+FLASH_WGMMA_RS128(wgmma_rs128_f16, "f16")
+#undef FLASH_WGMMA_RS128
+#define FLASH_WGMMA_SS128(NAME, TY)  \
+  __device__ __forceinline__ void NAME(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int acc) {  \
+    asm volatile(  \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"  \
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"  \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"  \
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"  \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),  \
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),  \
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),  \
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),  \
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),  \
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),  \
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),  \
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])  \
+        : "l"(desc_a), "l"(desc_b), "r"(acc));  \
+  }
+FLASH_WGMMA_SS128(wgmma_ss128_bf16, "bf16")
+FLASH_WGMMA_SS128(wgmma_ss128_f16, "f16")
+#undef FLASH_WGMMA_SS128
+
+template <typename T, int TRANS_B, int R>
+__device__ __forceinline__ void wgmma(float (&d)[R], const uint32_t (&a)[4], uint64_t desc,
+                                      int acc) {
+  constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
+  if constexpr (R == 32) {
+    if constexpr (BF) wgmma_rs64_bf16<TRANS_B>(d, a, desc, acc);
+    else wgmma_rs64_f16<TRANS_B>(d, a, desc, acc);
+  } else {
+    if constexpr (BF) wgmma_rs128_bf16<TRANS_B>(d, a, desc, acc);
+    else wgmma_rs128_f16<TRANS_B>(d, a, desc, acc);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) wgmma_ss128_bf16(d, da, db, acc);
+  else wgmma_ss128_f16(d, da, db, acc);
+}
+
+// O += P V for one tile: P as A fragments of the keys' k16 steps, V [key][d] in the
+// stage at vbase as the transposed B operand: one m64nDk16 a k step, the D columns'
+// 64-column atoms KT * 128 bytes apart (LBO), 8-key groups 1,024 apart (SBO)
+template <typename T, int KT, int R, int PC>
+__device__ __forceinline__ void issue_pv(float (&o)[R], const uint32_t (&pa)[PC][4],
+                                         uint32_t vbase) {
+#pragma unroll
+  for (int kc = 0; kc < PC; ++kc)
+    wgmma<T, 1>(o, pa[kc], sw128_desc(vbase + kc * 16 * 128, KT * 128, 1024), 1);
+}
+
+// S = Q K^T for one tile: Q [64 rows][D] at qbase and K [key][d] in the stage at kbase,
+// both K-major in 64-column chunks, one m64nKTk16 a k step over D; sc's old values are
+// not read
+template <typename T, int D, int KT>
+__device__ __forceinline__ void issue_s(float (&sc)[KT / 2], uint32_t qbase, uint32_t kbase) {
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc)     // the first k step overwrites the scores
+    wgmma_ss<T>(sc, sw128_desc(qbase + (kc / 4) * 64 * 128 + (kc % 4) * 32),
+                sw128_desc(kbase + (kc / 4) * KT * 128 + (kc % 4) * 32), kc > 0);
+}
+
+// the online softmax of one tile's scores, in base 2 (x = s * scale * log2(e), m the
+// running max of x), for the two rows a thread holds: masked scores are -inf, which
+// gives them p = 0 against any finite running max.  Leaves P (f32) in sc, the rows'
+// rescale factors, and the new max and (per-thread partial) sums
+template <int R>
+__device__ __forceinline__ void softmax_tile(float (&sc)[R], float (&m)[2], float (&l)[2],
+                                             float (&al)[2], bool diag, int k0, int tig,
+                                             const int (&pos)[2], int T_, float c2) {
+  if (diag) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int key = k0 + (i / 4) * 8 + 2 * tig + (i & 1);
+      if (key > pos[(i >> 1) & 1] || key >= T_) sc[i] = -INFINITY;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < R; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float mn = fmaxf(m[h], quad_max(mx[h]) * c2);
+    al[h] = ex2(m[h] - mn);
+    m[h] = mn;
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const float e = ex2(fmaf(sc[i], c2, -m[(i >> 1) & 1]));
+    sc[i] = e;
+    sum[(i >> 1) & 1] += e;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = l[h] * al[h] + sum[h];
+}
+
+// P in the model dtype as A fragments: keys 16 kc .. 16 kc + 15 are the S accumulator's
+// n8 tiles 2 kc and 2 kc + 1
+template <typename T, int R, int PC>
+__device__ __forceinline__ void pack_p(const float (&sc)[R], uint32_t (&pa)[PC][4]) {
+#pragma unroll
+  for (int kc = 0; kc < PC; ++kc) {
+    const int i0 = 8 * kc;
+    pa[kc][0] = Mma<T>::pack(sc[i0], sc[i0 + 1]);
+    pa[kc][1] = Mma<T>::pack(sc[i0 + 2], sc[i0 + 3]);
+    pa[kc][2] = Mma<T>::pack(sc[i0 + 4], sc[i0 + 5]);
+    pa[kc][3] = Mma<T>::pack(sc[i0 + 6], sc[i0 + 7]);
+  }
+}
+
+// the two consumer warpgroups take turns at issuing their products (named barriers 1
+// and 2): one's softmax runs while the other's wgmmas own the tensor cores
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(3 - wg) : "memory");
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const T* __restrict__ q, T* __restrict__ out, int B, int T_, int Hq,
+                   int Hkv, long long q_stride, float scale) {
+  constexpr int KT = WG_TK;
+  constexpr int NST = WG_STAGES;
+  constexpr int TILE = wg_tile_bytes<D>();
+  constexpr int CHUNK = KT * 128;              // one 64-column chunk of a tile, bytes
+  constexpr int PC = KT / 16;                  // k16 steps over keys for O = P V
+  __shared__ __align__(8) uint64_t full[NST], empty[NST];
+  extern __shared__ __align__(128) uint8_t wg_raw[];
+  // stage s: K at base + 2 s TILE, V at + TILE; 128-byte swizzle wants 1 KB alignment
+  const uint32_t base = (smem_u32(wg_raw) + 1023u) & ~1023u;
+
+  const int G = Hq / Hkv;
+  const int nrows = T_ * G;
+  const int heads = Hkv * B;
+  const int n_items = heads * ((nrows + WG_ROWS - 1) / WG_ROWS);
+  // work item w -> (row tile, kv head, batch row), the longest row tiles (highest t)
+  // first.  Block k takes item k of each round of gridDim.x items, counted from the
+  // round's other end in every second round (a snake), so the rounds' falling lengths
+  // even out over the blocks
+  auto nth = [&](int r) {
+    return r * (int)gridDim.x + ((r & 1) ? (int)gridDim.x - 1 - (int)blockIdx.x
+                                         : (int)blockIdx.x);
+  };
+  auto item = [&](int w, int& kvh, int& b, int& r0, int& n_tiles) {
+    const int x = w % heads;
+    kvh = x % Hkv;
+    b = x / Hkv;
+    r0 = ((nrows + WG_ROWS - 1) / WG_ROWS - 1 - w / heads) * WG_ROWS;
+    n_tiles = ((min(r0 + WG_ROWS, nrows) - 1) / G) / KT + 1;   // causal bound
+  };
+  // the warpgroup, read through a shuffle so the compiler sees it is warp-uniform
+  // (setmaxnreg and wgmma want uniform branches)
+  const int wgi = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), 256);     // every consumer thread releases
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wgi == 0) {
+    // ---- producer: one thread keeps the ring's TMA loads in flight, running on into
+    // the next item's tiles while the consumers finish an item
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int it = 0;                              // tiles loaded so far: ring position
+      for (int r = 0, w = nth(0); w < n_items; w = nth(++r)) {
+        int kvh, b, r0, n_tiles;
+        item(w, kvh, b, r0, n_tiles);
+        for (int j = 0; j < n_tiles; ++j, ++it) {
+          const int s = it % NST;
+          mbar_wait(smem_u32(&empty[s]), ((it / NST) & 1) ^ 1);
+          const uint32_t bar = smem_u32(&full[s]);
+          mbar_expect_tx(bar, 2 * TILE);
+          const uint32_t kd = base + s * 2 * TILE;
+#pragma unroll
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load(kd + c * CHUNK, &kmap, c * 64, kvh, b * T_ + j * KT, bar);
+            tma_load(kd + TILE + c * CHUNK, &vmap, c * 64, kvh, b * T_ + j * KT, bar);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows of an item each.  Tile j's S = Q K^T is issued
+    // together with tile j - 1's O += P V, and the softmax of tile j runs while that
+    // P.V is in flight
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int tid = threadIdx.x - 128 * wgi;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int gid = lane >> 2;
+    const int tig = lane & 3;
+    const int wg = wgi;          // 1 or 2: this warpgroup's turn barrier
+    const uint32_t qbase = base + NST * 2 * TILE + (wg - 1) * 64 * D * 2;
+    const float c2 = scale * 1.4426950408889634f;     // scores to base-2 logits
+    if (wg == 2) turn_pass(wg);           // the first warpgroup issues first
+    int it = 0;                  // tiles consumed so far: ring position
+    constexpr int QU = 64 * (D / 8) / 128;   // 16-byte units of Q a thread moves
+
+    for (int r = 0, w = nth(0); w < n_items; w = nth(++r)) {
+      int kvh, b, r0, n_tiles;
+      item(w, kvh, b, r0, n_tiles);
+      const bool last_item = nth(r + 1) >= n_items;
+      const int wr0 = r0 + (wg - 1) * 64;
+      const int pmin = wr0 / G;                        // this warpgroup's first position
+      const int row_a = wr0 + warp * 16 + gid;         // the two rows this thread owns
+      const int row_b = row_a + 8;
+      const int pos[2] = {row_a / G, row_b / G};
+
+      // the item's Q rows into shared memory, in the 128-byte-swizzled K-major layout
+      // the S products read (64-column chunks of [64 rows][128 bytes]; 16-byte unit u of
+      // row r sits at unit u ^ (r % 8)); rows past T * G are zeros.  All of a thread's
+      // loads are in flight together.  The last item's S products, the only readers,
+      // have all completed
+      uint4 x[QU];
+#pragma unroll
+      for (int k = 0; k < QU; ++k) {
+        const int i = tid + k * 128;
+        const int row = wr0 + i / (D / 8);
+        x[k] = make_uint4(0u, 0u, 0u, 0u);
+        if (row < nrows) {
+          const int t = row / G;
+          x[k] = *reinterpret_cast<const uint4*>(
+              q + ((long long)b * T_ + t) * q_stride + (long long)(kvh * G + row - t * G) * D
+              + (i % (D / 8)) * 8);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < QU; ++k) {
+        const int i = tid + k * 128;
+        const int qr = i / (D / 8);
+        const int u = i % (D / 8);
+        const uint32_t dst = qbase + (u / 8) * 64 * 128 + qr * 128 + (((u % 8) ^ (qr % 8)) * 16);
+        asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+                     :: "r"(dst), "r"(x[k].x), "r"(x[k].y), "r"(x[k].z), "r"(x[k].w)
+                     : "memory");
+      }
+      // visible to the tensor cores' (async proxy) reads, from every thread of the group
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" :: "r"(wg + 2) : "memory");
+
+      float m[2] = {MASK_VALUE, MASK_VALUE}, l[2] = {0.f, 0.f}, al[2];
+      float o[D / 2];            // O [64 rows][D] of the warpgroup, f32
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      float sc[KT / 2];          // S, then P, [64 rows][KT]
+      uint32_t pa[PC][4];        // the previous tile's P, awaiting its P.V
+
+      // Every warpgroup walks all the item's tiles (the one its rows do not reach is
+      // fully masked), so each wgmma sits in control flow that is uniform over the
+      // block.  Tile 0: S alone
+      mbar_wait(smem_u32(&full[it % NST]), (it / NST) & 1);
+      turn_wait(wg);
+      wgmma_fence();
+      issue_s<T, D, KT>(sc, qbase, base + (it % NST) * 2 * TILE);
+      wgmma_commit();
+      turn_pass(wg);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      softmax_tile(sc, m, l, al, KT - 1 > pmin, 0, tig, pos, T_, c2);
+      pack_p<T>(sc, pa);
+
+      for (int j = 1; j < n_tiles; ++j) {
+        const int sp = (it + j - 1) % NST;   // the previous tile's stage
+        const int s = (it + j) % NST;
+        const int k0 = j * KT;
+        mbar_wait(smem_u32(&full[s]), ((it + j) / NST) & 1);
+        // S of tile j, then the P.V of tile j - 1, both in flight together
+        turn_wait(wg);
+        fence_regs(o);
+        wgmma_fence();
+        issue_s<T, D, KT>(sc, qbase, base + s * 2 * TILE);
+        wgmma_commit();
+        issue_pv<T, KT>(o, pa, base + sp * 2 * TILE + TILE);
+        wgmma_commit();
+        turn_pass(wg);
+        wgmma_wait<1>();                   // S has landed; the P.V may still run
+        fence_regs(sc);
+        softmax_tile(sc, m, l, al, k0 + KT - 1 > pmin, k0, tig, pos, T_, c2);
+        wgmma_wait<0>();
+        fence_regs(o);
+        mbar_arrive(smem_u32(&empty[sp]));
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= al[(i >> 1) & 1];
+        pack_p<T>(sc, pa);                 // only now: the P.V no longer reads pa
+      }
+      // the last tile's P.V
+      {
+        const int sp = (it + n_tiles - 1) % NST;
+        turn_wait(wg);
+        fence_regs(o);
+        wgmma_fence();
+        issue_pv<T, KT>(o, pa, base + sp * 2 * TILE + TILE);
+        wgmma_commit();
+        // every turn the other warpgroup waits for, and no more
+        if (wg == 1 || !last_item) turn_pass(wg);
+        wgmma_wait<0>();
+        fence_regs(o);
+        mbar_arrive(smem_u32(&empty[sp]));
+      }
+      it += n_tiles;
+
+      float lt_a = quad_sum(l[0]), lt_b = quad_sum(l[1]);
+      lt_a = lt_a == 0.f ? 1.f : lt_a;
+      lt_b = lt_b == 0.f ? 1.f : lt_b;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = half ? row_b : row_a;
+        if (row >= nrows) continue;
+        const int t = pos[half];
+        const int g = row - t * G;
+        const float inv = 1.f / (half ? lt_b : lt_a);
+        T* dst = out + (((long long)b * T_ + t) * Hq + kvh * G + g) * D + 2 * tig;
+#pragma unroll
+        for (int n8 = 0; n8 < D / 8; ++n8)
+          *reinterpret_cast<uint32_t*>(dst + n8 * 8) =
+              Mma<T>::pack(o[n8 * 4 + 2 * half] * inv, o[n8 * 4 + 2 * half + 1] * inv);
+      }
+    }
+  }
 }
 
 // [nrows][D] rows of a head-contiguous [.., T, H, D] tensor into shared memory
@@ -134,6 +609,7 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, long long stride
     *reinterpret_cast<uint4*>(dst + r * ST + c * 8) = x;
   }
 }
+
 
 // ------------------------------------------------------------------- narrow: D <= 128
 constexpr int ROWS = 64;                      // query rows per block
@@ -568,13 +1044,76 @@ cudaError_t set_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// cuTensorMapEncodeTiled, from the driver the runtime has loaded (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                            &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// k or v [B*T tokens, Hkv, D] with a token stride of `stride` elements, as boxes of
+// [WG_TK tokens][1 head][64 columns] with the 128-byte swizzle the wgmma descriptors
+// read; tokens past B*T read as zeros
+template <typename T, int D>
+bool kv_map(CUtensorMap* map, const void* ptr, int Hkv, long long tokens, long long stride) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)tokens};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * sizeof(T), (cuuint64_t)stride * sizeof(T)};
+  const cuuint32_t box[3] = {64, 1, WG_TK};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapDataType dt = std::is_same<T, __nv_bfloat16>::value
+                                     ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  return encode(map, dt, 3, const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int T_, int Hq, int Hkv,
                    long long qs, long long ks, long long vs, float scale,
                    cudaStream_t stream) {
   const int rows = T_ * (Hq / Hkv);
-  if constexpr (D <= 128) {
+  if constexpr (D == 64 || D == 128) {
+    CUtensorMap kmap, vmap;
+    if (!kv_map<T, D>(&kmap, k, Hkv, (long long)B * T_, ks)
+        || !kv_map<T, D>(&vmap, v, Hkv, (long long)B * T_, vs))
+      return cudaErrorInvalidValue;
+    constexpr int bytes = wg_smem<D>();
+    static cudaError_t configured = set_smem(flash_wgmma_kernel<T, D>, bytes);
+    if (configured != cudaSuccess) return configured;
+    static const int sms = [] {
+      int dev = 0, n = 0;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+      return n > 0 ? n : 1;
+    }();
+    // one persistent block an SM (each holds one), walking the items in turn
+    const long long items = (long long)Hkv * B * ((rows + WG_ROWS - 1) / WG_ROWS);
+    flash_wgmma_kernel<T, D><<<(int)(items < sms ? items : sms), WG_THREADS, bytes, stream>>>(
+        kmap, vmap, static_cast<const T*>(q), static_cast<T*>(out), B, T_, Hq, Hkv, qs,
+        scale);
+  } else if constexpr (D <= 128) {
     constexpr int bytes = narrow_smem<T, D>();
     static cudaError_t configured = set_smem(flash_narrow_kernel<T, D>, bytes);
     if (configured != cudaSuccess) return configured;
@@ -630,7 +1169,8 @@ cudaError_t launch_dtype(int dtype, const void* q, const void* k, const void* v,
 
 // q [B,T,Hq,D], k/v [B,T,Hkv,D] of one dtype (0 bf16, 1 f16, 2 f32) with per-token
 // strides q_stride/k_stride/v_stride (elements; 16-byte multiples) and heads
-// contiguous inside a token, 16-byte aligned; out [B,T,Hq,D] contiguous, same dtype.
+// contiguous inside a token, 16-byte aligned, a batch's tokens right after the last
+// batch's (one token stride throughout); out [B,T,Hq,D] contiguous, same dtype.
 // D in {64, 80, 96, 128, 192, 256, 576}.  Returns the CUDA error code of the launch
 // (0 = ok).
 extern "C" int flash_prefill(const void* q, const void* k, const void* v, void* out,

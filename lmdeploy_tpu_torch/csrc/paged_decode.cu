@@ -16,20 +16,18 @@
 // head-major token rows (the reference layout without its 128-lane padding).  Block 0
 // is the padding block; tables [B, W] i32 map a row's page index to its block.  The
 // query / output type (bf16, f16, f32) and the page element type (the same, or e4m3)
-// are template parameters: every element widens to f32 on load (e4m3 through f16,
-// exactly), and the output rounds once.  P stays f32 for the P.V product: the TPU
-// kernel's rounding of P to the page type (pr.astype(v.dtype), e4m3 there) is not
-// copied.  D is any of {64, 80, 96, 128, 192, 256, 576} (MLA's latent 576: one kv head
-// whose V rows are the latent followed by 64 zeros; the kernel computes all 576
-// output columns).
+// are template parameters.  D is any of {64, 80, 96, 128, 192, 256, 576} (MLA's latent
+// 576: one kv head whose V rows are the latent followed by 64 zeros; the kernels
+// compute all 576 output columns).
 //
 // What bounds it on an H100: bytes of K/V read.  At bs 64 with ~384 tokens a row,
 // TinyLlama's bf16 K+V is 1 KiB per token per layer, 25 MB per layer: ~7.5 us at
 // 3.35 TB/s, against ~0.1 MFLOP of arithmetic per row and head.  MLA's cache is 2,304
-// bytes a token and layer (2 planes x 576 x bf16), whatever the head count.
+// bytes a token and layer (2 planes x 576 x bf16), whatever the head count; its 16
+// (V2-Lite) or 128 (V3) query heads over that one latent head make ~16-128 FLOP a
+// byte, so on CUDA cores the arithmetic, not the bytes, would set its time.
 //
-// Design (simple and right first; TMA, a pipelined page walk and tensor-core scores
-// are later work).  The query heads of a GQA group share every K/V byte a block loads.
+// Design.  The query heads of a GQA group share every K/V byte a block loads.
 //   * Narrow (D <= 128, pages of 2-byte or e4m3 elements; D a template parameter):
 //     one block of 128 threads per (kv head, batch row) walks the row's pages from the
 //     window start to its length.  Per page: the head's [BS, D] slice of the K plane and
@@ -37,23 +35,35 @@
 //     one thread per token, its K row held in registers as raw words, against the f32
 //     query rows; online softmax per query head in f32 (warp reductions over the
 //     page); P.V with one thread per (head, column) and the accumulator in shared
-//     memory.
-//   * Wide (D > 128, and f32 pages at any D; D a runtime value): a [G, D] f32
-//     accumulator of a large group at D = 576 does not fit beside two page slices, so
-//     a block of 512 threads takes a group of up to 16 query heads (a larger group,
-//     DeepSeek-V3's 128 over one latent head, is split over blocks that each re-read
-//     the pages from L2), and walks its pages in sub-chunks of TC tokens (128 tokens up
-//     to D = 128, 64 up to 256, 32 at 576: a 37 KB plane slice at 576 in bf16).  Each
-//     thread scores one token for NT / TC of the heads, walking the token's K row
-//     once, 16 bytes at a time, with one f32 accumulator per head.  The row's pages
-//     are also split over blocks, SPLIT pages each (a 4,096-token row would otherwise
-//     walk serially while the short rows' blocks idle): each block writes its
-//     unnormalized (acc, m, l) and a second kernel combines the splits in a fixed
-//     order (m = max m_s, l = sum l_s e^(m_s - m), acc likewise), then applies the
-//     sinks and the l == 0 guard.
+//     memory.  Every element widens to f32, P stays f32 (the TPU kernel's rounding of P
+//     to the page type, pr.astype(v.dtype), is not copied).
+//   * Tensor-core wide (D = 192, 256, 576 over 2-byte pages, the MLA decode): a block
+//     of 4 warps takes up to 16 query heads of a kv head -- one m16 tile, exactly
+//     DeepSeek-V2-Lite's 16 heads over its latent head; a larger group (V3's 128) is
+//     split over head blocks, the fastest-varying grid index, so the blocks that read
+//     one page run side by side and share it through L2.  Q sits in shared memory in
+//     its own type once.  The row's pages stream through a 2-stage ring of sub-chunks
+//     (TC = 32 tokens at D = 576, a 37 KB slice of each plane; 64 below) with 16-byte
+//     cp.async copies: sub-chunk i + 1's copies are in flight while sub-chunk i is
+//     computed.  S = Q K^T on mma.sync m16n8k16 over all of D, each warp taking a
+//     quarter of the sub-chunk's keys; the row max and row sum are combined across the
+//     warps in a fixed order; P is rounded to the page type for P.V, as the Pallas
+//     kernel does (pr.astype(v.dtype)); for O += P V each warp owns a quarter of D's
+//     columns with its f32 accumulator in registers (V fragments from ldmatrix.trans).
+//   * Wide (f32 pages at any D, e4m3 pages at D > 128; D a runtime value): a block of
+//     512 threads takes a group of up to 16 query heads and walks its pages in
+//     sub-chunks of TC tokens (128 up to D = 128, 64 up to 256, 32 at 576).  Each
+//     thread scores one token for NT / TC of the heads, walking the token's K row once,
+//     16 bytes at a time, with one f32 accumulator per head; P stays f32.
+//   * Both wide kernels also split the row's pages over blocks, SPLIT pages each (a
+//     4,096-token row would otherwise walk serially while the short rows' blocks idle):
+//     each block writes its unnormalized (acc, m, l) and a second kernel combines the
+//     splits in a fixed order (m = max m_s, l = sum l_s e^(m_s - m), acc likewise),
+//     then applies the sinks and the l == 0 guard.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attn_mma.cuh"
 #include "attn_types.cuh"
 #include "decode_split.cuh"
 
@@ -425,6 +435,267 @@ paged_decode_wide(const TQ* __restrict__ q,                 // [B, Hq, D]
   }
 }
 
+// ------------------------------------------------------- tensor-core wide kernel
+constexpr int NTM = 128;          // 4 warps
+constexpr int MST = 2;            // sub-chunk ring stages
+
+template <int D, int TC>
+__host__ __device__ constexpr int mma_smem() {
+  // Q [GB][D + 8], the ring [MST][K, V][TC][D + 8], P [GB][TC + 8] (2-byte elements),
+  // then the per-warp row maxima and sums [2][4][GB] f32
+  return (GB * (D + 8) + MST * 2 * TC * (D + 8) + GB * (TC + 8)) * 2 + 2 * 4 * GB * 4;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool copy) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(copy ? 16 : 0) : "memory");   // 0: zero-fill
+}
+
+template <typename T, int D, int TC>
+__global__ void __launch_bounds__(NTM)
+paged_decode_mma(const T* __restrict__ q,                 // [B, Hq, D]
+                 const T* __restrict__ cache,             // [L, NB, 2, BS, Hkv*D]
+                 const int* __restrict__ tables,          // [B, W]
+                 const int* __restrict__ kv_lens,         // [B]
+                 const float* __restrict__ sinks,         // [Hq] or null
+                 T* __restrict__ out,                     // [B, Hq, D]
+                 float* __restrict__ part,                // [B, S, Hq, D + 2] or null
+                 int Hq, int Hkv, int NB, int BS, int W, int layer,
+                 float scale, float softcap, int window, int split_pages) {
+  constexpr int ST = D + 8;            // padded Q / K / V row (elements): conflict-free
+  constexpr int PST = TC + 8;          // padded P row
+  constexpr int CH = D / 8;            // 16-byte chunks per row
+  constexpr int KC = D / 16;           // k16 steps over D for S = Q K^T
+  constexpr int NTW = TC / 32;         // n8 key tiles per warp for S
+  constexpr int DW = D / 4;            // output columns per warp
+  constexpr int DT = DW / 8;           // n8 tiles over them
+  static_assert(DT % 2 == 0 && TC % 32 == 0, "two n8 tiles per ldmatrix.x4");
+  extern __shared__ __align__(16) uint8_t mma_raw[];
+  T* Qs = reinterpret_cast<T*>(mma_raw);         // [GB][ST]
+  T* ring = Qs + GB * ST;                         // [MST][2][TC][ST]
+  T* Ps = ring + MST * 2 * TC * ST;               // [GB][PST]
+  float* rmax = reinterpret_cast<float*>(Ps + GB * PST);   // [4][GB]
+  float* rsum = rmax + 4 * GB;                              // [4][GB]
+
+  const int G = Hq / Hkv;
+  const int hsplits = (G + GB - 1) / GB;
+  const int h = blockIdx.x / hsplits;
+  const int g0 = (blockIdx.x - h * hsplits) * GB;
+  const int gb = min(GB, G - g0);
+  const int b = blockIdx.y;
+  const int S = gridDim.z;
+  const int sp = blockIdx.z;
+  const int HD = Hkv * D;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+
+  const long long head0 = (long long)b * Hq + (long long)h * G + g0;
+  for (int i = tid; i < GB * CH; i += NTM) {      // rows past gb are zeros
+    const int r = i / CH;
+    const int c = i - r * CH;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (r < gb) x = *reinterpret_cast<const uint4*>(q + (head0 + r) * D + c * 8);
+    *reinterpret_cast<uint4*>(Qs + r * ST + c * 8) = x;
+  }
+
+  // the block's sub-chunks, numbered over its pages (cpp to a page): a contiguous run
+  // from the first that reaches the window start to the last that starts before len
+  const int len = kv_lens[b];
+  const int ws = window > 0 ? max(len - window, 0) : 0;
+  const int cpp = (BS + TC - 1) / TC;
+  int i_lo = 0, i_hi = 0;
+  if (len > 0) {
+    const int p_lo = max(ws / BS, sp * split_pages);
+    const int p_hi = min(min((len + BS - 1) / BS, W), (sp + 1) * split_pages);
+    if (p_lo < p_hi) {
+      i_lo = p_lo * cpp;
+      i_hi = p_hi * cpp;
+      while (i_lo < i_hi && (i_lo / cpp) * BS + (i_lo % cpp) * TC + TC <= ws) ++i_lo;
+      while (i_hi > i_lo && ((i_hi - 1) / cpp) * BS + ((i_hi - 1) % cpp) * TC >= len) --i_hi;
+    }
+  }
+  const long long plane = (long long)BS * HD;
+  auto load = [&](int i, int stage) {
+    const int p = i / cpp;
+    const int t0 = (i - p * cpp) * TC;
+    const int nt = min(TC, BS - t0);
+    const int blk = min(max(tables[(long long)b * W + p], 0), NB - 1);
+    const T* kp = cache + ((long long)layer * NB + blk) * 2 * plane + (long long)h * D
+                  + (long long)t0 * HD;
+    const T* vp = kp + plane;
+    T* ks = ring + stage * 2 * TC * ST;
+    T* vs = ks + TC * ST;
+    for (int x = tid; x < TC * CH; x += NTM) {
+      const int t = x / CH;
+      const int c = x - t * CH;
+      const bool in = t < nt;          // rows past the page's end read as zeros
+      const long long off = in ? (long long)t * HD + c * 8 : 0;
+      cp_async16(ks + t * ST + c * 8, kp + off, in);
+      cp_async16(vs + t * ST + c * 8, vp + off, in);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  float m0 = MASK_VALUE, m1 = MASK_VALUE, l0 = 0.f, l1 = 0.f;
+  float o[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+
+  if (i_lo < i_hi) load(i_lo, 0);
+  for (int i = i_lo; i < i_hi; ++i) {
+    const int stage = (i - i_lo) & 1;
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    // sub-chunk i has landed for every thread, and every thread is done with i - 1,
+    // whose stage takes i + 1 now
+    __syncthreads();
+    if (i + 1 < i_hi) load(i + 1, stage ^ 1);
+    const T* ks = ring + stage * 2 * TC * ST;
+    const T* vs = ks + TC * ST;
+    const int p = i / cpp;
+    const int t0 = (i - p * cpp) * TC;
+    const int nt = min(TC, BS - t0);
+    const int c0 = p * BS + t0;        // the sub-chunk's first position
+
+    // S = Q K^T over this warp's keys [warp * 8 NTW, +8 NTW), the full D
+    float s[NTW][4];
+#pragma unroll
+    for (int n = 0; n < NTW; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll 4
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t qa[4];
+      qa[0] = attn::ld32(Qs + gid * ST + kc * 16 + 2 * tig);
+      qa[1] = attn::ld32(Qs + (gid + 8) * ST + kc * 16 + 2 * tig);
+      qa[2] = attn::ld32(Qs + gid * ST + kc * 16 + 8 + 2 * tig);
+      qa[3] = attn::ld32(Qs + (gid + 8) * ST + kc * 16 + 8 + 2 * tig);
+#pragma unroll
+      for (int n = 0; n < NTW; ++n) {
+        const T* kr = ks + ((warp * NTW + n) * 8 + gid) * ST + kc * 16 + 2 * tig;
+        attn::Mma<T>::run(s[n], qa, attn::ld32(kr), attn::ld32(kr + 8));
+      }
+    }
+    // scale, softcap, window / length / page-end mask; the row max over the warps
+    float mx0 = MASK_VALUE, mx1 = MASK_VALUE;
+#pragma unroll
+    for (int n = 0; n < NTW; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = (warp * NTW + n) * 8 + 2 * tig + (e & 1);
+        const int pos = c0 + t;
+        float x = s[n][e] * scale;
+        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+        x = (t < nt && pos < len && pos >= ws) ? x : MASK_VALUE;
+        s[n][e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+      }
+    }
+    mx0 = attn::quad_max(mx0);
+    mx1 = attn::quad_max(mx1);
+    if (tig == 0) {
+      rmax[warp * GB + gid] = mx0;
+      rmax[warp * GB + gid + 8] = mx1;
+    }
+    __syncthreads();
+    float mn0 = m0, mn1 = m1;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {          // every warp combines in the same order
+      mn0 = fmaxf(mn0, rmax[w * GB + gid]);
+      mn1 = fmaxf(mn1, rmax[w * GB + gid + 8]);
+    }
+    const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < NTW; ++n) {
+      s[n][0] = expf(s[n][0] - mn0);
+      s[n][1] = expf(s[n][1] - mn0);
+      s[n][2] = expf(s[n][2] - mn1);
+      s[n][3] = expf(s[n][3] - mn1);
+      sum0 += s[n][0] + s[n][1];
+      sum1 += s[n][2] + s[n][3];
+      // P in the page type for the P.V product
+      const int c = (warp * NTW + n) * 8 + 2 * tig;
+      *reinterpret_cast<uint32_t*>(Ps + gid * PST + c) = attn::Mma<T>::pack(s[n][0], s[n][1]);
+      *reinterpret_cast<uint32_t*>(Ps + (gid + 8) * PST + c) =
+          attn::Mma<T>::pack(s[n][2], s[n][3]);
+    }
+    sum0 = attn::quad_sum(sum0);
+    sum1 = attn::quad_sum(sum1);
+    if (tig == 0) {
+      rsum[warp * GB + gid] = sum0;
+      rsum[warp * GB + gid + 8] = sum1;
+    }
+    __syncthreads();
+    float t0s = 0.f, t1s = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      t0s += rsum[w * GB + gid];
+      t1s += rsum[w * GB + gid + 8];
+    }
+    l0 = l0 * a0 + t0s;
+    l1 = l1 * a1 + t1s;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      o[dt][0] *= a0;
+      o[dt][1] *= a0;
+      o[dt][2] *= a1;
+      o[dt][3] *= a1;
+    }
+
+    // O[:, this warp's columns] += P V over all the sub-chunk's keys
+#pragma unroll
+    for (int kc = 0; kc < TC / 16; ++kc) {
+      uint32_t pa[4];
+      pa[0] = attn::ld32(Ps + gid * PST + kc * 16 + 2 * tig);
+      pa[1] = attn::ld32(Ps + (gid + 8) * PST + kc * 16 + 2 * tig);
+      pa[2] = attn::ld32(Ps + gid * PST + kc * 16 + 8 + 2 * tig);
+      pa[3] = attn::ld32(Ps + (gid + 8) * PST + kc * 16 + 8 + 2 * tig);
+      const T* vr = vs + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ST
+                    + (lane >> 4) * 8 + warp * DW;
+#pragma unroll
+      for (int dt = 0; dt < DT; dt += 2) {
+        uint32_t vb4[4];
+        attn::ldsm_x4_trans(vb4, vr + dt * 8);
+        attn::Mma<T>::run(o[dt], pa, vb4[0], vb4[1]);
+        attn::Mma<T>::run(o[dt + 1], pa, vb4[2], vb4[3]);
+      }
+    }
+  }
+
+  // each thread holds heads gid and gid + 8, columns warp * DW + dt * 8 + 2 tig (+1)
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int g = gid + 8 * half;
+    if (g >= gb) continue;
+    const float m = half ? m1 : m0;
+    const float l = half ? l1 : l0;
+    const int hq = h * G + g0 + g;
+    if (S == 1) {
+      T* dst = out + (head0 + g) * D + warp * DW + 2 * tig;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt)
+        *reinterpret_cast<uint32_t*>(dst + dt * 8) = attn::Mma<T>::pack(
+            finish(o[dt][2 * half], m, l, sinks, hq), finish(o[dt][2 * half + 1], m, l, sinks, hq));
+    } else {
+      // this split's unnormalized (acc, m, l) for the combine
+      float* dst = part + (((long long)b * S + sp) * Hq + hq) * (D + 2);
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        dst[warp * DW + dt * 8 + 2 * tig] = o[dt][2 * half];
+        dst[warp * DW + dt * 8 + 2 * tig + 1] = o[dt][2 * half + 1];
+      }
+      if (warp == 0 && tig == 0) {
+        dst[D] = m;
+        dst[D + 1] = l;
+      }
+    }
+  }
+}
+
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes, size_t& configured) {
   if (bytes <= configured) return cudaSuccess;
@@ -473,8 +744,31 @@ cudaError_t launch_wide(const void* q, const void* cache, const int* tables,
   return cudaGetLastError();
 }
 
-// the wide kernel serves every D and element type; the narrow one D <= 128 over
-// 2-byte or e4m3 pages
+template <typename T, int D, int TC>
+cudaError_t launch_mma(const void* q, const void* cache, const int* tables,
+                       const int* kv_lens, const float* sinks, void* out, float* part,
+                       int B, int Hq, int Hkv, int NB, int BS, int W, int layer, float scale,
+                       float softcap, int window, int splits, cudaStream_t stream) {
+  constexpr int bytes = mma_smem<D, TC>();
+  static cudaError_t configured = cudaFuncSetAttribute(
+      paged_decode_mma<T, D, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (configured != cudaSuccess) return configured;
+  const int hsplits = (Hq / Hkv + GB - 1) / GB;
+  const int split_pages = (W + splits - 1) / splits;
+  // head blocks fastest: the blocks of one (row, split) read the same pages together
+  paged_decode_mma<T, D, TC><<<dim3(Hkv * hsplits, B, splits), NTM, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(cache), tables, kv_lens, sinks,
+      static_cast<T*>(out), part, Hq, Hkv, NB, BS, W, layer, scale, softcap, window,
+      split_pages);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  attn::decode_split_combine<T><<<dim3(Hq, B), 128, 0, stream>>>(
+      part, sinks, static_cast<T*>(out), Hq, D, splits);
+  return cudaGetLastError();
+}
+
+// 2-byte pages: the narrow kernel up to D = 128, the tensor-core wide one above; e4m3
+// pages: the narrow kernel up to 128, the wide one above; f32 pages: the wide one
 template <typename TQ, typename TK>
 int dispatch(const void* q, const void* cache, const void* tables, const void* kv_lens,
              const void* sinks, void* out, void* part, int B, int Hq, int Hkv, int D,
@@ -504,18 +798,37 @@ int dispatch(const void* q, const void* cache, const void* tables, const void* k
         break;
     }
   }
-  switch (D) {
-    case 64: case 80: case 96: case 128:
-      return (int)launch_wide<TQ, TK, 128>(q, cache, tb, kl, sk, out, pt, B, Hq, Hkv, D, NB,
-                                           BS, W, layer, scale, softcap, window, splits, s);
-    case 192: case 256:
-      return (int)launch_wide<TQ, TK, 64>(q, cache, tb, kl, sk, out, pt, B, Hq, Hkv, D, NB,
-                                          BS, W, layer, scale, softcap, window, splits, s);
-    case 576:
-      return (int)launch_wide<TQ, TK, 32>(q, cache, tb, kl, sk, out, pt, B, Hq, Hkv, D, NB,
-                                          BS, W, layer, scale, softcap, window, splits, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+  if constexpr (sizeof(TK) == 2) {
+    switch (D) {
+#define MMA_CASE(DIM, TC)                                                                 \
+      case DIM:                                                                           \
+        return (int)launch_mma<TK, DIM, TC>(q, cache, tb, kl, sk, out, pt, B, Hq, Hkv, NB, \
+                                            BS, W, layer, scale, softcap, window, splits, \
+                                            s);
+      MMA_CASE(192, 64)
+      MMA_CASE(256, 64)
+      MMA_CASE(576, 32)
+#undef MMA_CASE
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    switch (D) {
+      case 64: case 80: case 96: case 128:
+        return (int)launch_wide<TQ, TK, 128>(q, cache, tb, kl, sk, out, pt, B, Hq, Hkv, D,
+                                             NB, BS, W, layer, scale, softcap, window,
+                                             splits, s);
+      case 192: case 256:
+        return (int)launch_wide<TQ, TK, 64>(q, cache, tb, kl, sk, out, pt, B, Hq, Hkv, D,
+                                            NB, BS, W, layer, scale, softcap, window,
+                                            splits, s);
+      case 576:
+        return (int)launch_wide<TQ, TK, 32>(q, cache, tb, kl, sk, out, pt, B, Hq, Hkv, D,
+                                            NB, BS, W, layer, scale, softcap, window,
+                                            splits, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
 }
 

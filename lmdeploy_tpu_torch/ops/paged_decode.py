@@ -13,7 +13,8 @@ PyTorch.  There is no fallback: a CUDA tensor a kernel does not take raises.
     through ``_decode_kernel`` too) -> ``paged_decode_attention_fp8``, the e4m3
     instantiation of the same kernel.  Window, softcap and sinks as for the model's
     dtype.  P stays f32 for the P.V product: the TPU kernel's rounding of P to the page
-    type (``pr.astype(v.dtype)``, e4m3 there) is not copied;
+    type (``pr.astype(v.dtype)``, e4m3 there) is not copied (the tensor-core path for
+    2-byte pages at D > 128 does round P to the page type, as the TPU kernel does);
   * int8 ``QuantKV`` (``_decode_kernel_quant``) -> ``paged_decode_attention_int8``,
     ``csrc/paged_decode_int8.cu``: ``s = (q*scale)·k_i8 * ksc``, ``acc += (p*vsc) @ v_i8``;
   * int4 ``QuantKV4`` (``_decode_kernel_quant4``) -> ``paged_decode_attention_int4``,
@@ -60,8 +61,11 @@ CP_HEAD_DIMS = tuple(d for d in HEAD_DIMS if d <= 256)
 #                     NB, BS, W, layer, scale, softcap, window, splits, stream)
 _ARGTYPES = [_P] * 7 + [_I] * 9 + [_F, _F, _I, _I, _P]
 # the wide paths (and the context-parallel partial) split each row's pages over
-# blocks of about this many tokens, then combine the splits
+# blocks of about this many tokens, then combine the splits; the tensor-core wide path
+# over 2-byte pages (D > 128, the MLA decode) walks a sub-chunk faster, and its best
+# split on the card is twice as long (chip_smoke.decode_phase sweeps it; PERF.md)
 SPLIT_TOKENS = 512
+SPLIT_TOKENS_MMA = 1024
 # paged_decode_int8(q, data, scale, tables, kv_lens, out, part, dtype, B, Hq, Hkv, D,
 #                   NB, BS, W, layer, scale, softcap, splits, stream)
 _ARGTYPES_INT8 = [_P] * 7 + [_I] * 9 + [_F, _F, _I, _P]
@@ -244,7 +248,9 @@ def _launch_plain_layout(kernel, symbol, q, kv_cache, block_tables, kv_lens, lay
             raise ValueError(f'{kernel}: sinks must be [{Hq}], got {tuple(sinks.shape)}')
         sinks_ptr = sinks.data_ptr()
     out = torch.empty_like(q)
-    splits, part = _split_scratch(D > 128 or kv_cache.element_size() == 4, q, W, BS)
+    mma = D > 128 and kv_cache.element_size() == 2
+    splits, part = _split_scratch(D > 128 or kv_cache.element_size() == 4, q, W, BS,
+                                  SPLIT_TOKENS_MMA if mma else SPLIT_TOKENS)
     fn = cuda_build.entry('paged_decode', symbol, _ARGTYPES)
     rc = fn(q.data_ptr(), kv_cache.data_ptr(), block_tables.data_ptr(),
             kv_lens.data_ptr(), sinks_ptr, out.data_ptr(),
@@ -256,12 +262,15 @@ def _launch_plain_layout(kernel, symbol, q, kv_cache, block_tables, kv_lens, lay
     return out
 
 
-def _split_scratch(wide: bool, q: torch.Tensor, W: int, BS: int):
+def _split_scratch(wide: bool, q: torch.Tensor, W: int, BS: int,
+                   tokens: Optional[int] = None):
     """(splits, part): a wide path's split of each row's W pages of BS slots over
-    blocks of about ``SPLIT_TOKENS`` tokens, and its f32 [B, splits, Hq, D + 2] scratch
-    (None for one split; the narrow path takes no split)."""
+    blocks of about ``tokens`` (default ``SPLIT_TOKENS``) tokens, and its f32
+    [B, splits, Hq, D + 2] scratch (None for one split; the narrow path takes no
+    split)."""
     B, Hq, D = q.shape
-    splits = -(-W // max(1, SPLIT_TOKENS // BS)) if wide else 1
+    tokens = SPLIT_TOKENS if tokens is None else tokens
+    splits = -(-W // max(1, tokens // BS)) if wide else 1
     part = (torch.empty(B * splits * Hq * (D + 2), dtype=torch.float32, device=q.device)
             if splits > 1 else None)
     return splits, part

@@ -6,9 +6,14 @@ The CUDA kernels themselves are held against these plain versions on the card by
 chip_smoke.py.  Tolerance: f32 allclose at 2e-5 (the Pallas kernels use an online
 softmax, the plain versions a one-pass softmax); f16 at 2e-3 (one f16 ulp of outputs
 ~1: the plain versions compute in f32 and round once, the Pallas kernels feed f16
-operands and round P to f16).  Besides the head dims 32 / 64 of the first slices the
-cases cover the kernels' other served dims at one kv head (96, 256, and MLA's latent
-576 with 16 query heads on it).
+operands and round P to f16); bf16 at 1e-2 (the Pallas kernel rounds P to bf16, the
+plain version keeps it f32, as on the card, where flash_prefill is held at the same
+1e-2 + 1e-2).  Besides the head dims 32 / 64 of the first slices the cases cover the
+kernels' other served dims at one kv head (96, 256, and MLA's latent 576 with 16 query
+heads on it), the GQA groups the CUDA kernels tile by (flash: G = 7 and 6, whose 128-row
+blocks are not a whole number of positions; decode at D = 576: G = 32 and 128, more
+heads than one 16-head block, as DeepSeek-V3's 128 over its latent head), and the
+instructions the CUDA sources are built on.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +28,8 @@ from lmdeploy_tpu_torch.ops.paged_decode import (paged_decode_attention,
 from lmdeploy_tpu_torch.weight_convert import cache_from_reference
 
 TOL = dict(rtol=2e-5, atol=2e-5)
-TOLS = {'float32': TOL, 'float16': dict(rtol=2e-3, atol=2e-3)}
+TOLS = {'float32': TOL, 'float16': dict(rtol=2e-3, atol=2e-3),
+        'bfloat16': dict(rtol=1e-2, atol=1e-2)}
 
 
 @pytest.fixture(autouse=True)
@@ -40,16 +46,21 @@ def interpret_mode():
     pytest.param(1, 64, 4, 1, 256, 'float32', id='1-64-4-1-256'),
     pytest.param(1, 64, 16, 1, 576, 'float32', id='1-64-16-1-576'),
     pytest.param(2, 64, 4, 1, 96, 'float16', id='2-64-4-1-96-f16'),
-    pytest.param(1, 64, 16, 1, 576, 'float16', id='1-64-16-1-576-f16')])
+    pytest.param(1, 64, 16, 1, 576, 'float16', id='1-64-16-1-576-f16'),
+    pytest.param(1, 128, 7, 1, 64, 'float32', id='1-128-7-1-64-g7'),
+    pytest.param(2, 128, 12, 2, 128, 'float32', id='2-128-12-2-128-g6'),
+    pytest.param(2, 128, 8, 2, 64, 'bfloat16', id='2-128-8-2-64-bf16')])
 def test_flash_prefill_plain_matches_pallas(B, T, Hq, Hkv, D, dtype):
     from lmdeploy_tpu.ops.pallas.flash_prefill import flash_prefill_attention as jflash
     rng = np.random.RandomState(0)
-    q = rng.randn(B, T, Hq, D).astype(dtype)
-    k = rng.randn(B, T, Hkv, D).astype(dtype)
-    v = rng.randn(B, T, Hkv, D).astype(dtype)
-    ref = np.asarray(jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), D ** -0.5,
+    # numpy has no bf16: both sides round the same f32 draws
+    npdt = np.float32 if dtype == 'bfloat16' else dtype
+    q = rng.randn(B, T, Hq, D).astype(npdt)
+    k = rng.randn(B, T, Hkv, D).astype(npdt)
+    v = rng.randn(B, T, Hkv, D).astype(npdt)
+    ref = np.asarray(jflash(*(jnp.asarray(x).astype(dtype) for x in (q, k, v)), D ** -0.5,
                             tile_q=64, tile_k=64)).astype(np.float32)
-    args = (torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), D ** -0.5)
+    args = (*(torch.from_numpy(x).to(getattr(torch, dtype)) for x in (q, k, v)), D ** -0.5)
     out = flash_prefill_attention_plain(*args)
     assert out.dtype == getattr(torch, dtype)
     np.testing.assert_allclose(out.float().numpy(), ref, **TOLS[dtype])
@@ -73,6 +84,8 @@ def test_flash_prefill_plain_matches_pallas(B, T, Hq, Hkv, D, dtype):
     pytest.param({'sinks': True}, 1, 4, 576, 'float32', id='d576-g4-sinks'),
     pytest.param({}, 2, 4, 96, 'float16', id='d96-g4-f16'),
     pytest.param({}, 1, 16, 576, 'float16', id='d576-g16-f16'),
+    pytest.param({}, 1, 32, 576, 'float32', id='d576-g32'),
+    pytest.param({'lens': [1, 32, 0, 17, 30]}, 1, 128, 576, 'float32', id='d576-g128-2pages'),
 ])
 def test_paged_decode_plain_matches_pallas(opts, Hkv, G, D, dtype):
     from lmdeploy_tpu.ops.pallas.paged_decode import paged_decode_attention as jdecode
@@ -83,7 +96,7 @@ def test_paged_decode_plain_matches_pallas(opts, Hkv, G, D, dtype):
     cache = rng.randn(L, NB, 2, BS, hdp).astype(dtype)
     cache[..., Hkv * D:] = 0
     tables = rng.permutation(np.arange(1, NB))[:B * W].reshape(B, W).astype(np.int32)
-    kv_lens = np.array([1, 37, 0, 96, 64], np.int32)     # row 2 is inactive
+    kv_lens = np.array(opts.get('lens', [1, 37, 0, 96, 64]), np.int32)   # row 2 inactive
     q = rng.randn(B, Hkv * G, D).astype(dtype)
     scale = D ** -0.5
     jopts, topts = {}, {}
@@ -150,3 +163,34 @@ def test_kernel_head_dims_match_sources():
     assert pd.QUANT_HEAD_DIMS == HEAD_DIMS
     assert dims('paged_decode_turbo') == pd.TURBO_HEAD_DIMS == (64, 128, 256)
     assert dims('paged_decode_cp') == pd.CP_HEAD_DIMS == (64, 80, 96, 128, 192, 256)
+
+
+@pytest.mark.parametrize('source,kernel,uses', [
+    pytest.param('flash_prefill', 'flash_wgmma_kernel',
+                 (('wgmma.mma_async', 'issue_s<'), ('wgmma.mma_async', 'issue_pv<'),
+                  ('cp.async.bulk.tensor', 'tma_load('), ('mbarrier.try_wait', 'mbar_wait('),
+                  ('setmaxnreg', 'setmaxnreg')),
+                 id='flash-wgmma-tma'),
+    pytest.param('paged_decode', 'paged_decode_mma',
+                 (('mma.sync.aligned.m16n8k16', 'Mma<T>::run('),
+                  ('cp.async.cg.shared.global', 'load('),
+                  ('cp.async.wait_group', 'cp.async.wait_group')),
+                 id='decode-mma-cp-async')])
+def test_kernel_sources_use_hopper_paths(source, kernel, uses):
+    """The bf16 / f16 flash kernel at D 64 / 128 runs both products on wgmma with its
+    K / V tiles streamed by TMA into an mbarrier ring (a producer warpgroup that gives
+    up registers); the paged decode's wide path over 2-byte pages runs both products on
+    mma.sync with a cp.async page pipeline.  Each instruction is in the source or its
+    shared header, and the kernel's body reaches it; the dispatch launches the kernel."""
+    import os
+    import re
+
+    from lmdeploy_tpu_torch.ops import cuda_build
+    src = open(os.path.join(cuda_build.CSRC_DIR, source + '.cu')).read()
+    text = src + ''.join(open(os.path.join(cuda_build.CSRC_DIR, h)).read()
+                         for h in re.findall(r'#include "(\w+\.cuh)"', src))
+    # the kernel's body: from its signature to the first brace that closes at column 0
+    body = re.search(r'\n' + kernel + r'\(.*?\n}\n', src, re.S).group(0)
+    for instruction, call in uses:
+        assert instruction in text and call in body, (instruction, call)
+    assert re.search(kernel + r'<[^>]*>\s*<<<', src), f'{kernel} is never launched'
