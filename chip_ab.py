@@ -1,15 +1,21 @@
-"""Compare two trees of this repository end to end on one card, in turns.
+"""Compare two trees of this repository end to end, or kernel by kernel, on one card, in
+turns.
 
-    python3 chip_ab.py PARENT_DIR [--cells deepseek tinyllama] [--pairs 2]
+    python3 chip_ab.py PARENT_DIR [--cells deepseek w4a16_kv8 tinyllama] [--pairs 2]
+    python3 chip_ab.py PARENT_DIR --kernels [--pairs 1]
 
 PARENT_DIR is an unpacked copy of another commit (for example `git archive <commit> |
 tar -x -C work_dir/parent`, under a directory .gitignore lists).  Each pair runs the
 parent, then this tree, then this tree, then the parent (one process each, so each
 builds and loads its own kernels) and prints one JSON line per run with each cell's
 decode tok/s, TTFT and device busy share, then the card's name and power limit.  The
-cells are `chip_smoke.py`'s e2e phases: 'deepseek' (e2e_deepseek_v2_lite_fp8) and
-'tinyllama' (e2e).  Needs a CUDA card; host-side numbers of one cell spread between
-calls, so compare only runs of one call.
+cells are `chip_smoke.py`'s e2e phases: 'deepseek' (e2e_deepseek_v2_lite_fp8),
+'w4a16_kv8' (e2e_w4a16_kv8: llama2-7b W4A16 gd with the int8 KV cache) and 'tinyllama'
+(e2e).  With --kernels each run instead times its tree's w4a16_gemm (gd) and fp8_bmm
+wrappers at every row shape of this tree's `chip_smoke.py` (W4_SHAPES, FP8_SHAPES) on
+the same seeded data, and the last JSON line holds each side's mean per row.  Needs a
+CUDA card; host-side numbers of one cell spread between calls, so compare only runs of
+one call.
 """
 from __future__ import annotations
 
@@ -22,6 +28,9 @@ import sys
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CELLS = {
     'deepseek': 'c.deepseek_e2e_phase(card)',
+    'w4a16_kv8': ("c.e2e_phase('e2e_w4a16_kv8', c.llama7b_w4_config(), 128, 4, 64, "
+                  "{'flash_prefill': (32, 0), 'paged_decode_int8': (0, 32), "
+                  "'w4a16_gemm': (0, 128)}, card)"),
     'tinyllama': ("c.e2e_phase('e2e', c.tinyllama_config(), 64, 0, 8, {'flash_prefill': "
                   "(22, 0), 'paged_decode': (0, 22)}, card)"),
 }
@@ -36,10 +45,36 @@ for name, call in %r.items():
     out[name] = {k: row[k] for k in ('decode_tok_s', 'ttft_ms', 'wall_s')}
 print('AB ' + json.dumps(out), flush=True)
 '''
+KERNEL_RUN = '''
+import json, torch, chip_smoke as c
+from lmdeploy_tpu_torch.models.deepseek import init_fp8_leaf
+from lmdeploy_tpu_torch.ops import quant_bmm as qb, quant_matmul as qm
+gen = torch.Generator(device='cuda').manual_seed(c.SEED)
+out = {'w4a16_gemm': {}, 'fp8_bmm': {}}
+for label, M, K, N in %r:
+    w = (torch.randn(K, N, device='cuda', generator=gen) * 0.02).bfloat16()
+    packed, scales, zeros = qm.quantize_w4(w, 128)
+    sb, corr = qm.prep_w4(scales, zeros, mode='gd')
+    x = torch.randn(M, K, device='cuda', generator=gen).bfloat16()
+    out['w4a16_gemm'][label] = c.time_ms(lambda: qm.w4a16_matmul_gd(x, packed, sb, corr, 128))
+stacks = {}
+for label, (E, H, Ie), kind, M in %r:
+    K, N = (H, Ie) if kind == 'gate' else (Ie, H)
+    if (E, K, N) not in stacks:
+        stacks.clear()
+        torch.cuda.empty_cache()
+        stacks[(E, K, N)] = (init_fp8_leaf('w8', (E, K, N), gen, 'cuda'),
+                             init_fp8_leaf('gscale', (E, K // 128, N), gen, 'cuda'))
+    w8, gs = stacks[(E, K, N)]
+    x = torch.randn((M, K) if kind == 'gate' else (E, M, K), device='cuda',
+                    generator=gen).bfloat16()
+    out['fp8_bmm'][label] = c.time_ms(lambda: qb.fp8_bmm(x, w8, gs))
+print('AB ' + json.dumps(out), flush=True)
+'''
 
 
-def run(tree: str, cells: dict) -> dict:
-    proc = subprocess.run([sys.executable, '-c', RUN % cells], cwd=tree,
+def run(tree: str, code: str) -> dict:
+    proc = subprocess.run([sys.executable, '-c', code], cwd=tree,
                           capture_output=True, text=True)
     busy = [json.loads(ln)['device_busy_share'] for ln in proc.stdout.splitlines()
             if ln.startswith('{') and '"device_busy_share"' in ln]
@@ -57,13 +92,26 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('parent')
     ap.add_argument('--cells', nargs='+', default=list(CELLS), choices=list(CELLS))
+    ap.add_argument('--kernels', action='store_true')
     ap.add_argument('--pairs', type=int, default=1)
     args = ap.parse_args()
-    cells = {name: CELLS[name] for name in args.cells}
+    if args.kernels:
+        import chip_smoke
+        code = KERNEL_RUN % (chip_smoke.W4_SHAPES, chip_smoke.FP8_SHAPES)
+    else:
+        code = RUN % {name: CELLS[name] for name in args.cells}
+    runs = []
     for pair in range(args.pairs):
         for side, tree in (('parent', args.parent), ('change', ROOT), ('change', ROOT),
                            ('parent', args.parent)):
-            print(json.dumps({'pair': pair, 'side': side, **run(tree, cells)}), flush=True)
+            runs.append({'pair': pair, 'side': side, **run(tree, code)})
+            print(json.dumps(runs[-1]), flush=True)
+    if args.kernels:
+        mean = {side: {k: {label: sum(r[k][label] for r in runs if r['side'] == side)
+                           / sum(r['side'] == side for r in runs) for label in rows}
+                       for k, rows in runs[0].items() if k not in ('pair', 'side')}
+                for side in ('parent', 'change')}
+        print(json.dumps({'mean_ms': mean}), flush=True)
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)

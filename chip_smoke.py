@@ -4,15 +4,19 @@
 
 Phases, each printing one JSON line; any failure exits non-zero:
   1. device   -- card name, power limit and count;
-  2. build    -- nvcc builds every kernel of the port from csrc/ (one process per source);
+  2. build    -- nvcc builds every kernel of the port from csrc/ (one process per source),
+                 with each kernel's registers and spills, and for the wgmma kernels the
+                 HGMMAs that wait for the one before (from the SASS);
   3. kernels  -- each kernel against its plain PyTorch version on the card, at the
                  main paths' shapes, with its time, the plain version's time, the
                  card's bound for the same work and, where one PyTorch call computes
                  the same function, that call's time: flash_prefill, paged_decode
                  (also at gpt-oss-20b heads with sinks, window 128 and none),
                  paged_decode_int8 (cache filled by the port's fill_kv_cache) and
-                 w4a16_gemm (llama2-7b projections, TF32 off, every K split at the
-                 layer's shapes; the check must catch each planted numerical trap) and
+                 w4a16_gemm (llama2-7b projections at M 1 / 8 / 64 / 65 / 128 / 256
+                 and Mixtral-8x7B's fused wqkv at 64, TF32 off, every K split at the
+                 64- and 128-row shapes, each row's token tile and split; the check
+                 must catch each planted numerical trap) and
                  mxfp4_bmm (gpt-oss-20b gate and down products at M 8 / 37 / 64 / 128;
                  the check must catch each planted trap) and the KV policies' decodes
                  paged_decode_int4, paged_decode_turbo and paged_decode_fp8 (caches
@@ -21,8 +25,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  w4a16_szc (fast / precise) and w4a16_unprepared (raw scales and zeros)
                  at Mixtral-8x7B's and llama2-7b's projections, M 1 to 256, each with
                  its planted traps; fp8_bmm (DeepSeek-V2-Lite's gate and down products at
-                 M 8 / 37 / 64 / 128 and V3's at 64; the check must catch each planted
-                 trap); flash_prefill and paged_decode also at MLA's latent head (one kv
+                 M 8 / 37 / 64 / 128 / 767 and V3's at 64, each row's token tile and
+                 work items; the check must catch each planted trap; also at scale
+                 groups 16-256, those that straddle its 128-row K stages included, and
+                 every e4m3 code times edge scales, exactly); flash_prefill and
+                 paged_decode also at MLA's latent head (one kv
                  head of 576 under 16 and 128 query heads) and at D 80 / 96 / 192 / 256,
                  in f16 and f32; paged_decode_cp (the context-parallel partials of each
                  rank, the ranks on the one card, and their combine) at the
@@ -93,6 +100,8 @@ import dataclasses
 import gc
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -424,6 +433,26 @@ def device_phase():
     return info
 
 
+# the sources whose kernels issue wgmma, whose SASS the build phase reads
+WGMMA_SOURCES = ('flash_prefill', 'w4a16_gemm', 'fp8_bmm')
+
+
+def wgmma_waits(lib: str) -> dict:
+    """{kernel: [HGMMA count, full waits (WARPGROUP.DEPBAR.LE gsb0, 0x0)]} from the
+    library's SASS: as many full waits as HGMMAs means ptxas serialised every wgmma
+    (it does so without a warning when it cannot keep their register operands apart)."""
+    cuobjdump = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    sass = subprocess.run([cuobjdump, '-sass', lib], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for fn in sass.split('Function : ')[1:]:
+        name = fn.split('\n', 1)[0].strip()
+        short = re.search(r'(\w+_kernel)I(.*?)EEv', name)
+        key = f'{short.group(1)}<{short.group(2)}>' if short else name[-60:]
+        out[key] = [fn.count('HGMMA.'), fn.count('WARPGROUP.DEPBAR.LE gsb0, 0x0')]
+    return {k: v for k, v in out.items() if v[0]}
+
+
 def build_phase():
     from lmdeploy_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
@@ -433,7 +462,8 @@ def build_phase():
         with open(cuda_build.log_path(name)) as f:
             regs[name] = [ln.strip() for ln in f if 'registers' in ln or 'spill' in ln]
     emit({'phase': 'build', 'wall_s': time.perf_counter() - t0, 'per_source_s': seconds,
-          'ptxas': regs})
+          'ptxas': regs,
+          'wgmma_waits': {n: wgmma_waits(cuda_build.lib_path(n)) for n in WGMMA_SOURCES}})
 
 
 # -- phase 3 -------------------------------------------------------------------------
@@ -631,11 +661,14 @@ W4_LAYER = (('wqkv', 4096, 12288), ('wo', 4096, 4096), ('w_gateup', 4096, 22016)
 # the e2e phase decodes 65 rows, padded to the 128-row batch bucket: its every
 # w4a16_gemm launch runs at M = 128 (the e2e row's ``w4a16_rows`` shows it)
 W4_MAIN_M = 128
-# the layer at M = 128 and 64, the fused wqkv at M = 8 and the fused gate/up at
-# M = 256 (the kernel's largest M); the layer's shapes also run every K split in
-# W4_SPLITS, each held against the plain version
+# the layer at M = 128 and 64, the fused wqkv at M = 1, 8 and 65 (the e2e phase's row
+# count before its 128-row bucket), the fused gate/up at M = 256 (the kernel's largest
+# M) and Mixtral-8x7B's fused wqkv at its decode bucket; the shapes at M = 64 and 128
+# also run every K split in W4_SPLITS, each held against the plain version
 W4_SHAPES = tuple((f'{n}_m{M}', M, K, N) for M in (W4_MAIN_M, 64) for n, K, N in W4_LAYER) \
-    + (('wqkv_m8', 8, 4096, 12288), ('w_gateup_m256', 256, 4096, 22016))
+    + (('wqkv_m8', 8, 4096, 12288), ('w_gateup_m256', 256, 4096, 22016),
+       ('wqkv_m1', 1, 4096, 12288), ('wqkv_m65', 65, 4096, 12288),
+       ('mixtral_wqkv_m64', 64, 4096, 6144))
 W4_SPLITS = (1, 2, 4, 8)
 # the W4A16 numerical traps (ROADMAP section 3, traps 1 and 3, and the output kept
 # f32 until corr is subtracted), planted in the plain group-dot (_gd_trapped): the
@@ -697,8 +730,8 @@ def _int4pack_library(x, packed, scales, zeros, gs):
 
 def w4a16_phase():
     from lmdeploy_tpu_torch.ops.quant_matmul import (dequant_w4, prep_w4, quantize_w4,
-                                                     w4a16_matmul_gd,
-                                                     w4a16_matmul_gd_plain, w4a16_splits)
+                                                     token_tile, w4a16_gd_splits,
+                                                     w4a16_matmul_gd, w4a16_matmul_gd_plain)
     torch.backends.cuda.matmul.allow_tf32 = False     # the correction must stay f32
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device='cuda').manual_seed(SEED)
@@ -739,7 +772,9 @@ def w4a16_phase():
         row = {'phase': 'kernel', 'kernel': 'w4a16_gemm', 'case': label,
                'shape': [M, K, N, gs], 'max_abs_err': err, 'max_rel_err': rel,
                'err_over_tol': frac, 'tol': tol, 'ok': ok, 'tf32': False,
-               'trap_err_over_tol': traps, 'splits': w4a16_splits(M, N, G, sms),
+               'trap_err_over_tol': traps, 'splits': w4a16_gd_splits(M, N, G, sms),
+               'tile': {'tokens': token_tile(M), 'columns': 128,
+                        'token_tiles': -(-M // token_tile(M)), 'column_tiles': -(-N // 128)},
                'split_sweep': sweep,
                'kernel_ms': time_ms(lambda: w4a16_matmul_gd(x, packed, sb, corr, gs)),
                'plain_ms': time_ms(lambda: w4a16_matmul_gd_plain(x, packed, sb, corr, gs),
@@ -1082,13 +1117,15 @@ def mxfp4_phase():
 
 
 # fp8_bmm's shapes: DeepSeek-V2-Lite's experts (E 64, H 2048, Ie 1408) at the e2e decode
-# bucket M = 64 and at 8, 37 and 128, gate (x shared) and down (x per expert); and
+# bucket M = 64 and at 8, 37, 128 and 767, gate (x shared) and down (x per expert); and
 # DeepSeek-V3's (E 256, H 7168, Ie 2048) at M = 64
 FP8_MAIN_M = 64
 FP8_V2L = (64, 2048, 1408)
 FP8_V3 = (256, 7168, 2048)
+FP8_DENSE_MAX_M = 767          # the dense combine's largest M (ops/moe.py)
 FP8_SHAPES = tuple((f'v2_lite_{kind}_m{M}', FP8_V2L, kind, M)
-                   for M in (FP8_MAIN_M, 8, 37, 128) for kind in ('gate', 'down')) \
+                   for M in (FP8_MAIN_M, 8, 37, 128, FP8_DENSE_MAX_M)
+                   for kind in ('gate', 'down')) \
     + tuple((f'v3_{kind}_m{FP8_MAIN_M}', FP8_V3, kind, FP8_MAIN_M) for kind in ('gate', 'down'))
 # numerical traps the check must catch, each planted in the plain version: x left
 # unrounded (the rows check with an f32 x, which the kernel rounds to bf16); each group
@@ -1149,7 +1186,9 @@ def fp8_phase():
     """fp8_bmm against its plain version at DeepSeek-V2-Lite's and V3's expert
     products, with the traps of FP8_TRAPS at V2-Lite's; kernel times with the bf16 x of
     the model's path."""
-    from lmdeploy_tpu_torch.ops.quant_bmm import fp8_bmm, fp8_bmm_plain, widen_fp8
+    from lmdeploy_tpu_torch.ops.quant_bmm import (FP8_ITEM_COLUMNS, fp8_bmm, fp8_bmm_plain,
+                                                  widen_fp8)
+    from lmdeploy_tpu_torch.ops.quant_matmul import token_tile
     torch.backends.cuda.matmul.allow_tf32 = False     # the plain version's sums are f32
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device='cuda').manual_seed(SEED)
@@ -1195,6 +1234,8 @@ def fp8_phase():
         row = {'phase': 'kernel', 'kernel': 'fp8_bmm', 'case': label,
                'shape': [E, M, K, N], 'group': K // gs.shape[1],
                'x': 'shared' if kind == 'gate' else 'per expert',
+               'tile': {'tokens': token_tile(M), 'columns': FP8_ITEM_COLUMNS,
+                        'items': E * -(-N // FP8_ITEM_COLUMNS) * -(-M // token_tile(M))},
                'max_abs_err': err, 'max_rel_err': rel, 'err_over_tol': frac, 'tol': tol,
                'nan_code_err_over_tol': nan_frac, 'ok': ok, 'tf32': False,
                'trap_err_over_tol': traps,
@@ -1213,6 +1254,72 @@ def fp8_phase():
                              f'misses a trap: {row}')
     stacks.clear()
     torch.cuda.empty_cache()
+    return results
+
+
+# fp8_bmm at every kind of scale group the wrapper takes (group % 16 == 0 dividing K):
+# groups that divide 128, that are multiples of it, and that are neither (48, 96, 192:
+# their groups straddle the kernel's 128-row K stages), on 8 experts at K 1536, N 1024,
+# gate and down, each held against the plain version with the next-group-scale trap
+FP8_GROUPS = (16, 48, 64, 96, 192, 256)
+FP8_GROUP_SHAPE = (8, 1536, 1024, 64)          # E, K, N, M
+# the scales of the kernel's decode check: the smallest subnormal and below f32's
+# normals, a checkpoint-like one, either side of 256, large, f32's largest (products
+# overflow to inf) and a negative one
+FP8_EDGE_SCALES = (2.0 ** -149, 1e-38, 1.5e-5, 255.99, 256.0, 1e4, 3e38, -1.5)
+
+
+def fp8_groups_phase():
+    """fp8_bmm at the scale groups of FP8_GROUPS, and its decode of every e4m3 code in
+    every byte position of a word times each of FP8_EDGE_SCALES: x is a row of ones and
+    each weight column holds one code at one K row (zeros elsewhere), so the output is
+    the kernel's bf16 weight itself and must equal the plain version's exactly."""
+    from lmdeploy_tpu_torch.ops.quant_bmm import fp8_bmm, fp8_bmm_plain
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 9)
+    tol = KERNEL_TOL['fp8_bmm']
+    results = []
+    E, K, N, M = FP8_GROUP_SHAPE
+    for group in FP8_GROUPS:
+        w8, gs = _fp8_seeded(gen, E, K, N, group)
+        for kind in ('gate', 'down'):
+            x = torch.randn((M, K) if kind == 'gate' else (E, M, K), device='cuda',
+                            generator=gen).bfloat16()
+            out = fp8_bmm(x, w8, gs)
+            ref = fp8_bmm_plain(x, w8, gs)
+            err, rel, frac = compare(out, ref, tol)
+            trap = compare(_fp8_trapped('next_group_scale')(x, w8, gs), ref, tol)[2]
+            ok = bool(torch.isfinite(out).all()) and frac <= 1.0 and trap > 1.0
+            row = {'phase': 'kernel', 'kernel': 'fp8_bmm', 'case': f'group{group}_{kind}',
+                   'shape': [E, M, K, N], 'group': group, 'max_abs_err': err,
+                   'max_rel_err': rel, 'err_over_tol': frac, 'tol': tol,
+                   'trap_err_over_tol': {'next_group_scale': trap}, 'ok': ok}
+            emit(row)
+            results.append(row)
+            if not ok:
+                raise SystemExit(f'fp8_bmm disagrees with its plain version at group '
+                                 f'{group}, or its check misses the trap: {row}')
+        del w8, gs
+    n = torch.arange(4 * 256 * len(FP8_EDGE_SCALES), device='cuda')
+    # column n: code (n // 4) % 256 (so byte n % 4 of its word), at K row (n // 3) % 32,
+    # scale FP8_EDGE_SCALES[n // 1024]
+    code, k = (n // 4) % 256, (n // 3) % 32
+    w8 = torch.zeros((1, 32, n.numel()), dtype=torch.uint8, device='cuda')
+    w8[0, k, n] = code.to(torch.uint8)
+    w8 = w8.view(torch.float8_e4m3fn)
+    scale = torch.tensor(FP8_EDGE_SCALES, dtype=torch.float32, device='cuda')[n // 1024]
+    gs = scale.expand(1, 2, -1).contiguous()                   # group 16
+    x = torch.ones((1, 32), dtype=torch.bfloat16, device='cuda')
+    out, ref = fp8_bmm(x, w8, gs), fp8_bmm_plain(x, w8, gs)
+    differ = int((out != ref).sum().item())
+    row = {'phase': 'kernel', 'kernel': 'fp8_bmm', 'case': 'decode_all_codes_edge_scales',
+           'shape': [1, 1, 32, n.numel()], 'group': 16, 'scales': FP8_EDGE_SCALES,
+           'outputs_differing': differ, 'infinite_outputs': int(torch.isinf(ref).sum().item()),
+           'ok': differ == 0}
+    emit(row)
+    results.append(row)
+    if differ:
+        raise SystemExit(f'fp8_bmm\'s decode differs from the plain version\'s: {row}')
     return results
 
 
@@ -2441,6 +2548,7 @@ def main():
                           *timed('w4a16_szc_unprepared', w4a16_modes_phase),
                           timed('fp8_bmm', fp8_phase), timed('paged_decode_cp', decode_cp_phase),
                           timed('paged_decode_mla_quant', decode_mla_quant_phase))
+    timed('fp8_bmm_groups', fp8_groups_phase)
     timed('parity', parity_phase, 'parity', tinyllama_config(num_layers=2), LOGIT_TOL)
     timed('parity_w4a16_kv8', parity_phase, 'parity_w4a16_kv8',
           llama7b_w4_config(num_layers=2), LOGIT_TOL_W4, policy=4)

@@ -70,7 +70,6 @@
 //   * f32: plain f32 FMA (no TF32: the Pallas kernel's f32 dots are full f32), one warp
 //     per query row with an online softmax over one key at a time.  It serves f32
 //     checkpoints, which are a correctness configuration, not a fast one.
-#include <cuda.h>           // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -80,6 +79,7 @@
 #include <type_traits>
 
 #include "attn_mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -88,6 +88,7 @@ using attn::ldsm_x4_trans;
 using attn::Mma;
 using attn::quad_max;
 using attn::quad_sum;
+using namespace hopper;
 
 constexpr int NTHREADS = 128;                 // 4 warps
 constexpr float MASK_VALUE = -0.7f * 3.402823466e38f;
@@ -114,184 +115,16 @@ __host__ __device__ constexpr int wg_smem() {
   return WG_STAGES * 2 * wg_tile_bytes<D>() + 2 * 64 * D * 2 + 1024;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// waits for the phase of the given parity to complete; a wait of more than 10 s can
-// only be a lost arrival, and traps (a launch error) rather than hanging the stream
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const uint64_t t0 = global_ns();
-  while (!mbar_try_wait(bar, parity))
-    if (global_ns() - t0 > 10000000000ull) __trap();
-}
-
-// one [keys][64 columns] box of a [tokens, Hkv, D] tensor map into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int col,
-                                         int head, int row, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(head), "r"(row),
-         "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: rows of 128 bytes (64
-// 16-bit elements, one swizzle atom wide), 8-row groups `sbo` bytes apart along the
-// rows; `lbo` steps from one 64-element atom to the next across the rows' width, which
-// only a transposed (MN-major) B wider than 64 crosses (a K-major operand ignores it)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo = 1024,
-                                              uint32_t sbo = 1024) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16)
-         | ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
 
-// keeps the compiler from moving accesses of wgmma accumulators across the
-// asynchronous issue / wait points
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&r)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-// D[64 x N] = A[64 x 16] x B[16 x N] + (acc ? D : 0); D as N / 2 f32 a thread (n8 tile
-// j: d[4j], d[4j + 1] in row warp * 16 + lane / 4, d[4j + 2], d[4j + 3] eight rows
-// below, columns 8j + 2 (lane % 4) + 0 / 1).  rs (N = 64, 128): A in registers (the
-// mma.m16n8k16 A layout per warp), B in shared memory, TRANS_B = 0 for B stored [n][k]
-// (K-major), 1 for [k][n]; ss (N = 128): both in shared memory, K-major.
-#define FLASH_WGMMA_RS64(NAME, TY)  \
-  template <int TRANS_B>  \
-  __device__ __forceinline__ void NAME(float (&d)[32], const uint32_t (&a)[4], uint64_t desc, int acc) {  \
-    asm volatile(  \
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"  \
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"  \
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"  \
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"  \
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),  \
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),  \
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
-          "+f"(d[30]), "+f"(d[31])  \
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc), "n"(TRANS_B));  \
-  }
-FLASH_WGMMA_RS64(wgmma_rs64_bf16, "bf16")
-FLASH_WGMMA_RS64(wgmma_rs64_f16, "f16")
-#undef FLASH_WGMMA_RS64
-#define FLASH_WGMMA_RS128(NAME, TY)  \
-  template <int TRANS_B>  \
-  __device__ __forceinline__ void NAME(float (&d)[64], const uint32_t (&a)[4], uint64_t desc, int acc) {  \
-    asm volatile(  \
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"  \
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"  \
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"  \
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"  \
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),  \
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),  \
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),  \
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),  \
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),  \
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),  \
-          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),  \
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])  \
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc), "n"(TRANS_B));  \
-  }
-FLASH_WGMMA_RS128(wgmma_rs128_bf16, "bf16")
-FLASH_WGMMA_RS128(wgmma_rs128_f16, "f16")
-#undef FLASH_WGMMA_RS128
-#define FLASH_WGMMA_SS128(NAME, TY)  \
-  __device__ __forceinline__ void NAME(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int acc) {  \
-    asm volatile(  \
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"  \
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"  \
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"  \
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"  \
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),  \
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),  \
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),  \
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),  \
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),  \
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),  \
-          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),  \
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])  \
-        : "l"(desc_a), "l"(desc_b), "r"(acc));  \
-  }
-FLASH_WGMMA_SS128(wgmma_ss128_bf16, "bf16")
-FLASH_WGMMA_SS128(wgmma_ss128_f16, "f16")
-#undef FLASH_WGMMA_SS128
-
 template <typename T, int TRANS_B, int R>
 __device__ __forceinline__ void wgmma(float (&d)[R], const uint32_t (&a)[4], uint64_t desc,
                                       int acc) {
-  constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
-  if constexpr (R == 32) {
-    if constexpr (BF) wgmma_rs64_bf16<TRANS_B>(d, a, desc, acc);
-    else wgmma_rs64_f16<TRANS_B>(d, a, desc, acc);
-  } else {
-    if constexpr (BF) wgmma_rs128_bf16<TRANS_B>(d, a, desc, acc);
-    else wgmma_rs128_f16<TRANS_B>(d, a, desc, acc);
-  }
+  hopper::wgmma_rs<std::is_same<T, __nv_bfloat16>::value, TRANS_B>(d, a, desc, acc);
 }
 
 template <typename T>
@@ -425,7 +258,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
       mbar_init(smem_u32(&full[s]), 1);
       mbar_init(smem_u32(&empty[s]), 256);     // every consumer thread releases
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -1038,54 +871,18 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <typename K>
-cudaError_t set_smem(K kernel, int bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-// cuTensorMapEncodeTiled, from the driver the runtime has loaded (no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                            &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
 // k or v [B*T tokens, Hkv, D] with a token stride of `stride` elements, as boxes of
 // [WG_TK tokens][1 head][64 columns] with the 128-byte swizzle the wgmma descriptors
 // read; tokens past B*T read as zeros
 template <typename T, int D>
 bool kv_map(CUtensorMap* map, const void* ptr, int Hkv, long long tokens, long long stride) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)tokens};
   const cuuint64_t strides[2] = {(cuuint64_t)D * sizeof(T), (cuuint64_t)stride * sizeof(T)};
   const cuuint32_t box[3] = {64, 1, WG_TK};
-  const cuuint32_t elem[3] = {1, 1, 1};
   const CUtensorMapDataType dt = std::is_same<T, __nv_bfloat16>::value
                                      ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
-  return encode(map, dt, 3, const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tile_map(map, dt, 3, ptr, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <typename T, int D>
@@ -1102,12 +899,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     constexpr int bytes = wg_smem<D>();
     static cudaError_t configured = set_smem(flash_wgmma_kernel<T, D>, bytes);
     if (configured != cudaSuccess) return configured;
-    static const int sms = [] {
-      int dev = 0, n = 0;
-      cudaGetDevice(&dev);
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-      return n > 0 ? n : 1;
-    }();
+    const int sms = sm_count();
     // one persistent block an SM (each holds one), walking the items in turn
     const long long items = (long long)Hkv * B * ((rows + WG_ROWS - 1) / WG_ROWS);
     flash_wgmma_kernel<T, D><<<(int)(items < sms ? items : sms), WG_THREADS, bytes, stream>>>(

@@ -35,6 +35,9 @@ import torch
 from . import cuda_build
 
 MXFP4_GROUP = 32     # e2m1 values per ue8m0 scale
+# the output columns of one work item of the fp8 kernel (its token tile is
+# ``quant_matmul.token_tile``)
+FP8_ITEM_COLUMNS = 256
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # mxfp4_bmm(x, nib, scale, out, E, M, N, K, x_per_expert, stream)
 _ARGTYPES = [_P] * 4 + [_I] * 5 + [_P]

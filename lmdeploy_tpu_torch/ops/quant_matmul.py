@@ -7,7 +7,9 @@ fallback: a CUDA tensor a kernel does not take raises.
 
   * ``w4a16_matmul_gd`` (``csrc/w4a16_gemm.cu``): the group-dot ("gd") body of
     ``w4a16_matmul_stacked`` (``_w4a16_kernel_stacked_gd``), the default schedule, over
-    prepared leaves with f32 ``sb`` / ``corr``;
+    prepared leaves with f32 ``sb`` / ``corr``: a warp-specialised wgmma kernel with
+    the decoded weights as its register operand and x brought by TMA, one token tile
+    of ``token_tile(M)`` rows, K split ``w4a16_gd_splits`` ways;
   * ``w4a16_matmul_szc`` (``csrc/w4a16_gemm_szc.cu``): the fast / precise body of the
     same wrapper (``_w4a16_kernel_stacked``) over prepared leaves with bf16 ``sb``:
     fast with an f32 ``corr``, precise with a bf16 one;
@@ -50,8 +52,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # w4a16_gemm_<kind>(x, packed, scale_table, corr_table, xg, out, ws, counters, M, N, K,
 #                   group_size, splits, stream)
 _ARGTYPES = [_P] * 8 + [_I] * 5 + [_P]
-# rows of a tile the kernels compute per block (16 * MT, MT <= 4) and its columns
+# rows of a tile the fast / precise and unprepared kernels compute per block (16 * MT,
+# MT <= 4) and its columns; the token tiles (wgmma N) of the gd and fp8 kernels
+# (``token_tile``), and the group sizes
 _TILE_M, _TILE_N = 64, 128
+TOKEN_TILES = (16, 64, 128)
+GROUP_SIZES = (32, 64, 128)
 _COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 # rows at or below which the group-dot products run (reference GROUP_DOT_MAX_M); above
 # it the product turns compute-bound and one dense GEMM wins
@@ -328,35 +334,55 @@ def _m_tile(M: int) -> int:
     return 16 if M <= 16 else 32 if M <= 32 else _TILE_M
 
 
-def w4a16_splits(M: int, N: int, G: int, sms: int) -> int:
-    """K splits the kernels take when the (column, row) tiles alone leave SMs idle:
-    as many as fill the card once, at most one per 4 groups (one group per plane)."""
-    tiles = -(-N // _TILE_N) * -(-M // _m_tile(M))
+def _one_wave_splits(tiles: int, G: int, sms: int) -> int:
+    """As many K splits as keep ``tiles`` (column, row) tiles in one wave of the card,
+    at most one per group of a plane."""
     return max(1, min(G // 4, sms // tiles))
+
+
+def w4a16_splits(M: int, N: int, G: int, sms: int) -> int:
+    """K splits the fast / precise and unprepared kernels take when their (column, row)
+    tiles alone leave SMs idle."""
+    return _one_wave_splits(-(-N // _TILE_N) * -(-M // _m_tile(M)), G, sms)
+
+
+def token_tile(M: int) -> int:
+    """The token tile (wgmma N) of the gd W4A16 and the fp8_bmm kernels for M rows: 16
+    up to 16 rows, 64 up to 64, else 128 (larger M runs several tiles)."""
+    return 16 if M <= 16 else 64 if M <= 64 else 128
+
+
+def w4a16_gd_splits(M: int, N: int, G: int, sms: int) -> int:
+    """K splits the gd kernel takes, by its own (column, token) tiles: the swept best on
+    an H100 at llama2-7b's and Mixtral-8x7B's fused projections (``chip_smoke.py``'s
+    w4a16 rows)."""
+    return _one_wave_splits(-(-N // _TILE_N) * -(-M // token_tile(M)), G, sms)
+
+
+def _sms(x: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(x.device).multi_processor_count
 
 
 def _launch(source: str, symbol: str, x: torch.Tensor, packed: torch.Tensor,
             tab_s: torch.Tensor, tab_c: torch.Tensor, xg: torch.Tensor, group_size: int,
-            splits: Optional[int]) -> torch.Tensor:
-    """Check the operands of one of the three W4A16 kernels and launch it."""
+            splits: int, m_tile: int) -> torch.Tensor:
+    """Check the operands of one of the three W4A16 kernels and launch it with
+    ``splits`` K splits over tiles of ``m_tile`` rows."""
     M, K, N, G = _check(x, packed, tab_s, tab_c, group_size)
     if x.dtype != torch.bfloat16 or packed.dtype != torch.int32:
         raise TypeError(f'{source} kernel takes bf16 x and int32 packed, got '
                         f'{x.dtype}/{packed.dtype}')
-    if group_size not in (32, 64, 128) or N % 8 or not 0 < M <= 4 * _TILE_M:
+    if group_size not in GROUP_SIZES or N % 8 or not 0 < M <= 4 * _TILE_M:
         raise ValueError(f'{source} kernel takes group 32/64/128, N % 8 == 0 and '
                          f'0 < M <= {4 * _TILE_M}; got gs {group_size} N {N} M {M}')
     for name, t in (('x', x), ('packed', packed), ('scale table', tab_s),
                     ('corr table', tab_c)):
         if not t.is_contiguous() or t.device != x.device:
             raise ValueError(f'{source}: {name} must be contiguous on {x.device}')
-    if splits is None:
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        splits = w4a16_splits(M, N, G, sms)
-    elif not 1 <= splits <= G // 4:
+    if not 1 <= splits <= G // 4:
         raise ValueError(f'{source}: splits must be 1..{G // 4}, got {splits}')
-    m_tile = _m_tile(M)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    # the split-K workspace: [splits, N, Mp] for gd (tokens contiguous), [splits, Mp, N]
     ws = torch.empty((splits if splits > 1 else 0, -(-M // m_tile) * m_tile, N),
                      dtype=torch.float32, device=x.device)
     stream = cuda_build.stream_handle(x)
@@ -376,13 +402,16 @@ def w4a16_matmul_gd(x: torch.Tensor, packed: torch.Tensor, sb: torch.Tensor,
 
     x [M, K] (M <= 256; K padded to the leaf's ``packed.shape[0] * 8``), packed
     i32[K/8, N], sb / corr f32[K/gs, N].  ``splits`` (1 .. K/(4*gs)) overrides the
-    K-split count ``w4a16_splits`` picks.  Returns [M, N] in x.dtype."""
+    K-split count ``w4a16_gd_splits`` picks.  Returns [M, N] in x.dtype."""
     if not x.is_cuda:
         return w4a16_matmul_gd_plain(x, packed, sb, corr, group_size)
     if sb.dtype != torch.float32 or corr.dtype != torch.float32:
         raise TypeError('w4a16_gemm takes the gd schedule\'s f32 sb and corr')
+    M, N = x.shape[0], packed.shape[-1]
+    if splits is None:
+        splits = w4a16_gd_splits(M, N, sb.shape[0], _sms(x))
     out = _launch('w4a16_gemm', 'w4a16_gemm_gd', x, packed, sb, corr,
-                  _xg(x, group_size), group_size, splits)
+                  _xg(x, group_size), group_size, splits, token_tile(M))
     w4a16_matmul_gd.launches += 1
     return out
 
@@ -391,8 +420,9 @@ def w4a16_matmul_szc(x: torch.Tensor, packed: torch.Tensor, sb: torch.Tensor,
                      corr: torch.Tensor, group_size: int = 128,
                      splits: Optional[int] = None) -> torch.Tensor:
     """Decode-regime W4A16 GEMM over one layer's fast or precise prepared leaves: sb
-    bf16 [K/gs, N], corr f32 [K/gs, N] (fast) or bf16 (precise).  Shapes and
-    ``splits`` as ``w4a16_matmul_gd``.  Returns [M, N] in x.dtype."""
+    bf16 [K/gs, N], corr f32 [K/gs, N] (fast) or bf16 (precise).  Shapes as
+    ``w4a16_matmul_gd``; ``splits`` overrides the count ``w4a16_splits`` picks.
+    Returns [M, N] in x.dtype."""
     if not x.is_cuda:
         return w4a16_matmul_szc_plain(x, packed, sb, corr, group_size)
     sched = schedule_of(sb, corr)
@@ -401,8 +431,11 @@ def w4a16_matmul_szc(x: torch.Tensor, packed: torch.Tensor, sb: torch.Tensor,
     xg = _xg(x, group_size)
     if sched == 'precise':
         xg = xg.to(torch.bfloat16).float()
+    M, N = x.shape[0], packed.shape[-1]
+    if splits is None:
+        splits = w4a16_splits(M, N, sb.shape[0], _sms(x))
     out = _launch('w4a16_gemm_szc', f'w4a16_gemm_{sched}', x, packed, sb, corr, xg,
-                  group_size, splits)
+                  group_size, splits, _m_tile(M))
     w4a16_matmul_szc.launches += 1
     return out
 
@@ -421,8 +454,11 @@ def w4a16_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         return w4a16_dense(x, packed, scales, zeros, group_size)
     if scales.dtype != torch.float32 or zeros.dtype != torch.float32:
         raise TypeError('w4a16_unprepared takes f32 scales and zeros')
+    M, N = x.shape[0], packed.shape[-1]
+    if splits is None:
+        splits = w4a16_splits(M, N, scales.shape[0], _sms(x))
     out = _launch('w4a16_gemm_unprepared', 'w4a16_gemm_unprepared', x, packed, scales,
-                  zeros, _xg(x, group_size), group_size, splits)
+                  zeros, _xg(x, group_size), group_size, splits, _m_tile(M))
     w4a16_matmul.launches += 1
     return out
 

@@ -25,6 +25,7 @@ import torch
 from lmdeploy_tpu_torch.ops import moe as tmoe
 from lmdeploy_tpu_torch.ops.quant_bmm import (decode_fp8_e4m3, fp8_bmm, fp8_bmm_plain,
                                               widen_fp8)
+from lmdeploy_tpu_torch.ops.quant_matmul import TOKEN_TILES, token_tile
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -188,3 +189,44 @@ def test_moe_ffn_fp8_leaves_match_jax(N):
                        torch.from_numpy(top_w), *leaves_t, torch.float32)
     tol = 1e-5 if N < tmoe.QUANT_RAGGED_MIN_TOKENS else 1e-4
     np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
+
+
+def _kernel_weight(codes: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """csrc/fp8_bmm.cu's weight, emulated in f32: the code's exponent and mantissa bits
+    moved to f32 bits 20-26 and its sign to bit 31 read as decode(code) * 2^-120; times
+    2^120, then times the scale, each product rounded to f32; then one rounding to bf16."""
+    i = codes.to(torch.int64)
+    bits = ((i & 0x7F) << 20) | ((i & 0x80) << 24)
+    a = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32).view(torch.float32)
+    return ((a * 2.0 ** 120) * s).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize('scales', ['checkpoint', 'wide', 'edges'])
+def test_kernel_decode_arithmetic_is_the_reference_decode(scales):
+    """The kernel's bit-field decode times its scale gives, bit for bit, the reference's
+    bf16(decode(w8) * s) for all 256 codes (subnormals, -0.0, the NaN code as +-480) and
+    any f32 scale: checkpoint-like, spread over 60 decades, and the edges (the smallest
+    subnormal, 256 and beyond, f32's largest).  This documents the arithmetic; the
+    kernel's own decode is held against the plain version on the card by
+    ``chip_smoke.fp8_groups_phase``."""
+    rng = np.random.RandomState(5)
+    if scales == 'checkpoint':
+        s = _scales(rng, (64,))
+    elif scales == 'wide':
+        s = (10.0 ** rng.uniform(-30, 30, 64) * rng.choice([-1, 1], 64)).astype(np.float32)
+    else:
+        s = np.array([2.0 ** -149, 1e-38, 1.5e-5, 255.99, 256.0, 1e4, 3e38, -1.5],
+                     dtype=np.float32)
+    codes = torch.arange(256, dtype=torch.int32).to(torch.uint8)[:, None]
+    st = torch.from_numpy(s)[None, :]
+    want = (decode_fp8_e4m3(codes) * st).to(torch.bfloat16)
+    got = _kernel_weight(codes, st)
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(), want.view(torch.int16).numpy())
+    assert got[0x7F].float().equal((480.0 * st[0]).to(torch.bfloat16).float())
+
+
+@pytest.mark.parametrize('M,tile', [(1, 16), (16, 16), (17, 64), (64, 64), (65, 128),
+                                    (128, 128), (767, 128)])
+def test_fp8_token_tile(M, tile):
+    """The fp8 kernel's token tile (its wgmma N) by M; larger M takes several tiles."""
+    assert token_tile(M) == tile and tile in TOKEN_TILES

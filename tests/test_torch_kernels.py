@@ -175,12 +175,21 @@ def test_kernel_head_dims_match_sources():
                  (('mma.sync.aligned.m16n8k16', 'Mma<T>::run('),
                   ('cp.async.cg.shared.global', 'load('),
                   ('cp.async.wait_group', 'cp.async.wait_group')),
-                 id='decode-mma-cp-async')])
+                 id='decode-mma-cp-async'),
+    pytest.param('w4a16_gemm', 'w4a16_gd_kernel',
+                 (('wgmma.mma_async', 'wgmma_rs<'), ('cp.async.bulk.tensor', 'tma_load('),
+                  ('mbarrier.try_wait', 'mbar_wait('), ('prefetch.tensormap', 'prefetch_map(')),
+                 id='w4a16-gd-wgmma-tma'),
+    pytest.param('fp8_bmm', 'fp8_bmm_kernel',
+                 (('wgmma.mma_async', 'wgmma_rs<'), ('cp.async.bulk.tensor', 'tma_load('),
+                  ('mbarrier.try_wait', 'mbar_wait('), ('cvt.rn.bf16x2.f32', 'fragment<')),
+                 id='fp8-wgmma-tma')])
 def test_kernel_sources_use_hopper_paths(source, kernel, uses):
     """The bf16 / f16 flash kernel at D 64 / 128 runs both products on wgmma with its
     K / V tiles streamed by TMA into an mbarrier ring (a producer warpgroup that gives
     up registers); the paged decode's wide path over 2-byte pages runs both products on
-    mma.sync with a cp.async page pipeline.  Each instruction is in the source or its
+    mma.sync with a cp.async page pipeline; the gd W4A16 GEMM and fp8_bmm run wgmma
+    with the decoded weights as the register operand and x, words, scales by TMA.  Each instruction is in the source or its
     shared header, and the kernel's body reaches it; the dispatch launches the kernel."""
     import os
     import re
@@ -194,3 +203,56 @@ def test_kernel_sources_use_hopper_paths(source, kernel, uses):
     for instruction, call in uses:
         assert instruction in text and call in body, (instruction, call)
     assert re.search(kernel + r'<[^>]*>\s*<<<', src), f'{kernel} is never launched'
+
+
+def test_gemm_token_tiles_match_sources():
+    """Every (group size, token tile) the gd W4A16 wrapper can pick, and every token tile
+    of the fp8 wrapper, is instantiated in its CUDA source, which picks the tile by M
+    with the wrapper's thresholds."""
+    import os
+    import re
+
+    from lmdeploy_tpu_torch.ops import cuda_build
+    from lmdeploy_tpu_torch.ops import quant_matmul as qm
+
+    def read(name):
+        return open(os.path.join(cuda_build.CSRC_DIR, name + '.cu')).read()
+
+    def picks(src, pattern, default):
+        """The source's tile for each M: its `if (M <= t) return ...<tile>` chain."""
+        chain = [(int(t), int(tile)) for t, tile in re.findall(pattern, src)]
+        return lambda M: next((tile for t, tile in chain if M <= t), default)
+
+    w4 = read('w4a16_gemm')
+    groups = {int(g) for g, h in re.findall(r'case (\d+):\s*return \(int\)launch_m<(\d+)>', w4)
+              if g == h}
+    assert groups == set(qm.GROUP_SIZES) == {32, 64, 128}
+    default = int(re.search(r'\n  return launch<GS, (\d+)>', w4).group(1))
+    tile = picks(w4, r'if \(M <= (\d+)\)\s*return launch<GS, (\d+)>', default)
+    tiles = {int(t) for t in re.findall(r'launch<GS, (\d+)>', w4)}
+    assert tiles == set(qm.TOKEN_TILES)
+    assert all(tile(M) == qm.token_tile(M) for M in range(1, qm.GROUP_DOT_MAX_M + 1))
+
+    f8 = read('fp8_bmm')
+    default = int(re.search(r'\n  return \(int\)launch<(\d+)>', f8).group(1))
+    tile = picks(f8, r'if \(M <= (\d+)\) return \(int\)launch<(\d+)>', default)
+    tiles = {int(t) for t in re.findall(r'launch<(\d+)>\(x, w8', f8)}
+    assert tiles == set(qm.TOKEN_TILES)
+    assert all(tile(M) == qm.token_tile(M) for M in range(1, 768))
+
+
+def test_gemm_bodies_left_mma_sync():
+    """The gd W4A16 GEMM and fp8_bmm no longer reach the mma.sync bodies: neither source
+    issues mma.sync or includes the shared W4A16 body, which the fast / precise and
+    unprepared GEMMs keep."""
+    import os
+
+    from lmdeploy_tpu_torch.ops import cuda_build
+
+    def read(name):
+        return open(os.path.join(cuda_build.CSRC_DIR, name)).read()
+    for name in ('w4a16_gemm.cu', 'fp8_bmm.cu'):
+        src = read(name)
+        assert 'mma.sync' not in src and 'w4a16_gemm.cuh' not in src, name
+    for name in ('w4a16_gemm_szc.cu', 'w4a16_gemm_unprepared.cu'):
+        assert '#include "w4a16_gemm.cuh"' in read(name)

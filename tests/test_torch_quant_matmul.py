@@ -203,6 +203,25 @@ def test_w4a16_split_heuristic_picks_the_swept_best(M, K, N, want):
     assert tqm.w4a16_splits(M, N, K // 128, 132) == want
 
 
+# the K splits of the gd kernel (csrc/w4a16_gemm.cu) that chip_smoke.py's sweep timed
+# fastest on an H100 (132 SMs) for llama2-7b's fused projections at 64 and 128 rows and
+# Mixtral-8x7B's fused wqkv at 64 (group 128)
+@pytest.mark.parametrize('M,K,N,want', [
+    (128, 4096, 12288, 1), (128, 4096, 4096, 4), (128, 4096, 22016, 1),
+    (128, 11264, 4096, 4), (64, 4096, 12288, 1), (64, 4096, 4096, 4),
+    (64, 4096, 22016, 1), (64, 11264, 4096, 4), (64, 4096, 6144, 2)])
+def test_w4a16_gd_split_picker_picks_the_swept_best(M, K, N, want):
+    assert tqm.w4a16_gd_splits(M, N, K // 128, 132) == want
+
+
+@pytest.mark.parametrize('M,tile', [(1, 16), (16, 16), (17, 64), (64, 64), (65, 128),
+                                    (128, 128), (129, 128), (256, 128)])
+def test_gd_token_tile(M, tile):
+    """The gd kernel's token tile (its wgmma N): one tile covers every M up to 128."""
+    assert tqm.token_tile(M) == tile and tile in tqm.TOKEN_TILES
+    assert -(-M // tile) == (1 if M <= 128 else 2)
+
+
 # -- a W4A16 form of the tiny checkpoint ------------------------------------------------
 def _awq_quantize(w_out_in: np.ndarray, gs: int):
     """HF [out, in] weight -> AWQ (qweight i32[K, N/8], qzeros i32[G, N/8], scales
