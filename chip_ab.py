@@ -2,7 +2,8 @@
 turns.
 
     python3 chip_ab.py PARENT_DIR [--cells deepseek w4a16_kv8 tinyllama] [--pairs 2]
-    python3 chip_ab.py PARENT_DIR --kernels [--pairs 1]
+    python3 chip_ab.py PARENT_DIR --kernels [--kernel-sets w4a16_gemm fp8_bmm kv_decode]
+                       [--pairs 1]
 
 PARENT_DIR is an unpacked copy of another commit (for example `git archive <commit> |
 tar -x -C work_dir/parent`, under a directory .gitignore lists).  Each pair runs the
@@ -12,8 +13,11 @@ decode tok/s, TTFT and device busy share, then the card's name and power limit. 
 cells are `chip_smoke.py`'s e2e phases: 'deepseek' (e2e_deepseek_v2_lite_fp8),
 'w4a16_kv8' (e2e_w4a16_kv8: llama2-7b W4A16 gd with the int8 KV cache) and 'tinyllama'
 (e2e).  With --kernels each run instead times its tree's w4a16_gemm (gd) and fp8_bmm
-wrappers at every row shape of this tree's `chip_smoke.py` (W4_SHAPES, FP8_SHAPES) on
-the same seeded data, and the last JSON line holds each side's mean per row.  Needs a
+wrappers at every row shape of this tree's `chip_smoke.py` (W4_SHAPES, FP8_SHAPES) and
+its paged_decode_attention_int4 / _turbo wrappers at every case of this tree's
+`chip_smoke.kv_decode_cases` (caches filled by the tree's own fill, from the same seeded
+K / V), on the same seeded data (--kernel-sets picks among the three), and the last
+JSON line holds each side's mean per row.  Needs a
 CUDA card; host-side numbers of one cell spread between calls, so compare only runs of
 one call.
 """
@@ -46,19 +50,23 @@ for name, call in %r.items():
 print('AB ' + json.dumps(out), flush=True)
 '''
 KERNEL_RUN = '''
-import json, torch, chip_smoke as c
+import json, numpy as np, torch, chip_smoke as c
+from lmdeploy_tpu_torch.config import ModelConfig
 from lmdeploy_tpu_torch.models.deepseek import init_fp8_leaf
-from lmdeploy_tpu_torch.ops import quant_bmm as qb, quant_matmul as qm
+from lmdeploy_tpu_torch.ops import paged_decode as pd, quant_bmm as qb, quant_matmul as qm
+from lmdeploy_tpu_torch.ops.attention import fill_kv_cache
+from lmdeploy_tpu_torch.ops.kv_quant import hadamard_rotate
 gen = torch.Generator(device='cuda').manual_seed(c.SEED)
-out = {'w4a16_gemm': {}, 'fp8_bmm': {}}
-for label, M, K, N in %r:
+sets = %r
+out = {k: {} for k in sets}
+for label, M, K, N in (%r if 'w4a16_gemm' in sets else ()):
     w = (torch.randn(K, N, device='cuda', generator=gen) * 0.02).bfloat16()
     packed, scales, zeros = qm.quantize_w4(w, 128)
     sb, corr = qm.prep_w4(scales, zeros, mode='gd')
     x = torch.randn(M, K, device='cuda', generator=gen).bfloat16()
     out['w4a16_gemm'][label] = c.time_ms(lambda: qm.w4a16_matmul_gd(x, packed, sb, corr, 128))
 stacks = {}
-for label, (E, H, Ie), kind, M in %r:
+for label, (E, H, Ie), kind, M in (%r if 'fp8_bmm' in sets else ()):
     K, N = (H, Ie) if kind == 'gate' else (Ie, H)
     if (E, K, N) not in stacks:
         stacks.clear()
@@ -69,8 +77,41 @@ for label, (E, H, Ie), kind, M in %r:
     x = torch.randn((M, K) if kind == 'gate' else (E, M, K), device='cuda',
                     generator=gen).bfloat16()
     out['fp8_bmm'][label] = c.time_ms(lambda: qb.fp8_bmm(x, w8, gs))
+stacks.clear()
+BS = 128
+for label, B, Hq, Hkv, D, lens, W, softcap, dtype, kernels in (%r if 'kv_decode' in sets
+                                                              else ()):
+    NB = 1 + B * W
+    perm = torch.randperm(NB - 1, device='cuda', generator=gen) + 1
+    tables = perm[:B * W].reshape(B, W).int()
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device='cuda')
+    tables[kv_lens < 0] = 0            # padding rows: block 0, one token
+    kv_lens[kv_lens < 0] = 1
+    tables = tables.contiguous()
+    q0 = torch.randn(B, Hq, D, device='cuda', generator=gen)
+    model = ModelConfig(num_layers=2, num_attention_heads=Hq, num_key_value_heads=Hkv,
+                        hidden_size=Hq * D, intermediate_size=128, vocab_size=128,
+                        head_dim=D, dtype='bfloat16')
+    slots = torch.arange(BS, NB * BS, device='cuda')
+    kvs = [(torch.randn(len(slots), Hkv, D, device='cuda', generator=gen).bfloat16(),
+            torch.randn(len(slots), Hkv, D, device='cuda', generator=gen).bfloat16())
+           for _ in range(2)]
+    for policy, kernel in ((8, 'int4'), (42, 'turbo')):
+        if 'paged_decode_' + kernel not in kernels:
+            continue
+        cache = c.new_kv_cache(model, NB, BS, policy, 'cuda')
+        for lay, (k, v) in enumerate(kvs):
+            fill_kv_cache(cache, k, v, slots, lay)
+        q = (hadamard_rotate(q0) if policy == 42 else q0).to(getattr(torch, dtype))
+        fn = getattr(pd, 'paged_decode_attention_' + kernel)
+        out['kv_decode'][f'{kernel}/{label}'] = c.time_ms(
+            lambda: fn(q, cache, tables, kv_lens, 1, D ** -0.5, Hkv, logit_softcap=softcap))
+        del cache
+    del kvs
+    torch.cuda.empty_cache()
 print('AB ' + json.dumps(out), flush=True)
 '''
+KERNEL_SETS = ('w4a16_gemm', 'fp8_bmm', 'kv_decode')
 
 
 def run(tree: str, code: str) -> dict:
@@ -93,11 +134,19 @@ def main() -> int:
     ap.add_argument('parent')
     ap.add_argument('--cells', nargs='+', default=list(CELLS), choices=list(CELLS))
     ap.add_argument('--kernels', action='store_true')
+    ap.add_argument('--kernel-sets', nargs='+', default=list(KERNEL_SETS),
+                    choices=list(KERNEL_SETS))
     ap.add_argument('--pairs', type=int, default=1)
     args = ap.parse_args()
     if args.kernels:
         import chip_smoke
-        code = KERNEL_RUN % (chip_smoke.W4_SHAPES, chip_smoke.FP8_SHAPES)
+        kv_cases = [(label, B, Hq, Hkv, D, [int(n) for n in lens], W, softcap,
+                     str(opts.get('dtype', 'torch.bfloat16')).split('.')[-1],
+                     list(opts.get('kernels', ('paged_decode_int4', 'paged_decode_turbo'))))
+                    for label, B, Hq, Hkv, D, lens, W, softcap, opts
+                    in chip_smoke.kv_decode_cases()]
+        code = KERNEL_RUN % (tuple(args.kernel_sets), chip_smoke.W4_SHAPES,
+                             chip_smoke.FP8_SHAPES, kv_cases)
     else:
         code = RUN % {name: CELLS[name] for name in args.cells}
     runs = []

@@ -5,8 +5,9 @@
 Phases, each printing one JSON line; any failure exits non-zero:
   1. device   -- card name, power limit and count;
   2. build    -- nvcc builds every kernel of the port from csrc/ (one process per source),
-                 with each kernel's registers and spills, and for the wgmma kernels the
-                 HGMMAs that wait for the one before (from the SASS);
+                 with each kernel's registers and spills, for the wgmma kernels the
+                 HGMMAs that wait for the one before, and for the int4 / TurboQuant
+                 decodes the HMMAs that take the one before as accumulator (SASS);
   3. kernels  -- each kernel against its plain PyTorch version on the card, at the
                  main paths' shapes, with its time, the plain version's time, the
                  card's bound for the same work and, where one PyTorch call computes
@@ -21,7 +22,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  the check must catch each planted trap) and the KV policies' decodes
                  paged_decode_int4, paged_decode_turbo and paged_decode_fp8 (caches
                  filled by the port's fill; the e2e_llama31 decode shape, llama2-7b
-                 and TinyLlama heads; planted traps in the cache bytes);
+                 and TinyLlama heads; planted traps in the cache bytes; the int4 and
+                 TurboQuant rows also at f16 D 256, f32 q, int4 D 192 / 80, with their
+                 split length swept and the plain two passes held, a trap planted in
+                 their combine);
                  w4a16_szc (fast / precise) and w4a16_unprepared (raw scales and zeros)
                  at Mixtral-8x7B's and llama2-7b's projections, M 1 to 256, each with
                  its planted traps; fp8_bmm (DeepSeek-V2-Lite's gate and down products at
@@ -66,9 +70,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  32 layers (public config, seeded bf16 weights built once for the three)
                  with quant_policy 8, 42 and 16: 63 concurrent 1024-token prompts plus
                  one 4096-token prompt, 64 greedy tokens each, run twice, then traced;
-                 each decode step launches the policy's kernel once a layer, each
-                 prefill step whose chunks all start their prompts flash_prefill once a
-                 layer, exactly; e2e_llama31_8b_cp2 -- the same weights with bf16 KV
+                 each decode step launches the policy's kernel once a layer (int4 and
+                 TurboQuant: each with its split's combine), each prefill step whose
+                 chunks all start their prompts flash_prefill once a layer, exactly; e2e_llama31_8b_cp2 -- the same weights with bf16 KV
                  striped over 2 context-parallel ranks on the one card: 31 concurrent
                  1024-token prompts and one 16,384-token prompt, 64 greedy tokens each,
                  run twice, then traced; each decode step launches paged_decode_cp twice
@@ -453,6 +457,54 @@ def wgmma_waits(lib: str) -> dict:
     return {k: v for k, v in out.items() if v[0]}
 
 
+# the sources whose narrow decodes issue mma.sync on codes decoded in registers
+MMA_SYNC_SOURCES = ('paged_decode_int4', 'paged_decode_turbo')
+
+
+def _kernel_key(name: str) -> str:
+    short = re.search(r'(paged_decode_\w+?)I(.*?)EEv', name)
+    return f'{short.group(1)}<{short.group(2)}>' if short else name[-60:]
+
+
+def mma_sync_chains(lib: str) -> dict:
+    """{kernel: [HMMA count, HMMAs whose accumulator is the result of the HMMA before
+    them]} from the library's SASS: such an HMMA waits for the one before it, so the
+    second count is the mma.sync kernels' serialised MMAs."""
+    cuobjdump = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    sass = subprocess.run([cuobjdump, '-sass', lib], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for fn in sass.split('Function : ')[1:]:
+        prev, n, dep = None, 0, 0
+        for m in re.finditer(r'HMMA\.\S+ (R\d+), R\d+, R\d+, (R\w+)', fn):
+            n += 1
+            dep += m.group(2) == prev
+            prev = m.group(1)
+        if n:
+            out[_kernel_key(fn.split('\n', 1)[0].strip())] = [n, dep]
+    return out
+
+
+def ptxas_by_kernel(log: str, pattern: str = '_mma') -> dict:
+    """{kernel: [registers, spill bytes stored + loaded]} from an nvcc -Xptxas -v log,
+    for the entry functions whose name holds ``pattern``."""
+    out, key = {}, None
+    with open(log) as f:
+        for ln in f:
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                key = _kernel_key(m.group(1)) if pattern in m.group(1) else None
+            elif key and ('spill' in ln or 'registers' in ln):
+                entry = out.setdefault(key, [None, 0])
+                if 'spill' in ln:
+                    entry[1] = sum(int(x) for x in re.findall(r'(\d+) bytes spill', ln))
+                used = re.search(r'Used (\d+) registers', ln)
+                if used:
+                    entry[0] = int(used.group(1))
+                    key = None
+    return out
+
+
 def build_phase():
     from lmdeploy_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
@@ -463,7 +515,10 @@ def build_phase():
             regs[name] = [ln.strip() for ln in f if 'registers' in ln or 'spill' in ln]
     emit({'phase': 'build', 'wall_s': time.perf_counter() - t0, 'per_source_s': seconds,
           'ptxas': regs,
-          'wgmma_waits': {n: wgmma_waits(cuda_build.lib_path(n)) for n in WGMMA_SOURCES}})
+          'wgmma_waits': {n: wgmma_waits(cuda_build.lib_path(n)) for n in WGMMA_SOURCES},
+          'mma_sync_decodes': {n: {'registers_spills': ptxas_by_kernel(cuda_build.log_path(n)),
+                                   'hmma_dependent': mma_sync_chains(cuda_build.lib_path(n))}
+                               for n in MMA_SYNC_SOURCES}})
 
 
 # -- phase 3 -------------------------------------------------------------------------
@@ -1338,12 +1393,44 @@ KV_TRAPS = {'paged_decode_int4': ('nibble_order_swapped', 'min_terms_dropped'),
 # in the 64-row bucket, the 4,224-token session's 33-page table
 L31_SESSION = 4096 + 128
 L31_W = L31_SESSION // 128
+# the int4 and TurboQuant decodes split each row's pages over blocks: their split
+# lengths (tokens) swept at every case, each held against the plain version, and the
+# module constant that sets each; the plain two passes (each split's partials, then the
+# combine) carry the trap of splits summed without their weights e^(m_s - m), held at
+# one split a page, where every row of more than one page has several
+KV_SPLIT_SWEEP = (256, 512, 1024, 2048)
+KV_SPLIT_CONST = {'paged_decode_int4': 'SPLIT_TOKENS_INT4',
+                  'paged_decode_turbo': 'SPLIT_TOKENS_TURBO'}
 
 
 def _kv_decode_fns(kernel):
     from lmdeploy_tpu_torch.ops import paged_decode as pd
     name = 'paged_decode_attention' + kernel[len('paged_decode'):]
     return getattr(pd, name), getattr(pd, name + '_plain', pd.paged_decode_attention_plain)
+
+
+def _combine_without_alpha(parts, sinks, dtype):
+    """``cp_combine`` with its trap planted: the partials (acc, m, l) summed without
+    their weights e^(m_s - m)."""
+    from lmdeploy_tpu_torch.ops.paged_decode import MASK_VALUE
+    m_g = torch.stack([m for _, m, _ in parts]).amax(0)
+    lsum = sum(p[2] for p in parts)
+    if sinks is not None:
+        lsum = lsum + torch.where(m_g > 0.5 * MASK_VALUE, torch.exp(sinks.float() - m_g),
+                                  torch.zeros_like(m_g))
+    acc = sum(p[0] for p in parts)
+    return (acc / torch.where(lsum == 0, torch.ones_like(lsum), lsum)[..., None]).to(dtype)
+
+
+def _split_plain_trapped(kernel, q, kv, tables, kv_lens, layer, scale, hkv, softcap):
+    """The int4 / TurboQuant kernel's two passes in plain PyTorch at one split a page,
+    combined without the splits' weights."""
+    from lmdeploy_tpu_torch.ops import paged_decode as pd
+    terms = pd.int4_decode_terms if kernel == 'paged_decode_int4' else pd.turbo_decode_terms
+    s, pv = terms(q, kv, tables, layer, scale, hkv, softcap)
+    W = tables.shape[1]
+    parts = pd.split_partials_plain(s, kv_lens, pv, s.shape[-1] // W, W)
+    return _combine_without_alpha(parts, None, q.dtype)
 
 
 def _kv_trapped(trap: str, kv):
@@ -1381,15 +1468,10 @@ def new_kv_cache(model, num_blocks: int, block_size: int, policy: int, device):
                                           quant_policy=policy), torch.device(device)).kv_cache
 
 
-def decode_kv_phase():
-    """paged_decode_int4, paged_decode_turbo and paged_decode_fp8 against their plain
-    versions, each cache filled through the port's fill_kv_cache from random bf16 K/V."""
-    from lmdeploy_tpu_torch.config import ModelConfig
-    from lmdeploy_tpu_torch.ops.attention import fill_kv_cache
-    from lmdeploy_tpu_torch.ops.kv_quant import hadamard_rotate
-    gen = torch.Generator(device='cuda').manual_seed(SEED)
+def kv_decode_cases():
+    """decode_kv_phase's cases, (label, B, Hq, Hkv, D, lens, W, softcap, opts): lens
+    marks padding rows -1, opts may give q's dtype and the kernels a case is for."""
     rng = np.random.RandomState(SEED + 2)
-    BS = 128
     # the e2e_llama31 phases' decode shape (Llama-3.1-8B heads, G 4), with two of its
     # short rows inactive; llama2-7b heads (G 1) and TinyLlama heads (D 64, G 8) at
     # ragged lengths averaging ~384 with one inactive row and four padding rows
@@ -1399,12 +1481,40 @@ def decode_kv_phase():
     lens64 = rng.randint(1, 768, size=64)
     lens64[5] = 0
     lens64[-4:] = -1
-    cases = [('e2e_shape_llama31', 64, 32, 8, 128, lens_e2e, L31_W, None),
-             ('bs64_7b_heads', 64, 32, 32, 128, lens64, 8, None),
-             ('bs64_7b_heads_softcap', 64, 32, 32, 128, lens64, 8, 30.0),
-             ('bs64_tinyllama_heads', 64, 32, 4, 64, lens64, 8, None)]
+    # the other narrow paths of the int4 / TurboQuant kernels: f16 q at D 256 (two query
+    # blocks of 8 heads), f32 q (the CUDA-core bodies), int4's D 192 and 80; 8 rows of
+    # 130-199 tokens, one of 2,100, one inactive, six padding rows
+    lens16 = np.concatenate([rng.randint(130, 200, size=8), [2100], [0], -np.ones(6, int)])
+    quant = ('paged_decode_int4', 'paged_decode_turbo')
+    return [('e2e_shape_llama31', 64, 32, 8, 128, lens_e2e, L31_W, None, {}),
+            ('bs64_7b_heads', 64, 32, 32, 128, lens64, 8, None, {}),
+            ('bs64_7b_heads_softcap', 64, 32, 32, 128, lens64, 8, 30.0, {}),
+            ('bs64_tinyllama_heads', 64, 32, 4, 64, lens64, 8, None, {}),
+            ('d256_g16_f16', 16, 32, 2, 256, lens16, 17, None,
+             {'dtype': torch.float16, 'kernels': quant}),
+            ('d128_f32', 16, 32, 8, 128, lens16, 17, 30.0,
+             {'dtype': torch.float32, 'kernels': quant}),
+            ('d192_int4', 16, 16, 4, 192, lens16, 17, None,
+             {'kernels': ('paged_decode_int4',)}),
+            ('d80_int4', 16, 32, 8, 80, lens16, 17, None,
+             {'kernels': ('paged_decode_int4',)})]
+
+
+def decode_kv_phase():
+    """paged_decode_int4, paged_decode_turbo and paged_decode_fp8 against their plain
+    versions, each cache filled through the port's fill_kv_cache from random bf16 K/V;
+    the int4 and TurboQuant rows also sweep their split length and hold the plain two
+    passes (and their combine trap)."""
+    from lmdeploy_tpu_torch.config import ModelConfig
+    from lmdeploy_tpu_torch.ops import paged_decode as pd
+    from lmdeploy_tpu_torch.ops.attention import fill_kv_cache
+    from lmdeploy_tpu_torch.ops.kv_quant import hadamard_rotate
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    BS = 128
+    cases = kv_decode_cases()
     results = {k: [] for k in KV_POLICIES.values()}
-    for label, B, Hq, Hkv, D, lens, W, softcap in cases:
+    for label, B, Hq, Hkv, D, lens, W, softcap, opts in cases:
+        dtype = opts.get('dtype', torch.bfloat16)
         NB = 1 + B * W
         perm = torch.randperm(NB - 1, device='cuda', generator=gen) + 1
         tables = perm[:B * W].reshape(B, W).int()
@@ -1424,11 +1534,13 @@ def decode_kv_phase():
         scale, layer = D ** -0.5, 1
         toks = kv_lens.cpu().numpy().astype(np.int64).sum()
         for policy, kernel in KV_POLICIES.items():
+            if kernel not in opts.get('kernels', KV_POLICIES.values()):
+                continue
             cache = new_kv_cache(model, NB, BS, policy, 'cuda')
             for lay, (k, v) in enumerate(kvs):
                 fill_kv_cache(cache, k, v, slots, lay)
             # the TurboQuant kernel reads q rotated into the cache's domain
-            q = (hadamard_rotate(q0) if kernel == 'paged_decode_turbo' else q0).bfloat16()
+            q = (hadamard_rotate(q0) if kernel == 'paged_decode_turbo' else q0).to(dtype)
             wrapper, plain = _kv_decode_fns(kernel)
 
             def kern():
@@ -1444,13 +1556,36 @@ def decode_kv_phase():
             zero_ok = bool((out[kv_lens == 0] == 0).all())
             traps = {t: compare(plain_on(_kv_trapped(t, cache)), ref, tol)[2]
                      for t in KV_TRAPS[kernel]}
+            split = {}
+            if kernel in KV_SPLIT_CONST:
+                traps['combine_without_alpha'] = compare(_split_plain_trapped(
+                    kernel, q, cache, tables, kv_lens, layer, scale, Hkv, softcap), ref, tol)[2]
+                two_pass = getattr(pd, _kv_decode_fns(kernel)[1].__name__.replace(
+                    '_plain', '_split_plain'))
+                const = KV_SPLIT_CONST[kernel]
+                chosen = getattr(pd, const)
+                split = {'path': 'tensor cores' if D in pd.MMA_QUANT_HEAD_DIMS
+                         and dtype != torch.float32 else 'cuda cores',
+                         'split_tokens': chosen, 'splits': pd.page_splits(W, BS, chosen),
+                         'split_plain_err_over_tol': compare(two_pass(
+                             q, cache, tables, kv_lens, layer, scale, Hkv,
+                             logit_softcap=softcap), ref, tol)[2],
+                         'split_tokens_ms': {}, 'split_tokens_err_over_tol': {}}
+                for tokens in KV_SPLIT_SWEEP:
+                    setattr(pd, const, tokens)
+                    split['split_tokens_err_over_tol'][tokens] = compare(kern(), ref, tol)[2]
+                    split['split_tokens_ms'][tokens] = time_ms(kern)
+                setattr(pd, const, chosen)
             ok = (bool(torch.isfinite(out.float()).all()) and frac <= 1.0 and zero_ok
-                  and min(traps.values()) > 1.0)
+                  and min(traps.values()) > 1.0
+                  and all(e <= 1.0 for e in split.get('split_tokens_err_over_tol', {}).values())
+                  and split.get('split_plain_err_over_tol', 0.0) <= 1.0)
             # bytes this data needs: each row's K and V codes and metadata, q and out
-            nbytes = toks * Hkv * KV_TOKEN_BYTES[kernel](D) + 2 * (2 * B * Hq * D)
+            nbytes = toks * Hkv * KV_TOKEN_BYTES[kernel](D) + 2 * q.element_size() * B * Hq * D
             bound_ms, bound_by = bound(4 * Hq * D * toks, nbytes)
             row = {'phase': 'kernel', 'kernel': kernel, 'case': label, 'quant_policy': policy,
                    'shape': [B, Hq, Hkv, D, BS, W], 'softcap': softcap,
+                   'dtype': str(dtype).split('.')[-1], **split,
                    'mean_kv_len': float(kv_lens.float().mean()), 'max_kv_len': int(lens.max()),
                    'max_abs_err': err, 'max_rel_err': rel, 'err_over_tol': frac, 'tol': tol,
                    'zero_rows_ok': zero_ok, 'trap_err_over_tol': traps, 'ok': ok,
@@ -1756,7 +1891,7 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
               need_per_step, card: str, short_len: int = 128, long_len: int = 2048,
               exact: bool = False, shared: dict = None,
               env: dict = None, forbid=(), runs: int = 2, new_tokens: int = 64,
-              trace: bool = True, cp: int = 1) -> dict:
+              trace: bool = True, cp: int = 1, combined=()) -> dict:
     """Drive the Engine ``runs`` times on the same requests (launch counts from the
     first run, card numbers from the last; two runs must give equal greedy tokens),
     then, with ``trace``, a traced run: ``n_short`` prompts of ``short_len`` tokens and
@@ -1768,7 +1903,9 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
     of the same model; each engine fuses and prepares them itself.  ``env`` holds the
     engine switches (``LMDEPLOY_TPU_*``) set while the engine is built.  ``cp`` > 1
     serves the cell with its KV striped over that many context-parallel ranks, all on
-    the one card.  Returns the phase's row."""
+    the one card.  Each kernel of ``combined`` splits every call of the run, so it
+    must count as many combine launches (``.combines``) as launches.  Returns the
+    phase's row."""
     from lmdeploy_tpu_torch.parallel.mesh import build_mesh
     from lmdeploy_tpu_torch.config import bucketize
     from lmdeploy_tpu_torch.models.llama import LlamaModel
@@ -1835,12 +1972,16 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
         steps.update(prefill=0, fresh_prefill=0, small_prefill=0, decode=0)
         for fn in counters.values():
             fn.launches = 0
+            if hasattr(fn, 'combines'):
+                fn.combines = 0
         # the first run also records the rows of every GEMM-kernel call of the path
         with _swapped(*record if i == 0 else []):
             outs, t0, t1 = run_requests(engine, prompts, new_tokens)
         results.append({'tokens': [o.token_ids for o in outs], 'outs': outs, 't0': t0,
                         't1': t1, 'steps': dict(steps),
-                        'launches': {n: fn.launches for n, fn in counters.items()}})
+                        'launches': {n: fn.launches for n, fn in counters.items()},
+                        'combines': {n: fn.combines for n, fn in counters.items()
+                                     if hasattr(fn, 'combines')}})
     if trace:
         profile_phase(name, engine, prompts, new_tokens)
     first, last = results[0], results[-1]
@@ -1859,13 +2000,16 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
     launches_ok = all((first['launches'][n] == need[n] if exact else
                        first['launches'][n] >= need[n]) and need[n] > 0 for n in need)
     launches_ok = launches_ok and all(first['launches'][n] == 0 for n in forbid)
+    launches_ok = launches_ok and all(first['combines'][n] == first['launches'][n]
+                                      for n in combined)
     row = {'phase': name, 'model': model_label(model, quant_policy), 'card': card,
            'cp': cp, 'cp_devices': cp_devices,
            'requests': len(prompts), 'new_tokens': new_tokens, 'runs': runs,
            'engine_build_s': build_s, 'weights_reused': reuse, 'quant_policy': quant_policy,
            'env': env or {}, 'lengths_ok': lengths_ok, 'logprobs_finite': finite,
            'deterministic': deterministic, 'steps': first['steps'],
-           'launches': first['launches'], 'launches_needed': need,
+           'launches': first['launches'], 'combines': first['combines'],
+           'launches_needed': need,
            'launches_forbidden': list(forbid), 'launches_ok': launches_ok,
            'rows_by_kernel': {n: dict(c) for n, c in rows.items() if c},
            'num_blocks': num_blocks,
@@ -2444,6 +2588,11 @@ def kernel_line(flash, decode, decode8, w4, mx, kv, szc, unprep, fp8, cp, mla_qu
         for name, source, line in (('paged_decode_int4', 'paged_decode_int4.cu', 499),
                                    ('paged_decode_turbo', 'paged_decode_turbo.cu', 371),
                                    ('paged_decode_fp8', 'paged_decode.cu', 155))]
+    for e in kv_entries:
+        lead = kv_lead[e['name']]
+        if 'split_tokens_ms' in lead:
+            e.update({k: lead[k] for k in ('path', 'split_tokens', 'splits',
+                                           'split_tokens_ms')})
     # the fast / precise and unprepared W4A16 GEMMs: one Mixtral-8x7B layer's fused
     # wqkv and wo at the e2e_mixtral phases' decode bucket (fast's times lead, precise's
     # beside them)
@@ -2576,10 +2725,13 @@ def main():
     paths = {}
     for policy in KV_POLICIES:
         name = f'e2e_llama31_8b_{KV_PHASE[policy]}'
+        # the int4 and TurboQuant decodes split every call at the 33-page table, each
+        # call a second launch for the combine, counted apart from the decode's own
         paths[name] = timed(name, e2e_phase, name, llama31_config(L31), 64, policy, 63,
                             {'flash_prefill': (L31, 0), KV_POLICIES[policy]: (0, L31)},
                             info['nvidia_smi'], short_len=1024, long_len=4096, exact=True,
-                            shared=shared)
+                            shared=shared, combined=tuple(
+                                k for k in (KV_POLICIES[policy],) if k in KV_SPLIT_CONST))
     # the same weights with the KV striped over two context-parallel ranks on the one
     # card: 31 x 1,024 tokens and one 16,384-token prompt, the traffic users turn CP on
     # for; each decode step launches the partial kernel once a layer on each rank
@@ -2632,6 +2784,8 @@ def main():
         name = k['name']
         k['launches_by_path'] = {p: row['launches'][name] for p, row in paths.items()}
         k['launches'] = paths[main_path[name]]['launches'][name]
+        if name in paths[main_path[name]]['combines']:
+            k['combine_launches'] = paths[main_path[name]]['combines'][name]
         rows = paths[main_path[name]]['rows_by_kernel'].get(name)
         if rows:
             k['launches_by_rows'] = rows

@@ -24,28 +24,49 @@
 // Hkv * (2 * D / 2 code bytes + 4 * 4 scale and min bytes) -- 1,152 bytes at
 // Llama-3.1-8B (Hkv 8, D 128), 28% of the bf16 cache's 4,096.
 //
-// Design (paged_decode_int8.cu's, with nibble pages; TMA and tensor-core scores are
-// later work):
-//   * Narrow (D <= 256; D a template parameter): one block per (kv head, batch row)
-//     walks the row's pages up to its length.  The G query heads of the GQA group
-//     share every page the block loads.  Per page: the head's [BS, D / 2] byte slices
-//     of the K and V planes go to shared memory with 16-byte loads, the page's BS K
-//     and V scales and mins of this head beside them; scores with one thread per
-//     token (a 32-bit word holds 8 codes, code i at bits 4i..4i+3 is dim 8w + i);
-//     online softmax per query head (warp reductions), which also sums p * vmin; P.V
-//     with one thread per (head, column), accumulator in shared memory.
+// Design.  Every path splits each row's pages over blocks (grid (kv heads x head
+// blocks, B, splits); the split is the wrapper's, a function of W and BS alone): each
+// block with pages writes its unnormalized (acc, m, l), and a second kernel of
+// decode_split.cuh combines a row's splits in a fixed order (no atomics).  One split
+// writes the output itself.
+//   * Tensor-core narrow (bf16 / f16 q, D = 64, 128, 192, 256; quant_decode.cuh): a
+//     block of 4 warps takes up to 8 query heads of a kv head.  Its pages stream
+//     through a 3-stage ring of 64-token sub-chunks (the [64, D / 2] byte slices of
+//     the K and V planes and the 64 K / V scales and mins) with cp.async: two
+//     sub-chunks are in flight while one is computed.  Each warp copies and owns 16
+//     rows of every sub-chunk, waits only for its own copies (no block barrier in the
+//     loop) and keeps its own online softmax.  S = Q K^T on mma.sync m16n8k16: each K
+//     code is decoded once for the whole group, straight into the B fragment (2^k |
+//     code as a 16-bit float, minus 2^k: exact), against q in its own type (codes
+//     0..15 and q are exact in bf16 / f16, the product exact in f32); s = (q . k_q) *
+//     (scale * ksc) + sum(q) * scale * kmin in f32.  O^T += V^T P'^T on mma.sync with
+//     the V codes decoded the same way, P' = p * vsc as bf16 hi + lo (two products, 16
+//     of its 24 bits), and rowsum(p * vmin) on the CUDA cores.  So the function is the
+//     f32 loop's up to rounding.  A block whose split holds no page writes nothing:
+//     the combine reads a row's non-empty splits only.
+//   * CUDA-core narrow (f32 q at any D, and D = 80 / 96, which are no whole 64-dim
+//     units): one block per (kv head, batch row, split) walks its pages.  The G query
+//     heads of the GQA group share every page the block loads.  Per page: the head's
+//     [BS, D / 2] byte slices of the K and V planes go to shared memory with 16-byte
+//     loads, the page's BS K and V scales and mins of this head beside them; scores
+//     with one thread per token (a 32-bit word holds 8 codes, code i at bits 4i..4i+3
+//     is dim 8w + i); online softmax per query head (warp reductions), which also sums
+//     p * vmin; P.V with one thread per (head, column), accumulator in shared memory.
 //   * Wide (MLA's latent D = 576, one kv head under 16 or 128 query heads): as
 //     paged_decode_int8.cu's wide path -- 512 threads and up to 16 query heads a
 //     block, 32-token sub-chunks of the [*, D / 2] byte slices and their scales and
-//     mins in shared memory, one thread per (token, head) for the scores, a row's
-//     pages split over blocks whose (acc, m, l) a second kernel combines in a fixed
-//     order (no atomics).  The arithmetic is the narrow path's, term for term.
+//     mins in shared memory, one thread per (token, head) for the scores.  The
+//     arithmetic is the CUDA-core narrow path's, term for term.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "attn_mma.cuh"
 #include "attn_types.cuh"
 #include "decode_split.cuh"
+#include "quant_decode.cuh"
 
 namespace {
 
@@ -101,8 +122,9 @@ paged_decode_int4_kernel(const TQ* __restrict__ q,   // [B, Hq, D]
                          const int* __restrict__ tables,        // [B, W]
                          const int* __restrict__ kv_lens,       // [B]
                          TQ* __restrict__ out,       // [B, Hq, D]
+                         float* __restrict__ part,   // [B, S, Hq, D + 2] or null
                          int Hq, int Hkv, int NB, int BS, int W, int layer,
-                         float scale, float softcap) {
+                         float scale, float softcap, int split_pages) {
   constexpr int DB = D / 2;       // code bytes per head row
   constexpr int KSTR = DB + 16;   // padded K rows: conflict-free 16-byte row reads
   // 16-byte chunks per head row, or 8-byte ones where a head row is not a multiple of
@@ -112,6 +134,8 @@ paged_decode_int4_kernel(const TQ* __restrict__ q,   // [B, Hq, D]
   static_assert(DB % CB == 0, "head rows of whole 8-byte chunks");
   const int h = blockIdx.x;
   const int b = blockIdx.y;
+  const int S = gridDim.z;
+  const int sp = blockIdx.z;
   const int G = Hq / Hkv;
   const int RB = Hkv * DB;        // bytes per token row of a plane
   const int tid = threadIdx.x;
@@ -153,10 +177,11 @@ paged_decode_int4_kernel(const TQ* __restrict__ q,   // [B, Hq, D]
   __syncthreads();
 
   const int len = kv_lens[b];
-  const int p_hi = min((len + BS - 1) / BS, W);
+  const int p_lo = sp * split_pages;
+  const int p_hi = min(min((len + BS - 1) / BS, W), p_lo + split_pages);
   const long long plane = (long long)BS * RB;
   const long long splane = (long long)BS * Hkv;
-  for (int p = 0; p < p_hi; ++p) {
+  for (int p = p_lo; p < p_hi; ++p) {
     const int blk = min(max(tables[(long long)b * W + p], 0), NB - 1);
     const long long page = (long long)layer * NB + blk;
     const uint8_t* kpage = data + page * 2 * plane + (long long)h * DB;
@@ -258,11 +283,232 @@ paged_decode_int4_kernel(const TQ* __restrict__ q,   // [B, Hq, D]
     __syncthreads();
   }
 
-  TQ* orow = out + ((long long)b * Hq + (long long)h * G) * D;
-  for (int i = tid; i < G * D; i += NT) {
-    const float l = ls[i / D];
-    orow[i] = attn::from_f<TQ>(len > 0 ? os[i] / (l == 0.f ? 1.f : l) : 0.f);
+  if (S == 1) {
+    TQ* orow = out + ((long long)b * Hq + (long long)h * G) * D;
+    for (int i = tid; i < G * D; i += NT) {
+      const float l = ls[i / D];
+      orow[i] = attn::from_f<TQ>(len > 0 ? os[i] / (l == 0.f ? 1.f : l) : 0.f);
+    }
+    return;
   }
+  // this split's unnormalized (acc, m, l); an empty split's (0, MASK_VALUE, 0)
+  for (int i = tid; i < G * (D + 2); i += NT) {
+    const int g = i / (D + 2);
+    const int d = i - g * (D + 2);
+    const float v = d < D ? os[g * D + d] : (d == D ? ms[g] : ls[g]);
+    part[(((long long)b * S + sp) * Hq + h * G + g) * (D + 2) + d] = v;
+  }
+}
+
+// ------------------------------------------------------- tensor-core narrow kernel
+// one ring stage: the K and V rows [TC][D / 2 + 16] bytes, then ksc, kmn, vsc, vmn
+// [4][TC] f32
+template <int D>
+struct Stage {
+  static constexpr int RS = D / 2 + 16;   // padded row: conflict-free fragment loads
+  static constexpr int V = qdec::TC * RS;
+  static constexpr int M = 2 * qdec::TC * RS;
+  static constexpr int BYTES = M + 4 * qdec::TC * 4;
+};
+
+// the ring, whose smem the tail takes after it
+template <int D>
+__host__ __device__ constexpr int mma_smem() {
+  return qdec::NST * Stage<D>::BYTES > qdec::tail_bytes<D>() ? qdec::NST * Stage<D>::BYTES
+                                                              : qdec::tail_bytes<D>();
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(qdec::NT, qdec::min_blocks<D>())
+paged_decode_int4_mma(const T* __restrict__ q,                 // [B, Hq, D]
+                      const uint8_t* __restrict__ data,         // [L, NB, 2, BS, Hkv*D/2]
+                      const float* __restrict__ scales,         // [L, NB, 2, BS, Hkv]
+                      const float* __restrict__ minv,           // [L, NB, 2, BS, Hkv]
+                      const int* __restrict__ tables,           // [B, W]
+                      const int* __restrict__ kv_lens,          // [B]
+                      T* __restrict__ out,                      // [B, Hq, D]
+                      float* __restrict__ part,                 // [B, S, Hq, D + 2] or null
+                      int Hq, int Hkv, int NB, int BS, int W, int layer,
+                      float scale, float softcap, int split_pages) {
+  using namespace qdec;
+  using St = Stage<D>;
+  constexpr int DB = D / 2;           // code bytes a head row
+  constexpr int RS = St::RS;
+  constexpr int CH = DB / 16;         // 16-byte chunks a row
+  extern __shared__ __align__(16) uint8_t mma_raw[];
+
+  const int G = Hq / Hkv;
+  const int hsplits = (G + GQ - 1) / GQ;
+  const int h = blockIdx.x / hsplits;
+  const int g0 = (blockIdx.x - h * hsplits) * GQ;
+  const int gb = min(GQ, G - g0);
+  const int b = blockIdx.y;
+  const int S = gridDim.z;
+  const int sp = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int hq0 = h * G + g0;
+  const long long head0 = (long long)b * Hq + hq0;
+  const int len = kv_lens[b];
+  const Chunks ck(len, BS, W, sp, split_pages);
+  if (ck.i_lo >= ck.i_hi) {
+    empty_split(out, head0, gb, D, S);
+    return;
+  }
+
+  uint32_t qa[D / 16][2];
+  const float qsum =
+      scale * q_fragments<T, D>(gid < gb ? q + (head0 + gid) * D : nullptr, tig, qa);
+
+  const int RB = Hkv * DB;            // bytes a token row of a plane
+  const long long plane = (long long)BS * RB;
+  const long long splane = (long long)BS * Hkv;
+  auto load = [&](int i, int st) {
+    const int p = i / ck.cpp;
+    const int t0 = (i - p * ck.cpp) * TC;
+    const int nt = min(TC, BS - t0);
+    const int blk = min(max(tables[(long long)b * W + p], 0), NB - 1);
+    const long long page = (long long)layer * NB + blk;
+    const uint8_t* kp = data + page * 2 * plane + (long long)h * DB + (long long)t0 * RB;
+    const uint8_t* vp = kp + plane;
+    uint8_t* stage = mma_raw + st * St::BYTES;
+    for (int x = lane; x < WT * CH; x += 32) {   // the warp's own rows
+      const int t = warp * WT + x / CH;
+      const int c = x % CH;
+      const bool in = t < nt;            // rows past the page's end read as zeros
+      const long long off = in ? (long long)t * RB + c * 16 : 0;
+      cp_async16(stage + t * RS + c * 16, kp + off, in);
+      cp_async16(stage + St::V + t * RS + c * 16, vp + off, in);
+    }
+    const long long so = page * 2 * splane + h + (long long)t0 * Hkv;
+    float* ms = reinterpret_cast<float*>(stage + St::M);
+    for (int x = lane; x < 4 * WT; x += 32) {
+      const int a = x / WT;              // ksc, kmn (K plane), vsc, vmn (V plane)
+      const int t = warp * WT + x % WT;
+      const bool in = t < nt;
+      const long long off = in ? so + (a >> 1) * splane + (long long)t * Hkv : 0;
+      cp_async4(ms + a * TC + t, (a & 1 ? minv : scales) + off, in);
+    }
+    cp_commit();
+  };
+
+  float m = MASK_VALUE, l = 0.f, pmin = 0.f;    // head gid; l, pmin: this lane's share
+  float o[D / 64][4][4];
+#pragma unroll
+  for (int u = 0; u < D / 64; ++u)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) o[u][n][0] = o[u][n][1] = o[u][n][2] = o[u][n][3] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < NST - 1; ++st) {
+    if (ck.i_lo + st < ck.i_hi) load(ck.i_lo + st, st);
+    else cp_commit();
+  }
+  for (int i = ck.i_lo; i < ck.i_hi; ++i) {
+    cp_wait<NST - 2>();
+    // the warp's rows of sub-chunk i have landed for all its lanes, and the warp is
+    // done with its rows of i - 1, whose stage takes i + NST - 1 now: each warp copies
+    // and reads only its own rows, so no block barrier
+    __syncwarp();
+    const int nx = i + NST - 1;
+    if (nx < ck.i_hi) load(nx, (nx - ck.i_lo) % NST);
+    else cp_commit();
+    const uint8_t* stage = mma_raw + ((i - ck.i_lo) % NST) * St::BYTES;
+    const float* ms = reinterpret_cast<const float*>(stage + St::M);
+    const int p = i / ck.cpp;
+    const int t0 = (i - p * ck.cpp) * TC;
+    // rows below lim are positions below len (and on the page)
+    const int lim = min(min(TC, BS - t0), len - (p * BS + t0));
+    const int wt = warp * WT;         // the warp's first row of the sub-chunk
+
+    // S = Q K^T over the warp's two 8-token tiles, each K code decoded once
+    float s[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      const uint8_t* kr = stage + (wt + 8 * j + gid) * RS + 4 * tig;
+#pragma unroll
+      for (int jj = 0; jj < D / 32; ++jj) {
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(kr + 16 * jj);
+        const uint32_t a0[4] = {qa[2 * jj][0], 0u, qa[2 * jj][1], 0u};
+        const uint32_t a1[4] = {qa[2 * jj + 1][0], 0u, qa[2 * jj + 1][1], 0u};
+        attn::Mma<T>::run(s[j], a0, nib2<T>(w, 0), nib2<T>(w, 1));
+        attn::Mma<T>::run(s[j], a1, nib2<T>(w, 2), nib2<T>(w, 3));
+      }
+    }
+    // s = (q . k_q) * scale * ksc + sum(q * scale) * kmin; softcap; mask by len
+    float mx = MASK_VALUE;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int t = wt + 8 * j + 2 * tig;
+      const float2 ksc = *reinterpret_cast<const float2*>(ms + t);
+      const float2 kmn = *reinterpret_cast<const float2*>(ms + TC + t);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x = s[j][e] * (scale * (e ? ksc.y : ksc.x)) + qsum * (e ? kmn.y : kmn.x);
+        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+        x = t + e < lim ? x : MASK_VALUE;
+        s[j][e] = x;
+        mx = fmaxf(mx, x);
+      }
+    }
+    mx = attn::quad_max(mx);
+    const float m_new = fmaxf(m, mx);
+    const float alpha = expf(m - m_new);
+    m = m_new;
+    l *= alpha;
+    pmin *= alpha;
+    uint32_t ph[2], pl[2];            // P' = p * vsc, hi and lo: P.V's B fragments
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int t = wt + 8 * j + 2 * tig;
+      const float2 vsc = *reinterpret_cast<const float2*>(ms + 2 * TC + t);
+      const float2 vmn = *reinterpret_cast<const float2*>(ms + 3 * TC + t);
+      const float p0 = expf(s[j][0] - m_new), p1 = expf(s[j][1] - m_new);
+      l += p0 + p1;                                    // l sums the unscaled p
+      pmin = fmaf(p0, vmn.x, fmaf(p1, vmn.y, pmin));   // rowsum(p * vmin)
+      split_bf16(p0 * vsc.x, p1 * vsc.y, ph[j], pl[j]);
+    }
+    // O^T's columns are heads 2 tig and 2 tig + 1: their alphas from lanes 8 tig (+4)
+    const float al0 = __shfl_sync(0xffffffffu, alpha, 8 * tig);
+    const float al1 = __shfl_sync(0xffffffffu, alpha, 8 * tig + 4);
+#pragma unroll
+    for (int u = 0; u < D / 64; ++u)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        o[u][n][0] *= al0;
+        o[u][n][1] *= al1;
+        o[u][n][2] *= al0;
+        o[u][n][3] *= al1;
+      }
+
+    // O^T += V^T P'^T: the warp's tokens 2 tig, 2 tig + 1 (+8), words gid + 8 u
+    const uint8_t* vr = stage + St::V + (wt + 2 * tig) * RS + 4 * gid;
+#pragma unroll
+    for (int u = 0; u < D / 64; ++u) {
+      const uint32_t x1 = *reinterpret_cast<const uint32_t*>(vr + 32 * u);
+      const uint32_t x2 = *reinterpret_cast<const uint32_t*>(vr + RS + 32 * u);
+      const uint32_t x3 = *reinterpret_cast<const uint32_t*>(vr + 8 * RS + 32 * u);
+      const uint32_t x4 = *reinterpret_cast<const uint32_t*>(vr + 9 * RS + 32 * u);
+      // two tokens' bytes side by side: nibble n of each half is one dim of both
+      const uint32_t z12 = prmt(x1, x2, 0x5410), y12 = prmt(x1, x2, 0x7632);
+      const uint32_t z34 = prmt(x3, x4, 0x5410), y34 = prmt(x3, x4, 0x7632);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const uint32_t a[4] = {nib2<__nv_bfloat16>(z12, n), nib2<__nv_bfloat16>(y12, n),
+                               nib2<__nv_bfloat16>(z34, n), nib2<__nv_bfloat16>(y34, n)};
+        attn::Mma<__nv_bfloat16>::run(o[u][n], a, ph[0], ph[1]);
+        attn::Mma<__nv_bfloat16>::run(o[u][n], a, pl[0], pl[1]);
+      }
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();                    // the ring's smem takes the tail's
+  block_tail<T, D>(o, m, l, pmin, reinterpret_cast<float*>(mma_raw), out, part, head0, hq0,
+                   gb, b, S, sp, Hq);
 }
 
 // ------------------------------------------------------------------------ wide kernel
@@ -518,11 +764,21 @@ cudaError_t launch_wide(const void* q, const void* data, const void* scales,
   return cudaGetLastError();
 }
 
+// the second pass of a narrow launch of more than one split
+template <typename TQ>
+cudaError_t combine(float* part, const int* kv_lens, void* out, int B, int Hq, int D,
+                    int splits, int BS, int W, int split_pages, cudaStream_t stream) {
+  attn::decode_split_combine_rows<TQ><<<dim3(Hq, B), 128, 2 * splits * sizeof(float),
+                                        stream>>>(part, kv_lens, static_cast<TQ*>(out), Hq,
+                                                  D, splits, BS, W, split_pages);
+  return cudaGetLastError();
+}
+
 template <typename TQ, int D>
 cudaError_t launch(const void* q, const void* data, const void* scales, const void* minv,
-                   const int* tables, const int* kv_lens, void* out, int B, int Hq, int Hkv,
-                   int NB, int BS, int W, int layer, float scale, float softcap,
-                   cudaStream_t stream) {
+                   const int* tables, const int* kv_lens, void* out, float* part, int B,
+                   int Hq, int Hkv, int NB, int BS, int W, int layer, float scale,
+                   float softcap, int splits, cudaStream_t stream) {
   const size_t bytes = smem_bytes<D>(Hq / Hkv, BS);
   static size_t configured = 48 * 1024;
   if (bytes > configured) {
@@ -532,11 +788,34 @@ cudaError_t launch(const void* q, const void* data, const void* scales, const vo
     if (e != cudaSuccess) return e;
     configured = bytes;
   }
-  paged_decode_int4_kernel<TQ, D><<<dim3(Hkv, B), NT, bytes, stream>>>(
+  const int split_pages = (W + splits - 1) / splits;
+  paged_decode_int4_kernel<TQ, D><<<dim3(Hkv, B, splits), NT, bytes, stream>>>(
       static_cast<const TQ*>(q), static_cast<const uint8_t*>(data),
       static_cast<const float*>(scales), static_cast<const float*>(minv), tables, kv_lens,
-      static_cast<TQ*>(out), Hq, Hkv, NB, BS, W, layer, scale, softcap);
-  return cudaGetLastError();
+      static_cast<TQ*>(out), part, Hq, Hkv, NB, BS, W, layer, scale, softcap, split_pages);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  return combine<TQ>(part, kv_lens, out, B, Hq, D, splits, BS, W, split_pages, stream);
+}
+
+template <typename T, int D>
+cudaError_t launch_mma(const void* q, const void* data, const void* scales, const void* minv,
+                       const int* tables, const int* kv_lens, void* out, float* part, int B,
+                       int Hq, int Hkv, int NB, int BS, int W, int layer, float scale,
+                       float softcap, int splits, cudaStream_t stream) {
+  constexpr int bytes = mma_smem<D>();
+  static cudaError_t configured = cudaFuncSetAttribute(
+      paged_decode_int4_mma<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (configured != cudaSuccess) return configured;
+  const int hsplits = (Hq / Hkv + qdec::GQ - 1) / qdec::GQ;
+  const int split_pages = (W + splits - 1) / splits;
+  paged_decode_int4_mma<T, D><<<dim3(Hkv * hsplits, B, splits), qdec::NT, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const uint8_t*>(data),
+      static_cast<const float*>(scales), static_cast<const float*>(minv), tables, kv_lens,
+      static_cast<T*>(out), part, Hq, Hkv, NB, BS, W, layer, scale, softcap, split_pages);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  return combine<T>(part, kv_lens, out, B, Hq, D, splits, BS, W, split_pages, stream);
 }
 
 template <typename TQ>
@@ -544,35 +823,58 @@ int by_dim(const void* q, const void* data, const void* scales, const void* minv
            const int* tb, const int* kl, void* out, float* part, int B, int Hq, int Hkv,
            int D, int NB, int BS, int W, int layer, float scale, float softcap, int splits,
            cudaStream_t s) {
-#define INT4_CASE(DIM)                                                                 \
+  if (splits <= 0 || (splits > 1 && part == nullptr)) return (int)cudaErrorInvalidValue;
+#define NARROW_CASE(DIM)                                                               \
   case DIM:                                                                            \
-    return (int)launch<TQ, DIM>(q, data, scales, minv, tb, kl, out, B, Hq, Hkv, NB,   \
-                                BS, W, layer, scale, softcap, s);
+    return (int)launch<TQ, DIM>(q, data, scales, minv, tb, kl, out, part, B, Hq, Hkv,  \
+                                NB, BS, W, layer, scale, softcap, splits, s);
+#define MMA_CASE(DIM)                                                                  \
+  case DIM:                                                                            \
+    return (int)launch_mma<TQ, DIM>(q, data, scales, minv, tb, kl, out, part, B, Hq,   \
+                                    Hkv, NB, BS, W, layer, scale, softcap, splits, s);
   switch (D) {
-    INT4_CASE(64)
-    INT4_CASE(80)
-    INT4_CASE(96)
-    INT4_CASE(128)
-    INT4_CASE(192)
-    INT4_CASE(256)
+    NARROW_CASE(80)
+    NARROW_CASE(96)
     case 576:
       return (int)launch_wide<TQ>(q, data, scales, minv, tb, kl, out, part, B, Hq, Hkv, D,
                                   NB, BS, W, layer, scale, softcap, splits, s);
     default:
-      return (int)cudaErrorInvalidValue;
+      break;
   }
-#undef INT4_CASE
+  // bf16 / f16 q at whole 64-dim units: the tensor-core body; f32 q the CUDA cores'
+  if constexpr (std::is_same<TQ, float>::value) {
+    switch (D) {
+      NARROW_CASE(64)
+      NARROW_CASE(128)
+      NARROW_CASE(192)
+      NARROW_CASE(256)
+      default:
+        break;
+    }
+  } else {
+    switch (D) {
+      MMA_CASE(64)
+      MMA_CASE(128)
+      MMA_CASE(192)
+      MMA_CASE(256)
+      default:
+        break;
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+#undef NARROW_CASE
+#undef MMA_CASE
 }
 
 }  // namespace
 
 // q [B,Hq,D] of dtype 0 bf16, 1 f16 or 2 f32; data [L,NB,2,BS,Hkv*D/2] u8; scales,
 // minv [L,NB,2,BS,Hkv] f32; tables [B,W] i32; kv_lens [B] i32; out [B,Hq,D] in q's
-// dtype; all contiguous.  D in {64, 80, 96, 128, 192, 256} (the narrow kernel) or 576
-// (the wide one).  softcap <= 0 disables it.  splits: the wide kernel's split of each
-// row's W pages over blocks (1 for none; the narrow kernel ignores it), with part f32
-// [B, splits, Hq, D + 2] scratch when it is above 1.  Returns the CUDA error code of
-// the launch (0 = launched).
+// dtype; all contiguous.  D in {64, 80, 96, 128, 192, 256} (the narrow kernels) or 576
+// (the wide one).  softcap <= 0 disables it.  splits: the split of each row's W pages
+// over blocks (1 for none), with part f32 [B, splits, Hq, D + 2] scratch when it is
+// above 1; a split launch is followed by the combine.  Returns the CUDA error code of
+// the launches (0 = launched).
 extern "C" int paged_decode_int4(const void* q, const void* data, const void* scales,
                                  const void* minv, const void* tables, const void* kv_lens,
                                  void* out, void* part, int dtype, int B, int Hq, int Hkv,

@@ -28,6 +28,12 @@ The quantized kernels have a logit softcap but no window and no sinks, as the
 reference never sends those to them.  ``kv_lens`` counts the token just filled; 0 marks
 an inactive row, whose output is 0.  Each wrapper counts its own launches.
 
+The int4 and TurboQuant kernels split each row's pages over blocks (``page_splits``:
+``SPLIT_TOKENS_INT4`` / ``SPLIT_TOKENS_TURBO`` tokens a split, a function of the table
+width alone) and combine the splits' (acc, m, l) in a second launch; their wrappers
+count that launch in ``.combines``.  ``*_split_plain`` computes the same two passes in
+plain PyTorch (``split_partials_plain``, then ``cp_combine``).
+
 Context parallelism (``paged_decode_attention_cp``, body ``_decode_kernel_cp``): the
 cache is a ``parallel.mesh.StripedKV``, each page's slots striped over the 'cp' ranks.
 ``paged_decode_cp_partial`` (``csrc/paged_decode_cp.cu``) gives one rank's
@@ -57,6 +63,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 QUANT_HEAD_DIMS = HEAD_DIMS
 TURBO_HEAD_DIMS = tuple(d for d in HEAD_DIMS if d <= 256 and d & (d - 1) == 0)
 CP_HEAD_DIMS = tuple(d for d in HEAD_DIMS if d <= 256)
+# the int4 / TurboQuant head dims whose narrow path runs on the tensor cores for a bf16
+# or f16 q (whole 64-dim units); f32 q and the other dims take the CUDA-core body
+MMA_QUANT_HEAD_DIMS = tuple(d for d in HEAD_DIMS if d <= 256 and d % 64 == 0)
 # paged_decode{,_fp8}(q, cache, tables, kv_lens, sinks, out, part, dtype, B, Hq, Hkv, D,
 #                     NB, BS, W, layer, scale, softcap, window, splits, stream)
 _ARGTYPES = [_P] * 7 + [_I] * 9 + [_F, _F, _I, _I, _P]
@@ -66,15 +75,20 @@ _ARGTYPES = [_P] * 7 + [_I] * 9 + [_F, _F, _I, _I, _P]
 # split on the card is twice as long (chip_smoke.decode_phase sweeps it; PERF.md)
 SPLIT_TOKENS = 512
 SPLIT_TOKENS_MMA = 1024
+# the int4 and TurboQuant narrow paths (D <= 256) split each row's pages over blocks of
+# about this many tokens too: chip_smoke.decode_kv_phase sweeps 256-2048 at every case;
+# these are the best or within 2% of it at the Llama-3.1-8B and bs64 cases (PERF.md)
+SPLIT_TOKENS_INT4 = 1024
+SPLIT_TOKENS_TURBO = 2048
 # paged_decode_int8(q, data, scale, tables, kv_lens, out, part, dtype, B, Hq, Hkv, D,
 #                   NB, BS, W, layer, scale, softcap, splits, stream)
 _ARGTYPES_INT8 = [_P] * 7 + [_I] * 9 + [_F, _F, _I, _P]
 # paged_decode_int4(q, data, scale, minv, tables, kv_lens, out, part, dtype, B, Hq, Hkv,
 #                   D, NB, BS, W, layer, scale, softcap, splits, stream)
 _ARGTYPES_INT4 = [_P] * 8 + [_I] * 9 + [_F, _F, _I, _P]
-# paged_decode_turbo(q, data, meta, tables, kv_lens, out, dtype, B, Hq, Hkv, D, NB, BS,
-#                    W, layer, scale, softcap, sigma, stream)
-_ARGTYPES_TURBO = [_P] * 6 + [_I] * 9 + [_F, _F, _F, _P]
+# paged_decode_turbo(q, data, meta, tables, kv_lens, out, part, dtype, B, Hq, Hkv, D, NB,
+#                    BS, W, layer, scale, softcap, sigma, splits, stream)
+_ARGTYPES_TURBO = [_P] * 7 + [_I] * 9 + [_F, _F, _F, _I, _P]
 # paged_decode_cp(q, stripe, tables, kv_lens, acc, m, l, part, dtype, B, Hq, Hkv, D, NB,
 #                 BSl, W, layer, pos_off, stride, scale, softcap, window, splits, stream)
 _ARGTYPES_CP = [_P] * 8 + [_I] * 11 + [_F, _F, _I, _I, _P]
@@ -262,18 +276,48 @@ def _launch_plain_layout(kernel, symbol, q, kv_cache, block_tables, kv_lens, lay
     return out
 
 
+def page_splits(W: int, BS: int, tokens: int) -> int:
+    """The split of a row's W pages of BS slots over blocks of about ``tokens``
+    tokens: ceil(W / max(1, tokens // BS)) splits of ceil(W / splits) pages each.  A
+    function of the table's shape alone (no read of kv_lens), so a call stays the same
+    launch whatever the rows' lengths."""
+    return -(-W // max(1, tokens // BS))
+
+
 def _split_scratch(wide: bool, q: torch.Tensor, W: int, BS: int,
                    tokens: Optional[int] = None):
-    """(splits, part): a wide path's split of each row's W pages of BS slots over
-    blocks of about ``tokens`` (default ``SPLIT_TOKENS``) tokens, and its f32
-    [B, splits, Hq, D + 2] scratch (None for one split; the narrow path takes no
-    split)."""
+    """(splits, part): a split path's split of each row's W pages (``page_splits``
+    with ``tokens``, default ``SPLIT_TOKENS``), and its f32 [B, splits, Hq, D + 2]
+    scratch (None for one split; ``wide`` False takes no split)."""
     B, Hq, D = q.shape
     tokens = SPLIT_TOKENS if tokens is None else tokens
-    splits = -(-W // max(1, tokens // BS)) if wide else 1
+    splits = page_splits(W, BS, tokens) if wide else 1
     part = (torch.empty(B * splits * Hq * (D + 2), dtype=torch.float32, device=q.device)
             if splits > 1 else None)
     return splits, part
+
+
+def split_partials_plain(s: torch.Tensor, kv_lens: torch.Tensor, pv, BS: int,
+                         splits: int):
+    """The first pass of a decode whose row's pages are split over blocks: scores s
+    [B, Hkv, G, W*BS] (softcapped, not masked), ``pv(p)`` -> unnormalized
+    [B, Hkv, G, D].  Pages [sp * n, (sp + 1) * n), n = ceil(W / splits), make split sp;
+    each split's f32 (acc [B,Hq,D], m [B,Hq], l [B,Hq]) over its positions below
+    kv_len, an empty split (0, MASK_VALUE, 0).  Returns them in split order, the form
+    ``cp_combine`` joins."""
+    B, Hkv, G, S = s.shape
+    n = -(-(S // BS) // splits) * BS
+    pos = torch.arange(S, device=s.device)
+    valid = pos[None, :] < kv_lens.long()[:, None]
+    parts = []
+    for sp in range(splits):
+        keep = (valid & (pos >= sp * n) & (pos < (sp + 1) * n))[:, None, None, :]
+        ss = torch.where(keep, s, torch.full((), MASK_VALUE, device=s.device))
+        m = ss.amax(-1)
+        p = torch.where(keep, torch.exp(ss - m[..., None]), torch.zeros((), device=s.device))
+        parts.append((pv(p).reshape(B, Hkv * G, -1), m.reshape(B, -1),
+                      p.sum(-1).reshape(B, -1)))
+    return parts
 
 
 # ----------------------------------------------------------------------------- int8 --
@@ -337,14 +381,11 @@ paged_decode_attention_int8.launches = 0
 
 
 # ----------------------------------------------------------------------------- int4 --
-def paged_decode_attention_int4_plain(q: torch.Tensor, kv: QuantKV4,
-                                      block_tables: torch.Tensor, kv_lens: torch.Tensor,
-                                      layer: int, scale: float, num_kv_heads: int,
-                                      logit_softcap: Optional[float] = None
-                                      ) -> torch.Tensor:
-    """q [B,Hq,D] over an int4 cache -> [B,Hq,D]; f32, scale and min on the score
-    side: ``s = (qs·k_q) * ksc + Σqs * kmin`` with qs = q * scale summed over the
-    head's D dims, ``out = ((p*vsc) @ v_q + Σ p*vmin) / l``."""
+def int4_decode_terms(q: torch.Tensor, kv: QuantKV4, block_tables: torch.Tensor,
+                      layer: int, scale: float, num_kv_heads: int,
+                      logit_softcap: Optional[float]):
+    """The int4 decode's scores s [B, Hkv, G, W*BS] (softcapped, not masked) and its
+    P.V ``pv(p)`` -> unnormalized [B, Hkv, G, D], f32."""
     B, Hq, D = q.shape
     Hkv, G = num_kv_heads, Hq // num_kv_heads
     NB, BS = kv.data.shape[1], kv.data.shape[3]
@@ -364,7 +405,43 @@ def paged_decode_attention_int4_plain(q: torch.Tensor, kv: QuantKV4,
     def pv(p):
         return (torch.einsum('bhgs,bshd->bhgd', p * vsc, v)
                 + (p * vmn).sum(-1, keepdim=True))
+    return s, pv
+
+
+def paged_decode_attention_int4_plain(q: torch.Tensor, kv: QuantKV4,
+                                      block_tables: torch.Tensor, kv_lens: torch.Tensor,
+                                      layer: int, scale: float, num_kv_heads: int,
+                                      logit_softcap: Optional[float] = None
+                                      ) -> torch.Tensor:
+    """q [B,Hq,D] over an int4 cache -> [B,Hq,D]; f32, scale and min on the score
+    side: ``s = (qs·k_q) * ksc + Σqs * kmin`` with qs = q * scale summed over the
+    head's D dims, ``out = ((p*vsc) @ v_q + Σ p*vmin) / l``."""
+    B, Hq, D = q.shape
+    s, pv = int4_decode_terms(q, kv, block_tables, layer, scale, num_kv_heads, logit_softcap)
     return _softmax_out(s, kv_lens, pv, B, Hq, D, q.dtype)
+
+
+def int4_splits(W: int, BS: int, D: int) -> int:
+    """The int4 kernel's split of a row's W pages: the narrow paths'
+    ``SPLIT_TOKENS_INT4``, the wide path's (D 576) ``SPLIT_TOKENS``."""
+    return page_splits(W, BS, SPLIT_TOKENS if D > 256 else SPLIT_TOKENS_INT4)
+
+
+def paged_decode_attention_int4_split_plain(q: torch.Tensor, kv: QuantKV4,
+                                            block_tables: torch.Tensor,
+                                            kv_lens: torch.Tensor, layer: int,
+                                            scale: float, num_kv_heads: int,
+                                            logit_softcap: Optional[float] = None,
+                                            splits: Optional[int] = None) -> torch.Tensor:
+    """The int4 kernel's two passes in plain PyTorch: each split's partials
+    (``split_partials_plain``; ``splits`` default the kernel's, ``int4_splits``), then
+    the fixed-order combine (``cp_combine``).  The same function as
+    ``paged_decode_attention_int4_plain`` up to f32 rounding."""
+    B, Hq, D = q.shape
+    BS, W = kv.data.shape[3], block_tables.shape[1]
+    s, pv = int4_decode_terms(q, kv, block_tables, layer, scale, num_kv_heads, logit_softcap)
+    splits = int4_splits(W, BS, D) if splits is None else splits
+    return cp_combine(split_partials_plain(s, kv_lens, pv, BS, splits), None, q.dtype)
 
 
 def paged_decode_attention_int4(q: torch.Tensor, kv: QuantKV4, block_tables: torch.Tensor,
@@ -391,7 +468,9 @@ def paged_decode_attention_int4(q: torch.Tensor, kv: QuantKV4, block_tables: tor
                          f'{tuple(scales.shape)} min {tuple(minv.shape)} for '
                          f'{num_kv_heads} kv heads of {D}')
     out = torch.empty_like(q)
-    splits, part = _split_scratch(D > 256, q, W, BS)
+    splits = int4_splits(W, BS, D)
+    part = (torch.empty(B * splits * Hq * (D + 2), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
     fn = cuda_build.entry('paged_decode_int4', 'paged_decode_int4', _ARGTYPES_INT4)
     rc = fn(q.data_ptr(), data.data_ptr(), scales.data_ptr(), minv.data_ptr(),
             block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
@@ -400,21 +479,21 @@ def paged_decode_attention_int4(q: torch.Tensor, kv: QuantKV4, block_tables: tor
             logit_softcap if logit_softcap else 0.0, splits, cuda_build.stream_handle(q))
     cuda_build.check(rc, 'paged_decode_int4')
     paged_decode_attention_int4.launches += 1
+    paged_decode_attention_int4.combines += splits > 1
     return out
 
 
+# launches: one a call; combines: the calls whose split also launched the combine
 paged_decode_attention_int4.launches = 0
+paged_decode_attention_int4.combines = 0
 
 
 # ----------------------------------------------------------------------- TurboQuant --
-def paged_decode_attention_turbo_plain(q: torch.Tensor, kv: QuantKVTurbo,
-                                       block_tables: torch.Tensor, kv_lens: torch.Tensor,
-                                       layer: int, scale: float, num_kv_heads: int,
-                                       logit_softcap: Optional[float] = None
-                                       ) -> torch.Tensor:
-    """ROTATED q [B,Hq,D] over a TurboQuant cache -> rotated-domain [B,Hq,D]; f32,
-    norms on the score side: ``s = (qs·cent + qjl * qs·sgn) * mse`` with qs = q *
-    scale, ``out = ((p*vnorm) @ vcent) / l``."""
+def turbo_decode_terms(q: torch.Tensor, kv: QuantKVTurbo, block_tables: torch.Tensor,
+                       layer: int, scale: float, num_kv_heads: int,
+                       logit_softcap: Optional[float]):
+    """The TurboQuant decode's scores s [B, Hkv, G, W*BS] (softcapped, not masked) and
+    its P.V ``pv(p)`` -> unnormalized [B, Hkv, G, D], f32, in the rotated domain."""
     B, Hq, D = q.shape
     Hkv, G = num_kv_heads, Hq // num_kv_heads
     NB, BS = kv.data.shape[1], kv.data.shape[2]
@@ -433,10 +512,40 @@ def paged_decode_attention_turbo_plain(q: torch.Tensor, kv: QuantKVTurbo,
     s = (torch.einsum('bhgd,bshd->bhgs', qg, cent)
          + qjl * torch.einsum('bhgd,bshd->bhgs', qg, sgn)) * mse
     s = _softcap(s, logit_softcap)
-    return _softmax_out(s, kv_lens,
-                        lambda p: torch.einsum('bhgs,bshd->bhgd', p * vnorm,
-                                               cent2[vc.long()]),
-                        B, Hq, D, q.dtype)
+    return s, lambda p: torch.einsum('bhgs,bshd->bhgd', p * vnorm, cent2[vc.long()])
+
+
+def paged_decode_attention_turbo_plain(q: torch.Tensor, kv: QuantKVTurbo,
+                                       block_tables: torch.Tensor, kv_lens: torch.Tensor,
+                                       layer: int, scale: float, num_kv_heads: int,
+                                       logit_softcap: Optional[float] = None
+                                       ) -> torch.Tensor:
+    """ROTATED q [B,Hq,D] over a TurboQuant cache -> rotated-domain [B,Hq,D]; f32,
+    norms on the score side: ``s = (qs·cent + qjl * qs·sgn) * mse`` with qs = q *
+    scale, ``out = ((p*vnorm) @ vcent) / l``."""
+    B, Hq, D = q.shape
+    s, pv = turbo_decode_terms(q, kv, block_tables, layer, scale, num_kv_heads, logit_softcap)
+    return _softmax_out(s, kv_lens, pv, B, Hq, D, q.dtype)
+
+
+def turbo_splits(W: int, BS: int) -> int:
+    """The TurboQuant kernel's split of a row's W pages (``SPLIT_TOKENS_TURBO``)."""
+    return page_splits(W, BS, SPLIT_TOKENS_TURBO)
+
+
+def paged_decode_attention_turbo_split_plain(q: torch.Tensor, kv: QuantKVTurbo,
+                                             block_tables: torch.Tensor,
+                                             kv_lens: torch.Tensor, layer: int,
+                                             scale: float, num_kv_heads: int,
+                                             logit_softcap: Optional[float] = None,
+                                             splits: Optional[int] = None) -> torch.Tensor:
+    """The TurboQuant kernel's two passes in plain PyTorch (rotated domain): each
+    split's partials (``split_partials_plain``; ``splits`` default the kernel's,
+    ``turbo_splits``), then the fixed-order combine (``cp_combine``)."""
+    BS, W = kv.data.shape[2], block_tables.shape[1]
+    s, pv = turbo_decode_terms(q, kv, block_tables, layer, scale, num_kv_heads, logit_softcap)
+    splits = turbo_splits(W, BS) if splits is None else splits
+    return cp_combine(split_partials_plain(s, kv_lens, pv, BS, splits), None, q.dtype)
 
 
 def paged_decode_attention_turbo(q: torch.Tensor, kv: QuantKVTurbo,
@@ -462,18 +571,22 @@ def paged_decode_attention_turbo(q: torch.Tensor, kv: QuantKVTurbo,
         raise ValueError(f'paged_decode_turbo: bad shapes data {tuple(data.shape)} meta '
                          f'{tuple(meta.shape)} for {num_kv_heads} kv heads of {D}')
     out = torch.empty_like(q)
+    splits, part = _split_scratch(True, q, W, BS, SPLIT_TOKENS_TURBO)
     fn = cuda_build.entry('paged_decode_turbo', 'paged_decode_turbo', _ARGTYPES_TURBO)
     rc = fn(q.data_ptr(), data.data_ptr(), meta.data_ptr(), block_tables.data_ptr(),
-            kv_lens.data_ptr(), out.data_ptr(), KERNEL_DTYPES[q.dtype], B, Hq,
-            num_kv_heads, D, NB, BS, W,
+            kv_lens.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(),
+            KERNEL_DTYPES[q.dtype], B, Hq, num_kv_heads, D, NB, BS, W,
             layer, scale, logit_softcap if logit_softcap else 0.0,
-            float(turbo_sigma(D)), cuda_build.stream_handle(q))
+            float(turbo_sigma(D)), splits, cuda_build.stream_handle(q))
     cuda_build.check(rc, 'paged_decode_turbo')
     paged_decode_attention_turbo.launches += 1
+    paged_decode_attention_turbo.combines += splits > 1
     return out
 
 
+# launches: one a call; combines: the calls whose split also launched the combine
 paged_decode_attention_turbo.launches = 0
+paged_decode_attention_turbo.combines = 0
 
 
 # ------------------------------------------------------------- context parallelism --
@@ -558,7 +671,8 @@ paged_decode_cp_partial.launches = 0
 def cp_combine(parts, sinks: Optional[torch.Tensor], out_dtype: torch.dtype) -> torch.Tensor:
     """The ranks' partials [(acc [B,Hq,D], m [B,Hq], l [B,Hq]), ...], in rank order and
     on one device -> the attention output [B,Hq,D] in ``out_dtype`` (reference
-    :813-821): ``m_g = max m``, ``a = exp(m - m_g)``, ``l_g = sum l*a``,
+    :813-821; also the plain combine of the int4 / TurboQuant splits):
+    ``m_g = max m``, ``a = exp(m - m_g)``, ``l_g = sum l*a``,
     ``acc_g = sum acc*a`` (summed in rank order: no atomics), sinks [Hq] add
     ``exp(sink - m_g)`` to ``l_g`` where ``m_g > 0.5*MASK_VALUE``, and
     ``out = acc_g / (l_g == 0 ? 1 : l_g)``.  A collective over a process group (an

@@ -176,6 +176,18 @@ def test_kernel_head_dims_match_sources():
                   ('cp.async.cg.shared.global', 'load('),
                   ('cp.async.wait_group', 'cp.async.wait_group')),
                  id='decode-mma-cp-async'),
+    pytest.param('paged_decode_int4', 'paged_decode_int4_mma',
+                 (('mma.sync.aligned.m16n8k16', 'Mma<T>::run('),
+                  ('mma.sync.aligned.m16n8k16', 'Mma<__nv_bfloat16>::run('),
+                  ('cp.async.cg.shared.global', 'cp_async16('),
+                  ('cp.async.wait_group', 'cp_wait<')),
+                 id='int4-decode-mma-cp-async'),
+    pytest.param('paged_decode_turbo', 'paged_decode_turbo_mma',
+                 (('mma.sync.aligned.m16n8k16', 'Mma<T>::run('),
+                  ('mma.sync.aligned.m16n8k16', 'Mma<__nv_bfloat16>::run('),
+                  ('cp.async.cg.shared.global', 'cp_async16('),
+                  ('cp.async.wait_group', 'cp_wait<')),
+                 id='turbo-decode-mma-cp-async'),
     pytest.param('w4a16_gemm', 'w4a16_gd_kernel',
                  (('wgmma.mma_async', 'wgmma_rs<'), ('cp.async.bulk.tensor', 'tma_load('),
                   ('mbarrier.try_wait', 'mbar_wait('), ('prefetch.tensormap', 'prefetch_map(')),
@@ -188,7 +200,9 @@ def test_kernel_sources_use_hopper_paths(source, kernel, uses):
     """The bf16 / f16 flash kernel at D 64 / 128 runs both products on wgmma with its
     K / V tiles streamed by TMA into an mbarrier ring (a producer warpgroup that gives
     up registers); the paged decode's wide path over 2-byte pages runs both products on
-    mma.sync with a cp.async page pipeline; the gd W4A16 GEMM and fp8_bmm run wgmma
+    mma.sync with a cp.async page pipeline, and so do the int4 and TurboQuant narrow
+    paths for a bf16 / f16 q (each code decoded once into an operand, P.V over the
+    decoded V codes); the gd W4A16 GEMM and fp8_bmm run wgmma
     with the decoded weights as the register operand and x, words, scales by TMA.  Each instruction is in the source or its
     shared header, and the kernel's body reaches it; the dispatch launches the kernel."""
     import os
@@ -239,6 +253,44 @@ def test_gemm_token_tiles_match_sources():
     tiles = {int(t) for t in re.findall(r'launch<(\d+)>\(x, w8', f8)}
     assert tiles == set(qm.TOKEN_TILES)
     assert all(tile(M) == qm.token_tile(M) for M in range(1, 768))
+
+
+def test_quant_decode_splits_match_sources():
+    """The int4 and TurboQuant wrappers split every call by ``page_splits`` (the narrow
+    paths' SPLIT_TOKENS_INT4 / _TURBO tokens a split, int4's wide path SPLIT_TOKENS),
+    and their sources take that split on every narrow path: each launch's grid is
+    (.., B, splits) with ceil(W / splits) pages a split, and a split launch is followed
+    by the combine that reads each row's non-empty splits.  The tensor-core bodies serve
+    the head dims of MMA_QUANT_HEAD_DIMS (bf16 / f16 q), the CUDA-core ones the rest;
+    each split is whole sub-chunks of the ring, and no split lies past the table."""
+    import os
+    import re
+
+    from lmdeploy_tpu_torch.ops import cuda_build
+    from lmdeploy_tpu_torch.ops import paged_decode as pd
+
+    def read(name):
+        return open(os.path.join(cuda_build.CSRC_DIR, name)).read()
+    tc = int(re.search(r'constexpr int TC = (\d+);', read('quant_decode.cuh')).group(1))
+    for name in ('paged_decode_int4', 'paged_decode_turbo'):
+        src = read(name + '.cu')
+        for kernel in (name + '_kernel', name + '_mma'):
+            assert re.search(kernel + r'<[^>]*><<<dim3\([^;]*, B, splits\)', src), kernel
+        assert src.count('const int split_pages = (W + splits - 1) / splits;') >= 2
+        assert 'attn::decode_split_combine_rows<' in src
+    mma_dims = {int(d) for d in re.findall(r'MMA_CASE\((\d+)\)', read('paged_decode_int4.cu'))}
+    assert mma_dims == set(pd.MMA_QUANT_HEAD_DIMS) == {64, 128, 192, 256}
+    assert set(pd.TURBO_HEAD_DIMS) <= set(pd.MMA_QUANT_HEAD_DIMS)
+    assert pd.SPLIT_TOKENS_INT4 % tc == 0 and pd.SPLIT_TOKENS_TURBO % tc == 0
+    for W in range(1, 130):
+        for BS in (16, 64, 128):
+            for tokens in (256, 512, 1024, 2048):
+                splits = pd.page_splits(W, BS, tokens)
+                n = -(-W // splits)
+                assert 1 <= splits <= W and (splits - 1) * n < W <= splits * n
+            assert pd.int4_splits(W, BS, 128) == pd.page_splits(W, BS, pd.SPLIT_TOKENS_INT4)
+            assert pd.int4_splits(W, BS, 576) == pd.page_splits(W, BS, pd.SPLIT_TOKENS)
+            assert pd.turbo_splits(W, BS) == pd.page_splits(W, BS, pd.SPLIT_TOKENS_TURBO)
 
 
 def test_gemm_bodies_left_mma_sync():

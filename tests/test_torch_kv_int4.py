@@ -21,9 +21,10 @@ from lmdeploy_tpu_torch.ops.kv_quant import (QuantKV4, dequantize_int4, pack_nib
                                              quantize_rows_int4, unpack_nibbles)
 from lmdeploy_tpu_torch.ops.paged_decode import (paged_decode_attention,
                                                  paged_decode_attention_int4,
-                                                 paged_decode_attention_int4_plain)
+                                                 paged_decode_attention_int4_plain,
+                                                 paged_decode_attention_int4_split_plain)
 
-from torch_kv_cases import (check_decode_vs_pallas, check_engine_tokens, check_fill,
+from torch_kv_cases import (TOL, check_decode_vs_pallas, check_engine_tokens, check_fill,
                             check_gather_and_attention, fill_random, pipeline_tokens, t)
 
 
@@ -79,6 +80,25 @@ def test_int4_decode_plain_matches_pallas(G, softcap):
         paged_decode_attention_int4, rng)
     with pytest.raises(ValueError):          # no window and no sinks on a quantized cache
         paged_decode_attention(t(q), port, t(tables), t(kv_lens), 1, 0.125, 2, window=8)
+
+
+@pytest.mark.parametrize('G,softcap', [(1, None), (4, None), (4, 20.0), (8, None)])
+def test_int4_decode_split_plain_matches_pallas(G, softcap):
+    """The kernel's two passes in plain PyTorch -- each split's (acc, m, l) over its
+    pages, then the fixed-order combine -- against the Pallas kernel in interpret mode
+    at 2e-5: 1, 2 and W splits of the 6-page table and the wrapper's own split, on rows
+    of 1, 37, 0, 96 and 32 tokens (empty splits, an inactive row whose output is 0)."""
+    rng = np.random.RandomState(5)
+    port, q, tables, kv_lens, out_ref = check_decode_vs_pallas(
+        ref_cache(rng, 3, 40, 16, 2, 64), 2, G, 64, softcap,
+        paged_decode_attention_int4_plain, paged_decode_attention_int4, rng)
+    active = kv_lens > 0
+    for splits in (1, 2, tables.shape[1], None):
+        out = paged_decode_attention_int4_split_plain(
+            t(q), port, t(tables), t(kv_lens), 1, 64 ** -0.5, 2, logit_softcap=softcap,
+            splits=splits).numpy()
+        np.testing.assert_allclose(out[active], out_ref[active], **TOL)
+        assert np.all(out[~active] == 0)
 
 
 @pytest.mark.parametrize('softcap', [None, 20.0])
