@@ -2,8 +2,8 @@
 turns.
 
     python3 chip_ab.py PARENT_DIR [--cells deepseek w4a16_kv8 tinyllama] [--pairs 2]
-    python3 chip_ab.py PARENT_DIR --kernels [--kernel-sets w4a16_gemm fp8_bmm kv_decode]
-                       [--pairs 1]
+    python3 chip_ab.py PARENT_DIR --kernels [--kernel-sets w4a16_gemm fp8_bmm kv_decode
+                       mxfp4_bmm narrow_decode] [--pairs 1]
 
 PARENT_DIR is an unpacked copy of another commit (for example `git archive <commit> |
 tar -x -C work_dir/parent`, under a directory .gitignore lists).  Each pair runs the
@@ -12,12 +12,15 @@ builds and loads its own kernels) and prints one JSON line per run with each cel
 decode tok/s, TTFT and device busy share, then the card's name and power limit.  The
 cells are `chip_smoke.py`'s e2e phases: 'deepseek' (e2e_deepseek_v2_lite_fp8),
 'w4a16_kv8' (e2e_w4a16_kv8: llama2-7b W4A16 gd with the int8 KV cache) and 'tinyllama'
-(e2e).  With --kernels each run instead times its tree's w4a16_gemm (gd) and fp8_bmm
-wrappers at every row shape of this tree's `chip_smoke.py` (W4_SHAPES, FP8_SHAPES) and
-its paged_decode_attention_int4 / _turbo wrappers at every case of this tree's
-`chip_smoke.kv_decode_cases` (caches filled by the tree's own fill, from the same seeded
-K / V), on the same seeded data (--kernel-sets picks among the three), and the last
-JSON line holds each side's mean per row.  Needs a
+(e2e).  With --kernels each run instead times its tree's w4a16_gemm (gd), fp8_bmm and
+mxfp4_bmm wrappers at every row shape of this tree's `chip_smoke.py` (W4_SHAPES,
+FP8_SHAPES, MX_SHAPES), its paged_decode_attention_int4 / _turbo wrappers at every case
+of this tree's `chip_smoke.kv_decode_cases` (caches filled by the tree's own fill, from
+the same seeded K / V), and its narrow paged decode (`narrow_decode`:
+paged_decode_attention over 2-byte pages at `chip_smoke.decode_cases`' cases up to D 128,
+paged_decode_attention_fp8 at the e4m3 cases of `kv_decode_cases`, each e4m3 cache
+filled by the tree's own fill), on the same seeded data (--kernel-sets picks among the
+five), and the last JSON line holds each side's mean per row.  Needs a
 CUDA card; host-side numbers of one cell spread between calls, so compare only runs of
 one call.
 """
@@ -109,9 +112,63 @@ for label, B, Hq, Hkv, D, lens, W, softcap, dtype, kernels in (%r if 'kv_decode'
         del cache
     del kvs
     torch.cuda.empty_cache()
+for label, kind, M, K in (%r if 'mxfp4_bmm' in sets else ()):
+    E, N = c.MX_E, c.MX_H
+    if K not in stacks:
+        stacks.clear()
+        torch.cuda.empty_cache()
+        stacks[K] = (torch.randint(0, 256, (E, K // 2, N), generator=gen, device='cuda',
+                                   dtype=torch.uint8),
+                     torch.exp2(torch.randint(-9, -4, (E, K // 32, N), generator=gen,
+                                              device='cuda').float()))
+    nib, scale = stacks[K]
+    x = torch.randn((M, K) if kind == 'gate' else (E, M, K), device='cuda',
+                    generator=gen).bfloat16()
+    out['mxfp4_bmm'][label] = c.time_ms(lambda: qb.mxfp4_bmm(x, nib, scale))
+stacks.clear()
+for label, B, Hq, Hkv, D, lens, W, opts in (%r if 'narrow_decode' in sets else ()):
+    opts = dict(opts)
+    BS = opts.pop('block_size', 128)
+    q, cache, tables, kv_lens = c._decode_inputs(gen, B, Hq, Hkv, D, BS, W, lens,
+                                                 dtype=getattr(torch, opts.pop('dtype')))
+    if opts.pop('sinks', False):
+        opts['sinks'] = torch.randn(Hq, device='cuda', generator=gen) * 2
+    out['narrow_decode'][label] = c.time_ms(
+        lambda: pd.paged_decode_attention(q, cache, tables, kv_lens, 1, D ** -0.5, Hkv,
+                                          **opts))
+    del q, cache
+for label, B, Hq, Hkv, D, lens, W, softcap, opts in (%r if 'narrow_decode' in sets
+                                                     else ()):
+    BS = opts.get('block_size', 128)
+    NB = 1 + B * W
+    tables = (torch.randperm(NB - 1, device='cuda', generator=gen) + 1)[:B * W]
+    tables = tables.reshape(B, W).int()
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device='cuda')
+    tables[kv_lens < 0] = 0            # padding rows: block 0, one token
+    kv_lens[kv_lens < 0] = 1
+    tables = tables.contiguous()
+    q = torch.randn(B, Hq, D, device='cuda', generator=gen).to(getattr(torch, opts['dtype']))
+    extra = {'window': opts['window']} if 'window' in opts else {}
+    if opts.get('sinks'):
+        extra['sinks'] = torch.randn(Hq, device='cuda', generator=gen) * 2
+    model = ModelConfig(num_layers=2, num_attention_heads=Hq, num_key_value_heads=Hkv,
+                        hidden_size=Hq * D, intermediate_size=128, vocab_size=128,
+                        head_dim=D, dtype='bfloat16')
+    slots = torch.arange(BS, NB * BS, device='cuda')
+    cache = c.new_kv_cache(model, NB, BS, 16, 'cuda')
+    for lay in range(2):
+        fill_kv_cache(cache, torch.randn(len(slots), Hkv, D, device='cuda',
+                                         generator=gen).bfloat16(),
+                      torch.randn(len(slots), Hkv, D, device='cuda', generator=gen).bfloat16(),
+                      slots, lay)
+    out['narrow_decode']['fp8/' + label] = c.time_ms(
+        lambda: pd.paged_decode_attention_fp8(q, cache, tables, kv_lens, 1, D ** -0.5, Hkv,
+                                              logit_softcap=softcap, **extra))
+    del cache
+    torch.cuda.empty_cache()
 print('AB ' + json.dumps(out), flush=True)
 '''
-KERNEL_SETS = ('w4a16_gemm', 'fp8_bmm', 'kv_decode')
+KERNEL_SETS = ('w4a16_gemm', 'fp8_bmm', 'kv_decode', 'mxfp4_bmm', 'narrow_decode')
 
 
 def run(tree: str, code: str) -> dict:
@@ -145,8 +202,22 @@ def main() -> int:
                      list(opts.get('kernels', ('paged_decode_int4', 'paged_decode_turbo'))))
                     for label, B, Hq, Hkv, D, lens, W, softcap, opts
                     in chip_smoke.kv_decode_cases()]
+        # the narrow decode's cases: decode_phase's over 2-byte pages up to D 128 (bf16 /
+        # f16 q), decode_kv_phase's e4m3 ones
+        narrow = []
+        for label, B, Hq, Hkv, D, lens, W, opts in chip_smoke.decode_cases():
+            dtype = str(opts.get('dtype', 'torch.bfloat16')).split('.')[-1]
+            if D <= 128 and dtype != 'float32':
+                narrow.append((label, B, Hq, Hkv, D, [int(n) for n in lens], W,
+                               dict(opts, dtype=dtype)))
+        fp8 = [(label, B, Hq, Hkv, D, [int(n) for n in lens], W, softcap,
+                {k: v for k, v in dict(opts, dtype=str(opts.get('dtype', 'torch.bfloat16'))
+                                       .split('.')[-1]).items() if k != 'kernels'})
+               for label, B, Hq, Hkv, D, lens, W, softcap, opts in chip_smoke.kv_decode_cases()
+               if 'paged_decode_fp8' in opts.get('kernels', ('paged_decode_fp8',))]
         code = KERNEL_RUN % (tuple(args.kernel_sets), chip_smoke.W4_SHAPES,
-                             chip_smoke.FP8_SHAPES, kv_cases)
+                             chip_smoke.FP8_SHAPES, kv_cases, chip_smoke.MX_SHAPES, narrow,
+                             fp8)
     else:
         code = RUN % {name: CELLS[name] for name in args.cells}
     runs = []

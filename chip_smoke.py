@@ -18,14 +18,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  and Mixtral-8x7B's fused wqkv at 64, TF32 off, every K split at the
                  64- and 128-row shapes, each row's token tile and split; the check
                  must catch each planted numerical trap) and
-                 mxfp4_bmm (gpt-oss-20b gate and down products at M 8 / 37 / 64 / 128;
-                 the check must catch each planted trap) and the KV policies' decodes
-                 paged_decode_int4, paged_decode_turbo and paged_decode_fp8 (caches
-                 filled by the port's fill; the e2e_llama31 decode shape, llama2-7b
-                 and TinyLlama heads; planted traps in the cache bytes; the int4 and
-                 TurboQuant rows also at f16 D 256, f32 q, int4 D 192 / 80, with their
-                 split length swept and the plain two passes held, a trap planted in
-                 their combine);
+                 mxfp4_bmm (gpt-oss-20b gate and down products at M 8 / 37 / 64 / 128 /
+                 767 and at K 192, each row's token tile; every code times edge
+                 scales, exactly; the check must catch each planted trap, the last
+                 half-stage read from the next expert included) and the KV policies'
+                 decodes paged_decode_int4, paged_decode_turbo and paged_decode_fp8
+                 (caches filled by the port's fill; the e2e_llama31 decode shape,
+                 llama2-7b and TinyLlama heads; planted traps in the cache bytes; the
+                 int4 and TurboQuant rows also at f16 D 256, f32 q, int4 D 192 / 80,
+                 the e4m3 rows at f16 / f32 q, gpt-oss heads with sinks and window,
+                 block sizes 16 and 8; each with its split length swept and the plain
+                 two passes held, a trap planted in their combine); paged_decode's
+                 narrow rows also hold their split's plain two passes and combine
+                 trap, a window that covers whole splits, rows shorter than one split
+                 and block sizes 8 and 16; paged_decode_int8 / _int4 / _turbo over
+                 caches of block size 8 and 2, on their own and through paged_attention
+                 (the kernel route and its one launch asserted), and an Engine at block
+                 size 8 for each (greedy tokens equal to block size 16's);
                  w4a16_szc (fast / precise) and w4a16_unprepared (raw scales and zeros)
                  at Mixtral-8x7B's and llama2-7b's projections, M 1 to 256, each with
                  its planted traps; fp8_bmm (DeepSeek-V2-Lite's gate and down products at
@@ -58,7 +67,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
   5. e2e      -- the port's Engine at TinyLlama-1.1B width and depth (random seeded
                  bf16 weights): 8 concurrent 128-token prompts plus one 2048-token
                  prompt, 64 greedy tokens each, run twice; every kernel's launch count
-                 is read from the first run; then a traced run (device busy share);
+                 is read from the first run (the narrow decode's combines too); then
+                 a traced run (device busy share);
   6. e2e_w4a16_kv8 -- the same at llama2-7b geometry, AWQ-style W4A16 weights (group
                  128, seeded) and quant_policy=4: 64 concurrent 128-token prompts plus
                  one 2048-token prompt, 64 greedy tokens each, run twice, then traced;
@@ -438,7 +448,7 @@ def device_phase():
 
 
 # the sources whose kernels issue wgmma, whose SASS the build phase reads
-WGMMA_SOURCES = ('flash_prefill', 'w4a16_gemm', 'fp8_bmm')
+WGMMA_SOURCES = ('flash_prefill', 'w4a16_gemm', 'fp8_bmm', 'mxfp4_bmm')
 
 
 def wgmma_waits(lib: str) -> dict:
@@ -457,8 +467,10 @@ def wgmma_waits(lib: str) -> dict:
     return {k: v for k, v in out.items() if v[0]}
 
 
-# the sources whose narrow decodes issue mma.sync on codes decoded in registers
-MMA_SYNC_SOURCES = ('paged_decode_int4', 'paged_decode_turbo')
+# the sources whose narrow decodes issue mma.sync on codes decoded in registers (or on
+# 2-byte / e4m3 elements), and the part of the kernels' names that picks them
+MMA_SYNC_SOURCES = {'paged_decode_int4': '_mma', 'paged_decode_turbo': '_mma',
+                    'paged_decode': 'paged_decode_narrowI'}
 
 
 def _kernel_key(name: str) -> str:
@@ -516,9 +528,10 @@ def build_phase():
     emit({'phase': 'build', 'wall_s': time.perf_counter() - t0, 'per_source_s': seconds,
           'ptxas': regs,
           'wgmma_waits': {n: wgmma_waits(cuda_build.lib_path(n)) for n in WGMMA_SOURCES},
-          'mma_sync_decodes': {n: {'registers_spills': ptxas_by_kernel(cuda_build.log_path(n)),
+          'mma_sync_decodes': {n: {'registers_spills': ptxas_by_kernel(cuda_build.log_path(n),
+                                                                        pattern),
                                    'hmma_dependent': mma_sync_chains(cuda_build.lib_path(n))}
-                               for n in MMA_SYNC_SOURCES}})
+                               for n, pattern in MMA_SYNC_SOURCES.items()}})
 
 
 # -- phase 3 -------------------------------------------------------------------------
@@ -606,14 +619,30 @@ def _decode_inputs(gen, B, Hq, Hkv, D, BS, W, lens, L=2, dtype=torch.bfloat16):
     return q, cache, tables.contiguous(), kv_lens
 
 
-def decode_phase():
-    from lmdeploy_tpu_torch.ops import paged_decode as pd
-    from lmdeploy_tpu_torch.ops.paged_decode import (paged_decode_attention,
-                                                     paged_decode_attention_plain)
-    gen = torch.Generator(device='cuda').manual_seed(SEED)
+def plain_layout_path(D: int, q_dtype: torch.dtype, page_dtype: torch.dtype) -> str:
+    """The body of csrc/paged_decode.cu that its dispatch gives a call, for the rows'
+    labels: 'narrow tensor cores' (bf16 / f16 q over 2-byte or e4m3 pages at D 64 / 128,
+    any block size), 'narrow cuda cores' (the other D <= 128 calls over those pages),
+    'wide tensor cores' (2-byte pages above D 128) or 'wide cuda cores' (f32 pages, e4m3
+    above 128)."""
+    size = torch.empty((), dtype=page_dtype).element_size()
+    if D <= 128 and size <= 2:
+        mma = q_dtype != torch.float32 and D in (64, 128)
+        return 'narrow tensor cores' if mma else 'narrow cuda cores'
+    return 'wide tensor cores' if size == 2 else 'wide cuda cores'
+
+
+# the narrow path's split length (tokens) swept at the cases of the e2e cells' decode
+# shapes, each held against the plain version
+NARROW_SPLIT_SWEEP = (256, 512, 1024, 2048)
+NARROW_SWEEP_CASES = ('plain', 'e2e_long', 'gptoss_sliding', 'gptoss_full', 'd128_g1')
+
+
+def decode_cases():
+    """decode_phase's cases, (label, B, Hq, Hkv, D, lens, W, opts): lens marks padding
+    rows -1; opts may give q's dtype, the block size (default 128), window, softcap and
+    sinks (True: drawn with the case)."""
     rng = np.random.RandomState(SEED)
-    results = []
-    BS = 128
     # bs64 TinyLlama heads, ragged lengths averaging ~384, one inactive row and
     # four padding rows (marked -1); then a D=128, G=1 (llama2-7b heads) case
     lens64 = rng.randint(1, 768, size=64)
@@ -634,7 +663,16 @@ def decode_phase():
     # one of 4,097-4,160, the session-wide table width
     lens_mla = np.concatenate([rng.randint(1025, 1089, size=63), rng.randint(4097, 4161, 1)])
     w_mla = (4096 + 128 + 127) // 128
-    cases = [
+    # the narrow path's edges: rows of 2,000-4,000 tokens under a window of 1,500 (it
+    # covers a whole split of 1,024 tokens, and the splits before it hold nothing) with
+    # sinks; rows all shorter than one split in a 33-page table; block size 8 (a warp's
+    # 16 rows on two pages, 263 pages a row) and 16 (a sub-chunk across 4 pages) on the
+    # tensor-core body, Llama-3.1-8B heads, one inactive row
+    lens_long = rng.randint(2000, 4000, size=16)
+    lens_short = rng.randint(1, 1000, size=64)
+    lens_short[9] = 0
+    lens_small = np.concatenate([rng.randint(1, 300, size=12), [2100], [0], -np.ones(2, int)])
+    return [
         ('plain', 64, 32, 4, 64, lens64, 8, {}),
         ('window', 64, 32, 4, 64, lens64, 8, {'window': 200}),
         ('softcap', 64, 32, 4, 64, lens64, 8, {'logit_softcap': 30.0}),
@@ -645,6 +683,12 @@ def decode_phase():
         ('e2e_long', 16, 32, 4, 64, lens16, 17, {}),
         ('gptoss_sliding', 64, 64, 8, 64, lens_gptoss, 17, {'window': 128, 'sinks': True}),
         ('gptoss_full', 64, 64, 8, 64, lens_gptoss, 17, {'sinks': True}),
+        ('window_covers_split', 16, 32, 8, 128, lens_long, 33, {'window': 1500,
+                                                                'sinks': True}),
+        ('rows_shorter_than_a_split', 64, 32, 8, 128, lens_short, 33, {}),
+        ('bs8', 16, 32, 8, 128, lens_small, 263, {'block_size': 8, 'sinks': True}),
+        ('bs16_window', 16, 32, 8, 128, lens_small, 132, {'block_size': 16, 'window': 300}),
+        ('plain_f16', 64, 32, 4, 64, lens64, 8, {'dtype': torch.float16}),
         ('mla_v2_lite', 64, 16, 1, 576, lens_mla, w_mla, {}),
         ('mla_v3', 64, 128, 1, 576, lens_mla, w_mla, {}),
         ('d96', 16, 32, 32, 96, lens16, 17, {}),
@@ -654,9 +698,21 @@ def decode_phase():
         ('d192_f32', 16, 8, 2, 192, lens16, 17, {'dtype': torch.float32}),
         ('mla_v2_lite_f32', 16, 16, 1, 576, lens16, 17, {'dtype': torch.float32}),
     ]
-    for label, B, Hq, Hkv, D, lens, W, opts in cases:
+
+
+def decode_phase():
+    """paged_decode against its plain version at every case of decode_cases: each row's
+    body, the plain two passes of the split paths, the narrow path's combine trap and,
+    at the e2e cells' shapes, its split length swept."""
+    from lmdeploy_tpu_torch.ops import paged_decode as pd
+    from lmdeploy_tpu_torch.ops.paged_decode import (paged_decode_attention,
+                                                     paged_decode_attention_plain)
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    results = []
+    for label, B, Hq, Hkv, D, lens, W, opts in decode_cases():
         opts = dict(opts)
         dtype = opts.pop('dtype', torch.bfloat16)
+        BS = opts.pop('block_size', 128)
         q, cache, tables, kv_lens = _decode_inputs(gen, B, Hq, Hkv, D, BS, W, lens,
                                                    dtype=dtype)
         if label.startswith('mla'):
@@ -678,7 +734,19 @@ def decode_phase():
         tol = KERNEL_TOL['paged_decode']
         err, rel, frac = compare(out, ref, tol)
         zero_ok = bool((out[kv_lens == 0] == 0).all())
-        ok = bool(torch.isfinite(out.float()).all()) and frac <= 1.0 and zero_ok
+        path = plain_layout_path(D, dtype, cache.dtype)
+        split = {'path': path, 'split_tokens': pd.narrow_split_tokens(D, cache.dtype, B),
+                 'splits': pd.plain_layout_splits(D, cache.dtype, B, W, BS, opts.get('window')),
+                 'split_plain_err_over_tol': compare(pd.paged_decode_attention_split_plain(
+                     q, cache, tables, kv_lens, layer, scale, Hkv, **opts), ref, tol)[2]}
+        traps = {}
+        if path.startswith('narrow') and int((kv_lens > BS).sum()):
+            traps['combine_without_alpha'] = compare(_split_plain_trapped(
+                'paged_decode', q, cache, tables, kv_lens, layer, scale, Hkv,
+                opts.get('logit_softcap'), opts.get('window'), opts.get('sinks')), ref, tol)[2]
+        ok = (bool(torch.isfinite(out.float()).all()) and frac <= 1.0 and zero_ok
+              and split['split_plain_err_over_tol'] <= 1.0
+              and all(t > 1.0 for t in traps.values()))
         # bytes this data needs: each row's in-window K and V rows, q and out
         lens_np = kv_lens.cpu().numpy().astype(np.int64)
         win = opts.get('window') or 0
@@ -689,24 +757,38 @@ def decode_phase():
         bound_ms, bound_by = bound(flops, nbytes)
         row = {'phase': 'kernel', 'kernel': 'paged_decode', 'case': label,
                'shape': [B, Hq, Hkv, D, BS, W], 'dtype': str(dtype).split('.')[-1],
-               'mean_kv_len': float(lens_np.mean()),
+               'mean_kv_len': float(lens_np.mean()), 'max_kv_len': int(lens_np.max()), **split,
                'max_abs_err': err, 'max_rel_err': rel, 'err_over_tol': frac, 'tol': tol,
-               'zero_rows_ok': zero_ok, 'ok': ok,
+               'zero_rows_ok': zero_ok, 'trap_err_over_tol': traps, 'ok': ok,
                'kernel_ms': time_ms(kern), 'plain_ms': time_ms(plain, **PLAIN_TIMING),
                'library_ms': None, 'bound_ms': bound_ms, 'bound_by': bound_by,
                'kv_mbytes': nbytes / 1e6}
-        if label in ('mla_v2_lite', 'mla_v3'):
-            # the tensor-core path's split of a row's pages over blocks, swept
-            chosen = pd.SPLIT_TOKENS_MMA
-            row['split_tokens_ms'] = {}
-            for tokens in (512, 1024, 2048):
-                pd.SPLIT_TOKENS_MMA = tokens
-                row['split_tokens_ms'][tokens] = time_ms(kern)
-            pd.SPLIT_TOKENS_MMA = chosen
+        # the split of a row's pages over blocks, swept: the tensor-core wide path's at
+        # the MLA shapes, the narrow path's at the e2e cells' shapes
+        sweep = {'mla_v2_lite': ('SPLIT_TOKENS_MMA', (512, 1024, 2048)),
+                 'mla_v3': ('SPLIT_TOKENS_MMA', (512, 1024, 2048)),
+                 **{c: ('SPLIT_TOKENS_NARROW', NARROW_SPLIT_SWEEP)
+                    for c in NARROW_SWEEP_CASES}}.get(label)
+        if sweep:
+            const, lengths = sweep
+            chosen = getattr(pd, const)
+            # each length timed twice, in turns
+            row['split_tokens_ms'] = {t: [] for t in lengths}
+            row['split_tokens_err_over_tol'] = {}
+            for _ in range(2):
+                for tokens in lengths:
+                    setattr(pd, const, tokens)
+                    row['split_tokens_err_over_tol'][tokens] = compare(kern(), ref, tol)[2]
+                    row['split_tokens_ms'][tokens].append(time_ms(kern))
+            setattr(pd, const, chosen)
+            row['ok'] = ok = ok and max(row['split_tokens_err_over_tol'].values()) <= 1.0
         emit(row)
         results.append(row)
+        del q, cache, tables, kv_lens
         if not ok:
-            raise SystemExit(f'paged_decode disagrees with its plain version: {row}')
+            raise SystemExit(f'paged_decode disagrees with its plain version, or its check '
+                             f'misses a trap: {row}')
+    torch.cuda.empty_cache()
     return results
 
 
@@ -1094,16 +1176,50 @@ def decode_int8_phase():
 # a prefill under 768 tokens
 MX_E, MX_H = 32, 2880
 MX_MAIN_M = 64
-MX_SHAPES = tuple((f'{kind}_m{M}', kind, M) for M in (MX_MAIN_M, 8, 37, 128)
-                  for kind in ('gate', 'down'))
+MX_DENSE_MAX_M = 767           # the dense combine's largest M (ops/moe.py)
+# (label, x kind, M, K): gpt-oss-20b's K = 2880 (1,440 byte rows a half: the kernel's
+# last 64-row stage is half past the half) at every M, prefill chunks up to 767 rows
+# included, and K = 192 (3 scale groups a half, a stage and a half)
+MX_SHAPES = tuple((f'{kind}_m{M}', kind, M, MX_H)
+                  for M in (MX_MAIN_M, 8, 37, 128, MX_DENSE_MAX_M)
+                  for kind in ('gate', 'down')) \
+    + (('k192_gate_m37', 'gate', 37, 192), ('k192_down_m64', 'down', 64, 192))
 # numerical traps planted in the plain version (ROADMAP section 3): the high nibbles
-# read with the low half's scale rows; code 9 decoded as +0.5 (a sign slip)
+# read with the low half's scale rows; code 9 decoded as +0.5 (a sign slip).  The
+# kernel rows also plant the rows of the last half-stage read from the next expert's
+# first byte rows (and scale rows) against the x columns past the half, where the
+# kernel must read zeros
 MX_TRAPS = ('hi_with_lo_scales', 'code9_positive')
+MX_KERNEL_TRAPS = MX_TRAPS + ('tail_from_next_expert',)
+# the exact decode: every code of both nibbles, times scales that are not powers of
+# two, of either sign, near f32's ends, and whose products fall below bf16's normal
+# range, widened by the kernel (x = unit rows) and by the plain version, bit for bit
+MX_EXACT_SCALES = (1.0, 0.3, 1.0 / 3.0, 7.77, -0.7, 6.1e-5, 2.0 ** -126, 5.0e37, 1.0e-40,
+                   -3.0e-39)
+# and scales such as a checkpoint holds (ue8m0: powers of two, from 2^-127 up), with
+# products down in bf16's subnormal range
+MX_EXACT_POW2_SCALES = (1.0, 0.5, 2.0, -2.0 ** -3, 2.0 ** -9, 2.0 ** -126, 2.0 ** -127,
+                        2.0 ** -100, 1.5, 2.0 ** -120)
 
 
 def _mx_trapped(trap: str):
     """``mxfp4_bmm_plain`` with one trap planted."""
-    from lmdeploy_tpu_torch.ops.quant_bmm import decode_e2m1
+    from lmdeploy_tpu_torch.ops.quant_bmm import decode_e2m1, widen_mxfp4
+
+    if trap == 'tail_from_next_expert':
+        def tail(x, nib, scale):
+            E, K2, N = nib.shape
+            pad = (-K2) % 64            # the byte rows past the half in its last stage
+            ref = torch.matmul(x.to(torch.bfloat16).float(),
+                               widen_mxfp4(nib, scale).float())
+            if not pad:
+                return ref
+            nxt = torch.roll(torch.arange(E, device=nib.device), -1)
+            # the next expert's first byte rows' low nibbles, scaled by its first rows
+            w = decode_e2m1(nib[nxt, :pad] & 0xF) * scale[nxt, :1].float()
+            xs = x.to(torch.bfloat16).float()[..., K2:K2 + pad]
+            return ref + torch.matmul(xs, w.to(torch.bfloat16).float())
+        return tail
 
     def widen(nib, scale):
         lo, hi = decode_e2m1(nib & 0xF), decode_e2m1(nib >> 4)
@@ -1126,6 +1242,7 @@ def _mx_trapped(trap: str):
 
 def mxfp4_phase():
     from lmdeploy_tpu_torch.ops.quant_bmm import mxfp4_bmm, mxfp4_bmm_plain, widen_mxfp4
+    from lmdeploy_tpu_torch.ops.quant_matmul import token_tile
     torch.backends.cuda.matmul.allow_tf32 = False     # the plain version's sums are f32
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device='cuda').manual_seed(SEED)
@@ -1136,8 +1253,21 @@ def mxfp4_phase():
     scale = torch.exp2(torch.randint(-9, -4, (E, K // 32, N), generator=gen,
                                      device='cuda').float())
     wd = widen_mxfp4(nib, scale)                      # bf16 [E, K, N], the yardstick's
-    results = []
-    for label, kind, M in MX_SHAPES:
+    stacks = {K: (nib, scale, wd)}
+    results = [_mx_exact_row(gen, 'exact_codes_x_scales', MX_EXACT_SCALES),
+               _mx_exact_row(gen, 'exact_codes_x_pow2_scales', MX_EXACT_POW2_SCALES)]
+    for row in results:
+        emit(row)
+        if not row['ok']:
+            raise SystemExit(f'mxfp4_bmm does not widen every code exactly: {row}')
+    for label, kind, M, K in MX_SHAPES:
+        if K not in stacks:
+            kn = torch.randint(0, 256, (E, K // 2, N), generator=gen, device='cuda',
+                               dtype=torch.uint8)
+            ks = torch.exp2(torch.randint(-9, -4, (E, K // 32, N), generator=gen,
+                                          device='cuda').float())
+            stacks[K] = (kn, ks, widen_mxfp4(kn, ks))
+        nib, scale, wd = stacks[K]
         shape = (M, K) if kind == 'gate' else (E, M, K)
         x = torch.randn(shape, device='cuda', generator=gen).bfloat16()
         out = mxfp4_bmm(x, nib, scale)
@@ -1145,7 +1275,8 @@ def mxfp4_phase():
         torch.cuda.synchronize()
         tol = KERNEL_TOL['mxfp4_bmm']
         err, rel, frac = compare(out, ref, tol)
-        traps = {t: compare(_mx_trapped(t)(x, nib, scale), ref, tol)[2] for t in MX_TRAPS}
+        traps = {t: compare(_mx_trapped(t)(x, nib, scale), ref, tol)[2]
+                 for t in MX_KERNEL_TRAPS}
         ok = (bool(torch.isfinite(out).all()) and out.shape == (E, M, N) and frac <= 1.0
               and min(traps.values()) > 1.0)
         nbytes = nib.numel() + 4 * scale.numel() + 2 * x.numel() + 4 * E * M * N
@@ -1153,6 +1284,7 @@ def mxfp4_phase():
         dense = (lambda: torch.matmul(x, wd)) if kind == 'gate' else (lambda: torch.bmm(x, wd))
         row = {'phase': 'kernel', 'kernel': 'mxfp4_bmm', 'case': label,
                'shape': [E, M, K, N], 'x': 'shared' if kind == 'gate' else 'per expert',
+               'token_tile': token_tile(M),
                'max_abs_err': err, 'max_rel_err': rel, 'err_over_tol': frac, 'tol': tol,
                'ok': ok, 'tf32': False, 'trap_err_over_tol': traps,
                'kernel_ms': time_ms(lambda: mxfp4_bmm(x, nib, scale)),
@@ -1166,9 +1298,32 @@ def mxfp4_phase():
         if not ok:
             raise SystemExit(f'mxfp4_bmm disagrees with its plain version, or its check '
                              f'misses a trap: {row}')
-    del nib, scale, wd
+    del nib, scale, wd, stacks
     torch.cuda.empty_cache()
     return results
+
+
+def _mx_exact_row(gen, case: str, scales) -> dict:
+    """mxfp4_bmm against the plain widening, bit for bit: every byte value in every
+    scale group of both halves, the scales drawn from ``scales``, x the unit rows
+    (out[e, m, n] is then weight row m exactly: one product by 1, the rest by 0)."""
+    from lmdeploy_tpu_torch.ops.quant_bmm import mxfp4_bmm, widen_mxfp4
+    E, K, N = 2, 128, 256
+    r = torch.arange(K // 2, device='cuda')[:, None]
+    n = torch.arange(N, device='cuda')[None, :]
+    nib = torch.stack([(r * 7 + n * 13 + e) % 256 for e in range(E)]).to(torch.uint8)
+    pick = torch.randint(0, len(scales), (E, K // 32, N), generator=gen, device='cuda')
+    scale = torch.tensor(scales, device='cuda')[pick].contiguous()
+    x = torch.eye(K, device='cuda').bfloat16()
+    out = mxfp4_bmm(x, nib, scale)
+    ref = widen_mxfp4(nib, scale).float()
+    torch.cuda.synchronize()
+    same = out == ref
+    return {'phase': 'kernel', 'kernel': 'mxfp4_bmm', 'case': case,
+            'shape': [E, K, K, N], 'scales': list(scales),
+            'codes_seen': int(torch.unique(nib).numel()),
+            'mismatches': int((~same).sum()), 'ok': bool(same.all()),
+            'max_abs_err': (out - ref).abs().max().item()}
 
 
 # fp8_bmm's shapes: DeepSeek-V2-Lite's experts (E 64, H 2048, Ie 1408) at the e2e decode
@@ -1393,14 +1548,15 @@ KV_TRAPS = {'paged_decode_int4': ('nibble_order_swapped', 'min_terms_dropped'),
 # in the 64-row bucket, the 4,224-token session's 33-page table
 L31_SESSION = 4096 + 128
 L31_W = L31_SESSION // 128
-# the int4 and TurboQuant decodes split each row's pages over blocks: their split
+# the int4, TurboQuant and e4m3 decodes split each row's pages over blocks: their split
 # lengths (tokens) swept at every case, each held against the plain version, and the
 # module constant that sets each; the plain two passes (each split's partials, then the
 # combine) carry the trap of splits summed without their weights e^(m_s - m), held at
 # one split a page, where every row of more than one page has several
 KV_SPLIT_SWEEP = (256, 512, 1024, 2048)
 KV_SPLIT_CONST = {'paged_decode_int4': 'SPLIT_TOKENS_INT4',
-                  'paged_decode_turbo': 'SPLIT_TOKENS_TURBO'}
+                  'paged_decode_turbo': 'SPLIT_TOKENS_TURBO',
+                  'paged_decode_fp8': 'SPLIT_TOKENS_NARROW'}
 
 
 def _kv_decode_fns(kernel):
@@ -1422,15 +1578,17 @@ def _combine_without_alpha(parts, sinks, dtype):
     return (acc / torch.where(lsum == 0, torch.ones_like(lsum), lsum)[..., None]).to(dtype)
 
 
-def _split_plain_trapped(kernel, q, kv, tables, kv_lens, layer, scale, hkv, softcap):
-    """The int4 / TurboQuant kernel's two passes in plain PyTorch at one split a page,
-    combined without the splits' weights."""
+def _split_plain_trapped(kernel, q, kv, tables, kv_lens, layer, scale, hkv, softcap,
+                         window=None, sinks=None):
+    """The int4 / TurboQuant / plain-layout (2-byte or e4m3 pages) kernel's two passes in
+    plain PyTorch at one split a page, combined without the splits' weights."""
     from lmdeploy_tpu_torch.ops import paged_decode as pd
-    terms = pd.int4_decode_terms if kernel == 'paged_decode_int4' else pd.turbo_decode_terms
+    terms = {'paged_decode_int4': pd.int4_decode_terms,
+             'paged_decode_turbo': pd.turbo_decode_terms}.get(kernel, pd.plain_decode_terms)
     s, pv = terms(q, kv, tables, layer, scale, hkv, softcap)
     W = tables.shape[1]
-    parts = pd.split_partials_plain(s, kv_lens, pv, s.shape[-1] // W, W)
-    return _combine_without_alpha(parts, None, q.dtype)
+    parts = pd.split_partials_plain(s, kv_lens, pv, s.shape[-1] // W, W, window)
+    return _combine_without_alpha(parts, sinks, q.dtype)
 
 
 def _kv_trapped(trap: str, kv):
@@ -1470,7 +1628,9 @@ def new_kv_cache(model, num_blocks: int, block_size: int, policy: int, device):
 
 def kv_decode_cases():
     """decode_kv_phase's cases, (label, B, Hq, Hkv, D, lens, W, softcap, opts): lens
-    marks padding rows -1, opts may give q's dtype and the kernels a case is for."""
+    marks padding rows -1, opts may give q's dtype, the kernels a case is for, and for
+    the e4m3 decode a block size (default 128), a window and sinks (True: drawn with
+    the case)."""
     rng = np.random.RandomState(SEED + 2)
     # the e2e_llama31 phases' decode shape (Llama-3.1-8B heads, G 4), with two of its
     # short rows inactive; llama2-7b heads (G 1) and TinyLlama heads (D 64, G 8) at
@@ -1486,6 +1646,12 @@ def kv_decode_cases():
     # 130-199 tokens, one of 2,100, one inactive, six padding rows
     lens16 = np.concatenate([rng.randint(130, 200, size=8), [2100], [0], -np.ones(6, int)])
     quant = ('paged_decode_int4', 'paged_decode_turbo')
+    fp8 = ('paged_decode_fp8',)
+    # the e4m3 decode's other cases: gpt-oss-20b heads with sinks and its 128-token
+    # window, f16 q, block sizes 16 (a window of 1,000 and sinks) and 8 (the CUDA-core
+    # body), on the 16-row lengths
+    lens_gpt = np.concatenate([rng.randint(129, 193, size=32), rng.randint(2049, 2113, 1),
+                               -np.ones(31, int)])
     return [('e2e_shape_llama31', 64, 32, 8, 128, lens_e2e, L31_W, None, {}),
             ('bs64_7b_heads', 64, 32, 32, 128, lens64, 8, None, {}),
             ('bs64_7b_heads_softcap', 64, 32, 32, 128, lens64, 8, 30.0, {}),
@@ -1493,11 +1659,18 @@ def kv_decode_cases():
             ('d256_g16_f16', 16, 32, 2, 256, lens16, 17, None,
              {'dtype': torch.float16, 'kernels': quant}),
             ('d128_f32', 16, 32, 8, 128, lens16, 17, 30.0,
-             {'dtype': torch.float32, 'kernels': quant}),
+             {'dtype': torch.float32, 'kernels': quant + fp8}),
             ('d192_int4', 16, 16, 4, 192, lens16, 17, None,
              {'kernels': ('paged_decode_int4',)}),
             ('d80_int4', 16, 32, 8, 80, lens16, 17, None,
-             {'kernels': ('paged_decode_int4',)})]
+             {'kernels': ('paged_decode_int4',)}),
+            ('gptoss_heads_window_sinks', 64, 64, 8, 64, lens_gpt, 17, None,
+             {'kernels': fp8, 'window': 128, 'sinks': True}),
+            ('d128_f16', 16, 32, 8, 128, lens16, 17, 30.0,
+             {'dtype': torch.float16, 'kernels': fp8}),
+            ('bs16_window_sinks', 16, 32, 8, 128, lens16, 132, None,
+             {'kernels': fp8, 'block_size': 16, 'window': 1000, 'sinks': True}),
+            ('bs8', 16, 32, 8, 128, lens16, 263, None, {'kernels': fp8, 'block_size': 8})]
 
 
 def decode_kv_phase():
@@ -1510,11 +1683,11 @@ def decode_kv_phase():
     from lmdeploy_tpu_torch.ops.attention import fill_kv_cache
     from lmdeploy_tpu_torch.ops.kv_quant import hadamard_rotate
     gen = torch.Generator(device='cuda').manual_seed(SEED)
-    BS = 128
     cases = kv_decode_cases()
     results = {k: [] for k in KV_POLICIES.values()}
     for label, B, Hq, Hkv, D, lens, W, softcap, opts in cases:
         dtype = opts.get('dtype', torch.bfloat16)
+        BS = opts.get('block_size', 128)
         NB = 1 + B * W
         perm = torch.randperm(NB - 1, device='cuda', generator=gen) + 1
         tables = perm[:B * W].reshape(B, W).int()
@@ -1532,7 +1705,12 @@ def decode_kv_phase():
                 torch.randn(len(slots), Hkv, D, device='cuda', generator=gen).bfloat16())
                for _ in range(2)]
         scale, layer = D ** -0.5, 1
-        toks = kv_lens.cpu().numpy().astype(np.int64).sum()
+        # the e4m3 decode's window and sinks
+        extra = {'window': opts['window']} if 'window' in opts else {}
+        if opts.get('sinks'):
+            extra['sinks'] = torch.randn(Hq, device='cuda', generator=gen) * 2
+        lens_np = kv_lens.cpu().numpy().astype(np.int64)
+        toks = (np.minimum(lens_np, extra['window']) if 'window' in extra else lens_np).sum()
         for policy, kernel in KV_POLICIES.items():
             if kernel not in opts.get('kernels', KV_POLICIES.values()):
                 continue
@@ -1545,10 +1723,11 @@ def decode_kv_phase():
 
             def kern():
                 return wrapper(q, cache, tables, kv_lens, layer, scale, Hkv,
-                               logit_softcap=softcap)
+                               logit_softcap=softcap, **extra)
 
             def plain_on(kv):
-                return plain(q, kv, tables, kv_lens, layer, scale, Hkv, logit_softcap=softcap)
+                return plain(q, kv, tables, kv_lens, layer, scale, Hkv, logit_softcap=softcap,
+                             **extra)
             out, ref = kern(), plain_on(cache)
             torch.cuda.synchronize()
             tol = KERNEL_TOL[kernel]
@@ -1559,17 +1738,25 @@ def decode_kv_phase():
             split = {}
             if kernel in KV_SPLIT_CONST:
                 traps['combine_without_alpha'] = compare(_split_plain_trapped(
-                    kernel, q, cache, tables, kv_lens, layer, scale, Hkv, softcap), ref, tol)[2]
+                    kernel, q, cache, tables, kv_lens, layer, scale, Hkv, softcap,
+                    extra.get('window'), extra.get('sinks')), ref, tol)[2]
                 two_pass = getattr(pd, _kv_decode_fns(kernel)[1].__name__.replace(
                     '_plain', '_split_plain'))
                 const = KV_SPLIT_CONST[kernel]
                 chosen = getattr(pd, const)
-                split = {'path': 'tensor cores' if D in pd.MMA_QUANT_HEAD_DIMS
-                         and dtype != torch.float32 else 'cuda cores',
-                         'split_tokens': chosen, 'splits': pd.page_splits(W, BS, chosen),
+                tokens, splits = chosen, pd.page_splits(W, BS, chosen)
+                if kernel == 'paged_decode_fp8':
+                    path = plain_layout_path(D, dtype, cache.dtype)
+                    tokens = pd.narrow_split_tokens(D, cache.dtype, B)
+                    splits = pd.plain_layout_splits(D, cache.dtype, B, W, BS,
+                                                    extra.get('window'))
+                else:
+                    path = ('tensor cores' if D in pd.MMA_QUANT_HEAD_DIMS
+                            and dtype != torch.float32 else 'cuda cores')
+                split = {'path': path, 'split_tokens': tokens, 'splits': splits,
                          'split_plain_err_over_tol': compare(two_pass(
                              q, cache, tables, kv_lens, layer, scale, Hkv,
-                             logit_softcap=softcap), ref, tol)[2],
+                             logit_softcap=softcap, **extra), ref, tol)[2],
                          'split_tokens_ms': {}, 'split_tokens_err_over_tol': {}}
                 for tokens in KV_SPLIT_SWEEP:
                     setattr(pd, const, tokens)
@@ -1585,6 +1772,7 @@ def decode_kv_phase():
             bound_ms, bound_by = bound(4 * Hq * D * toks, nbytes)
             row = {'phase': 'kernel', 'kernel': kernel, 'case': label, 'quant_policy': policy,
                    'shape': [B, Hq, Hkv, D, BS, W], 'softcap': softcap,
+                   'window': extra.get('window'), 'sinks': 'sinks' in extra,
                    'dtype': str(dtype).split('.')[-1], **split,
                    'mean_kv_len': float(kv_lens.float().mean()), 'max_kv_len': int(lens.max()),
                    'max_abs_err': err, 'max_rel_err': rel, 'err_over_tol': frac, 'tol': tol,
@@ -1602,6 +1790,138 @@ def decode_kv_phase():
         del kvs
         torch.cuda.empty_cache()
     return results
+
+
+# the quantized caches with pages under 16 slots: (quant_policy, its decode kernel) at
+# block sizes 8 (a tensor-core warp's 16 rows on two pages) and 2 (on eight);
+# Llama-3.1-8B heads, 16 rows
+SMALL_PAGE_POLICIES = ((4, 'paged_decode_int8'), (8, 'paged_decode_int4'),
+                       (42, 'paged_decode_turbo'))
+SMALL_PAGE_BS = (8, 2)
+
+
+def decode_small_pages_phase():
+    """The int8, int4 and TurboQuant decodes over caches of block size 8 and 2, filled
+    by the port's fill: paged_attention on the card must route the decode to the
+    policy's kernel (one launch, counted by its wrapper) and match the policy's plain
+    decode (TurboQuant: q rotated in, the output rotated back, as paged_attention does),
+    and the kernel's wrapper, called on its own, must match the plain decode too; then
+    an Engine at 8 slots a page for each policy (``_small_pages_engines``)."""
+    from lmdeploy_tpu_torch.config import ModelConfig
+    from lmdeploy_tpu_torch.ops import attention as att
+    from lmdeploy_tpu_torch.ops import paged_decode as pd
+    from lmdeploy_tpu_torch.ops.attention import fill_kv_cache
+    from lmdeploy_tpu_torch.ops.kv_quant import hadamard_rotate, hadamard_rotate_inv
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    rng = np.random.RandomState(SEED + 4)
+    B, Hq, Hkv, D = 16, 32, 8, 128
+    lens = np.concatenate([rng.randint(1, 300, size=14), [1100], [0]])
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device='cuda')
+    model = ModelConfig(num_layers=2, num_attention_heads=Hq, num_key_value_heads=Hkv,
+                        hidden_size=Hq * D, intermediate_size=128, vocab_size=128,
+                        head_dim=D, dtype='bfloat16')
+    q = torch.randn(B, Hq, D, device='cuda', generator=gen).bfloat16()
+    scale, layer = D ** -0.5, 1
+    wrappers = {'paged_decode_int8': (pd.paged_decode_attention_int8,
+                                      pd.paged_decode_attention_int8_plain),
+                **{k: _kv_decode_fns(k) for k in ('paged_decode_int4', 'paged_decode_turbo')}}
+    counters = _kernel_counters()
+    rows = []
+    for BS in SMALL_PAGE_BS:
+        W = -(-int(lens.max()) // BS)
+        NB = 1 + B * W
+        tables = (torch.randperm(NB - 1, device='cuda', generator=gen) + 1)[:B * W]
+        tables = tables.reshape(B, W).int().contiguous()
+        slots = torch.arange(BS, NB * BS, device='cuda')
+        kvs = [(torch.randn(len(slots), Hkv, D, device='cuda', generator=gen).bfloat16(),
+                torch.randn(len(slots), Hkv, D, device='cuda', generator=gen).bfloat16())
+               for _ in range(2)]
+        for policy, kernel in SMALL_PAGE_POLICIES:
+            cache = new_kv_cache(model, NB, BS, policy, 'cuda')
+            for lay, (k, v) in enumerate(kvs):
+                fill_kv_cache(cache, k, v, slots, lay)
+            route = att.decode_route(cache)
+            before = counters[kernel].launches
+            out = att.paged_attention(q[:, None], cache, tables, kv_lens - 1,
+                                      torch.ones(B, dtype=torch.int32, device='cuda'), scale,
+                                      layer, Hkv)[:, 0]
+            launched = counters[kernel].launches - before
+            wrapper, plain = wrappers[kernel]
+            qk = hadamard_rotate(q).to(q.dtype) if kernel == 'paged_decode_turbo' else q
+
+            def kern():
+                return wrapper(qk, cache, tables, kv_lens, layer, scale, Hkv)
+
+            def plain_fn():
+                return plain(qk, cache, tables, kv_lens, layer, scale, Hkv)
+            ref = plain_fn()
+            direct = kern()
+            torch.cuda.synchronize()
+            tol = KERNEL_TOL[kernel]
+            err, rel, frac = compare(direct, ref, tol)
+            if kernel == 'paged_decode_turbo':
+                ref = hadamard_rotate_inv(ref).to(q.dtype)
+            route_err, _, route_frac = compare(out, ref, tol)
+            zero_ok = bool((direct[kv_lens == 0] == 0).all())
+            ok = (route == 'kernel' and launched == 1 and frac <= 1.0 and route_frac <= 1.0
+                  and zero_ok and bool(torch.isfinite(out.float()).all()))
+            row = {'phase': 'small_pages', 'kernel': kernel, 'quant_policy': policy,
+                   'block_size': BS, 'shape': [B, Hq, Hkv, D, BS, W], 'route': route,
+                   'kernel_launches': launched, 'max_abs_err': err, 'max_rel_err': rel,
+                   'err_over_tol': frac, 'route_max_abs_err': route_err,
+                   'route_err_over_tol': route_frac, 'zero_rows_ok': zero_ok, 'tol': tol,
+                   'kernel_ms': time_ms(kern), 'ok': ok}
+            emit(row)
+            rows.append(row)
+            del cache
+            if not ok:
+                raise SystemExit(f'a decode over {BS}-slot pages of quant_policy {policy} did '
+                                 f'not take its kernel or disagrees with its plain version: '
+                                 f'{row}')
+        del kvs, tables, slots
+    torch.cuda.empty_cache()
+    return rows + _small_pages_engines(counters)
+
+
+def _small_pages_engines(counters):
+    """An Engine of TinyLlama's width at 2 layers and one seeded set of weights, for each
+    quantized policy at block size 16 and then 8: four requests (37-1,100 tokens), 16
+    greedy tokens each.  At 8 slots a page each decode step must launch the policy's
+    kernel once a layer, and the greedy tokens must equal those at 16."""
+    from lmdeploy_tpu_torch.models.llama import LlamaModel
+    model = tinyllama_config(num_layers=2)
+    rng = np.random.RandomState(SEED + 5)
+    prompts = [rng.randint(3, 32000, size=n).tolist() for n in (37, 130, 300, 1100)]
+    shared = {}
+    init = LlamaModel.init_params
+
+    def init_once(self, *args, **kwargs):
+        if 'init' not in shared:
+            shared['init'] = init(self, *args, **kwargs)
+        return shared['init']
+    rows = []
+    for policy, kernel in SMALL_PAGE_POLICIES:
+        tokens, launched = {}, {}
+        for BS in (16, 8):
+            with _swapped((LlamaModel, 'init_params', init_once)):
+                engine = build_engine(model, 4, policy, block_size=BS)
+            before = counters[kernel].launches
+            outs, _, _ = run_requests(engine, prompts, 16)
+            launched[BS] = counters[kernel].launches - before
+            tokens[BS] = [list(o.token_ids) for o in outs]
+            del engine, outs
+            torch.cuda.empty_cache()
+        ok = tokens[8] == tokens[16] and launched[8] >= 15 * model.num_layers
+        row = {'phase': 'small_pages_engine', 'kernel': kernel, 'quant_policy': policy,
+               'launches': launched, 'tokens_equal': tokens[8] == tokens[16], 'ok': ok}
+        emit(row)
+        rows.append(row)
+        if not ok:
+            raise SystemExit(f'an Engine with 8-slot pages of quant_policy {policy} did not '
+                             f'decode on its kernel or its greedy tokens differ from 16 slots: '
+                             f'{row}')
+    shared.clear()
+    return rows
 
 
 # the context-parallel decode: the e2e_llama31_8b_cp2 cell's session (a 16,384-token
@@ -1816,14 +2136,14 @@ def decode_mla_quant_phase():
 
 # -- phase 5 and 6 -------------------------------------------------------------------
 def build_engine(model, max_batch: int, quant_policy: int = 0, session_len: int = 2048 + 128,
-                 mesh=None):
+                 mesh=None, block_size: int = 128):
     from lmdeploy_tpu_torch.config import (CacheConfig, EngineConfigBundle, MiscConfig,
                                            SchedulerConfig)
     from lmdeploy_tpu_torch.engine.engine import Engine
     from lmdeploy_tpu_torch.messages import QuantPolicy, TpuEngineConfig
     bundle = EngineConfigBundle(
         model=model,
-        cache=CacheConfig(block_size=128, num_gpu_blocks=0, cache_max_entry_count=0.5,
+        cache=CacheConfig(block_size=block_size, num_gpu_blocks=0, cache_max_entry_count=0.5,
                           max_prefill_token_num=8192,
                           quant_policy=QuantPolicy(quant_policy)),
         scheduler=SchedulerConfig(max_batch_size=max_batch, max_session_len=session_len,
@@ -1891,7 +2211,7 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
               need_per_step, card: str, short_len: int = 128, long_len: int = 2048,
               exact: bool = False, shared: dict = None,
               env: dict = None, forbid=(), runs: int = 2, new_tokens: int = 64,
-              trace: bool = True, cp: int = 1, combined=()) -> dict:
+              trace: bool = True, cp: int = 1, combined: dict = None) -> dict:
     """Drive the Engine ``runs`` times on the same requests (launch counts from the
     first run, card numbers from the last; two runs must give equal greedy tokens),
     then, with ``trace``, a traced run: ``n_short`` prompts of ``short_len`` tokens and
@@ -1903,9 +2223,10 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
     of the same model; each engine fuses and prepares them itself.  ``env`` holds the
     engine switches (``LMDEPLOY_TPU_*``) set while the engine is built.  ``cp`` > 1
     serves the cell with its KV striped over that many context-parallel ranks, all on
-    the one card.  Each kernel of ``combined`` splits every call of the run, so it
-    must count as many combine launches (``.combines``) as launches.  Returns the
-    phase's row."""
+    the one card.  ``combined`` maps each kernel whose calls split a row's pages to
+    the share of its launches that also launch the combine (``.combines``): all of
+    them, or the full-attention layers' half of gpt-oss's, whose sliding layers' window
+    fits one split.  Returns the phase's row."""
     from lmdeploy_tpu_torch.parallel.mesh import build_mesh
     from lmdeploy_tpu_torch.config import bucketize
     from lmdeploy_tpu_torch.models.llama import LlamaModel
@@ -2000,8 +2321,8 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
     launches_ok = all((first['launches'][n] == need[n] if exact else
                        first['launches'][n] >= need[n]) and need[n] > 0 for n in need)
     launches_ok = launches_ok and all(first['launches'][n] == 0 for n in forbid)
-    launches_ok = launches_ok and all(first['combines'][n] == first['launches'][n]
-                                      for n in combined)
+    launches_ok = launches_ok and all(first['combines'][n] == share * first['launches'][n]
+                                      for n, share in (combined or {}).items())
     row = {'phase': name, 'model': model_label(model, quant_policy), 'card': card,
            'cp': cp, 'cp_devices': cp_devices,
            'requests': len(prompts), 'new_tokens': new_tokens, 'runs': runs,
@@ -2657,7 +2978,13 @@ def kernel_line(flash, decode, decode8, w4, mx, kv, szc, unprep, fp8, cp, mla_qu
                    flash[0]['library_ms']), mla=shapes(flash, 'mla')),
         dict(entry('paged_decode', 'paged_decode.cu',
                    'lmdeploy_tpu/ops/pallas/paged_decode.py:866', decode, decode[0], None),
-             mla=shapes(decode, 'mla')),
+             **{k: decode[0][k] for k in ('path', 'split_tokens', 'splits', 'split_tokens_ms')},
+             shape=f'bs64 TinyLlama heads: B 64, Hq 32, Hkv 4, D 64, BS 128, '
+                   f'{decode[0]["mean_kv_len"]:.0f} mean kv tokens',
+             mla=shapes(decode, 'mla'),
+             cases={r['case']: {k: r.get(k) for k in ('shape', 'dtype', 'path', 'splits',
+                                                      'kernel_ms', 'bound_ms', 'max_abs_err',
+                                                      'split_tokens_ms')} for r in decode}),
         dict(entry('paged_decode_int8', 'paged_decode_int8.cu',
                    'lmdeploy_tpu/ops/pallas/paged_decode.py:286', decode8, decode8[0], None),
              mla=shapes(mla_quant['paged_decode_int8'], 'mla')),
@@ -2671,7 +2998,11 @@ def kernel_line(flash, decode, decode8, w4, mx, kv, szc, unprep, fp8, cp, mla_qu
              dense_bf16_ms=sum(r['dense_bf16_ms'] for r in mx_layer),
              library=mx_layer[0]['library'],
              shape=f'gpt-oss-20b layer: gate + up (x shared) + down (x per expert), E = '
-                   f'{MX_E}, K = N = {MX_H}, M = {MX_MAIN_M}'),
+                   f'{MX_E}, K = N = {MX_H}, M = {MX_MAIN_M}',
+             cases={r['case']: {k: r[k] for k in ('shape', 'token_tile', 'kernel_ms',
+                                                  'bound_ms', 'bound_by', 'dense_bf16_ms',
+                                                  'max_abs_err')}
+                    for r in mx if 'kernel_ms' in r}),
     ]
 
 
@@ -2698,6 +3029,7 @@ def main():
                           timed('fp8_bmm', fp8_phase), timed('paged_decode_cp', decode_cp_phase),
                           timed('paged_decode_mla_quant', decode_mla_quant_phase))
     timed('fp8_bmm_groups', fp8_groups_phase)
+    timed('paged_decode_small_pages', decode_small_pages_phase)
     timed('parity', parity_phase, 'parity', tinyllama_config(num_layers=2), LOGIT_TOL)
     timed('parity_w4a16_kv8', parity_phase, 'parity_w4a16_kv8',
           llama7b_w4_config(num_layers=2), LOGIT_TOL_W4, policy=4)
@@ -2725,13 +3057,13 @@ def main():
     paths = {}
     for policy in KV_POLICIES:
         name = f'e2e_llama31_8b_{KV_PHASE[policy]}'
-        # the int4 and TurboQuant decodes split every call at the 33-page table, each
-        # call a second launch for the combine, counted apart from the decode's own
+        # the int4, TurboQuant and e4m3 decodes split every call at the 33-page table,
+        # each call a second launch for the combine, counted apart from the decode's own
         paths[name] = timed(name, e2e_phase, name, llama31_config(L31), 64, policy, 63,
                             {'flash_prefill': (L31, 0), KV_POLICIES[policy]: (0, L31)},
                             info['nvidia_smi'], short_len=1024, long_len=4096, exact=True,
-                            shared=shared, combined=tuple(
-                                k for k in (KV_POLICIES[policy],) if k in KV_SPLIT_CONST))
+                            shared=shared, combined={
+                                k: 1 for k in (KV_POLICIES[policy],) if k in KV_SPLIT_CONST})
     # the same weights with the KV striped over two context-parallel ranks on the one
     # card: 31 x 1,024 tokens and one 16,384-token prompt, the traffic users turn CP on
     # for; each decode step launches the partial kernel once a layer on each rank
@@ -2741,16 +3073,20 @@ def main():
         short_len=1024, long_len=16384, exact=True, shared=shared, forbid=('paged_decode',),
         cp=2)
     shared.clear()
+    # the narrow decode splits every call at the 17-page table (its combine counted in
+    # paged_decode's .combines) in the TinyLlama, gpt-oss and Mixtral cells, but for
+    # gpt-oss's sliding layers, whose 128-token window fits one split
     paths['e2e'] = timed('e2e', e2e_phase, 'e2e', tinyllama_config(), 64, 0, 8,
                          {'flash_prefill': (L1, 0), 'paged_decode': (0, L1)},
-                         info['nvidia_smi'])
+                         info['nvidia_smi'], combined={'paged_decode': 1})
     paths['e2e_w4a16_kv8'] = timed(
         'e2e_w4a16_kv8', e2e_phase, 'e2e_w4a16_kv8', llama7b_w4_config(), 128, 4, 64,
         {'flash_prefill': (L7, 0), 'paged_decode_int8': (0, L7), 'w4a16_gemm': (0, 4 * L7)},
         info['nvidia_smi'])
     paths['e2e_gptoss_mxfp4'] = timed(
         'e2e_gptoss_mxfp4', e2e_phase, 'e2e_gptoss_mxfp4', gptoss_config(LGPT), 64, 0, 32,
-        {'paged_decode': (0, LGPT), 'mxfp4_bmm': (0, 3 * LGPT)}, info['nvidia_smi'])
+        {'paged_decode': (0, LGPT), 'mxfp4_bmm': (0, 3 * LGPT)}, info['nvidia_smi'],
+        combined={'paged_decode': 0.5})
     # Mixtral-8x7B W4A16 under each schedule, sharing one seeded tree: gd runs as the
     # other cells do, the other three schedules once with 16 tokens.  63 short prompts
     # and the long one fill the 64-row batch in one wave (a 65th request would wait for
@@ -2769,7 +3105,8 @@ def main():
             {'flash_prefill': (LM, 0), 'paged_decode': (0, LM), kernel: (0, 2 * LM, 2 * LM)},
             info['nvidia_smi'], short_len=256, long_len=2048, exact=True, shared=mixtral,
             env=env, forbid=sorted(set(W4_KERNEL_OF.values()) - {kernel}),
-            runs=2 if gd else 1, new_tokens=64 if gd else 16, trace=gd)
+            runs=2 if gd else 1, new_tokens=64 if gd else 16, trace=gd,
+            combined={'paged_decode': 1})
     mixtral.clear()
     paths['e2e_deepseek_v2_lite_fp8'] = timed(
         'e2e_deepseek_v2_lite_fp8', deepseek_e2e_phase, info['nvidia_smi'])

@@ -1,22 +1,41 @@
-"""Time the int4 and TurboQuant narrow paged decodes with one part of their design taken
-out at a time, on one CUDA card.
+"""Time the redesigned kernels with one part of their design taken out at a time, on one
+CUDA card: the int4, TurboQuant and narrow (2-byte and e4m3 pages) paged decodes, and
+mxfp4_bmm.
 
-    python3 chip_steps.py [--cases e2e_shape_llama31 bs64_7b_heads bs64_tinyllama_heads]
+    python3 chip_steps.py [--kernels paged_decode_int4 paged_decode_turbo paged_decode
+                           paged_decode_fp8 mxfp4_bmm] [--cases CASE ...]
 
 Each step but `full` and `one_split` compiles an edited copy of the kernels' sources
 (`lmdeploy_tpu_torch/csrc/` copied under `work_dir/steps/<step>/`, one part removed),
-loads it in place of the package's library and times the wrappers
-(`paged_decode_attention_int4` / `_turbo`, the split's combine included) at the named
-cases of `chip_smoke.kv_decode_cases`, on caches filled as `decode_kv_phase` fills them:
-  full            the committed kernels (held against the plain version);
+loads it in place of the package's library and times the wrapper at its cases, the
+decodes' split combine included.  The decodes run at cases of
+`chip_smoke.kv_decode_cases` (int4, TurboQuant, e4m3; caches filled as `decode_kv_phase`
+fills them) and of `chip_smoke.decode_cases` (2-byte pages), mxfp4_bmm at rows of
+`chip_smoke.MX_SHAPES`.  The decodes' steps:
+  full            the committed kernel (held against the plain version);
   one_split       no split over pages (the split length above the table: one block a
                   row and kv head walks every page, no combine);
   block_barrier   a block barrier a sub-chunk besides each warp's own wait;
   loads_only      the ring streams every sub-chunk, nothing is computed on it;
   no_loads        only the ring's first stages are loaded, every sub-chunk computed;
+  no_decode       e4m3 pages only: the codes go to the tensor cores undecoded;
   no_scores       no Q K^T products (the score decode and MMAs);
-  no_pv           no P.V products (the V decode and MMAs).
-The edited kernels give wrong outputs; their times only show what each part costs.
+  no_pv           no P.V products (the V decode and MMAs);
+  p_once          2-byte pages only: P rounded once to the page type for P.V, as the
+                  Pallas kernel does (pr.astype(v.dtype)), in place of hi + lo (one
+                  product where there are two); its output is held against the plain
+                  version like `full`'s.
+mxfp4_bmm's steps:
+  full            the committed kernel (held against the plain version);
+  loads_only      the producer streams every stage, the consumers release it unread;
+  no_loads        the producer issues no copy (each stage's barrier completes at once),
+                  the consumers compute on the ring as it stands;
+  no_decode       the code words go to the tensor cores undecoded;
+  one_consumer    one consumer warpgroup a block (items of 128 columns);
+  no_overlap      a ring of one stage, released after its last wgmma: the producer's
+                  copy of a stage never overlaps the consumers' work.
+The edited kernels but `p_once` give wrong outputs; their times only show what each
+part costs.
 Prints one JSON line a (step, kernel, case), then the card's name and power limit.
 """
 from __future__ import annotations
@@ -34,47 +53,115 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-SOURCES = ('paged_decode_int4', 'paged_decode_turbo')
-BOTH = tuple(s + '.cu' for s in SOURCES)
+# each kernel's source and the module constant of its split (None: no split)
+KERNELS = {'paged_decode_int4': ('paged_decode_int4', 'SPLIT_TOKENS_INT4'),
+           'paged_decode_turbo': ('paged_decode_turbo', 'SPLIT_TOKENS_TURBO'),
+           'paged_decode': ('paged_decode', 'SPLIT_TOKENS_NARROW'),
+           'paged_decode_fp8': ('paged_decode', 'SPLIT_TOKENS_NARROW'),
+           'mxfp4_bmm': ('mxfp4_bmm', None)}
+QUANT = ('paged_decode_int4.cu', 'paged_decode_turbo.cu')
 # (file, text, replacement) edits of each step; the text must be in the file
-STEPS = {
+DECODE_STEPS = {
     'full': (),
     'one_split': (),
     'block_barrier': tuple((f, '    __syncwarp();\n', '    __syncwarp();\n    __syncthreads();\n')
-                           for f in BOTH),
+                           for f in QUANT)
+    + (('paged_decode.cu', '    __syncwarp();\n    const int nx = j + NST - 1;',
+        '    __syncwarp();\n    __syncthreads();\n    const int nx = j + NST - 1;'),),
     'loads_only': tuple((f, '    const int wt = warp * WT;         // the warp\'s first row of '
                             'the sub-chunk\n',
                          '    const int wt = warp * WT;\n    if (wt >= 0) continue;\n')
-                        for f in BOTH),
-    'no_loads': tuple((f, 'if (nx < ck.i_hi) load(nx, (nx - ck.i_lo) % NST);',
-                       'if (false) load(nx, (nx - ck.i_lo) % NST);') for f in BOTH),
+                        for f in QUANT)
+    + (('paged_decode.cu', '    if (lo >= hi) continue;\n    const uint8_t* stage',
+        '    if (lo >= 0) continue;\n    const uint8_t* stage'),),
+    'no_loads': tuple((f, 'if (nx < span.j_hi) load(nx, (nx - span.j_lo) % NST);',
+                       'if (false) load(nx, (nx - span.j_lo) % NST);')
+                      for f in QUANT + ('paged_decode.cu',)),
+    'no_decode': (('paged_decode.cu', '    b0 = e4m3x2<T>(w);\n    b1 = e4m3x2<T>(w >> 16);',
+                   '    b0 = w;\n    b1 = w >> 16;'),
+                  ('paged_decode.cu', 'e4m3x2<__nv_bfloat16>(z[', '(z[')),
     'no_scores': tuple((f, 'for (int jj = 0; jj < D / 32; ++jj) {\n        const uint32_t w =',
                         'for (int jj = 0; jj < 0; ++jj) {\n        const uint32_t w =')
-                       for f in BOTH),
+                       for f in QUANT)
+    + (('paged_decode.cu', 'for (int kc = 0; kc < D / 16; ++kc) {\n        uint32_t b0, b1;',
+        'for (int kc = 0; kc < 0; ++kc) {\n        uint32_t b0, b1;'),),
     'no_pv': tuple((f, 'for (int u = 0; u < D / 64; ++u) {\n      const uint32_t x1',
-                    'for (int u = 0; u < 0; ++u) {\n      const uint32_t x1') for f in BOTH),
+                    'for (int u = 0; u < 0; ++u) {\n      const uint32_t x1') for f in QUANT)
+    + (('paged_decode.cu', 'for (int u = 0; u < D / 64; ++u) {\n      if constexpr',
+        'for (int u = 0; u < 0; ++u) {\n      if constexpr'),),
+    'p_once': (('paged_decode.cu', '          attn::Mma<T>::run(o[u][n], a, ph[0], ph[1]);\n'
+                                   '          attn::Mma<T>::run(o[u][n], a, pl[0], pl[1]);\n',
+                '          attn::Mma<T>::run(o[u][n], a, ph[0], ph[1]);\n'),),
 }
-SPLIT_CONST = {'paged_decode_int4': 'SPLIT_TOKENS_INT4',
-               'paged_decode_turbo': 'SPLIT_TOKENS_TURBO'}
+MX = 'mxfp4_bmm.cu'
+MXFP4_STEPS = {
+    'full': (),
+    'loads_only': (
+        (MX, '      mbar_wait(smem_u32(&full[s]), (it / NST) & 1);\n',
+         '      mbar_wait(smem_u32(&full[s]), (it / NST) & 1);\n'
+         '      mbar_arrive(smem_u32(&empty[s]));\n      continue;\n'),
+        (MX, '    fence_regs(acc1);\n    mbar_arrive(smem_u32(&empty[(it - 1) % NST]));\n',
+         '    fence_regs(acc1);\n')),
+    'no_loads': ((MX, '          mbar_expect_tx(bar, C::STAGE);\n',
+                  '          mbar_arrive(bar);\n          continue;\n'),),
+    'no_decode': ((MX, '  a[0] = scaled(e2m1x2<H>(pair<2 * T>(w[0], w[1])), s0);\n'
+                       '  a[1] = scaled(e2m1x2<H>(pair<2 * T + 1>(w[0], w[1])), s1);\n'
+                       '  a[2] = scaled(e2m1x2<H>(pair<2 * T>(w[2], w[3])), s0);\n'
+                       '  a[3] = scaled(e2m1x2<H>(pair<2 * T + 1>(w[2], w[3])), s1);\n',
+                   '  a[0] = pair<2 * T>(w[0], w[1]) >> (4 * H);\n'
+                   '  a[1] = pair<2 * T + 1>(w[0], w[1]) >> (4 * H);\n'
+                   '  a[2] = pair<2 * T>(w[2], w[3]) >> (4 * H);\n'
+                   '  a[3] = pair<2 * T + 1>(w[2], w[3]) >> (4 * H);\n'),),
+    'one_consumer': ((MX, 'constexpr int CWG = 2;', 'constexpr int CWG = 1;'),),
+    'no_overlap': (
+        (MX, 'static constexpr int NST = NST_FIT > 6 ? 6 : NST_FIT;',
+         'static constexpr int NST = 1;'),
+        (MX, '        if (kk == 0 && ks > 0) mbar_arrive(smem_u32(&empty[(it - 1) % NST]));\n'
+             '      }\n    }\n    wgmma_wait<0>();\n    fence_regs(acc0);\n    fence_regs(acc1);\n'
+             '    mbar_arrive(smem_u32(&empty[(it - 1) % NST]));\n',
+         '      }\n      wgmma_wait<0>();\n      mbar_arrive(smem_u32(&empty[s]));\n    }\n'
+         '    fence_regs(acc0);\n    fence_regs(acc1);\n')),
+}
+DECODE_CASES = {'paged_decode_int4': ['e2e_shape_llama31', 'bs64_7b_heads',
+                                      'bs64_tinyllama_heads'],
+                'paged_decode_turbo': ['e2e_shape_llama31', 'bs64_7b_heads',
+                                       'bs64_tinyllama_heads'],
+                'paged_decode_fp8': ['e2e_shape_llama31', 'bs64_tinyllama_heads'],
+                'paged_decode': ['plain', 'e2e_long', 'gptoss_sliding',
+                                 'rows_shorter_than_a_split', 'bs8'],
+                'mxfp4_bmm': ['gate_m64', 'down_m64', 'gate_m767']}
 
 
-def build_steps(root: str) -> dict:
-    """{step: {source: library path}}: each edited step compiled, all at once."""
+def steps_of(kernel: str) -> dict:
+    if kernel == 'mxfp4_bmm':
+        return MXFP4_STEPS
+    src = KERNELS[kernel][0] + '.cu'
+    return {step: tuple(e for e in edits if e[0] == src) for step, edits in DECODE_STEPS.items()
+            if step in ('full', 'one_split') or any(e[0] == src for e in edits)
+            and (step != 'no_decode' or kernel == 'paged_decode_fp8')
+            and (step != 'p_once' or kernel == 'paged_decode')}
+
+
+def build_steps(root: str, kernels) -> dict:
+    """{(step, source): library path}: each edited source compiled, all at once."""
     from lmdeploy_tpu_torch.ops import cuda_build
     shutil.rmtree(root, ignore_errors=True)
+    wanted = {}
+    for kernel in kernels:
+        for step, edits in steps_of(kernel).items():
+            if edits:
+                wanted.setdefault(step, {})[KERNELS[kernel][0]] = edits
     procs, libs = {}, {}
-    for step, edits in STEPS.items():
-        if not edits:
-            continue
+    for step, sources in wanted.items():
         d = os.path.join(root, step)
         shutil.copytree(cuda_build.CSRC_DIR, d)
-        for f, old, new in edits:
-            path = os.path.join(d, f)
-            text = open(path).read()
-            if old not in text:
-                raise SystemExit(f'chip_steps: {step} finds no {old!r} in {f}')
-            open(path, 'w').write(text.replace(old, new))
-        for src in SOURCES:
+        for src, edits in sources.items():
+            for f, old, new in edits:
+                path = os.path.join(d, f)
+                text = open(path).read()
+                if old not in text:
+                    raise SystemExit(f'chip_steps: {step} finds no {old!r} in {f}')
+                open(path, 'w').write(text.replace(old, new))
             lib = os.path.join(d, f'lib{src}.so')
             log = open(os.path.join(d, src + '.log'), 'w')
             procs[(step, src)] = (subprocess.Popen(
@@ -86,76 +173,117 @@ def build_steps(root: str) -> dict:
         if rc:
             raise SystemExit(f'chip_steps: nvcc failed on {step}/{src}.cu:\n'
                              + open(log.name).read()[-3000:])
-        libs.setdefault(step, {})[src] = lib
+        libs[(step, src)] = lib
     return libs
+
+
+def kernel_cases(c, kernel, label, gen):
+    """(call, plain call, splits) of one case: the wrapper and its plain version on the
+    case's seeded inputs, and the split of its rows' pages the wrapper takes now (None
+    for mxfp4_bmm)."""
+    from lmdeploy_tpu_torch.config import ModelConfig
+    from lmdeploy_tpu_torch.ops import paged_decode as pd
+    from lmdeploy_tpu_torch.ops import quant_bmm as qb
+    from lmdeploy_tpu_torch.ops.attention import fill_kv_cache
+    from lmdeploy_tpu_torch.ops.kv_quant import hadamard_rotate
+    if kernel == 'mxfp4_bmm':
+        _, kind, M, K = next(s for s in c.MX_SHAPES if s[0] == label)
+        E, N = c.MX_E, c.MX_H
+        nib = torch.randint(0, 256, (E, K // 2, N), generator=gen, device='cuda',
+                            dtype=torch.uint8)
+        scale = torch.exp2(torch.randint(-9, -4, (E, K // 32, N), generator=gen,
+                                         device='cuda').float())
+        x = torch.randn((M, K) if kind == 'gate' else (E, M, K), device='cuda',
+                        generator=gen).bfloat16()
+        return (lambda: qb.mxfp4_bmm(x, nib, scale),
+                lambda: qb.mxfp4_bmm_plain(x, nib, scale), None)
+    if kernel == 'paged_decode':
+        _, B, Hq, Hkv, D, lens, W, opts = next(s for s in c.decode_cases() if s[0] == label)
+        opts = dict(opts)
+        BS = opts.pop('block_size', 128)
+        q, cache, tables, kv_lens = c._decode_inputs(gen, B, Hq, Hkv, D, BS, W, lens,
+                                                     dtype=opts.pop('dtype', torch.bfloat16))
+        if opts.get('sinks'):
+            opts['sinks'] = torch.randn(Hq, device='cuda', generator=gen) * 2
+        return (lambda: pd.paged_decode_attention(q, cache, tables, kv_lens, 1, D ** -0.5,
+                                                  Hkv, **opts),
+                lambda: pd.paged_decode_attention_plain(q, cache, tables, kv_lens, 1,
+                                                        D ** -0.5, Hkv, **opts),
+                lambda: pd.plain_layout_splits(D, cache.dtype, B, W, BS, opts.get('window')))
+    _, B, Hq, Hkv, D, lens, W, softcap, opts = next(s for s in c.kv_decode_cases()
+                                                    if s[0] == label)
+    BS = opts.get('block_size', 128)
+    NB = 1 + B * W
+    tables = (torch.randperm(NB - 1, device='cuda', generator=gen) + 1)[:B * W]
+    tables = tables.reshape(B, W).int()
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device='cuda')
+    tables[kv_lens < 0] = 0            # padding rows: block 0, one token
+    kv_lens[kv_lens < 0] = 1
+    tables = tables.contiguous()
+    q0 = torch.randn(B, Hq, D, device='cuda', generator=gen)
+    model = ModelConfig(num_layers=2, num_attention_heads=Hq, num_key_value_heads=Hkv,
+                        hidden_size=Hq * D, intermediate_size=128, vocab_size=128,
+                        head_dim=D, dtype='bfloat16')
+    slots = torch.arange(BS, NB * BS, device='cuda')
+    policy = {'paged_decode_int4': 8, 'paged_decode_turbo': 42, 'paged_decode_fp8': 16}[kernel]
+    cache = c.new_kv_cache(model, NB, BS, policy, 'cuda')
+    for lay in range(2):
+        fill_kv_cache(cache, torch.randn(len(slots), Hkv, D, device='cuda',
+                                         generator=gen).bfloat16(),
+                      torch.randn(len(slots), Hkv, D, device='cuda', generator=gen).bfloat16(),
+                      slots, lay)
+    q = (hadamard_rotate(q0) if policy == 42 else q0).to(opts.get('dtype', torch.bfloat16))
+    wrapper, plain = c._kv_decode_fns(kernel)
+
+    def splits():
+        if kernel == 'paged_decode_fp8':
+            return pd.plain_layout_splits(D, cache.dtype, B, W, BS)
+        return pd.page_splits(W, BS, getattr(pd, KERNELS[kernel][1]))
+    return (lambda: wrapper(q, cache, tables, kv_lens, 1, D ** -0.5, Hkv,
+                            logit_softcap=softcap),
+            lambda: plain(q, cache, tables, kv_lens, 1, D ** -0.5, Hkv, logit_softcap=softcap),
+            splits)
 
 
 def main() -> int:
     import chip_smoke as c
-    from lmdeploy_tpu_torch.config import ModelConfig
     from lmdeploy_tpu_torch.ops import cuda_build
     from lmdeploy_tpu_torch.ops import paged_decode as pd
-    from lmdeploy_tpu_torch.ops.attention import fill_kv_cache
-    from lmdeploy_tpu_torch.ops.kv_quant import hadamard_rotate
-    cases = {case[0]: case for case in c.kv_decode_cases()}
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--cases', nargs='+', choices=list(cases),
-                    default=['e2e_shape_llama31', 'bs64_7b_heads', 'bs64_tinyllama_heads'])
+    ap.add_argument('--kernels', nargs='+', choices=list(KERNELS), default=list(KERNELS))
+    ap.add_argument('--cases', nargs='+', help='the cases of every kernel named (default: '
+                    'each kernel\'s own list)')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('chip_steps: no CUDA device available', file=sys.stderr)
         return 1
-    cuda_build.build(SOURCES)
-    libs = build_steps(os.path.join(ROOT, 'work_dir', 'steps'))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda_build.build(sorted({KERNELS[k][0] for k in args.kernels}))
+    libs = build_steps(os.path.join(ROOT, 'work_dir', 'steps'), args.kernels)
     gen = torch.Generator(device='cuda').manual_seed(c.SEED)
-    BS, layer = 128, 1
-    for label in args.cases:
-        _, B, Hq, Hkv, D, lens, W, softcap, opts = cases[label]
-        NB = 1 + B * W
-        tables = (torch.randperm(NB - 1, device='cuda', generator=gen) + 1)[:B * W]
-        tables = tables.reshape(B, W).int()
-        kv_lens = torch.tensor(lens, dtype=torch.int32, device='cuda')
-        tables[kv_lens < 0] = 0            # padding rows: block 0, one token
-        kv_lens[kv_lens < 0] = 1
-        tables = tables.contiguous()
-        q0 = torch.randn(B, Hq, D, device='cuda', generator=gen)
-        model = ModelConfig(num_layers=2, num_attention_heads=Hq, num_key_value_heads=Hkv,
-                            hidden_size=Hq * D, intermediate_size=128, vocab_size=128,
-                            head_dim=D, dtype='bfloat16')
-        slots = torch.arange(BS, NB * BS, device='cuda')
-        kvs = [(torch.randn(len(slots), Hkv, D, device='cuda', generator=gen).bfloat16(),
-                torch.randn(len(slots), Hkv, D, device='cuda', generator=gen).bfloat16())
-               for _ in range(2)]
-        for policy, kernel in zip((8, 42), SOURCES):
-            cache = c.new_kv_cache(model, NB, BS, policy, 'cuda')
-            for lay, (k, v) in enumerate(kvs):
-                fill_kv_cache(cache, k, v, slots, lay)
-            q = (hadamard_rotate(q0) if policy == 42 else q0).to(opts.get('dtype', torch.bfloat16))
-            wrapper, plain = c._kv_decode_fns(kernel)
-
-            def kern():
-                return wrapper(q, cache, tables, kv_lens, layer, D ** -0.5, Hkv,
-                               logit_softcap=softcap)
-            chosen = getattr(pd, SPLIT_CONST[kernel])
-            package_lib = cuda_build.load(kernel)
-            for step in STEPS:
-                cuda_build._libs[kernel] = (ctypes.CDLL(libs[step][kernel]) if step in libs
-                                            else package_lib)
+    for kernel in args.kernels:
+        source, const = KERNELS[kernel]
+        tol = c.KERNEL_TOL['paged_decode' if kernel == 'paged_decode' else kernel]
+        package_lib = cuda_build.load(source)
+        for label in args.cases or DECODE_CASES[kernel]:
+            kern, plain, splits = kernel_cases(c, kernel, label, gen)
+            chosen = getattr(pd, const) if const else None
+            for step in steps_of(kernel):
+                cuda_build._libs[source] = (ctypes.CDLL(libs[(step, source)])
+                                            if (step, source) in libs else package_lib)
                 if step == 'one_split':
-                    setattr(pd, SPLIT_CONST[kernel], 1 << 30)
-                row = {'step': step, 'kernel': kernel, 'case': label,
-                       'splits': pd.page_splits(W, BS, getattr(pd, SPLIT_CONST[kernel])),
-                       'ms': c.time_ms(kern)}
-                if step in ('full', 'one_split'):
-                    ref = plain(q, cache, tables, kv_lens, layer, D ** -0.5, Hkv,
-                                logit_softcap=softcap)
-                    row['err_over_tol'] = c.compare(kern(), ref, c.KERNEL_TOL[kernel])[2]
-                setattr(pd, SPLIT_CONST[kernel], chosen)
+                    setattr(pd, const, 1 << 30)
+                row = {'step': step, 'kernel': kernel, 'case': label, 'ms': c.time_ms(kern)}
+                if splits:
+                    row['splits'] = splits()
+                if step in ('full', 'one_split', 'p_once'):
+                    row['err_over_tol'] = c.compare(kern(), plain(), tol)[2]
+                if const:
+                    setattr(pd, const, chosen)
                 print(json.dumps(row), flush=True)
-            cuda_build._libs[kernel] = package_lib
-            del cache
-        del kvs
-        torch.cuda.empty_cache()
+            cuda_build._libs[source] = package_lib
+            del kern, plain
+            torch.cuda.empty_cache()
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)

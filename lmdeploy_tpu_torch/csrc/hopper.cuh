@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the warp-specialised kernels
-// (flash_prefill.cu, w4a16_gemm.cu, fp8_bmm.cu): mbarriers, TMA tile loads from
-// tensor maps encoded on the host at run time, wgmma shared-memory descriptors for the
-// 128-byte swizzle, and wgmma.mma_async with A in registers or in shared memory.
+// (flash_prefill.cu, w4a16_gemm.cu, fp8_bmm.cu, mxfp4_bmm.cu): mbarriers, TMA tile
+// loads from tensor maps encoded on the host at run time, wgmma shared-memory
+// descriptors for the 128-byte swizzle, and wgmma.mma_async with A in registers or in
+// shared memory.
 //
 // wgmma accumulator layout (m64nNk16, f32): thread t of the warpgroup (warp w = t / 32,
 // gid = lane / 4, tig = lane % 4) holds N / 2 floats; n8 tile j: d[4j], d[4j + 1] in
@@ -85,7 +86,7 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
-// one box of a 2-D / 3-D tensor map into shared memory at dst, coordinates innermost
+// one box of a 2-D / 3-D / 4-D tensor map into shared memory at dst, coordinates innermost
 // first, its bytes counted on the mbarrier bar
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0,
                                          int c1, uint32_t bar) {
@@ -103,6 +104,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
       " [%0], [%1, {%2, %3, %4}], [%5];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
          "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0,
+                                         int c1, int c2, int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3), "r"(bar)
       : "memory");
 }
 
@@ -302,7 +313,7 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a tiled tensor map of `rank` dims (innermost first, `dims` elements, `strides` the
+// a tiled tensor map of `rank` (<= 5) dims (innermost first, `dims` elements, `strides` the
 // byte strides of dims 1..rank-1), boxes of `box` elements; elements past a dim's end
 // read as zeros.  False when the driver refuses it.
 inline bool tile_map(CUtensorMap* map, CUtensorMapDataType dt, int rank, const void* ptr,
@@ -310,7 +321,7 @@ inline bool tile_map(CUtensorMap* map, CUtensorMapDataType dt, int rank, const v
                      CUtensorMapSwizzle swizzle) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint32_t elem[3] = {1, 1, 1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   return encode(map, dt, (cuuint32_t)rank, const_cast<void*>(ptr), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

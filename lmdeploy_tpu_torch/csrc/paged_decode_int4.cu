@@ -318,7 +318,7 @@ __host__ __device__ constexpr int mma_smem() {
                                                               : qdec::tail_bytes<D>();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool ONE_PAGE>
 __global__ void __launch_bounds__(qdec::NT, qdec::min_blocks<D>())
 paged_decode_int4_mma(const T* __restrict__ q,                 // [B, Hq, D]
                       const uint8_t* __restrict__ data,         // [L, NB, 2, BS, Hkv*D/2]
@@ -353,8 +353,8 @@ paged_decode_int4_mma(const T* __restrict__ q,                 // [B, Hq, D]
   const int hq0 = h * G + g0;
   const long long head0 = (long long)b * Hq + hq0;
   const int len = kv_lens[b];
-  const Chunks ck(len, BS, W, sp, split_pages);
-  if (ck.i_lo >= ck.i_hi) {
+  const Span span(len, BS, W, sp, split_pages, 0);
+  if (span.empty()) {
     empty_split(out, head0, gb, D, S);
     return;
   }
@@ -366,31 +366,36 @@ paged_decode_int4_mma(const T* __restrict__ q,                 // [B, Hq, D]
   const int RB = Hkv * DB;            // bytes a token row of a plane
   const long long plane = (long long)BS * RB;
   const long long splane = (long long)BS * Hkv;
-  auto load = [&](int i, int st) {
-    const int p = i / ck.cpp;
-    const int t0 = (i - p * ck.cpp) * TC;
-    const int nt = min(TC, BS - t0);
-    const int blk = min(max(tables[(long long)b * W + p], 0), NB - 1);
-    const long long page = (long long)layer * NB + blk;
-    const uint8_t* kp = data + page * 2 * plane + (long long)h * DB + (long long)t0 * RB;
-    const uint8_t* vp = kp + plane;
+  auto load = [&](int j, int st) {
+    // the warp's own rows; rows past the split's positions read as zeros
+    const int r0 = span.row0(j, warp);
+    const int hi = span.hi(r0);
+    const WarpRows<ONE_PAGE> rows(tables + (long long)b * W, r0, BS, NB, layer, hi > 0);
     uint8_t* stage = mma_raw + st * St::BYTES;
-    for (int x = lane; x < WT * CH; x += 32) {   // the warp's own rows
-      const int t = warp * WT + x / CH;
+    for (int x = lane; x < WT * CH; x += 32) {
+      const int t = x / CH;
       const int c = x % CH;
-      const bool in = t < nt;            // rows past the page's end read as zeros
-      const long long off = in ? (long long)t * RB + c * 16 : 0;
-      cp_async16(stage + t * RS + c * 16, kp + off, in);
-      cp_async16(stage + St::V + t * RS + c * 16, vp + off, in);
+      const bool in = t < hi;
+      long long off = 0;
+      if (in) {
+        const Slot s = rows(t);
+        off = s.page * 2 * plane + (long long)h * DB + (long long)s.row * RB + c * 16;
+      }
+      cp_async16(stage + (warp * WT + t) * RS + c * 16, data + off, in);
+      cp_async16(stage + St::V + (warp * WT + t) * RS + c * 16, data + off + (in ? plane : 0),
+                 in);
     }
-    const long long so = page * 2 * splane + h + (long long)t0 * Hkv;
     float* ms = reinterpret_cast<float*>(stage + St::M);
     for (int x = lane; x < 4 * WT; x += 32) {
       const int a = x / WT;              // ksc, kmn (K plane), vsc, vmn (V plane)
-      const int t = warp * WT + x % WT;
-      const bool in = t < nt;
-      const long long off = in ? so + (a >> 1) * splane + (long long)t * Hkv : 0;
-      cp_async4(ms + a * TC + t, (a & 1 ? minv : scales) + off, in);
+      const int t = x % WT;
+      const bool in = t < hi;
+      long long off = 0;
+      if (in) {
+        const Slot s = rows(t);
+        off = s.page * 2 * splane + (a >> 1) * splane + h + (long long)s.row * Hkv;
+      }
+      cp_async4(ms + a * TC + warp * WT + t, (a & 1 ? minv : scales) + off, in);
     }
     cp_commit();
   };
@@ -404,24 +409,24 @@ paged_decode_int4_mma(const T* __restrict__ q,                 // [B, Hq, D]
 
 #pragma unroll
   for (int st = 0; st < NST - 1; ++st) {
-    if (ck.i_lo + st < ck.i_hi) load(ck.i_lo + st, st);
+    if (span.j_lo + st < span.j_hi) load(span.j_lo + st, st);
     else cp_commit();
   }
-  for (int i = ck.i_lo; i < ck.i_hi; ++i) {
+  for (int i = span.j_lo; i < span.j_hi; ++i) {
     cp_wait<NST - 2>();
     // the warp's rows of sub-chunk i have landed for all its lanes, and the warp is
     // done with its rows of i - 1, whose stage takes i + NST - 1 now: each warp copies
     // and reads only its own rows, so no block barrier
     __syncwarp();
     const int nx = i + NST - 1;
-    if (nx < ck.i_hi) load(nx, (nx - ck.i_lo) % NST);
+    if (nx < span.j_hi) load(nx, (nx - span.j_lo) % NST);
     else cp_commit();
-    const uint8_t* stage = mma_raw + ((i - ck.i_lo) % NST) * St::BYTES;
+    // the warp's rows below hi are positions of the split; a warp with none computes on
+    // masked zero rows, which add nothing once its m is real (the tail weighs a warp
+    // whose m never was by 0)
+    const int hi = span.hi(span.row0(i, warp));
+    const uint8_t* stage = mma_raw + ((i - span.j_lo) % NST) * St::BYTES;
     const float* ms = reinterpret_cast<const float*>(stage + St::M);
-    const int p = i / ck.cpp;
-    const int t0 = (i - p * ck.cpp) * TC;
-    // rows below lim are positions below len (and on the page)
-    const int lim = min(min(TC, BS - t0), len - (p * BS + t0));
     const int wt = warp * WT;         // the warp's first row of the sub-chunk
 
     // S = Q K^T over the warp's two 8-token tiles, each K code decoded once
@@ -450,7 +455,7 @@ paged_decode_int4_mma(const T* __restrict__ q,                 // [B, Hq, D]
       for (int e = 0; e < 2; ++e) {
         float x = s[j][e] * (scale * (e ? ksc.y : ksc.x)) + qsum * (e ? kmn.y : kmn.x);
         if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        x = t + e < lim ? x : MASK_VALUE;
+        x = t - wt + e < hi ? x : MASK_VALUE;
         s[j][e] = x;
         mx = fmaxf(mx, x);
       }
@@ -798,18 +803,20 @@ cudaError_t launch(const void* q, const void* data, const void* scales, const vo
   return combine<TQ>(part, kv_lens, out, B, Hq, D, splits, BS, W, split_pages, stream);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool ONE_PAGE>
 cudaError_t launch_mma(const void* q, const void* data, const void* scales, const void* minv,
                        const int* tables, const int* kv_lens, void* out, float* part, int B,
                        int Hq, int Hkv, int NB, int BS, int W, int layer, float scale,
                        float softcap, int splits, cudaStream_t stream) {
   constexpr int bytes = mma_smem<D>();
   static cudaError_t configured = cudaFuncSetAttribute(
-      paged_decode_int4_mma<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      paged_decode_int4_mma<T, D, ONE_PAGE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (configured != cudaSuccess) return configured;
   const int hsplits = (Hq / Hkv + qdec::GQ - 1) / qdec::GQ;
   const int split_pages = (W + splits - 1) / splits;
-  paged_decode_int4_mma<T, D><<<dim3(Hkv * hsplits, B, splits), qdec::NT, bytes, stream>>>(
+  paged_decode_int4_mma<T, D, ONE_PAGE><<<dim3(Hkv * hsplits, B, splits), qdec::NT, bytes,
+                                          stream>>>(
       static_cast<const T*>(q), static_cast<const uint8_t*>(data),
       static_cast<const float*>(scales), static_cast<const float*>(minv), tables, kv_lens,
       static_cast<T*>(out), part, Hq, Hkv, NB, BS, W, layer, scale, softcap, split_pages);
@@ -830,8 +837,10 @@ int by_dim(const void* q, const void* data, const void* scales, const void* minv
                                 NB, BS, W, layer, scale, softcap, splits, s);
 #define MMA_CASE(DIM)                                                                  \
   case DIM:                                                                            \
-    return (int)launch_mma<TQ, DIM>(q, data, scales, minv, tb, kl, out, part, B, Hq,   \
-                                    Hkv, NB, BS, W, layer, scale, softcap, splits, s);
+    return (int)(BS % qdec::WT == 0 ? launch_mma<TQ, DIM, true>                        \
+                                    : launch_mma<TQ, DIM, false>)(                     \
+        q, data, scales, minv, tb, kl, out, part, B, Hq, Hkv, NB, BS, W, layer, scale,  \
+        softcap, splits, s);
   switch (D) {
     NARROW_CASE(80)
     NARROW_CASE(96)

@@ -389,7 +389,7 @@ struct Table8 {
   }
 };
 
-template <typename T, int D>
+template <typename T, int D, bool ONE_PAGE>
 __global__ void __launch_bounds__(qdec::NT, qdec::min_blocks<D>())
 paged_decode_turbo_mma(const T* __restrict__ q,                 // [B, Hq, D] rotated
                        const uint8_t* __restrict__ data,         // [L, NB, BS, 3*Hkv*D/4]
@@ -426,8 +426,8 @@ paged_decode_turbo_mma(const T* __restrict__ q,                 // [B, Hq, D] ro
   const int hq0 = h * G + g0;
   const long long head0 = (long long)b * Hq + hq0;
   const int len = kv_lens[b];
-  const Chunks ck(len, BS, W, sp, split_pages);
-  if (ck.i_lo >= ck.i_hi) {
+  const Span span(len, BS, W, sp, split_pages, 0);
+  if (span.empty()) {
     empty_split(out, head0, gb, D, S);
     return;
   }
@@ -447,33 +447,35 @@ paged_decode_turbo_mma(const T* __restrict__ q,                 // [B, Hq, D] ro
   const float a1 = 0.5f * (C2[3] + C2[2]) * sigma, a0 = 0.5f * (C2[3] - C2[2]) * sigma;
 
   const int RB = 3 * Hkv * VB;        // bytes a token row
-  auto load = [&](int i, int st) {
-    const int p = i / ck.cpp;
-    const int t0 = (i - p * ck.cpp) * TC;
-    const int nt = min(TC, BS - t0);
-    const int blk = min(max(tables[(long long)b * W + p], 0), NB - 1);
-    const long long row0 = ((long long)layer * NB + blk) * BS + t0;   // first token row
-    const uint8_t* kp = data + row0 * RB + (long long)h * KB;
-    const uint8_t* vp = data + row0 * RB + (long long)Hkv * KB + (long long)h * VB;
+  auto load = [&](int j, int st) {
+    // the warp's own rows; rows past the split's positions read as zeros
+    const int r0 = span.row0(j, warp);
+    const int hi = span.hi(r0);
+    const WarpRows<ONE_PAGE> rows(tables + (long long)b * W, r0, BS, NB, layer, hi > 0);
+    auto token_row = [&](int t) {        // row t's index in [L * NB * BS]
+      const Slot s = rows(t);
+      return s.page * BS + s.row;
+    };
     uint8_t* stage = mma_raw + st * St::BYTES;
     for (int x = lane; x < WT * (KCH + VCH); x += 32) {   // the warp's own rows
       const bool kpart = x < WT * KCH;
       const int y = kpart ? x : x - WT * KCH;
       const int ch = kpart ? KCH : VCH;
-      const int t = warp * WT + y / ch;
+      const int t = y / ch;
       const int c = y % ch;
-      const bool in = t < nt;            // rows past the page's end read as zeros
-      const long long off = in ? (long long)t * RB + c * 16 : 0;
-      if (kpart) cp_async16(stage + t * KS + c * 16, kp + off, in);
-      else cp_async16(stage + St::V + t * VS + c * 16, vp + off, in);
+      const bool in = t < hi;
+      const long long off = in ? token_row(t) * RB + c * 16 : 0;
+      if (kpart) cp_async16(stage + (warp * WT + t) * KS + c * 16, data + off + h * KB, in);
+      else cp_async16(stage + St::V + (warp * WT + t) * VS + c * 16,
+                      data + off + Hkv * KB + h * VB, in);
     }
     float* ms = reinterpret_cast<float*>(stage + St::M);
     for (int x = lane; x < 3 * WT; x += 32) {
       const int a = x / WT;              // mse, qjl, vnorm
-      const int t = warp * WT + x % WT;
-      const bool in = t < nt;
-      const long long off = in ? ((row0 + t) * 3 + a) * Hkv + h : 0;
-      cp_async4(ms + a * TC + t, meta + off, in);
+      const int t = x % WT;
+      const bool in = t < hi;
+      const long long off = in ? (token_row(t) * 3 + a) * Hkv + h : 0;
+      cp_async4(ms + a * TC + warp * WT + t, meta + off, in);
     }
     cp_commit();
   };
@@ -487,24 +489,24 @@ paged_decode_turbo_mma(const T* __restrict__ q,                 // [B, Hq, D] ro
 
 #pragma unroll
   for (int st = 0; st < NST - 1; ++st) {
-    if (ck.i_lo + st < ck.i_hi) load(ck.i_lo + st, st);
+    if (span.j_lo + st < span.j_hi) load(span.j_lo + st, st);
     else cp_commit();
   }
-  for (int i = ck.i_lo; i < ck.i_hi; ++i) {
+  for (int i = span.j_lo; i < span.j_hi; ++i) {
     cp_wait<NST - 2>();
     // the warp's rows of sub-chunk i have landed for all its lanes, and the warp is
     // done with its rows of i - 1, whose stage takes i + NST - 1 now: each warp copies
     // and reads only its own rows, so no block barrier
     __syncwarp();
     const int nx = i + NST - 1;
-    if (nx < ck.i_hi) load(nx, (nx - ck.i_lo) % NST);
+    if (nx < span.j_hi) load(nx, (nx - span.j_lo) % NST);
     else cp_commit();
-    const uint8_t* stage = mma_raw + ((i - ck.i_lo) % NST) * St::BYTES;
+    // the warp's rows below hi are positions of the split; a warp with none computes on
+    // masked zero rows, which add nothing once its m is real (the tail weighs a warp
+    // whose m never was by 0)
+    const int hi = span.hi(span.row0(i, warp));
+    const uint8_t* stage = mma_raw + ((i - span.j_lo) % NST) * St::BYTES;
     const float* ms = reinterpret_cast<const float*>(stage + St::M);
-    const int p = i / ck.cpp;
-    const int t0 = (i - p * ck.cpp) * TC;
-    // rows below lim are positions below len (and on the page)
-    const int lim = min(min(TC, BS - t0), len - (p * BS + t0));
     const int wt = warp * WT;         // the warp's first row of the sub-chunk
 
     // q . C3 (hi + lo into one accumulator) and q . sgn over the warp's two 8-token
@@ -547,7 +549,7 @@ paged_decode_turbo_mma(const T* __restrict__ q,                 // [B, Hq, D] ro
       for (int e = 0; e < 2; ++e) {
         float x = (scs * sc[j][e] + scale * (e ? qjl.y : qjl.x) * ss[j][e]) * (e ? mse.y : mse.x);
         if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        x = t + e < lim ? x : MASK_VALUE;
+        x = t - wt + e < hi ? x : MASK_VALUE;
         sc[j][e] = x;
         mx = fmaxf(mx, x);
       }
@@ -651,18 +653,20 @@ cudaError_t launch(const void* q, const void* data, const void* meta, const int*
   return combine<TQ>(part, kv_lens, out, B, Hq, D, splits, BS, W, split_pages, stream);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool ONE_PAGE>
 cudaError_t launch_mma(const void* q, const void* data, const void* meta, const int* tables,
                        const int* kv_lens, void* out, float* part, int B, int Hq, int Hkv,
                        int NB, int BS, int W, int layer, float scale, float softcap,
                        float sigma, int splits, cudaStream_t stream) {
   constexpr int bytes = mma_smem<D>();
   static cudaError_t configured = cudaFuncSetAttribute(
-      paged_decode_turbo_mma<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      paged_decode_turbo_mma<T, D, ONE_PAGE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (configured != cudaSuccess) return configured;
   const int hsplits = (Hq / Hkv + qdec::GQ - 1) / qdec::GQ;
   const int split_pages = (W + splits - 1) / splits;
-  paged_decode_turbo_mma<T, D><<<dim3(Hkv * hsplits, B, splits), qdec::NT, bytes, stream>>>(
+  paged_decode_turbo_mma<T, D, ONE_PAGE><<<dim3(Hkv * hsplits, B, splits), qdec::NT, bytes,
+                                           stream>>>(
       static_cast<const T*>(q), static_cast<const uint8_t*>(data),
       static_cast<const float*>(meta), tables, kv_lens, static_cast<T*>(out), part, Hq, Hkv,
       NB, BS, W, layer, scale, softcap, sigma, split_pages);
@@ -677,8 +681,9 @@ cudaError_t launch_g(const void* q, const void* data, const void* meta, const in
                      int NB, int BS, int W, int layer, float scale, float softcap,
                      float sigma, int splits, cudaStream_t stream) {
   if constexpr (!std::is_same<TQ, float>::value) {   // bf16 / f16 q: the tensor cores
-    return launch_mma<TQ, D>(q, data, meta, tables, kv_lens, out, part, B, Hq, Hkv, NB, BS,
-                             W, layer, scale, softcap, sigma, splits, stream);
+    return (BS % qdec::WT == 0 ? launch_mma<TQ, D, true> : launch_mma<TQ, D, false>)(
+        q, data, meta, tables, kv_lens, out, part, B, Hq, Hkv, NB, BS, W, layer, scale,
+        softcap, sigma, splits, stream);
   } else if (Hq == Hkv) {   // one query head a group: no chunk padding
     return launch<TQ, D, 1>(q, data, meta, tables, kv_lens, out, part, B, Hq, Hkv, NB, BS, W,
                             layer, scale, softcap, sigma, splits, stream);

@@ -1,15 +1,16 @@
-// Pieces shared by the tensor-core narrow paths of the int4 and TurboQuant paged
-// decodes (paged_decode_int4.cu, paged_decode_turbo.cu): the cp.async copies of the
-// page ring, the register decode of 4-bit codes into mma.sync operands, the hi + lo
-// split of f32 P' into two bf16 operands, the Q fragments, and the block's tail that
-// joins its four warps' (O, m, l) and writes the output or the split's partials.
+// Pieces shared by the tensor-core narrow paths of the paged decodes
+// (paged_decode_int4.cu, paged_decode_turbo.cu, and paged_decode.cu over 2-byte and
+// e4m3 pages): the cp.async copies of the page ring, the register decode of 4-bit
+// codes into mma.sync operands, the hi + lo split of f32 P' into two bf16 operands, the
+// Q fragments, and the block's tail that joins its four warps' (O, m, l) and writes the
+// output or the split's partials.
 //
 // Layout of one block (4 warps, up to GQ = 8 query heads of one kv head, one split of
-// a row's pages).  The split's pages stream through a cp.async ring of TC-token
-// sub-chunks; each warp owns WT = 16 rows of every sub-chunk (two 8-token score tiles,
-// one P.V step), copies those rows itself and keeps its own online softmax, so the
-// warps wait only for their own copies (no block barrier in the loop); the block's
-// tail joins the warps (block_tail).
+// a row's pages).  The split's positions stream through a cp.async ring of TC-token
+// sub-chunks (Span; any block size: WarpRows finds each row's page); each warp owns
+// WT = 16 rows of every sub-chunk (two 8-token score tiles, one P.V step), copies those
+// rows itself and keeps its own online softmax, so the warps wait only for their own
+// copies (no block barrier in the loop); the block's tail joins the warps (block_tail).
 //   * Scores S[head][token] = Q K^T on mma.sync m16n8k16: A = Q (rows = heads, the
 //     rows past the group zero), B = K^T of an 8-token tile.  Lane (gid, tig) decodes
 //     token gid's words tig + 4 jj, each word's nibbles (n, n + 4) into one register,
@@ -161,18 +162,57 @@ __device__ __forceinline__ int out_dim(int gid, int u, int n, int half) {
   return 8 * (gid + 8 * u) + n + 4 * half;
 }
 
-// a block's sub-chunks of TC tokens over its split of the row's pages: [i_lo, i_hi),
-// chunk i at page i / cpp, rows (i % cpp) * TC on; chunks that start at or past len
-// are dropped, so a non-empty range holds a valid position
-struct Chunks {
-  int cpp, i_lo, i_hi;
-  __device__ Chunks(int len, int BS, int W, int sp, int split_pages) {
-    cpp = (BS + TC - 1) / TC;
-    const int p_lo = sp * split_pages;
-    const int p_hi = min(min((len + BS - 1) / BS, W), p_lo + split_pages);
-    i_lo = p_lo * cpp;
-    i_hi = p_hi > p_lo ? p_hi * cpp : i_lo;
-    while (i_hi > i_lo && ((i_hi - 1) / cpp) * BS + ((i_hi - 1) % cpp) * TC >= len) --i_hi;
+// A block's split of a row's positions and its sub-chunks.  Split sp holds the
+// positions of its pages below len, [p0, p1), of which those from ws on (the window's
+// start; 0 without one) count.  Sub-chunk j holds positions p0 + j TC .. + TC, so it may
+// span pages (a block size under TC) or cover part of one; [j_lo, j_hi) are those that
+// hold a counted position (none for an empty split).  Warp w reads the WT rows of each
+// sub-chunk from position row0(j, w) on; its rows [lo, hi) count.
+struct Span {
+  int p0, p1, ws, j_lo = 0, j_hi = 0;
+  __device__ Span(int len, int BS, int W, int sp, int split_pages, int window) {
+    ws = window > 0 ? max(len - window, 0) : 0;
+    p0 = sp * split_pages * BS;
+    p1 = min(min(sp * split_pages + split_pages, W) * BS, len);
+    if (len > 0 && p1 > max(p0, ws)) {
+      j_lo = max(ws - p0, 0) / TC;
+      j_hi = (p1 - p0 + TC - 1) / TC;
+    }
+  }
+  __device__ bool empty() const { return j_lo >= j_hi; }
+  __device__ int row0(int j, int warp) const { return p0 + j * TC + warp * WT; }
+  __device__ int lo(int r0) const { return max(ws - r0, 0); }
+  __device__ int hi(int r0) const { return min(p1 - r0, WT); }
+};
+
+// Position r of a row whose block-table row is table: its page (layer * NB + the
+// table's block, clamped into the cache) and its row on that page.
+struct Slot {
+  long long page;
+  int row;
+};
+__device__ __forceinline__ Slot slot(const int* table, int r, int BS, int NB, int layer) {
+  const int pg = r / BS;
+  return {(long long)layer * NB + min(max(table[pg], 0), NB - 1), r - pg * BS};
+}
+
+// The slots of a warp's WT rows of a sub-chunk, from position r0 on.  ONE_PAGE (the
+// build for block sizes that are a multiple of WT): they lie on one page, looked up once
+// for the warp (any: a row of them is copied); otherwise on several, each row's looked
+// up as it is copied.  The kernels take ONE_PAGE as a template parameter, so the
+// common build carries no per-row lookup.
+template <bool ONE_PAGE>
+struct WarpRows {
+  const int* table;
+  int r0, BS, NB, layer;
+  Slot first{0, 0};
+  __device__ WarpRows(const int* table_, int r0_, int BS_, int NB_, int layer_, bool any)
+      : table(table_), r0(r0_), BS(BS_), NB(NB_), layer(layer_) {
+    if (ONE_PAGE && any) first = slot(table, r0, BS, NB, layer);
+  }
+  __device__ __forceinline__ Slot operator()(int t) const {
+    if constexpr (ONE_PAGE) return Slot{first.page, first.row + t};
+    else return slot(table, r0 + t, BS, NB, layer);
   }
 };
 
@@ -185,14 +225,15 @@ __host__ __device__ constexpr int tail_bytes() {
 // The block's tail, in the ring's smem once it is drained: each warp's O^T tiles (lane:
 // heads 2 tig, 2 tig + 1 at out_dim), its m and l and extra (int4's sum of p * vmin,
 // added to every dim; 0 otherwise) for head gid, this lane's shares of l and extra,
-// joined over the warps in a fixed order; then out = O / l (l == 0 -> 1) for one
-// split, else the split's unnormalized (acc, m, l) into part [B, S, Hq, D + 2].
-// head0 = b * Hq + hq0, hq0 the block's first query head.
+// joined over the warps in a fixed order; then out = O / l (l == 0 -> 1; sinks [Hq],
+// if any, join l while m is real) for one split, else the split's unnormalized
+// (acc, m, l) into part [B, S, Hq, D + 2].  head0 = b * Hq + hq0, hq0 the block's first
+// query head.
 template <typename T, int D>
 __device__ __forceinline__ void block_tail(const float (&o)[D / 64][4][4], float m, float l,
                                            float extra, float* tail, T* out, float* part,
                                            long long head0, int hq0, int gb, int b, int S,
-                                           int sp, int Hq) {
+                                           int sp, int Hq, const float* sinks = nullptr) {
   constexpr int OS = D + 1;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
@@ -235,7 +276,8 @@ __device__ __forceinline__ void block_tail(const float (&o)[D / 64][4][4], float
       acc += (ob[(w * GQ + g) * OS + d] + we[w * GQ + g]) * e;
     }
     if (S == 1) {
-      out[(head0 + g) * D + d] = attn::from_f<T>(acc / (lsum == 0.f ? 1.f : lsum));
+      out[(head0 + g) * D + d] =
+          attn::from_f<T>(attn::finish(acc, mx, lsum, sinks, hq0 + g));
     } else {
       float* dst = part + (((long long)b * S + sp) * Hq + hq0 + g) * (D + 2);
       dst[d] = acc;

@@ -33,7 +33,8 @@ reference's ``paged_attention`` :475-629):
   * ``cp_mesh`` given, T == 1                -> ``paged_decode_attention_cp`` (each
     rank's partials over its stripe, then the combine; on the CPU too)
   * CUDA, T == 1 (decode)                    -> an ``ops/paged_decode.py`` kernel (on
-    an int8, int4 or TurboQuant cache only without window and sinks)
+    an int8, int4 or TurboQuant cache only without window and sinks: ``decode_route``;
+    every block size)
   * CUDA, fresh prefill, no softcap/window   -> ``ops/flash_prefill.py`` kernel, over
     the chunk's exact K/V also with a quantized cache
   * everything else (chunked continuation, prefix hits, CPU) -> gather + dense torch,
@@ -57,6 +58,19 @@ from .paged_decode import paged_decode_attention, paged_decode_attention_cp
 # the dense path's score tensor per query tile, f32 bytes
 SCORE_TILE_BYTES = 512 * 1024 * 1024
 QUANT_CACHES = (QuantKV, QuantKV4, QuantKVTurbo)
+
+
+def decode_route(kv_cache, window_size: Optional[int] = None,
+                 sinks: Optional[torch.Tensor] = None) -> str:
+    """The path a decode step over ``kv_cache`` takes on the card, from the cache's type
+    alone: 'kernel' (an ``ops/paged_decode.py`` kernel, at any block size), or
+    'gathered' (``gather_layer_kv`` + ``attention_dense_gathered``) for an int8, int4 or
+    TurboQuant cache with a window or sinks, whose kernels take neither (the
+    reference's rule, :584-609)."""
+    windowed = window_size is not None and window_size > 0
+    if isinstance(kv_cache, QUANT_CACHES) and (windowed or sinks is not None):
+        return 'gathered'
+    return 'kernel'
 
 
 def compute_slot_mapping(block_tables: torch.Tensor, history_lens: torch.Tensor,
@@ -308,10 +322,7 @@ def paged_attention(q: torch.Tensor, kv_cache, block_tables: torch.Tensor,
                 q[:, 0].contiguous(), kv_cache, block_tables, (history_lens + 1).int(),
                 layer, scale, num_kv_heads, cp_mesh, logit_softcap=logit_softcap,
                 window=window_size, sinks=sinks)[:, None]
-    windowed = window_size is not None and window_size > 0
-    # a quantized cache's decode kernel has no window and no sinks (reference :584-609)
-    quant_extras = isinstance(kv_cache, QUANT_CACHES) and (windowed or sinks is not None)
-    decode = q.is_cuda and T == 1 and not quant_extras
+    decode = q.is_cuda and T == 1 and decode_route(kv_cache, window_size, sinks) == 'kernel'
     if (not decode and q.is_cuda and fresh_prefill and chunk_kv is not None
             and logit_softcap is None and window_size is None and sinks is None):
         return flash_prefill_attention(q, chunk_kv[0], chunk_kv[1], scale)

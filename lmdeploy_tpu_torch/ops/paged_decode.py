@@ -80,6 +80,14 @@ SPLIT_TOKENS_MMA = 1024
 # these are the best or within 2% of it at the Llama-3.1-8B and bs64 cases (PERF.md)
 SPLIT_TOKENS_INT4 = 1024
 SPLIT_TOKENS_TURBO = 2048
+# and so do the narrow paths over 2-byte and e4m3 pages (D <= 128): chip_smoke's
+# decode_phase and decode_kv_phase sweep it at their cases.  512 is the best at the
+# Llama-3.1-8B fp8-KV cell's 64-row shape (256 is 7% slower there), and half of it at
+# the TinyLlama cell's 16-row one, where batches of up to NARROW_SMALL_BATCH rows take
+# half; gpt-oss's full-attention layers (64 rows) are ~4% faster at 256 in two runs, a
+# trade this one constant makes (PERF.md)
+SPLIT_TOKENS_NARROW = 512
+NARROW_SMALL_BATCH = 16
 # paged_decode_int8(q, data, scale, tables, kv_lens, out, part, dtype, B, Hq, Hkv, D,
 #                   NB, BS, W, layer, scale, softcap, splits, stream)
 _ARGTYPES_INT8 = [_P] * 7 + [_I] * 9 + [_F, _F, _I, _P]
@@ -125,17 +133,15 @@ def _token_major(x: torch.Tensor, B: int, S: int, Hkv: int) -> torch.Tensor:
 
 def _check(kernel: str, q: torch.Tensor, pages: torch.Tensor, block_tables: torch.Tensor,
            kv_lens: torch.Tensor, layer: int, num_kv_heads: int, extras=(),
-           block_multiple: int = 1, head_dims=HEAD_DIMS):
+           head_dims=HEAD_DIMS):
     """The checks every decode wrapper makes before a launch; ``pages`` is the code
     tensor, ``extras`` the cache's other tensors.  Returns (B, Hq, D, NB, BS, W)."""
     B, Hq, D = q.shape
     L, NB, BS, W = pages.shape[0], pages.shape[1], pages.shape[-2], block_tables.shape[1]
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f'{kernel} kernel takes a bf16, f16 or f32 q, got {q.dtype}')
-    if D not in head_dims or BS % block_multiple:
-        raise ValueError(f'{kernel} kernel is built for head_dim in {head_dims} and a '
-                         f'block size that is a multiple of {block_multiple}, got {D} / '
-                         f'{BS}')
+    if D not in head_dims:
+        raise ValueError(f'{kernel} kernel is built for head_dim in {head_dims}, got {D}')
     if Hq % num_kv_heads or not 0 <= layer < L:
         raise ValueError(f'{kernel}: bad shapes q {tuple(q.shape)} cache '
                          f'{tuple(pages.shape)} kv heads {num_kv_heads} layer {layer}')
@@ -158,14 +164,11 @@ def _no_window_or_sinks(kind: str, window, sinks):
 
 
 # ---------------------------------------------------------------- bf16 and fp8 pages --
-def paged_decode_attention_plain(q: torch.Tensor, kv_cache: torch.Tensor,
-                                 block_tables: torch.Tensor, kv_lens: torch.Tensor,
-                                 layer: int, scale: float, num_kv_heads: int,
-                                 logit_softcap: Optional[float] = None,
-                                 window: Optional[int] = None,
-                                 sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q [B,Hq,D] over bf16, f16, f32 or fp8 pages -> [B,Hq,D], f32 softmax with the
-    kernel's masking and sink rules."""
+def plain_decode_terms(q: torch.Tensor, kv_cache: torch.Tensor, block_tables: torch.Tensor,
+                       layer: int, scale: float, num_kv_heads: int,
+                       logit_softcap: Optional[float]):
+    """The decode over bf16, f16, f32 or fp8 pages: its scores s [B, Hkv, G, W*BS]
+    (softcapped, not masked) and its P.V ``pv(p)`` -> unnormalized [B, Hkv, G, D], f32."""
     B, Hq, D = q.shape
     G = Hq // num_kv_heads
     _, NB, _, BS, _ = kv_cache.shape
@@ -176,14 +179,49 @@ def paged_decode_attention_plain(q: torch.Tensor, kv_cache: torch.Tensor,
     v = pages[:, :, 1].reshape(B, W * BS, num_kv_heads, D).float()
     qg = q.float().reshape(B, num_kv_heads, G, D)
     s = _softcap(torch.einsum('bhgd,bshd->bhgs', qg, k) * scale, logit_softcap)
+    return s, lambda p: torch.einsum('bhgs,bshd->bhgd', p, v)
+
+
+def paged_decode_attention_plain(q: torch.Tensor, kv_cache: torch.Tensor,
+                                 block_tables: torch.Tensor, kv_lens: torch.Tensor,
+                                 layer: int, scale: float, num_kv_heads: int,
+                                 logit_softcap: Optional[float] = None,
+                                 window: Optional[int] = None,
+                                 sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q [B,Hq,D] over bf16, f16, f32 or fp8 pages -> [B,Hq,D], f32 softmax with the
+    kernel's masking and sink rules."""
+    B, Hq, D = q.shape
+    G = Hq // num_kv_heads
+    s, pv = plain_decode_terms(q, kv_cache, block_tables, layer, scale, num_kv_heads,
+                               logit_softcap)
     if window is not None and window > 0:
         # keys before the window start take MASK_VALUE, as those past the length do
-        lens = kv_lens.long()[:, None]
-        early = torch.arange(W * BS, device=q.device)[None, :] < (lens - window).clamp(min=0)
+        start = (kv_lens.long()[:, None] - window).clamp(min=0)
+        early = torch.arange(s.shape[-1], device=q.device)[None, :] < start
         s = torch.where(early[:, None, None, :], torch.full((), MASK_VALUE, device=q.device), s)
     sk = None if sinks is None else sinks.float().reshape(1, num_kv_heads, G)
-    return _softmax_out(s, kv_lens, lambda p: torch.einsum('bhgs,bshd->bhgd', p, v),
-                        B, Hq, D, q.dtype, sk)
+    return _softmax_out(s, kv_lens, pv, B, Hq, D, q.dtype, sk)
+
+
+def paged_decode_attention_split_plain(q: torch.Tensor, kv_cache: torch.Tensor,
+                                       block_tables: torch.Tensor, kv_lens: torch.Tensor,
+                                       layer: int, scale: float, num_kv_heads: int,
+                                       logit_softcap: Optional[float] = None,
+                                       window: Optional[int] = None,
+                                       sinks: Optional[torch.Tensor] = None,
+                                       splits: Optional[int] = None) -> torch.Tensor:
+    """The two passes of ``csrc/paged_decode.cu``'s split paths in plain PyTorch: each
+    split's partials over its positions in the window (``split_partials_plain``;
+    ``splits`` default the kernel's, ``plain_layout_splits``), then
+    the fixed-order combine with the sinks (``cp_combine``).  The same function as
+    ``paged_decode_attention_plain`` up to f32 rounding."""
+    D, BS, W = q.shape[-1], kv_cache.shape[3], block_tables.shape[1]
+    s, pv = plain_decode_terms(q, kv_cache, block_tables, layer, scale, num_kv_heads,
+                               logit_softcap)
+    if splits is None:
+        splits = plain_layout_splits(D, kv_cache.dtype, q.shape[0], W, BS, window)
+    return cp_combine(split_partials_plain(s, kv_lens, pv, BS, splits, window), sinks,
+                      q.dtype)
 
 
 def paged_decode_attention(q: torch.Tensor, kv_cache, block_tables: torch.Tensor,
@@ -213,14 +251,17 @@ def paged_decode_attention(q: torch.Tensor, kv_cache, block_tables: torch.Tensor
     if kv_cache.dtype != q.dtype:
         raise TypeError(f'paged_decode kernel takes a cache in q\'s dtype, got '
                         f'{q.dtype}/{kv_cache.dtype}')
-    out = _launch_plain_layout('paged_decode', 'paged_decode', q, kv_cache,
-                               block_tables, kv_lens, layer, scale, num_kv_heads,
-                               logit_softcap, window, sinks)
+    out, splits = _launch_plain_layout('paged_decode', 'paged_decode', q, kv_cache,
+                                       block_tables, kv_lens, layer, scale, num_kv_heads,
+                                       logit_softcap, window, sinks)
     paged_decode_attention.launches += 1
+    paged_decode_attention.combines += splits > 1
     return out
 
 
+# launches: one a call; combines: the calls whose split also launched the combine
 paged_decode_attention.launches = 0
+paged_decode_attention.combines = 0
 
 
 def paged_decode_attention_fp8(q: torch.Tensor, kv_cache: torch.Tensor,
@@ -237,19 +278,23 @@ def paged_decode_attention_fp8(q: torch.Tensor, kv_cache: torch.Tensor,
                                             sinks)
     if kv_cache.dtype != torch.float8_e4m3fn:
         raise TypeError(f'paged_decode_fp8 kernel takes an e4m3 cache, got {kv_cache.dtype}')
-    out = _launch_plain_layout('paged_decode_fp8', 'paged_decode_fp8', q, kv_cache,
-                               block_tables, kv_lens, layer, scale, num_kv_heads,
-                               logit_softcap, window, sinks)
+    out, splits = _launch_plain_layout('paged_decode_fp8', 'paged_decode_fp8', q, kv_cache,
+                                       block_tables, kv_lens, layer, scale, num_kv_heads,
+                                       logit_softcap, window, sinks)
     paged_decode_attention_fp8.launches += 1
+    paged_decode_attention_fp8.combines += splits > 1
     return out
 
 
+# launches: one a call; combines: the calls whose split also launched the combine
 paged_decode_attention_fp8.launches = 0
+paged_decode_attention_fp8.combines = 0
 
 
 def _launch_plain_layout(kernel, symbol, q, kv_cache, block_tables, kv_lens, layer, scale,
                          num_kv_heads, logit_softcap, window, sinks) -> torch.Tensor:
-    """Check and launch ``symbol`` of ``csrc/paged_decode.cu`` over plain-layout pages."""
+    """Check and launch ``symbol`` of ``csrc/paged_decode.cu`` over plain-layout pages;
+    returns (out, splits)."""
     B, Hq, D, NB, BS, W = _check(kernel, q, kv_cache, block_tables, kv_lens, layer,
                                  num_kv_heads)
     if kv_cache.dim() != 5 or kv_cache.shape[2] != 2 or kv_cache.shape[4] != num_kv_heads * D:
@@ -262,9 +307,9 @@ def _launch_plain_layout(kernel, symbol, q, kv_cache, block_tables, kv_lens, lay
             raise ValueError(f'{kernel}: sinks must be [{Hq}], got {tuple(sinks.shape)}')
         sinks_ptr = sinks.data_ptr()
     out = torch.empty_like(q)
-    mma = D > 128 and kv_cache.element_size() == 2
-    splits, part = _split_scratch(D > 128 or kv_cache.element_size() == 4, q, W, BS,
-                                  SPLIT_TOKENS_MMA if mma else SPLIT_TOKENS)
+    splits = plain_layout_splits(D, kv_cache.dtype, B, W, BS, window)
+    part = (torch.empty(B * splits * Hq * (D + 2), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
     fn = cuda_build.entry('paged_decode', symbol, _ARGTYPES)
     rc = fn(q.data_ptr(), kv_cache.data_ptr(), block_tables.data_ptr(),
             kv_lens.data_ptr(), sinks_ptr, out.data_ptr(),
@@ -273,7 +318,36 @@ def _launch_plain_layout(kernel, symbol, q, kv_cache, block_tables, kv_lens, lay
             logit_softcap if logit_softcap else 0.0,
             window if window and window > 0 else 0, splits, cuda_build.stream_handle(q))
     cuda_build.check(rc, kernel)
-    return out
+    return out, splits
+
+
+def plain_layout_splits(D: int, dtype: torch.dtype, B: int, W: int, BS: int,
+                        window: Optional[int] = None) -> int:
+    """The split of each row's W pages that ``csrc/paged_decode.cu`` takes over pages of
+    ``dtype`` for a batch of B rows: ``page_splits`` with ``narrow_split_tokens``, or
+    one split where a window's pages (ceil(window / BS) + 1 at most) fit in one split's
+    -- the other splits would hold nothing but still cost their blocks and the combine
+    -- and, on the narrow paths, where the whole table holds 2 * SPLIT_TOKENS_NARROW
+    positions at most: there one block a row beats the split and its combine (PERF.md)."""
+    tokens = narrow_split_tokens(D, dtype, B)
+    if window is not None and window > 0 and -(-window // BS) + 1 <= max(1, tokens // BS):
+        return 1
+    narrow = D <= 128 and torch.empty((), dtype=dtype).element_size() <= 2
+    if narrow and W * BS <= 2 * SPLIT_TOKENS_NARROW:
+        return 1
+    return page_splits(W, BS, tokens)
+
+
+def narrow_split_tokens(D: int, dtype: torch.dtype, B: int) -> int:
+    """The tokens a split of ``csrc/paged_decode.cu`` over pages of ``dtype`` for a batch
+    of B rows: the narrow paths' (2-byte and e4m3 pages up to D 128)
+    ``SPLIT_TOKENS_NARROW`` (half of it up to ``NARROW_SMALL_BATCH`` rows), the
+    tensor-core wide path's (2-byte pages above) ``SPLIT_TOKENS_MMA``, the wide one's
+    ``SPLIT_TOKENS``."""
+    size = torch.empty((), dtype=dtype).element_size()
+    if D <= 128 and size <= 2:
+        return SPLIT_TOKENS_NARROW // (2 if B <= NARROW_SMALL_BATCH else 1)
+    return SPLIT_TOKENS_MMA if size == 2 else SPLIT_TOKENS
 
 
 def page_splits(W: int, BS: int, tokens: int) -> int:
@@ -298,17 +372,20 @@ def _split_scratch(wide: bool, q: torch.Tensor, W: int, BS: int,
 
 
 def split_partials_plain(s: torch.Tensor, kv_lens: torch.Tensor, pv, BS: int,
-                         splits: int):
+                         splits: int, window: Optional[int] = None):
     """The first pass of a decode whose row's pages are split over blocks: scores s
     [B, Hkv, G, W*BS] (softcapped, not masked), ``pv(p)`` -> unnormalized
     [B, Hkv, G, D].  Pages [sp * n, (sp + 1) * n), n = ceil(W / splits), make split sp;
     each split's f32 (acc [B,Hq,D], m [B,Hq], l [B,Hq]) over its positions below
-    kv_len, an empty split (0, MASK_VALUE, 0).  Returns them in split order, the form
-    ``cp_combine`` joins."""
+    kv_len (and, with a ``window``, from kv_len - window on), an empty split (0,
+    MASK_VALUE, 0).  Returns them in split order, the form ``cp_combine`` joins."""
     B, Hkv, G, S = s.shape
     n = -(-(S // BS) // splits) * BS
     pos = torch.arange(S, device=s.device)
-    valid = pos[None, :] < kv_lens.long()[:, None]
+    lens = kv_lens.long()[:, None]
+    valid = pos[None, :] < lens
+    if window is not None and window > 0:
+        valid &= pos[None, :] >= (lens - window).clamp(min=0)
     parts = []
     for sp in range(splits):
         keep = (valid & (pos >= sp * n) & (pos < (sp + 1) * n))[:, None, None, :]
@@ -358,7 +435,7 @@ def paged_decode_attention_int8(q: torch.Tensor, kv: QuantKV, block_tables: torc
         raise TypeError(f'paged_decode_int8 kernel takes int8 data and f32 scales, got '
                         f'{data.dtype}/{scales.dtype}')
     B, Hq, D, NB, BS, W = _check('paged_decode_int8', q, data, block_tables, kv_lens,
-                                 layer, num_kv_heads, (scales,), block_multiple=16,
+                                 layer, num_kv_heads, (scales,),
                                  head_dims=QUANT_HEAD_DIMS)
     L = data.shape[0]
     if (data.shape != (L, NB, 2, BS, num_kv_heads * D)
@@ -459,7 +536,7 @@ def paged_decode_attention_int4(q: torch.Tensor, kv: QuantKV4, block_tables: tor
         raise TypeError(f'paged_decode_int4 kernel takes u8 data and f32 scale and min, '
                         f'got {data.dtype}/{scales.dtype}/{minv.dtype}')
     B, Hq, D, NB, BS, W = _check('paged_decode_int4', q, data, block_tables, kv_lens,
-                                 layer, num_kv_heads, (scales, minv), block_multiple=16,
+                                 layer, num_kv_heads, (scales, minv),
                                  head_dims=QUANT_HEAD_DIMS)
     L = data.shape[0]
     if (data.shape != (L, NB, 2, BS, num_kv_heads * D // 2)
@@ -563,7 +640,7 @@ def paged_decode_attention_turbo(q: torch.Tensor, kv: QuantKVTurbo,
         raise TypeError(f'paged_decode_turbo kernel takes u8 data and f32 meta, got '
                         f'{data.dtype}/{meta.dtype}')
     B, Hq, D, NB, BS, W = _check('paged_decode_turbo', q, data, block_tables, kv_lens,
-                                 layer, num_kv_heads, (meta,), block_multiple=16,
+                                 layer, num_kv_heads, (meta,),
                                  head_dims=TURBO_HEAD_DIMS)
     L = data.shape[0]
     if (data.shape != (L, NB, BS, 3 * num_kv_heads * D // 4)

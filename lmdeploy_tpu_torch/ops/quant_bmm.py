@@ -98,9 +98,10 @@ def mxfp4_bmm(x: torch.Tensor, nib: torch.Tensor, scale: torch.Tensor) -> torch.
         raise ValueError(f'mxfp4_bmm kernel takes N % 16 == 0 and E <= 65535; got N {N} '
                          f'E {E}')
     xb = x.to(torch.bfloat16).contiguous()
-    for name, t in (('nib', nib), ('scale', scale)):
-        if not t.is_contiguous() or t.device != x.device:
-            raise ValueError(f'mxfp4_bmm: {name} must be contiguous on {x.device}')
+    for name, t in (('x', xb), ('nib', nib), ('scale', scale)):
+        if not t.is_contiguous() or t.device != x.device or t.data_ptr() % 16:
+            raise ValueError(f'mxfp4_bmm: {name} must be contiguous and 16-byte aligned '
+                             f'on {x.device}')
     out = torch.empty((E, M, N), dtype=torch.float32, device=x.device)
     if M == 0:
         return out

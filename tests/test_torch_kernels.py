@@ -86,12 +86,17 @@ def test_flash_prefill_plain_matches_pallas(B, T, Hq, Hkv, D, dtype):
     pytest.param({}, 1, 16, 576, 'float16', id='d576-g16-f16'),
     pytest.param({}, 1, 32, 576, 'float32', id='d576-g32'),
     pytest.param({'lens': [1, 32, 0, 17, 30]}, 1, 128, 576, 'float32', id='d576-g128-2pages'),
+    pytest.param({'bs': 8, 'window': 23, 'sinks': True}, 2, 4, 64, 'float32',
+                 id='bs8-window-sinks'),
+    pytest.param({'bs': 8}, 2, 4, 128, 'float16', id='bs8-d128-f16'),
 ])
 def test_paged_decode_plain_matches_pallas(opts, Hkv, G, D, dtype):
     from lmdeploy_tpu.ops.pallas.paged_decode import paged_decode_attention as jdecode
     rng = np.random.RandomState(1)
-    L, layer, NB, BS, W = 3, 1, 40, 16, 6
-    B = 5
+    # block size 16 (6 pages a row), or the case's (as many pages as 96 tokens take)
+    BS = opts.get('bs', 16)
+    B, W = 5, 96 // BS
+    L, layer, NB = 3, 1, max(40, 1 + B * W)
     _, hdp = kv_row_width(Hkv, D)
     cache = rng.randn(L, NB, 2, BS, hdp).astype(dtype)
     cache[..., Hkv * D:] = 0
@@ -126,6 +131,45 @@ def test_paged_decode_plain_matches_pallas(opts, Hkv, G, D, dtype):
                                   torch.from_numpy(kv_lens), layer, scale, Hkv, **topts)
     np.testing.assert_array_equal(out2.float().numpy(), out)
     assert paged_decode_attention.launches == before
+
+
+@pytest.mark.parametrize('dtype,BS,opts,splits', [
+    pytest.param('bfloat16', 16, {'sinks': True}, 3, id='bf16-sinks'),
+    pytest.param('float32', 16, {'window': 20, 'sinks': True}, 6, id='window-covers-splits'),
+    pytest.param('float32', 8, {'window': 40, 'logit_softcap': 3.0}, 4, id='bs8-window'),
+    pytest.param('float8_e4m3fn', 16, {'window': 30, 'sinks': True}, 2, id='fp8-window-sinks'),
+    pytest.param('float16', 16, {}, None, id='f16-kernel-split'),
+])
+def test_paged_decode_split_plain_matches_unsplit(dtype, BS, opts, splits):
+    """The narrow paths' two passes in plain PyTorch (each split's partials over its
+    positions in the window, then the fixed-order combine with the sinks) equal the
+    unsplit plain decode: with sinks, a window that covers whole splits (a split that
+    lies wholly before the window's start holds nothing), rows shorter than one split
+    and an inactive row; ``splits`` None takes the kernel's own split."""
+    from lmdeploy_tpu_torch.ops import paged_decode as pd
+    rng = np.random.RandomState(5)
+    B, Hkv, G, D = 5, 2, 4, 64
+    W = 96 // BS
+    cache = torch.from_numpy(rng.randn(2, 1 + B * W, 2, BS, Hkv * D).astype(np.float32))
+    cache = cache.to(getattr(torch, dtype))
+    tables = torch.from_numpy(rng.permutation(np.arange(1, 1 + B * W)).reshape(B, W)
+                              .astype(np.int32))
+    kv_lens = torch.tensor([1, 37, 0, 96, 64], dtype=torch.int32)
+    q = torch.from_numpy(rng.randn(B, Hkv * G, D).astype(np.float32))
+    q = q.to(torch.float16 if dtype == 'float16' else torch.float32)
+    if opts.get('sinks'):
+        opts = dict(opts, sinks=torch.from_numpy(rng.randn(Hkv * G).astype(np.float32)))
+    ref = pd.paged_decode_attention_plain(q, cache, tables, kv_lens, 1, D ** -0.5, Hkv,
+                                          **opts)
+    out = pd.paged_decode_attention_split_plain(q, cache, tables, kv_lens, 1, D ** -0.5,
+                                                Hkv, splits=splits, **opts)
+    tol = TOL if q.dtype == torch.float32 else TOLS['float16']
+    np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(), **tol)
+    assert torch.all(out[2] == 0)
+    if opts.get('window'):
+        # a split wholly before row 3's window start holds no position there
+        n = -(-W // (splits or pd.page_splits(W, BS, pd.SPLIT_TOKENS_NARROW)))
+        assert (96 - opts['window']) // BS >= n
 
 
 def test_cuda_sources_present():
@@ -195,16 +239,30 @@ def test_kernel_head_dims_match_sources():
     pytest.param('fp8_bmm', 'fp8_bmm_kernel',
                  (('wgmma.mma_async', 'wgmma_rs<'), ('cp.async.bulk.tensor', 'tma_load('),
                   ('mbarrier.try_wait', 'mbar_wait('), ('cvt.rn.bf16x2.f32', 'fragment<')),
-                 id='fp8-wgmma-tma')])
+                 id='fp8-wgmma-tma'),
+    pytest.param('mxfp4_bmm', 'mxfp4_bmm_kernel',
+                 (('wgmma.mma_async', 'wgmma_rs<'), ('cp.async.bulk.tensor', 'tma_load('),
+                  ('mbarrier.try_wait', 'mbar_wait('), ('cvt.rn.bf16x2.f32', 'fragment<'),
+                  ('cp.async.bulk.tensor.4d', 'tma_load(')),
+                 id='mxfp4-wgmma-tma'),
+    pytest.param('paged_decode', 'paged_decode_narrow',
+                 (('mma.sync.aligned.m16n8k16', 'Mma<T>::run('),
+                  ('mma.sync.aligned.m16n8k16', 'Mma<__nv_bfloat16>::run('),
+                  ('cp.async.cg.shared.global', 'cp_async16('),
+                  ('cp.async.wait_group', 'cp_wait<'), ('__syncwarp', '__syncwarp(')),
+                 id='narrow-decode-mma-cp-async')])
 def test_kernel_sources_use_hopper_paths(source, kernel, uses):
     """The bf16 / f16 flash kernel at D 64 / 128 runs both products on wgmma with its
     K / V tiles streamed by TMA into an mbarrier ring (a producer warpgroup that gives
     up registers); the paged decode's wide path over 2-byte pages runs both products on
     mma.sync with a cp.async page pipeline, and so do the int4 and TurboQuant narrow
     paths for a bf16 / f16 q (each code decoded once into an operand, P.V over the
-    decoded V codes); the gd W4A16 GEMM and fp8_bmm run wgmma
-    with the decoded weights as the register operand and x, words, scales by TMA.  Each instruction is in the source or its
-    shared header, and the kernel's body reaches it; the dispatch launches the kernel."""
+    decoded V codes), and so does the narrow path over 2-byte and e4m3 pages (each
+    warp waiting for its own copies); the gd W4A16 GEMM, fp8_bmm and mxfp4_bmm run wgmma
+    with the decoded weights as the register operand and x, words, scales by TMA
+    (mxfp4_bmm's x by a 4-D map of its two halves).  Each instruction is in the source
+    or a header it includes, and the kernel's body reaches it; the dispatch launches
+    the kernel."""
     import os
     import re
 
@@ -221,8 +279,8 @@ def test_kernel_sources_use_hopper_paths(source, kernel, uses):
 
 def test_gemm_token_tiles_match_sources():
     """Every (group size, token tile) the gd W4A16 wrapper can pick, and every token tile
-    of the fp8 wrapper, is instantiated in its CUDA source, which picks the tile by M
-    with the wrapper's thresholds."""
+    of the fp8 and MXFP4 expert GEMMs, is instantiated in its CUDA source, which picks
+    the tile by M with the wrapper's thresholds."""
     import os
     import re
 
@@ -247,17 +305,20 @@ def test_gemm_token_tiles_match_sources():
     assert tiles == set(qm.TOKEN_TILES)
     assert all(tile(M) == qm.token_tile(M) for M in range(1, qm.GROUP_DOT_MAX_M + 1))
 
-    f8 = read('fp8_bmm')
-    default = int(re.search(r'\n  return \(int\)launch<(\d+)>', f8).group(1))
-    tile = picks(f8, r'if \(M <= (\d+)\) return \(int\)launch<(\d+)>', default)
-    tiles = {int(t) for t in re.findall(r'launch<(\d+)>\(x, w8', f8)}
-    assert tiles == set(qm.TOKEN_TILES)
-    assert all(tile(M) == qm.token_tile(M) for M in range(1, 768))
+    for name, arg in (('fp8_bmm', 'w8'), ('mxfp4_bmm', 'nib')):
+        src = read(name)
+        default = int(re.search(r'\n  return \(int\)launch<(\d+)>\(x, ' + arg, src).group(1))
+        tile = picks(src, r'if \(M <= (\d+)\) return \(int\)launch<(\d+)>\(x, ' + arg,
+                     default)
+        tiles = {int(t) for t in re.findall(r'launch<(\d+)>\(x, ' + arg, src)}
+        assert tiles == set(qm.TOKEN_TILES), name
+        assert all(tile(M) == qm.token_tile(M) for M in range(1, 768)), name
 
 
 def test_quant_decode_splits_match_sources():
     """The int4 and TurboQuant wrappers split every call by ``page_splits`` (the narrow
     paths' SPLIT_TOKENS_INT4 / _TURBO tokens a split, int4's wide path SPLIT_TOKENS),
+    and so does the plain-layout wrapper (its narrow paths' SPLIT_TOKENS_NARROW),
     and their sources take that split on every narrow path: each launch's grid is
     (.., B, splits) with ceil(W / splits) pages a split, and a split launch is followed
     by the combine that reads each row's non-empty splits.  The tensor-core bodies serve
@@ -278,6 +339,55 @@ def test_quant_decode_splits_match_sources():
             assert re.search(kernel + r'<[^>]*><<<dim3\([^;]*, B, splits\)', src), kernel
         assert src.count('const int split_pages = (W + splits - 1) / splits;') >= 2
         assert 'attn::decode_split_combine_rows<' in src
+    # the narrow paths over 2-byte and e4m3 pages: both bodies take the split, whole
+    # sub-chunks of the same ring, and the combine applies the window and the sinks
+    src = read('paged_decode.cu')
+    for kernel in ('paged_decode_narrow_simt', 'paged_decode_narrow'):
+        assert re.search(kernel + r'<[^>]*><<<dim3\([^;]*, B, splits\)', src), kernel
+    assert src.count('const int split_pages = (W + splits - 1) / splits;') >= 4
+    assert re.search(r'attn::decode_split_combine_rows<\w+><<<[^;]*split_pages, sinks,\s*'
+                     r'window\);', src)
+    assert pd.SPLIT_TOKENS_NARROW % tc == 0
+    # the tensor-core narrow body takes bf16 / f16 q at D 64 / 128 and every block size;
+    # its loads find each row's page (qdec::WarpRows: a build with one lookup a warp for
+    # block sizes that are a multiple of 16, one with a lookup a row for the others)
+    assert re.search(r'if constexpr \(!std::is_same<TQ, float>::value\) \{\s*'
+                     r'if \(D == 64 \|\| D == 128\)\s*return', src)
+    body = src[src.index('paged_decode_narrow(const T*'):src.index('// ----', src.index(
+        'paged_decode_narrow(const T*'))]
+    assert 'WarpRows<ONE_PAGE> rows(tables + (long long)b * W, r0, BS, NB, layer,' in body
+    assert 'BS %' not in body
+    for name in ('paged_decode.cu', 'paged_decode_int4.cu', 'paged_decode_turbo.cu'):
+        src_n = read(name)
+        assert 'WarpRows<ONE_PAGE> rows(tables + (long long)b * W, r0, BS, NB, layer,' \
+            in src_n, name
+        assert src_n.count('BS % qdec::WT == 0') == 1, name   # the build picked at launch
+    assert 'slot(table, r0 + t, BS, NB, layer)' in read('quant_decode.cuh')
+    for D in (64, 80, 96, 128):
+        for dtype in (torch.bfloat16, torch.float16, torch.float8_e4m3fn):
+            assert pd.narrow_split_tokens(D, dtype, 64) == pd.SPLIT_TOKENS_NARROW
+            assert (pd.narrow_split_tokens(D, dtype, pd.NARROW_SMALL_BATCH)
+                    == pd.SPLIT_TOKENS_NARROW // 2) and pd.SPLIT_TOKENS_NARROW // 2 % tc == 0
+    assert pd.narrow_split_tokens(576, torch.bfloat16, 16) == pd.SPLIT_TOKENS_MMA
+    assert pd.narrow_split_tokens(128, torch.float32, 16) == pd.SPLIT_TOKENS
+    # a window whose pages fit one split takes one split; a longer one the table's
+    tokens = pd.SPLIT_TOKENS_NARROW
+    for BS in (16, 128):
+        per = tokens // BS
+        fits = BS * (per - 1)
+        assert pd.plain_layout_splits(64, torch.bfloat16, 64, 129, BS, fits) == 1
+        assert (pd.plain_layout_splits(64, torch.bfloat16, 64, 129, BS, fits + 1)
+                == pd.plain_layout_splits(64, torch.bfloat16, 64, 129, BS)
+                == pd.page_splits(129, BS, tokens) > 1)
+    # a narrow table of 2 * SPLIT_TOKENS_NARROW positions at most takes one split, at
+    # any batch; a wider one and the wide paths keep theirs
+    for BS in (8, 128):
+        per = tokens // BS
+        for B in (8, 64):
+            assert pd.plain_layout_splits(64, torch.bfloat16, B, 2 * per, BS) == 1
+        assert pd.plain_layout_splits(128, torch.float8_e4m3fn, 64, 2 * per + 1, BS) == 3
+    assert pd.plain_layout_splits(576, torch.bfloat16, 64, 16, 128) == pd.page_splits(
+        16, 128, pd.SPLIT_TOKENS_MMA) == 2
     mma_dims = {int(d) for d in re.findall(r'MMA_CASE\((\d+)\)', read('paged_decode_int4.cu'))}
     assert mma_dims == set(pd.MMA_QUANT_HEAD_DIMS) == {64, 128, 192, 256}
     assert set(pd.TURBO_HEAD_DIMS) <= set(pd.MMA_QUANT_HEAD_DIMS)

@@ -113,8 +113,7 @@ def test_int4_decode_plain_matches_pallas_at_mla(softcap):
         ref_cache(rng, 2, 32, 16, 1, 576), 1, 16, 576, softcap,
         paged_decode_attention_int4_plain, paged_decode_attention_int4, rng)
     assert pd._check('paged_decode_int4', t(q), port.data, t(tables), t(kv_lens), 1, 1,
-                     (port.scale, port.minv), block_multiple=16,
-                     head_dims=pd.QUANT_HEAD_DIMS)[2] == 576
+                     (port.scale, port.minv), head_dims=pd.QUANT_HEAD_DIMS)[2] == 576
 
 
 def test_cache_engine_int4():

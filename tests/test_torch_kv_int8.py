@@ -185,7 +185,7 @@ def test_int8_decode_plain_matches_pallas_at_mla(softcap):
     np.testing.assert_allclose(out[active], out_ref[active], **TOL)
     assert np.all(out[~active] == 0)
     assert pd._check('paged_decode_int8', t(q), port.data, t(tables), t(kv_lens), layer,
-                     Hkv, (port.scale,), block_multiple=16,
+                     Hkv, (port.scale,),
                      head_dims=pd.QUANT_HEAD_DIMS) == (B, Hkv * G, D, NB, BS, W)
 
 

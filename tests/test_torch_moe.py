@@ -99,6 +99,23 @@ def test_mxfp4_bmm_plain_matches_pallas(per_expert, M, N):
     assert tqb.mxfp4_bmm.launches == before
 
 
+@pytest.mark.parametrize('per_expert', [False, True])
+def test_mxfp4_bmm_plain_matches_pallas_k_tail(per_expert):
+    """K = 192: three scale groups a half, where the CUDA kernel's stages hold two, so
+    its last stage reads past the half as zeros; the plain version it is held against
+    on the card matches the Pallas kernel there too."""
+    rng = np.random.RandomState(3)
+    E, K, M, N = 2, 192, 9, 64
+    nib, scale = _mxfp4_stack(rng, E, K, N)
+    x = rng.randn(*((E, M, K) if per_expert else (M, K))).astype(np.float32)
+    out = tqb.mxfp4_bmm_plain(torch.from_numpy(x), torch.from_numpy(nib),
+                              torch.from_numpy(scale)).numpy()
+    kern = np.asarray(jqb.mxfp4_bmm(jnp.asarray(x), jnp.asarray(nib), jnp.asarray(scale),
+                                    interpret=True))
+    assert out.shape == (E, M, N)
+    np.testing.assert_allclose(out, kern, **_tol(kern))
+
+
 def test_mxfp4_bmm_rejects_bad_shapes_and_fp8_is_queued():
     """Both expert-batched products reject bad shapes.  The blocked-fp8 half, queued
     when this test was written, is ported since: ``fp8_bmm`` and ``moe_ffn`` take
