@@ -3,7 +3,7 @@ turns.
 
     python3 chip_ab.py PARENT_DIR [--cells deepseek w4a16_kv8 tinyllama] [--pairs 2]
     python3 chip_ab.py PARENT_DIR --kernels [--kernel-sets w4a16_gemm fp8_bmm kv_decode
-                       mxfp4_bmm narrow_decode] [--pairs 1]
+                       mxfp4_bmm narrow_decode cp_decode] [--pairs 1]
 
 PARENT_DIR is an unpacked copy of another commit (for example `git archive <commit> |
 tar -x -C work_dir/parent`, under a directory .gitignore lists).  Each pair runs the
@@ -15,12 +15,15 @@ cells are `chip_smoke.py`'s e2e phases: 'deepseek' (e2e_deepseek_v2_lite_fp8),
 (e2e).  With --kernels each run instead times its tree's w4a16_gemm (gd), fp8_bmm and
 mxfp4_bmm wrappers at every row shape of this tree's `chip_smoke.py` (W4_SHAPES,
 FP8_SHAPES, MX_SHAPES), its paged_decode_attention_int4 / _turbo wrappers at every case
-of this tree's `chip_smoke.kv_decode_cases` (caches filled by the tree's own fill, from
-the same seeded K / V), and its narrow paged decode (`narrow_decode`:
+of this tree's `chip_smoke.kv_decode_cases` and its paged_decode_attention_int8 at every
+case of `int8_decode_cases` (`kv_decode`; caches filled by the tree's own fill, from
+the same seeded K / V), its narrow paged decode (`narrow_decode`:
 paged_decode_attention over 2-byte pages at `chip_smoke.decode_cases`' cases up to D 128,
 paged_decode_attention_fp8 at the e4m3 cases of `kv_decode_cases`, each e4m3 cache
-filled by the tree's own fill), on the same seeded data (--kernel-sets picks among the
-five), and the last JSON line holds each side's mean per row.  Needs a
+filled by the tree's own fill) and its context-parallel decode (`cp_decode`:
+paged_decode_attention_cp, both ranks' partials and the combine, at
+`chip_smoke.cp_decode_cases`), on the same seeded data (--kernel-sets picks among the
+six), and the last JSON line holds each side's mean per row.  Needs a
 CUDA card; host-side numbers of one cell spread between calls, so compare only runs of
 one call.
 """
@@ -99,7 +102,7 @@ for label, B, Hq, Hkv, D, lens, W, softcap, dtype, kernels in (%r if 'kv_decode'
     kvs = [(torch.randn(len(slots), Hkv, D, device='cuda', generator=gen).bfloat16(),
             torch.randn(len(slots), Hkv, D, device='cuda', generator=gen).bfloat16())
            for _ in range(2)]
-    for policy, kernel in ((8, 'int4'), (42, 'turbo')):
+    for policy, kernel in ((4, 'int8'), (8, 'int4'), (42, 'turbo')):
         if 'paged_decode_' + kernel not in kernels:
             continue
         cache = c.new_kv_cache(model, NB, BS, policy, 'cuda')
@@ -166,9 +169,24 @@ for label, B, Hq, Hkv, D, lens, W, softcap, opts in (%r if 'narrow_decode' in se
                                               logit_softcap=softcap, **extra))
     del cache
     torch.cuda.empty_cache()
+for label, cp, B, Hq, Hkv, D, lens, W, opts in (%r if 'cp_decode' in sets else ()):
+    from lmdeploy_tpu_torch.parallel.mesh import StripedKV, build_mesh
+    opts = dict(opts)
+    q, cache, tables, kv_lens = c._decode_inputs(gen, B, Hq, Hkv, D, 128, W, lens,
+                                                 dtype=getattr(torch, opts.pop('dtype')))
+    if opts.pop('sinks', False):
+        opts['sinks'] = torch.randn(Hq, device='cuda', generator=gen) * 2
+    mesh = build_mesh(cp=cp, devices=['cuda:0'] * cp)
+    kv = StripedKV.from_reference_layout(cache, mesh.cp_devices)
+    out['cp_decode'][label] = c.time_ms(
+        lambda: pd.paged_decode_attention_cp(q, kv, tables, kv_lens, 1, D ** -0.5, Hkv, mesh,
+                                             **opts))
+    del q, cache, kv
+    torch.cuda.empty_cache()
 print('AB ' + json.dumps(out), flush=True)
 '''
-KERNEL_SETS = ('w4a16_gemm', 'fp8_bmm', 'kv_decode', 'mxfp4_bmm', 'narrow_decode')
+KERNEL_SETS = ('w4a16_gemm', 'fp8_bmm', 'kv_decode', 'mxfp4_bmm', 'narrow_decode',
+               'cp_decode')
 
 
 def run(tree: str, code: str) -> dict:
@@ -202,6 +220,14 @@ def main() -> int:
                      list(opts.get('kernels', ('paged_decode_int4', 'paged_decode_turbo'))))
                     for label, B, Hq, Hkv, D, lens, W, softcap, opts
                     in chip_smoke.kv_decode_cases()]
+        # the int8 decode at its own cases
+        kv_cases += [(label, B, Hq, Hkv, D, [int(n) for n in lens], W, softcap,
+                      str(dtype).split('.')[-1], ['paged_decode_int8'])
+                     for label, B, Hq, Hkv, D, lens, W, softcap, dtype
+                     in chip_smoke.int8_decode_cases()]
+        cp = [(label, cp, B, Hq, Hkv, D, [int(n) for n in lens], W,
+               dict(opts, dtype=str(opts.get('dtype', 'torch.bfloat16')).split('.')[-1]))
+              for label, cp, B, Hq, Hkv, D, lens, W, opts in chip_smoke.cp_decode_cases()]
         # the narrow decode's cases: decode_phase's over 2-byte pages up to D 128 (bf16 /
         # f16 q), decode_kv_phase's e4m3 ones
         narrow = []
@@ -217,7 +243,7 @@ def main() -> int:
                if 'paged_decode_fp8' in opts.get('kernels', ('paged_decode_fp8',))]
         code = KERNEL_RUN % (tuple(args.kernel_sets), chip_smoke.W4_SHAPES,
                              chip_smoke.FP8_SHAPES, kv_cases, chip_smoke.MX_SHAPES, narrow,
-                             fp8)
+                             fp8, cp)
     else:
         code = RUN % {name: CELLS[name] for name in args.cells}
     runs = []

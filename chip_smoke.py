@@ -13,7 +13,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  card's bound for the same work and, where one PyTorch call computes
                  the same function, that call's time: flash_prefill, paged_decode
                  (also at gpt-oss-20b heads with sinks, window 128 and none),
-                 paged_decode_int8 (cache filled by the port's fill_kv_cache) and
+                 paged_decode_int8 (caches filled by the port's fill_kv_cache, random
+                 stale slots past every row; llama2-7b and TinyLlama heads, the
+                 e2e_w4a16_kv8 decode shape, f16 D 256, D 192, f32 q and D 80; its
+                 split length swept, the plain two passes and their combine trap held) and
                  w4a16_gemm (llama2-7b projections at M 1 / 8 / 64 / 65 / 128 / 256
                  and Mixtral-8x7B's fused wqkv at 64, TF32 off, every K split at the
                  64- and 128-row shapes, each row's token tile and split; the check
@@ -48,7 +51,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  rank, the ranks on the one card, and their combine) at the
                  e2e_llama31_8b_cp2 decode shape with cp 2 and 4, gpt-oss-20b heads with
                  sinks and window 128 or none, D 64 / 96 / 256 in f16 and f32, beside the
-                 single-rank paged_decode at each shape, with its planted traps; and
+                 single-rank paged_decode at each shape, with its planted traps, the
+                 partials' and the combine's times apart, each rank's split in plain
+                 PyTorch, the partials of ranks with no slot in a row's window (exactly
+                 (0, MASK_VALUE, 0)), and its split length swept at the e2e shapes; and
                  paged_decode_int8 / _int4 at MLA's latent head (16 and 128 query heads);
   4. parity   -- full width, 2 layers: prefill logits and 8 decode steps on the card
                  (bf16, kernels) against the port on the CPU (f32, plain paths), for
@@ -72,6 +78,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
   6. e2e_w4a16_kv8 -- the same at llama2-7b geometry, AWQ-style W4A16 weights (group
                  128, seeded) and quant_policy=4: 64 concurrent 128-token prompts plus
                  one 2048-token prompt, 64 greedy tokens each, run twice, then traced;
+                 each decode step launches paged_decode_int8 (and its split's combine)
+                 once a layer, exactly;
   7. e2e_gptoss_mxfp4 -- gpt-oss-20b at full width and 12 of its 24 layers (public
                  config), seeded MXFP4 experts, bf16 KV cache: 32 concurrent 128-token prompts plus one
                  2048-token prompt, 64 greedy tokens each (decode in the 64-row bucket),
@@ -468,9 +476,11 @@ def wgmma_waits(lib: str) -> dict:
 
 
 # the sources whose narrow decodes issue mma.sync on codes decoded in registers (or on
-# 2-byte / e4m3 elements), and the part of the kernels' names that picks them
+# 2-byte / e4m3 / int8 elements, narrow_decode.cuh's body), and the part of the kernels'
+# names that picks them
 MMA_SYNC_SOURCES = {'paged_decode_int4': '_mma', 'paged_decode_turbo': '_mma',
-                    'paged_decode': 'paged_decode_narrowI'}
+                    'paged_decode': 'paged_decode_narrowI', 'paged_decode_int8': '_mma',
+                    'paged_decode_cp': '_mma'}
 
 
 def _kernel_key(name: str) -> str:
@@ -1088,85 +1098,132 @@ def w4a16_modes_phase():
     return out_rows['w4a16_szc'], out_rows['w4a16_unprepared']
 
 
-def _int8_decode_inputs(gen, B, Hq, Hkv, D, BS, W, lens, L=2):
-    """A 2-layer int8 cache, every page filled through the port's fill_kv_cache from
-    random bf16 K/V; ragged rows on disjoint random pages, trailing padding rows on
-    block 0 (kv_len 1, as the engine pads), kv_len 0 where ``lens`` says."""
+def _int8_decode_inputs(gen, B, Hq, Hkv, D, BS, W, lens, L=2, dtype=torch.bfloat16):
+    """A 2-layer int8 cache, every slot of every page (the padding block's too) filled
+    through the port's fill_kv_cache from random bf16 K/V, so each row's pages hold
+    random stale tokens past its length; ragged rows on disjoint random pages, trailing
+    padding rows on block 0 (kv_len 1, as the engine pads), kv_len 0 where ``lens``
+    says; q in ``dtype``."""
     from lmdeploy_tpu_torch.ops.attention import fill_kv_cache
     from lmdeploy_tpu_torch.ops.kv_quant import QuantKV
     NB = 1 + B * W
     cache = QuantKV(torch.zeros(L, NB, 2, BS, Hkv * D, dtype=torch.int8, device='cuda'),
                     torch.zeros(L, NB, 2, BS, Hkv, device='cuda'))
-    slots = torch.arange(BS, NB * BS, device='cuda')
+    slots = torch.arange(0, NB * BS, device='cuda')
     for layer in range(L):
         k = torch.randn(len(slots), Hkv, D, device='cuda', generator=gen).bfloat16()
         v = torch.randn(len(slots), Hkv, D, device='cuda', generator=gen).bfloat16()
         fill_kv_cache(cache, k, v, slots, layer)
+        del k, v
     perm = torch.randperm(NB - 1, device='cuda', generator=gen) + 1
     tables = perm[:B * W].reshape(B, W).int()
     kv_lens = torch.tensor(lens, dtype=torch.int32, device='cuda')
     pad_rows = kv_lens < 0
     tables[pad_rows] = 0
     kv_lens[pad_rows] = 1
-    q = torch.randn(B, Hq, D, device='cuda', generator=gen).bfloat16()
+    q = torch.randn(B, Hq, D, device='cuda', generator=gen).to(dtype)
     return q, cache, tables.contiguous(), kv_lens
 
 
-def decode_int8_phase():
-    from lmdeploy_tpu_torch.ops.paged_decode import (paged_decode_attention_int8,
-                                                     paged_decode_attention_int8_plain)
-    gen = torch.Generator(device='cuda').manual_seed(SEED)
+def int8_decode_cases():
+    """decode_int8_phase's cases, (label, B, Hq, Hkv, D, lens, W, softcap, q dtype):
+    lens marks padding rows -1."""
     rng = np.random.RandomState(SEED + 1)
-    results = []
-    BS = 128
-    # bs64 at llama2-7b heads, ragged lengths averaging ~384, one inactive row and
-    # four padding rows; the same with a softcap; TinyLlama heads (G = 8, D = 64);
-    # the e2e phase's decode shape: 64 rows of ~200 tokens, one of ~2,100, padding
+    # bs64 at llama2-7b heads (G 1), ragged lengths averaging ~384, one inactive row and
+    # four padding rows; the same with a softcap; TinyLlama heads (G = 8, D = 64); the
+    # e2e_w4a16_kv8 phase's decode shape: 64 rows of ~200 tokens, one of ~2,100, padding
     # rows up to the 128-row bucket, the session-wide table width
     lens64 = rng.randint(1, 768, size=64)
     lens64[5] = 0
     lens64[-4:] = -1
     lens_e2e = np.concatenate([rng.randint(130, 200, size=64), [2100],
                                -np.ones(63, int)])
-    cases = [('bs64_7b', 64, 32, 32, 128, lens64, 8, None),
-             ('softcap_7b', 64, 32, 32, 128, lens64, 8, 30.0),
-             ('bs64_tinyllama_heads', 64, 32, 4, 64, lens64, 8, None),
-             ('e2e_shape_7b', 128, 32, 32, 128, lens_e2e, 17, None)]
-    for label, B, Hq, Hkv, D, lens, W, softcap in cases:
-        q, cache, tables, kv_lens = _int8_decode_inputs(gen, B, Hq, Hkv, D, BS, W, lens)
+    # the other paths: f16 q at D 256 (two query blocks of 8 heads) and D 192 on the
+    # tensor cores, f32 q and D 80 on the CUDA cores; 8 rows of 130-199 tokens, one of
+    # 2,100, one inactive, six padding rows
+    lens16 = np.concatenate([rng.randint(130, 200, size=8), [2100], [0], -np.ones(6, int)])
+    return [('bs64_7b', 64, 32, 32, 128, lens64, 8, None, torch.bfloat16),
+            ('softcap_7b', 64, 32, 32, 128, lens64, 8, 30.0, torch.bfloat16),
+            ('bs64_tinyllama_heads', 64, 32, 4, 64, lens64, 8, None, torch.bfloat16),
+            ('e2e_shape_7b', 128, 32, 32, 128, lens_e2e, 17, None, torch.bfloat16),
+            ('d256_g16_f16', 16, 32, 2, 256, lens16, 17, None, torch.float16),
+            ('d192', 16, 16, 4, 192, lens16, 17, None, torch.bfloat16),
+            ('d128_f32', 16, 32, 8, 128, lens16, 17, 30.0, torch.float32),
+            ('d80', 16, 32, 8, 80, lens16, 17, None, torch.bfloat16)]
+
+
+def decode_int8_phase():
+    """paged_decode_int8 against its plain version at every case of int8_decode_cases
+    (caches filled by the port's fill, random stale slots past every row's length): its
+    split length swept (each held against the plain version), the plain two passes
+    (each split's partials, then the combine) and their combine trap at one split a
+    page."""
+    from lmdeploy_tpu_torch.ops import paged_decode as pd
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    results = []
+    BS = 128
+    for label, B, Hq, Hkv, D, lens, W, softcap, dtype in int8_decode_cases():
+        q, cache, tables, kv_lens = _int8_decode_inputs(gen, B, Hq, Hkv, D, BS, W, lens,
+                                                        dtype=dtype)
         scale = D ** -0.5
         layer = 1
 
         def kern():
-            return paged_decode_attention_int8(q, cache, tables, kv_lens, layer, scale, Hkv,
-                                               logit_softcap=softcap)
+            return pd.paged_decode_attention_int8(q, cache, tables, kv_lens, layer, scale,
+                                                  Hkv, logit_softcap=softcap)
 
         def plain():
-            return paged_decode_attention_int8_plain(q, cache, tables, kv_lens, layer,
-                                                     scale, Hkv, logit_softcap=softcap)
+            return pd.paged_decode_attention_int8_plain(q, cache, tables, kv_lens, layer,
+                                                        scale, Hkv, logit_softcap=softcap)
         out, ref = kern(), plain()
         torch.cuda.synchronize()
         tol = KERNEL_TOL['paged_decode_int8']
         err, rel, frac = compare(out, ref, tol)
         zero_ok = bool((out[kv_lens == 0] == 0).all())
-        ok = bool(torch.isfinite(out.float()).all()) and frac <= 1.0 and zero_ok
+        traps = {}
+        if int((kv_lens > BS).sum()):
+            traps['combine_without_alpha'] = compare(_split_plain_trapped(
+                'paged_decode_int8', q, cache, tables, kv_lens, layer, scale, Hkv, softcap),
+                ref, tol)[2]
+        # the constant that sets this batch's split, swept
+        const = 'SPLIT_TOKENS_INT8_SMALL' if B <= pd.INT8_SMALL_BATCH else 'SPLIT_TOKENS_INT8'
+        chosen = getattr(pd, const)
+        split = {'path': ('tensor cores' if D in pd.MMA_QUANT_HEAD_DIMS
+                          and dtype != torch.float32 else 'cuda cores'),
+                 'split_tokens': chosen, 'splits': pd.int8_splits(W, BS, D, B),
+                 'split_plain_err_over_tol': compare(pd.paged_decode_attention_int8_split_plain(
+                     q, cache, tables, kv_lens, layer, scale, Hkv, logit_softcap=softcap),
+                     ref, tol)[2],
+                 'split_tokens_ms': {}, 'split_tokens_err_over_tol': {}}
+        for tokens in KV_SPLIT_SWEEP:
+            setattr(pd, const, tokens)
+            split['split_tokens_err_over_tol'][tokens] = compare(kern(), ref, tol)[2]
+            split['split_tokens_ms'][tokens] = time_ms(kern)
+        setattr(pd, const, chosen)
+        ok = (bool(torch.isfinite(out.float()).all()) and frac <= 1.0 and zero_ok
+              and all(v > 1.0 for v in traps.values())
+              and split['split_plain_err_over_tol'] <= 1.0
+              and max(split['split_tokens_err_over_tol'].values()) <= 1.0)
         # bytes this data needs: each row's int8 K and V rows and their f32 scales
         toks = kv_lens.cpu().numpy().astype(np.int64).sum()
-        nbytes = toks * Hkv * (2 * D + 2 * 4) + 2 * (2 * B * Hq * D)
+        nbytes = toks * Hkv * (2 * D + 2 * 4) + 2 * q.element_size() * B * Hq * D
         bound_ms, bound_by = bound(4 * Hq * D * toks, nbytes)
         row = {'phase': 'kernel', 'kernel': 'paged_decode_int8', 'case': label,
                'shape': [B, Hq, Hkv, D, BS, W], 'softcap': softcap,
-               'mean_kv_len': float(kv_lens.float().mean()),
+               'dtype': str(dtype).split('.')[-1], **split,
+               'mean_kv_len': float(kv_lens.float().mean()), 'max_kv_len': int(lens.max()),
                'max_abs_err': err, 'max_rel_err': rel, 'err_over_tol': frac, 'tol': tol,
-               'zero_rows_ok': zero_ok, 'ok': ok,
+               'zero_rows_ok': zero_ok, 'trap_err_over_tol': traps, 'ok': ok,
                'kernel_ms': time_ms(kern), 'plain_ms': time_ms(plain, **PLAIN_TIMING),
                'library_ms': None, 'bound_ms': bound_ms, 'bound_by': bound_by,
                'kv_mbytes': nbytes / 1e6}
         emit(row)
         results.append(row)
         del q, cache
+        torch.cuda.empty_cache()
         if not ok:
-            raise SystemExit(f'paged_decode_int8 disagrees with its plain version: {row}')
+            raise SystemExit(f'paged_decode_int8 disagrees with its plain version, or its '
+                             f'check misses a trap: {row}')
     return results
 
 
@@ -1580,10 +1637,11 @@ def _combine_without_alpha(parts, sinks, dtype):
 
 def _split_plain_trapped(kernel, q, kv, tables, kv_lens, layer, scale, hkv, softcap,
                          window=None, sinks=None):
-    """The int4 / TurboQuant / plain-layout (2-byte or e4m3 pages) kernel's two passes in
-    plain PyTorch at one split a page, combined without the splits' weights."""
+    """The int8 / int4 / TurboQuant / plain-layout (2-byte or e4m3 pages) kernel's two
+    passes in plain PyTorch at one split a page, combined without the splits' weights."""
     from lmdeploy_tpu_torch.ops import paged_decode as pd
-    terms = {'paged_decode_int4': pd.int4_decode_terms,
+    terms = {'paged_decode_int8': pd.int8_decode_terms,
+             'paged_decode_int4': pd.int4_decode_terms,
              'paged_decode_turbo': pd.turbo_decode_terms}.get(kernel, pd.plain_decode_terms)
     s, pv = terms(q, kv, tables, layer, scale, hkv, softcap)
     W = tables.shape[1]
@@ -1966,34 +2024,54 @@ def _cp_plain(trap=None):
     return attend
 
 
-def decode_cp_phase():
-    """paged_decode_cp (each rank's partials on the card, the ranks on one card) and its
-    combine against the plain partials and combine, at the e2e_llama31_8b_cp2 decode
-    shape with cp 2 and 4, gpt-oss-20b heads with sinks (window 128 and none) and D 64 /
-    96 / 256 in f16 and f32; beside each, the single-rank paged_decode on the
-    unsharded cache at the same shape, and the planted traps."""
-    from lmdeploy_tpu_torch.ops.paged_decode import (paged_decode_attention,
-                                                     paged_decode_attention_cp)
-    from lmdeploy_tpu_torch.parallel.mesh import StripedKV, build_mesh
-    gen = torch.Generator(device='cuda').manual_seed(SEED)
+# the context-parallel partial's split length (local slots of a rank) swept at the e2e
+# cell's decode shape with cp 2 and 4, each held against the plain version
+CP_SPLIT_SWEEP = (256, 512, 1024, 2048)
+CP_SWEEP_CASES = ('e2e_cp2', 'e2e_cp4')
+
+
+def cp_decode_cases():
+    """decode_cp_phase's cases, (label, cp, B, Hq, Hkv, D, lens, W, opts): lens marks
+    padding rows -1, opts may give q's dtype, a window and sinks (True: drawn with the
+    case); block size 128."""
     rng = np.random.RandomState(SEED + 3)
-    BS = 128
     # the e2e cell's decode bucket: 31 rows of 1,025-1,088 tokens and one of
     # 16,385-16,448 in the 32-row bucket, the session's 129-page table
     lens_e2e = np.concatenate([rng.randint(1025, 1089, size=31), rng.randint(16385, 16449, 1)])
     lens_gptoss = np.concatenate([rng.randint(129, 193, size=32), rng.randint(2049, 2113, 1),
                                   -np.ones(31, int)])
     lens16 = np.concatenate([rng.randint(130, 200, size=8), [2100], [0], -np.ones(6, int)])
-    cases = [('e2e_cp2', 2, 32, 32, 8, 128, lens_e2e, CP_W, {}),
-             ('e2e_cp4', 4, 32, 32, 8, 128, lens_e2e, CP_W, {}),
-             ('gptoss_sliding_cp2', 2, 64, 64, 8, 64, lens_gptoss, 17,
-              {'window': 128, 'sinks': True}),
-             ('gptoss_full_cp2', 2, 64, 64, 8, 64, lens_gptoss, 17, {'sinks': True}),
-             ('d64_f16_cp2', 2, 16, 32, 4, 64, lens16, 17, {'dtype': torch.float16}),
-             ('d96_f32_cp2', 2, 16, 32, 32, 96, lens16, 17, {'dtype': torch.float32}),
-             ('d256_f16_cp4', 4, 16, 8, 4, 256, lens16, 17,
-              {'dtype': torch.float16, 'window': 300, 'sinks': True}),
-             ('d256_f32_cp2', 2, 16, 8, 4, 256, lens16, 17, {'dtype': torch.float32})]
+    return [('e2e_cp2', 2, 32, 32, 8, 128, lens_e2e, CP_W, {}),
+            ('e2e_cp4', 4, 32, 32, 8, 128, lens_e2e, CP_W, {}),
+            ('gptoss_sliding_cp2', 2, 64, 64, 8, 64, lens_gptoss, 17,
+             {'window': 128, 'sinks': True}),
+            ('gptoss_full_cp2', 2, 64, 64, 8, 64, lens_gptoss, 17, {'sinks': True}),
+            ('d64_f16_cp2', 2, 16, 32, 4, 64, lens16, 17, {'dtype': torch.float16}),
+            ('d96_f32_cp2', 2, 16, 32, 32, 96, lens16, 17, {'dtype': torch.float32}),
+            ('d256_f16_cp4', 4, 16, 8, 4, 256, lens16, 17,
+             {'dtype': torch.float16, 'window': 300, 'sinks': True}),
+            ('d256_f32_cp2', 2, 16, 8, 4, 256, lens16, 17, {'dtype': torch.float32})]
+
+
+def decode_cp_phase():
+    """paged_decode_cp (each rank's partials on the card, the ranks on one card) and its
+    combine against the plain partials and combine, at the e2e_llama31_8b_cp2 decode
+    shape with cp 2 and 4, gpt-oss-20b heads with sinks (window 128 and none) and D 64 /
+    96 / 256 in f16 and f32; beside each, the single-rank paged_decode on the
+    unsharded cache at the same shape, the planted traps, the partials' and the
+    combine's times apart, the plain two passes of each rank's split, and each rank's
+    partials where it holds no slot of a row's window (exactly (0, MASK_VALUE, 0)); at
+    the e2e shapes the split length swept."""
+    from lmdeploy_tpu_torch.ops import paged_decode as pd
+    from lmdeploy_tpu_torch.ops.paged_decode import (MASK_VALUE, cp_combine, cp_local_slots,
+                                                     paged_decode_attention,
+                                                     paged_decode_attention_cp,
+                                                     paged_decode_cp_partial,
+                                                     paged_decode_cp_partial_split_plain)
+    from lmdeploy_tpu_torch.parallel.mesh import StripedKV, build_mesh
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    BS = 128
+    cases = cp_decode_cases()
     results = []
     for label, cp, B, Hq, Hkv, D, lens, W, opts in cases:
         opts = dict(opts)
@@ -2005,6 +2083,8 @@ def decode_cp_phase():
         mesh = build_mesh(cp=cp, devices=['cuda:0'] * cp)
         kv = StripedKV.from_reference_layout(cache, mesh.cp_devices)
         scale, layer = D ** -0.5, 1
+        bsl = BS // cp
+        window = opts.get('window')
 
         def kern():
             return paged_decode_attention_cp(q, kv, tables, kv_lens, layer, scale, Hkv, mesh,
@@ -2016,6 +2096,11 @@ def decode_cp_phase():
         def single():
             return paged_decode_attention(q, cache, tables, kv_lens, layer, scale, Hkv,
                                           **opts)
+
+        def partials():
+            return [paged_decode_cp_partial(q, stripe, tables, kv_lens, layer, scale, Hkv,
+                                            r * bsl, BS, window=window)
+                    for r, stripe in enumerate(kv.stripes)]
         out, ref = kern(), plain()
         torch.cuda.synchronize()
         tol = KERNEL_TOL['paged_decode_cp']
@@ -2024,30 +2109,64 @@ def decode_cp_phase():
         zero_ok = bool((out[kv_lens == 0] == 0).all())
         traps = {t: compare(plain(t), ref, tol)[2] for t in CP_TRAPS
                  if t != 'sinks_on_each_rank' or opts.get('sinks') is not None}
+        # each rank's partials where it holds no slot of a row's window: (0, MASK_VALUE, 0)
+        parts = partials()
+        lens_l = kv_lens.long()
+        ws = (lens_l - window).clamp(min=0) if window else torch.zeros_like(lens_l)
+        empty_rows = []
+        for r, (acc, m, lsum) in enumerate(parts):
+            empty = (cp_local_slots(lens_l, r * bsl, BS, bsl)
+                     <= cp_local_slots(ws, r * bsl, BS, bsl))
+            empty_rows.append(int(empty.sum()))
+            zero_ok = zero_ok and bool((m[empty] == MASK_VALUE).all()) \
+                and bool((lsum[empty] == 0).all()) and bool((acc[empty] == 0).all())
+        split_plain = cp_combine(
+            [paged_decode_cp_partial_split_plain(q, stripe, tables, kv_lens, layer, scale,
+                                                 Hkv, r * bsl, BS, window=window)
+             for r, stripe in enumerate(kv.stripes)], opts.get('sinks'), q.dtype)
+        split = {'path': ('tensor cores' if D in pd.CP_MMA_HEAD_DIMS
+                          and dtype != torch.float32 else 'cuda cores'),
+                 'splits': pd.cp_splits(W, bsl, D, dtype),
+                 'split_plain_err_over_tol': compare(split_plain, ref, tol)[2]}
         ok = (bool(torch.isfinite(out.float()).all()) and frac <= 1.0 and zero_ok
-              and single_frac <= 1.0 and min(traps.values()) > 1.0)
+              and single_frac <= 1.0 and min(traps.values()) > 1.0
+              and split['split_plain_err_over_tol'] <= 1.0)
         # bytes this data needs: each rank's in-window K and V rows (the ranks together
         # read each row's once), q and out
         lens_np = kv_lens.cpu().numpy().astype(np.int64)
-        win = opts.get('window') or 0
+        win = window or 0
         toks = np.minimum(lens_np, win) if win else lens_np
         el = cache.element_size()
         nbytes = toks.sum() * Hkv * D * 2 * el + el * (2 * B * Hq * D)
         bound_ms, bound_by = bound(4 * Hq * D * toks.sum(), nbytes)
         row = {'phase': 'kernel', 'kernel': 'paged_decode_cp', 'case': label, 'cp': cp,
                'shape': [B, Hq, Hkv, D, BS, W], 'dtype': str(dtype).split('.')[-1],
-               'window': win or None, 'sinks': opts.get('sinks') is not None,
+               'window': win or None, 'sinks': opts.get('sinks') is not None, **split,
                'mean_kv_len': float(lens_np.mean()), 'max_kv_len': int(lens_np.max()),
                'max_abs_err': err, 'max_rel_err': rel, 'err_over_tol': frac, 'tol': tol,
                'single_rank_err_over_tol': single_frac, 'zero_rows_ok': zero_ok,
-               'trap_err_over_tol': traps, 'ok': ok,
+               'empty_rank_rows': empty_rows, 'trap_err_over_tol': traps, 'ok': ok,
                'kernel_ms': time_ms(kern), 'plain_ms': time_ms(plain, **PLAIN_TIMING),
+               'partials_ms': time_ms(partials),
+               'combine_ms': time_ms(lambda: cp_combine(parts, opts.get('sinks'), q.dtype)),
                'single_rank_paged_decode_ms': time_ms(single),
                'library_ms': None, 'bound_ms': bound_ms, 'bound_by': bound_by,
                'kv_mbytes': nbytes / 1e6}
+        if label in CP_SWEEP_CASES:
+            chosen = pd.SPLIT_TOKENS_CP
+            # each length timed twice, in turns
+            row['split_tokens_ms'] = {t: [] for t in CP_SPLIT_SWEEP}
+            row['split_tokens_err_over_tol'] = {}
+            for _ in range(2):
+                for tokens in CP_SPLIT_SWEEP:
+                    pd.SPLIT_TOKENS_CP = tokens
+                    row['split_tokens_err_over_tol'][tokens] = compare(kern(), ref, tol)[2]
+                    row['split_tokens_ms'][tokens].append(time_ms(kern))
+            pd.SPLIT_TOKENS_CP = chosen
+            row['ok'] = ok = ok and max(row['split_tokens_err_over_tol'].values()) <= 1.0
         emit(row)
         results.append(row)
-        del q, cache, kv
+        del q, cache, kv, parts
         torch.cuda.empty_cache()
         if not ok:
             raise SystemExit(f'paged_decode_cp disagrees with its plain version, or its '
@@ -2369,8 +2488,9 @@ def model_label(model, policy: int = 0) -> str:
 
 
 def profile_phase(name, engine, prompts, new_tokens):
-    """A traced run of the same requests: the device's busy share of the wall time
-    and the kernels that take the most device time."""
+    """A traced run of the same requests: the device's busy share of the wall time,
+    the kernels that take the most device time, and every decode kernel's and split
+    combine's device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, t0, t1 = run_requests(engine, prompts, new_tokens)
@@ -2389,10 +2509,17 @@ def profile_phase(name, engine, prompts, new_tokens):
         return dict(best), {k: calls[k] for k, _ in best}
     device_ms, device_calls = top(events, 'self_device_time_total')
     host_ms, host_calls = top(averages, 'self_cpu_time_total')
+    # every decode kernel and split combine, whether or not among the 8 largest
+    decode_ms, decode_calls = collections.Counter(), collections.Counter()
+    for e in events:
+        if 'paged_decode' in e.key or 'decode_split_combine' in e.key:
+            decode_ms[e.key[:110]] += e.self_device_time_total / 1e3
+            decode_calls[e.key[:110]] += e.count
     emit({'phase': 'profile', 'of': name, 'wall_ms': (t1 - t0) * 1e3,
           'device_busy_ms': busy_us / 1e3,
           'device_busy_share': busy_us / 1e3 / ((t1 - t0) * 1e3) if busy_us else None,
           'top_device_ms': device_ms, 'top_calls': device_calls,
+          'decode_device_ms': dict(decode_ms), 'decode_calls': dict(decode_calls),
           'top_host_self_ms': host_ms, 'top_host_calls': host_calls})
 
 
@@ -2950,9 +3077,13 @@ def kernel_line(flash, decode, decode8, w4, mx, kv, szc, unprep, fp8, cp, mla_qu
               f'card, {cp_lead["mean_kv_len"]:.0f} mean kv tokens, one row of '
               f'{cp_lead["max_kv_len"]}',
         single_rank_paged_decode_ms=cp_lead['single_rank_paged_decode_ms'],
-        cases={r['case']: {k: r[k] for k in ('cp', 'shape', 'dtype', 'kernel_ms', 'plain_ms',
-                                             'single_rank_paged_decode_ms', 'bound_ms',
-                                             'bound_by', 'max_abs_err')} for r in cp})
+        **{k: cp_lead[k] for k in ('path', 'splits', 'partials_ms', 'combine_ms',
+                                   'split_tokens_ms')},
+        cases={r['case']: {k: r[k] for k in ('cp', 'shape', 'dtype', 'path', 'splits',
+                                             'kernel_ms', 'plain_ms', 'partials_ms',
+                                             'combine_ms', 'single_rank_paged_decode_ms',
+                                             'bound_ms', 'bound_by', 'max_abs_err')}
+               for r in cp})
     return kv_entries + [cp_entry,
         dict(entry('fp8_bmm', 'fp8_bmm.cu', 'lmdeploy_tpu/ops/pallas/quant_bmm.py:153', fp8,
                    fp8_lead, None),
@@ -2987,7 +3118,13 @@ def kernel_line(flash, decode, decode8, w4, mx, kv, szc, unprep, fp8, cp, mla_qu
                                                       'split_tokens_ms')} for r in decode}),
         dict(entry('paged_decode_int8', 'paged_decode_int8.cu',
                    'lmdeploy_tpu/ops/pallas/paged_decode.py:286', decode8, decode8[0], None),
-             mla=shapes(mla_quant['paged_decode_int8'], 'mla')),
+             **{k: decode8[0][k] for k in ('path', 'split_tokens', 'splits', 'split_tokens_ms')},
+             shape=f'bs64 llama2-7b heads: B 64, Hq 32, Hkv 32, D 128, BS 128, '
+                   f'{decode8[0]["mean_kv_len"]:.0f} mean kv tokens',
+             mla=shapes(mla_quant['paged_decode_int8'], 'mla'),
+             cases={r['case']: {k: r.get(k) for k in ('shape', 'dtype', 'path', 'splits',
+                                                      'kernel_ms', 'bound_ms', 'max_abs_err',
+                                                      'split_tokens_ms')} for r in decode8}),
         dict(entry('w4a16_gemm', 'w4a16_gemm.cu',
                    'lmdeploy_tpu/ops/pallas/quant_matmul.py:392', w4, w4_lead,
                    sum(lib) if None not in lib else None),
@@ -3071,7 +3208,7 @@ def main():
         'e2e_llama31_8b_cp2', e2e_phase, 'e2e_llama31_8b_cp2', llama31_config(L31), 32, 0, 31,
         {'flash_prefill': (L31, 0), 'paged_decode_cp': (0, 2 * L31)}, info['nvidia_smi'],
         short_len=1024, long_len=16384, exact=True, shared=shared, forbid=('paged_decode',),
-        cp=2)
+        cp=2, combined={'paged_decode_cp': 1})
     shared.clear()
     # the narrow decode splits every call at the 17-page table (its combine counted in
     # paged_decode's .combines) in the TinyLlama, gpt-oss and Mixtral cells, but for
@@ -3079,10 +3216,14 @@ def main():
     paths['e2e'] = timed('e2e', e2e_phase, 'e2e', tinyllama_config(), 64, 0, 8,
                          {'flash_prefill': (L1, 0), 'paged_decode': (0, L1)},
                          info['nvidia_smi'], combined={'paged_decode': 1})
+    # exactly one int8 decode a layer per decode step, which splits every call at the
+    # 17-page table (its combine counted apart), and the gd GEMM four times a layer per
+    # decode step and per prefill step of at most 256 rows
     paths['e2e_w4a16_kv8'] = timed(
         'e2e_w4a16_kv8', e2e_phase, 'e2e_w4a16_kv8', llama7b_w4_config(), 128, 4, 64,
-        {'flash_prefill': (L7, 0), 'paged_decode_int8': (0, L7), 'w4a16_gemm': (0, 4 * L7)},
-        info['nvidia_smi'])
+        {'flash_prefill': (L7, 0), 'paged_decode_int8': (0, L7),
+         'w4a16_gemm': (0, 4 * L7, 4 * L7)},
+        info['nvidia_smi'], exact=True, combined={'paged_decode_int8': 1})
     paths['e2e_gptoss_mxfp4'] = timed(
         'e2e_gptoss_mxfp4', e2e_phase, 'e2e_gptoss_mxfp4', gptoss_config(LGPT), 64, 0, 32,
         {'paged_decode': (0, LGPT), 'mxfp4_bmm': (0, 3 * LGPT)}, info['nvidia_smi'],

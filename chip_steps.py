@@ -1,24 +1,30 @@
 """Time the redesigned kernels with one part of their design taken out at a time, on one
-CUDA card: the int4, TurboQuant and narrow (2-byte and e4m3 pages) paged decodes, and
-mxfp4_bmm.
+CUDA card: the int4, TurboQuant, int8 and narrow (2-byte and e4m3 pages) paged decodes,
+the context-parallel partials, and mxfp4_bmm.
 
     python3 chip_steps.py [--kernels paged_decode_int4 paged_decode_turbo paged_decode
-                           paged_decode_fp8 mxfp4_bmm] [--cases CASE ...]
+                           paged_decode_fp8 paged_decode_int8 paged_decode_cp mxfp4_bmm]
+                          [--cases CASE ...]
 
 Each step but `full` and `one_split` compiles an edited copy of the kernels' sources
 (`lmdeploy_tpu_torch/csrc/` copied under `work_dir/steps/<step>/`, one part removed),
 loads it in place of the package's library and times the wrapper at its cases, the
-decodes' split combine included.  The decodes run at cases of
-`chip_smoke.kv_decode_cases` (int4, TurboQuant, e4m3; caches filled as `decode_kv_phase`
-fills them) and of `chip_smoke.decode_cases` (2-byte pages), mxfp4_bmm at rows of
-`chip_smoke.MX_SHAPES`.  The decodes' steps:
+decodes' split combine included (the context-parallel decode: both ranks' partials and
+their combine).  The decodes run at cases of `chip_smoke.kv_decode_cases` (int4,
+TurboQuant, e4m3; caches filled as `decode_kv_phase` fills them), of
+`chip_smoke.decode_cases` (2-byte pages), `int8_decode_cases` and `cp_decode_cases`;
+mxfp4_bmm at rows of `chip_smoke.MX_SHAPES`.  The int8, 2-byte, e4m3 and context-parallel
+decodes share narrow_decode.cuh's body, where their steps' edits are.  The decodes'
+steps:
   full            the committed kernel (held against the plain version);
   one_split       no split over pages (the split length above the table: one block a
                   row and kv head walks every page, no combine);
   block_barrier   a block barrier a sub-chunk besides each warp's own wait;
   loads_only      the ring streams every sub-chunk, nothing is computed on it;
   no_loads        only the ring's first stages are loaded, every sub-chunk computed;
-  no_decode       e4m3 pages only: the codes go to the tensor cores undecoded;
+  no_decode       e4m3 and int8 pages: the codes go to the tensor cores undecoded;
+  cvt_decode      int8 pages: the codes decoded through f32 (I2F and a pack) in place
+                  of the magic numbers; its output is held against the plain version;
   no_scores       no Q K^T products (the score decode and MMAs);
   no_pv           no P.V products (the V decode and MMAs);
   p_once          2-byte pages only: P rounded once to the page type for P.V, as the
@@ -34,8 +40,8 @@ mxfp4_bmm's steps:
   one_consumer    one consumer warpgroup a block (items of 128 columns);
   no_overlap      a ring of one stage, released after its last wgmma: the producer's
                   copy of a stage never overlaps the consumers' work.
-The edited kernels but `p_once` give wrong outputs; their times only show what each
-part costs.
+The edited kernels but `p_once` and `cvt_decode` give wrong outputs; their times only
+show what each part costs.
 Prints one JSON line a (step, kernel, case), then the card's name and power limit.
 """
 from __future__ import annotations
@@ -53,12 +59,18 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-# each kernel's source and the module constant of its split (None: no split)
-KERNELS = {'paged_decode_int4': ('paged_decode_int4', 'SPLIT_TOKENS_INT4'),
-           'paged_decode_turbo': ('paged_decode_turbo', 'SPLIT_TOKENS_TURBO'),
-           'paged_decode': ('paged_decode', 'SPLIT_TOKENS_NARROW'),
-           'paged_decode_fp8': ('paged_decode', 'SPLIT_TOKENS_NARROW'),
-           'mxfp4_bmm': ('mxfp4_bmm', None)}
+# each kernel's source, the module constant of its split (None: no split), and the files
+# its design's parts are in (the narrow decodes' shared body is narrow_decode.cuh's)
+NARROW = 'narrow_decode.cuh'
+KERNELS = {'paged_decode_int4': ('paged_decode_int4', 'SPLIT_TOKENS_INT4',
+                                 ('paged_decode_int4.cu',)),
+           'paged_decode_turbo': ('paged_decode_turbo', 'SPLIT_TOKENS_TURBO',
+                                  ('paged_decode_turbo.cu',)),
+           'paged_decode': ('paged_decode', 'SPLIT_TOKENS_NARROW', (NARROW,)),
+           'paged_decode_fp8': ('paged_decode', 'SPLIT_TOKENS_NARROW', (NARROW,)),
+           'paged_decode_int8': ('paged_decode_int8', 'SPLIT_TOKENS_INT8', (NARROW,)),
+           'paged_decode_cp': ('paged_decode_cp', 'SPLIT_TOKENS_CP', (NARROW,)),
+           'mxfp4_bmm': ('mxfp4_bmm', None, ('mxfp4_bmm.cu',))}
 QUANT = ('paged_decode_int4.cu', 'paged_decode_turbo.cu')
 # (file, text, replacement) edits of each step; the text must be in the file
 DECODE_STEPS = {
@@ -66,33 +78,49 @@ DECODE_STEPS = {
     'one_split': (),
     'block_barrier': tuple((f, '    __syncwarp();\n', '    __syncwarp();\n    __syncthreads();\n')
                            for f in QUANT)
-    + (('paged_decode.cu', '    __syncwarp();\n    const int nx = j + NST - 1;',
+    + ((NARROW, '    __syncwarp();\n    const int nx = j + NST - 1;',
         '    __syncwarp();\n    __syncthreads();\n    const int nx = j + NST - 1;'),),
     'loads_only': tuple((f, '    const int wt = warp * WT;         // the warp\'s first row of '
                             'the sub-chunk\n',
                          '    const int wt = warp * WT;\n    if (wt >= 0) continue;\n')
                         for f in QUANT)
-    + (('paged_decode.cu', '    if (lo >= hi) continue;\n    const uint8_t* stage',
+    + ((NARROW, '    if (lo >= hi) continue;\n    const uint8_t* stage',
         '    if (lo >= 0) continue;\n    const uint8_t* stage'),),
     'no_loads': tuple((f, 'if (nx < span.j_hi) load(nx, (nx - span.j_lo) % NST);',
                        'if (false) load(nx, (nx - span.j_lo) % NST);')
-                      for f in QUANT + ('paged_decode.cu',)),
-    'no_decode': (('paged_decode.cu', '    b0 = e4m3x2<T>(w);\n    b1 = e4m3x2<T>(w >> 16);',
-                   '    b0 = w;\n    b1 = w >> 16;'),
-                  ('paged_decode.cu', 'e4m3x2<__nv_bfloat16>(z[', '(z[')),
+                      for f in QUANT + (NARROW,)),
+    'no_decode': ((NARROW, '    return e4m3x2<T>(w >> (16 * hh));', '    return w >> (16 * hh);'),
+                  (NARROW, '    return i8x2<T>(w, hh);', '    return w >> (16 * hh);')),
+    'cvt_decode': tuple((NARROW, old, '  return attn::Mma<' + t + '>::pack((float)(int8_t)(w >> (16 * hh)),\n'
+                                      '    (float)(int8_t)(w >> (16 * hh + 8)));\n')
+                        for t, old in (
+        ('__half', '  const uint32_t x = qdec::prmt(w ^ 0x80808080u, 0x64646464u, hh ? 0x4342u : '
+                   '0x4140u);\n  return qdec::fma2<__half>(x, qdec::Bits<__half>::ONE, '
+                   '0xE480E480u);\n'),
+        ('__nv_bfloat16', '  const uint32_t x = qdec::prmt(w, 0x43434343u, hh ? 0x4342u : '
+                          '0x4140u);\n  return qdec::fma2<__nv_bfloat16>(x, '
+                          'qdec::lop3<qdec::AND_XOR>(x, 0x00800080u, 0x3F803F80u),\n'
+                          '                                   qdec::lop3<qdec::AND_OR>(x, '
+                          '0x00800080u, 0xC300C300u));\n'))),
     'no_scores': tuple((f, 'for (int jj = 0; jj < D / 32; ++jj) {\n        const uint32_t w =',
                         'for (int jj = 0; jj < 0; ++jj) {\n        const uint32_t w =')
                        for f in QUANT)
-    + (('paged_decode.cu', 'for (int kc = 0; kc < D / 16; ++kc) {\n        uint32_t b0, b1;',
+    + ((NARROW, 'for (int kc = 0; kc < D / 16; ++kc) {\n        uint32_t b0, b1;',
         'for (int kc = 0; kc < 0; ++kc) {\n        uint32_t b0, b1;'),),
     'no_pv': tuple((f, 'for (int u = 0; u < D / 64; ++u) {\n      const uint32_t x1',
                     'for (int u = 0; u < 0; ++u) {\n      const uint32_t x1') for f in QUANT)
-    + (('paged_decode.cu', 'for (int u = 0; u < D / 64; ++u) {\n      if constexpr',
+    + ((NARROW, 'for (int u = 0; u < D / 64; ++u) {\n      if constexpr',
         'for (int u = 0; u < 0; ++u) {\n      if constexpr'),),
-    'p_once': (('paged_decode.cu', '          attn::Mma<T>::run(o[u][n], a, ph[0], ph[1]);\n'
-                                   '          attn::Mma<T>::run(o[u][n], a, pl[0], pl[1]);\n',
-                '          attn::Mma<T>::run(o[u][n], a, ph[0], ph[1]);\n'),),
+    'p_once': ((NARROW, '          attn::Mma<T>::run(o[u][n], va, ph[0], ph[1]);\n'
+                        '          attn::Mma<T>::run(o[u][n], va, pl[0], pl[1]);\n',
+                '          attn::Mma<T>::run(o[u][n], va, ph[0], ph[1]);\n'),),
 }
+# the steps a kernel leaves out: the decode steps of the element types it does not read,
+# and (int8, cp) the block barrier, which costs the narrow body 0.5-3% (PERF.md §6)
+STEP_KERNELS = {'no_decode': ('paged_decode_fp8', 'paged_decode_int8'),
+                'cvt_decode': ('paged_decode_int8',), 'p_once': ('paged_decode',),
+                'block_barrier': ('paged_decode_int4', 'paged_decode_turbo', 'paged_decode',
+                                  'paged_decode_fp8')}
 MX = 'mxfp4_bmm.cu'
 MXFP4_STEPS = {
     'full': (),
@@ -129,39 +157,44 @@ DECODE_CASES = {'paged_decode_int4': ['e2e_shape_llama31', 'bs64_7b_heads',
                 'paged_decode_fp8': ['e2e_shape_llama31', 'bs64_tinyllama_heads'],
                 'paged_decode': ['plain', 'e2e_long', 'gptoss_sliding',
                                  'rows_shorter_than_a_split', 'bs8'],
+                'paged_decode_int8': ['e2e_shape_7b', 'bs64_7b', 'bs64_tinyllama_heads'],
+                'paged_decode_cp': ['e2e_cp2', 'e2e_cp4'],
                 'mxfp4_bmm': ['gate_m64', 'down_m64', 'gate_m767']}
 
 
 def steps_of(kernel: str) -> dict:
     if kernel == 'mxfp4_bmm':
         return MXFP4_STEPS
-    src = KERNELS[kernel][0] + '.cu'
-    return {step: tuple(e for e in edits if e[0] == src) for step, edits in DECODE_STEPS.items()
-            if step in ('full', 'one_split') or any(e[0] == src for e in edits)
-            and (step != 'no_decode' or kernel == 'paged_decode_fp8')
-            and (step != 'p_once' or kernel == 'paged_decode')}
+    files = KERNELS[kernel][2]
+    return {step: tuple(e for e in edits if e[0] in files)
+            for step, edits in DECODE_STEPS.items()
+            if (step in ('full', 'one_split') or any(e[0] in files for e in edits))
+            and kernel in STEP_KERNELS.get(step, (kernel,))}
 
 
 def build_steps(root: str, kernels) -> dict:
-    """{(step, source): library path}: each edited source compiled, all at once."""
+    """{(step, source): library path}: each step's edits applied once to a copy of the
+    sources, each source a kernel of the step needs compiled from it, all at once."""
     from lmdeploy_tpu_torch.ops import cuda_build
     shutil.rmtree(root, ignore_errors=True)
     wanted = {}
     for kernel in kernels:
         for step, edits in steps_of(kernel).items():
             if edits:
-                wanted.setdefault(step, {})[KERNELS[kernel][0]] = edits
+                sources, all_edits = wanted.setdefault(step, (set(), []))
+                sources.add(KERNELS[kernel][0])
+                all_edits += [e for e in edits if e not in all_edits]
     procs, libs = {}, {}
-    for step, sources in wanted.items():
+    for step, (sources, edits) in wanted.items():
         d = os.path.join(root, step)
         shutil.copytree(cuda_build.CSRC_DIR, d)
-        for src, edits in sources.items():
-            for f, old, new in edits:
-                path = os.path.join(d, f)
-                text = open(path).read()
-                if old not in text:
-                    raise SystemExit(f'chip_steps: {step} finds no {old!r} in {f}')
-                open(path, 'w').write(text.replace(old, new))
+        for f, old, new in edits:
+            path = os.path.join(d, f)
+            text = open(path).read()
+            if old not in text:
+                raise SystemExit(f'chip_steps: {step} finds no {old!r} in {f}')
+            open(path, 'w').write(text.replace(old, new))
+        for src in sorted(sources):
             lib = os.path.join(d, f'lib{src}.so')
             log = open(os.path.join(d, src + '.log'), 'w')
             procs[(step, src)] = (subprocess.Popen(
@@ -197,6 +230,34 @@ def kernel_cases(c, kernel, label, gen):
                         generator=gen).bfloat16()
         return (lambda: qb.mxfp4_bmm(x, nib, scale),
                 lambda: qb.mxfp4_bmm_plain(x, nib, scale), None)
+    if kernel == 'paged_decode_int8':
+        _, B, Hq, Hkv, D, lens, W, softcap, dtype = next(s for s in c.int8_decode_cases()
+                                                        if s[0] == label)
+        q, cache, tables, kv_lens = c._int8_decode_inputs(gen, B, Hq, Hkv, D, 128, W, lens,
+                                                          dtype=dtype)
+        return (lambda: pd.paged_decode_attention_int8(q, cache, tables, kv_lens, 1,
+                                                       D ** -0.5, Hkv, logit_softcap=softcap),
+                lambda: pd.paged_decode_attention_int8_plain(q, cache, tables, kv_lens, 1,
+                                                             D ** -0.5, Hkv,
+                                                             logit_softcap=softcap),
+                lambda: pd.int8_splits(W, 128, D, B))
+    if kernel == 'paged_decode_cp':
+        from lmdeploy_tpu_torch.parallel.mesh import StripedKV, build_mesh
+        _, cp, B, Hq, Hkv, D, lens, W, opts = next(s for s in c.cp_decode_cases()
+                                                   if s[0] == label)
+        opts = dict(opts)
+        dtype = opts.pop('dtype', torch.bfloat16)
+        q, cache, tables, kv_lens = c._decode_inputs(gen, B, Hq, Hkv, D, 128, W, lens,
+                                                     dtype=dtype)
+        if opts.get('sinks'):
+            opts['sinks'] = torch.randn(Hq, device='cuda', generator=gen) * 2
+        mesh = build_mesh(cp=cp, devices=['cuda:0'] * cp)
+        kv = StripedKV.from_reference_layout(cache, mesh.cp_devices)
+        return (lambda: pd.paged_decode_attention_cp(q, kv, tables, kv_lens, 1, D ** -0.5,
+                                                     Hkv, mesh, **opts),
+                lambda: c._cp_plain()(q, kv, tables, kv_lens, 1, D ** -0.5, Hkv, mesh,
+                                      **opts),
+                lambda: pd.cp_splits(W, 128 // cp, D, dtype))
     if kernel == 'paged_decode':
         _, B, Hq, Hkv, D, lens, W, opts = next(s for s in c.decode_cases() if s[0] == label)
         opts = dict(opts)
@@ -262,8 +323,8 @@ def main() -> int:
     libs = build_steps(os.path.join(ROOT, 'work_dir', 'steps'), args.kernels)
     gen = torch.Generator(device='cuda').manual_seed(c.SEED)
     for kernel in args.kernels:
-        source, const = KERNELS[kernel]
-        tol = c.KERNEL_TOL['paged_decode' if kernel == 'paged_decode' else kernel]
+        source, const, _ = KERNELS[kernel]
+        tol = c.KERNEL_TOL[kernel]
         package_lib = cuda_build.load(source)
         for label in args.cases or DECODE_CASES[kernel]:
             kern, plain, splits = kernel_cases(c, kernel, label, gen)
@@ -276,7 +337,7 @@ def main() -> int:
                 row = {'step': step, 'kernel': kernel, 'case': label, 'ms': c.time_ms(kern)}
                 if splits:
                     row['splits'] = splits()
-                if step in ('full', 'one_split', 'p_once'):
+                if step in ('full', 'one_split', 'p_once', 'cvt_decode'):
                     row['err_over_tol'] = c.compare(kern(), plain(), tol)[2]
                 if const:
                     setattr(pd, const, chosen)

@@ -29,25 +29,14 @@
 //
 // Design.  The query heads of a GQA group share every K/V byte a block loads.
 //   * Narrow, tensor cores (bf16 / f16 q, D = 64 or 128, pages of 2-byte or e4m3
-//     elements, any block size): the int4 narrow path's design (paged_decode_int4.cu,
-//     quant_decode.cuh).  A block of 4 warps takes up to 8 query heads of a kv head and
-//     one split of the row's pages.  The split's positions stream through a 3-stage
-//     cp.async ring of 64-token sub-chunks (the head's [64, D] slices of the K and V
-//     planes); each warp copies and owns 16 consecutive positions of every sub-chunk
-//     (under 16 slots a page they lie on several, each row's page looked up as it is
-//     copied), waits only for its own copies (no block barrier in the loop) and keeps
-//     its own online softmax; the block's tail joins the warps.  S = Q K^T on mma.sync m16n8k16 with the
-//     group's heads as the rows of the A tile, each K element read once for the group;
-//     O^T += V^T P^T on mma.sync with P^T straight from S's accumulators.  P stays f32
-//     and goes in as hi + lo in V's operand type (16 of its 24 bits in bf16, 22 in f16:
-//     two products), where rounding it once to 16 bits, as the Pallas kernel does
-//     (pr.astype(v.dtype)), moved short rows' outputs by up to 1.5x the allowance of
-//     one bf16 ulp against the plain version.  2-byte pages: K and V go to the tensor
-//     cores as they are.  e4m3 pages: each K / V element is decoded into a 16-bit
-//     operand exactly, NaN code included (cvt e4m3x2 -> f16x2 is exact; for a bf16 q,
-//     f16 -> f32 -> bf16 is exact too, every e4m3 value being a normal f16 with 3
-//     mantissa bits), so q goes in in its own type and every product of S is exact in
-//     f32; V is decoded to bf16.
+//     elements, any block size): narrow_decode.cuh's body, which the int8 decode and the
+//     context-parallel partials share.  A block of 4 warps takes up to 8 query heads of
+//     a kv head and one split of the row's pages, streamed through per-warp 3-stage
+//     cp.async rings of 64-token sub-chunks with no block barrier in the loop; S = Q K^T
+//     and O^T += V^T P^T on mma.sync m16n8k16, each K element read once for the group,
+//     P as hi + lo in V's operand type.  2-byte pages go to the tensor cores as they
+//     are; e4m3 elements are decoded into 16-bit operands exactly, NaN code included
+//     (V to bf16).
 //   * Narrow, CUDA cores (f32 q over e4m3 pages, D = 80 / 96): one block of 128
 //     threads per (kv head, batch row, split) walks the split's pages.  Per page: the head's [BS, D] slice of the K plane and of the
 //     V plane goes to shared memory with 16-byte coalesced loads; scores with one
@@ -93,6 +82,7 @@
 #include "attn_mma.cuh"
 #include "attn_types.cuh"
 #include "decode_split.cuh"
+#include "narrow_decode.cuh"
 #include "quant_decode.cuh"
 
 namespace {
@@ -295,288 +285,15 @@ paged_decode_narrow_simt(const TQ* __restrict__ q,            // [B, Hq, D]
 }
 
 // ------------------------------------------------------ tensor-core narrow kernel
-// one ring stage: the K and V rows of a sub-chunk, [TC][D * sizeof(TK) + 16] bytes each
-template <typename TK, int D>
-struct NarrowStage {
-  static constexpr int RB = D * (int)sizeof(TK);   // bytes of a head's row
-  static constexpr int RS = RB + 16;               // padded row: conflict-free fragments
-  static constexpr int V = qdec::TC * RS;
-  static constexpr int BYTES = 2 * qdec::TC * RS;
-};
-
-// the ring, whose smem the tail takes after it
-template <typename TK, int D>
-__host__ __device__ constexpr int narrow_mma_smem() {
-  return qdec::NST * NarrowStage<TK, D>::BYTES > qdec::tail_bytes<D>()
-             ? qdec::NST * NarrowStage<TK, D>::BYTES : qdec::tail_bytes<D>();
-}
-
-// the two e4m3 codes in bits 0..15 of x (the lower one first) as two T, exactly, NaN
-// code included: e4m3 -> f16 is exact, and so is f16 -> f32 -> bf16 (every e4m3 value
-// is a normal f16 of 3 mantissa bits)
-template <typename T>
-__device__ __forceinline__ uint32_t e4m3x2(uint32_t x);
-template <>
-__device__ __forceinline__ uint32_t e4m3x2<__half>(uint32_t x) {
-  const __half2_raw h =
-      __nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(x & 0xFFFFu), __NV_E4M3);
-  return (uint32_t)h.x | ((uint32_t)h.y << 16);
-}
-template <>
-__device__ __forceinline__ uint32_t e4m3x2<__nv_bfloat16>(uint32_t x) {
-  const uint32_t h = e4m3x2<__half>(x);
-  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h));
-  return attn::Mma<__nv_bfloat16>::pack(f.x, f.y);
-}
-
-// S's B fragment of k step kc for the token row kr: dims 16 kc + 4 tig, + 1 (b0) and
-// + 2, + 3 (b1) -- the k order of a step is a permutation of its 16 dims, the Q
-// fragments' too
+// narrow_decode.cuh's body over 2-byte pages in q's type or e4m3 pages
 template <typename T, typename TK>
-__device__ __forceinline__ void k_fragment(const uint8_t* kr, int kc, int tig, uint32_t& b0,
-                                           uint32_t& b1) {
-  if constexpr (sizeof(TK) == 2) {
-    const uint2 w = *reinterpret_cast<const uint2*>(kr + (16 * kc + 4 * tig) * 2);
-    b0 = w.x;
-    b1 = w.y;
-  } else {
-    const uint32_t w = *reinterpret_cast<const uint32_t*>(kr + 16 * kc + 4 * tig);
-    b0 = e4m3x2<T>(w);
-    b1 = e4m3x2<T>(w >> 16);
-  }
-}
-
-// f32 (lo, hi) -> T x2 hi parts and the T x2 of what they leave: 16 (bf16) or 22 (f16)
-// of P's 24 bits in two products
-template <typename T>
-__device__ __forceinline__ void split_hi_lo(float lo, float hi, uint32_t& h, uint32_t& l);
-template <>
-__device__ __forceinline__ void split_hi_lo<__nv_bfloat16>(float lo, float hi, uint32_t& h,
-                                                           uint32_t& l) {
-  qdec::split_bf16(lo, hi, h, l);
-}
-template <>
-__device__ __forceinline__ void split_hi_lo<__half>(float lo, float hi, uint32_t& h,
-                                                    uint32_t& l) {
-  h = attn::Mma<__half>::pack(lo, hi);
-  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h));
-  l = attn::Mma<__half>::pack(lo - f.x, hi - f.y);
-}
+using NarrowPages =
+    typename std::conditional<sizeof(TK) == 2, ndec::Pages16<T>, ndec::PagesE4m3>::type;
 
 template <typename T, typename TK, int D, bool ONE_PAGE>
 __global__ void __launch_bounds__(qdec::NT, qdec::min_blocks<D>())
-paged_decode_narrow(const T* __restrict__ q,                 // [B, Hq, D]
-                    const TK* __restrict__ cache,            // [L, NB, 2, BS, Hkv*D]
-                    const int* __restrict__ tables,          // [B, W]
-                    const int* __restrict__ kv_lens,         // [B]
-                    const float* __restrict__ sinks,         // [Hq] or null
-                    T* __restrict__ out,                     // [B, Hq, D]
-                    float* __restrict__ part,                // [B, S, Hq, D + 2] or null
-                    int Hq, int Hkv, int NB, int BS, int W, int layer,
-                    float scale, float softcap, int window, int split_pages) {
-  using St = NarrowStage<TK, D>;
-  // V's operand type for P.V: the page type, or bf16 for e4m3 pages
-  using TV = typename std::conditional<sizeof(TK) == 2, T, __nv_bfloat16>::type;
-  constexpr int RS = St::RS;
-  constexpr int CH = St::RB / 16;     // 16-byte chunks a row
-  constexpr int TC = qdec::TC, WT = qdec::WT, NST = qdec::NST, GQ = qdec::GQ;
-  extern __shared__ __align__(16) uint8_t mma_raw[];
-
-  const int G = Hq / Hkv;
-  const int hsplits = (G + GQ - 1) / GQ;
-  const int h = blockIdx.x / hsplits;
-  const int g0 = (blockIdx.x - h * hsplits) * GQ;
-  const int gb = min(GQ, G - g0);
-  const int b = blockIdx.y;
-  const int S = gridDim.z;
-  const int sp = blockIdx.z;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-  const int hq0 = h * G + g0;
-  const long long head0 = (long long)b * Hq + hq0;
-  // the split's positions in the window, in sub-chunks of TC positions
-  const qdec::Span span(kv_lens[b], BS, W, sp, split_pages, window);
-  if (span.empty()) {
-    qdec::empty_split(out, head0, gb, D, S);
-    return;
-  }
-
-  // Q's A fragments (rows gid; rows gid + 8 are zero), in the K fragments' k order
-  uint32_t qa[D / 16][2];
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    uint2 u = make_uint2(0u, 0u);
-    if (gid < gb)
-      u = *reinterpret_cast<const uint2*>(q + (head0 + gid) * D + 16 * kc + 4 * tig);
-    qa[kc][0] = u.x;
-    qa[kc][1] = u.y;
-  }
-
-  const long long RR = (long long)Hkv * St::RB;   // bytes a token row of a plane
-  const long long plane = (long long)BS * RR;
-  const uint8_t* bytes = reinterpret_cast<const uint8_t*>(cache);
-  const int wt = warp * WT;           // the warp's first row of a sub-chunk
-  auto load = [&](int j, int st) {
-    // the warp's 16 rows; rows outside [lo, hi) read as zeros
-    const int r0 = span.row0(j, warp);
-    const int lo = span.lo(r0), hi = span.hi(r0);
-    const qdec::WarpRows<ONE_PAGE> rows(tables + (long long)b * W, r0, BS, NB, layer,
-                                        lo < hi);
-    uint8_t* stage = mma_raw + st * St::BYTES;
-    for (int x = lane; x < WT * CH; x += 32) {
-      const int t = x / CH;
-      const int c = x % CH;
-      const bool in = t >= lo && t < hi;
-      long long off = 0;
-      if (in) {
-        const qdec::Slot s = rows(t);
-        off = s.page * 2 * plane + (long long)h * St::RB + (long long)s.row * RR + c * 16;
-      }
-      qdec::cp_async16(stage + (wt + t) * RS + c * 16, bytes + off, in);
-      qdec::cp_async16(stage + St::V + (wt + t) * RS + c * 16, bytes + off + (in ? plane : 0),
-                       in);
-    }
-    qdec::cp_commit();
-  };
-
-  float m = MASK_VALUE, l = 0.f;      // head gid; l: this lane's share
-  float o[D / 64][4][4];
-#pragma unroll
-  for (int u = 0; u < D / 64; ++u)
-#pragma unroll
-    for (int n = 0; n < 4; ++n) o[u][n][0] = o[u][n][1] = o[u][n][2] = o[u][n][3] = 0.f;
-
-#pragma unroll
-  for (int st = 0; st < NST - 1; ++st) {
-    if (span.j_lo + st < span.j_hi) load(span.j_lo + st, st);
-    else qdec::cp_commit();
-  }
-  for (int j = span.j_lo; j < span.j_hi; ++j) {
-    qdec::cp_wait<NST - 2>();
-    // the warp's rows of sub-chunk j have landed for all its lanes, and the warp is
-    // done with its rows of j - 1, whose stage takes j + NST - 1 now: each warp copies
-    // and reads only its own rows, so no block barrier
-    __syncwarp();
-    const int nx = j + NST - 1;
-    if (nx < span.j_hi) load(nx, (nx - span.j_lo) % NST);
-    else qdec::cp_commit();
-    // the warp's rows [lo, hi) are positions of the split in the window
-    const int r0 = span.row0(j, warp);
-    const int lo = span.lo(r0), hi = span.hi(r0);
-    if (lo >= hi) continue;
-    const uint8_t* stage = mma_raw + ((j - span.j_lo) % NST) * St::BYTES;
-
-    // S = Q K^T over the warp's two 8-token tiles, each K element read once
-    float s[2][4];
-#pragma unroll
-    for (int jt = 0; jt < 2; ++jt) {
-      s[jt][0] = s[jt][1] = s[jt][2] = s[jt][3] = 0.f;
-      const uint8_t* kr = stage + (wt + 8 * jt + gid) * RS;
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        uint32_t b0, b1;
-        k_fragment<T, TK>(kr, kc, tig, b0, b1);
-        const uint32_t a[4] = {qa[kc][0], 0u, qa[kc][1], 0u};
-        attn::Mma<T>::run(s[jt], a, b0, b1);
-      }
-    }
-    // scale, softcap, mask; the online softmax of head gid
-    float mx = MASK_VALUE;
-#pragma unroll
-    for (int jt = 0; jt < 2; ++jt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int t = 8 * jt + 2 * tig + e;
-        float x = s[jt][e] * scale;
-        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        x = t >= lo && t < hi ? x : MASK_VALUE;
-        s[jt][e] = x;
-        mx = fmaxf(mx, x);
-      }
-    mx = attn::quad_max(mx);
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    m = m_new;
-    l *= alpha;
-    // P^T's B fragments, hi and lo in V's operand type (the page type, or bf16)
-    uint32_t ph[2], pl[2];
-#pragma unroll
-    for (int jt = 0; jt < 2; ++jt) {
-      const float e0 = expf(s[jt][0] - m_new), e1 = expf(s[jt][1] - m_new);
-      l += e0 + e1;
-      split_hi_lo<TV>(e0, e1, ph[jt], pl[jt]);
-    }
-    // O^T's columns are heads 2 tig and 2 tig + 1: their alphas from lanes 8 tig (+4)
-    const float al0 = __shfl_sync(0xffffffffu, alpha, 8 * tig);
-    const float al1 = __shfl_sync(0xffffffffu, alpha, 8 * tig + 4);
-#pragma unroll
-    for (int u = 0; u < D / 64; ++u)
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        o[u][n][0] *= al0;
-        o[u][n][1] *= al1;
-        o[u][n][2] *= al0;
-        o[u][n][3] *= al1;
-      }
-
-    // O^T += V^T P^T: the warp's tokens 2 tig, 2 tig + 1 (+8), dims 8 (gid + 8 u) ..;
-    // tile (u, n) row gid is dim 8 (gid + 8 u) + n, row gid + 8 that dim + 4
-    const uint8_t* vr = stage + St::V + (wt + 2 * tig) * RS;
-#pragma unroll
-    for (int u = 0; u < D / 64; ++u) {
-      if constexpr (sizeof(TK) == 2) {
-        const int off = 16 * (gid + 8 * u);
-        const uint4 x1 = *reinterpret_cast<const uint4*>(vr + off);
-        const uint4 x2 = *reinterpret_cast<const uint4*>(vr + RS + off);
-        const uint4 x3 = *reinterpret_cast<const uint4*>(vr + 8 * RS + off);
-        const uint4 x4 = *reinterpret_cast<const uint4*>(vr + 9 * RS + off);
-        const uint32_t w1[4] = {x1.x, x1.y, x1.z, x1.w}, w2[4] = {x2.x, x2.y, x2.z, x2.w};
-        const uint32_t w3[4] = {x3.x, x3.y, x3.z, x3.w}, w4[4] = {x4.x, x4.y, x4.z, x4.w};
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          // two tokens' elements of one dim side by side
-          const uint32_t sel = n & 1 ? 0x7632 : 0x5410;
-          const int i = n >> 1;
-          const uint32_t a[4] = {qdec::prmt(w1[i], w2[i], sel),
-                                 qdec::prmt(w1[2 + i], w2[2 + i], sel),
-                                 qdec::prmt(w3[i], w4[i], sel),
-                                 qdec::prmt(w3[2 + i], w4[2 + i], sel)};
-          attn::Mma<T>::run(o[u][n], a, ph[0], ph[1]);
-          attn::Mma<T>::run(o[u][n], a, pl[0], pl[1]);
-        }
-      } else {
-        const int off = 8 * (gid + 8 * u);
-        const uint2 x1 = *reinterpret_cast<const uint2*>(vr + off);
-        const uint2 x2 = *reinterpret_cast<const uint2*>(vr + RS + off);
-        const uint2 x3 = *reinterpret_cast<const uint2*>(vr + 8 * RS + off);
-        const uint2 x4 = *reinterpret_cast<const uint2*>(vr + 9 * RS + off);
-        // two tokens' bytes of one dim side by side: dims n = 0, 1 of each half from
-        // 0x5140, n = 2, 3 from 0x7362
-#pragma unroll
-        for (int nn = 0; nn < 2; ++nn) {
-          const uint32_t sel = nn ? 0x7362 : 0x5140;
-          const uint32_t z[4] = {qdec::prmt(x1.x, x2.x, sel), qdec::prmt(x1.y, x2.y, sel),
-                                 qdec::prmt(x3.x, x4.x, sel), qdec::prmt(x3.y, x4.y, sel)};
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int n = 2 * nn + hh;
-            const uint32_t a[4] = {e4m3x2<__nv_bfloat16>(z[0] >> (16 * hh)),
-                                   e4m3x2<__nv_bfloat16>(z[1] >> (16 * hh)),
-                                   e4m3x2<__nv_bfloat16>(z[2] >> (16 * hh)),
-                                   e4m3x2<__nv_bfloat16>(z[3] >> (16 * hh))};
-            attn::Mma<__nv_bfloat16>::run(o[u][n], a, ph[0], ph[1]);
-            attn::Mma<__nv_bfloat16>::run(o[u][n], a, pl[0], pl[1]);
-          }
-        }
-      }
-    }
-  }
-  qdec::cp_wait<0>();
-  __syncthreads();                    // the ring's smem takes the tail's
-  qdec::block_tail<T, D>(o, m, l, 0.f, reinterpret_cast<float*>(mma_raw), out, part, head0,
-                         hq0, gb, b, S, sp, Hq, sinks);
+paged_decode_narrow(const ndec::Args a) {
+  ndec::narrow_body<T, NarrowPages<T, TK>, D, ONE_PAGE, false>(a);
 }
 
 // ------------------------------------------------------------------------ wide kernel
@@ -1073,18 +790,18 @@ cudaError_t launch_narrow_mma(const void* q, const void* cache, const int* table
                               int B, int Hq, int Hkv, int NB, int BS, int W, int layer,
                               float scale, float softcap, int window, int splits,
                               cudaStream_t stream) {
-  constexpr int bytes = narrow_mma_smem<TK, D>();
+  constexpr int bytes = ndec::smem_bytes<NarrowPages<T, TK>, D>();
   static cudaError_t configured = cudaFuncSetAttribute(
       paged_decode_narrow<T, TK, D, ONE_PAGE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (configured != cudaSuccess) return configured;
   const int hsplits = (Hq / Hkv + qdec::GQ - 1) / qdec::GQ;
   const int split_pages = (W + splits - 1) / splits;
+  const ndec::Args args{q,     cache,  nullptr, tables, kv_lens, sinks,   out,    part,
+                        Hq,    Hkv,    NB,      BS,     W,       layer,   scale,  softcap,
+                        window, split_pages, {}};
   paged_decode_narrow<T, TK, D, ONE_PAGE><<<dim3(Hkv * hsplits, B, splits), qdec::NT, bytes,
-                                            stream>>>(
-      static_cast<const T*>(q), static_cast<const TK*>(cache), tables, kv_lens, sinks,
-      static_cast<T*>(out), part, Hq, Hkv, NB, BS, W, layer, scale, softcap, window,
-      split_pages);
+                                            stream>>>(args);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
   return combine_rows<T>(part, kv_lens, sinks, out, B, Hq, D, splits, BS, W, split_pages,

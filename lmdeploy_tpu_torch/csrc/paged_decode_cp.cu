@@ -27,25 +27,42 @@
 // ranks together the whole cache's.  At Llama-3.1-8B heads (Hkv 8, D 128, bf16) that
 // is 4 KiB a token and layer, split over the ranks.
 //
-// Design (paged_decode.cu's sub-chunked wide walk with a position offset and stride;
-// simple and right first, TMA and tensor-core scores are later work).
-//   * One block of 128 threads per (kv head, group of up to 16 query heads, row,
-//     split): the query heads of a GQA group share every K/V byte the block loads.
-//   * The walk covers the row's pages that hold a local in-window token; each page's
-//     BSl local slots go through in sub-chunks of TC = 32 tokens: the head's [TC, D]
-//     slices of the K and V planes to shared memory with 16-byte loads; each thread
-//     scores one token for 1 / 4 of the group's heads, reading the token's K row once,
-//     16 bytes at a time; online softmax per query head (warp reductions); P.V with
-//     one thread per (head, column), the accumulator in shared memory.
-//   * A long row's pages are split over blocks (split_pages each): a 16,384-token row
-//     would otherwise walk its 128 pages serially while the short rows' blocks idle.
-//     Each block whose share of the row's pages is not empty writes its partial, and a
-//     second kernel combines a row's splits in a fixed order (m = max m_s, l = sum
-//     l_s e^(m_s - m), acc likewise) into the rank's (acc, m, l).  No atomics.
+// Design.  Rank r's local slot j of page p is position p * stride + pos_off + j, which
+// rises with the local index p * BSl + j, so the row's positions in the window [ws,
+// len) are one contiguous range of local indices [n(ws), n(len)), n(x) the local slots
+// below position x (attn::Positions::local).  Both bodies walk the stripe as a cache of
+// BSl-slot pages over that range, split over blocks (split_pages pages each; a
+// 16,384-token row would otherwise walk serially while the short rows' blocks idle):
+// each block whose split holds a counted slot writes its partial, and a second kernel
+// (decode_split_combine_rank) combines a row's non-empty splits -- found by the
+// same n() -- in a fixed order (m = max m_s, l = sum l_s e^(m_s - m), acc likewise)
+// into the rank's (acc, m, l), written planar (acc [B, Hq, D], then m and l [B, Hq]).
+// No atomics.  One split writes them itself.
+//   * Tensor cores (bf16 / f16 stripes at D 64 / 128: Llama-3.1-8B and gpt-oss heads):
+//     narrow_decode.cuh's body over the stripe's 2-byte pages -- per-warp 3-stage
+//     cp.async rings of 64-slot sub-chunks with no block barrier in the loop, S = Q K^T
+//     and O^T += V^T P^T on mma.sync m16n8k16 with up to 8 query heads of a kv head as
+//     the A rows (each K element read once for the group), P as hi + lo in the stripe's
+//     type, and the tail writing the unnormalized partials.  A stripe page of BSl = 64
+//     (cp 2) or 32 (cp 4) slots takes the build with one page lookup a warp; a stripe
+//     whose BSl is no multiple of 16 the one with a lookup a row.
+//   * CUDA cores (f32 stripes; D 80 / 96 / 192 / 256): one block of 128 threads per (kv
+//     head, group of up to 16 query heads, row, split); each page's BSl local slots go
+//     through in sub-chunks of TC = 32 tokens: the head's [TC, D] slices of the K and V
+//     planes to shared memory with 16-byte loads; each thread scores one token for 1 / 4
+//     of the group's heads, reading the token's K row once, 16 bytes at a time; online
+//     softmax per query head (warp reductions); P.V with one thread per (head, column),
+//     the accumulator in shared memory.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "attn_mma.cuh"
 #include "attn_types.cuh"
+#include "decode_split.cuh"
+#include "narrow_decode.cuh"
+#include "quant_decode.cuh"
 
 namespace {
 
@@ -54,7 +71,7 @@ constexpr int TC = 32;            // tokens a sub-chunk
 constexpr int HP = NT / TC;       // head parts: the threads that share a token
 constexpr int GB = 16;            // query heads a block at most
 constexpr int ACC = (GB + HP - 1) / HP;
-constexpr float MASK_VALUE = -0.7f * 3.402823466e38f;
+using attn::MASK_VALUE;
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -66,24 +83,6 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
-}
-
-// The pages [p_lo, p_hi) of a row of length len that hold a local token at or past
-// the window start ws: page p's local tokens are the positions
-// [p * stride + pos_off, p * stride + pos_off + BSl).
-struct PageSpan {
-  int lo, hi;
-};
-
-__device__ __forceinline__ PageSpan local_pages(int len, int ws, int pos_off, int stride,
-                                                int BSl, int W) {
-  PageSpan s{0, 0};
-  if (len <= pos_off) return s;
-  s.hi = min((len - pos_off + stride - 1) / stride, W);
-  const int t = ws - pos_off - BSl + 1;        // the first page ends past ws
-  s.lo = t <= 0 ? 0 : (t + stride - 1) / stride;
-  if (s.lo > s.hi) s.lo = s.hi;
-  return s;
 }
 
 __host__ __device__ inline int float_words(int gb, int D) {
@@ -104,12 +103,10 @@ paged_decode_cp_kernel(const T* __restrict__ q,                 // [B, Hq, D]
                        const T* __restrict__ stripe,            // [L, NB, 2, BSl, Hkv*D]
                        const int* __restrict__ tables,          // [B, W]
                        const int* __restrict__ kv_lens,         // [B]
-                       float* __restrict__ acc_out,             // [B, Hq, D]
-                       float* __restrict__ m_out,               // [B, Hq]
-                       float* __restrict__ l_out,               // [B, Hq]
+                       float* __restrict__ out,                 // planar (acc, m, l)
                        float* __restrict__ part,                // [B, S, Hq, D + 2] or null
                        int Hq, int Hkv, int D, int NB, int BSl, int W, int layer,
-                       int pos_off, int stride, float scale, float softcap, int window,
+                       attn::Positions pos, float scale, float softcap, int window,
                        int split_pages) {
   constexpr int EPC = attn::epc<T>();   // elements per 16-byte chunk
   const int KSTR = D + EPC;             // 16-byte padded K rows: conflict-free row reads
@@ -129,9 +126,13 @@ paged_decode_cp_kernel(const T* __restrict__ q,                 // [B, Hq, D]
 
   const int len = kv_lens[b];
   const int ws = window > 0 ? max(len - window, 0) : 0;
-  const PageSpan span = local_pages(len, ws, pos_off, stride, BSl, W);
-  const int p_lo = max(span.lo, sp * split_pages);
-  const int p_hi = min(span.hi, (sp + 1) * split_pages);
+  const int pos_off = pos.pos_off, stride = pos.stride;
+  // the row's pages that hold a local slot of [ws, len): local indices [n(ws), n(len))
+  int n_len, n_ws;
+  pos.window(len, window, n_len, n_ws);
+  const bool any = n_len > n_ws;
+  const int p_lo = max(any ? n_ws / BSl : 0, sp * split_pages);
+  const int p_hi = min(any ? min((n_len + BSl - 1) / BSl, W) : 0, (sp + 1) * split_pages);
   // a split with no page of the row writes nothing: the combine skips it
   if (S > 1 && p_lo >= p_hi) return;
 
@@ -257,60 +258,46 @@ paged_decode_cp_kernel(const T* __restrict__ q,                 // [B, Hq, D]
   }
 
   if (S == 1) {
-    for (int i = tid; i < gb * D; i += NT) acc_out[head0 * D + i] = os[i];
+    // the rank's unnormalized (acc, m, l), planar
+    const long long bh = (long long)gridDim.y * Hq;
+    for (int i = tid; i < gb * D; i += NT) out[head0 * D + i] = os[i];
     for (int g = tid; g < gb; g += NT) {
-      m_out[head0 + g] = ms[g];
-      l_out[head0 + g] = ls[g];
+      out[bh * D + head0 + g] = ms[g];
+      out[bh * (D + 1) + head0 + g] = ls[g];
     }
     return;
   }
   // this split's unnormalized (acc, m, l) for the combine
+  float* dst = part + (((long long)b * S + sp) * Hq + h * G + g0) * (D + 2);
   for (int i = tid; i < gb * (D + 2); i += NT) {
     const int g = i / (D + 2);
     const int d = i - g * (D + 2);
-    const float v = d < D ? os[g * D + d] : (d == D ? ms[g] : ls[g]);
-    part[(((long long)b * S + sp) * Hq + h * G + g0 + g) * (D + 2) + d] = v;
+    dst[i] = d < D ? os[g * D + d] : (d == D ? ms[g] : ls[g]);
   }
 }
 
-// A row's non-empty splits combined in order into the rank's (acc, m, l): one block
-// per (query head, row).  A row with none gives m = MASK_VALUE, l = 0, acc = 0.
-__global__ void __launch_bounds__(128)
-paged_decode_cp_combine(const float* __restrict__ part, const int* __restrict__ kv_lens,
-                        float* __restrict__ acc_out, float* __restrict__ m_out,
-                        float* __restrict__ l_out, int Hq, int D, int S, int BSl, int W,
-                        int pos_off, int stride, int window, int split_pages) {
-  const int hq = blockIdx.x;
-  const int b = blockIdx.y;
-  const int len = kv_lens[b];
-  const int ws = window > 0 ? max(len - window, 0) : 0;
-  const PageSpan span = local_pages(len, ws, pos_off, stride, BSl, W);
-  const int s_lo = span.lo / split_pages;
-  const int s_hi = span.hi > span.lo ? (span.hi + split_pages - 1) / split_pages : s_lo;
-  const float* pr = part + ((long long)b * S * Hq + hq) * (D + 2);
-  const long long sstride = (long long)Hq * (D + 2);
-  float m = MASK_VALUE;
-  for (int s = s_lo; s < s_hi; ++s) m = fmaxf(m, pr[s * sstride + D]);
-  float l = 0.f;
-  for (int s = s_lo; s < s_hi; ++s) l += pr[s * sstride + D + 1] * expf(pr[s * sstride + D] - m);
-  const long long row = (long long)b * Hq + hq;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float a = 0.f;
-    for (int s = s_lo; s < s_hi; ++s) a += pr[s * sstride + d] * expf(pr[s * sstride + D] - m);
-    acc_out[row * D + d] = a;
-  }
-  if (threadIdx.x == 0) {
-    m_out[row] = m;
-    l_out[row] = l;
-  }
+// ------------------------------------------------------- tensor-core kernel
+template <typename T, int D, bool ONE_PAGE>
+__global__ void __launch_bounds__(qdec::NT, qdec::min_blocks<D>())
+paged_decode_cp_mma(const ndec::Args a) {
+  ndec::narrow_body<T, ndec::Pages16<T>, D, ONE_PAGE, true>(a);
+}
+
+// the second pass of a launch of more than one split: a row's non-empty splits into the
+// rank's (acc, m, l), (0, MASK_VALUE, 0) where none counts
+cudaError_t combine(float* part, const int* kv_lens, float* out, int B, int Hq, int D,
+                    int splits, int BSl, int W, int split_pages, int window,
+                    attn::Positions pos, cudaStream_t stream) {
+  attn::decode_split_combine_rank<<<dim3(Hq, B), 128, 2 * splits * sizeof(float), stream>>>(
+      part, kv_lens, out, Hq, D, splits, BSl, W, split_pages, window, pos);
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* stripe, const int* tables, const int* kv_lens,
-                   float* acc, float* m, float* l, float* part, int B, int Hq, int Hkv,
-                   int D, int NB, int BSl, int W, int layer, int pos_off, int stride,
-                   float scale, float softcap, int window, int splits,
-                   cudaStream_t stream) {
+                   float* out, float* part, int B, int Hq, int Hkv, int D, int NB, int BSl,
+                   int W, int layer, attn::Positions pos, float scale, float softcap,
+                   int window, int splits, cudaStream_t stream) {
   const int G = Hq / Hkv;
   const int hsplits = (G + GB - 1) / GB;
   const size_t bytes = smem_bytes<T>(G < GB ? G : GB, D);
@@ -324,26 +311,64 @@ cudaError_t launch(const void* q, const void* stripe, const int* tables, const i
   }
   const int split_pages = (W + splits - 1) / splits;
   paged_decode_cp_kernel<T><<<dim3(Hkv * hsplits, B, splits), NT, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(stripe), tables, kv_lens, acc, m, l,
-      part, Hq, Hkv, D, NB, BSl, W, layer, pos_off, stride, scale, softcap, window,
-      split_pages);
+      static_cast<const T*>(q), static_cast<const T*>(stripe), tables, kv_lens, out, part,
+      Hq, Hkv, D, NB, BSl, W, layer, pos, scale, softcap, window, split_pages);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
-  paged_decode_cp_combine<<<dim3(Hq, B), 128, 0, stream>>>(
-      part, kv_lens, acc, m, l, Hq, D, splits, BSl, W, pos_off, stride, window,
-      split_pages);
-  return cudaGetLastError();
+  return combine(part, kv_lens, out, B, Hq, D, splits, BSl, W, split_pages, window, pos,
+                 stream);
 }
 
+template <typename T, int D, bool ONE_PAGE>
+cudaError_t launch_mma(const void* q, const void* stripe, const int* tables,
+                       const int* kv_lens, float* out, float* part, int B, int Hq, int Hkv,
+                       int NB, int BSl, int W, int layer, attn::Positions pos, float scale,
+                       float softcap, int window, int splits, cudaStream_t stream) {
+  constexpr int bytes = ndec::smem_bytes<ndec::Pages16<T>, D>();
+  static cudaError_t configured = cudaFuncSetAttribute(
+      paged_decode_cp_mma<T, D, ONE_PAGE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (configured != cudaSuccess) return configured;
+  const int hsplits = (Hq / Hkv + qdec::GQ - 1) / qdec::GQ;
+  const int split_pages = (W + splits - 1) / splits;
+  const ndec::Args args{q,      stripe,  nullptr, tables,  kv_lens, nullptr, out,  part,
+                        Hq,     Hkv,     NB,      BSl,     W,       layer,   scale, softcap,
+                        window, split_pages, pos};
+  paged_decode_cp_mma<T, D, ONE_PAGE><<<dim3(Hkv * hsplits, B, splits), qdec::NT, bytes,
+                                        stream>>>(args);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  return combine(part, kv_lens, out, B, Hq, D, splits, BSl, W, split_pages, window, pos,
+                 stream);
+}
+
+// bf16 / f16 stripes at D 64 / 128: the tensor-core body (the build with one page lookup
+// a warp where BSl is a multiple of 16); f32 stripes and the other head dims: the CUDA
+// cores'
 template <typename T>
-int by_dim(const void* q, const void* stripe, const int* tb, const int* kl, float* acc,
-           float* m, float* l, float* part, int B, int Hq, int Hkv, int D, int NB, int BSl,
-           int W, int layer, int pos_off, int stride, float scale, float softcap,
-           int window, int splits, cudaStream_t s) {
+int by_dim(const void* q, const void* stripe, const int* tb, const int* kl, float* out,
+           float* part, int B, int Hq, int Hkv, int D, int NB, int BSl, int W, int layer,
+           attn::Positions pos, float scale, float softcap, int window, int splits,
+           cudaStream_t s) {
+#define MMA_CASE(DIM)                                                                  \
+  case DIM:                                                                            \
+    return (int)(BSl % qdec::WT == 0 ? launch_mma<T, DIM, true>                        \
+                                     : launch_mma<T, DIM, false>)(                     \
+        q, stripe, tb, kl, out, part, B, Hq, Hkv, NB, BSl, W, layer, pos, scale,        \
+        softcap, window, splits, s);
+  if constexpr (!std::is_same<T, float>::value) {
+    switch (D) {
+      MMA_CASE(64)
+      MMA_CASE(128)
+      default:
+        break;
+    }
+  }
+#undef MMA_CASE
   switch (D) {
     case 64: case 80: case 96: case 128: case 192: case 256:
-      return (int)launch<T>(q, stripe, tb, kl, acc, m, l, part, B, Hq, Hkv, D, NB, BSl, W,
-                            layer, pos_off, stride, scale, softcap, window, splits, s);
+      return (int)launch<T>(q, stripe, tb, kl, out, part, B, Hq, Hkv, D, NB, BSl, W, layer,
+                            pos, scale, softcap, window, splits, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -352,18 +377,18 @@ int by_dim(const void* q, const void* stripe, const int* tb, const int* kl, floa
 }  // namespace
 
 // q [B,Hq,D] contiguous of dtype 0 bf16, 1 f16 or 2 f32; stripe [L,NB,2,BSl,Hkv*D]
-// contiguous in q's dtype; tables [B,W] i32; kv_lens [B] i32; acc [B,Hq,D], m and l
-// [B,Hq] f32 outputs.  A local slot j of page p sits at position p * stride + pos_off
-// + j.  softcap <= 0 and window <= 0 disable those options.  splits: the split of each
-// row's W pages over blocks (1 for none), with part f32 [B, splits, Hq, D + 2] scratch
-// when it is above 1.  D in {64, 80, 96, 128, 192, 256}.  Returns the CUDA error code
-// of the launch (0 = launched).
+// contiguous in q's dtype; tables [B,W] i32; kv_lens [B] i32; out f32, planar: acc
+// [B,Hq,D], then m [B,Hq], then l [B,Hq].  A local slot j of page p sits at position p *
+// stride + pos_off + j.  softcap <= 0 and window <= 0 disable those options.  splits:
+// the split of each row's W pages over blocks (1 for none), with part f32 [B, splits,
+// Hq, D + 2] scratch when it is above 1; a split launch is followed by the combine.  D in
+// {64, 80, 96, 128, 192, 256}.  Returns the CUDA error code of the launches (0 =
+// launched).
 extern "C" int paged_decode_cp(const void* q, const void* stripe, const void* tables,
-                               const void* kv_lens, void* acc, void* m, void* l,
-                               void* part, int dtype, int B, int Hq, int Hkv, int D,
-                               int NB, int BSl, int W, int layer, int pos_off, int stride,
-                               float scale, float softcap, int window, int splits,
-                               void* stream) {
+                               const void* kv_lens, void* out, void* part, int dtype, int B,
+                               int Hq, int Hkv, int D, int NB, int BSl, int W, int layer,
+                               int pos_off, int stride, float scale, float softcap,
+                               int window, int splits, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   if (Hkv <= 0 || Hq % Hkv != 0 || BSl <= 0 || W <= 0 || stride < BSl || pos_off < 0
       || splits <= 0 || (splits > 1 && part == nullptr))
@@ -371,21 +396,19 @@ extern "C" int paged_decode_cp(const void* q, const void* stripe, const void* ta
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* tb = static_cast<const int*>(tables);
   const int* kl = static_cast<const int*>(kv_lens);
-  float* a = static_cast<float*>(acc);
-  float* mm = static_cast<float*>(m);
-  float* ll = static_cast<float*>(l);
+  float* o = static_cast<float*>(out);
   float* pt = static_cast<float*>(part);
+  const attn::Positions pos{pos_off, stride, BSl};
   switch (dtype) {
     case 0:
-      return by_dim<__nv_bfloat16>(q, stripe, tb, kl, a, mm, ll, pt, B, Hq, Hkv, D, NB, BSl,
-                                   W, layer, pos_off, stride, scale, softcap, window,
-                                   splits, s);
+      return by_dim<__nv_bfloat16>(q, stripe, tb, kl, o, pt, B, Hq, Hkv, D, NB, BSl, W,
+                                   layer, pos, scale, softcap, window, splits, s);
     case 1:
-      return by_dim<__half>(q, stripe, tb, kl, a, mm, ll, pt, B, Hq, Hkv, D, NB, BSl, W,
-                            layer, pos_off, stride, scale, softcap, window, splits, s);
+      return by_dim<__half>(q, stripe, tb, kl, o, pt, B, Hq, Hkv, D, NB, BSl, W, layer, pos,
+                            scale, softcap, window, splits, s);
     case 2:
-      return by_dim<float>(q, stripe, tb, kl, a, mm, ll, pt, B, Hq, Hkv, D, NB, BSl, W,
-                           layer, pos_off, stride, scale, softcap, window, splits, s);
+      return by_dim<float>(q, stripe, tb, kl, o, pt, B, Hq, Hkv, D, NB, BSl, W, layer, pos,
+                           scale, softcap, window, splits, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -19,32 +19,50 @@
 // Hkv * (2 * D int8 + 2 * 4 scale bytes) -- 8,448 bytes at llama2-7b (Hkv 32,
 // D 128), half the bf16 cache's bytes.
 //
-// Design (paged_decode.cu's, with int8 pages; TMA and tensor-core scores are later
-// work):
-//   * Narrow (D <= 256; D a template parameter): one block per (kv head, batch row)
-//     walks the row's pages up to its length.  The G query heads of the GQA group
-//     share every page the block loads.  Per page: the head's [BS, D] int8 slices of
-//     the K and V planes go to shared memory with 16-byte loads, and the page's BS K
-//     and V scales of this head beside them; scores with one thread per token, its K
-//     row held in registers; online softmax per query head (warp reductions); P.V
-//     with one thread per (head, column), accumulator in shared memory.
+// Design.  Every path splits each row's pages over blocks (grid (kv heads x head
+// blocks, B, splits); the split is the wrapper's, a function of W, BS and D alone): each
+// block with pages writes its unnormalized (acc, m, l), and a second kernel of
+// decode_split.cuh combines a row's splits in a fixed order (no atomics).  One split
+// writes the output itself.
+//   * Tensor-core narrow (bf16 / f16 q, D = 64, 128, 192, 256, any block size):
+//     narrow_decode.cuh's body with int8 elements and scales.  A block of 4 warps takes
+//     up to 8 query heads of a kv head; its pages stream through a 3-stage ring of
+//     64-token sub-chunks (the [64, D] int8 slices of the K and V planes, padded to D +
+//     16 bytes a row, and the 64 K and 64 V scales, cp.async 16 and 4 bytes), each warp
+//     copying and waiting for its own 16 rows (no block barrier in the loop).  S = Q K^T
+//     on mma.sync m16n8k16: each K code is decoded once for the whole group, straight
+//     into the B fragment, exactly (bf16 and f16 hold every int8 value; the magic
+//     numbers of narrow_decode.cuh: i8x2), against q in its own type, so each product
+//     is exact in f32; s = (q . k) * (scale * ksc).  O^T += V^T P'^T on mma.sync with
+//     the V codes decoded to bf16 the same way and P' = p * vsc as bf16 hi + lo (16 of
+//     its 24 bits); l sums the unscaled p.  So the function is the f32 loop's up to
+//     rounding.
+//   * CUDA-core narrow (f32 q at any D, and D = 80 / 96, which are no whole 64-dim
+//     units): one block per (kv head, batch row, split) walks its pages.  The G query
+//     heads of the GQA group share every page the block loads.  Per page: the head's
+//     [BS, D] int8 slices of the K and V planes go to shared memory with 16-byte loads,
+//     and the page's BS K and V scales of this head beside them; scores with one thread
+//     per token, its K row held in registers; online softmax per query head (warp
+//     reductions); P.V with one thread per (head, column), accumulator in shared memory.
 //   * Wide (MLA's latent D = 576, one kv head under 16 or 128 query heads): whole
 //     [BS, 576] page slices and a register K row do not fit, so, as paged_decode.cu's
 //     wide path, a block of 512 threads takes up to 16 query heads (a larger group is
 //     split over blocks that each re-read the pages from L2) and walks each page in
 //     sub-chunks of 32 tokens: the [32, D] int8 K and V slices and their scales in
 //     shared memory, one thread per (token, head) for the scores, reading the token's
-//     K row 16 bytes at a time.  A row's pages are also split over blocks (SPLIT
-//     pages each, a 4,096-token row would otherwise walk serially); each block writes
-//     its unnormalized (acc, m, l) and a second kernel combines the splits in a fixed
-//     order (m = max m_s, l = sum l_s e^(m_s - m), acc likewise; no atomics), then
-//     divides (l == 0 -> 1).  The arithmetic is the narrow path's, term for term.
+//     K row 16 bytes at a time.  The arithmetic is the CUDA-core narrow path's, term for
+//     term.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "attn_mma.cuh"
 #include "attn_types.cuh"
 #include "decode_split.cuh"
+#include "narrow_decode.cuh"
+#include "quant_decode.cuh"
 
 namespace {
 
@@ -89,12 +107,15 @@ paged_decode_int8_kernel(const TQ* __restrict__ q,   // [B, Hq, D]
                          const int* __restrict__ tables,        // [B, W]
                          const int* __restrict__ kv_lens,       // [B]
                          TQ* __restrict__ out,       // [B, Hq, D]
+                         float* __restrict__ part,   // [B, S, Hq, D + 2] or null
                          int Hq, int Hkv, int NB, int BS, int W, int layer,
-                         float scale, float softcap) {
+                         float scale, float softcap, int split_pages) {
   constexpr int KSTR = D + 16;    // padded K rows: conflict-free 16-byte row reads
   constexpr int CH = D / 16;      // 16-byte chunks per head row
   const int h = blockIdx.x;
   const int b = blockIdx.y;
+  const int S = gridDim.z;
+  const int sp = blockIdx.z;
   const int G = Hq / Hkv;
   const int HD = Hkv * D;
   const int tid = threadIdx.x;
@@ -125,10 +146,11 @@ paged_decode_int8_kernel(const TQ* __restrict__ q,   // [B, Hq, D]
   __syncthreads();
 
   const int len = kv_lens[b];
-  const int p_hi = min((len + BS - 1) / BS, W);
+  const int p_lo = sp * split_pages;
+  const int p_hi = min(min((len + BS - 1) / BS, W), p_lo + split_pages);
   const long long plane = (long long)BS * HD;
   const long long splane = (long long)BS * Hkv;
-  for (int p = 0; p < p_hi; ++p) {
+  for (int p = p_lo; p < p_hi; ++p) {
     const int blk = min(max(tables[(long long)b * W + p], 0), NB - 1);
     const long long page = (long long)layer * NB + blk;
     const int8_t* kpage = data + page * 2 * plane + (long long)h * D;
@@ -212,11 +234,28 @@ paged_decode_int8_kernel(const TQ* __restrict__ q,   // [B, Hq, D]
     __syncthreads();
   }
 
-  TQ* orow = out + ((long long)b * Hq + (long long)h * G) * D;
-  for (int i = tid; i < G * D; i += NT) {
-    const float l = ls[i / D];
-    orow[i] = attn::from_f<TQ>(len > 0 ? os[i] / (l == 0.f ? 1.f : l) : 0.f);
+  if (S == 1) {
+    TQ* orow = out + ((long long)b * Hq + (long long)h * G) * D;
+    for (int i = tid; i < G * D; i += NT) {
+      const float l = ls[i / D];
+      orow[i] = attn::from_f<TQ>(len > 0 ? os[i] / (l == 0.f ? 1.f : l) : 0.f);
+    }
+    return;
   }
+  // this split's unnormalized (acc, m, l); an empty split's (0, MASK_VALUE, 0)
+  for (int i = tid; i < G * (D + 2); i += NT) {
+    const int g = i / (D + 2);
+    const int d = i - g * (D + 2);
+    const float v = d < D ? os[g * D + d] : (d == D ? ms[g] : ls[g]);
+    part[(((long long)b * S + sp) * Hq + h * G + g) * (D + 2) + d] = v;
+  }
+}
+
+// ------------------------------------------------------- tensor-core narrow kernel
+template <typename T, int D, bool ONE_PAGE>
+__global__ void __launch_bounds__(qdec::NT, qdec::min_blocks<D>())
+paged_decode_int8_mma(const ndec::Args a) {
+  ndec::narrow_body<T, ndec::PagesInt8, D, ONE_PAGE, false>(a);
 }
 
 // ------------------------------------------------------------------------ wide kernel
@@ -442,10 +481,21 @@ cudaError_t launch_wide(const void* q, const void* data, const void* scales,
   return cudaGetLastError();
 }
 
+// the second pass of a narrow launch of more than one split
+template <typename TQ>
+cudaError_t combine(float* part, const int* kv_lens, void* out, int B, int Hq, int D,
+                    int splits, int BS, int W, int split_pages, cudaStream_t stream) {
+  attn::decode_split_combine_rows<TQ><<<dim3(Hq, B), 128, 2 * splits * sizeof(float),
+                                        stream>>>(part, kv_lens, static_cast<TQ*>(out), Hq,
+                                                  D, splits, BS, W, split_pages);
+  return cudaGetLastError();
+}
+
 template <typename TQ, int D>
 cudaError_t launch(const void* q, const void* data, const void* scales, const int* tables,
-                   const int* kv_lens, void* out, int B, int Hq, int Hkv, int NB, int BS,
-                   int W, int layer, float scale, float softcap, cudaStream_t stream) {
+                   const int* kv_lens, void* out, float* part, int B, int Hq, int Hkv,
+                   int NB, int BS, int W, int layer, float scale, float softcap, int splits,
+                   cudaStream_t stream) {
   const size_t bytes = smem_bytes<D>(Hq / Hkv, BS);
   static size_t configured = 48 * 1024;
   if (bytes > configured) {
@@ -455,11 +505,36 @@ cudaError_t launch(const void* q, const void* data, const void* scales, const in
     if (e != cudaSuccess) return e;
     configured = bytes;
   }
-  paged_decode_int8_kernel<TQ, D><<<dim3(Hkv, B), NT, bytes, stream>>>(
+  const int split_pages = (W + splits - 1) / splits;
+  paged_decode_int8_kernel<TQ, D><<<dim3(Hkv, B, splits), NT, bytes, stream>>>(
       static_cast<const TQ*>(q), static_cast<const int8_t*>(data),
-      static_cast<const float*>(scales), tables, kv_lens,
-      static_cast<TQ*>(out), Hq, Hkv, NB, BS, W, layer, scale, softcap);
-  return cudaGetLastError();
+      static_cast<const float*>(scales), tables, kv_lens, static_cast<TQ*>(out), part, Hq,
+      Hkv, NB, BS, W, layer, scale, softcap, split_pages);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  return combine<TQ>(part, kv_lens, out, B, Hq, D, splits, BS, W, split_pages, stream);
+}
+
+template <typename T, int D, bool ONE_PAGE>
+cudaError_t launch_mma(const void* q, const void* data, const void* scales,
+                       const int* tables, const int* kv_lens, void* out, float* part, int B,
+                       int Hq, int Hkv, int NB, int BS, int W, int layer, float scale,
+                       float softcap, int splits, cudaStream_t stream) {
+  constexpr int bytes = ndec::smem_bytes<ndec::PagesInt8, D>();
+  static cudaError_t configured = cudaFuncSetAttribute(
+      paged_decode_int8_mma<T, D, ONE_PAGE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (configured != cudaSuccess) return configured;
+  const int hsplits = (Hq / Hkv + qdec::GQ - 1) / qdec::GQ;
+  const int split_pages = (W + splits - 1) / splits;
+  const ndec::Args args{q,      data,        static_cast<const float*>(scales), tables,
+                        kv_lens, nullptr,    out,   part,  Hq,    Hkv,     NB,   BS,
+                        W,      layer,       scale, softcap, 0,   split_pages, {}};
+  paged_decode_int8_mma<T, D, ONE_PAGE><<<dim3(Hkv * hsplits, B, splits), qdec::NT, bytes,
+                                          stream>>>(args);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  return combine<T>(part, kv_lens, out, B, Hq, D, splits, BS, W, split_pages, stream);
 }
 
 template <typename TQ>
@@ -467,35 +542,60 @@ int by_dim(const void* q, const void* data, const void* scales, const int* tb,
            const int* kl, void* out, float* part, int B, int Hq, int Hkv, int D, int NB,
            int BS, int W, int layer, float scale, float softcap, int splits,
            cudaStream_t s) {
+  if (splits <= 0 || (splits > 1 && part == nullptr)) return (int)cudaErrorInvalidValue;
 #define INT8_CASE(DIM)                                                                 \
   case DIM:                                                                            \
-    return (int)launch<TQ, DIM>(q, data, scales, tb, kl, out, B, Hq, Hkv, NB, BS, W,  \
-                                layer, scale, softcap, s);
+    return (int)launch<TQ, DIM>(q, data, scales, tb, kl, out, part, B, Hq, Hkv, NB,    \
+                                BS, W, layer, scale, softcap, splits, s);
+#define MMA_CASE(DIM)                                                                  \
+  case DIM:                                                                            \
+    return (int)(BS % qdec::WT == 0 ? launch_mma<TQ, DIM, true>                        \
+                                    : launch_mma<TQ, DIM, false>)(                     \
+        q, data, scales, tb, kl, out, part, B, Hq, Hkv, NB, BS, W, layer, scale,        \
+        softcap, splits, s);
   switch (D) {
-    INT8_CASE(64)
     INT8_CASE(80)
     INT8_CASE(96)
-    INT8_CASE(128)
-    INT8_CASE(192)
-    INT8_CASE(256)
     case 576:
       return (int)launch_wide<TQ>(q, data, scales, tb, kl, out, part, B, Hq, Hkv, D, NB,
                                   BS, W, layer, scale, softcap, splits, s);
     default:
-      return (int)cudaErrorInvalidValue;
+      break;
   }
+  // bf16 / f16 q at whole 64-dim units: the tensor-core body; f32 q the CUDA cores'
+  if constexpr (std::is_same<TQ, float>::value) {
+    switch (D) {
+      INT8_CASE(64)
+      INT8_CASE(128)
+      INT8_CASE(192)
+      INT8_CASE(256)
+      default:
+        break;
+    }
+  } else {
+    switch (D) {
+      MMA_CASE(64)
+      MMA_CASE(128)
+      MMA_CASE(192)
+      MMA_CASE(256)
+      default:
+        break;
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 #undef INT8_CASE
+#undef MMA_CASE
 }
 
 }  // namespace
 
 // q [B,Hq,D] of dtype 0 bf16, 1 f16 or 2 f32; data [L,NB,2,BS,Hkv*D] int8; scales
 // [L,NB,2,BS,Hkv] f32; tables [B,W] i32; kv_lens [B] i32; out [B,Hq,D] in q's dtype;
-// all contiguous.  D in {64, 80, 96, 128, 192, 256} (the narrow kernel) or 576 (the
-// wide one).  softcap <= 0 disables it.  splits: the wide kernel's split of each
-// row's W pages over blocks (1 for none; the narrow kernel ignores it), with part f32
-// [B, splits, Hq, D + 2] scratch when it is above 1.  Returns the CUDA error code of
-// the launch (0 = launched).
+// all contiguous.  D in {64, 80, 96, 128, 192, 256} (the narrow kernels) or 576 (the
+// wide one).  softcap <= 0 disables it.  splits: the split of each row's W pages over
+// blocks (1 for none), with part f32 [B, splits, Hq, D + 2] scratch when it is above 1;
+// a split launch is followed by the combine.  Returns the CUDA error code of the
+// launches (0 = launched).
 extern "C" int paged_decode_int8(const void* q, const void* data, const void* scales,
                                  const void* tables, const void* kv_lens, void* out,
                                  void* part, int dtype, int B, int Hq, int Hkv, int D,

@@ -426,7 +426,7 @@ paged_decode_turbo_mma(const T* __restrict__ q,                 // [B, Hq, D] ro
   const int hq0 = h * G + g0;
   const long long head0 = (long long)b * Hq + hq0;
   const int len = kv_lens[b];
-  const Span span(len, BS, W, sp, split_pages, 0);
+  const Span span(len, 0, BS, W, sp, split_pages);
   if (span.empty()) {
     empty_split(out, head0, gb, D, S);
     return;

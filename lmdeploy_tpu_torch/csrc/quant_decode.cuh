@@ -162,16 +162,16 @@ __device__ __forceinline__ int out_dim(int gid, int u, int n, int half) {
   return 8 * (gid + 8 * u) + n + 4 * half;
 }
 
-// A block's split of a row's positions and its sub-chunks.  Split sp holds the
-// positions of its pages below len, [p0, p1), of which those from ws on (the window's
-// start; 0 without one) count.  Sub-chunk j holds positions p0 + j TC .. + TC, so it may
-// span pages (a block size under TC) or cover part of one; [j_lo, j_hi) are those that
-// hold a counted position (none for an empty split).  Warp w reads the WT rows of each
-// sub-chunk from position row0(j, w) on; its rows [lo, hi) count.
+// A block's split of a row's slots and its sub-chunks.  The row counts its slots [ws,
+// len) (attn::Positions: positions on plain pages, a rank's local slots on a stripe; ws
+// the window's start, 0 without one).  Split sp holds the slots of its pages below len,
+// [p0, p1), of which those from ws on count.  Sub-chunk j holds slots p0 + j TC .. + TC,
+// so it may span pages (a block size under TC) or cover part of one; [j_lo, j_hi) are
+// those that hold a counted slot (none for an empty split).  Warp w reads the WT rows of
+// each sub-chunk from slot row0(j, w) on; its rows [lo, hi) count.
 struct Span {
   int p0, p1, ws, j_lo = 0, j_hi = 0;
-  __device__ Span(int len, int BS, int W, int sp, int split_pages, int window) {
-    ws = window > 0 ? max(len - window, 0) : 0;
+  __device__ Span(int len, int ws_, int BS, int W, int sp, int split_pages) : ws(ws_) {
     p0 = sp * split_pages * BS;
     p1 = min(min(sp * split_pages + split_pages, W) * BS, len);
     if (len > 0 && p1 > max(p0, ws)) {
@@ -227,13 +227,16 @@ __host__ __device__ constexpr int tail_bytes() {
 // added to every dim; 0 otherwise) for head gid, this lane's shares of l and extra,
 // joined over the warps in a fixed order; then out = O / l (l == 0 -> 1; sinks [Hq],
 // if any, join l while m is real) for one split, else the split's unnormalized
-// (acc, m, l) into part [B, S, Hq, D + 2].  head0 = b * Hq + hq0, hq0 the block's first
-// query head.
+// (acc, m, l) into part [B, S, Hq, D + 2]; with raw (a context-parallel rank's partials)
+// one split writes its unnormalized (acc, m, l) to part planar (acc [B, Hq, D], then m
+// and l [B, Hq]: the rank's output).  head0 = b * Hq + hq0, hq0 the block's first query
+// head.
 template <typename T, int D>
 __device__ __forceinline__ void block_tail(const float (&o)[D / 64][4][4], float m, float l,
                                            float extra, float* tail, T* out, float* part,
                                            long long head0, int hq0, int gb, int b, int S,
-                                           int sp, int Hq, const float* sinks = nullptr) {
+                                           int sp, int Hq, const float* sinks = nullptr,
+                                           bool raw = false) {
   constexpr int OS = D + 1;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
@@ -275,9 +278,16 @@ __device__ __forceinline__ void block_tail(const float (&o)[D / 64][4][4], float
       lsum += wl[w * GQ + g] * e;
       acc += (ob[(w * GQ + g) * OS + d] + we[w * GQ + g]) * e;
     }
-    if (S == 1) {
+    if (S == 1 && !raw) {
       out[(head0 + g) * D + d] =
           attn::from_f<T>(attn::finish(acc, mx, lsum, sinks, hq0 + g));
+    } else if (S == 1) {
+      const long long bh = (long long)gridDim.y * Hq;
+      part[(head0 + g) * D + d] = acc;
+      if (d == 0) {
+        part[bh * D + head0 + g] = mx;
+        part[bh * (D + 1) + head0 + g] = lsum;
+      }
     } else {
       float* dst = part + (((long long)b * S + sp) * Hq + hq0 + g) * (D + 2);
       dst[d] = acc;
@@ -290,11 +300,22 @@ __device__ __forceinline__ void block_tail(const float (&o)[D / 64][4][4], float
 }
 
 // A block with no pages: with one split its row is inactive and its output rows are
-// 0; else nothing is written (the combine reads a row's non-empty splits only).
+// 0 (raw: the partials (0, MASK_VALUE, 0) into part, the rank's planar output); else
+// nothing is written (the combine reads a row's non-empty splits only).
 template <typename T>
-__device__ __forceinline__ void empty_split(T* out, long long head0, int gb, int D, int S) {
-  if (S == 1)
+__device__ __forceinline__ void empty_split(T* out, long long head0, int gb, int D, int S,
+                                            float* part = nullptr, int Hq = 0) {
+  if (S > 1) return;
+  if (part == nullptr) {
     for (int x = threadIdx.x; x < gb * D; x += NT) out[head0 * D + x] = attn::from_f<T>(0.f);
+    return;
+  }
+  const long long bh = (long long)gridDim.y * Hq;
+  for (int x = threadIdx.x; x < gb * D; x += NT) part[head0 * D + x] = 0.f;
+  for (int g = threadIdx.x; g < gb; g += NT) {
+    part[bh * D + head0 + g] = attn::MASK_VALUE;
+    part[bh * (D + 1) + head0 + g] = 0.f;
+  }
 }
 
 }  // namespace qdec

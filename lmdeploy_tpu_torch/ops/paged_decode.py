@@ -28,18 +28,23 @@ The quantized kernels have a logit softcap but no window and no sinks, as the
 reference never sends those to them.  ``kv_lens`` counts the token just filled; 0 marks
 an inactive row, whose output is 0.  Each wrapper counts its own launches.
 
-The int4 and TurboQuant kernels split each row's pages over blocks (``page_splits``:
-``SPLIT_TOKENS_INT4`` / ``SPLIT_TOKENS_TURBO`` tokens a split, a function of the table
-width alone) and combine the splits' (acc, m, l) in a second launch; their wrappers
-count that launch in ``.combines``.  ``*_split_plain`` computes the same two passes in
-plain PyTorch (``split_partials_plain``, then ``cp_combine``).
+The int8, int4 and TurboQuant kernels split each row's pages over blocks
+(``page_splits``: ``SPLIT_TOKENS_INT8`` / ``_INT4`` / ``_TURBO`` tokens a split, a
+function of the table's shape alone, and for int8 of the batch's size) and combine the
+splits' (acc, m, l) in a second
+launch; their wrappers count that launch in ``.combines``.  ``*_split_plain`` computes
+the same two passes in plain PyTorch (``split_partials_plain``, then ``cp_combine``).
 
 Context parallelism (``paged_decode_attention_cp``, body ``_decode_kernel_cp``): the
 cache is a ``parallel.mesh.StripedKV``, each page's slots striped over the 'cp' ranks.
 ``paged_decode_cp_partial`` (``csrc/paged_decode_cp.cu``) gives one rank's
 unnormalized flash partials ``(acc, m, l)`` over its stripe, local slot j of page p at
-position ``p*stride + pos_off + j``; ``cp_combine`` joins the ranks' partials (the
-reference's pmax / psum, :813-821) with the sinks once, after the combine.
+position ``p*stride + pos_off + j``; a row's positions in its window are the local
+indices ``[n(ws), n(len))`` (``cp_local_slots``), which the kernel splits over blocks
+(``cp_splits``) and combines per row (``split_rows_plain`` gives the splits it reads;
+``paged_decode_cp_partial_split_plain`` the two passes in plain PyTorch);
+``cp_combine`` joins the ranks' partials (the reference's pmax / psum, :813-821) with
+the sinks once, after the combine.
 """
 from __future__ import annotations
 
@@ -63,9 +68,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 QUANT_HEAD_DIMS = HEAD_DIMS
 TURBO_HEAD_DIMS = tuple(d for d in HEAD_DIMS if d <= 256 and d & (d - 1) == 0)
 CP_HEAD_DIMS = tuple(d for d in HEAD_DIMS if d <= 256)
-# the int4 / TurboQuant head dims whose narrow path runs on the tensor cores for a bf16
-# or f16 q (whole 64-dim units); f32 q and the other dims take the CUDA-core body
+# the int8 / int4 / TurboQuant head dims whose narrow path runs on the tensor cores for a
+# bf16 or f16 q (whole 64-dim units); f32 q and the other dims take the CUDA-core body
 MMA_QUANT_HEAD_DIMS = tuple(d for d in HEAD_DIMS if d <= 256 and d % 64 == 0)
+# the context-parallel partial's head dims on the tensor cores, for bf16 / f16 stripes
+# (Llama-3.1-8B's and gpt-oss's); f32 stripes and the other dims take the CUDA cores
+CP_MMA_HEAD_DIMS = (64, 128)
 # paged_decode{,_fp8}(q, cache, tables, kv_lens, sinks, out, part, dtype, B, Hq, Hkv, D,
 #                     NB, BS, W, layer, scale, softcap, window, splits, stream)
 _ARGTYPES = [_P] * 7 + [_I] * 9 + [_F, _F, _I, _I, _P]
@@ -80,6 +88,16 @@ SPLIT_TOKENS_MMA = 1024
 # these are the best or within 2% of it at the Llama-3.1-8B and bs64 cases (PERF.md)
 SPLIT_TOKENS_INT4 = 1024
 SPLIT_TOKENS_TURBO = 2048
+# the int8 decode's split (every path but MLA's wide one), swept 256-2048 by
+# chip_smoke.decode_int8_phase at its cases: 1024 at the 64- and 128-row llama2-7b
+# shapes, 256 for batches of up to INT8_SMALL_BATCH rows (PERF.md)
+SPLIT_TOKENS_INT8 = 1024
+SPLIT_TOKENS_INT8_SMALL = 256
+INT8_SMALL_BATCH = 16
+# the context-parallel partial's split on the tensor cores, in local slots of a rank,
+# swept 256-2048 by chip_smoke.decode_cp_phase (PERF.md); the CUDA-core body keeps
+# SPLIT_TOKENS
+SPLIT_TOKENS_CP = 512
 # and so do the narrow paths over 2-byte and e4m3 pages (D <= 128): chip_smoke's
 # decode_phase and decode_kv_phase sweep it at their cases.  512 is the best at the
 # Llama-3.1-8B fp8-KV cell's 64-row shape (256 is 7% slower there), and half of it at
@@ -97,9 +115,9 @@ _ARGTYPES_INT4 = [_P] * 8 + [_I] * 9 + [_F, _F, _I, _P]
 # paged_decode_turbo(q, data, meta, tables, kv_lens, out, part, dtype, B, Hq, Hkv, D, NB,
 #                    BS, W, layer, scale, softcap, sigma, splits, stream)
 _ARGTYPES_TURBO = [_P] * 7 + [_I] * 9 + [_F, _F, _F, _I, _P]
-# paged_decode_cp(q, stripe, tables, kv_lens, acc, m, l, part, dtype, B, Hq, Hkv, D, NB,
-#                 BSl, W, layer, pos_off, stride, scale, softcap, window, splits, stream)
-_ARGTYPES_CP = [_P] * 8 + [_I] * 11 + [_F, _F, _I, _I, _P]
+# paged_decode_cp(q, stripe, tables, kv_lens, out, part, dtype, B, Hq, Hkv, D, NB, BSl, W,
+#                 layer, pos_off, stride, scale, softcap, window, splits, stream)
+_ARGTYPES_CP = [_P] * 6 + [_I] * 11 + [_F, _F, _I, _I, _P]
 
 
 def _softmax_out(s: torch.Tensor, kv_lens: torch.Tensor, pv, B: int, Hq: int, D: int,
@@ -308,8 +326,7 @@ def _launch_plain_layout(kernel, symbol, q, kv_cache, block_tables, kv_lens, lay
         sinks_ptr = sinks.data_ptr()
     out = torch.empty_like(q)
     splits = plain_layout_splits(D, kv_cache.dtype, B, W, BS, window)
-    part = (torch.empty(B * splits * Hq * (D + 2), dtype=torch.float32, device=q.device)
-            if splits > 1 else None)
+    part = _split_part(q, splits)
     fn = cuda_build.entry('paged_decode', symbol, _ARGTYPES)
     rc = fn(q.data_ptr(), kv_cache.data_ptr(), block_tables.data_ptr(),
             kv_lens.data_ptr(), sinks_ptr, out.data_ptr(),
@@ -358,27 +375,23 @@ def page_splits(W: int, BS: int, tokens: int) -> int:
     return -(-W // max(1, tokens // BS))
 
 
-def _split_scratch(wide: bool, q: torch.Tensor, W: int, BS: int,
-                   tokens: Optional[int] = None):
-    """(splits, part): a split path's split of each row's W pages (``page_splits``
-    with ``tokens``, default ``SPLIT_TOKENS``), and its f32 [B, splits, Hq, D + 2]
-    scratch (None for one split; ``wide`` False takes no split)."""
+def _split_part(q: torch.Tensor, splits: int) -> Optional[torch.Tensor]:
+    """A split launch's f32 [B, splits, Hq, D + 2] scratch (None for one split)."""
     B, Hq, D = q.shape
-    tokens = SPLIT_TOKENS if tokens is None else tokens
-    splits = page_splits(W, BS, tokens) if wide else 1
-    part = (torch.empty(B * splits * Hq * (D + 2), dtype=torch.float32, device=q.device)
+    return (torch.empty(B * splits * Hq * (D + 2), dtype=torch.float32, device=q.device)
             if splits > 1 else None)
-    return splits, part
 
 
 def split_partials_plain(s: torch.Tensor, kv_lens: torch.Tensor, pv, BS: int,
-                         splits: int, window: Optional[int] = None):
+                         splits: int, window: Optional[int] = None,
+                         start: Optional[torch.Tensor] = None):
     """The first pass of a decode whose row's pages are split over blocks: scores s
     [B, Hkv, G, W*BS] (softcapped, not masked), ``pv(p)`` -> unnormalized
     [B, Hkv, G, D].  Pages [sp * n, (sp + 1) * n), n = ceil(W / splits), make split sp;
-    each split's f32 (acc [B,Hq,D], m [B,Hq], l [B,Hq]) over its positions below
-    kv_len (and, with a ``window``, from kv_len - window on), an empty split (0,
-    MASK_VALUE, 0).  Returns them in split order, the form ``cp_combine`` joins."""
+    each split's f32 (acc [B,Hq,D], m [B,Hq], l [B,Hq]) over its slots below kv_len
+    (and, with a ``window``, from kv_len - window on; with ``start`` [B], from there
+    on), an empty split (0, MASK_VALUE, 0).  Returns them in split order, the form
+    ``cp_combine`` joins."""
     B, Hkv, G, S = s.shape
     n = -(-(S // BS) // splits) * BS
     pos = torch.arange(S, device=s.device)
@@ -386,6 +399,8 @@ def split_partials_plain(s: torch.Tensor, kv_lens: torch.Tensor, pv, BS: int,
     valid = pos[None, :] < lens
     if window is not None and window > 0:
         valid &= pos[None, :] >= (lens - window).clamp(min=0)
+    if start is not None:
+        valid &= pos[None, :] >= start.long()[:, None]
     parts = []
     for sp in range(splits):
         keep = (valid & (pos >= sp * n) & (pos < (sp + 1) * n))[:, None, None, :]
@@ -397,13 +412,42 @@ def split_partials_plain(s: torch.Tensor, kv_lens: torch.Tensor, pv, BS: int,
     return parts
 
 
+def split_rows_plain(n_len: torch.Tensor, n_ws: torch.Tensor, BS: int, W: int,
+                     splits: int):
+    """The splits each row's combine reads (``csrc/decode_split.cuh:
+    decode_split_combine_rank``): a row that counts the slots [n_ws, n_len) of its W
+    pages of BS slots, split ``splits`` ways, holds one in splits [s_lo, s_hi), s_hi =
+    ceil(pages / split_pages), pages = min(ceil(n_len / BS), W), s_lo = (n_ws / BS) /
+    split_pages, and none where n_len <= n_ws.  Returns (s_lo, s_hi), [B] each."""
+    n_len, n_ws = n_len.long(), n_ws.long()
+    split_pages = -(-W // splits)
+    pages = torch.where(n_len > n_ws, torch.clamp(-(-n_len // BS), max=W),
+                        torch.zeros_like(n_len))
+    s_hi = torch.clamp(-(-pages // split_pages), max=splits)
+    return torch.minimum(s_hi, (n_ws // BS) // split_pages), s_hi
+
+
+def combine_split_rows_plain(parts, s_lo: torch.Tensor, s_hi: torch.Tensor):
+    """The combine of a context-parallel rank's splits: each row's splits [s_lo, s_hi)
+    of ``parts`` [(acc [B,Hq,D], m [B,Hq], l [B,Hq]), ...] joined in order into its
+    unnormalized (acc, m, l) -- m = max m_s, weights e^(m_s - m) -- and (0, MASK_VALUE,
+    0) where it reads none."""
+    idx = torch.arange(len(parts), device=s_lo.device)[:, None]
+    keep = ((idx >= s_lo[None]) & (idx < s_hi[None]))[..., None]      # [S, B, 1]
+    ms = torch.stack([m for _, m, _ in parts])
+    m = torch.where(keep, ms, torch.full((), MASK_VALUE, device=ms.device)).amax(0)
+    w = torch.where(keep, torch.exp(ms - m), torch.zeros((), device=ms.device))
+    lsum = (w * torch.stack([lp for _, _, lp in parts])).sum(0)
+    acc = (w[..., None] * torch.stack([a for a, _, _ in parts])).sum(0)
+    return acc, m, lsum
+
+
 # ----------------------------------------------------------------------------- int8 --
-def paged_decode_attention_int8_plain(q: torch.Tensor, kv: QuantKV,
-                                      block_tables: torch.Tensor, kv_lens: torch.Tensor,
-                                      layer: int, scale: float, num_kv_heads: int,
-                                      logit_softcap: Optional[float] = None
-                                      ) -> torch.Tensor:
-    """q [B,Hq,D] over an int8 cache -> [B,Hq,D]; f32, scales on the score side."""
+def int8_decode_terms(q: torch.Tensor, kv: QuantKV, block_tables: torch.Tensor,
+                      layer: int, scale: float, num_kv_heads: int,
+                      logit_softcap: Optional[float]):
+    """The int8 decode's scores s [B, Hkv, G, W*BS] (softcapped, not masked) and its
+    P.V ``pv(p)`` -> unnormalized [B, Hkv, G, D], f32, scales on the score side."""
     B, Hq, D = q.shape
     Hkv, G = num_kv_heads, Hq // num_kv_heads
     _, NB, _, BS, _ = kv.data.shape
@@ -417,8 +461,45 @@ def paged_decode_attention_int8_plain(q: torch.Tensor, kv: QuantKV,
     vsc = _token_major(scales[:, :, 1], B, S, Hkv)
     qg = q.float().reshape(B, Hkv, G, D) * scale
     s = _softcap(torch.einsum('bhgd,bshd->bhgs', qg, k) * ksc, logit_softcap)
-    return _softmax_out(s, kv_lens, lambda p: torch.einsum('bhgs,bshd->bhgd', p * vsc, v),
-                        B, Hq, D, q.dtype)
+    return s, lambda p: torch.einsum('bhgs,bshd->bhgd', p * vsc, v)
+
+
+def paged_decode_attention_int8_plain(q: torch.Tensor, kv: QuantKV,
+                                      block_tables: torch.Tensor, kv_lens: torch.Tensor,
+                                      layer: int, scale: float, num_kv_heads: int,
+                                      logit_softcap: Optional[float] = None
+                                      ) -> torch.Tensor:
+    """q [B,Hq,D] over an int8 cache -> [B,Hq,D]; f32, scales on the score side."""
+    B, Hq, D = q.shape
+    s, pv = int8_decode_terms(q, kv, block_tables, layer, scale, num_kv_heads, logit_softcap)
+    return _softmax_out(s, kv_lens, pv, B, Hq, D, q.dtype)
+
+
+def int8_splits(W: int, BS: int, D: int, B: int) -> int:
+    """The int8 kernel's split of a row's W pages for a batch of B rows: the narrow
+    paths' ``SPLIT_TOKENS_INT8`` (``SPLIT_TOKENS_INT8_SMALL`` up to ``INT8_SMALL_BATCH``
+    rows), the wide path's (D 576) ``SPLIT_TOKENS``."""
+    if D > 256:
+        return page_splits(W, BS, SPLIT_TOKENS)
+    return page_splits(W, BS, SPLIT_TOKENS_INT8_SMALL if B <= INT8_SMALL_BATCH
+                       else SPLIT_TOKENS_INT8)
+
+
+def paged_decode_attention_int8_split_plain(q: torch.Tensor, kv: QuantKV,
+                                            block_tables: torch.Tensor,
+                                            kv_lens: torch.Tensor, layer: int,
+                                            scale: float, num_kv_heads: int,
+                                            logit_softcap: Optional[float] = None,
+                                            splits: Optional[int] = None) -> torch.Tensor:
+    """The int8 kernel's two passes in plain PyTorch: each split's partials
+    (``split_partials_plain``; ``splits`` default the kernel's, ``int8_splits``), then
+    the fixed-order combine (``cp_combine``).  The same function as
+    ``paged_decode_attention_int8_plain`` up to f32 rounding."""
+    B, _, D = q.shape
+    BS, W = kv.data.shape[3], block_tables.shape[1]
+    s, pv = int8_decode_terms(q, kv, block_tables, layer, scale, num_kv_heads, logit_softcap)
+    splits = int8_splits(W, BS, D, B) if splits is None else splits
+    return cp_combine(split_partials_plain(s, kv_lens, pv, BS, splits), None, q.dtype)
 
 
 def paged_decode_attention_int8(q: torch.Tensor, kv: QuantKV, block_tables: torch.Tensor,
@@ -443,7 +524,8 @@ def paged_decode_attention_int8(q: torch.Tensor, kv: QuantKV, block_tables: torc
         raise ValueError(f'paged_decode_int8: bad shapes data {tuple(data.shape)} scale '
                          f'{tuple(scales.shape)} for {num_kv_heads} kv heads of {D}')
     out = torch.empty_like(q)
-    splits, part = _split_scratch(D > 256, q, W, BS)
+    splits = int8_splits(W, BS, D, B)
+    part = _split_part(q, splits)
     fn = cuda_build.entry('paged_decode_int8', 'paged_decode_int8', _ARGTYPES_INT8)
     rc = fn(q.data_ptr(), data.data_ptr(), scales.data_ptr(), block_tables.data_ptr(),
             kv_lens.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(),
@@ -451,10 +533,13 @@ def paged_decode_attention_int8(q: torch.Tensor, kv: QuantKV, block_tables: torc
             logit_softcap if logit_softcap else 0.0, splits, cuda_build.stream_handle(q))
     cuda_build.check(rc, 'paged_decode_int8')
     paged_decode_attention_int8.launches += 1
+    paged_decode_attention_int8.combines += splits > 1
     return out
 
 
+# launches: one a call; combines: the calls whose split also launched the combine
 paged_decode_attention_int8.launches = 0
+paged_decode_attention_int8.combines = 0
 
 
 # ----------------------------------------------------------------------------- int4 --
@@ -546,8 +631,7 @@ def paged_decode_attention_int4(q: torch.Tensor, kv: QuantKV4, block_tables: tor
                          f'{num_kv_heads} kv heads of {D}')
     out = torch.empty_like(q)
     splits = int4_splits(W, BS, D)
-    part = (torch.empty(B * splits * Hq * (D + 2), dtype=torch.float32, device=q.device)
-            if splits > 1 else None)
+    part = _split_part(q, splits)
     fn = cuda_build.entry('paged_decode_int4', 'paged_decode_int4', _ARGTYPES_INT4)
     rc = fn(q.data_ptr(), data.data_ptr(), scales.data_ptr(), minv.data_ptr(),
             block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
@@ -648,7 +732,8 @@ def paged_decode_attention_turbo(q: torch.Tensor, kv: QuantKVTurbo,
         raise ValueError(f'paged_decode_turbo: bad shapes data {tuple(data.shape)} meta '
                          f'{tuple(meta.shape)} for {num_kv_heads} kv heads of {D}')
     out = torch.empty_like(q)
-    splits, part = _split_scratch(True, q, W, BS, SPLIT_TOKENS_TURBO)
+    splits = turbo_splits(W, BS)
+    part = _split_part(q, splits)
     fn = cuda_build.entry('paged_decode_turbo', 'paged_decode_turbo', _ARGTYPES_TURBO)
     rc = fn(q.data_ptr(), data.data_ptr(), meta.data_ptr(), block_tables.data_ptr(),
             kv_lens.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(),
@@ -702,6 +787,50 @@ def paged_decode_cp_partial_plain(q: torch.Tensor, stripe: torch.Tensor,
     return acc.reshape(B, Hq, D), m.reshape(B, Hq), p.sum(-1).reshape(B, Hq)
 
 
+def cp_local_slots(x: torch.Tensor, pos_off: int, stride: int, bsl: int) -> torch.Tensor:
+    """n(x): the local slots of a context-parallel rank below positions x (an integer
+    tensor).  Its slot j of page p is position p*stride + pos_off + j, so n(x) is 0 for
+    x <= pos_off and else, with y = x - pos_off, (y // stride) * bsl + min(y % stride,
+    bsl); a row's positions in [ws, len) are its local slots [n(ws), n(len))
+    (``csrc/decode_split.cuh: Positions``)."""
+    y = (x.long() - pos_off).clamp(min=0)
+    return (y // stride) * bsl + (y % stride).clamp(max=bsl)
+
+
+def cp_splits(W: int, bsl: int, D: int, dtype: torch.dtype) -> int:
+    """The context-parallel partial's split of a row's W stripe pages of ``bsl`` slots:
+    the tensor-core body's (bf16 / f16 stripes at ``CP_MMA_HEAD_DIMS``)
+    ``SPLIT_TOKENS_CP`` local slots a split, the CUDA-core body's ``SPLIT_TOKENS``."""
+    mma = D in CP_MMA_HEAD_DIMS and dtype in (torch.bfloat16, torch.float16)
+    return page_splits(W, bsl, SPLIT_TOKENS_CP if mma else SPLIT_TOKENS)
+
+
+def paged_decode_cp_partial_split_plain(q: torch.Tensor, stripe: torch.Tensor,
+                                        block_tables: torch.Tensor, kv_lens: torch.Tensor,
+                                        layer: int, scale: float, num_kv_heads: int,
+                                        pos_off: int, stride: int,
+                                        logit_softcap: Optional[float] = None,
+                                        window: Optional[int] = None,
+                                        splits: Optional[int] = None):
+    """The kernel's two passes in plain PyTorch over the rank's local slots: row b counts
+    the local slots [n(ws), n(len)) (``cp_local_slots``); each split's partials over its
+    pages' slots (``split_partials_plain``; ``splits`` default the kernel's,
+    ``cp_splits``), then each row's non-empty splits (``split_rows_plain``) joined in
+    order into the rank's (acc, m, l) (``combine_split_rows_plain``).  The same function
+    as ``paged_decode_cp_partial_plain`` up to f32 rounding."""
+    D = q.shape[-1]
+    bsl, W = stripe.shape[3], block_tables.shape[1]
+    s, pv = plain_decode_terms(q, stripe, block_tables, layer, scale, num_kv_heads,
+                               logit_softcap)
+    lens = kv_lens.long()
+    n_len = cp_local_slots(lens, pos_off, stride, bsl)
+    n_ws = (cp_local_slots((lens - window).clamp(min=0), pos_off, stride, bsl)
+            if window is not None and window > 0 else torch.zeros_like(lens))
+    splits = cp_splits(W, bsl, D, q.dtype) if splits is None else splits
+    parts = split_partials_plain(s, n_len, pv, bsl, splits, start=n_ws)
+    return combine_split_rows_plain(parts, *split_rows_plain(n_len, n_ws, bsl, W, splits))
+
+
 def paged_decode_cp_partial(q: torch.Tensor, stripe: torch.Tensor,
                             block_tables: torch.Tensor, kv_lens: torch.Tensor, layer: int,
                             scale: float, num_kv_heads: int, pos_off: int, stride: int,
@@ -710,7 +839,8 @@ def paged_decode_cp_partial(q: torch.Tensor, stripe: torch.Tensor,
     """q [B,Hq,D] (bf16, f16 or f32) over one rank's stripe [L,NB,2,BSl,Hkv*D] in q's
     dtype; block_tables [B,W] i32; kv_lens [B] i32 (the whole row's length).  Returns
     the rank's unnormalized partials (acc f32 [B,Hq,D], m f32 [B,Hq], l f32 [B,Hq]),
-    as ``paged_decode_cp_partial_plain``."""
+    as ``paged_decode_cp_partial_plain``; on the card the kernel writes them one after
+    the other into one buffer."""
     if not q.is_cuda:
         return paged_decode_cp_partial_plain(q, stripe, block_tables, kv_lens, layer, scale,
                                              num_kv_heads, pos_off, stride, logit_softcap,
@@ -726,23 +856,26 @@ def paged_decode_cp_partial(q: torch.Tensor, stripe: torch.Tensor,
     if not 0 <= pos_off <= stride - BSl:
         raise ValueError(f'paged_decode_cp: a stripe of {BSl} slots at offset {pos_off} '
                          f'does not fit a page of {stride}')
-    acc = torch.empty(B, Hq, D, dtype=torch.float32, device=q.device)
-    m = torch.empty(B, Hq, dtype=torch.float32, device=q.device)
-    lsum = torch.empty(B, Hq, dtype=torch.float32, device=q.device)
-    splits, part = _split_scratch(True, q, W, BSl)
+    out = torch.empty(B * Hq * (D + 2), dtype=torch.float32, device=q.device)
+    splits = cp_splits(W, BSl, D, q.dtype)
+    part = _split_part(q, splits)
     fn = cuda_build.entry('paged_decode_cp', 'paged_decode_cp', _ARGTYPES_CP)
     rc = fn(q.data_ptr(), stripe.data_ptr(), block_tables.data_ptr(), kv_lens.data_ptr(),
-            acc.data_ptr(), m.data_ptr(), lsum.data_ptr(),
-            None if part is None else part.data_ptr(), KERNEL_DTYPES[q.dtype], B, Hq,
-            num_kv_heads, D, NB, BSl, W, layer, pos_off, stride, scale,
-            logit_softcap if logit_softcap else 0.0,
+            out.data_ptr(), None if part is None else part.data_ptr(),
+            KERNEL_DTYPES[q.dtype], B, Hq, num_kv_heads, D, NB, BSl, W, layer, pos_off,
+            stride, scale, logit_softcap if logit_softcap else 0.0,
             window if window and window > 0 else 0, splits, cuda_build.stream_handle(q))
     cuda_build.check(rc, 'paged_decode_cp')
     paged_decode_cp_partial.launches += 1
-    return acc, m, lsum
+    paged_decode_cp_partial.combines += splits > 1
+    heads = B * Hq
+    return (out[:heads * D].view(B, Hq, D), out[heads * D:heads * (D + 1)].view(B, Hq),
+            out[heads * (D + 1):].view(B, Hq))
 
 
+# launches: one a call; combines: the calls whose split also launched the combine
 paged_decode_cp_partial.launches = 0
+paged_decode_cp_partial.combines = 0
 
 
 def cp_combine(parts, sinks: Optional[torch.Tensor], out_dtype: torch.dtype) -> torch.Tensor:

@@ -28,10 +28,13 @@ import torch
 from lmdeploy_tpu.ops import attention as ja
 from lmdeploy_tpu.ops.attention import kv_row_width, plane_rows
 from lmdeploy_tpu_torch.ops import attention as ta
-from lmdeploy_tpu_torch.ops.paged_decode import (MASK_VALUE, cp_combine,
-                                                 paged_decode_attention_cp,
+from lmdeploy_tpu_torch.ops.paged_decode import (MASK_VALUE, cp_combine, cp_local_slots,
+                                                 cp_splits, paged_decode_attention_cp,
                                                  paged_decode_cp_partial,
-                                                 paged_decode_cp_partial_plain)
+                                                 paged_decode_cp_partial_plain,
+                                                 paged_decode_cp_partial_split_plain,
+                                                 plain_decode_terms, split_partials_plain,
+                                                 split_rows_plain)
 from lmdeploy_tpu_torch.parallel.mesh import (StripedKV, build_mesh, cache_sharding)
 from lmdeploy_tpu_torch.weight_convert import cache_from_reference, cache_to_reference
 
@@ -125,6 +128,78 @@ def test_cp_window_and_sinks_match_pallas(cp, window):
     assert np.isfinite(got).all()
     if window == 4:
         assert any(bool((m == MASK_VALUE).any()) for _, m, _ in parts)
+
+
+@pytest.mark.parametrize('cp', [2, 4])
+def test_cp_local_slots_match_a_count(cp):
+    """n(x), the rank's local slots below position x, against a count of its slots
+    (local slot j of page p at p * BS + r * BS / cp + j), for every x up to a 5-page
+    table's end."""
+    for BS in (16, 128, 12):
+        bsl, W = BS // cp, 5
+        for r in range(cp):
+            pos = np.array([p * BS + r * bsl + j for p in range(W) for j in range(bsl)])
+            xs = np.arange(W * BS + 1)
+            want = [(pos < x).sum() for x in xs]
+            np.testing.assert_array_equal(cp_local_slots(t(xs), r * bsl, BS, bsl).numpy(),
+                                          want)
+
+
+@pytest.mark.parametrize('cp', [2, 4])
+@pytest.mark.parametrize('window', [None, 20, 4])
+def test_cp_split_partials_match_pallas(cp, window):
+    """The kernel's split form in plain PyTorch (each split's partials over the rank's
+    local slots [n(ws), n(len)), then each row's non-empty splits joined in order) at
+    1, 2 and W splits and the wrapper's own, the ranks joined by ``cp_combine``, against
+    JAX's cp decode (Pallas, interpret mode) at 2e-5.  Rows of 1 token (ranks past the
+    first hold none), 37 and 96 tokens, 30 tokens (window 4 leaves their positions on
+    one rank, the others none in the window), 0 tokens (inactive: output 0); window 20
+    starts mid-stripe.  A rank with no counted slot gives (0, MASK_VALUE, 0) exactly,
+    and the splits a row's combine reads are exactly its non-empty ones."""
+    rng = np.random.RandomState(13)
+    B, Hkv, G, D, BS, NB, W = 5, 2, 4, 32, 16, 48, 6
+    bsl = BS // cp
+    ref = _dense_cache(rng, 2, Hkv, NB, BS, D)
+    tables = rng.permutation(np.arange(1, NB))[:B * W].reshape(B, W).astype(np.int32)
+    q = rng.randn(B, Hkv * G, D).astype(np.float32)
+    kv_lens = np.asarray([1, 37, 96, 30, 0], np.int32)
+    active = kv_lens > 0
+    scale = D ** -0.5
+    want = _jax_cp(q[active], ref, tables[active], kv_lens[active], scale, Hkv, cp, window)
+    stripes = StripedKV.from_reference_layout(cache_from_reference(ref, Hkv, D), ['cpu'] * cp)
+    lens = t(kv_lens).long()
+    ws = (lens - window).clamp(min=0) if window else torch.zeros_like(lens)
+    assert cp_splits(W, bsl, D, torch.float32) == 1
+    for splits in (1, 2, W, None):
+        parts = []
+        for r, stripe in enumerate(stripes.stripes):
+            acc, m, lsum = paged_decode_cp_partial_split_plain(
+                t(q), stripe, t(tables), t(kv_lens), LAYER, scale, Hkv, r * bsl, BS,
+                window=window, splits=splits)
+            # a rank with no slot in [ws, len): exactly (0, MASK_VALUE, 0)
+            n_len = cp_local_slots(lens, r * bsl, BS, bsl)
+            n_ws = cp_local_slots(ws, r * bsl, BS, bsl)
+            empty = n_len <= n_ws
+            assert bool((m[empty] == MASK_VALUE).all()) and bool((lsum[empty] == 0).all())
+            assert bool((acc[empty] == 0).all())
+            assert bool((m[~empty] > 0.5 * MASK_VALUE).all())
+            # the combine reads a row's splits [s_lo, s_hi): exactly those with a slot
+            n = splits or cp_splits(W, bsl, D, torch.float32)
+            s, pv = plain_decode_terms(t(q), stripe, t(tables), LAYER, scale, Hkv, None)
+            each = split_partials_plain(s, n_len, pv, bsl, n, start=n_ws)
+            s_lo, s_hi = split_rows_plain(n_len, n_ws, bsl, W, n)
+            for sp, (_, m_s, _) in enumerate(each):
+                reads = (s_lo <= sp) & (sp < s_hi)
+                assert torch.equal(reads, (m_s > 0.5 * MASK_VALUE).all(-1)), (r, sp)
+            parts.append((acc, m, lsum))
+        got = cp_combine(parts, None, torch.float32).numpy()
+        np.testing.assert_allclose(got[active], want, **TOL)
+        assert np.all(got[~active] == 0)
+        ones = [paged_decode_cp_partial_plain(t(q), st, t(tables), t(kv_lens), LAYER,
+                                              scale, Hkv, r * bsl, BS, window=window)
+                for r, st in enumerate(stripes.stripes)]
+        for (_, m1, _), (_, m2, _) in zip(parts, ones):
+            np.testing.assert_array_equal(m1.numpy(), m2.numpy())
 
 
 def test_cp_wrapper_on_cpu_and_inactive_rows():

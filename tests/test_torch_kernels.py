@@ -187,7 +187,9 @@ def test_cuda_sources_present():
 def test_kernel_head_dims_match_sources():
     """The head dims each wrapper admits are the ones its CUDA source instantiates
     (the int8 / int4 decodes every served dim, MLA's 576 through their wide paths;
-    TurboQuant the powers of two; the context-parallel partial the dims up to 256)."""
+    TurboQuant the powers of two; the context-parallel partial the dims up to 256), and
+    the dims each sends to its tensor-core narrow body are the wrapper's (the int8 /
+    int4 decodes MMA_QUANT_HEAD_DIMS, the context-parallel partial CP_MMA_HEAD_DIMS)."""
     import os
     import re
 
@@ -207,6 +209,14 @@ def test_kernel_head_dims_match_sources():
     assert pd.QUANT_HEAD_DIMS == HEAD_DIMS
     assert dims('paged_decode_turbo') == pd.TURBO_HEAD_DIMS == (64, 128, 256)
     assert dims('paged_decode_cp') == pd.CP_HEAD_DIMS == (64, 80, 96, 128, 192, 256)
+
+    def mma_dims(name):
+        src = open(os.path.join(cuda_build.CSRC_DIR, name + '.cu')).read()
+        return tuple(sorted({int(d) for d in re.findall(r'MMA_CASE\((\d+)\)', src)}))
+    assert mma_dims('paged_decode_int8') == mma_dims('paged_decode_int4') \
+        == pd.MMA_QUANT_HEAD_DIMS == (64, 128, 192, 256)
+    assert mma_dims('paged_decode_cp') == pd.CP_MMA_HEAD_DIMS == (64, 128)
+    assert set(pd.CP_MMA_HEAD_DIMS) <= set(pd.CP_HEAD_DIMS)
 
 
 @pytest.mark.parametrize('source,kernel,uses', [
@@ -250,15 +260,28 @@ def test_kernel_head_dims_match_sources():
                   ('mma.sync.aligned.m16n8k16', 'Mma<__nv_bfloat16>::run('),
                   ('cp.async.cg.shared.global', 'cp_async16('),
                   ('cp.async.wait_group', 'cp_wait<'), ('__syncwarp', '__syncwarp(')),
-                 id='narrow-decode-mma-cp-async')])
+                 id='narrow-decode-mma-cp-async'),
+    pytest.param('paged_decode_int8', 'paged_decode_int8_mma',
+                 (('mma.sync.aligned.m16n8k16', 'Mma<T>::run('),
+                  ('mma.sync.aligned.m16n8k16', 'Mma<__nv_bfloat16>::run('),
+                  ('cp.async.cg.shared.global', 'cp_async16('),
+                  ('cp.async.ca.shared.global', 'cp_async4('),
+                  ('cp.async.wait_group', 'cp_wait<'), ('__syncwarp', '__syncwarp(')),
+                 id='int8-decode-mma-cp-async'),
+    pytest.param('paged_decode_cp', 'paged_decode_cp_mma',
+                 (('mma.sync.aligned.m16n8k16', 'Mma<T>::run('),
+                  ('cp.async.cg.shared.global', 'cp_async16('),
+                  ('cp.async.wait_group', 'cp_wait<'), ('__syncwarp', '__syncwarp(')),
+                 id='cp-decode-mma-cp-async')])
 def test_kernel_sources_use_hopper_paths(source, kernel, uses):
     """The bf16 / f16 flash kernel at D 64 / 128 runs both products on wgmma with its
     K / V tiles streamed by TMA into an mbarrier ring (a producer warpgroup that gives
     up registers); the paged decode's wide path over 2-byte pages runs both products on
     mma.sync with a cp.async page pipeline, and so do the int4 and TurboQuant narrow
     paths for a bf16 / f16 q (each code decoded once into an operand, P.V over the
-    decoded V codes), and so does the narrow path over 2-byte and e4m3 pages (each
-    warp waiting for its own copies); the gd W4A16 GEMM, fp8_bmm and mxfp4_bmm run wgmma
+    decoded V codes), and so does the narrow body over 2-byte, e4m3 and int8 pages and
+    a context-parallel rank's stripe (each warp waiting for its own copies; the body
+    lives in narrow_decode.cuh, which each kernel calls); the gd W4A16 GEMM, fp8_bmm and mxfp4_bmm run wgmma
     with the decoded weights as the register operand and x, words, scales by TMA
     (mxfp4_bmm's x by a 4-D map of its two halves).  Each instruction is in the source
     or a header it includes, and the kernel's body reaches it; the dispatch launches
@@ -270,8 +293,11 @@ def test_kernel_sources_use_hopper_paths(source, kernel, uses):
     src = open(os.path.join(cuda_build.CSRC_DIR, source + '.cu')).read()
     text = src + ''.join(open(os.path.join(cuda_build.CSRC_DIR, h)).read()
                          for h in re.findall(r'#include "(\w+\.cuh)"', src))
-    # the kernel's body: from its signature to the first brace that closes at column 0
+    # the kernel's body: from its signature to the first brace that closes at column 0,
+    # and the shared narrow body's where the kernel calls it
     body = re.search(r'\n' + kernel + r'\(.*?\n}\n', src, re.S).group(0)
+    if 'ndec::narrow_body<' in body:
+        body += re.search(r'\nnarrow_body\(.*?\n}\n', text, re.S).group(0)
     for instruction, call in uses:
         assert instruction in text and call in body, (instruction, call)
     assert re.search(kernel + r'<[^>]*>\s*<<<', src), f'{kernel} is never launched'
@@ -316,8 +342,9 @@ def test_gemm_token_tiles_match_sources():
 
 
 def test_quant_decode_splits_match_sources():
-    """The int4 and TurboQuant wrappers split every call by ``page_splits`` (the narrow
-    paths' SPLIT_TOKENS_INT4 / _TURBO tokens a split, int4's wide path SPLIT_TOKENS),
+    """The int8, int4 and TurboQuant wrappers split every call by ``page_splits`` (the
+    narrow paths' SPLIT_TOKENS_INT8 / _INT4 / _TURBO tokens a split, the wide paths'
+    SPLIT_TOKENS), and so does the context-parallel partial (``cp_splits``),
     and so does the plain-layout wrapper (its narrow paths' SPLIT_TOKENS_NARROW),
     and their sources take that split on every narrow path: each launch's grid is
     (.., B, splits) with ceil(W / splits) pages a split, and a split launch is followed
@@ -333,12 +360,18 @@ def test_quant_decode_splits_match_sources():
     def read(name):
         return open(os.path.join(cuda_build.CSRC_DIR, name)).read()
     tc = int(re.search(r'constexpr int TC = (\d+);', read('quant_decode.cuh')).group(1))
-    for name in ('paged_decode_int4', 'paged_decode_turbo'):
+    for name in ('paged_decode_int8', 'paged_decode_int4', 'paged_decode_turbo',
+                 'paged_decode_cp'):
         src = read(name + '.cu')
         for kernel in (name + '_kernel', name + '_mma'):
             assert re.search(kernel + r'<[^>]*><<<dim3\([^;]*, B, splits\)', src), kernel
         assert src.count('const int split_pages = (W + splits - 1) / splits;') >= 2
-        assert 'attn::decode_split_combine_rows<' in src
+        assert re.search(r'attn::decode_split_combine_(rows<|rank<<<)', src), name
+    # a context-parallel rank's combine writes its unnormalized (acc, m, l) and finds a
+    # row's splits by the kernel's own slot mapping (Positions)
+    assert re.search(r'attn::decode_split_combine_rank<<<[^;]*split_pages, window, pos\);',
+                     read('paged_decode_cp.cu'))
+    assert 'pos.window(kv_lens[blockIdx.y], window, len, ws);' in read('decode_split.cuh')
     # the narrow paths over 2-byte and e4m3 pages: both bodies take the split, whole
     # sub-chunks of the same ring, and the combine applies the window and the sinks
     src = read('paged_decode.cu')
@@ -353,15 +386,26 @@ def test_quant_decode_splits_match_sources():
     # block sizes that are a multiple of 16, one with a lookup a row for the others)
     assert re.search(r'if constexpr \(!std::is_same<TQ, float>::value\) \{\s*'
                      r'if \(D == 64 \|\| D == 128\)\s*return', src)
-    body = src[src.index('paged_decode_narrow(const T*'):src.index('// ----', src.index(
-        'paged_decode_narrow(const T*'))]
+    # (the body is narrow_decode.cuh's, which the int8 decode and the context-parallel
+    # partial share: each kernel calls it)
+    hdr = read('narrow_decode.cuh')
+    body = hdr[hdr.index('\nnarrow_body(const Args& a)'):]
     assert 'WarpRows<ONE_PAGE> rows(tables + (long long)b * W, r0, BS, NB, layer,' in body
     assert 'BS %' not in body
-    for name in ('paged_decode.cu', 'paged_decode_int4.cu', 'paged_decode_turbo.cu'):
-        src_n = read(name)
+    for name in ('narrow_decode.cuh', 'paged_decode_int4.cu', 'paged_decode_turbo.cu'):
         assert 'WarpRows<ONE_PAGE> rows(tables + (long long)b * W, r0, BS, NB, layer,' \
-            in src_n, name
-        assert src_n.count('BS % qdec::WT == 0') == 1, name   # the build picked at launch
+            in read(name), name
+    for name in ('paged_decode.cu', 'paged_decode_int8.cu', 'paged_decode_int4.cu',
+                 'paged_decode_turbo.cu'):
+        assert read(name).count('BS % qdec::WT == 0') == 1, name   # the build picked at launch
+    assert read('paged_decode_cp.cu').count('BSl % qdec::WT == 0') == 1
+    for name, kernel, policy in (('paged_decode.cu', 'paged_decode_narrow', 'NarrowPages'),
+                                 ('paged_decode_int8.cu', 'paged_decode_int8_mma',
+                                  'ndec::PagesInt8'),
+                                 ('paged_decode_cp.cu', 'paged_decode_cp_mma',
+                                  'ndec::Pages16')):
+        assert re.search(r'\n' + kernel + r'\(const ndec::Args a\) \{\n  ndec::narrow_body<T, '
+                         + policy, read(name)), kernel
     assert 'slot(table, r0 + t, BS, NB, layer)' in read('quant_decode.cuh')
     for D in (64, 80, 96, 128):
         for dtype in (torch.bfloat16, torch.float16, torch.float8_e4m3fn):
@@ -388,10 +432,15 @@ def test_quant_decode_splits_match_sources():
         assert pd.plain_layout_splits(128, torch.float8_e4m3fn, 64, 2 * per + 1, BS) == 3
     assert pd.plain_layout_splits(576, torch.bfloat16, 64, 16, 128) == pd.page_splits(
         16, 128, pd.SPLIT_TOKENS_MMA) == 2
-    mma_dims = {int(d) for d in re.findall(r'MMA_CASE\((\d+)\)', read('paged_decode_int4.cu'))}
-    assert mma_dims == set(pd.MMA_QUANT_HEAD_DIMS) == {64, 128, 192, 256}
+    for name in ('paged_decode_int4.cu', 'paged_decode_int8.cu'):
+        mma_dims = {int(d) for d in re.findall(r'MMA_CASE\((\d+)\)', read(name))}
+        assert mma_dims == set(pd.MMA_QUANT_HEAD_DIMS) == {64, 128, 192, 256}, name
+    assert {int(d) for d in re.findall(r'MMA_CASE\((\d+)\)', read('paged_decode_cp.cu'))} \
+        == set(pd.CP_MMA_HEAD_DIMS) == {64, 128}
     assert set(pd.TURBO_HEAD_DIMS) <= set(pd.MMA_QUANT_HEAD_DIMS)
-    assert pd.SPLIT_TOKENS_INT4 % tc == 0 and pd.SPLIT_TOKENS_TURBO % tc == 0
+    for tokens in (pd.SPLIT_TOKENS_INT4, pd.SPLIT_TOKENS_TURBO, pd.SPLIT_TOKENS_INT8,
+                   pd.SPLIT_TOKENS_INT8_SMALL, pd.SPLIT_TOKENS_CP):
+        assert tokens % tc == 0
     for W in range(1, 130):
         for BS in (16, 64, 128):
             for tokens in (256, 512, 1024, 2048):
@@ -401,6 +450,15 @@ def test_quant_decode_splits_match_sources():
             assert pd.int4_splits(W, BS, 128) == pd.page_splits(W, BS, pd.SPLIT_TOKENS_INT4)
             assert pd.int4_splits(W, BS, 576) == pd.page_splits(W, BS, pd.SPLIT_TOKENS)
             assert pd.turbo_splits(W, BS) == pd.page_splits(W, BS, pd.SPLIT_TOKENS_TURBO)
+            assert pd.int8_splits(W, BS, 128, 64) == pd.page_splits(W, BS,
+                                                                     pd.SPLIT_TOKENS_INT8)
+            assert pd.int8_splits(W, BS, 128, pd.INT8_SMALL_BATCH) == pd.page_splits(
+                W, BS, pd.SPLIT_TOKENS_INT8_SMALL)
+            assert pd.int8_splits(W, BS, 576, 16) == pd.page_splits(W, BS, pd.SPLIT_TOKENS)
+            assert pd.cp_splits(W, BS, 128, torch.bfloat16) == pd.page_splits(
+                W, BS, pd.SPLIT_TOKENS_CP)
+            assert pd.cp_splits(W, BS, 128, torch.float32) == pd.cp_splits(
+                W, BS, 96, torch.float16) == pd.page_splits(W, BS, pd.SPLIT_TOKENS)
 
 
 def test_gemm_bodies_left_mma_sync():

@@ -18,9 +18,10 @@ from lmdeploy_tpu.ops.kv_quant import QuantKV as JQuantKV
 from lmdeploy_tpu.ops.kv_quant import quantize_rows as jquant
 from lmdeploy_tpu_torch.ops import attention as ta
 from lmdeploy_tpu_torch.ops.kv_quant import QuantKV, dequantize, quantize_rows
-from lmdeploy_tpu_torch.ops.paged_decode import (paged_decode_attention,
+from lmdeploy_tpu_torch.ops.paged_decode import (int8_splits, paged_decode_attention,
                                                  paged_decode_attention_int8,
-                                                 paged_decode_attention_int8_plain)
+                                                 paged_decode_attention_int8_plain,
+                                                 paged_decode_attention_int8_split_plain)
 from lmdeploy_tpu_torch.weight_convert import cache_from_reference, cache_to_reference
 
 from test_torch_engine import generate, make_prompts
@@ -158,6 +159,36 @@ def test_int8_decode_plain_matches_pallas(G, softcap):
     with pytest.raises(ValueError):
         paged_decode_attention(t(q), port, t(tables), t(kv_lens), layer, scale, Hkv,
                                window=8)
+
+
+@pytest.mark.parametrize('BS,W', [(16, 6), (8, 12)])
+@pytest.mark.parametrize('G,softcap', [(1, None), (4, None), (4, 20.0)])
+def test_int8_decode_split_plain_matches_pallas(G, softcap, BS, W):
+    """The kernel's two passes in plain PyTorch -- each split's (acc, m, l) over its
+    pages, then the fixed-order combine -- against the Pallas int8 kernel in interpret
+    mode at 2e-5: 1, 2 and W splits of the 96-slot table and the wrapper's own split
+    (``int8_splits``), on rows of 1, 37, 0 and 96 tokens (empty splits, a full table,
+    an inactive row whose output is 0), at block sizes 16 and 8."""
+    from lmdeploy_tpu.ops.pallas.paged_decode import paged_decode_attention as jdecode
+    rng = np.random.RandomState(5)
+    L, layer, NB, B, Hkv, D = 3, 1, 60, 4, 2, 64
+    ref = _ref_cache(rng, L, NB, BS, Hkv, D)
+    port = cache_from_reference(ref, Hkv, D)
+    tables = rng.permutation(np.arange(1, NB))[:B * W].reshape(B, W).astype(np.int32)
+    kv_lens = np.array([1, 37, 0, 96], np.int32)
+    q = rng.randn(B, Hkv * G, D).astype(np.float32)
+    scale = D ** -0.5
+    out_ref = np.asarray(jdecode(jnp.asarray(q), ref, jnp.asarray(tables),
+                                 jnp.asarray(kv_lens), jnp.int32(layer), scale, Hkv,
+                                 logit_softcap=softcap))
+    active = kv_lens > 0
+    assert int8_splits(W, BS, D, B) == 1   # 96 slots fit one split of the card's length
+    for splits in (1, 2, W, None):
+        out = paged_decode_attention_int8_split_plain(
+            t(q), port, t(tables), t(kv_lens), layer, scale, Hkv, logit_softcap=softcap,
+            splits=splits).numpy()
+        np.testing.assert_allclose(out[active], out_ref[active], **TOL)
+        assert np.all(out[~active] == 0)
 
 
 @pytest.mark.parametrize('softcap', [None, 20.0])
