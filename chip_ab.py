@@ -2,8 +2,8 @@
 turns.
 
     python3 chip_ab.py PARENT_DIR [--cells deepseek w4a16_kv8 tinyllama] [--pairs 2]
-    python3 chip_ab.py PARENT_DIR --kernels [--kernel-sets w4a16_gemm fp8_bmm kv_decode
-                       mxfp4_bmm narrow_decode cp_decode] [--pairs 1]
+    python3 chip_ab.py PARENT_DIR --kernels [--kernel-sets w4a16_gemm w4a16_modes fp8_bmm
+                       kv_decode mxfp4_bmm narrow_decode cp_decode] [--pairs 1]
 
 PARENT_DIR is an unpacked copy of another commit (for example `git archive <commit> |
 tar -x -C work_dir/parent`, under a directory .gitignore lists).  Each pair runs the
@@ -14,7 +14,8 @@ cells are `chip_smoke.py`'s e2e phases: 'deepseek' (e2e_deepseek_v2_lite_fp8),
 'w4a16_kv8' (e2e_w4a16_kv8: llama2-7b W4A16 gd with the int8 KV cache) and 'tinyllama'
 (e2e).  With --kernels each run instead times its tree's w4a16_gemm (gd), fp8_bmm and
 mxfp4_bmm wrappers at every row shape of this tree's `chip_smoke.py` (W4_SHAPES,
-FP8_SHAPES, MX_SHAPES), its paged_decode_attention_int4 / _turbo wrappers at every case
+FP8_SHAPES, MX_SHAPES), its fast / precise (w4a16_matmul_szc) and unprepared
+(w4a16_matmul) W4A16 wrappers at every W4_MODE_SHAPES case (`w4a16_modes`), its paged_decode_attention_int4 / _turbo wrappers at every case
 of this tree's `chip_smoke.kv_decode_cases` and its paged_decode_attention_int8 at every
 case of `int8_decode_cases` (`kv_decode`; caches filled by the tree's own fill, from
 the same seeded K / V), its narrow paged decode (`narrow_decode`:
@@ -23,7 +24,7 @@ paged_decode_attention_fp8 at the e4m3 cases of `kv_decode_cases`, each e4m3 cac
 filled by the tree's own fill) and its context-parallel decode (`cp_decode`:
 paged_decode_attention_cp, both ranks' partials and the combine, at
 `chip_smoke.cp_decode_cases`), on the same seeded data (--kernel-sets picks among the
-six), and the last JSON line holds each side's mean per row.  Needs a
+seven), and the last JSON line holds each side's mean per row.  Needs a
 CUDA card; host-side numbers of one cell spread between calls, so compare only runs of
 one call.
 """
@@ -71,6 +72,17 @@ for label, M, K, N in (%r if 'w4a16_gemm' in sets else ()):
     sb, corr = qm.prep_w4(scales, zeros, mode='gd')
     x = torch.randn(M, K, device='cuda', generator=gen).bfloat16()
     out['w4a16_gemm'][label] = c.time_ms(lambda: qm.w4a16_matmul_gd(x, packed, sb, corr, 128))
+for label, M, K, N in (%r if 'w4a16_modes' in sets else ()):
+    w = (torch.randn(K, N, device='cuda', generator=gen) * 0.02).bfloat16()
+    packed, scales, zeros = qm.quantize_w4(w, 128)
+    x = torch.randn(M, K, device='cuda', generator=gen).bfloat16()
+    for mode in ('fast', 'precise'):
+        sb, corr = qm.prep_w4(scales, zeros, mode=mode)
+        out['w4a16_modes'][mode + '/' + label] = c.time_ms(
+            lambda: qm.w4a16_matmul_szc(x, packed, sb, corr, 128))
+    out['w4a16_modes']['unprepared/' + label] = c.time_ms(
+        lambda: qm.w4a16_matmul(x, packed, scales, zeros, 128))
+    del w, packed, scales, zeros
 stacks = {}
 for label, (E, H, Ie), kind, M in (%r if 'fp8_bmm' in sets else ()):
     K, N = (H, Ie) if kind == 'gate' else (Ie, H)
@@ -185,8 +197,8 @@ for label, cp, B, Hq, Hkv, D, lens, W, opts in (%r if 'cp_decode' in sets else (
     torch.cuda.empty_cache()
 print('AB ' + json.dumps(out), flush=True)
 '''
-KERNEL_SETS = ('w4a16_gemm', 'fp8_bmm', 'kv_decode', 'mxfp4_bmm', 'narrow_decode',
-               'cp_decode')
+KERNEL_SETS = ('w4a16_gemm', 'w4a16_modes', 'fp8_bmm', 'kv_decode', 'mxfp4_bmm',
+               'narrow_decode', 'cp_decode')
 
 
 def run(tree: str, code: str) -> dict:
@@ -242,7 +254,7 @@ def main() -> int:
                for label, B, Hq, Hkv, D, lens, W, softcap, opts in chip_smoke.kv_decode_cases()
                if 'paged_decode_fp8' in opts.get('kernels', ('paged_decode_fp8',))]
         code = KERNEL_RUN % (tuple(args.kernel_sets), chip_smoke.W4_SHAPES,
-                             chip_smoke.FP8_SHAPES, kv_cases, chip_smoke.MX_SHAPES, narrow,
+                             chip_smoke.W4_MODE_SHAPES, chip_smoke.FP8_SHAPES, kv_cases, chip_smoke.MX_SHAPES, narrow,
                              fp8, cp)
     else:
         code = RUN % {name: CELLS[name] for name in args.cells}

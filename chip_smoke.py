@@ -40,7 +40,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  size 8 for each (greedy tokens equal to block size 16's);
                  w4a16_szc (fast / precise) and w4a16_unprepared (raw scales and zeros)
                  at Mixtral-8x7B's and llama2-7b's projections, M 1 to 256, each with
-                 its planted traps; fp8_bmm (DeepSeek-V2-Lite's gate and down products at
+                 its planted traps and every K split; fp8_bmm (DeepSeek-V2-Lite's gate and down products at
                  M 8 / 37 / 64 / 128 / 767 and V3's at 64, each row's token tile and
                  work items; the check must catch each planted trap; also at scale
                  groups 16-256, those that straddle its 128-row K stages included, and
@@ -456,7 +456,8 @@ def device_phase():
 
 
 # the sources whose kernels issue wgmma, whose SASS the build phase reads
-WGMMA_SOURCES = ('flash_prefill', 'w4a16_gemm', 'fp8_bmm', 'mxfp4_bmm')
+WGMMA_SOURCES = ('flash_prefill', 'w4a16_gemm', 'w4a16_gemm_szc', 'w4a16_gemm_unprepared',
+                 'fp8_bmm', 'mxfp4_bmm')
 
 
 def wgmma_waits(lib: str) -> dict:
@@ -877,8 +878,8 @@ def _int4pack_library(x, packed, scales, zeros, gs):
 
 def w4a16_phase():
     from lmdeploy_tpu_torch.ops.quant_matmul import (dequant_w4, prep_w4, quantize_w4,
-                                                     token_tile, w4a16_gd_splits,
-                                                     w4a16_matmul_gd, w4a16_matmul_gd_plain)
+                                                     token_tile, w4a16_matmul_gd,
+                                                     w4a16_matmul_gd_plain, w4a16_splits)
     torch.backends.cuda.matmul.allow_tf32 = False     # the correction must stay f32
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device='cuda').manual_seed(SEED)
@@ -919,7 +920,7 @@ def w4a16_phase():
         row = {'phase': 'kernel', 'kernel': 'w4a16_gemm', 'case': label,
                'shape': [M, K, N, gs], 'max_abs_err': err, 'max_rel_err': rel,
                'err_over_tol': frac, 'tol': tol, 'ok': ok, 'tf32': False,
-               'trap_err_over_tol': traps, 'splits': w4a16_gd_splits(M, N, G, sms),
+               'trap_err_over_tol': traps, 'splits': w4a16_splits(M, N, G, sms),
                'tile': {'tokens': token_tile(M), 'columns': 128,
                         'token_tiles': -(-M // token_tile(M)), 'column_tiles': -(-N // 128)},
                'split_sweep': sweep,
@@ -1030,9 +1031,10 @@ def _unprep_trapped(trap: str):
 def w4a16_modes_phase():
     """w4a16_szc (fast and precise) and w4a16_unprepared against their plain versions
     on the card, at Mixtral-8x7B's fused wqkv and wo and llama2-7b's four projections,
-    M 1 to 256, with each mode's planted traps; beside each, the bound, the plain
-    version's time, torch._weight_int4pack_mm's and a dense bf16 GEMM's on the same
-    weights.  Returns (szc rows, unprepared rows)."""
+    M 1 to 256, with each mode's planted traps, and at every K split of W4_SPLITS
+    (each held against the plain version and timed: ``split_sweep``); beside each, the
+    bound, the plain version's time, torch._weight_int4pack_mm's and a dense bf16
+    GEMM's on the same weights.  Returns (szc rows, unprepared rows)."""
     from lmdeploy_tpu_torch.ops.quant_matmul import (dequant_w4, prep_w4, quantize_w4,
                                                      w4a16_matmul, w4a16_matmul_plain,
                                                      w4a16_matmul_szc,
@@ -1081,18 +1083,26 @@ def w4a16_modes_phase():
                                    gs).bfloat16(), ref, tol)[2]
                      for t, fn in traps.items()}
             ok = ok and min(reads.values()) > 1.0
+            # every K split the kernel takes, each held against the plain version
+            sweep = {}
+            for sp in W4_SPLITS:
+                frac_s = compare(kern(x, packed, ta, tb, gs, splits=sp), ref, tol)[2]
+                sweep[sp] = {'ms': time_ms(lambda: kern(x, packed, ta, tb, gs, splits=sp)),
+                             'err_over_tol': frac_s}
+                ok = ok and frac_s <= 1.0
             nbytes = K * N // 2 + table_bytes + 2 * M * K + 2 * M * N + 4 * M * G
             bound_ms, bound_by = bound(2 * M * K * N, nbytes)
             row = dict(common, kernel=kernel, mode=mode, max_abs_err=err, max_rel_err=rel,
                        err_over_tol=frac, tol=tol, ok=ok, trap_err_over_tol=reads,
+                       split_sweep=sweep,
                        kernel_ms=time_ms(lambda: kern(x, packed, ta, tb, gs)),
                        plain_ms=time_ms(lambda: plain(x, packed, ta, tb, gs), **PLAIN_TIMING),
                        bound_ms=bound_ms, bound_by=bound_by, mbytes=nbytes / 1e6)
             emit(row)
             out_rows[kernel].append(row)
             if not ok:
-                raise SystemExit(f'{kernel} ({mode}) disagrees with its plain version, or '
-                                 f'its check misses a trap: {row}')
+                raise SystemExit(f'{kernel} ({mode}) disagrees with its plain version at '
+                                 f'some split, or its check misses a trap: {row}')
     weights.clear()
     torch.cuda.empty_cache()
     return out_rows['w4a16_szc'], out_rows['w4a16_unprepared']

@@ -1,9 +1,10 @@
 """Time the redesigned kernels with one part of their design taken out at a time, on one
 CUDA card: the int4, TurboQuant, int8 and narrow (2-byte and e4m3 pages) paged decodes,
-the context-parallel partials, and mxfp4_bmm.
+the context-parallel partials, mxfp4_bmm, and the four W4A16 GEMM schedules.
 
     python3 chip_steps.py [--kernels paged_decode_int4 paged_decode_turbo paged_decode
-                           paged_decode_fp8 paged_decode_int8 paged_decode_cp mxfp4_bmm]
+                           paged_decode_fp8 paged_decode_int8 paged_decode_cp mxfp4_bmm
+                           w4a16_gd w4a16_fast w4a16_precise w4a16_unprepared]
                           [--cases CASE ...]
 
 Each step but `full` and `one_split` compiles an edited copy of the kernels' sources
@@ -40,6 +41,21 @@ mxfp4_bmm's steps:
   one_consumer    one consumer warpgroup a block (items of 128 columns);
   no_overlap      a ring of one stage, released after its last wgmma: the producer's
                   copy of a stage never overlaps the consumers' work.
+The W4A16 GEMMs' steps, on their shared body (w4a16_gemm.cuh), each schedule through its
+wrapper at rows of `chip_smoke.W4_MODE_SHAPES` (the wrapper's xg sums included):
+  full            the committed kernel (held against the plain version);
+  loads_only      the producers stream every stage, the consumers release it unread;
+  no_loads        the producers issue no copy (each stage's barrier completes at once),
+                  the consumers compute on the rings as they stand;
+  no_decode       the packed words go to the tensor cores undecoded (fast / precise:
+                  unscaled too);
+  no_fold         gd only: no wait for a (group, plane)'s partial and no fold of it into
+                  the running sum (the fragment registers' reuse still orders the wgmmas);
+and, without an edit, the committed kernel's parts of a wrapper call:
+  kernel_only     the C entry's launch alone, xg made before the timed call;
+  xg_only         the wrapper's xg reduction alone (precise: rounded to bf16).
+A `replay_floor` line first times a CUDA graph of one tiny kernel, the floor of every
+time here (each is a graph replay between CUDA events, `chip_smoke.time_ms`).
 The edited kernels but `p_once` and `cvt_decode` give wrong outputs; their times only
 show what each part costs.
 Prints one JSON line a (step, kernel, case), then the card's name and power limit.
@@ -71,6 +87,12 @@ KERNELS = {'paged_decode_int4': ('paged_decode_int4', 'SPLIT_TOKENS_INT4',
            'paged_decode_int8': ('paged_decode_int8', 'SPLIT_TOKENS_INT8', (NARROW,)),
            'paged_decode_cp': ('paged_decode_cp', 'SPLIT_TOKENS_CP', (NARROW,)),
            'mxfp4_bmm': ('mxfp4_bmm', None, ('mxfp4_bmm.cu',))}
+# the W4A16 schedules: their wrapper's schedule, source and the shared body's file
+W4 = 'w4a16_gemm.cuh'
+W4_KERNELS = {'w4a16_gd': ('gd', 'w4a16_gemm'), 'w4a16_fast': ('fast', 'w4a16_gemm_szc'),
+              'w4a16_precise': ('precise', 'w4a16_gemm_szc'),
+              'w4a16_unprepared': ('unprepared', 'w4a16_gemm_unprepared')}
+KERNELS.update({k: (src, None, (W4,)) for k, (_, src) in W4_KERNELS.items()})
 QUANT = ('paged_decode_int4.cu', 'paged_decode_turbo.cu')
 # (file, text, replacement) edits of each step; the text must be in the file
 DECODE_STEPS = {
@@ -150,6 +172,26 @@ MXFP4_STEPS = {
          '      }\n      wgmma_wait<0>();\n      mbar_arrive(smem_u32(&empty[s]));\n    }\n'
          '    fence_regs(acc0);\n    fence_regs(acc1);\n')),
 }
+W4A16_STEPS = {
+    'full': (),
+    'loads_only': ((W4, '    const uint32_t wst = base + sw * C::W_STAGE;\n',
+                    '    const uint32_t wst = base + sw * C::W_STAGE;\n'
+                    '    if (wst) {\n      for (int j = 0; j < 4; ++j, ++xi) {\n'
+                    '        mbar_wait(smem_u32(&full_x[xi % NX]), (xi / NX) & 1);\n'
+                    '        release(&empty_x[xi % NX]);\n      }\n'
+                    '      release(&empty_w[sw]);\n      continue;\n    }\n'),),
+    'no_loads': ((W4, '        mbar_expect_tx(bw, C::W_TX);\n',
+                  '        mbar_arrive(bw);\n        continue;\n'),
+                 (W4, '          mbar_expect_tx(bx, C::X_TX);\n',
+                  '          mbar_arrive(bx);\n          continue;\n')),
+    'no_decode': ((W4, '  uint32_t v = ((w >> (4 * j)) & NIBBLES) | MAGIC;\n',
+                   '  return w;\n  uint32_t v = w;\n'),),
+    'no_fold': ((W4, '        wgmma_wait<0>();\n        fence_regs(part);\n'
+                     '        const float s0 = ld_shared_f32(srow)',
+                 '        if (false) {\n        const float s0 = ld_shared_f32(srow)'),
+                (W4, '          }\n        release(&empty_x[sx]);\n',
+                 '          }\n        }\n        release(&empty_x[sx]);\n')),
+}
 DECODE_CASES = {'paged_decode_int4': ['e2e_shape_llama31', 'bs64_7b_heads',
                                       'bs64_tinyllama_heads'],
                 'paged_decode_turbo': ['e2e_shape_llama31', 'bs64_7b_heads',
@@ -160,11 +202,15 @@ DECODE_CASES = {'paged_decode_int4': ['e2e_shape_llama31', 'bs64_7b_heads',
                 'paged_decode_int8': ['e2e_shape_7b', 'bs64_7b', 'bs64_tinyllama_heads'],
                 'paged_decode_cp': ['e2e_cp2', 'e2e_cp4'],
                 'mxfp4_bmm': ['gate_m64', 'down_m64', 'gate_m767']}
+DECODE_CASES.update({k: ['mixtral_wqkv_m64', 'mixtral_wo_m64', '7b_wqkv_m128', '7b_w_down_m128']
+                     for k in W4_KERNELS})
 
 
 def steps_of(kernel: str) -> dict:
     if kernel == 'mxfp4_bmm':
         return MXFP4_STEPS
+    if kernel in W4_KERNELS:
+        return {k: v for k, v in W4A16_STEPS.items() if k != 'no_fold' or kernel == 'w4a16_gd'}
     files = KERNELS[kernel][2]
     return {step: tuple(e for e in edits if e[0] in files)
             for step, edits in DECODE_STEPS.items()
@@ -219,6 +265,35 @@ def kernel_cases(c, kernel, label, gen):
     from lmdeploy_tpu_torch.ops import quant_bmm as qb
     from lmdeploy_tpu_torch.ops.attention import fill_kv_cache
     from lmdeploy_tpu_torch.ops.kv_quant import hadamard_rotate
+    if kernel in W4_KERNELS:
+        from lmdeploy_tpu_torch.ops import quant_matmul as qm
+        mode = W4_KERNELS[kernel][0]
+        _, M, K, N = next(s for s in c.W4_MODE_SHAPES if s[0] == label)
+        w = (torch.randn(K, N, device='cuda', generator=gen) * 0.02).bfloat16()
+        packed, scales, zeros = qm.quantize_w4(w, 128)
+        x = torch.randn(M, K, device='cuda', generator=gen).bfloat16()
+        if mode == 'unprepared':
+            ta, tb, kern, plain = scales, zeros, qm.w4a16_matmul, qm.w4a16_matmul_plain
+        else:
+            ta, tb = qm.prep_w4(scales, zeros, mode=mode)
+            kern, plain = ((qm.w4a16_matmul_gd, qm.w4a16_matmul_gd_plain) if mode == 'gd'
+                           else (qm.w4a16_matmul_szc, qm.w4a16_matmul_szc_plain))
+        source = W4_KERNELS[kernel][1]
+        symbol = 'w4a16_gemm_' + mode if source != 'w4a16_gemm_unprepared' else source
+
+        def xg_of():
+            return (qm._xg(x, 128, torch.bfloat16).float() if mode == 'precise'
+                    else qm._xg(x, 128))
+        xg = xg_of()
+
+        def call():
+            return kern(x, packed, ta, tb, 128)
+        call.parts = {'kernel_only': lambda: qm._launch(source, symbol, x, packed, ta, tb, xg,
+                                                        128, None),
+                      'xg_only': xg_of}
+        return (call, lambda: plain(x, packed, ta, tb, 128),
+                lambda: qm.w4a16_splits(M, N, K // 128, torch.cuda.get_device_properties(0)
+                                        .multi_processor_count))
     if kernel == 'mxfp4_bmm':
         _, kind, M, K = next(s for s in c.MX_SHAPES if s[0] == label)
         E, N = c.MX_E, c.MX_H
@@ -322,9 +397,12 @@ def main() -> int:
     cuda_build.build(sorted({KERNELS[k][0] for k in args.kernels}))
     libs = build_steps(os.path.join(ROOT, 'work_dir', 'steps'), args.kernels)
     gen = torch.Generator(device='cuda').manual_seed(c.SEED)
+    tiny = torch.zeros(8, device='cuda')
+    print(json.dumps({'step': 'replay_floor', 'ms': c.time_ms(lambda: tiny.add_(1))}), flush=True)
     for kernel in args.kernels:
         source, const, _ = KERNELS[kernel]
-        tol = c.KERNEL_TOL[kernel]
+        tol = c.KERNEL_TOL[c.W4_KERNEL_OF[W4_KERNELS[kernel][0]] if kernel in W4_KERNELS
+                           else kernel]
         package_lib = cuda_build.load(source)
         for label in args.cases or DECODE_CASES[kernel]:
             kern, plain, splits = kernel_cases(c, kernel, label, gen)
@@ -343,6 +421,9 @@ def main() -> int:
                     setattr(pd, const, chosen)
                 print(json.dumps(row), flush=True)
             cuda_build._libs[source] = package_lib
+            for part, fn in getattr(kern, 'parts', {}).items():
+                print(json.dumps({'step': part, 'kernel': kernel, 'case': label,
+                                  'ms': c.time_ms(fn)}), flush=True)
             del kern, plain
             torch.cuda.empty_cache()
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',

@@ -22,34 +22,69 @@
 //   wo    4096 x 4096    9.2 MB        -> 2.7 us   (2.2 us)
 // so about 7 us a layer at the decode bucket of 64 rows, bytes-bound.
 //
-// Design: w4a16_gemm.cuh (the block body shared with the gd and unprepared W4A16
-// GEMMs), in its FAST and PRECISE schedules: the nibble pair decodes into a B
-// register as 128 + q by the 0x4300 magic number (precise: minus 135 by a bf16x2
-// FMA, exact since (128 + q) - 135 = q - 7 lies in [-7, 8]), a bf16x2 FMA with -0
-// multiplies it by the column's scale with one rounding, and one mma.sync chain runs
-// over all groups; each group's correction is subtracted in f32 as it goes.
+// Design: w4a16_gemm.cuh (the wgmma body shared with the gd and unprepared W4A16
+// GEMMs) in its FAST and PRECISE schedules: the nibble pair decodes into an A register
+// as 128 + q by the 0x4300 magic number (precise: minus 135 by a bf16x2 FMA, exact
+// since (128 + q) - 135 = q - 7 lies in [-7, 8]), a bf16x2 FMA with -0 multiplies it
+// by the column's scale with one rounding, and one wgmma chain runs over all groups
+// and planes into one accumulator; the correction is summed in f32 registers of its
+// own and subtracted once at the end.
 #include "w4a16_gemm.cuh"
 
 namespace {
-W4A16_DEFINE_KERNEL(w4a16_fast_kernel, w4a16::FAST)
-W4A16_DEFINE_KERNEL(w4a16_precise_kernel, w4a16::PRECISE)
+
+template <int GS, int NTOK>
+__global__ void __launch_bounds__(w4a16::THREADS, 1)
+w4a16_fast_kernel(const __grid_constant__ w4a16::Params p) {
+  w4a16::gemm_body<w4a16::FAST, GS, NTOK>(p);
+}
+
+template <int GS, int NTOK>
+__global__ void __launch_bounds__(w4a16::THREADS, 1)
+w4a16_precise_kernel(const __grid_constant__ w4a16::Params p) {
+  w4a16::gemm_body<w4a16::PRECISE, GS, NTOK>(p);
+}
+
+struct Fast {
+  static constexpr int MODE = w4a16::FAST;
+  template <int GS, int NTOK>
+  static cudaError_t run(const w4a16::Params& p, dim3 grid, int smem, cudaStream_t s) {
+    static const cudaError_t configured = hopper::set_smem(w4a16_fast_kernel<GS, NTOK>, smem);
+    if (configured != cudaSuccess) return configured;
+    w4a16_fast_kernel<GS, NTOK><<<grid, w4a16::THREADS, smem, s>>>(p);
+    return cudaGetLastError();
+  }
+};
+
+struct Precise {
+  static constexpr int MODE = w4a16::PRECISE;
+  template <int GS, int NTOK>
+  static cudaError_t run(const w4a16::Params& p, dim3 grid, int smem, cudaStream_t s) {
+    static const cudaError_t configured =
+        hopper::set_smem(w4a16_precise_kernel<GS, NTOK>, smem);
+    if (configured != cudaSuccess) return configured;
+    w4a16_precise_kernel<GS, NTOK><<<grid, w4a16::THREADS, smem, s>>>(p);
+    return cudaGetLastError();
+  }
+};
+
 }  // namespace
 
 // x [M,K] bf16; packed [K/8,N] i32; sb [K/gs,N] bf16; corr [K/gs,N] f32 (fast) or bf16
 // (precise); xg [M,K/gs] f32 (precise: values rounded to bf16); out [M,N] bf16; ws,
-// counters, shapes and the return code as w4a16_gemm_gd (w4a16_gemm.cu).
+// counters, shapes and the return code as w4a16::dispatch (w4a16_gemm.cuh).
 extern "C" int w4a16_gemm_fast(const void* x, const void* packed, const void* sb,
                                const void* corr, const void* xg, void* out, void* ws,
                                void* counters, int M, int N, int K, int group_size,
                                int splits, void* stream) {
-  return w4a16_fast_kernel_dispatch(x, packed, sb, corr, xg, out, ws, counters, M, N, K,
-                                    group_size, splits, stream);
+  return w4a16::dispatch<Fast>(x, packed, sb, corr, xg, out, ws, counters, M, N, K,
+                               group_size, splits, stream);
 }
 
 extern "C" int w4a16_gemm_precise(const void* x, const void* packed, const void* sb,
                                   const void* corr, const void* xg, void* out, void* ws,
                                   void* counters, int M, int N, int K, int group_size,
                                   int splits, void* stream) {
-  return w4a16_precise_kernel_dispatch(x, packed, sb, corr, xg, out, ws, counters, M, N,
-                                       K, group_size, splits, stream);
+  return w4a16::dispatch<Precise>(x, packed, sb, corr, xg, out, ws, counters, M, N, K,
+                                  group_size, splits, stream);
 }

@@ -7,16 +7,17 @@ fallback: a CUDA tensor a kernel does not take raises.
 
   * ``w4a16_matmul_gd`` (``csrc/w4a16_gemm.cu``): the group-dot ("gd") body of
     ``w4a16_matmul_stacked`` (``_w4a16_kernel_stacked_gd``), the default schedule, over
-    prepared leaves with f32 ``sb`` / ``corr``: a warp-specialised wgmma kernel with
-    the decoded weights as its register operand and x brought by TMA, one token tile
-    of ``token_tile(M)`` rows, K split ``w4a16_gd_splits`` ways;
+    prepared leaves with f32 ``sb`` / ``corr``;
   * ``w4a16_matmul_szc`` (``csrc/w4a16_gemm_szc.cu``): the fast / precise body of the
     same wrapper (``_w4a16_kernel_stacked``) over prepared leaves with bf16 ``sb``:
     fast with an f32 ``corr``, precise with a bf16 one;
   * ``w4a16_matmul`` (``csrc/w4a16_gemm_unprepared.cu``): the unstacked W4A16 GEMM over
     unprepared leaves, raw f32 scales and zeros (``w4a16_matmul``,
     ``_w4a16_kernel_groupdot``).
-The kernels' headers say what bounds them and how they are laid out.
+All three run one body (``csrc/w4a16_gemm.cuh``): a warp-specialised wgmma kernel with
+the decoded weights as its register operand and x brought by TMA, one token tile of
+``token_tile(M)`` rows, K split ``w4a16_splits`` ways.  The headers say what bounds
+the kernels and how they are laid out.
 
 Weight layout ("plane-packed"): word ``r`` of ``packed i32[K/8, N]`` holds 8 nibbles;
 plane ``j`` (j = 0..3) covers input rows ``[j*K/4, (j+1)*K/4)``, its row ``2r`` sits at
@@ -52,10 +53,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # w4a16_gemm_<kind>(x, packed, scale_table, corr_table, xg, out, ws, counters, M, N, K,
 #                   group_size, splits, stream)
 _ARGTYPES = [_P] * 8 + [_I] * 5 + [_P]
-# rows of a tile the fast / precise and unprepared kernels compute per block (16 * MT,
-# MT <= 4) and its columns; the token tiles (wgmma N) of the gd and fp8 kernels
-# (``token_tile``), and the group sizes
-_TILE_M, _TILE_N = 64, 128
+# output columns of a W4A16 kernel's block; the token tiles (wgmma N) of the W4A16 and
+# fp8 kernels (``token_tile``), and the group sizes
+_TILE_N = 128
 TOKEN_TILES = (16, 64, 128)
 GROUP_SIZES = (32, 64, 128)
 _COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
@@ -243,10 +243,12 @@ def _check(x: torch.Tensor, packed: torch.Tensor, a: torch.Tensor, b: torch.Tens
     return M, K, N, G
 
 
-def _xg(xb: torch.Tensor, group_size: int) -> torch.Tensor:
-    """Per-group sums of the bf16-rounded activations, in f32: [M, K/gs]."""
+def _xg(xb: torch.Tensor, group_size: int, dtype=torch.float32) -> torch.Tensor:
+    """Per-group sums of the bf16-rounded activations, summed in f32: [M, K/gs] in
+    ``dtype`` (one reduction, which widens each value as it reads it and rounds each sum
+    once to ``dtype``)."""
     M, K = xb.shape
-    return xb.float().view(M, K // group_size, group_size).sum(-1)
+    return torch.sum(xb.reshape(M, K // group_size, group_size), dim=-1, dtype=dtype)
 
 
 def _correction(xg: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
@@ -330,33 +332,19 @@ def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
     return buf
 
 
-def _m_tile(M: int) -> int:
-    return 16 if M <= 16 else 32 if M <= 32 else _TILE_M
-
-
-def _one_wave_splits(tiles: int, G: int, sms: int) -> int:
-    """As many K splits as keep ``tiles`` (column, row) tiles in one wave of the card,
-    at most one per group of a plane."""
-    return max(1, min(G // 4, sms // tiles))
-
-
-def w4a16_splits(M: int, N: int, G: int, sms: int) -> int:
-    """K splits the fast / precise and unprepared kernels take when their (column, row)
-    tiles alone leave SMs idle."""
-    return _one_wave_splits(-(-N // _TILE_N) * -(-M // _m_tile(M)), G, sms)
-
-
 def token_tile(M: int) -> int:
-    """The token tile (wgmma N) of the gd W4A16 and the fp8_bmm kernels for M rows: 16
-    up to 16 rows, 64 up to 64, else 128 (larger M runs several tiles)."""
+    """The token tile (wgmma N) of the W4A16 and the fp8_bmm kernels for M rows: 16 up
+    to 16 rows, 64 up to 64, else 128 (larger M runs several tiles)."""
     return 16 if M <= 16 else 64 if M <= 64 else 128
 
 
-def w4a16_gd_splits(M: int, N: int, G: int, sms: int) -> int:
-    """K splits the gd kernel takes, by its own (column, token) tiles: the swept best on
-    an H100 at llama2-7b's and Mixtral-8x7B's fused projections (``chip_smoke.py``'s
-    w4a16 rows)."""
-    return _one_wave_splits(-(-N // _TILE_N) * -(-M // token_tile(M)), G, sms)
+def w4a16_splits(M: int, N: int, G: int, sms: int) -> int:
+    """K splits the W4A16 kernels take, every schedule alike: as many as keep their
+    (column, token) tiles in one wave of the card, at most one per group of a plane;
+    the swept best on an H100 at llama2-7b's and Mixtral-8x7B's fused projections
+    (``chip_smoke.py``'s w4a16 rows)."""
+    tiles = -(-N // _TILE_N) * -(-M // token_tile(M))
+    return max(1, min(G // 4, sms // tiles))
 
 
 def _sms(x: torch.Tensor) -> int:
@@ -365,28 +353,31 @@ def _sms(x: torch.Tensor) -> int:
 
 def _launch(source: str, symbol: str, x: torch.Tensor, packed: torch.Tensor,
             tab_s: torch.Tensor, tab_c: torch.Tensor, xg: torch.Tensor, group_size: int,
-            splits: int, m_tile: int) -> torch.Tensor:
-    """Check the operands of one of the three W4A16 kernels and launch it with
-    ``splits`` K splits over tiles of ``m_tile`` rows."""
+            splits: Optional[int]) -> torch.Tensor:
+    """Check the operands of one of the three W4A16 kernels and launch it over tiles of
+    ``token_tile(M)`` rows with ``splits`` K splits (None: as ``w4a16_splits`` picks)."""
     M, K, N, G = _check(x, packed, tab_s, tab_c, group_size)
     if x.dtype != torch.bfloat16 or packed.dtype != torch.int32:
         raise TypeError(f'{source} kernel takes bf16 x and int32 packed, got '
                         f'{x.dtype}/{packed.dtype}')
-    if group_size not in GROUP_SIZES or N % 8 or not 0 < M <= 4 * _TILE_M:
+    if group_size not in GROUP_SIZES or N % 8 or not 0 < M <= GROUP_DOT_MAX_M:
         raise ValueError(f'{source} kernel takes group 32/64/128, N % 8 == 0 and '
-                         f'0 < M <= {4 * _TILE_M}; got gs {group_size} N {N} M {M}')
+                         f'0 < M <= {GROUP_DOT_MAX_M}; got gs {group_size} N {N} M {M}')
     for name, t in (('x', x), ('packed', packed), ('scale table', tab_s),
                     ('corr table', tab_c)):
         if not t.is_contiguous() or t.device != x.device:
             raise ValueError(f'{source}: {name} must be contiguous on {x.device}')
+    if splits is None:
+        splits = w4a16_splits(M, N, G, _sms(x))
     if not 1 <= splits <= G // 4:
         raise ValueError(f'{source}: splits must be 1..{G // 4}, got {splits}')
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    # the split-K workspace: [splits, N, Mp] for gd (tokens contiguous), [splits, Mp, N]
-    ws = torch.empty((splits if splits > 1 else 0, -(-M // m_tile) * m_tile, N),
+    # the split-K workspace [splits, N, Mp] (tokens contiguous), Mp = M padded to tiles
+    tile = token_tile(M)
+    ws = torch.empty((splits if splits > 1 else 0, N, -(-M // tile) * tile),
                      dtype=torch.float32, device=x.device)
     stream = cuda_build.stream_handle(x)
-    counters = _counters(x.device, stream, -(-N // _TILE_N) * -(-M // m_tile))
+    counters = _counters(x.device, stream, -(-N // _TILE_N) * -(-M // tile))
     fn = cuda_build.entry(source, symbol, _ARGTYPES)
     rc = fn(x.data_ptr(), packed.data_ptr(), tab_s.data_ptr(), tab_c.data_ptr(),
             xg.data_ptr(), out.data_ptr(), ws.data_ptr(), counters.data_ptr(),
@@ -402,16 +393,13 @@ def w4a16_matmul_gd(x: torch.Tensor, packed: torch.Tensor, sb: torch.Tensor,
 
     x [M, K] (M <= 256; K padded to the leaf's ``packed.shape[0] * 8``), packed
     i32[K/8, N], sb / corr f32[K/gs, N].  ``splits`` (1 .. K/(4*gs)) overrides the
-    K-split count ``w4a16_gd_splits`` picks.  Returns [M, N] in x.dtype."""
+    K-split count ``w4a16_splits`` picks.  Returns [M, N] in x.dtype."""
     if not x.is_cuda:
         return w4a16_matmul_gd_plain(x, packed, sb, corr, group_size)
     if sb.dtype != torch.float32 or corr.dtype != torch.float32:
         raise TypeError('w4a16_gemm takes the gd schedule\'s f32 sb and corr')
-    M, N = x.shape[0], packed.shape[-1]
-    if splits is None:
-        splits = w4a16_gd_splits(M, N, sb.shape[0], _sms(x))
     out = _launch('w4a16_gemm', 'w4a16_gemm_gd', x, packed, sb, corr,
-                  _xg(x, group_size), group_size, splits, token_tile(M))
+                  _xg(x, group_size), group_size, splits)
     w4a16_matmul_gd.launches += 1
     return out
 
@@ -421,21 +409,18 @@ def w4a16_matmul_szc(x: torch.Tensor, packed: torch.Tensor, sb: torch.Tensor,
                      splits: Optional[int] = None) -> torch.Tensor:
     """Decode-regime W4A16 GEMM over one layer's fast or precise prepared leaves: sb
     bf16 [K/gs, N], corr f32 [K/gs, N] (fast) or bf16 (precise).  Shapes as
-    ``w4a16_matmul_gd``; ``splits`` overrides the count ``w4a16_splits`` picks.
+    ``w4a16_matmul_gd``; ``splits`` as there.
     Returns [M, N] in x.dtype."""
     if not x.is_cuda:
         return w4a16_matmul_szc_plain(x, packed, sb, corr, group_size)
     sched = schedule_of(sb, corr)
     if sched == 'gd':
         raise TypeError('w4a16_szc takes the fast / precise schedules\' bf16 sb')
-    xg = _xg(x, group_size)
-    if sched == 'precise':
-        xg = xg.to(torch.bfloat16).float()
-    M, N = x.shape[0], packed.shape[-1]
-    if splits is None:
-        splits = w4a16_splits(M, N, sb.shape[0], _sms(x))
+    # precise: xg rounded to bf16 by the reduction itself, then widened back
+    xg = (_xg(x, group_size, torch.bfloat16).float() if sched == 'precise'
+          else _xg(x, group_size))
     out = _launch('w4a16_gemm_szc', f'w4a16_gemm_{sched}', x, packed, sb, corr, xg,
-                  group_size, splits, _m_tile(M))
+                  group_size, splits)
     w4a16_matmul_szc.launches += 1
     return out
 
@@ -454,11 +439,8 @@ def w4a16_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         return w4a16_dense(x, packed, scales, zeros, group_size)
     if scales.dtype != torch.float32 or zeros.dtype != torch.float32:
         raise TypeError('w4a16_unprepared takes f32 scales and zeros')
-    M, N = x.shape[0], packed.shape[-1]
-    if splits is None:
-        splits = w4a16_splits(M, N, scales.shape[0], _sms(x))
     out = _launch('w4a16_gemm_unprepared', 'w4a16_gemm_unprepared', x, packed, scales,
-                  zeros, _xg(x, group_size), group_size, splits, _m_tile(M))
+                  zeros, _xg(x, group_size), group_size, splits)
     w4a16_matmul.launches += 1
     return out
 

@@ -246,6 +246,18 @@ def test_kernel_head_dims_match_sources():
                  (('wgmma.mma_async', 'wgmma_rs<'), ('cp.async.bulk.tensor', 'tma_load('),
                   ('mbarrier.try_wait', 'mbar_wait('), ('prefetch.tensormap', 'prefetch_map(')),
                  id='w4a16-gd-wgmma-tma'),
+    pytest.param('w4a16_gemm_szc', 'w4a16_fast_kernel',
+                 (('wgmma.mma_async', 'wgmma_rs<'), ('cp.async.bulk.tensor', 'tma_load('),
+                  ('wgmma.wait_group', 'wgmma_wait<1>'), ('fma.rn.bf16x2', 'weight_pair<')),
+                 id='w4a16-fast-wgmma-tma'),
+    pytest.param('w4a16_gemm_szc', 'w4a16_precise_kernel',
+                 (('wgmma.mma_async', 'wgmma_rs<'), ('cp.async.bulk.tensor', 'tma_load('),
+                  ('wgmma.wait_group', 'wgmma_wait<1>'), ('fma.rn.bf16x2', 'weight_pair<')),
+                 id='w4a16-precise-wgmma-tma'),
+    pytest.param('w4a16_gemm_unprepared', 'w4a16_unprepared_kernel',
+                 (('wgmma.mma_async', 'wgmma_rs<'), ('cp.async.bulk.tensor', 'tma_load('),
+                  ('mbarrier.try_wait', 'mbar_wait('), ('prefetch.tensormap', 'prefetch_map(')),
+                 id='w4a16-unprepared-wgmma-tma'),
     pytest.param('fp8_bmm', 'fp8_bmm_kernel',
                  (('wgmma.mma_async', 'wgmma_rs<'), ('cp.async.bulk.tensor', 'tma_load('),
                   ('mbarrier.try_wait', 'mbar_wait('), ('cvt.rn.bf16x2.f32', 'fragment<')),
@@ -281,53 +293,64 @@ def test_kernel_sources_use_hopper_paths(source, kernel, uses):
     paths for a bf16 / f16 q (each code decoded once into an operand, P.V over the
     decoded V codes), and so does the narrow body over 2-byte, e4m3 and int8 pages and
     a context-parallel rank's stripe (each warp waiting for its own copies; the body
-    lives in narrow_decode.cuh, which each kernel calls); the gd W4A16 GEMM, fp8_bmm and mxfp4_bmm run wgmma
-    with the decoded weights as the register operand and x, words, scales by TMA
-    (mxfp4_bmm's x by a 4-D map of its two halves).  Each instruction is in the source
-    or a header it includes, and the kernel's body reaches it; the dispatch launches
-    the kernel."""
+    lives in narrow_decode.cuh, which each kernel calls); the four W4A16 schedules,
+    fp8_bmm and mxfp4_bmm run wgmma with the decoded weights as the register operand
+    and x, words, scales by TMA (mxfp4_bmm's x by a 4-D map of its two halves; the
+    W4A16 kernels share w4a16_gemm.cuh's body, whose fast / precise chain scales each
+    weight by a bf16x2 FMA and keeps a unit of wgmmas in flight).  Each instruction is
+    in the source or a header it includes, and the kernel's body reaches it; the
+    dispatch launches the kernel."""
     import os
     import re
 
     from lmdeploy_tpu_torch.ops import cuda_build
     src = open(os.path.join(cuda_build.CSRC_DIR, source + '.cu')).read()
-    text = src + ''.join(open(os.path.join(cuda_build.CSRC_DIR, h)).read()
-                         for h in re.findall(r'#include "(\w+\.cuh)"', src))
+    # the source and the headers it includes, and those they include
+    text, todo, seen = src, re.findall(r'#include "(\w+\.cuh)"', src), set()
+    while todo:
+        h = todo.pop()
+        if h not in seen:
+            seen.add(h)
+            head = open(os.path.join(cuda_build.CSRC_DIR, h)).read()
+            text += head
+            todo += re.findall(r'#include "(\w+\.cuh)"', head)
     # the kernel's body: from its signature to the first brace that closes at column 0,
-    # and the shared narrow body's where the kernel calls it
+    # and the shared body's where the kernel calls one
     body = re.search(r'\n' + kernel + r'\(.*?\n}\n', src, re.S).group(0)
-    if 'ndec::narrow_body<' in body:
-        body += re.search(r'\nnarrow_body\(.*?\n}\n', text, re.S).group(0)
+    for call, shared in (('ndec::narrow_body<', 'narrow_body'), ('w4a16::gemm_body<', 'gemm_body')):
+        if call in body:
+            body += re.search(r'\n' + shared + r'\(.*?\n}\n', text, re.S).group(0)
     for instruction, call in uses:
         assert instruction in text and call in body, (instruction, call)
     assert re.search(kernel + r'<[^>]*>\s*<<<', src), f'{kernel} is never launched'
 
 
 def test_gemm_token_tiles_match_sources():
-    """Every (group size, token tile) the gd W4A16 wrapper can pick, and every token tile
-    of the fp8 and MXFP4 expert GEMMs, is instantiated in its CUDA source, which picks
-    the tile by M with the wrapper's thresholds."""
+    """Every (group size, token tile) the W4A16 wrappers can pick (their shared body's
+    dispatch, w4a16_gemm.cuh), and every token tile of the fp8 and MXFP4 expert GEMMs, is
+    instantiated in its CUDA source, which picks the tile by M with the wrapper's
+    thresholds."""
     import os
     import re
 
     from lmdeploy_tpu_torch.ops import cuda_build
     from lmdeploy_tpu_torch.ops import quant_matmul as qm
 
-    def read(name):
-        return open(os.path.join(cuda_build.CSRC_DIR, name + '.cu')).read()
+    def read(name, ext='.cu'):
+        return open(os.path.join(cuda_build.CSRC_DIR, name + ext)).read()
 
     def picks(src, pattern, default):
         """The source's tile for each M: its `if (M <= t) return ...<tile>` chain."""
         chain = [(int(t), int(tile)) for t, tile in re.findall(pattern, src)]
         return lambda M: next((tile for t, tile in chain if M <= t), default)
 
-    w4 = read('w4a16_gemm')
-    groups = {int(g) for g, h in re.findall(r'case (\d+):\s*return \(int\)launch_m<(\d+)>', w4)
-              if g == h}
+    w4 = read('w4a16_gemm', '.cuh')
+    groups = {int(g) for g, h in re.findall(
+        r'case (\d+):\s*return \(int\)launch_m<KERNEL, (\d+)>', w4) if g == h}
     assert groups == set(qm.GROUP_SIZES) == {32, 64, 128}
-    default = int(re.search(r'\n  return launch<GS, (\d+)>', w4).group(1))
-    tile = picks(w4, r'if \(M <= (\d+)\)\s*return launch<GS, (\d+)>', default)
-    tiles = {int(t) for t in re.findall(r'launch<GS, (\d+)>', w4)}
+    default = int(re.search(r'\n  return launch<KERNEL, GS, (\d+)>', w4).group(1))
+    tile = picks(w4, r'if \(M <= (\d+)\)\s*return launch<KERNEL, GS, (\d+)>', default)
+    tiles = {int(t) for t in re.findall(r'launch<KERNEL, GS, (\d+)>', w4)}
     assert tiles == set(qm.TOKEN_TILES)
     assert all(tile(M) == qm.token_tile(M) for M in range(1, qm.GROUP_DOT_MAX_M + 1))
 
@@ -462,17 +485,23 @@ def test_quant_decode_splits_match_sources():
 
 
 def test_gemm_bodies_left_mma_sync():
-    """The gd W4A16 GEMM and fp8_bmm no longer reach the mma.sync bodies: neither source
-    issues mma.sync or includes the shared W4A16 body, which the fast / precise and
-    unprepared GEMMs keep."""
+    """No W4A16 GEMM and no fp8_bmm reaches an mma.sync body: none of their sources or
+    the shared W4A16 header issues mma.sync, ldmatrix or cp.async, and the three W4A16
+    sources (gd, fast / precise, unprepared) each include the shared wgmma header, which
+    issues wgmma and reads x by TMA."""
     import os
 
     from lmdeploy_tpu_torch.ops import cuda_build
 
     def read(name):
         return open(os.path.join(cuda_build.CSRC_DIR, name)).read()
-    for name in ('w4a16_gemm.cu', 'fp8_bmm.cu'):
+    w4 = ('w4a16_gemm.cu', 'w4a16_gemm_szc.cu', 'w4a16_gemm_unprepared.cu')
+    for name in w4 + ('w4a16_gemm.cuh', 'fp8_bmm.cu'):
         src = read(name)
-        assert 'mma.sync' not in src and 'w4a16_gemm.cuh' not in src, name
-    for name in ('w4a16_gemm_szc.cu', 'w4a16_gemm_unprepared.cu'):
-        assert '#include "w4a16_gemm.cuh"' in read(name)
+        assert 'mma.sync' not in src and 'ldmatrix' not in src, name
+        assert 'cp.async.' not in src and 'cp_async' not in src, name
+    for name in w4:
+        assert '#include "w4a16_gemm.cuh"' in read(name), name
+    head = read('w4a16_gemm.cuh')
+    assert '#include "hopper.cuh"' in head and 'wgmma_rs<' in head and 'tma_load(' in head
+    assert 'w4a16_gemm.cuh' not in read('fp8_bmm.cu')

@@ -193,11 +193,13 @@ def test_unported_leaves_raise():
         assert linear(x, leaf).shape == (2, 8)
 
 
-# the K splits that chip_smoke.py's sweep timed fastest on an H100 (132 SMs) for
-# llama2-7b's fused projections at 64 and 128 rows (group 128)
+# the K splits of the fast / precise and unprepared kernels (the W4A16 body of
+# csrc/w4a16_gemm.cuh, the one split rule) that chip_smoke.py's w4a16_modes sweep timed
+# fastest on an H100 (132 SMs) for llama2-7b's fused projections and Mixtral-8x7B's wo
+# (4096 x 4096) at 64 and 128 rows (group 128)
 @pytest.mark.parametrize('M,K,N,want', [
-    (128, 4096, 12288, 1), (128, 4096, 4096, 2), (128, 4096, 22016, 1),
-    (128, 11264, 4096, 2), (64, 4096, 12288, 1), (64, 4096, 4096, 4),
+    (128, 4096, 12288, 1), (128, 4096, 4096, 4), (128, 4096, 22016, 1),
+    (128, 11264, 4096, 4), (64, 4096, 12288, 1), (64, 4096, 4096, 4),
     (64, 4096, 22016, 1), (64, 11264, 4096, 4)])
 def test_w4a16_split_heuristic_picks_the_swept_best(M, K, N, want):
     assert tqm.w4a16_splits(M, N, K // 128, 132) == want
@@ -211,7 +213,7 @@ def test_w4a16_split_heuristic_picks_the_swept_best(M, K, N, want):
     (128, 11264, 4096, 4), (64, 4096, 12288, 1), (64, 4096, 4096, 4),
     (64, 4096, 22016, 1), (64, 11264, 4096, 4), (64, 4096, 6144, 2)])
 def test_w4a16_gd_split_picker_picks_the_swept_best(M, K, N, want):
-    assert tqm.w4a16_gd_splits(M, N, K // 128, 132) == want
+    assert tqm.w4a16_splits(M, N, K // 128, 132) == want
 
 
 @pytest.mark.parametrize('M,tile', [(1, 16), (16, 16), (17, 64), (64, 64), (65, 128),
