@@ -74,7 +74,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  bf16 weights): 8 concurrent 128-token prompts plus one 2048-token
                  prompt, 64 greedy tokens each, run twice; every kernel's launch count
                  is read from the first run (the narrow decode's combines too); then
-                 a traced run (device busy share);
+                 a traced run (device busy share).  In every e2e phase the engine
+                 decodes by replaying CUDA graphs: ModelAgent.warmup captures the
+                 cell's batch bucket first (graphs, capture seconds and pool bytes
+                 printed), a graph's launches are counted at its capture times its
+                 replays, and a decode run that does not replay fails the phase; the
+                 trace counts graph launches and the host's waits for the card;
+     decode_graphs -- after the e2e, e2e_w4a16_kv8 and e2e_llama31_8b_cp2 phases: the
+                 same requests on an engine of the same weights with eager_mode=True,
+                 in turns with the graph engine (greedy: eager, graphs; every other
+                 request seeded-sampled: graphs, eager), then one traced eager run;
+                 greedy and sampled tokens must be equal between the modes; each
+                 mode's decode tok/s, TTFT p50 and busy share;
   6. e2e_w4a16_kv8 -- the same at llama2-7b geometry, AWQ-style W4A16 weights (group
                  128, seeded) and quant_policy=4: 64 concurrent 128-token prompts plus
                  one 2048-token prompt, 64 greedy tokens each, run twice, then traced;
@@ -84,7 +95,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  config), seeded MXFP4 experts, bf16 KV cache: 32 concurrent 128-token prompts plus one
                  2048-token prompt, 64 greedy tokens each (decode in the 64-row bucket),
                  run twice, then traced; the rows of every mxfp4_bmm launch are recorded;
-  8. e2e_llama31_8b_kv4 / _turbo / _fp8kv -- Llama-3.1-8B at full width and 16 of its
+  8. e2e_llama31_8b_kv4 / _turbo / _fp8kv -- Llama-3.1-8B at full width and 8 of its
                  32 layers (public config, seeded bf16 weights built once for the three)
                  with quant_policy 8, 42 and 16: 63 concurrent 1024-token prompts plus
                  one 4096-token prompt, 64 greedy tokens each, run twice, then traced;
@@ -96,8 +107,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  run twice, then traced; each decode step launches paged_decode_cp twice
                  a layer and paged_decode never, exactly;
   9. e2e_mixtral8x7b_w4a16 (+ _fast / _precise / _unprepared) -- Mixtral-8x7B at full
-                 width and 16 of its 32 layers (public config, seeded AWQ-form W4A16
-                 weights, ~12.7 GB, built once for the four), bf16 KV: 63 concurrent 256-token prompts plus
+                 width and 8 of its 32 layers (public config, seeded AWQ-form W4A16
+                 weights, ~6.4 GB, built once for the four), bf16 KV: 63 concurrent 256-token prompts plus
                  one 2048-token prompt (one 64-row wave, as the Llama-3.1-8B cells);
                  under gd 64 greedy tokens each, run twice, then
                  traced; under the other three schedules one run of 16 tokens.  Each
@@ -401,13 +412,14 @@ def gptoss_config(num_layers: int = 24):
 
 
 # the Llama-3.1-8B e2e phases' depth, cut from the config's 32 layers so the script
-# stays well inside its time limit; width, heads, vocab and the traffic stay as
-# published
-L31 = 16
+# stays well inside its time limit (to 8 when the decode_graphs phase joined the CP
+# cell); width, heads, vocab and the traffic stay as published
+L31 = 8
 # the Mixtral-8x7B and gpt-oss-20b e2e phases' depth, cut from 32 and 24 layers beside
-# the DeepSeek-V2-Lite phases at full depth, for the same reason; width, experts, vocab
-# and traffic stay as published
-LMIX = 16
+# the DeepSeek-V2-Lite phases at full depth, for the same reason (Mixtral's to 8: with
+# the overlap each prefill wave waits behind a decode run that widens every expert of
+# every layer at each step); width, experts, vocab and traffic stay as published
+LMIX = 8
 LGPT = 12
 
 
@@ -1973,9 +1985,11 @@ def _small_pages_engines(counters):
         for BS in (16, 8):
             with _swapped((LlamaModel, 'init_params', init_once)):
                 engine = build_engine(model, 4, policy, block_size=BS)
-            before = counters[kernel].launches
+            # the wrapper's launches plus each decode graph's launches times its replays
+            before = engine.model_agent.graphs.launch_totals()[0][counters[kernel].__name__]
             outs, _, _ = run_requests(engine, prompts, 16)
-            launched[BS] = counters[kernel].launches - before
+            launched[BS] = (engine.model_agent.graphs.launch_totals()[0][
+                counters[kernel].__name__] - before)
             tokens[BS] = [list(o.token_ids) for o in outs]
             del engine, outs
             torch.cuda.empty_cache()
@@ -2265,7 +2279,7 @@ def decode_mla_quant_phase():
 
 # -- phase 5 and 6 -------------------------------------------------------------------
 def build_engine(model, max_batch: int, quant_policy: int = 0, session_len: int = 2048 + 128,
-                 mesh=None, block_size: int = 128):
+                 mesh=None, block_size: int = 128, eager_mode: bool = False):
     from lmdeploy_tpu_torch.config import (CacheConfig, EngineConfigBundle, MiscConfig,
                                            SchedulerConfig)
     from lmdeploy_tpu_torch.engine.engine import Engine
@@ -2277,17 +2291,25 @@ def build_engine(model, max_batch: int, quant_policy: int = 0, session_len: int 
                           quant_policy=QuantPolicy(quant_policy)),
         scheduler=SchedulerConfig(max_batch_size=max_batch, max_session_len=session_len,
                                   max_prefill_token_num=8192, max_prefill_batch=16),
-        misc=MiscConfig(empty_init=True))
-    return Engine(None, TpuEngineConfig(quant_policy=quant_policy), configs=bundle, mesh=mesh)
+        misc=MiscConfig(empty_init=True, eager_mode=eager_mode))
+    return Engine(None, TpuEngineConfig(quant_policy=quant_policy, eager_mode=eager_mode),
+                  configs=bundle, mesh=mesh)
 
 
-def run_requests(engine, prompts, new_tokens):
+def run_requests(engine, prompts, new_tokens, sampled=()):
+    """Serve the prompts at once, greedy but for the indices in ``sampled``, which
+    draw seeded samples (top-k 40, top-p 0.95, temperature 0.8, seed 1000 + index)."""
     from lmdeploy_tpu_torch.messages import GenerationConfig
     inst = engine.create_instance()
 
+    def gen(i):
+        extra = (dict(do_sample=True, top_k=40, top_p=0.95, temperature=0.8,
+                      random_seed=1000 + i) if i in sampled else {})
+        return GenerationConfig(max_new_tokens=new_tokens, ignore_eos=True, logprobs=0,
+                                **extra)
+
     async def go():
-        gen = GenerationConfig(max_new_tokens=new_tokens, ignore_eos=True, logprobs=0)
-        return await asyncio.gather(*[inst.async_infer(i + 1, p, gen)
+        return await asyncio.gather(*[inst.async_infer(i + 1, p, gen(i))
                                       for i, p in enumerate(prompts)])
     t0 = time.time()
     outs = asyncio.run(go())
@@ -2336,34 +2358,13 @@ def _row_recorders():
             'fp8_bmm': (moe, 'fp8_bmm', lambda x: x.shape[-2])}
 
 
-def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
-              need_per_step, card: str, short_len: int = 128, long_len: int = 2048,
-              exact: bool = False, shared: dict = None,
-              env: dict = None, forbid=(), runs: int = 2, new_tokens: int = 64,
-              trace: bool = True, cp: int = 1, combined: dict = None) -> dict:
-    """Drive the Engine ``runs`` times on the same requests (launch counts from the
-    first run, card numbers from the last; two runs must give equal greedy tokens),
-    then, with ``trace``, a traced run: ``n_short`` prompts of ``short_len`` tokens and
-    one of ``long_len``, ``new_tokens`` greedy tokens each.  ``need_per_step`` maps
-    each kernel of the path to its launches per (fresh prefill, decode[, prefill of
-    at most 256 rows]) step; with ``exact`` the first run must launch exactly that
-    many, else at least; each kernel of ``forbid`` must not launch at all.
-    ``shared`` carries the raw seeded weights from one phase's engine to the next one
-    of the same model; each engine fuses and prepares them itself.  ``env`` holds the
-    engine switches (``LMDEPLOY_TPU_*``) set while the engine is built.  ``cp`` > 1
-    serves the cell with its KV striped over that many context-parallel ranks, all on
-    the one card.  ``combined`` maps each kernel whose calls split a row's pages to
-    the share of its launches that also launch the combine (``.combines``): all of
-    them, or the full-attention layers' half of gpt-oss's, whose sliding layers' window
-    fits one split.  Returns the phase's row."""
-    from lmdeploy_tpu_torch.parallel.mesh import build_mesh
-    from lmdeploy_tpu_torch.config import bucketize
+def _built(model, max_batch, quant_policy, long_len, cp, shared, env, eager_mode=False):
+    """An engine of the cell (``shared`` carries the raw seeded weights from one engine
+    to the next of the same model; each engine fuses and prepares them itself; ``env``
+    holds the engine switches set while it is built) and its build seconds."""
     from lmdeploy_tpu_torch.models.llama import LlamaModel
-    rng = np.random.RandomState(SEED)
-    prompts = [rng.randint(3, 32000, size=short_len).tolist() for _ in range(n_short)]
-    prompts.append(rng.randint(3, 32000, size=long_len).tolist())
+    from lmdeploy_tpu_torch.parallel.mesh import build_mesh
     t_build = time.perf_counter()
-    reuse = shared is not None and 'init' in shared
     init = LlamaModel.init_params
 
     def init_once(self, *args, **kwargs):
@@ -2378,17 +2379,67 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
             engine = build_engine(model, max_batch, quant_policy,
                                   session_len=max(2048, long_len) + 128,
                                   mesh=build_mesh(cp=cp, devices=['cuda:0'] * cp)
-                                  if cp > 1 else None)
+                                  if cp > 1 else None, eager_mode=eager_mode)
     finally:
         for k, v in saved_env.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    build_s = time.perf_counter() - t_build
+    return engine, time.perf_counter() - t_build
+
+
+def _warmed(engine, n_requests: int) -> dict:
+    """``ModelAgent.warmup`` at the cell's batch bucket: its graph numbers."""
+    from lmdeploy_tpu_torch.config import bucketize
     agent = engine.model_agent
-    steps = {'prefill': 0, 'fresh_prefill': 0, 'small_prefill': 0, 'decode': 0}
+    t0 = time.perf_counter()
+    agent.warmup(batch_sizes=[min(n_requests, agent.max_batch)])
+    torch.cuda.synchronize()
+    return {'bucket': bucketize(min(n_requests, agent.max_batch), agent.batch_buckets),
+            'warmup_s': time.perf_counter() - t0, **agent.graphs.stats()}
+
+
+def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
+              need_per_step, card: str, short_len: int = 128, long_len: int = 2048,
+              exact: bool = False, shared: dict = None,
+              env: dict = None, forbid=(), runs: int = 2, new_tokens: int = 64,
+              trace: bool = True, cp: int = 1, combined: dict = None,
+              graphs_check: bool = False) -> dict:
+    """Drive the Engine ``runs`` times on the same requests (launch counts from the
+    first run, card numbers from the last; two runs must give equal greedy tokens),
+    then, with ``trace``, a traced run: ``n_short`` prompts of ``short_len`` tokens and
+    one of ``long_len``, ``new_tokens`` greedy tokens each.  The engine decodes by
+    replaying CUDA graphs (the default), warmed up at the cell's batch bucket first;
+    any decode run that does not replay fails the phase.  ``need_per_step`` maps
+    each kernel of the path to its launches per (fresh prefill, decode[, prefill of
+    at most 256 rows]) step; with ``exact`` the first run must launch exactly that
+    many, else at least; each kernel of ``forbid`` must not launch at all.  A graph's
+    launches are counted at its capture and multiplied by its replays.
+    ``shared`` carries the raw seeded weights from one phase's engine to the next one
+    of the same model; each engine fuses and prepares them itself.  ``env`` holds the
+    engine switches (``LMDEPLOY_TPU_*``) set while the engine is built.  ``cp`` > 1
+    serves the cell with its KV striped over that many context-parallel ranks, all on
+    the one card.  ``combined`` maps each kernel whose calls split a row's pages to
+    the share of its launches that also launch the combine (``.combines``): all of
+    them, or the full-attention layers' half of gpt-oss's, whose sliding layers' window
+    fits one split.  With ``graphs_check``, ``decode_graphs_phase`` follows on the same
+    engine.  Returns the phase's row."""
+    from lmdeploy_tpu_torch.config import bucketize
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(3, 32000, size=short_len).tolist() for _ in range(n_short)]
+    prompts.append(rng.randint(3, 32000, size=long_len).tolist())
+    reuse = shared is not None and 'init' in shared
+    if graphs_check and shared is None:
+        shared = {}                     # the eager engine of the check takes the weights
+    engine, build_s = _built(model, max_batch, quant_policy, long_len, cp, shared, env)
+    agent = engine.model_agent
+    warm = _warmed(engine, len(prompts))
+    seconds = {}
+    steps = {'prefill': 0, 'fresh_prefill': 0, 'small_prefill': 0, 'decode': 0,
+             'decode_runs': 0, 'dispatched_while_busy': 0}
     prefill, decode_run = agent.prefill, agent.decode_run
+    last = {}
 
     def counted_prefill(chunks):
         steps['prefill'] += 1
@@ -2405,7 +2456,12 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
 
     def counted_decode_run(num_rows, k=None, *args):
         steps['decode'] += k or agent.decode_run_steps
-        return decode_run(num_rows, k, *args)
+        steps['decode_runs'] += 1
+        # the run before is still on the card: the host did not wait for it
+        prev = last.get('run')
+        steps['dispatched_while_busy'] += prev is not None and not prev._event.query()
+        last['run'] = decode_run(num_rows, k, *args)
+        return last['run']
     agent.prefill, agent.decode_run = counted_prefill, counted_decode_run
 
     counters = _kernel_counters()
@@ -2413,36 +2469,60 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
 
     def recorder(name, fn, rows_of):
         def seen(x, *args):
-            rows[name][rows_of(x)] += 1
+            if not agent.graphs.capturing:       # a warm pass or a capture is no run
+                rows[name][rows_of(x)] += 1
             return fn(x, *args)
         return seen
     record = [(m, a, recorder(n, getattr(m, a), f)) for n, (m, a, f) in _row_recorders().items()]
     results = []
+    t_runs = time.perf_counter()
     for i in range(runs):
-        steps.update(prefill=0, fresh_prefill=0, small_prefill=0, decode=0)
+        steps.update({k: 0 for k in steps})
+        last.clear()
         for fn in counters.values():
             fn.launches = 0
             if hasattr(fn, 'combines'):
                 fn.combines = 0
+        agent.graphs.reset_counts()
+        pipelined, overlaps = engine._pipelined_runs, engine._overlap_dispatches
         # the first run also records the rows of every GEMM-kernel call of the path
         with _swapped(*record if i == 0 else []):
             outs, t0, t1 = run_requests(engine, prompts, new_tokens)
+        launches, combines = agent.graphs.launch_totals()
+        if i == 0:
+            # the rows of the GEMM launches inside graphs: the run's batch bucket
+            for run in agent.graphs.runs.values():
+                for n, fn in counters.items():
+                    if n in rows and run.replays:
+                        rows[n][run.key[1]] += run.launches.get(fn.__name__, 0) * run.replays
         results.append({'tokens': [o.token_ids for o in outs], 'outs': outs, 't0': t0,
-                        't1': t1, 'steps': dict(steps),
-                        'launches': {n: fn.launches for n, fn in counters.items()},
-                        'combines': {n: fn.combines for n, fn in counters.items()
+                        't1': t1, 'steps': dict(steps), 'graphs': agent.graphs.stats(),
+                        'pipelined_runs': engine._pipelined_runs - pipelined,
+                        'overlap_dispatches': engine._overlap_dispatches - overlaps,
+                        'launches': {n: launches[fn.__name__] for n, fn in counters.items()},
+                        'combines': {n: combines[fn.__name__] for n, fn in counters.items()
                                      if hasattr(fn, 'combines')}})
-    if trace:
-        profile_phase(name, engine, prompts, new_tokens)
-    first, last = results[0], results[-1]
+    seconds['runs'] = time.perf_counter() - t_runs
+    trace_row = profile_phase(name, engine, prompts, new_tokens) if trace else None
+    seconds['trace'] = time.perf_counter() - t_runs - seconds['runs']
+    check = (decode_graphs_phase(name, engine, prompts, new_tokens, card,
+                                 lambda: _built(model, max_batch, quant_policy, long_len,
+                                                cp, shared, env, eager_mode=True)[0],
+                                 trace_row)
+             if graphs_check else None)
+    first, last_run = results[0], results[-1]
     num_blocks = agent.num_blocks
     cp_devices = [str(d) for d in agent.mesh.cp_devices] if agent.mesh is not None else None
+    agent.prefill, agent.decode_run = prefill, decode_run
     engine.close()
     del engine, agent, prefill, decode_run, counted_prefill, counted_decode_run
     lengths_ok = all(len(t) == new_tokens for r in results for t in r['tokens'])
     finite = all(np.isfinite(lp[tok].logprob)
                  for o in first['outs'] for lp, tok in zip(o.logprobs, o.token_ids))
     deterministic = all(r['tokens'] == first['tokens'] for r in results)
+    # every decode run of every run replayed a graph
+    replayed = all(r['graphs']['eager_runs'] == 0 and
+                   r['graphs']['replays'] == r['steps']['decode_runs'] > 0 for r in results)
     st = first['steps']
     need = {n: per[0] * st['fresh_prefill'] + per[1] * st['decode']
             + (per[2] * st['small_prefill'] if len(per) > 2 else 0)
@@ -2457,20 +2537,79 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
            'requests': len(prompts), 'new_tokens': new_tokens, 'runs': runs,
            'engine_build_s': build_s, 'weights_reused': reuse, 'quant_policy': quant_policy,
            'env': env or {}, 'lengths_ok': lengths_ok, 'logprobs_finite': finite,
-           'deterministic': deterministic, 'steps': first['steps'],
+           'deterministic': deterministic, 'replayed': replayed, 'warmup': warm,
+           'seconds': seconds,
+           'graphs_by_run': [r['graphs'] for r in results],
+           'pipelined_runs': [r['pipelined_runs'] for r in results],
+           'overlap_dispatches': [r['overlap_dispatches'] for r in results],
+           'steps': first['steps'],
            'launches': first['launches'], 'combines': first['combines'],
            'launches_needed': need,
            'launches_forbidden': list(forbid), 'launches_ok': launches_ok,
            'rows_by_kernel': {n: dict(c) for n, c in rows.items() if c},
            'num_blocks': num_blocks,
            # card numbers from the last run (cuBLAS and allocator warmed by the first)
-           **serving_numbers(last)}
+           **serving_numbers(last_run)}
     emit(row)
-    del results, first, last
+    del results, first, last_run
     gc.collect()
     torch.cuda.empty_cache()          # the next engine's block budget sees free memory
-    if not (lengths_ok and finite and deterministic and launches_ok):
+    if not (lengths_ok and finite and deterministic and replayed and launches_ok):
         raise SystemExit(f'{name} phase failed: {row}')
+    if check is not None and not check['ok']:
+        raise SystemExit(f'decode_graphs of {name} failed: {check}')
+    return row
+
+
+def decode_graphs_phase(name, engine, prompts, new_tokens, card, build_eager,
+                        graphs_trace) -> dict:
+    """The cell's requests on its graph engine and on an engine of the same weights
+    with ``eager_mode=True``, in turns: all greedy (eager, graphs), then every other
+    request seeded-sampled (graphs, eager); then one traced eager run (the graph
+    engine's busy share is ``graphs_trace``, the e2e phase's traced run of the same
+    requests).  Greedy tokens and seeded-sampled tokens must be equal between the
+    modes, the graph engine must replay every decode run and the eager one none;
+    prints each mode's decode tok/s, TTFT p50 and busy share, and the seconds each
+    part took."""
+    t0 = time.perf_counter()
+    eager = build_eager()
+    _warmed(eager, len(prompts))              # builds nothing: no capture in eager mode
+    seconds = {'eager_build': time.perf_counter() - t0}
+    engines = {'eager': eager, 'graphs': engine}
+    sampled = set(range(0, len(prompts), 2))
+    tokens = {'greedy': {}, 'sampled': {}}
+    numbers = collections.defaultdict(list)
+    for traffic, order in (('greedy', ('eager', 'graphs')), ('sampled', ('graphs', 'eager'))):
+        for mode in order:
+            engines[mode].model_agent.graphs.reset_counts()
+            outs, t0, t1 = run_requests(engines[mode], prompts, new_tokens,
+                                        sampled=sampled if traffic == 'sampled' else ())
+            tokens[traffic][mode] = [o.token_ids for o in outs]
+            g = engines[mode].model_agent.graphs.stats()
+            numbers[mode].append({'traffic': traffic, **serving_numbers(
+                {'outs': outs, 't0': t0, 't1': t1}), 'replays': g['replays'],
+                'eager_runs': g['eager_runs']})
+    t0 = time.perf_counter()
+    eager_trace = profile_phase(f'{name}_eager', eager, prompts, new_tokens)
+    seconds['eager_trace'] = time.perf_counter() - t0
+    eager.close()
+    del eager, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    equal = {t: tokens[t]['eager'] == tokens[t]['graphs'] for t in tokens}
+    graphs_replayed = all(n['eager_runs'] == 0 and n['replays'] > 0 for n in numbers['graphs'])
+    eager_eager = all(n['replays'] == 0 and n['eager_runs'] > 0 for n in numbers['eager'])
+    row = {'phase': 'decode_graphs', 'of': name, 'card': card,
+           'greedy_equal': equal['greedy'], 'sampled_equal': equal['sampled'],
+           'graphs_replayed': graphs_replayed, 'eager_ran_eagerly': eager_eager,
+           'runs': dict(numbers),
+           'decode_tok_s': {m: [n['decode_tok_s'] for n in numbers[m]] for m in numbers},
+           'ttft_p50_ms': {m: [n['ttft_ms']['p50'] for n in numbers[m]] for m in numbers},
+           'busy_share': {'eager': eager_trace['device_busy_share'],
+                          'graphs': graphs_trace['device_busy_share']},
+           'seconds': seconds}
+    row['ok'] = all(equal.values()) and graphs_replayed and eager_eager
+    emit(row)
     return row
 
 
@@ -2497,40 +2636,61 @@ def model_label(model, policy: int = 0) -> str:
             f'random seeded weights')
 
 
+HOST_WAITS = ('cudaStreamSynchronize', 'cudaEventSynchronize', 'cudaDeviceSynchronize',
+              'cudaMemcpy')
+
+
 def profile_phase(name, engine, prompts, new_tokens):
     """A traced run of the same requests: the device's busy share of the wall time,
-    the kernels that take the most device time, and every decode kernel's and split
-    combine's device time."""
+    the kernels that take the most device time, every decode kernel's and split
+    combine's device time, the CUDA runtime calls that take the most host time, the
+    graph launches and the host's waits for the card, and whether the trace names the
+    decode kernels that ran inside graphs.  Returns the row."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    graphs = engine.model_agent.graphs
+    graphs.reset_counts()
+    # the card's kernels and the CUDA runtime calls (no host op events: an eager run's
+    # millions of them cost minutes to process)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, t0, t1 = run_requests(engine, prompts, new_tokens)
-    averages = prof.key_averages()
-    events = [e for e in averages if e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in events)
+    replays = graphs.stats()['replays']
+    # the raw events, summed by name here: the profiler's own tables take minutes to
+    # build over a traced run's ~10^5-10^6 events
+    from torch.autograd import DeviceType
+    dev_ns, dev_n, host_ns, calls = (collections.Counter() for _ in range(4))
+    for e in prof.profiler.kineto_results.events():
+        key = e.name()[:110]
+        if e.device_type() == DeviceType.CUDA:
+            dev_ns[key] += e.duration_ns()
+            dev_n[key] += 1
+        else:
+            host_ns[key] += e.duration_ns()
+            calls[key] += 1
+    busy_us = sum(dev_ns.values()) / 1e3
 
-    def top(items, attr):
+    def top(ns, n):
         """The 8 largest (ms, calls) by name cut to 110 characters, summed over the
         kernels whose names share that start (template instances of one kernel)."""
-        ms, calls = collections.Counter(), collections.Counter()
-        for e in items:
-            ms[e.key[:110]] += getattr(e, attr) / 1e3
-            calls[e.key[:110]] += e.count
-        best = ms.most_common(8)
-        return dict(best), {k: calls[k] for k, _ in best}
-    device_ms, device_calls = top(events, 'self_device_time_total')
-    host_ms, host_calls = top(averages, 'self_cpu_time_total')
+        best = ns.most_common(8)
+        return {k: v / 1e6 for k, v in best}, {k: n[k] for k, _ in best}
+    device_ms, device_calls = top(dev_ns, dev_n)
+    host_ms, host_calls = top(host_ns, calls)
     # every decode kernel and split combine, whether or not among the 8 largest
-    decode_ms, decode_calls = collections.Counter(), collections.Counter()
-    for e in events:
-        if 'paged_decode' in e.key or 'decode_split_combine' in e.key:
-            decode_ms[e.key[:110]] += e.self_device_time_total / 1e3
-            decode_calls[e.key[:110]] += e.count
-    emit({'phase': 'profile', 'of': name, 'wall_ms': (t1 - t0) * 1e3,
-          'device_busy_ms': busy_us / 1e3,
-          'device_busy_share': busy_us / 1e3 / ((t1 - t0) * 1e3) if busy_us else None,
-          'top_device_ms': device_ms, 'top_calls': device_calls,
-          'decode_device_ms': dict(decode_ms), 'decode_calls': dict(decode_calls),
-          'top_host_self_ms': host_ms, 'top_host_calls': host_calls})
+    decoding = [k for k in dev_ns if 'paged_decode' in k or 'decode_split_combine' in k]
+    decode_ms = {k: dev_ns[k] / 1e6 for k in decoding}
+    decode_calls = {k: dev_n[k] for k in decoding}
+    row = {'phase': 'profile', 'of': name, 'wall_ms': (t1 - t0) * 1e3,
+           'device_busy_ms': busy_us / 1e3,
+           'device_busy_share': busy_us / 1e3 / ((t1 - t0) * 1e3) if busy_us else None,
+           'graph_replays': replays, 'graph_launch_calls': calls.get('cudaGraphLaunch', 0),
+           'host_wait_calls': {k: calls[k] for k in HOST_WAITS if k in calls},
+           # with every decode run replayed, the decode kernels in the trace ran in graphs
+           'graph_kernels_named': bool(decode_calls) if replays else None,
+           'top_device_ms': device_ms, 'top_calls': device_calls,
+           'decode_device_ms': decode_ms, 'decode_calls': decode_calls,
+           'top_host_self_ms': host_ms, 'top_host_calls': host_calls}
+    emit(row)
+    return row
 
 
 # -- phase 4 -------------------------------------------------------------------------
@@ -3165,6 +3325,9 @@ def main():
         t0 = time.perf_counter()
         out = fn(*args, **kwargs)
         seconds[name] = round(time.perf_counter() - t0, 1)
+        # as each phase ends, so that a run cut short still says where its time went
+        emit({'phase': 'seconds', 'of': name, 's': seconds[name],
+              'since_start_s': round(time.perf_counter() - t_start, 1)})
         return out
     info = device_phase()
     timed('build', build_phase)
@@ -3218,14 +3381,15 @@ def main():
         'e2e_llama31_8b_cp2', e2e_phase, 'e2e_llama31_8b_cp2', llama31_config(L31), 32, 0, 31,
         {'flash_prefill': (L31, 0), 'paged_decode_cp': (0, 2 * L31)}, info['nvidia_smi'],
         short_len=1024, long_len=16384, exact=True, shared=shared, forbid=('paged_decode',),
-        cp=2, combined={'paged_decode_cp': 1})
+        cp=2, combined={'paged_decode_cp': 1}, graphs_check=True)
     shared.clear()
     # the narrow decode splits every call at the 17-page table (its combine counted in
     # paged_decode's .combines) in the TinyLlama, gpt-oss and Mixtral cells, but for
     # gpt-oss's sliding layers, whose 128-token window fits one split
     paths['e2e'] = timed('e2e', e2e_phase, 'e2e', tinyllama_config(), 64, 0, 8,
                          {'flash_prefill': (L1, 0), 'paged_decode': (0, L1)},
-                         info['nvidia_smi'], combined={'paged_decode': 1})
+                         info['nvidia_smi'], combined={'paged_decode': 1},
+                         graphs_check=True)
     # exactly one int8 decode a layer per decode step, which splits every call at the
     # 17-page table (its combine counted apart), and the gd GEMM four times a layer per
     # decode step and per prefill step of at most 256 rows
@@ -3233,7 +3397,8 @@ def main():
         'e2e_w4a16_kv8', e2e_phase, 'e2e_w4a16_kv8', llama7b_w4_config(), 128, 4, 64,
         {'flash_prefill': (L7, 0), 'paged_decode_int8': (0, L7),
          'w4a16_gemm': (0, 4 * L7, 4 * L7)},
-        info['nvidia_smi'], exact=True, combined={'paged_decode_int8': 1})
+        info['nvidia_smi'], exact=True, combined={'paged_decode_int8': 1},
+        graphs_check=True)
     paths['e2e_gptoss_mxfp4'] = timed(
         'e2e_gptoss_mxfp4', e2e_phase, 'e2e_gptoss_mxfp4', gptoss_config(LGPT), 64, 0, 32,
         {'paged_decode': (0, LGPT), 'mxfp4_bmm': (0, 3 * LGPT)}, info['nvidia_smi'],

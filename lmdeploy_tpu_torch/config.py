@@ -233,6 +233,7 @@ class MiscConfig:
     empty_init: bool = False
     prefill_buckets: Optional[List[int]] = None
     decode_buckets: Optional[List[int]] = None
+    eager_mode: bool = False         # decode runs eagerly on the card (no CUDA graphs)
 
 
 # TpuEngineConfig fields the port does not read yet: a value other than the default
@@ -240,7 +241,7 @@ class MiscConfig:
 # decoding, MemDecode or model download, none of which the port does ('cp' is served,
 # within the limits check_ported names)
 _UNPORTED_FIELDS = ('tp', 'dp', 'ep', 'attn_tp_size', 'mlp_tp_size',
-                    'num_cpu_blocks', 'eager_mode', 'role', 'adapters',
+                    'num_cpu_blocks', 'role', 'adapters',
                     'dllm_block_length', 'memdecode', 'revision', 'download_dir')
 # the KV cache policies and checkpoint formats the port serves: every KV policy
 # (plain, int8, int4, fp8, TurboQuant), dense and AWQ / GPTQ W4A16 weights (the format
@@ -317,7 +318,8 @@ class EngineConfigBundle:
         )
         misc = MiscConfig(empty_init=engine_config.empty_init,
                           prefill_buckets=engine_config.prefill_buckets,
-                          decode_buckets=engine_config.decode_buckets)
+                          decode_buckets=engine_config.decode_buckets,
+                          eager_mode=engine_config.eager_mode)
         dist = DistConfig(dp=engine_config.dp, tp=engine_config.tp, ep=engine_config.ep,
                           cp=engine_config.cp, attn_tp=engine_config.attn_tp_size,
                           mlp_tp=engine_config.mlp_tp_size)

@@ -4,12 +4,13 @@ Port of ``lmdeploy_tpu/engine/decode_state.py``.  Every per-step decode input (l
 token, position, block table, sampling parameters, seen-token counts) lives in
 device tensors; a decode run feeds each sampled token back on the device and the
 host fetches one ``[k, B]`` token array per run.  The host writes rows only when
-batch membership changes or a row needs a new cache block (``insert_rows``), in place.
+batch membership changes or a row needs a new cache block (``insert_rows``), in place,
+so that every leaf keeps the storage the captured decode runs read.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -39,11 +40,25 @@ class DecodeState:
     ROW_FIELDS = ()              # filled below: the per-row leaves
 
     def insert_rows(self, idx: np.ndarray, rows: Dict[str, np.ndarray]):
-        """Write host rows into the state at batch slots ``idx``."""
-        index = torch.from_numpy(np.asarray(idx, np.int64)).to(self.token.device)
+        """Write host rows into the state at batch slots ``idx``, in place (every leaf
+        keeps its storage, which the captured decode runs read), without waiting for
+        the card."""
+        index = to_device(np.asarray(idx, np.int64), self.token.device)
         for name, values in rows.items():
             leaf = getattr(self, name)
-            leaf[index] = torch.from_numpy(np.asarray(values)).to(leaf.device, leaf.dtype)
+            leaf[index] = to_device(np.asarray(values), leaf.device, leaf.dtype)
+
+
+def to_device(a: np.ndarray, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A host array as a tensor on ``device`` (in ``dtype``).  On a card the copy goes
+    through pinned memory and is queued on the current stream, so the host does not
+    wait for the steps queued before it."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dtype is not None:
+        t = t.to(dtype)
+    if torch.device(device).type != 'cuda':
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 DecodeState.ROW_FIELDS = tuple(f.name for f in fields(DecodeState)

@@ -1,17 +1,20 @@
 """Engine: the continuous-batching loop binding the scheduler and the model agent.
 
 Port of the main-path subset of ``lmdeploy_tpu/engine/engine.py``: ``add_message``,
-the asyncio loop (``_async_loop_body``), prefill result handling, a synchronous
-decode run (dispatch k steps, then drain), the budget-aware drain and recompute
-preemption.  Device steps run on one worker thread so requests keep arriving while
-the card computes.  Later slices bring the decode-run pipelining chain, prefill /
-decode overlap, speculative / diffusion / guided / host-driven decoding, host swap,
-S-LoRA and sleep / wakeup (see ROADMAP.md).
+the asyncio loop (``_async_loop_body``), prefill result handling, k-step decode runs
+with the pipelined chain (run N+1 dispatched before run N is drained) and the
+prefill / decode overlap (waiting prefills dispatched behind the in-flight run), the
+budget-aware drain and recompute preemption.  ``LMDEPLOY_TPU_OVERLAP=0`` and
+``LMDEPLOY_TPU_PIPELINE=0`` turn the overlap and the chain off, as in the reference.
+Device steps run on one worker thread so requests keep arriving while the card
+computes.  Later slices bring speculative / diffusion / guided / host-driven decoding,
+host swap, S-LoRA and sleep / wakeup (see ROADMAP.md).
 """
 from __future__ import annotations
 
 import asyncio
 import logging
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -95,6 +98,15 @@ class Engine:
         self.scheduler = Scheduler(configs.scheduler, configs.cache,
                                    num_blocks=self.model_agent.num_blocks)
         self.metrics = MetricsAggregator()
+        # prefill/decode overlap: dispatch waiting requests' prefill behind an
+        # in-flight decode run (LMDEPLOY_TPU_OVERLAP=0 restores k=1 clamping)
+        self._overlap = os.environ.get('LMDEPLOY_TPU_OVERLAP', '1') != '0'
+        self._overlap_dispatches = 0   # lifetime counter (metrics/tests)
+        # pipelined decode runs: dispatch run N+1 before draining run N, so the fetch
+        # and the host drain hide under device time (LMDEPLOY_TPU_PIPELINE=0 restores
+        # drain-then-dispatch)
+        self._pipeline = os.environ.get('LMDEPLOY_TPU_PIPELINE', '1') != '0'
+        self._pipelined_runs = 0       # lifetime counter (metrics/tests)
         self._requests: Dict[int, _ActiveRequest] = {}
         self._new_work = asyncio.Event()
         self._loop_task: Optional[asyncio.Task] = None
@@ -198,7 +210,11 @@ class Engine:
                 self._new_work.clear()
                 await self._new_work.wait()
                 continue
-            out = self.scheduler.schedule()
+            # overlap mode flips to decode-priority while rows decode: waiting
+            # prefills dispatch BEHIND the run (see _decode_run_fast) instead of
+            # collapsing it to k=1
+            prefer_decode = self._overlap and bool(self.scheduler.running)
+            out = self.scheduler.schedule(prefer_decode=prefer_decode)
             if out.is_empty and self.scheduler.waiting:
                 # finished-but-undrained sequences may still pin blocks
                 self._cleanup_stopped()
@@ -248,10 +264,15 @@ class Engine:
                 s._synced_blocks = len(s.logical_blocks)
 
     async def _decode_run_fast(self, seqs, loop):
-        """One k-step device decode run, then drain its [k, B] tokens."""
+        """k-step device decode runs: reserve capacity for k more tokens a row, push
+        changed table rows, dispatch the run, then dispatch a waiting prefill behind
+        it (overlap) or chain further runs while each can run without preemption
+        (pipeline), draining each run after the next is dispatched."""
         agent = self.model_agent
         k = agent.decode_run_steps
-        if self.scheduler.has_waiting():
+        # with overlap on, waiting requests do not shorten the run: their prefill
+        # dispatches behind it instead
+        if self.scheduler.has_waiting() and not self._overlap:
             k = 1                       # new arrivals wait at most one step (TTFT)
         # size the run by the LONGEST remaining budget, rounded up to a power of
         # two; rows that finish early stop there and the drain discards overrun
@@ -276,20 +297,84 @@ class Engine:
             agent.deactivate_rows(inactive)
         if not survivors:
             return
-        changed = [s for s in survivors
-                   if getattr(s, '_synced_blocks', -1) != len(s.logical_blocks)]
-        if changed:
-            agent.update_tables(changed)
-            for s in changed:
-                s._synced_blocks = len(s.logical_blocks)
+        self._sync_tables(survivors)
         num_rows = max(s.batch_slot for s in survivors) + 1
         simple = all(_is_simple_sampling(s.sampling_params) for s in survivors)
         top_lp = 32 if any(s.sampling_params.logprobs > 0 for s in survivors) else 0
         kmax = topk_bucket(max(s.sampling_params.top_k for s in survivors),
                            self.configs.model.vocab_size)
         fv = any(_is_full_vocab_sampling(s.sampling_params) for s in survivors)
-        step = await loop.run_in_executor(self._executor, agent.decode_run, num_rows, k,
-                                          simple, top_lp, kmax, fv)
+        run_args = (num_rows, k, simple, top_lp, kmax, fv)
+        step = await loop.run_in_executor(self._executor, agent.decode_run, *run_args)
+        # prefill/decode overlap: the run is queued on the card; compose and queue a
+        # prefill for WAITING requests now, behind it on the agent's stream.  The
+        # overlap pass never preempts
+        overlap = None
+        if self._overlap and self.scheduler.has_waiting():
+            pout = self.scheduler.schedule_overlap_prefill()
+            if pout.prefill_chunks:
+                pstep = await loop.run_in_executor(self._executor, agent.prefill,
+                                                   pout.prefill_chunks)
+                overlap = (pout.prefill_chunks, pstep)
+                self._overlap_dispatches += 1
+        # pipelined runs: dispatch run N+1 before draining run N.  Stops found in run
+        # N's drain end the chain; run N+1's tokens for stopped rows are discarded by
+        # the budget-aware drain.  The chain never preempts and breaks for arrivals
+        while (self._pipeline and overlap is None
+               and not self.scheduler.has_waiting()
+               and self._can_pipeline_next(survivors, k)):
+            next_step = await loop.run_in_executor(self._executor, agent.decode_run,
+                                                   *run_args)
+            self._pipelined_runs += 1
+            stopped = await self._drain_run(step, survivors, loop)
+            step = next_step
+            if stopped:
+                break
+        stopped = await self._drain_run(step, survivors, loop)
+        if stopped:
+            agent.deactivate_rows(stopped)
+        if overlap is not None:
+            await self._handle_prefill_results(*overlap, loop)
+
+    def _sync_tables(self, seqs):
+        """Push the table rows of the seqs whose block lists changed since."""
+        changed = [s for s in seqs
+                   if getattr(s, '_synced_blocks', -1) != len(s.logical_blocks)]
+        if changed:
+            self.model_agent.update_tables(changed)
+            for s in changed:
+                s._synced_blocks = len(s.logical_blocks)
+
+    def _can_pipeline_next(self, survivors, k: int) -> bool:
+        """True when one more k-step run can dispatch before draining: every row
+        still RUNNING with room in its session for the in-flight run's k tokens and
+        k more, some row with more than k tokens of budget left, and blocks for k
+        more tokens per row allocatable without preemption (the in-flight run writes
+        to the current block set).  The new table rows queue behind the in-flight
+        run on the agent's stream."""
+        max_len = self.configs.scheduler.max_session_len
+        any_needs = False
+        for s in survivors:
+            if s.status != MessageStatus.RUNNING:
+                return False
+            # a row past its budget does not block the chain: the drain discards its
+            # overrun tokens; KV capacity must hold for every row
+            if s.sampling_params.max_new_tokens - s.num_output_tokens > k:
+                any_needs = True
+            if s.num_token_ids + 2 * k > max_len:
+                return False
+        if not any_needs:
+            return False          # everyone finishes within the in-flight run
+        bm = self.scheduler.block_manager
+        for s in survivors:
+            if not bm.allocate_for_seq(s, num_new_tokens=2 * k):
+                return False
+        self._sync_tables(survivors)
+        return True
+
+    async def _drain_run(self, step, survivors, loop):
+        """Fetch one decode run's tokens and drain them into the requests.  Returns
+        the batch slots of rows that stopped during this drain."""
         tokens = await loop.run_in_executor(self._executor, step.tokens_np)
         logprobs = step.logprobs_np()
         tops = step.top_np()                # ([k, B, n], [k, B, n]) or None
@@ -299,10 +384,8 @@ class Engine:
             slot = seq.batch_slot
             seq_tops = None if tops is None else (tops[0][:, slot], tops[1][:, slot])
             self._drain_decode_tokens(seq, tokens[:, slot], logprobs[:, slot], seq_tops)
-        stopped = [s.batch_slot for s in survivors
-                   if s.status == MessageStatus.STOPPED and s.batch_slot >= 0]
-        if stopped:
-            agent.deactivate_rows(stopped)
+        return [s.batch_slot for s in survivors
+                if s.status == MessageStatus.STOPPED and s.batch_slot >= 0]
 
     # -- token post-processing --------------------------------------------------------
     def _drain_decode_tokens(self, seq: SchedulerSequence, toks, lps, tops=None):

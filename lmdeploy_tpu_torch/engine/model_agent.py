@@ -2,19 +2,28 @@
 
 Port of the main-path subset of ``lmdeploy_tpu/engine/model_agent.py``: ``_run`` with
 ``prefill`` / ``decode``, batch-slot management, the device-resident decode state
-(``insert_decode_rows``, ``update_tables``, ``ensure_table_width``) and ``decode_run``
-with its greedy fast variant and its sampled variant.  A decode run is k steps in a
-Python loop with the sampled token fed back on the device; the host fetches the
-``[k, B]`` tokens once.  The reference's batch / chunk / table buckets are kept, so
-both engines see the same padded shapes.  PyTorch runs eagerly: there is no jit and
-no donation, and every cache and state update is in place.
+(``insert_decode_rows``, ``update_tables``, ``ensure_table_width``), ``decode_run``
+with its greedy fast variant and its sampled variant, and ``warmup``.  A decode run is
+k steps with the sampled token fed back on the device; the host fetches the ``[k, B]``
+tokens once.  The reference's batch / chunk / table buckets are kept, so both engines
+see the same padded shapes.
+
+Where the reference jits each decode run per ``(k, B, simple, top_lp, kmax,
+full_vocab)``, the port captures it as a CUDA graph per key (``graph_runner.py``) and
+replays it; prefill steps run eagerly.  ``eager_mode`` (the reference's "disable
+bucketing/jit warmup (debug)") runs every decode run eagerly, as the CPU does.  The
+agent queues all of its device work, eager and replayed, on one stream of its own;
+host arrays reach the card through pinned memory and results come back the same way,
+so dispatching a step never waits for the card.  There is no donation: every cache and
+state update is in place.
 """
 from __future__ import annotations
 
+import contextlib
 import heapq
 import logging
 import os
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -25,8 +34,11 @@ from ..models.llama import AttnMeta
 from ..nn.layers import make_rope_table
 from ..ops.sampling import (GOLDEN, TOPK_CANDIDATES, SamplingInputs, sample_logits,
                             update_token_counts)
+from ..ops.kv_quant import QuantKVTurbo, turbo_tables
+from ..ops.moe import QUANT_RAGGED_MIN_TOKENS, RAGGED_MIN_TOKENS
 from .cache_engine import CacheEngine
-from .decode_state import DecodeState, host_rows_from_seqs, make_initial_state
+from .decode_state import DecodeState, host_rows_from_seqs, make_initial_state, to_device
+from .graph_runner import DecodeGraphs, DecodeRun, RunKey
 
 logger = logging.getLogger('lmdeploy_tpu_torch')
 
@@ -41,18 +53,36 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` on the host, queued on the current stream (into pinned memory)
+    when ``t`` is on a card."""
+    if not t.is_cuda:
+        return t.clone()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
 class StepOutput:
-    """Host view of one step's results, fetched together on first access."""
+    """Host view of one step's results.  The outputs are copied into host buffers of
+    this step's own as soon as the step is queued (a later step may overwrite the
+    device buffers); the first access waits for that copy, and for nothing else."""
 
     def __init__(self, tokens, logprobs, top=None):
-        self._dev = (tokens, logprobs, top)
+        self._copies = [_host_copy(t) for t in (tokens, logprobs, *(top or ()))]
+        self._has_top = top is not None
+        self._event = None
+        if tokens.is_cuda:
+            self._event = torch.cuda.Event()
+            self._event.record()
         self._host = None
 
     def _fetch(self):
         if self._host is None:
-            tokens, logprobs, top = self._dev
-            host_top = None if top is None else tuple(t.cpu().numpy() for t in top)
-            self._host = (tokens.cpu().numpy(), logprobs.cpu().numpy(), host_top)
+            if self._event is not None:
+                self._event.synchronize()
+            arrays = [t.numpy() for t in self._copies]
+            self._host = (arrays[0], arrays[1], tuple(arrays[2:]) if self._has_top else None)
         return self._host
 
     def tokens_np(self) -> np.ndarray:
@@ -63,6 +93,32 @@ class StepOutput:
 
     def top_np(self):
         return self._fetch()[2]
+
+
+def eager_reason(cp_devices, ragged_min_rows: Optional[int], B: int) -> Optional[str]:
+    """Why a decode run over a B-row bucket may not be captured (None: it may): a mesh
+    whose cp ranks span several devices (one capture holds one card's launches), or an
+    MoE model whose bucket reaches the grouped-GEMM route ``ops/moe.py _moe_ragged``,
+    which reads the experts' group sizes on the host (``ragged_min_rows``: its
+    threshold for the model's stacks, None for a model without experts)."""
+    if len(set(cp_devices)) > 1:
+        return f'the cp ranks span {len(set(cp_devices))} devices'
+    if ragged_min_rows is not None and B >= ragged_min_rows:
+        return (f'a decode bucket of {B} rows takes the grouped expert GEMM (from '
+                f'{ragged_min_rows} rows), which reads group sizes on the host')
+    return None
+
+
+def ragged_min_rows(params) -> Optional[int]:
+    """The rows from which ``moe_ffn`` takes ``_moe_ragged`` on this model's expert
+    stacks (dense stacks, and W4A16 stacks that are widened at each step, from 128;
+    MXFP4 and blocked-fp8 stacks from 768); None without experts."""
+    for group in ('layers', 'moe_layers'):
+        leaf = params.get(group, {}).get('we_gate')
+        if leaf is not None:
+            quant = isinstance(leaf, dict) and ('nib' in leaf or 'w8' in leaf)
+            return QUANT_RAGGED_MIN_TOKENS if quant else RAGGED_MIN_TOKENS
+    return None
 
 
 class ModelAgent:
@@ -121,6 +177,8 @@ class ModelAgent:
         # after the weights are resident, so the free-memory budget sees them
         self.cache_engine = CacheEngine(cfg, configs.cache, self.device, mesh=mesh)
         self.num_blocks = self.cache_engine.num_blocks
+        if isinstance(self.kv_cache, QuantKVTurbo):
+            turbo_tables(cfg.cache_head_dim, self.rope_cos.device)
         if mesh is not None and mesh.shape['cp'] > 1:
             self.model.cp_mesh = mesh
 
@@ -144,6 +202,25 @@ class ModelAgent:
                                                self.token_counts, self.prompt_mask)
         # host sync once per this many decode steps
         self.decode_run_steps = 16
+
+        # every device step of the agent, eager or replayed, goes on this one stream
+        cuda = self.device.type == 'cuda'
+        self.stream = torch.cuda.Stream(self.device) if cuda else None
+        if cuda:
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        self.eager_mode = misc.eager_mode
+        cp_devices = mesh.cp_devices if mesh is not None else ()
+        ragged = ragged_min_rows(self.params)
+        self.graphs = DecodeGraphs(
+            self._decode_body, self.token_counts.device,
+            capture=cuda and not self.eager_mode,
+            eager_reason=lambda key: eager_reason(cp_devices, ragged, key[1]))
+
+    def _on_stream(self):
+        """The agent's stream as the current one (a no-op on the CPU)."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
 
     @property
     def kv_cache(self):
@@ -178,12 +255,17 @@ class ModelAgent:
 
     # -- one step over a padded batch -------------------------------------------------
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device, non_blocking=True)
+        return to_device(a, self.device)
 
     def _run(self, seqs, chunk_starts, chunk_lens, count_inputs: bool,
              valid, reset) -> StepOutput:
         """Compose a padded batch from sequences and run one step (prefill chunk,
         or decode with start = num_computed and len 1)."""
+        with self._on_stream():
+            return self._run_step(seqs, chunk_starts, chunk_lens, count_inputs, valid,
+                                  reset)
+
+    def _run_step(self, seqs, chunk_starts, chunk_lens, count_inputs, valid, reset):
         n = len(seqs)
         B = bucketize(n, self.batch_buckets)
         T = bucketize(max(chunk_lens), self.chunk_buckets) if count_inputs else 1
@@ -269,31 +351,36 @@ class ModelAgent:
         """Write these RUNNING seqs' rows into the device decode state."""
         if not seqs:
             return
-        self.ensure_table_width(max(len(s.logical_blocks) for s in seqs))
-        rows = host_rows_from_seqs(seqs, self.state_table_width)
-        idx = np.asarray([self.assign_slot(s) for s in seqs], np.int64)
-        self.decode_state.insert_rows(idx, rows)
+        with self._on_stream():
+            self.ensure_table_width(max(len(s.logical_blocks) for s in seqs))
+            rows = host_rows_from_seqs(seqs, self.state_table_width)
+            idx = np.asarray([self.assign_slot(s) for s in seqs], np.int64)
+            self.decode_state.insert_rows(idx, rows)
 
     def deactivate_rows(self, slots):
         if slots:
-            self.decode_state.insert_rows(np.asarray(slots, np.int64),
-                                          {'active': np.zeros(len(slots), bool)})
+            with self._on_stream():
+                self.decode_state.insert_rows(np.asarray(slots, np.int64),
+                                              {'active': np.zeros(len(slots), bool)})
 
     def update_tables(self, seqs):
         """Refresh table rows after block allocation."""
         if not seqs:
             return
-        self.ensure_table_width(max(len(s.logical_blocks) for s in seqs))
-        W = self.state_table_width
-        tables = np.zeros((len(seqs), W), np.int32)
-        for i, s in enumerate(seqs):
-            nb = min(len(s.logical_blocks), W)
-            tables[i, :nb] = s.logical_blocks[:nb]
-        self.decode_state.insert_rows(np.asarray([s.batch_slot for s in seqs], np.int64),
-                                      {'tables': tables})
+        with self._on_stream():
+            self.ensure_table_width(max(len(s.logical_blocks) for s in seqs))
+            W = self.state_table_width
+            tables = np.zeros((len(seqs), W), np.int32)
+            for i, s in enumerate(seqs):
+                nb = min(len(s.logical_blocks), W)
+                tables[i, :nb] = s.logical_blocks[:nb]
+            self.decode_state.insert_rows(
+                np.asarray([s.batch_slot for s in seqs], np.int64), {'tables': tables})
 
     def ensure_table_width(self, needed: int):
-        """Grow the state's block-table width to the next bucket."""
+        """Grow the state's block-table width to the next bucket.  A grown table is a
+        new tensor, so every captured decode run is dropped (the tables start at full
+        width, so this does not happen while serving)."""
         if needed <= self.state_table_width:
             return
         new_w = bucketize(needed, self.table_buckets)
@@ -302,62 +389,127 @@ class ModelAgent:
         grown[:, :old.shape[1]] = old
         self.decode_state.tables = grown
         self.state_table_width = new_w
+        self.graphs.clear()
 
+    # -- decode runs ------------------------------------------------------------------
     @torch.no_grad()
     def decode_run(self, num_rows: int, k: Optional[int] = None, simple: bool = False,
                    top_lp: int = 0, kmax: int = TOPK_CANDIDATES,
                    full_vocab: bool = False) -> StepOutput:
-        """Run k decode steps over rows [0, num_rows) of the decode state.
+        """Dispatch k decode steps over rows [0, num_rows) of the decode state.
 
         Capacity (blocks and table rows) for k more tokens per row must already be
         ensured by the caller.  ``simple`` is the greedy fast path (every active row
         greedy with neutral penalties); ``top_lp`` > 0 also returns the per-step
-        top-``top_lp`` logprobs; ``kmax`` widens the top-k/p candidate set.
-        Returns tokens [k, B]."""
+        top-``top_lp`` logprobs; ``kmax`` widens the top-k/p candidate set.  On the
+        card the run replays its key's graph (``graph_runner.py``), unless
+        ``eager_mode`` or ``eager_reason`` says otherwise.  Returns tokens [k, B]."""
         k = k or self.decode_run_steps
         B = bucketize(num_rows, self.batch_buckets)
-        self._flush_deactivations()
+        with self._on_stream():
+            self._flush_deactivations()
+            run = self.graphs.run((k, B, simple, top_lp, kmax, full_vocab))
+            return StepOutput(run.tokens, run.logprobs, run.top)
+
+    def run_keys(self) -> List[RunKey]:
+        """The decode-run keys built so far (the reference's ``'run'`` step fns)."""
+        return list(self.graphs.runs)
+
+    def _decode_body(self, run: DecodeRun, scratch: bool = False):
+        """k decode steps of ``run.key`` into ``run``'s outputs, over the decode state
+        or, with ``scratch``, one step over a state of B inactive rows of its own (a
+        pass at the run's shapes that leaves the real state and cache as they were:
+        inactive rows write only the padding block and add nothing to the penalty
+        counts)."""
+        k, B, simple, top_lp, kmax, full_vocab = run.key
         st: DecodeState = self.decode_state
+        if scratch:
+            k = 1
+            st = make_initial_state(B, self.state_table_width, self.token_counts,
+                                    self.prompt_mask)
         row = {n: getattr(st, n)[:B] for n in DecodeState.ROW_FIELDS}
         counts, pmask = st.token_counts[:B], st.prompt_mask[:B]
-        toks, lps, tvs, tis = [], [], [], []
-        for _ in range(k):
-            act = row['active']
-            q_lens = act.int()
-            meta = AttnMeta(block_tables=row['tables'], history_lens=row['position'],
-                            q_lens=q_lens)
-            positions = row['position'].clamp(0, self.max_model_len - 1)[:, None]
-            logits = self.model.forward(self.params, row['token'][:, None], positions,
-                                        self.kv_cache, meta, self.rope_cos, self.rope_sin)
-            if simple:
-                tokens = torch.argmax(logits, dim=-1).int()
-                lp_all = torch.log_softmax(logits, dim=-1)
-                lp = torch.gather(lp_all, 1, tokens.long()[:, None])[:, 0]
-                top = torch.topk(lp_all, top_lp, dim=-1) if top_lp > 0 else None
-                top = None if top is None else (top.values, top.indices.int())
-            else:
-                si = SamplingInputs(
-                    temperature=row['temperature'], top_k=row['top_k'],
-                    top_p=row['top_p'], min_p=row['min_p'],
-                    repetition_penalty=row['repetition_penalty'],
-                    frequency_penalty=row['frequency_penalty'],
-                    presence_penalty=row['presence_penalty'], do_sample=row['do_sample'],
-                    seeds=(row['seed'] + (row['step_no'].long() + 1) * GOLDEN) & 0xFFFFFFFF,
-                    max_top_logprobs=top_lp)
-                tokens, lp, top = sample_logits(logits, si, counts, pmask, kmax=kmax,
-                                                full_vocab=full_vocab)
-                update_token_counts(counts, tokens, act)
-            new_token = torch.where(act, tokens, row['token'])
-            row['token'].copy_(new_token)
-            row['position'].add_(q_lens)
-            row['step_no'].add_(q_lens)
-            toks.append(new_token)
-            lps.append(lp)
-            if top_lp > 0:
-                tvs.append(top[0])
-                tis.append(top[1])
-        top = (torch.stack(tvs), torch.stack(tis)) if top_lp > 0 else None
-        return StepOutput(torch.stack(toks), torch.stack(lps), top)
+        with torch.no_grad():
+            for i in range(k):
+                act = row['active']
+                q_lens = act.int()
+                meta = AttnMeta(block_tables=row['tables'], history_lens=row['position'],
+                                q_lens=q_lens)
+                positions = row['position'].clamp(0, self.max_model_len - 1)[:, None]
+                logits = self.model.forward(self.params, row['token'][:, None], positions,
+                                            self.kv_cache, meta, self.rope_cos,
+                                            self.rope_sin)
+                if simple:
+                    tokens = torch.argmax(logits, dim=-1).int()
+                    lp_all = torch.log_softmax(logits, dim=-1)
+                    lp = torch.gather(lp_all, 1, tokens.long()[:, None])[:, 0]
+                    top = torch.topk(lp_all, top_lp, dim=-1) if top_lp > 0 else None
+                    top = None if top is None else (top.values, top.indices.int())
+                else:
+                    si = SamplingInputs(
+                        temperature=row['temperature'], top_k=row['top_k'],
+                        top_p=row['top_p'], min_p=row['min_p'],
+                        repetition_penalty=row['repetition_penalty'],
+                        frequency_penalty=row['frequency_penalty'],
+                        presence_penalty=row['presence_penalty'],
+                        do_sample=row['do_sample'],
+                        seeds=(row['seed'] + (row['step_no'].long() + 1) * GOLDEN)
+                        & 0xFFFFFFFF,
+                        max_top_logprobs=top_lp)
+                    tokens, lp, top = sample_logits(logits, si, counts, pmask, kmax=kmax,
+                                                    full_vocab=full_vocab)
+                    update_token_counts(counts, tokens, act)
+                new_token = torch.where(act, tokens, row['token'])
+                row['token'].copy_(new_token)
+                row['position'].add_(q_lens)
+                row['step_no'].add_(q_lens)
+                run.tokens[i].copy_(new_token)
+                run.logprobs[i].copy_(lp)
+                if top_lp > 0:
+                    run.top[0][i].copy_(top[0])
+                    run.top[1][i].copy_(top[1])
+
+    @torch.no_grad()
+    def warmup(self, batch_sizes: Optional[List[int]] = None, decode_ks=None,
+               prefill_tokens: Optional[List[int]] = None):
+        """Build the hot decode runs ahead of time (reference ``warmup``: the greedy
+        and the sampled variant of every power-of-two run length up to
+        ``decode_run_steps``, for each batch size's bucket), largest bucket first: on
+        the card each is captured, on the CPU (or with ``eager_mode``) its buffers are
+        made.  Each ``prefill_tokens`` chunk bucket runs one eager prefill step over
+        padding rows, which builds its kernels and warms the allocator.  Call it before
+        any request holds a batch slot."""
+        if len(self._free_slots) != self.max_batch:
+            raise RuntimeError('warmup runs before any sequence holds a batch slot')
+        if decode_ks is None:
+            decode_ks, k = [], 1
+            while k <= self.decode_run_steps:
+                decode_ks.append(k)
+                k *= 2
+        buckets = sorted({bucketize(b, self.batch_buckets)
+                          for b in (batch_sizes or [self.max_batch])}, reverse=True)
+        with self._on_stream():
+            for B in buckets:
+                for k in sorted(decode_ks, reverse=True):
+                    for simple in (True, False):
+                        self.graphs.prepare((k, B, simple, 0, TOPK_CANDIDATES, False))
+            for tok in prefill_tokens or []:
+                self._warm_prefill(bucketize(tok, self.chunk_buckets))
+
+    def _warm_prefill(self, T: int):
+        """One fresh prefill step of T-token chunks over padding rows (block table 0,
+        the reserved padding block), its logits discarded."""
+        B = bucketize(min(self.sched_config.max_prefill_batch, self.max_batch),
+                      self.batch_buckets)
+        W = bucketize(max(1, -(-T // self.cache_config.block_size)), self.table_buckets)
+        dev = self.token_counts.device
+        pos = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T)
+        meta = AttnMeta(block_tables=torch.zeros((B, W), dtype=torch.int32, device=dev),
+                        history_lens=torch.zeros(B, dtype=torch.int32, device=dev),
+                        q_lens=torch.full((B,), T, dtype=torch.int32, device=dev))
+        self.model.forward(self.params, torch.zeros((B, T), dtype=torch.int32, device=dev),
+                           pos.contiguous(), self.kv_cache, meta, self.rope_cos,
+                           self.rope_sin, fresh_prefill=True)
 
 
 def _pad_sampling(s: SamplingInputs, n: int, B: int) -> SamplingInputs:

@@ -207,6 +207,25 @@ _CODEBOOKS: Dict[Tuple[int, str], Tuple[torch.Tensor, torch.Tensor]] = {}
 _BOUNDARIES: Dict[Tuple[bytes, str], torch.Tensor] = {}
 
 
+def _device_table(a: np.ndarray, device) -> torch.Tensor:
+    """A constant host table copied to ``device`` once.  Never during a CUDA graph
+    capture, where a copy from pageable memory is illegal: ``turbo_tables`` makes
+    them ahead."""
+    if torch.device(device).type == 'cuda' and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError('a TurboQuant table is made during a CUDA graph capture: '
+                           'call kv_quant.turbo_tables first')
+    return torch.from_numpy(a).to(device)
+
+
+def turbo_tables(d: int, device):
+    """Make every TurboQuant table of head dim ``d`` on ``device`` (the Hadamard
+    matrix, the codebooks and the Lloyd boundaries) before any capture reads them."""
+    hadamard(d, device)
+    turbo_codebooks(d, device)
+    for boundaries in (LLOYD_B3, LLOYD_B2):
+        _boundaries(boundaries * turbo_sigma(d), device)
+
+
 def turbo_sigma(d: int) -> np.float32:
     """The codebooks' scale 1/sqrt(d), rounded to f32 as the reference rounds it."""
     return np.float32(1.0 / np.sqrt(d))
@@ -221,7 +240,7 @@ def hadamard(d: int, device='cpu') -> torch.Tensor:
         H = np.array([[1.0]], np.float32)
         while H.shape[0] < d:
             H = np.block([[H, H], [H, -H]])
-        _HADAMARD[key] = torch.from_numpy((H / np.sqrt(d)).astype(np.float32)).to(device)
+        _HADAMARD[key] = _device_table((H / np.sqrt(d)).astype(np.float32), device)
     return _HADAMARD[key]
 
 
@@ -239,10 +258,14 @@ def hadamard_rotate_inv(x: torch.Tensor) -> torch.Tensor:
 def _lloyd_index(u: torch.Tensor, boundaries: np.ndarray) -> torch.Tensor:
     """Code index per element: the count of boundaries strictly below it (the
     reference's chain of ``u > b`` adds, in one ``bucketize``)."""
-    key = (boundaries.tobytes(), str(u.device))
+    return torch.bucketize(u, _boundaries(boundaries, u.device)).to(torch.uint8)
+
+
+def _boundaries(boundaries: np.ndarray, device) -> torch.Tensor:
+    key = (boundaries.tobytes(), str(device))
     if key not in _BOUNDARIES:
-        _BOUNDARIES[key] = torch.from_numpy(boundaries).to(u.device)
-    return torch.bucketize(u, _BOUNDARIES[key]).to(torch.uint8)
+        _BOUNDARIES[key] = _device_table(boundaries, device)
+    return _BOUNDARIES[key]
 
 
 def turbo_codebooks(d: int, device='cpu') -> Tuple[torch.Tensor, torch.Tensor]:
@@ -250,7 +273,7 @@ def turbo_codebooks(d: int, device='cpu') -> Tuple[torch.Tensor, torch.Tensor]:
     reference forms them, kept on ``device`` (a CUDA graph may not copy them in)."""
     key = (d, str(device))
     if key not in _CODEBOOKS:
-        _CODEBOOKS[key] = tuple(torch.from_numpy(c * turbo_sigma(d)).to(device)
+        _CODEBOOKS[key] = tuple(_device_table(c * turbo_sigma(d), device)
                                 for c in (LLOYD_C3, LLOYD_C2))
     return _CODEBOOKS[key]
 

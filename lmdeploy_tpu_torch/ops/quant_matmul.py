@@ -59,6 +59,7 @@ _TILE_N = 128
 TOKEN_TILES = (16, 64, 128)
 GROUP_SIZES = (32, 64, 128)
 _COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+_RETIRED_COUNTERS = []
 # rows at or below which the group-dot products run (reference GROUP_DOT_MAX_M); above
 # it the product turns compute-bound and one dense GEMM wins
 GROUP_DOT_MAX_M = 256
@@ -323,10 +324,16 @@ def _dense_route(x: torch.Tensor, group_size: int) -> bool:
 def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
     """Per-tile arrival counters of the split-K fix-up, zero between launches (the
     kernel resets each one it uses).  One buffer per (device, stream): launches on
-    one stream run in order, so they never share a counter while in flight."""
+    one stream run in order, so they never share a counter while in flight.  A CUDA
+    graph keeps the buffer's address, so a grown buffer keeps the old one alive.  A
+    decode run's warm step makes the agent stream's buffer before its capture
+    (``engine/graph_runner.py``); one first made inside a capture lives in that graph's
+    pool, its zeroing a node of the graph."""
     key = (device, stream)
     buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _RETIRED_COUNTERS.append(buf)
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _COUNTERS[key] = buf
     return buf

@@ -86,12 +86,15 @@ class SamplingInputs:
                    bad_words_mask=bad_mask, max_top_logprobs=max_lp)
 
     def to(self, device) -> 'SamplingInputs':
-        """Tensors on ``device`` (one small host-to-device copy per field)."""
+        """Tensors on ``device`` (one small host-to-device copy per field, through
+        pinned memory on a card, so the host does not wait for queued steps)."""
+        cuda = torch.device(device).type == 'cuda'
         out = {}
         for f in fields(self):
             v = getattr(self, f.name)
             if isinstance(v, np.ndarray):
-                v = torch.from_numpy(v).to(device, non_blocking=True)
+                v = torch.from_numpy(v)
+                v = v.pin_memory().to(device, non_blocking=True) if cuda else v.to(device)
             out[f.name] = v
         return SamplingInputs(**out)
 

@@ -121,20 +121,26 @@ class Scheduler:
         )
 
     # -- scheduling --------------------------------------------------------------------
-    def schedule(self) -> SchedulerOutput:
+    def schedule(self, prefer_decode: bool = False) -> SchedulerOutput:
         """Pick the next step: prefill if any WAITING can be admitted, else decode.
 
         Prefill-priority matches the reference default (new requests reach first token
-        fast; decode throughput is preserved by the token-budget chunking).  The
-        reference's overlap-mode pass (``schedule_overlap_prefill``,
-        ``prefer_decode``) and host swap come with the port's overlap and swap
-        slices.
+        fast; decode throughput is preserved by the token-budget chunking).
+        ``prefer_decode`` inverts the priority while sequences are RUNNING: the
+        engine's overlap mode dispatches waiting prefills BEHIND the decode run
+        instead (``schedule_overlap_prefill``), so decode keeps full-length runs under
+        continuous arrivals.  Host swap comes with the port's swap slice.
         """
-        if self.waiting:
+        if self.waiting and not (prefer_decode and self.running):
             out = self._schedule_prefill()
             if not out.is_empty:
                 return out
-        return self._schedule_decoding()
+        out = self._schedule_decoding()
+        if out.is_empty and self.waiting and prefer_decode:
+            # decode could not run (e.g. everything just finished or was preempted):
+            # fall back to the prefill pass rather than stalling
+            out = self._schedule_prefill()
+        return out
 
     def _prefill_order(self, seqs: List[SchedulerSequence]
                        ) -> List[SchedulerSequence]:
@@ -176,6 +182,18 @@ class Scheduler:
             out = self._schedule_prefill_pass(ordered[1:])
         return out
 
+    def schedule_overlap_prefill(self) -> SchedulerOutput:
+        """Prefill pass safe to dispatch while a decode run is in flight.
+
+        Never preempts (the running rows' blocks are being written by the in-flight
+        run); trie eviction is still allowed, since it only frees blocks no live
+        sequence references.  The reference also skips swapped-out sequences here;
+        the port has no swap yet.  Reference analog: two-batch DP+EP overlap in
+        ``lmdeploy/pytorch/engine/model_agent/agent.py:349-355``.
+        """
+        return self._schedule_prefill_pass(self._prefill_order(self.waiting),
+                                           allow_preempt=False)
+
     # ceiling on (padded executable area) / (real tokens) for one prefill
     # batch.  The agent lowers a [B_bucket, T_bucket] step per shape, where
     # T is the LONGEST chunk in the batch — mixing one long chunk with many
@@ -186,7 +204,8 @@ class Scheduler:
     # diagonal; deferred chunks are FIFO-next so nothing starves.
     PREFILL_PAD_CAP = 2.5
 
-    def _schedule_prefill_pass(self, candidates) -> SchedulerOutput:
+    def _schedule_prefill_pass(self, candidates,
+                               allow_preempt: bool = True) -> SchedulerOutput:
         token_budget = self.scheduler_config.max_prefill_token_num
         max_batch = self.scheduler_config.max_prefill_batch
         running_count = len(self.running)
@@ -217,11 +236,19 @@ class Scheduler:
                             * bucketize(max(batch_max_len, num_new), cb))
                 if pad_area > self.PREFILL_PAD_CAP * (batch_tokens + num_new):
                     break            # close the batch at the efficiency cap
-            # no room: preempt the youngest RUNNING seqs; never for a seq younger
-            # than the victim (forward progress)
-            if not self.block_manager.allocate_for_seq(seq, num_new) and \
-                    not self._try_preempt_for(seq, num_new):
-                break
+            if not self.block_manager.allocate_for_seq(seq, num_new):
+                if not allow_preempt:
+                    # overlap mode: trie eviction only (frees unreferenced cached
+                    # blocks); an in-flight decode run forbids preemption
+                    need = self.block_manager.num_required_blocks(seq, num_new)
+                    if not (self.block_trie is not None
+                            and self.block_trie.evict(need)
+                            and self.block_manager.allocate_for_seq(seq, num_new)):
+                        break
+                # no room: preempt the youngest RUNNING seqs; never for a seq younger
+                # than the victim (forward progress)
+                elif not self._try_preempt_for(seq, num_new):
+                    break
             is_last = (num_new == seq.num_uncomputed)
             chunks.append(PrefillChunk(seq=seq, start=seq.num_computed_tokens,
                                        length=num_new, is_last=is_last))

@@ -99,7 +99,7 @@ def test_sampled_requests_are_seeded(tiny_model_dir):
 @pytest.mark.parametrize('field', [
     dict(tp=2), dict(dp=2), dict(ep=2), dict(cp=2, quant_policy=4), dict(attn_tp_size=2),
     dict(num_cpu_blocks=16), dict(mlp_tp_size=2), dict(model_format='fp8'),
-    dict(eager_mode=True), dict(role='prefill'), dict(adapters={'a': 'path'}),
+    dict(role='prefill'), dict(adapters={'a': 'path'}),
     dict(dllm_block_length=4), dict(memdecode={'memory_model_path': 'path'}),
     dict(revision='main')])
 def test_unported_engine_config_raises(tiny_model_dir, field):
@@ -115,6 +115,24 @@ def test_unported_engine_config_raises(tiny_model_dir, field):
     bundle = EngineConfigBundle.build(tiny_model_dir, TpuEngineConfig(**ENGINE_KW))
     with pytest.raises(NotImplementedError, match=name):
         Engine(None, TpuEngineConfig(**field), configs=bundle, device='cpu')
+
+
+def test_eager_mode_engine_config_accepted(tiny_model_dir):
+    """eager_mode (the reference's "disable bucketing/jit warmup (debug)") is served,
+    on both ways into the Engine: the bundle carries it to the agent, whose decode
+    runs then never capture."""
+    from lmdeploy_tpu_torch.config import EngineConfigBundle
+    from lmdeploy_tpu_torch.engine.engine import Engine
+    from lmdeploy_tpu_torch.messages import TpuEngineConfig
+    cfg = TpuEngineConfig(**ENGINE_KW, eager_mode=True)
+    engine = Engine.from_pretrained(tiny_model_dir, cfg, device='cpu')
+    assert engine.configs.misc.eager_mode and engine.model_agent.eager_mode
+    assert not engine.model_agent.graphs.capture
+    engine.close()
+    bundle = EngineConfigBundle.build(tiny_model_dir, cfg)
+    engine = Engine(None, TpuEngineConfig(eager_mode=True), configs=bundle, device='cpu')
+    assert engine.model_agent.eager_mode
+    engine.close()
 
 
 def test_kv_int8_engine_config_accepted(tiny_model_dir):

@@ -22,9 +22,11 @@ def make(pkg, prefix_caching):
     return Scheduler(cfg, cache, **kw), SamplingParams
 
 
-def trace(pkg, prefix_caching):
+def trace(pkg, prefix_caching, overlap=False):
     """Arrivals, chunked prefill, multi-token decode with capacity extension and
-    preemption, finishes; returns the log of every decision."""
+    preemption, finishes; returns the log of every decision.  With ``overlap`` the
+    engine's overlap mode: decode-priority scheduling while rows run, and each decode
+    step followed by the overlap prefill pass (which never preempts)."""
     sched, SamplingParams = make(pkg, prefix_caching)
     rng = np.random.RandomState(0)
     shared = list(rng.randint(3, 200, 40))
@@ -37,7 +39,7 @@ def trace(pkg, prefix_caching):
                 list(rng.randint(3, 200, 10 + 5 * step))
             seqs[sid] = sched.seq_manager.get_session(sid).add_sequence(
                 ids, SamplingParams(max_new_tokens=30))
-        out = sched.schedule()
+        out = sched.schedule(prefer_decode=overlap and bool(sched.running))
         if out.is_prefill:
             log.append(('prefill', [(c.seq.session.session_id, c.start, c.length, c.is_last)
                                     for c in out.prefill_chunks]))
@@ -46,6 +48,14 @@ def trace(pkg, prefix_caching):
         else:
             ok = [sched.extend_decode_capacity(s, 4) for s in out.decode_seqs]
             log.append(('decode', [s.session.session_id for s in out.decode_seqs], ok))
+            if overlap and sched.waiting:
+                before = sched.num_preemptions
+                pout = sched.schedule_overlap_prefill()
+                assert sched.num_preemptions == before
+                log.append(('overlap', [(c.seq.session.session_id, c.start, c.length,
+                                         c.is_last) for c in pout.prefill_chunks]))
+                for c in pout.prefill_chunks:
+                    sched.on_prefill_done(c, 7 if c.is_last else None)
             for s, good in zip(out.decode_seqs, ok):
                 if good and s.status.name == 'RUNNING':
                     sched.on_decode_tokens(s, [9, 9, 9, 9])
@@ -64,4 +74,14 @@ def test_same_trace_same_decisions(prefix_caching):
     jax_log = trace('jax', prefix_caching)
     port_log = trace('torch', prefix_caching)
     assert any(entry[-1] > 0 for entry in jax_log if entry[0] == 'state')   # preempted
+    assert port_log == jax_log
+
+
+@pytest.mark.parametrize('prefix_caching', [False, True])
+def test_prefer_decode_same_decisions(prefix_caching):
+    """``schedule(prefer_decode=True)`` and ``schedule_overlap_prefill`` (the engine's
+    overlap mode) decide as the JAX scheduler's do, step by step."""
+    jax_log = trace('jax', prefix_caching, overlap=True)
+    port_log = trace('torch', prefix_caching, overlap=True)
+    assert any(e[0] == 'overlap' and e[1] for e in jax_log)     # prefills behind runs
     assert port_log == jax_log
