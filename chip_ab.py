@@ -59,7 +59,7 @@ print('AB ' + json.dumps(out), flush=True)
 KERNEL_RUN = '''
 import json, numpy as np, torch, chip_smoke as c
 from lmdeploy_tpu_torch.config import ModelConfig
-from lmdeploy_tpu_torch.models.deepseek import init_fp8_leaf
+from lmdeploy_tpu_torch.models.llama import init_fp8_leaf
 from lmdeploy_tpu_torch.ops import paged_decode as pd, quant_bmm as qb, quant_matmul as qm
 from lmdeploy_tpu_torch.ops.attention import fill_kv_cache
 from lmdeploy_tpu_torch.ops.kv_quant import hadamard_rotate

@@ -119,7 +119,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  MLA cache: 63 concurrent 1024-token prompts plus one 4096-token prompt,
                  64 greedy tokens each, run twice, then traced; each decode step launches
                  fp8_bmm 78 times and paged_decode 27 times, each fresh prefill step
-                 flash_prefill 27 times, exactly.
+                 flash_prefill 27 times, exactly;
+ 11. int_mm   -- (after the kernel rows) the W8A8 product's int8 route, torch._int_mm with
+                 its rows padded to cuBLASLt's 17, bit-exact against an f64 product of the
+                 same codes at M 1 / 16 / 17 / 64 / 2048, eagerly and from a captured
+                 graph; the fp8 weight-only product's f32-output GEMM; the three 8-bit
+                 products' times at M 64 beside the dense bf16 GEMM's; routing_ties --
+                 sparsemixer's choices and weights on the card equal to the CPU's on rows
+                 with tied maxima and scores at the jitter threshold;
+ 12. parity_llama31_8b_w8a8 / _fp8, parity_qwen3_8b_fp8, parity_phimoe,
+     parity_glm45_air, parity_deepseek_moe_16b -- the parity phase (4) for
+                 Llama-3.1-8B in SmoothQuant W8A8 and fp8 weight-only (per-channel) form,
+                 Qwen3-8B-FP8 (blocked 128 x 128), Phi-3.5-MoE, GLM-4.5-Air and
+                 DeepSeek-MoE 16B (their public configs, 2 layers: the dense layer and one
+                 MoE layer where the model has both), each with a planted trap;
+ 13. e2e_llama31_8b_w8a8 / _fp8, e2e_qwen3_8b_fp8, e2e_phimoe, e2e_glm45_air,
+     e2e_deepseek_moe_16b -- the same six at full width and 4 layers: 63 concurrent
+                 256-token prompts plus one of 2048 (4096 for Phi-3.5-MoE, whose long
+                 rope table then serves), 32 greedy tokens each, one run (each fresh
+                 prefill step launches flash_prefill and each decode step paged_decode
+                 once a layer, exactly), traced, then one run on an eager_mode engine of
+                 the same weights whose greedy tokens must be equal.
 The line before the last lists every kernel; the last line is the result.
 It imports nothing of jax or lmdeploy_tpu.
 """
@@ -334,6 +354,62 @@ DEEPSEEK_V3 = {
                      'type': 'yarn'},
     'tie_word_embeddings': False, 'bos_token_id': 0, 'eos_token_id': 1,
     'torch_dtype': 'bfloat16', 'quantization_config': FP8_BLOCKED,
+}
+# the 8-bit forms of Llama-3.1-8B: the SmoothQuant W8A8 config lite/smooth_quant.py
+# writes, and the quantization_config of meta-llama/Llama-3.1-8B-Instruct-FP8
+# (fbgemm_fp8: e4m3 weights, one f32 scale per output channel)
+LLAMA31_8B_W8A8 = dict(LLAMA31_8B, quantization_config={'quant_method': 'smooth_quant',
+                                                        'bits': 8})
+LLAMA31_8B_FP8 = dict(LLAMA31_8B, quantization_config={'quant_method': 'fbgemm_fp8',
+                                                       'activation_scale_ub': 1200.0})
+# the public config.json of Qwen/Qwen3-8B-FP8 (its fields the port reads): every linear
+# in e4m3 with one scale_inv per 128 x 128 block
+QWEN3_8B_FP8 = {
+    'architectures': ['Qwen3ForCausalLM'], 'model_type': 'qwen3',
+    'hidden_size': 4096, 'intermediate_size': 12288, 'num_hidden_layers': 36,
+    'num_attention_heads': 32, 'num_key_value_heads': 8, 'head_dim': 128,
+    'vocab_size': 151936, 'max_position_embeddings': 40960, 'rms_norm_eps': 1e-06,
+    'rope_theta': 1000000, 'attention_bias': False, 'tie_word_embeddings': False,
+    'bos_token_id': 151643, 'eos_token_id': 151645, 'torch_dtype': 'bfloat16',
+    'quantization_config': FP8_BLOCKED,
+}
+# the public config.json of microsoft/Phi-3.5-MoE-instruct (its fields the port reads;
+# its longrope factor lists, 64 published numbers each, are seeded in phimoe_config, and
+# original_max_position_embeddings sits in rope_scaling, where the reference reads it)
+PHI35_MOE = {
+    'architectures': ['PhiMoEForCausalLM'], 'model_type': 'phimoe',
+    'hidden_size': 4096, 'intermediate_size': 6400, 'num_hidden_layers': 32,
+    'num_attention_heads': 32, 'num_key_value_heads': 8, 'num_local_experts': 16,
+    'num_experts_per_tok': 2, 'vocab_size': 32064, 'max_position_embeddings': 131072,
+    'original_max_position_embeddings': 4096, 'rms_norm_eps': 1e-05, 'rope_theta': 10000.0,
+    'router_jitter_noise': 0.01, 'attention_bias': True, 'lm_head_bias': True,
+    'tie_word_embeddings': False, 'bos_token_id': 1, 'eos_token_id': 32000,
+    'torch_dtype': 'bfloat16',
+}
+# the public config.json of zai-org/GLM-4.5-Air (its fields the port reads)
+GLM45_AIR = {
+    'architectures': ['Glm4MoeForCausalLM'], 'model_type': 'glm4_moe',
+    'hidden_size': 4096, 'intermediate_size': 10944, 'moe_intermediate_size': 1408,
+    'num_hidden_layers': 46, 'first_k_dense_replace': 1, 'num_attention_heads': 96,
+    'num_key_value_heads': 8, 'head_dim': 128, 'partial_rotary_factor': 0.5,
+    'n_routed_experts': 128, 'n_shared_experts': 1, 'num_experts_per_tok': 8,
+    'n_group': 1, 'topk_group': 1, 'norm_topk_prob': True, 'routed_scaling_factor': 1.0,
+    'vocab_size': 151552, 'max_position_embeddings': 131072, 'rms_norm_eps': 1e-05,
+    'rope_theta': 1000000, 'attention_bias': True, 'use_qk_norm': False,
+    'tie_word_embeddings': False, 'eos_token_id': [151329, 151336, 151338],
+    'torch_dtype': 'bfloat16',
+}
+# the public config.json of deepseek-ai/deepseek-moe-16b-base (its fields the port reads)
+DEEPSEEK_MOE_16B = {
+    'architectures': ['DeepseekForCausalLM'], 'model_type': 'deepseek',
+    'hidden_size': 2048, 'intermediate_size': 10944, 'moe_intermediate_size': 1408,
+    'num_hidden_layers': 28, 'first_k_dense_replace': 1, 'num_attention_heads': 16,
+    'num_key_value_heads': 16, 'n_routed_experts': 64, 'n_shared_experts': 2,
+    'num_experts_per_tok': 6, 'moe_layer_freq': 1, 'norm_topk_prob': False,
+    'scoring_func': 'softmax', 'vocab_size': 102400, 'max_position_embeddings': 4096,
+    'rms_norm_eps': 1e-06, 'rope_theta': 10000, 'attention_bias': False,
+    'tie_word_embeddings': False, 'bos_token_id': 100000, 'eos_token_id': 100001,
+    'torch_dtype': 'bfloat16',
 }
 # the engine's switches of each W4A16 schedule (read when the ModelAgent is built), and
 # the kernel each runs
@@ -570,7 +646,9 @@ def flash_phase():
     # chunks; the other head dims the kernel takes (96, 256) and the f16 and f32 models;
     # Llama-3.1-8B's fresh prefill step in the e2e_llama31 cells (8 x 1,024 tokens),
     # Qwen2-7B's G = 7 (28 / 4 heads) at T 2048 and Qwen2-1.5B's G = 6 (12 / 2) in f16
-    # at a ragged T: 128-row blocks that are not a whole number of positions
+    # at a ragged T: 128-row blocks that are not a whole number of positions;
+    # GLM-4.5-Air's G = 12 (96 / 8 heads) at the e2e_glm45_air cell's long prompt and
+    # its prefill batch of 16 x 256
     for label, B, T, Hq, Hkv, D, dtype in (
             ('tinyllama_t2048', 1, 2048, 32, 4, 64, 'bfloat16'),
             ('d128_g1', 1, 1000, 32, 32, 128, 'bfloat16'),
@@ -584,7 +662,9 @@ def flash_phase():
             ('mla_v2_lite_f32', 1, 200, 16, 1, 576, 'float32'),
             ('llama31_8b_b8_t1024', 8, 1024, 32, 8, 128, 'bfloat16'),
             ('qwen2_7b_g7_t2048', 1, 2048, 28, 4, 128, 'bfloat16'),
-            ('qwen2_1p5b_g6_f16', 2, 300, 12, 2, 128, 'float16')):
+            ('qwen2_1p5b_g6_f16', 2, 300, 12, 2, 128, 'float16'),
+            ('glm45_air_t2048', 1, 2048, 96, 8, 128, 'bfloat16'),
+            ('glm45_air_b16_t256', 16, 256, 96, 8, 128, 'bfloat16')):
         dt = getattr(torch, dtype)
         q = torch.randn(B, T, Hq, D, device='cuda', generator=gen).to(dt)
         k = torch.randn(B, T, Hkv, D, device='cuda', generator=gen).to(dt)
@@ -658,7 +738,8 @@ def plain_layout_path(D: int, q_dtype: torch.dtype, page_dtype: torch.dtype) -> 
 # the narrow path's split length (tokens) swept at the cases of the e2e cells' decode
 # shapes, each held against the plain version
 NARROW_SPLIT_SWEEP = (256, 512, 1024, 2048)
-NARROW_SWEEP_CASES = ('plain', 'e2e_long', 'gptoss_sliding', 'gptoss_full', 'd128_g1')
+NARROW_SWEEP_CASES = ('plain', 'e2e_long', 'gptoss_sliding', 'gptoss_full', 'd128_g1',
+                      'glm45_air')
 
 
 def decode_cases():
@@ -695,6 +776,10 @@ def decode_cases():
     lens_short = rng.randint(1, 1000, size=64)
     lens_short[9] = 0
     lens_small = np.concatenate([rng.randint(1, 300, size=12), [2100], [0], -np.ones(2, int)])
+    # the decode shape of the 8-bit and MoE cells (e2e_glm45_air's heads: 96 / 8, G 12, a
+    # warp's 16 rows part padding): the 64-row bucket with 63 rows of 257-288 tokens and
+    # one of 2,049-2,080, the 17-page table
+    lens_cells = np.concatenate([rng.randint(257, 289, size=63), rng.randint(2049, 2081, 1)])
     return [
         ('plain', 64, 32, 4, 64, lens64, 8, {}),
         ('window', 64, 32, 4, 64, lens64, 8, {'window': 200}),
@@ -720,6 +805,7 @@ def decode_cases():
         ('mla_v2_lite_f16', 16, 16, 1, 576, lens16, 17, {'dtype': torch.float16}),
         ('d192_f32', 16, 8, 2, 192, lens16, 17, {'dtype': torch.float32}),
         ('mla_v2_lite_f32', 16, 16, 1, 576, lens16, 17, {'dtype': torch.float32}),
+        ('glm45_air', 64, 96, 8, 128, lens_cells, 17, {}),
     ]
 
 
@@ -1442,7 +1528,7 @@ def _fp8_trapped(trap: str):
 
 def _fp8_seeded(gen, E, K, N, group=128):
     """Expert stacks [E, K, N] in the model's seeded blocked-fp8 form."""
-    from lmdeploy_tpu_torch.models.deepseek import init_fp8_leaf
+    from lmdeploy_tpu_torch.models.llama import init_fp8_leaf
     return (init_fp8_leaf('w8', (E, K, N), gen, 'cuda'),
             init_fp8_leaf('gscale', (E, K // group, N), gen, 'cuda'))
 
@@ -2405,11 +2491,13 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
               exact: bool = False, shared: dict = None,
               env: dict = None, forbid=(), runs: int = 2, new_tokens: int = 64,
               trace: bool = True, cp: int = 1, combined: dict = None,
-              graphs_check: bool = False) -> dict:
+              graphs_check: dict = None) -> dict:
     """Drive the Engine ``runs`` times on the same requests (launch counts from the
-    first run, card numbers from the last; two runs must give equal greedy tokens),
-    then, with ``trace``, a traced run: ``n_short`` prompts of ``short_len`` tokens and
-    one of ``long_len``, ``new_tokens`` greedy tokens each.  The engine decodes by
+    first run, card numbers from the last; every run must give the first one's greedy
+    tokens, so with ``runs=1`` nothing is compared, and the card numbers come from
+    that one run, which only ``warmup`` preceded), then, with ``trace``, a traced run:
+    ``n_short`` prompts of ``short_len`` tokens and one of ``long_len``,
+    ``new_tokens`` greedy tokens each.  The engine decodes by
     replaying CUDA graphs (the default), warmed up at the cell's batch bucket first;
     any decode run that does not replay fails the phase.  ``need_per_step`` maps
     each kernel of the path to its launches per (fresh prefill, decode[, prefill of
@@ -2423,14 +2511,15 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
     the one card.  ``combined`` maps each kernel whose calls split a row's pages to
     the share of its launches that also launch the combine (``.combines``): all of
     them, or the full-attention layers' half of gpt-oss's, whose sliding layers' window
-    fits one split.  With ``graphs_check``, ``decode_graphs_phase`` follows on the same
-    engine.  Returns the phase's row."""
+    fits one split.  With ``graphs_check`` (its keyword arguments, ``{}`` for the full
+    check), ``decode_graphs_phase`` follows on the same engine.  Returns the phase's
+    row."""
     from lmdeploy_tpu_torch.config import bucketize
     rng = np.random.RandomState(SEED)
     prompts = [rng.randint(3, 32000, size=short_len).tolist() for _ in range(n_short)]
     prompts.append(rng.randint(3, 32000, size=long_len).tolist())
     reuse = shared is not None and 'init' in shared
-    if graphs_check and shared is None:
+    if graphs_check is not None and shared is None:
         shared = {}                     # the eager engine of the check takes the weights
     engine, build_s = _built(model, max_batch, quant_policy, long_len, cp, shared, env)
     agent = engine.model_agent
@@ -2508,8 +2597,8 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
     check = (decode_graphs_phase(name, engine, prompts, new_tokens, card,
                                  lambda: _built(model, max_batch, quant_policy, long_len,
                                                 cp, shared, env, eager_mode=True)[0],
-                                 trace_row)
-             if graphs_check else None)
+                                 trace_row, **graphs_check)
+             if graphs_check is not None else None)
     first, last_run = results[0], results[-1]
     num_blocks = agent.num_blocks
     cp_devices = [str(d) for d in agent.mesh.cp_devices] if agent.mesh is not None else None
@@ -2548,6 +2637,7 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
            'launches_forbidden': list(forbid), 'launches_ok': launches_ok,
            'rows_by_kernel': {n: dict(c) for n, c in rows.items() if c},
            'num_blocks': num_blocks,
+           'busy_share': trace_row['device_busy_share'] if trace_row else None,
            # card numbers from the last run (cuBLAS and allocator warmed by the first)
            **serving_numbers(last_run)}
     emit(row)
@@ -2562,36 +2652,40 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
 
 
 def decode_graphs_phase(name, engine, prompts, new_tokens, card, build_eager,
-                        graphs_trace) -> dict:
+                        graphs_trace, traffic=('greedy', 'sampled'),
+                        trace: bool = True) -> dict:
     """The cell's requests on its graph engine and on an engine of the same weights
-    with ``eager_mode=True``, in turns: all greedy (eager, graphs), then every other
-    request seeded-sampled (graphs, eager); then one traced eager run (the graph
-    engine's busy share is ``graphs_trace``, the e2e phase's traced run of the same
-    requests).  Greedy tokens and seeded-sampled tokens must be equal between the
-    modes, the graph engine must replay every decode run and the eager one none;
-    prints each mode's decode tok/s, TTFT p50 and busy share, and the seconds each
-    part took."""
+    with ``eager_mode=True``, in turns, for each kind of ``traffic``: all greedy
+    (eager, graphs), then every other request seeded-sampled (graphs, eager); then,
+    with ``trace``, one traced eager run (the graph engine's busy share is
+    ``graphs_trace``, the e2e phase's traced run of the same requests).  Tokens must
+    be equal between the modes, the graph engine must replay every decode run and the
+    eager one none; prints each mode's decode tok/s, TTFT p50 and busy share, and the
+    seconds each part took."""
     t0 = time.perf_counter()
     eager = build_eager()
     _warmed(eager, len(prompts))              # builds nothing: no capture in eager mode
     seconds = {'eager_build': time.perf_counter() - t0}
     engines = {'eager': eager, 'graphs': engine}
     sampled = set(range(0, len(prompts), 2))
-    tokens = {'greedy': {}, 'sampled': {}}
+    tokens = {kind: {} for kind in traffic}
     numbers = collections.defaultdict(list)
-    for traffic, order in (('greedy', ('eager', 'graphs')), ('sampled', ('graphs', 'eager'))):
-        for mode in order:
+    orders = {'greedy': ('eager', 'graphs'), 'sampled': ('graphs', 'eager')}
+    for kind in traffic:
+        for mode in orders[kind]:
             engines[mode].model_agent.graphs.reset_counts()
             outs, t0, t1 = run_requests(engines[mode], prompts, new_tokens,
-                                        sampled=sampled if traffic == 'sampled' else ())
-            tokens[traffic][mode] = [o.token_ids for o in outs]
+                                        sampled=sampled if kind == 'sampled' else ())
+            tokens[kind][mode] = [o.token_ids for o in outs]
             g = engines[mode].model_agent.graphs.stats()
-            numbers[mode].append({'traffic': traffic, **serving_numbers(
+            numbers[mode].append({'traffic': kind, **serving_numbers(
                 {'outs': outs, 't0': t0, 't1': t1}), 'replays': g['replays'],
                 'eager_runs': g['eager_runs']})
-    t0 = time.perf_counter()
-    eager_trace = profile_phase(f'{name}_eager', eager, prompts, new_tokens)
-    seconds['eager_trace'] = time.perf_counter() - t0
+    eager_trace = None
+    if trace:
+        t0 = time.perf_counter()
+        eager_trace = profile_phase(f'{name}_eager', eager, prompts, new_tokens)
+        seconds['eager_trace'] = time.perf_counter() - t0
     eager.close()
     del eager, engines
     gc.collect()
@@ -2600,13 +2694,13 @@ def decode_graphs_phase(name, engine, prompts, new_tokens, card, build_eager,
     graphs_replayed = all(n['eager_runs'] == 0 and n['replays'] > 0 for n in numbers['graphs'])
     eager_eager = all(n['replays'] == 0 and n['eager_runs'] > 0 for n in numbers['eager'])
     row = {'phase': 'decode_graphs', 'of': name, 'card': card,
-           'greedy_equal': equal['greedy'], 'sampled_equal': equal['sampled'],
+           **{f'{kind}_equal': equal[kind] for kind in traffic},
            'graphs_replayed': graphs_replayed, 'eager_ran_eagerly': eager_eager,
            'runs': dict(numbers),
            'decode_tok_s': {m: [n['decode_tok_s'] for n in numbers[m]] for m in numbers},
            'ttft_p50_ms': {m: [n['ttft_ms']['p50'] for n in numbers[m]] for m in numbers},
-           'busy_share': {'eager': eager_trace['device_busy_share'],
-                          'graphs': graphs_trace['device_busy_share']},
+           'busy_share': {'eager': eager_trace and eager_trace['device_busy_share'],
+                          'graphs': graphs_trace and graphs_trace['device_busy_share']},
            'seconds': seconds}
     row['ok'] = all(equal.values()) and graphs_replayed and eager_eager
     emit(row)
@@ -2628,10 +2722,20 @@ def model_label(model, policy: int = 0) -> str:
     if model.model_type == 'gpt_oss':
         return (f'gpt-oss-20b geometry, {model.num_layers} layers, MXFP4 experts + bf16 '
                 f'KV, random seeded weights')
+    family = {'phimoe': 'phi-3.5-moe', 'glm4_moe': 'glm-4.5-air',
+              'deepseek': 'deepseek-moe-16b'}.get(model.model_type)
+    if family:
+        return (f'{family} geometry, {model.num_layers} layers, bf16 experts + '
+                f'{KV_LABELS[policy]}, random seeded weights')
     width = {2048: 'tinyllama-1.1b', 4096: 'llama2-7b'}.get(model.hidden_size, 'llama')
     if model.vocab_size == LLAMA31_8B['vocab_size']:
         width = 'llama-3.1-8b'
-    weights = 'W4A16 gs128' if model.quantization_config else 'bf16'
+    if model.vocab_size == QWEN3_8B_FP8['vocab_size']:
+        width = 'qwen3-8b'
+    method = (model.quantization_config or {}).get('quant_method')
+    weights = {None: 'bf16', 'smooth_quant': 'W8A8 (SmoothQuant form)',
+               'fbgemm_fp8': 'fp8-e4m3 weight-only, per-channel scales',
+               'fp8': 'blocked fp8-e4m3 128x128'}.get(method, 'W4A16 gs128')
     return (f'{width} geometry, {model.num_layers} layers, {weights} + {KV_LABELS[policy]}, '
             f'random seeded weights')
 
@@ -2779,15 +2883,17 @@ def _fp8_cpu_cached():
 
 
 def _parity_traps(cfg16, policy: int, schedule: str = 'gd', cp: int = 1):
-    """[(trap, swap, side)] ('card', 'cpu' or 'card_params'): the numerical traps of the
-    config's quantized kernel, each planted in the plain version (W4_TRAPS in the
-    decode steps' group-dot, on the CPU for 'xg_unrounded', the only side with an x
+    """[(trap, swap, side)] ('card', 'card_run', 'cpu' or 'card_params'): the numerical
+    traps of the config's quantized kernel, each planted in the plain version (W4_TRAPS
+    in the decode steps' group-dot, on the CPU for 'xg_unrounded', the only side with an x
     wider than bf16; the fast / precise and unprepared products' traps of a W4A16
     ``schedule`` likewise on the card, and for 'corr_unrounded_scales' in the card's
     prepared leaves (side 'card_params': ``swap`` is then the raw-tree transform);
     MX_TRAPS in every MXFP4 product of the card's run; KV_TRAPS in the decode steps'
     attention over the cache of ``policy``; with ``cp`` > 1 the context-parallel
-    decode's CP_TRAPS (those a model without sinks can show) in the decode steps)."""
+    decode's CP_TRAPS (those a model without sinks can show) in the decode steps; an
+    8-bit format's wrong scale mapping in its product, and W8A8's per-tensor activation
+    scale in the whole card run, prefill included (side 'card_run'))."""
     from lmdeploy_tpu_torch.nn import linear
     from lmdeploy_tpu_torch.ops import attention, moe
     if cp > 1:
@@ -2825,6 +2931,14 @@ def _parity_traps(cfg16, policy: int, schedule: str = 'gd', cp: int = 1):
                 ('x_unrounded', (moe, 'fp8_bmm', _fp8_cpu_cached()[1]), 'cpu')] + kv_traps
     if kv_traps:
         return kv_traps
+    fmt = w8_format(cfg16)
+    if fmt:
+        trap = 'scale_from_next_' + ('block_row' if fmt == 'fp8_blocked' else 'column')
+        return [(trap, (linear, W8_PRODUCT[fmt], _w8_trapped(fmt)), 'card')] + [
+            (t, (linear, 'quantize_rows_int8', _int8_quant_trapped(t)), 'card_run')
+            for t in (W8A8_LEAF_TRAPS[:1] if fmt == 'w8a8' else ())]
+    if cfg16.model_type in MOE_FAMILY:
+        return _moe_traps(MOE_FAMILY[cfg16.model_type])
     method = (cfg16.quantization_config or {}).get('quant_method')
     if method == 'mxfp4':
         return [(t, (moe, 'mxfp4_bmm', _mx_trapped(t)), 'card') for t in MX_TRAPS]
@@ -2863,7 +2977,10 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0, schedule: str = 
     steps.  W4A16 leaves are the same int32 words and f32 scales on both sides; MXFP4
     experts are the same codes and scales, which the CPU side takes widened to f32
     (exactly the weights the kernel decodes; a widened stack is 1 GB a layer, and the
-    CPU's plain MXFP4 product would widen it again for every call).
+    CPU's plain MXFP4 product would widen it again for every call).  W8A8 leaves are
+    the same int8 codes and f32 scales, and the CPU quantizes the bf16 rounding of its
+    f32 activations, as the card quantizes its bf16 ones: codes near a rounding boundary
+    would otherwise flip on every bf16 error and set the floor.
 
     A MoE model's card runs take the CPU run's expert choices (the card's own router
     logits weight them), so a near-tie that bf16 breaks the other way cannot move the
@@ -2921,6 +3038,9 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0, schedule: str = 
             return out
         restore.enter_context(_swapped((moe_ops, 'fp8_bmm', _fp8_cpu_cached()[0]),
                                        (deepseek, 'paged_attention', attend_rec)))
+    w8a8 = w8_format(cfg16) == 'w8a8'
+    if w8a8:
+        restore.enter_context(_swapped(_int8_quant_bf16_on_cpu()))
     B, T, BS, steps = 2, 256, 128, 8
     pages = (T + steps + BS - 1) // BS
     NB = 1 + B * pages
@@ -2940,22 +3060,32 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0, schedule: str = 
     ids = torch.from_numpy(rng.randint(3, 32000, size=(B, T))).int()
     # the two sides: the CPU reference and the card
     side = {'cpu': (m32, w_cpu, 'cpu'), 'card': (m16, w_gpu, 'cuda')}
-    routes = {'cpu': [], 'card': []}       # (router logits, choices) per layer and step
-    route = {'record': True, 'force': False, 'j': 0}
+    # (the scores the choice ranks, choices, weights) per routed layer and step
+    routes = {'cpu': [], 'card': []}
+    route = {'record': True, 'force': False, 'j': 0, 'weight_jumps': 0}
     moe = hasattr(m16, 'route')
+    take_weights = cfg16.model_type in FORCED_WEIGHTS
     for name_, (model, _, _) in side.items():
         if moe:
             def rec(w_, xf, _route=model.route, _log=routes[name_], _card=name_ == 'card',
                     _model=model):
                 logits, idx, wts = _route(w_, xf)
+                ranked = (_model.choice_scores(w_, logits)
+                          if hasattr(_model, 'choice_scores') else logits)
                 if route['record']:
-                    _log.append((logits.float().cpu(), idx.cpu()))
+                    _log.append((ranked.float().cpu(), idx.cpu(), wts.float().cpu()))
                 if _card and route['force']:
-                    idx = routes['cpu'][route['j']][1].to(idx.device)
+                    _, cpu_idx, cpu_wts = routes['cpu'][route['j']]
+                    idx = cpu_idx.to(idx.device)
                     route['j'] += 1
                     wts = (_model.route_weights(w_, logits, idx)
                            if hasattr(_model, 'route_weights')
                            else torch.softmax(logits.gather(-1, idx), dim=-1))
+                    if take_weights:
+                        if route['record']:
+                            route['weight_jumps'] += int(
+                                ((wts.float().cpu() - cpu_wts).abs() > 1e-2).sum())
+                        wts = cpu_wts.to(wts.device, wts.dtype)
                 return logits, idx, wts
             model.route = rec
 
@@ -2992,7 +3122,7 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0, schedule: str = 
     # routing flips: the card's own choices against the CPU's, per routed layer and step
     n_routed = len(routes['cpu']) // (steps + 1)
     flips, flips_ok, worst, router_err = [0] * n_routed, True, 0.0, 0.0
-    for j, ((lc, ic), (lg, ig)) in enumerate(zip(routes['cpu'], routes['card'])):
+    for j, ((lc, ic, _), (lg, ig, _)) in enumerate(zip(routes['cpu'], routes['card'])):
         err_j = (lg - lc).abs().max().item()
         router_err = max(router_err, err_j)
         diff = (ic.sort(-1).values != ig.sort(-1).values).any(-1)
@@ -3008,7 +3138,7 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0, schedule: str = 
 
     def max_err(a, b):
         return max((x - y).abs().max().item() for x, y in list(zip(a, b))[held:])
-    errs, agree, decided = [], 0, 0
+    errs, agree, decided, argmax_fault = [], 0, 0, None
     for i, (lc, lg) in enumerate(zip(cpu, card)):
         errs.append((lg - lc).abs().max().item())
         top2 = lc.topk(2, dim=-1).values
@@ -3018,9 +3148,8 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0, schedule: str = 
             continue
         agree += int(same.sum())
         decided += int(margin_ok.sum())
-        if not bool(same[margin_ok].all()):
-            raise SystemExit(f'{name}: argmax differs where the f32 margin exceeds '
-                             f'2 x {tol} at step {i}')
+        if not bool(same[margin_ok].all()) and argmax_fault is None:
+            argmax_fault = f'argmax differs where the f32 margin exceeds 2 x {tol} at step {i}'
     free = None
     if moe:
         route['force'] = False
@@ -3044,7 +3173,7 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0, schedule: str = 
         with _swapped(swap):
             if which == 'cpu':
                 traps[trap] = max_err([lc0] + decode('cpu', kv_cpu0.clone(), toks), card)
-            elif moe:                    # every MXFP4 product of the run is planted
+            elif moe or which == 'card_run':      # the whole card run is planted
                 lt0, kv_t = prefill('card')
                 traps[trap] = max_err([lt0] + decode('card', kv_t, toks), cpu)
             else:
@@ -3054,14 +3183,15 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0, schedule: str = 
     restore.close()
     reported = (SZC_PARITY_REPORTED.get(schedule, ()) + (DS_REPORTED if cfg16.is_mla else ())
                 + (DS_KV4_REPORTED if cfg16.is_mla and policy == 8 else ()))
-    ok = (max(errs[held:]) <= tol and flips_ok
+    ok = (max(errs[held:]) <= tol and flips_ok and argmax_fault is None
           and all(v > tol for t, v in traps.items() if t not in reported))
     tail_held = cfg16.is_mla and policy != 8
     if tail_held:
         ok = ok and card_tail == 0.0 and trap_tails['v_plane_not_zero_padded'] > 0.0
     row = {'phase': name, 'layers': 2, 'model': model_label(cfg16, policy), 'batch': B,
            'cp': cp,
-           'w4a16_schedule': schedule if cfg16.quantization_config else None,
+           'w4a16_schedule': schedule if (cfg16.quantization_config or {}).get(
+               'quant_method') in ('awq', 'gptq') else None,
            'prompt': T, 'decode_steps': steps, 'vocab': cfg16.vocab_size,
            'held_steps': 'decode' if held else 'prefill and decode',
            'max_abs_logit_err': max(errs[held:]), 'prefill_logit_err': errs[0],
@@ -3069,14 +3199,19 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0, schedule: str = 
            'floor_bf16_plain': floor, 'trap_max_abs_logit_err': traps,
            'logit_abs_max': cpu[-1].abs().max().item(),
            'argmax_agree': agree, 'positions': B * (steps + 1 - held),
-           'positions_with_margin': decided, 'ok': ok}
+           'positions_with_margin': decided, 'argmax_fault': argmax_fault, 'ok': ok}
+    if w8a8:
+        row.update(cpu_int8_input='the bf16 rounding of its f32 activations')
     if cfg16.is_mla:
         row.update(traps_reported=[t for t in reported if t in traps],
                    attn_tail_abs_max=card_tail,
                    trap_attn_tail_abs_max=trap_tails, attn_tail_held=tail_held)
+    if take_weights:
+        row.update(weights='card runs take the CPU run\'s routing weights too',
+                   routing_weight_jumps=route['weight_jumps'])
     if moe:
         row.update(routing='card runs take the CPU run\'s expert choices',
-                   routing_decisions=sum(int(ic.shape[0]) for _, ic in routes['cpu']),
+                   routing_decisions=sum(int(ic.shape[0]) for _, ic, _ in routes['cpu']),
                    routing_flips_by_layer=flips, router_logit_err_max=router_err,
                    worst_flip_margin_over_layer_err=worst,
                    flips_within_bf16_error=flips_ok, free_routing_max_abs_logit_err=free)
@@ -3085,8 +3220,9 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0, schedule: str = 
     gc.collect()
     torch.cuda.empty_cache()
     if not row['ok']:
-        raise SystemExit(f'{name} failed (over its allowance, a trap reads within it, or '
-                         f'a routing flip beyond the bf16 error): {row}')
+        raise SystemExit(f'{name} failed (over its allowance, a trap reads within it, a '
+                         f'routing flip beyond the bf16 error, or an argmax that differs '
+                         f'beyond twice the allowance): {row}')
 
 
 _PARITY_WEIGHTS = {}
@@ -3124,7 +3260,7 @@ def _parity_weights(cfg16, m16, m32, schedule: str = 'gd'):
     if schedule == 'unprepared':
         return raw_cpu, raw_gpu, raw_gpu
     return (m32.prep_quant_leaves(raw_cpu, mode=schedule),
-            m16.prep_quant_leaves(raw_gpu, mode=schedule), raw_gpu)
+            m16.layout_quant_leaves(m16.prep_quant_leaves(raw_gpu, mode=schedule)), raw_gpu)
 
 
 def _bf16_tree(params, device, dtype):
@@ -3171,6 +3307,307 @@ def deepseek_e2e_phase(card: str) -> dict:
                      {'flash_prefill': (L, 0), 'paged_decode': (0, L),
                       'fp8_bmm': (0, 3 * moe_layers)},
                      card, short_len=1024, long_len=4096, exact=True)
+
+
+# -- the 8-bit linear leaves and the MoE families -------------------------------------
+# the dense llama family's 8-bit checkpoint formats, the public config each is served
+# at, the nn/linear.py product each takes, and its phases' name
+W8_CONFIGS = {'w8a8': LLAMA31_8B_W8A8, 'fp8': LLAMA31_8B_FP8, 'fp8_blocked': QWEN3_8B_FP8}
+W8_PRODUCT = {'w8a8': '_w8a8', 'fp8': '_w_fp8', 'fp8_blocked': '_w_fp8_blocked'}
+W8_PHASE = {'w8a8': 'llama31_8b_w8a8', 'fp8': 'llama31_8b_fp8', 'fp8_blocked': 'qwen3_8b_fp8'}
+MOE_CONFIGS = {'phimoe': PHI35_MOE, 'glm45_air': GLM45_AIR,
+               'deepseek_moe_16b': DEEPSEEK_MOE_16B}
+MOE_FAMILY = {'phimoe': 'phimoe', 'glm4_moe': 'glm45_air', 'deepseek': 'deepseek_moe_16b'}
+# the e2e phases' depth, cut from the configs' 32 / 32 / 36 (8-bit formats) and 32 / 46 /
+# 28 layers (MoE families) so that the script stays inside its time limit beside the
+# earlier phases; width, experts, vocab and traffic stay as published
+L8 = 4
+LMOE = 4
+# the _int_mm route's check: Llama-3.1-8B's fused wqkv (K 4096, N 6144), decode rows
+# on both sides of cuBLASLt's 17-row minimum and a prefill chunk's
+INT_MM_SHAPE = (4096, 6144)
+INT_MM_ROWS = (1, 16, 17, 64, 2048)
+# the new parity phases, 2 full-width layers, card bf16 against CPU f32.  A first card
+# run read (H100 80GB HBM3, 700 W), floor (plain versions on the card) / kernels / held
+# traps: W8A8 0.528 / 0.491 / 8.40 (each column with the next column's scale) and 1.116
+# (one activation scale for the whole tensor), with the CPU quantizing the bf16
+# rounding of its activations (0.630 / 0.605 when it quantized the f32 ones): codes
+# that lie within a bf16 error of a rounding boundary still flip on the errors of the
+# layers before, so its floor is ~5x the other formats' and its allowance 1.5x its
+# floor, below the per-tensor trap (the int_mm phase holds that trap and rounding half
+# up exactly on the product); fp8 0.098 / 0.102 / 7.69; Qwen3-8B blocked fp8 0.085 /
+# 0.079 / 6.78 (each block row of K with the next one's scales); Phi-3.5-MoE 0.119 /
+# 0.113 / 6.50 (every expert's gate and up stacks swapped; on the CPU run's routing
+# weights, below); GLM-4.5-Air 0.094 / 0.096 / 3.84 (norm_topk_prob read the other
+# way); DeepSeek-MoE 16B 0.047 / 0.045 / 0.474 (the same).  Each other allowance is
+# about twice its floor
+LOGIT_TOL_W8 = {'w8a8': 0.8, 'fp8': 0.2, 'fp8_blocked': 0.2}
+LOGIT_TOL_MOE = {'phimoe': 0.2, 'glm45_air': 0.2, 'deepseek_moe_16b': 0.1}
+# families whose card runs take the CPU run's routing weights as well as its choices:
+# sparsemixer keeps the experts within 2 x jitter (relative) of the best, a threshold
+# the bf16 router logits cross where the f32 ones do not, and each crossing moves a
+# weight by up to a half
+FORCED_WEIGHTS = ('phimoe',)
+
+
+def w8_config(fmt: str, num_layers: int = None):
+    """The public config of the 8-bit format ``fmt``, depth cut to ``num_layers``."""
+    from lmdeploy_tpu_torch.config import ModelConfig
+    cfg = W8_CONFIGS[fmt]
+    return ModelConfig.from_hf_config(
+        dict(cfg, num_hidden_layers=num_layers or cfg['num_hidden_layers']))
+
+
+def moe_config(family: str, num_layers: int = None):
+    """The public config of the MoE ``family``, depth cut to ``num_layers``.  PhiMoE's
+    longrope factor lists are seeded (64 each: short ones near 1, long ones rising to
+    ~40, as the published lists do) and its original_max_position_embeddings (4096) put
+    in rope_scaling, where the reference reads it, so that a session above 4096 tokens
+    takes the long factors and the attention factor."""
+    from lmdeploy_tpu_torch.config import ModelConfig
+    cfg = dict(MOE_CONFIGS[family])
+    cfg['num_hidden_layers'] = num_layers or cfg['num_hidden_layers']
+    if family == 'phimoe':
+        rng = np.random.RandomState(SEED)
+        half = cfg['hidden_size'] // cfg['num_attention_heads'] // 2
+        cfg['rope_scaling'] = {
+            'type': 'longrope', 'original_max_position_embeddings':
+                cfg['original_max_position_embeddings'],
+            'short_factor': (1.0 + 0.2 * rng.rand(half)).tolist(),
+            'long_factor': np.sort(1.0 + 40.0 * rng.rand(half)).tolist()}
+    return ModelConfig.from_hf_config(cfg)
+
+
+def w8_format(cfg):
+    """'w8a8', 'fp8' or 'fp8_blocked' for a dense llama-family 8-bit config, else None."""
+    qcfg = cfg.quantization_config or {}
+    method = qcfg.get('quant_method')
+    if cfg.is_mla or method not in ('smooth_quant', 'w8a8', 'fp8', 'fbgemm_fp8'):
+        return None
+    if method in ('smooth_quant', 'w8a8'):
+        return 'w8a8'
+    return 'fp8_blocked' if qcfg.get('weight_block_size') else 'fp8'
+
+
+def int_mm_phase(card: str) -> dict:
+    """The W8A8 product's int8 route on the card: ``nn.linear.int8_matmul``
+    (``torch._int_mm``, rows padded up to cuBLASLt's 17) on K-major codes (the layout
+    ``LlamaModel.layout_quant_leaves`` gives them) against an f64 product of the same
+    int8 codes (exact: every sum is an integer below 2^53), bit for bit, at M = 1, 16,
+    17, 64 and 2048, called eagerly and replayed from a captured CUDA graph; its time
+    beside the same product on row-major codes and the bf16 GEMM of the same shape.
+    Then ``w8a8_leaf_check``, the whole W8A8 product, bit for bit.  Then the fp8
+    weight-only product's f32-output GEMM (``f32_out_mm`` on bf16 operands) against the
+    exact f32 products (TF32 off; only the order of the f32 sums may differ), and the
+    device times of the three 8-bit products of one projection at M = 64 (the e2e
+    decode bucket), each with the dense bf16 GEMM beside it: the fp8 products widen
+    their weights at every call."""
+    from lmdeploy_tpu_torch.nn import linear as lin
+    torch.backends.cuda.matmul.allow_tf32 = False
+    K, N = INT_MM_SHAPE
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    w8_rows = torch.randint(-127, 128, (K, N), generator=gen, device='cuda', dtype=torch.int8)
+    w8 = w8_rows.t().contiguous().t()                  # K-major, as the main path's
+    wd = w8.double()
+    wb = (torch.randn(K, N, generator=gen, device='cuda') * 0.02).bfloat16()
+    rows = []
+    for M in INT_MM_ROWS:
+        xq = torch.randint(-127, 128, (M, K), generator=gen, device='cuda', dtype=torch.int8)
+        exact = xq.double() @ wd
+        eager = lin.int8_matmul(xq, w8)
+        static = xq.clone()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = lin.int8_matmul(static, w8)
+        graph.replay()
+        torch.cuda.synchronize()
+        xb = torch.randn(M, K, generator=gen, device='cuda').bfloat16()
+        rows.append({'M': M, 'dtype': str(eager.dtype), 'shape': list(eager.shape),
+                     'eager_exact': torch.equal(eager.double(), exact),
+                     'graph_exact': torch.equal(out.double(), exact),
+                     'int_mm_ms': time_ms(lambda: lin.int8_matmul(xq, w8)),
+                     'row_major_codes_ms': time_ms(lambda: lin.int8_matmul(xq, w8_rows)),
+                     'bf16_gemm_ms': time_ms(lambda: xb @ wb),
+                     # int8 at 1,979 TOP/s, twice the bf16 rate
+                     'bound_ms': bound(2 * M * K * N * 0.5, M * K + K * N + 4 * M * N)[0]})
+        del graph
+    leaf = w8a8_leaf_check(gen, w8, torch.rand(N, generator=gen, device='cuda') * 1e-3)
+    # the fp8 weight-only product's f32 output GEMM, and the 8-bit products at M = 64
+    x = torch.randn(64, K, generator=gen, device='cuda').bfloat16()
+    wf8 = (torch.randn(K, N, generator=gen, device='cuda') * 112).clamp(-448, 448).to(
+        torch.float8_e4m3fn)
+    got = lin.f32_out_mm(x, wf8.to(torch.bfloat16))
+    ref = x.float() @ wf8.float()
+    f32_err = ((got - ref).abs().max() / ref.abs().max()).item()
+    scale = torch.rand(N, generator=gen, device='cuda') * 1e-3
+    bscale = torch.rand(K // 128, N // 128, generator=gen, device='cuda') * 1e-3
+    leaves = {'w8a8': {'w8': w8, 'scale': scale}, 'fp8': {'w8': wf8, 'scale': scale},
+              'fp8_blocked': {'w8': wf8, 'bscale': bscale}}
+    products = {fmt: {'ms': time_ms(lambda f=fmt: lin.linear(x, leaves[f])),
+                      'weight_bytes': K * N + 4 * (N if fmt != 'fp8_blocked'
+                                                   else bscale.numel())}
+                for fmt in leaves}
+    products['widen_fp8_to_bf16_ms'] = time_ms(lambda: wf8.to(torch.bfloat16))
+    products['widen_fp8_blocked_ms'] = time_ms(lambda: lin.widen_fp8_blocked(wf8, bscale))
+    products['dense_bf16_ms'] = time_ms(lambda: x @ wb)
+    row = {'phase': 'int_mm', 'card': card, 'shape_k_n': [K, N], 'rows': rows,
+           'w8a8_leaf': leaf,
+           'f32_out_mm': {'dtype': str(got.dtype), 'max_err_over_max_ref': f32_err},
+           'products_m64': products}
+    row['ok'] = (all(r['eager_exact'] and r['graph_exact'] and r['dtype'] == 'torch.int32'
+                     for r in rows) and leaf['ok']
+                 and got.dtype == torch.float32 and f32_err < 1e-5)
+    emit(row)
+    if not row['ok']:
+        raise SystemExit(f'int_mm phase failed: {row}')
+    return row
+
+
+def w8a8_leaf_check(gen, w8, scale) -> dict:
+    """The whole W8A8 product on the card (``nn.linear.linear`` on a ``{'w8', 'scale'}``
+    leaf of K-major codes: the row quantizer, ``_int_mm`` and the f32 epilogue) against
+    a reference of the same bf16 x, bit for bit: codes and row scales from the CPU's
+    quantizer, their product in f64 on the card (exact), ``acc * a_scale * scale`` in
+    f32 on the CPU, then bf16.  x's rows span four decades of magnitude and row 0 holds
+    half-integer values under an absmax of 127 (scale 1: every code a tie).  At each M
+    of INT_MM_ROWS, eager and replayed from a captured graph; at M 64 each fault of
+    W8A8_LEAF_TRAPS planted on the card must change the output."""
+    from lmdeploy_tpu_torch.nn import linear as lin
+    K, N = w8.shape
+    leaf = {'w8': w8, 'scale': scale}
+    wd = w8.double()
+    rows, traps = [], {}
+    for M in INT_MM_ROWS:
+        x = torch.randn(M, K, generator=gen, device='cuda')
+        x *= torch.logspace(-2, 2, M, device='cuda')[:, None]
+        x[0] = torch.randint(-127, 127, (K,), generator=gen, device='cuda') + 0.5
+        x[0, 0] = 127.0
+        x = x.bfloat16()
+        xq, a_scale = lin.quantize_rows_int8(x.cpu())
+        acc = (xq.cuda().double() @ wd).float().cpu()
+        ref = (acc * a_scale * scale.cpu()[None, :]).bfloat16()
+        eager = lin.linear(x, leaf)
+        static = x.clone()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = lin.linear(static, leaf)
+        graph.replay()
+        torch.cuda.synchronize()
+        rows.append({'M': M, 'eager_exact': torch.equal(eager.cpu(), ref),
+                     'graph_exact': torch.equal(out.cpu(), ref)})
+        del graph
+        if M != 64:
+            continue
+        for trap in W8A8_LEAF_TRAPS:
+            if trap == 'scale_from_next_column':
+                got = lin.linear(x, dict(leaf, scale=scale.roll(-1, 0)))
+            else:
+                with _swapped((lin, 'quantize_rows_int8', _int8_quant_trapped(trap))):
+                    got = lin.linear(x, leaf)
+            diff = (got.cpu().float() - ref.float()).abs()
+            traps[trap] = {'changed_outputs': int((diff > 0).sum()),
+                           'max_abs_diff_over_max_ref':
+                               (diff.max() / ref.float().abs().max()).item()}
+    ok = (all(r['eager_exact'] and r['graph_exact'] for r in rows)
+          and all(t['changed_outputs'] > 0 for t in traps.values()))
+    return {'rows': rows, 'traps': traps, 'ok': ok}
+
+
+def routing_ties_phase(card: str) -> dict:
+    """Sparsemixer on the card against the CPU (whose choices and weights the CPU tests
+    hold against the JAX package) on Phi-3.5-MoE's 16 experts: random router logits
+    and rows with a three-way and a two-way tie at the top, an all-equal row and
+    scores at the jitter threshold.  The choices must be equal (ties to the lower
+    expert index, as jnp.argmax) and the weights within 1e-6; torch.argmax's own pick
+    on ties is printed beside it."""
+    from lmdeploy_tpu_torch.models.phimoe import sparsemixer_route
+    E = PHI35_MOE['num_local_experts']
+    logits = np.random.RandomState(SEED).randn(64, E).astype(np.float32)
+    logits[0, [3, 7, 11]] = 4.0
+    logits[1, [2, 9]] = 3.0
+    logits[1, 5] = 2.0
+    logits[2] = 0.0
+    logits[3] = 0.0
+    logits[3, :4] = np.float32(1.0) - np.float32([0.0, 0.02, 0.019999, 0.020001])
+    x = torch.from_numpy(logits)
+    cpu_idx, cpu_w = sparsemixer_route(x, 0.01)
+    card_idx, card_w = sparsemixer_route(x.cuda(), 0.01)
+    row = {'phase': 'routing_ties', 'card': card, 'experts': E,
+           'choices_equal': torch.equal(cpu_idx, card_idx.cpu()),
+           'weights_max_abs_err': (cpu_w - card_w.cpu()).abs().max().item(),
+           'tie_rows_choices': card_idx[:3].tolist(),
+           'torch_argmax_on_card': torch.argmax(x.cuda(), dim=-1)[:3].tolist()}
+    row['ok'] = (row['choices_equal'] and row['weights_max_abs_err'] <= 1e-6
+                 and row['tie_rows_choices'] == [[3, 7], [2, 9], [0, 1]])
+    emit(row)
+    if not row['ok']:
+        raise SystemExit(f'routing_ties phase failed: {row}')
+    return row
+
+
+# the W8A8 product's planted faults that the int_mm phase's exact check must see (the
+# parity phase holds the first as well)
+W8A8_LEAF_TRAPS = ('per_tensor_act_scale', 'round_half_up', 'scale_from_next_column')
+
+
+def _int8_quant_trapped(trap: str):
+    """``nn.linear.quantize_rows_int8`` with one fault planted: one activation scale for
+    the whole tensor ('per_tensor_act_scale') or codes rounded half up
+    ('round_half_up')."""
+    def quantize(x2d):
+        xf = x2d.float()
+        amax = xf.abs().amax(-1, keepdim=True)
+        if trap == 'per_tensor_act_scale':
+            amax = amax.amax().expand_as(amax)
+        a_scale = torch.clamp_min(amax / amax.new_full((1,), 127.0), 1e-8)
+        q = xf / a_scale
+        q = torch.floor(q + 0.5) if trap == 'round_half_up' else torch.round(q)
+        return torch.clamp(q, -127, 127).to(torch.int8), a_scale
+    return quantize
+
+
+def _int8_quant_bf16_on_cpu():
+    """``nn.linear.quantize_rows_int8`` that quantizes the bf16 rounding of a CPU
+    tensor (the card's activations are bf16; its own tensors pass unchanged)."""
+    from lmdeploy_tpu_torch.nn import linear
+    quantize = linear.quantize_rows_int8
+    return (linear, 'quantize_rows_int8',
+            lambda x2d: quantize(x2d if x2d.is_cuda else x2d.bfloat16().float()))
+
+
+def _w8_trapped(fmt: str):
+    """The 8-bit product of ``fmt`` with each output column's scale taken from the next
+    column (blocked fp8: each block row of K with the next block row's scales)."""
+    from lmdeploy_tpu_torch.nn import linear
+    product = getattr(linear, W8_PRODUCT[fmt])
+
+    def trapped(x, w):
+        key = 'bscale' if 'bscale' in w else 'scale'
+        return product(x, dict(w, **{key: w[key].roll(-1, 0)}))
+    return trapped
+
+
+def _moe_traps(family: str):
+    """PhiMoE: every expert's gate and up stacks swapped (w1 read as w3); GLM-4.5 and
+    DeepSeek-MoE: norm_topk_prob read the other way."""
+    if family == 'phimoe':
+        from lmdeploy_tpu_torch.models import mixtral
+        moe_ffn = mixtral.moe_ffn
+
+        def swapped(xf, top_idx, top_w, we_gate, we_up, we_down, *args, **kwargs):
+            return moe_ffn(xf, top_idx, top_w, we_up, we_gate, we_down, *args, **kwargs)
+        return [('gate_up_swapped', (mixtral, 'moe_ffn', swapped), 'card')]
+    from lmdeploy_tpu_torch.models.glm4_moe import Glm4MoeModel
+    route_weights = Glm4MoeModel.route_weights
+
+    def flipped(self, w, logits, top_idx):
+        cfg = self.config
+        cfg.norm_topk_prob = not cfg.norm_topk_prob
+        try:
+            return route_weights(self, w, logits, top_idx)
+        finally:
+            cfg.norm_topk_prob = not cfg.norm_topk_prob
+    return [('norm_topk_prob_flipped', (Glm4MoeModel, 'route_weights', flipped), 'card')]
 
 
 def kernel_line(flash, decode, decode8, w4, mx, kv, szc, unprep, fp8, cp, mla_quant):
@@ -3338,6 +3775,8 @@ def main():
                           *timed('w4a16_szc_unprepared', w4a16_modes_phase),
                           timed('fp8_bmm', fp8_phase), timed('paged_decode_cp', decode_cp_phase),
                           timed('paged_decode_mla_quant', decode_mla_quant_phase))
+    timed('int_mm', int_mm_phase, info['nvidia_smi'])
+    timed('routing_ties', routing_ties_phase, info['nvidia_smi'])
     timed('fp8_bmm_groups', fp8_groups_phase)
     timed('paged_decode_small_pages', decode_small_pages_phase)
     timed('parity', parity_phase, 'parity', tinyllama_config(num_layers=2), LOGIT_TOL)
@@ -3358,6 +3797,12 @@ def main():
     for policy, tol in LOGIT_TOL_DEEPSEEK_KV.items():
         name = f'parity_deepseek_v2_lite_kv{8 if policy == 4 else 4}'
         timed(name, parity_phase, name, deepseek_config(num_layers=2), tol, policy=policy)
+    for fmt, tol in LOGIT_TOL_W8.items():
+        name = f'parity_{W8_PHASE[fmt]}'
+        timed(name, parity_phase, name, w8_config(fmt, 2), tol)
+    for family, tol in LOGIT_TOL_MOE.items():
+        name = f'parity_{family}'
+        timed(name, parity_phase, name, moe_config(family, 2), tol)
     _PARITY_WEIGHTS.clear()
     L1, L7 = tinyllama_config().num_layers, llama7b_w4_config().num_layers
     # launches each (prefill step, decode step) needs on each path, and the path whose
@@ -3381,7 +3826,7 @@ def main():
         'e2e_llama31_8b_cp2', e2e_phase, 'e2e_llama31_8b_cp2', llama31_config(L31), 32, 0, 31,
         {'flash_prefill': (L31, 0), 'paged_decode_cp': (0, 2 * L31)}, info['nvidia_smi'],
         short_len=1024, long_len=16384, exact=True, shared=shared, forbid=('paged_decode',),
-        cp=2, combined={'paged_decode_cp': 1}, graphs_check=True)
+        cp=2, combined={'paged_decode_cp': 1}, graphs_check={})
     shared.clear()
     # the narrow decode splits every call at the 17-page table (its combine counted in
     # paged_decode's .combines) in the TinyLlama, gpt-oss and Mixtral cells, but for
@@ -3389,7 +3834,7 @@ def main():
     paths['e2e'] = timed('e2e', e2e_phase, 'e2e', tinyllama_config(), 64, 0, 8,
                          {'flash_prefill': (L1, 0), 'paged_decode': (0, L1)},
                          info['nvidia_smi'], combined={'paged_decode': 1},
-                         graphs_check=True)
+                         graphs_check={})
     # exactly one int8 decode a layer per decode step, which splits every call at the
     # 17-page table (its combine counted apart), and the gd GEMM four times a layer per
     # decode step and per prefill step of at most 256 rows
@@ -3398,7 +3843,7 @@ def main():
         {'flash_prefill': (L7, 0), 'paged_decode_int8': (0, L7),
          'w4a16_gemm': (0, 4 * L7, 4 * L7)},
         info['nvidia_smi'], exact=True, combined={'paged_decode_int8': 1},
-        graphs_check=True)
+        graphs_check={})
     paths['e2e_gptoss_mxfp4'] = timed(
         'e2e_gptoss_mxfp4', e2e_phase, 'e2e_gptoss_mxfp4', gptoss_config(LGPT), 64, 0, 32,
         {'paged_decode': (0, LGPT), 'mxfp4_bmm': (0, 3 * LGPT)}, info['nvidia_smi'],
@@ -3426,6 +3871,21 @@ def main():
     mixtral.clear()
     paths['e2e_deepseek_v2_lite_fp8'] = timed(
         'e2e_deepseek_v2_lite_fp8', deepseek_e2e_phase, info['nvidia_smi'])
+    # the 8-bit formats and the MoE families: 63 short prompts and one long one (above
+    # PhiMoE's 4096-token original context, so its long rope table is on the path), 32
+    # greedy tokens each, two runs with launches exactly one flash_prefill a layer per
+    # fresh prefill step and one paged_decode a layer per decode step, then traced, then
+    # the greedy requests on an eager_mode engine of the same weights (tokens equal)
+    for name, model, long_len in (
+            [(f'e2e_{W8_PHASE[f]}', w8_config(f, L8), 2048) for f in W8_CONFIGS]
+            + [(f'e2e_{m}', moe_config(m, LMOE), 4096 if m == 'phimoe' else 2048)
+               for m in MOE_CONFIGS]):
+        L = model.num_layers
+        paths[name] = timed(name, e2e_phase, name, model, 64, 0, 63,
+                            {'flash_prefill': (L, 0), 'paged_decode': (0, L)},
+                            info['nvidia_smi'], short_len=256, long_len=long_len,
+                            exact=True, new_tokens=32,
+                            graphs_check=dict(traffic=('greedy',), trace=False))
     main_path = {'fp8_bmm': 'e2e_deepseek_v2_lite_fp8', 'flash_prefill': 'e2e',
                  'paged_decode': 'e2e', 'paged_decode_cp': 'e2e_llama31_8b_cp2',
                  'paged_decode_int8': 'e2e_w4a16_kv8', 'w4a16_gemm': 'e2e_w4a16_kv8',

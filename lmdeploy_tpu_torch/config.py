@@ -1,7 +1,8 @@
 """Internal engine configuration derived from user configs + HF model configs.
 
 Port of ``lmdeploy_tpu/config.py`` for the families the port serves (the dense llama
-family, the Mixtral / Qwen-MoE family, gpt-oss and DeepSeek-V2 / V3), with the
+family, the Mixtral / Qwen-MoE / PhiMoE family, gpt-oss, DeepSeek-V2 / V3, GLM-4.5 MoE
+and DeepSeek-MoE), with the
 reference's MoE and MLA fields and its mesh geometry (``DistConfig``).  Dtypes are torch dtypes; the multimodal config fields
 of the reference are not carried until a slice ports those models.
 """
@@ -244,10 +245,11 @@ _UNPORTED_FIELDS = ('tp', 'dp', 'ep', 'attn_tp_size', 'mlp_tp_size',
                     'num_cpu_blocks', 'role', 'adapters',
                     'dllm_block_length', 'memdecode', 'revision', 'download_dir')
 # the KV cache policies and checkpoint formats the port serves: every KV policy
-# (plain, int8, int4, fp8, TurboQuant), dense and AWQ / GPTQ W4A16 weights (the format
-# comes from the checkpoint's quantization_config; model_format only names it)
+# (plain, int8, int4, fp8, TurboQuant), dense, AWQ / GPTQ W4A16, SmoothQuant W8A8 and fp8
+# weights (the format comes from the checkpoint's quantization_config; model_format
+# only names it, as the reference's _detect_model_format does)
 _PORTED_VALUES = {'quant_policy': tuple(QuantPolicy),
-                  'model_format': (None, 'awq', 'gptq')}
+                  'model_format': (None, 'awq', 'gptq', 'w8a8', 'fp8')}
 
 
 def cp_unported(cp: int, quant_policy, block_size: int,

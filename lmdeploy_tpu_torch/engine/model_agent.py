@@ -168,7 +168,7 @@ class ModelAgent:
             fast = os.environ.get('LMDEPLOY_TPU_W4_FAST', '0') == '1'
             sched = os.environ.get('LMDEPLOY_TPU_W4_SCHED', 'gd' if not fast else '') or None
             params = self.model.prep_quant_leaves(params, fast=fast, mode=sched)
-        self.params = params
+        self.params = self.model.layout_quant_leaves(params)
 
         cos, sin = make_rope_table(cfg.rope_dim, self.max_model_len, cfg.rope_theta,
                                    cfg.rope_scaling, device=self.device)

@@ -2,8 +2,9 @@
 
 Port of ``lmdeploy_tpu/models/__init__.py`` for the families ported so far: the dense
 llama builders (``_llama``, ``_qwen2``, ``_qwen3``), the sparse-MoE ones (``_mixtral``,
-``_qwen2_moe``, ``_qwen3_moe``), ``_gpt_oss`` and ``_deepseek`` (DeepSeek-V2 / V3 with
-MLA); the other families are later slices.
+``_qwen2_moe``, ``_qwen3_moe``, ``_phimoe``), ``_gpt_oss``, ``_deepseek`` (DeepSeek-V2 /
+V3 with MLA), and DeepSeek's MoE with GQA attention (``_glm4_moe``, ``_deepseek_v1``):
+12 of the reference's 68 architectures; the other families are not ported yet.
 """
 from __future__ import annotations
 
@@ -73,6 +74,29 @@ def _deepseek(config: ModelConfig) -> LlamaModel:
     # MLA: one latent kv head; the cache row width comes from cache_head_dim
     config.num_key_value_heads = 1
     return DeepseekV2Model(config)
+
+
+@register_model('DeepseekForCausalLM')
+def _deepseek_v1(config: ModelConfig) -> LlamaModel:
+    # DeepSeek-MoE 16B: GQA attention with full rotary and softmax-routed MoE with
+    # shared experts and dense first-k layers, the Glm4Moe geometry
+    from .glm4_moe import Glm4MoeModel
+    if (config.hf_config or {}).get('moe_layer_freq', 1) != 1:
+        raise ValueError('sparse moe_layer_freq != 1 is not supported')
+    return Glm4MoeModel(config)
+
+
+@register_model('Glm4MoeForCausalLM')
+def _glm4_moe(config: ModelConfig) -> LlamaModel:
+    from .glm4_moe import Glm4MoeModel
+    config.scoring_func = 'sigmoid'        # Glm4MoeTopkRouter is sigmoid
+    return Glm4MoeModel(config)
+
+
+@register_model('PhiMoEForCausalLM', 'PhimoeForCausalLM')
+def _phimoe(config: ModelConfig) -> LlamaModel:
+    from .phimoe import PhiMoeModel
+    return PhiMoeModel(config)
 
 
 def build_model(config: ModelConfig) -> LlamaModel:

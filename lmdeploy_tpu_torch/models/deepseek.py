@@ -54,25 +54,6 @@ from ..ops.moe import eplb_remap, moe_ffn
 from .llama import AttnMeta, Leaf, LlamaModel
 from .mixtral import ExpertSlice
 
-# seeded blocked-fp8 experts: e4m3 values of std FP8_INIT_SPAN (a quantizer's amax
-# near e4m3's 448) and per-(group, column) scales around 0.02 / FP8_INIT_SPAN, so
-# weights have the dense init's std 0.02; scales that differ across groups keep a
-# wrong group-to-scale mapping visible
-FP8_INIT_SPAN = 112.0
-
-
-def init_fp8_leaf(name: str, shape, gen: torch.Generator, device) -> torch.Tensor:
-    """A seeded blocked-fp8 expert leaf: ``w8`` e4m3 values of std FP8_INIT_SPAN, drawn
-    one row of the leading axis at a time (an f32 draw of a whole V2-Lite stack would
-    be 19 GB), or ``gscale`` rows around 0.02 / FP8_INIT_SPAN."""
-    if name == 'w8':
-        out = torch.empty(shape, dtype=torch.float8_e4m3fn, device=device)
-        for row in out:
-            w = torch.randn(row.shape, generator=gen, device=device) * FP8_INIT_SPAN
-            row.copy_(w.clamp(-448.0, 448.0).to(torch.float8_e4m3fn))
-        return out
-    return (0.5 + torch.rand(shape, generator=gen, device=device)) * (0.02 / FP8_INIT_SPAN)
-
 
 def _deinterleave(x: torch.Tensor) -> torch.Tensor:
     """[..., d] interleaved rope layout -> half-split layout (HF deepseek)."""
@@ -94,6 +75,7 @@ def _sorted_desc(x: torch.Tensor) -> torch.Tensor:
 class DeepseekV2Model(LlamaModel):
     """DeepSeek-V2 / V2-Lite / V3 decoder with MLA + MoE."""
 
+    LINEAR_8BIT = ('fp8_blocked',)
     # the loader's dequantize-on-load switch and the names it keeps fp8
     dequant_on_load = False
     keep_fp8 = None
@@ -182,12 +164,6 @@ class DeepseekV2Model(LlamaModel):
         if not cfg.tie_word_embeddings:
             shapes['lm_head'] = (H, V)
         return shapes
-
-    def _init_leaf(self, name: str, leaf: Leaf, gen: torch.Generator,
-                   device) -> torch.Tensor:
-        if name in ('w8', 'gscale'):
-            return init_fp8_leaf(name, leaf.shape, gen, device)
-        return super()._init_leaf(name, leaf, gen, device)
 
     # -- HF weight mapping ------------------------------------------------------------
     def make_assign_plan(self):
@@ -306,12 +282,7 @@ class DeepseekV2Model(LlamaModel):
         cfg = self.config
         E, k = cfg.num_experts, cfg.num_experts_per_tok
         logits = _f32_dot(xf, w['router'])
-        if cfg.scoring_func == 'sigmoid':
-            scores = torch.sigmoid(logits)
-            choice = scores + w['router_bias'].float()[None, :]
-        else:
-            scores = torch.softmax(logits, dim=-1)
-            choice = scores
+        choice = self.choice_scores(w, logits)
         ng, tg = cfg.n_group, cfg.topk_group
         if ng > 1 and 0 < tg < ng:
             gsz = E // ng
@@ -328,6 +299,13 @@ class DeepseekV2Model(LlamaModel):
                                  torch.full((), fill, device=choice.device))
         top_idx = _sorted_desc(choice)[:, :k]
         return logits, top_idx, self.route_weights(w, logits, top_idx)
+
+    def choice_scores(self, w, logits: torch.Tensor) -> torch.Tensor:
+        """The scores the expert choice ranks, before any group limit: sigmoid scores
+        plus the correction bias, or softmax scores."""
+        if self.config.scoring_func == 'sigmoid':
+            return torch.sigmoid(logits) + w['router_bias'].float()[None, :]
+        return torch.softmax(logits, dim=-1)
 
     def route_weights(self, w, logits: torch.Tensor, top_idx: torch.Tensor) -> torch.Tensor:
         """The routed weights of the choices ``top_idx`` from the router logits: their

@@ -2,7 +2,13 @@
 
 Port of ``lmdeploy_tpu/models/llama.py`` (``LlamaModel``) for the options the
 ``_llama`` / ``_qwen2`` / ``_qwen3`` registry builders switch on: attention bias,
-qk-norm and tied embeddings, and AWQ / GPTQ W4A16 checkpoints.  Parameters keep the
+qk-norm and tied embeddings, AWQ / GPTQ W4A16 checkpoints, and the 8-bit checkpoints
+of ``nn/linear.py``: SmoothQuant W8A8 (``quant_method`` ``smooth_quant`` / ``w8a8``:
+``{'w8' int8 [L, K, N], 'scale' f32 [L, N]}``), fp8 weight-only (``fp8`` /
+``fbgemm_fp8`` with per-channel or per-tensor ``weight_scale``, the latter broadcast to
+N: ``{'w8' float8_e4m3fn, 'scale'}``) and blocked fp8 (``fp8`` with
+``weight_block_size`` [b0, b1]: ``{'w8', 'bscale' f32 [L, ceil(K/b1), ceil(N/b0)]}``,
+the reference's grid shape).  Parameters keep the
 reference's tree and names (``embed``, ``layers/{attn_norm, wq|wqkv, ...}`` stacked
 ``[L, ...]``, ``final_norm``, ``lm_head``) and its ``[in, out]`` weight layout, so a JAX
 parameter tree carries over by name (``weight_convert.params_from_jax``).  A W4A16
@@ -14,10 +20,12 @@ reference's whole-stack-plus-layer-index kernel design only avoids an XLA slice
 copy); the KV cache is written in place.
 
 The reference layer body's hooks that subclasses use are kept: ``_mlp`` (overridden
-by MoE models, which then keep gate and up unfused), the ``bo`` output-projection
-bias, per-layer ``sinks`` and per-layer windows.  A per-layer window is a Python int
-from ``layer_windows`` (None: every layer takes ``config.sliding_window``), never a
-tensor: the reference's ``layer_window`` leaf is not part of the port's tree.
+by MoE models, which then keep gate and up unfused), ``_norm`` (RMSNorm here;
+PhiMoE's LayerNorm reads the ``attn_norm_b`` / ``mlp_norm_b`` / ``final_norm_b``
+biases), ``_head``, the ``bo`` output-projection bias, per-layer ``sinks`` and per-layer
+windows.  A per-layer window is a Python int from ``layer_windows`` (None: every layer
+takes ``config.sliding_window``), never a tensor: the reference's ``layer_window`` leaf
+is not part of the port's tree.
 """
 from __future__ import annotations
 
@@ -40,6 +48,28 @@ from ..ops.quant_matmul import prep_w4
 # that gives the dequantized weights the dense init's 0.02 std
 W4_INIT_ZERO = 7.5
 W4_INIT_SCALE = 0.02 / math.sqrt((16 ** 2 - 1) / 12)
+# seeded 8-bit weights: e4m3 values of std FP8_INIT_SPAN (a quantizer's amax near
+# e4m3's 448), int8 codes uniform on +-127 (std INT8_INIT_SPAN), and per-column (or
+# per-block) scales around 0.02 / span, so weights have the dense init's std 0.02;
+# scales that differ across columns and blocks keep a wrong scale mapping visible
+FP8_INIT_SPAN = 112.0
+INT8_INIT_SPAN = 127.0 / math.sqrt(3.0)
+# the 8-bit checkpoint formats of the dense llama linears (nn/linear.py)
+W8_METHODS = ('w8a8', 'fp8', 'fp8_blocked')
+
+
+def init_fp8_leaf(name: str, shape, gen: torch.Generator, device,
+                  span: float = FP8_INIT_SPAN) -> torch.Tensor:
+    """A seeded 8-bit leaf: ``w8`` e4m3 values of std ``span``, drawn one row of the
+    leading axis at a time (an f32 draw of a whole V2-Lite expert stack would be 19
+    GB), or, for any other name, scales around 0.02 / ``span``."""
+    if name == 'w8':
+        out = torch.empty(shape, dtype=torch.float8_e4m3fn, device=device)
+        for row in out:
+            w = torch.randn(row.shape, generator=gen, device=device) * span
+            row.copy_(w.clamp(-448.0, 448.0).to(torch.float8_e4m3fn))
+        return out
+    return (0.5 + torch.rand(shape, generator=gen, device=device)) * (0.02 / span)
 
 
 class Leaf(NamedTuple):
@@ -65,6 +95,9 @@ class LlamaModel:
     # checkpoint formats that quantize only a subclass's expert stacks: the seven
     # linears stay dense (gpt-oss's MXFP4)
     EXPERT_QUANT_METHODS: Tuple[str, ...] = ()
+    # the 8-bit checkpoint formats (W8_METHODS) the class serves; a MoE family takes
+    # none, or blocked fp8 where it dequantizes it at load
+    LINEAR_8BIT: Tuple[str, ...] = W8_METHODS
 
     def __init__(self, config: ModelConfig):
         self.config = config
@@ -81,21 +114,36 @@ class LlamaModel:
         if method in ('awq', 'gptq'):
             self.quant_method = 'w4a16'
             self.group_size = qcfg.get('group_size') or qcfg.get('q_group_size', 128)
-        elif method == 'fp8' and qcfg.get('weight_block_size'):
-            # DeepSeek-V3's native format: e4m3 weights with a 128 x 128 block grid of
-            # scales (reference llama.py:100-109); DeepseekV2Model keeps its experts
-            # fp8 and dequantizes the rest at load, the dense llama leaves raise
-            # (_linear_shape)
-            self.quant_method = 'fp8_blocked'
-            self.fp8_block = tuple(qcfg['weight_block_size'])
+        elif method in ('smooth_quant', 'w8a8'):
+            self.quant_method = 'w8a8'
+        elif method in ('fp8', 'fbgemm_fp8'):
+            # e4m3 weights with per-column / per-tensor scales, or a block grid of
+            # scales (DeepSeek-V3's and Qwen3-FP8's 128 x 128; reference
+            # llama.py:96-112); DeepseekV2Model keeps its experts fp8 and dequantizes
+            # the rest at load
+            if qcfg.get('weight_block_size'):
+                self.quant_method = 'fp8_blocked'
+                self.fp8_block = tuple(qcfg['weight_block_size'])
+            else:
+                self.quant_method = 'fp8'
         elif method is not None and method not in self.EXPERT_QUANT_METHODS:
             raise NotImplementedError(f'{method!r} checkpoints are not ported yet')
+        if self.quant_method in W8_METHODS and self.quant_method not in self.LINEAR_8BIT:
+            raise NotImplementedError(f'{self.quant_method} checkpoints of '
+                                      f'{type(self).__name__} are not ported (8-bit linear '
+                                      f'leaves serve the dense llama family)')
 
     # -- parameters -------------------------------------------------------------------
     def _linear_shape(self, L: int, K: int, N: int):
+        if self.quant_method == 'w8a8':
+            return {'w8': Leaf((L, K, N), torch.int8), 'scale': Leaf((L, N), torch.float32)}
+        if self.quant_method == 'fp8':
+            return {'w8': Leaf((L, K, N), torch.float8_e4m3fn),
+                    'scale': Leaf((L, N), torch.float32)}
         if self.quant_method == 'fp8_blocked':
-            raise NotImplementedError('blocked-fp8 linear leaves of the llama family are '
-                                      'not ported yet (ROADMAP.md section 1, item 4)')
+            b0, b1 = self.fp8_block
+            return {'w8': Leaf((L, K, N), torch.float8_e4m3fn),
+                    'bscale': Leaf((L, -(-K // b1), -(-N // b0)), torch.float32)}
         if self.quant_method == 'w4a16':
             gs = self.group_size
             Kp = formats.pad_k4(K, gs)     # plane-packed layout: K in whole groups x4
@@ -132,11 +180,12 @@ class LlamaModel:
     def init_params(self, seed: int = 0, device='cpu', scale: float = 0.02,
                     dtype: Optional[torch.dtype] = None) -> Dict:
         """Random weights from one seeded ``torch.Generator`` on ``device``
-        (norms are ones), in the model dtype unless ``dtype`` is given.  The same
-        seed gives the same weights on the same device type.  W4A16 leaves get
-        random int32 words (uniform nibbles), zeros ``W4_INIT_ZERO`` and scales
-        ``W4_INIT_SCALE``: zero-mean weights of std 0.02, the dense default, whose
-        output columns differ (constant positive weights would make them alike)."""
+        (norms are ones, norm biases zeros), in the model dtype unless ``dtype`` is
+        given.  The same seed gives the same weights on the same device type.  W4A16
+        leaves get random int32 words (uniform nibbles), zeros ``W4_INIT_ZERO`` and
+        scales ``W4_INIT_SCALE``: zero-mean weights of std 0.02, the dense default,
+        whose output columns differ (constant positive weights would make them
+        alike); 8-bit leaves likewise (``init_fp8_leaf``)."""
         dtype = dtype or self.config.torch_dtype()
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
@@ -149,7 +198,8 @@ class LlamaModel:
                 elif isinstance(shape, Leaf):
                     out[name] = self._init_leaf(name, shape, gen, device)
                 elif 'norm' in name:
-                    out[name] = torch.ones(shape, dtype=dtype, device=device)
+                    fill = torch.zeros if name.endswith('_b') else torch.ones
+                    out[name] = fill(shape, dtype=dtype, device=device)
                 else:
                     w = torch.randn(shape, generator=gen, device=device)
                     out[name] = (w * scale).to(dtype)
@@ -158,11 +208,18 @@ class LlamaModel:
 
     def _init_leaf(self, name: str, leaf: Leaf, gen: torch.Generator,
                    device) -> torch.Tensor:
-        """A seeded typed leaf (W4A16 words, scales and zeros)."""
+        """A seeded typed leaf (W4A16 words, scales and zeros; 8-bit weights and their
+        scales)."""
         if name == 'packed':
             words = torch.randint(-2 ** 31, 2 ** 31, leaf.shape, generator=gen,
                                   device=device, dtype=torch.int64)
             return words.to(leaf.dtype)
+        if name == 'w8' and leaf.dtype == torch.int8:
+            return torch.randint(-127, 128, leaf.shape, generator=gen, device=device,
+                                 dtype=torch.int8)
+        if name in ('w8', 'scale', 'bscale', 'gscale'):
+            span = INT8_INIT_SPAN if self.quant_method == 'w8a8' else FP8_INIT_SPAN
+            return init_fp8_leaf(name, leaf.shape, gen, device, span)
         fill = W4_INIT_SCALE if name == 'scales' else W4_INIT_ZERO
         return torch.full(leaf.shape, fill, dtype=leaf.dtype, device=device)
 
@@ -171,7 +228,7 @@ class LlamaModel:
         tensor fills several leaves): the loader writes ``transform(tensor)`` (or the
         tensor itself) at ``path``, where a layer index selects the stacked row and a
         column (``models.mixtral.ExpertSlice``) one expert of it (reference
-        ``make_assign_plan``, dense and AWQ / GPTQ W4A16 paths)."""
+        ``make_assign_plan``, dense, AWQ / GPTQ W4A16 and 8-bit paths)."""
         cfg = self.config
 
         def transposed(x):
@@ -195,6 +252,8 @@ class LlamaModel:
                       ('mlp.down_proj', 'w_down')]
         if self.quant_method == 'w4a16':
             per_layer += self._w4a16_plan(hf_linears)
+        elif self.quant_method in W8_METHODS:
+            per_layer += self._w8_plan(hf_linears)
         else:
             per_layer += [(f'{hf}.weight', (name,), transposed) for hf, name in hf_linears]
         for layer in range(cfg.num_layers):
@@ -230,13 +289,41 @@ class LlamaModel:
             ]
         return entries
 
+    def _w8_plan(self, hf_linears):
+        """8-bit tensors -> ``w8`` [K, N] and its scales (reference llama.py:299-350):
+        W8A8 ``.scale`` [N(, 1)]; fp8 ``.weight_scale``, per column or one per tensor
+        broadcast to N; blocked fp8 ``.weight_scale_inv`` [Nb, Kb] transposed."""
+        cfg = self.config
+        n_out = {'wq': self.q_out, 'wk': self.kv_out, 'wv': self.kv_out,
+                 'wo': cfg.hidden_size, 'w_gate': cfg.intermediate_size,
+                 'w_up': cfg.intermediate_size, 'w_down': cfg.hidden_size}
+
+        def scale_vec(n):
+            def f(t):
+                v = t.float().reshape(-1)
+                return v.expand(n) if v.numel() == 1 else v
+            return f
+        entries = []
+        for hf, name in hf_linears:
+            entries.append((f'{hf}.weight', (name, 'w8'), lambda t: t.t()))
+            if self.quant_method == 'w8a8':
+                entries.append((f'{hf}.scale', (name, 'scale'), scale_vec(n_out[name])))
+            elif self.quant_method == 'fp8':
+                entries.append((f'{hf}.weight_scale', (name, 'scale'),
+                                scale_vec(n_out[name])))
+            else:
+                entries.append((f'{hf}.weight_scale_inv', (name, 'bscale'),
+                                lambda t: t.float().t()))
+        return entries
+
     def fuse_projections(self, params: Dict) -> Dict:
         """wq/wk/wv -> wqkv and w_gate/w_up -> w_gateup along the output dim (one
         wide GEMM instead of three narrow ones), biases likewise.  Quantized dict
         leaves concatenate key by key: every quant layout packs along K and keeps
         N as the trailing axis.  Only the stock ``forward`` knows the fused names, so
         a class that overrides it keeps its leaves (reference llama.py:389-408); gate
-        and up fuse only for the stock ``_mlp``."""
+        and up fuse only for the stock ``_mlp``.  Blocked-fp8 leaves stay unfused: their
+        scale grids do not concatenate where N is not a whole number of blocks."""
         if type(self).forward is not LlamaModel.forward:
             return params
         lp = dict(params['layers'])
@@ -246,11 +333,14 @@ class LlamaModel:
             if isinstance(leaves[0], dict):
                 return {k: torch.cat([v[k] for v in leaves], dim=-1) for k in leaves[0]}
             return torch.cat(leaves, dim=-1)
-        if 'wq' in lp:
+
+        def fusable(name):
+            return name in lp and not (isinstance(lp[name], dict) and 'bscale' in lp[name])
+        if fusable('wq'):
             lp['wqkv'] = cat(['wq', 'wk', 'wv'])
             if 'bq' in lp:
                 lp['bqkv'] = cat(['bq', 'bk', 'bv'])
-        if 'w_gate' in lp and type(self)._mlp is LlamaModel._mlp:
+        if fusable('w_gate') and type(self)._mlp is LlamaModel._mlp:
             lp['w_gateup'] = cat(['w_gate', 'w_up'])
         return dict(params, layers=lp)
 
@@ -270,6 +360,21 @@ class LlamaModel:
                     and leaf['packed'].dim() == 3):
                 sb, corr = prep_w4(leaf['scales'], leaf['zeros'], not fast, mode=mode)
                 lp[name] = {'packed': leaf['packed'], 'sb': sb, 'corr': corr}
+        return dict(params, layers=lp)
+
+    def layout_quant_leaves(self, params: Dict) -> Dict:
+        """W8A8 int8 weights stored K-major: each ``w8`` keeps its ``[..., K, N]`` shape
+        and values as the transposed view of a contiguous ``[..., N, K]`` tensor, the
+        order in which cuBLASLt's int8 GEMM (``torch._int_mm``) takes its Hopper
+        tensor-core kernels; row-major ``[K, N]`` codes took an sm80 compatibility
+        kernel, 7-14x slower at Llama-3.1-8B's projections (PERF.md)."""
+        if 'layers' not in params:
+            return params
+        lp = dict(params['layers'])
+        for name, leaf in lp.items():
+            if isinstance(leaf, dict) and 'w8' in leaf and leaf['w8'].dtype == torch.int8:
+                w8 = leaf['w8'].transpose(-1, -2).contiguous().transpose(-1, -2)
+                lp[name] = dict(leaf, w8=w8)
         return dict(params, layers=lp)
 
     def unfuse_projections(self, params: Dict) -> Dict:
@@ -308,6 +413,11 @@ class LlamaModel:
         act = F.silu(gate.float()).to(x.dtype) * up
         return linear(act, w['w_down'])
 
+    def _norm(self, x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+              eps: float) -> torch.Tensor:
+        """Pre-layer and final normalization (RMSNorm; LayerNorm models override)."""
+        return rms_norm(x, weight, eps)
+
     def _head(self, params, x: torch.Tensor) -> torch.Tensor:
         """Hidden -> f32 logits (f32 accumulation AND f32 result, as the
         reference's preferred_element_type=f32 dot)."""
@@ -345,7 +455,7 @@ class LlamaModel:
         for layer in range(cfg.num_layers):
             w = {name: {k: a[layer] for k, a in t.items()} if isinstance(t, dict)
                  else t[layer] for name, t in lp.items()}
-            x = rms_norm(hidden, w['attn_norm'], cfg.rms_norm_eps)
+            x = self._norm(hidden, w['attn_norm'], w.get('attn_norm_b'), cfg.rms_norm_eps)
             q, k, v = self._qkv(w, x)
             q = q.reshape(B, T, Hq, D)
             k = k.reshape(B, T, Hkv, D)
@@ -363,9 +473,10 @@ class LlamaModel:
                                    chunk_kv=(k, v), fresh_prefill=fresh_prefill,
                                    sinks=w.get('sinks'), cp_mesh=self.cp_mesh)
             hidden = hidden + linear(attn.reshape(B, T, self.q_out), w['wo'], w.get('bo'))
-            x = rms_norm(hidden, w['mlp_norm'], cfg.rms_norm_eps)
+            x = self._norm(hidden, w['mlp_norm'], w.get('mlp_norm_b'), cfg.rms_norm_eps)
             hidden = hidden + self._mlp(w, x)
-        hidden = rms_norm(hidden, params['final_norm'], cfg.rms_norm_eps)
+        hidden = self._norm(hidden, params['final_norm'], params.get('final_norm_b'),
+                            cfg.rms_norm_eps)
         if return_all_logits:
             return self._head(params, hidden)
         last = (meta.q_lens.long() - 1).clamp(min=0)

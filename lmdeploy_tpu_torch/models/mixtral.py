@@ -40,6 +40,8 @@ class ExpertSlice:
 class MixtralModel(LlamaModel):
     """Sparse-MoE decoder; attention identical to llama."""
 
+    LINEAR_8BIT = ()
+
     @property
     def _ie(self) -> int:
         return self.config.moe_intermediate_size or self.config.intermediate_size

@@ -1,8 +1,9 @@
 """Core transformer layer primitives as plain tensor functions.
 
 Port of ``lmdeploy_tpu/nn/layers.py`` (RMSNorm, SiLU MLP, rotary tables with the
-default / linear / dynamic-NTK / llama3 / yarn scalings, rotate-half rope).  These
-stay plain PyTorch: they are elementwise or reductions next to the layer GEMMs.
+default / linear / dynamic-NTK / llama3 / longrope / yarn scalings, rotate-half rope),
+and the LayerNorm with bias of ``lmdeploy_tpu/models/phimoe.py:54``.  These stay plain
+PyTorch: they are elementwise or reductions next to the layer GEMMs.
 """
 from __future__ import annotations
 
@@ -19,6 +20,19 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     var = (xf * xf).mean(-1, keepdim=True)
     xf = xf * torch.rsqrt(var + eps)
     return (xf * weight.float()).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 (mean, biased variance, then weight and bias), rounded once to
+    x's dtype (reference ``PhiMoeModel._norm``)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * weight.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
 
 
 def silu_mlp(x: torch.Tensor, gate_up: torch.Tensor, down: torch.Tensor) -> torch.Tensor:
@@ -73,6 +87,19 @@ def make_rope_table(head_dim: int, max_len: int, theta: float = 10000.0,
                             rope_scaling.get('original_max_position_embeddings', max_len)
                             - (factor - 1)) ** (head_dim / (head_dim - 2))
             inv_freq = _rope_base_frequencies(head_dim, base)
+        elif rtype in ('longrope', 'su'):
+            # Phi-3 LongRoPE as the reference builds it: ONE table for every position,
+            # the long factors when the table outgrows the original context (HF
+            # switches per sequence length instead), cos and sin times
+            # sqrt(1 + ln(s) / ln(orig)), s = max_len / orig
+            orig = rope_scaling.get('original_max_position_embeddings', max_len)
+            factors = (rope_scaling.get('long_factor') if max_len > orig
+                       else rope_scaling.get('short_factor'))
+            if factors is not None:
+                inv_freq = inv_freq / torch.tensor(factors, dtype=torch.float32)
+            scale = max_len / max(orig, 1)
+            if scale > 1.0:
+                attn_factor = math.sqrt(1.0 + math.log(scale) / math.log(orig))
         elif rtype == 'yarn':
             factor = rope_scaling.get('factor', 1.0)
             orig = rope_scaling.get('original_max_position_embeddings', 4096)

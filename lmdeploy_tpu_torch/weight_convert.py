@@ -4,7 +4,10 @@ The port keeps the reference's parameter tree (names, ``[L, ...]`` stacking and 
 ``[in, out]`` weight layout), so parameters convert leaf by leaf; quantized linears
 and expert stacks are dict leaves on both sides (``packed`` / ``scales`` / ``zeros``,
 the prepared ``packed`` / ``sb`` / ``corr``, MXFP4 ``nib`` / ``scale``, blocked-fp8
-``w8`` / ``gscale``) and convert key by key; fp8 goes as its e4m3 bytes.  The caches convert bit for bit both ways (``ops/kv_quant.py`` has the port's
+experts ``w8`` / ``gscale``, the 8-bit linears ``w8`` / ``scale`` (W8A8, fp8) and ``w8`` /
+``bscale`` (blocked fp8)) and convert key by key; fp8 goes as its e4m3 bytes, int8 as
+it is.  Norm biases, ``bo``, ``lm_head_b`` and the DeepSeek-MoE ``layers`` /
+``moe_layers`` groups are plain leaves and groups.  The caches convert bit for bit both ways (``ops/kv_quant.py`` has the port's
 layouts); the port drops the reference's 128-lane row padding everywhere:
   * plain and fp8: ``[L, NB, 2, BS, Hkv*D]`` here against ``[L, NB, 2, BS, HDp]`` there,
     ``HDp`` the row width rounded up to 128; fp8 goes as its e4m3 bytes (u8);
@@ -45,7 +48,8 @@ def _to_torch(x, dtype=None, device='cpu') -> torch.Tensor:
 
 
 # leaves of a quantized dict (W4A16, MXFP4, blocked fp8) keep their own dtypes
-_QUANT_KEYS = {'packed', 'scales', 'zeros', 'sb', 'corr', 'nib', 'scale', 'w8', 'gscale'}
+_QUANT_KEYS = {'packed', 'scales', 'zeros', 'sb', 'corr', 'nib', 'scale', 'w8', 'gscale',
+               'bscale'}
 
 
 def params_from_jax(params_np: Dict, dtype=None, device='cpu') -> Dict:

@@ -178,18 +178,20 @@ def test_linear_on_prepared_leaf_matches_jax(M):
 
 
 def test_unported_leaves_raise():
-    """W8A8 and fp8 weight-only leaves are not ported; every W4A16 leaf form is (the
-    unprepared and fast / precise forms are held in tests/test_torch_w4a16_modes.py)."""
+    """A leaf of no known quantized form raises; every W4A16 leaf form is served (the
+    unprepared and fast / precise forms are held in tests/test_torch_w4a16_modes.py),
+    and so are the W8A8, fp8 and blocked-fp8 leaves (tests/test_torch_linear_quant.py)."""
     from lmdeploy_tpu_torch.nn.linear import linear
     x = torch.zeros(2, 512)
     s = torch.ones(4, 8)
-    with pytest.raises(NotImplementedError):
-        linear(x, {'w8': torch.zeros(512, 8, dtype=torch.int8), 'scale': s[0]})
-    with pytest.raises(NotImplementedError):
-        linear(x, {'w8': torch.zeros(512, 8, dtype=torch.float8_e4m3fn), 'scale': s[0]})
+    with pytest.raises(ValueError):
+        linear(x, {'w4': torch.zeros(512, 8, dtype=torch.int8), 'scale': s[0]})
     p = torch.zeros(64, 8, dtype=torch.int32)
     for leaf in ({'packed': p, 'scales': s, 'zeros': s},
-                 {'packed': p, 'sb': s.bfloat16(), 'corr': s}):
+                 {'packed': p, 'sb': s.bfloat16(), 'corr': s},
+                 {'w8': torch.zeros(512, 8, dtype=torch.int8), 'scale': s[0]},
+                 {'w8': torch.zeros(512, 8, dtype=torch.float8_e4m3fn), 'scale': s[0]},
+                 {'w8': torch.zeros(512, 8, dtype=torch.float8_e4m3fn), 'bscale': s[:, :1]}):
         assert linear(x, leaf).shape == (2, 8)
 
 
