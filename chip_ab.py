@@ -1,18 +1,21 @@
 """Compare two trees of this repository end to end, or kernel by kernel, on one card, in
 turns.
 
-    python3 chip_ab.py PARENT_DIR [--cells deepseek w4a16_kv8 tinyllama] [--pairs 2]
+    python3 chip_ab.py PARENT_DIR [--cells deepseek w4a16_kv8 tinyllama gemma2_9b] [--pairs 2]
     python3 chip_ab.py PARENT_DIR --kernels [--kernel-sets w4a16_gemm w4a16_modes fp8_bmm
                        kv_decode mxfp4_bmm narrow_decode cp_decode] [--pairs 1]
 
 PARENT_DIR is an unpacked copy of another commit (for example `git archive <commit> |
-tar -x -C work_dir/parent`, under a directory .gitignore lists).  Each pair runs the
+tar -x -C work_dir/parent`) or a copy of this tree with one edit, under a directory
+.gitignore lists.  Each pair runs the
 parent, then this tree, then this tree, then the parent (one process each, so each
 builds and loads its own kernels) and prints one JSON line per run with each cell's
 decode tok/s, TTFT and device busy share, then the card's name and power limit.  The
 cells are `chip_smoke.py`'s e2e phases: 'deepseek' (e2e_deepseek_v2_lite_fp8),
 'w4a16_kv8' (e2e_w4a16_kv8: llama2-7b W4A16 gd with the int8 KV cache) and 'tinyllama'
-(e2e).  With --kernels each run instead times its tree's w4a16_gemm (gd), fp8_bmm and
+(e2e), the default three, and 'gemma2_9b' (e2e_gemma2_9b, untraced; both trees need the
+dense cells' `chip_smoke.dense_config`).  With --kernels each run instead times its
+tree's w4a16_gemm (gd), fp8_bmm and
 mxfp4_bmm wrappers at every row shape of this tree's `chip_smoke.py` (W4_SHAPES,
 FP8_SHAPES, MX_SHAPES), its fast / precise (w4a16_matmul_szc) and unprepared
 (w4a16_matmul) W4A16 wrappers at every W4_MODE_SHAPES case (`w4a16_modes`), its paged_decode_attention_int4 / _turbo wrappers at every case
@@ -44,7 +47,11 @@ CELLS = {
                   "'w4a16_gemm': (0, 128)}, card)"),
     'tinyllama': ("c.e2e_phase('e2e', c.tinyllama_config(), 64, 0, 8, {'flash_prefill': "
                   "(22, 0), 'paged_decode': (0, 22)}, card)"),
+    'gemma2_9b': ("c.e2e_phase('e2e_gemma2_9b', c.dense_config('gemma2_9b', c.LDENSE), 64, 0, "
+                  "63, {'paged_decode': (0, c.LDENSE)}, card, short_len=256, long_len=6144, "
+                  "exact=True, new_tokens=32, forbid=('flash_prefill',), trace=False)"),
 }
+DEFAULT_CELLS = ('deepseek', 'w4a16_kv8', 'tinyllama')
 RUN = '''
 import json, sys, chip_smoke as c
 info = c.device_phase()
@@ -219,7 +226,7 @@ def run(tree: str, code: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('parent')
-    ap.add_argument('--cells', nargs='+', default=list(CELLS), choices=list(CELLS))
+    ap.add_argument('--cells', nargs='+', default=list(DEFAULT_CELLS), choices=list(CELLS))
     ap.add_argument('--kernels', action='store_true')
     ap.add_argument('--kernel-sets', nargs='+', default=list(KERNEL_SETS),
                     choices=list(KERNEL_SETS))

@@ -86,8 +86,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  request seeded-sampled: graphs, eager), then one traced eager run;
                  greedy and sampled tokens must be equal between the modes; each
                  mode's decode tok/s, TTFT p50 and busy share;
-  6. e2e_w4a16_kv8 -- the same at llama2-7b geometry, AWQ-style W4A16 weights (group
-                 128, seeded) and quant_policy=4: 64 concurrent 128-token prompts plus
+  6. e2e_w4a16_kv8 -- the same at llama2-7b geometry (8 of its 32 layers, LW4),
+                 AWQ-style W4A16 weights (group 128, seeded) and quant_policy=4: 64 concurrent 128-token prompts plus
                  one 2048-token prompt, 64 greedy tokens each, run twice, then traced;
                  each decode step launches paged_decode_int8 (and its split's combine)
                  once a layer, exactly;
@@ -107,19 +107,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  run twice, then traced; each decode step launches paged_decode_cp twice
                  a layer and paged_decode never, exactly;
   9. e2e_mixtral8x7b_w4a16 (+ _fast / _precise / _unprepared) -- Mixtral-8x7B at full
-                 width and 8 of its 32 layers (public config, seeded AWQ-form W4A16
-                 weights, ~6.4 GB, built once for the four), bf16 KV: 63 concurrent 256-token prompts plus
+                 width and 4 of its 32 layers (LMIX; public config, seeded AWQ-form W4A16
+                 weights, ~3.2 GB, built once for the four), bf16 KV: 63 concurrent 256-token prompts plus
                  one 2048-token prompt (one 64-row wave, as the Llama-3.1-8B cells);
                  under gd 64 greedy tokens each, run twice, then
                  traced; under the other three schedules one run of 16 tokens.  Each
                  decode step (and prefill step of at most 256 rows) launches the
                  schedule's W4A16 kernel twice a layer and no other W4A16 kernel, exactly;
- 10. e2e_deepseek_v2_lite_fp8 -- DeepSeek-V2-Lite at full width and depth (public
-                 config, 27 layers, seeded blocked-fp8 routed experts, ~17.5 GB), bf16
-                 MLA cache: 63 concurrent 1024-token prompts plus one 4096-token prompt,
-                 64 greedy tokens each, run twice, then traced; each decode step launches
-                 fp8_bmm 78 times and paged_decode 27 times, each fresh prefill step
-                 flash_prefill 27 times, exactly;
+ 10. e2e_deepseek_v2_lite_fp8 -- DeepSeek-V2-Lite at full width and 8 of its 27
+                 layers (LDS; public config, 1 dense and 7 MoE layers, seeded blocked-fp8
+                 routed experts), bf16 MLA cache: 63 concurrent 1024-token prompts plus
+                 one 4096-token prompt, 64 greedy tokens each, run twice, then traced;
+                 each decode step launches fp8_bmm 21 times and paged_decode 8 times,
+                 each fresh prefill step flash_prefill 8 times, exactly;
  11. int_mm   -- (after the kernel rows) the W8A8 product's int8 route, torch._int_mm with
                  its rows padded to cuBLASLt's 17, bit-exact against an f64 product of the
                  same codes at M 1 / 16 / 17 / 64 / 2048, eagerly and from a captured
@@ -139,7 +139,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  rope table then serves), 32 greedy tokens each, one run (each fresh
                  prefill step launches flash_prefill and each decode step paged_decode
                  once a layer, exactly), traced, then one run on an eager_mode engine of
-                 the same weights whose greedy tokens must be equal.
+                 the same weights whose greedy tokens must be equal;
+ 14. parity_gemma2_9b / _glm4_9b / _starcoder2_7b, then e2e_ of the same names -- the
+                 dense variants' public configs, 2 layers (random norms and biases;
+                 Gemma-2's wq and embedding scaled so that its softcaps engage) with
+                 their traps (softcaps and Gemma's +1 left out, GLM's rope in rotate-half
+                 order, its sandwich norms left out, StarCoder2's LayerNorm without its
+                 bias), then 4 layers to 63 x 256 + one prompt of 6,144 / 2,048 / 6,144
+                 tokens, 32 greedy tokens, two runs, traced, then decode_graphs' greedy
+                 pair: one paged_decode a layer per decode step, and flash_prefill a
+                 layer per fresh prefill step on GLM-4 only (a softcap or a window sends
+                 Gemma-2's and StarCoder2's prefill to the gathered path).
 The line before the last lists every kernel; the last line is the result.
 It imports nothing of jax or lmdeploy_tpu.
 """
@@ -411,6 +421,40 @@ DEEPSEEK_MOE_16B = {
     'tie_word_embeddings': False, 'bos_token_id': 100000, 'eos_token_id': 100001,
     'torch_dtype': 'bfloat16',
 }
+# the public config.json of google/gemma-2-9b-it (its fields the port reads): a window
+# of 4,096 on the even layers, attention and final logit softcaps, a 256k tied vocab
+GEMMA2_9B = {
+    'architectures': ['Gemma2ForCausalLM'], 'model_type': 'gemma2',
+    'hidden_size': 3584, 'intermediate_size': 14336, 'num_hidden_layers': 42,
+    'num_attention_heads': 16, 'num_key_value_heads': 8, 'head_dim': 256,
+    'vocab_size': 256000, 'max_position_embeddings': 8192, 'rms_norm_eps': 1e-06,
+    'rope_theta': 10000.0, 'attention_bias': False, 'query_pre_attn_scalar': 256,
+    'attn_logit_softcapping': 50.0, 'final_logit_softcapping': 30.0,
+    'sliding_window': 4096, 'bos_token_id': 2, 'eos_token_id': 1,
+    'torch_dtype': 'bfloat16',
+}
+# the public config.json of THUDM/GLM-4-9B-0414 (its fields the port reads): 32 / 2
+# heads (G 16), rope on half of each head in pair order, sandwich norms
+GLM4_9B = {
+    'architectures': ['Glm4ForCausalLM'], 'model_type': 'glm4',
+    'hidden_size': 4096, 'intermediate_size': 13696, 'num_hidden_layers': 40,
+    'num_attention_heads': 32, 'num_key_value_heads': 2, 'head_dim': 128,
+    'partial_rotary_factor': 0.5, 'vocab_size': 151552, 'max_position_embeddings': 32768,
+    'rms_norm_eps': 1e-05, 'rope_theta': 10000.0, 'attention_bias': True,
+    'tie_word_embeddings': False, 'eos_token_id': [151329, 151336, 151338],
+    'torch_dtype': 'bfloat16',
+}
+# the public config.json of bigcode/starcoder2-7b (its fields the port reads; it names
+# no tie_word_embeddings, so the transformers default, True, holds): 36 / 4 heads (G 9),
+# LayerNorm, biases, an ungated MLP and a window of 4,096 on every layer
+STARCODER2_7B = {
+    'architectures': ['Starcoder2ForCausalLM'], 'model_type': 'starcoder2',
+    'hidden_size': 4608, 'intermediate_size': 18432, 'num_hidden_layers': 32,
+    'num_attention_heads': 36, 'num_key_value_heads': 4, 'vocab_size': 49152,
+    'max_position_embeddings': 16384, 'norm_epsilon': 1e-05, 'rope_theta': 1000000,
+    'sliding_window': 4096, 'use_bias': True, 'bos_token_id': 0, 'eos_token_id': 0,
+    'torch_dtype': 'bfloat16',
+}
 # the engine's switches of each W4A16 schedule (read when the ModelAgent is built), and
 # the kernel each runs
 W4_SCHEDULES = {'gd': {}, 'fast': {'LMDEPLOY_TPU_W4_FAST': '1'},
@@ -491,12 +535,16 @@ def gptoss_config(num_layers: int = 24):
 # stays well inside its time limit (to 8 when the decode_graphs phase joined the CP
 # cell); width, heads, vocab and the traffic stay as published
 L31 = 8
-# the Mixtral-8x7B and gpt-oss-20b e2e phases' depth, cut from 32 and 24 layers beside
-# the DeepSeek-V2-Lite phases at full depth, for the same reason (Mixtral's to 8: with
-# the overlap each prefill wave waits behind a decode run that widens every expert of
-# every layer at each step); width, experts, vocab and traffic stay as published
-LMIX = 8
+# the Mixtral-8x7B and gpt-oss-20b e2e phases' depth, cut from 32 and 24 layers for
+# the same reason (Mixtral's to 4: with the overlap each prefill wave waits behind a
+# decode run that widens every expert of every layer at each step); and the W4A16 +
+# int8 cell's (llama2-7b, 32 layers) and DeepSeek-V2-Lite's (27), cut to 8 each when
+# the dense variants' cells joined the script; width, experts, vocab and traffic stay
+# as published
+LMIX = 4
 LGPT = 12
+LW4 = 8
+LDS = 8
 
 
 def llama31_config(num_layers: int = 32):
@@ -648,7 +696,7 @@ def flash_phase():
     # Qwen2-7B's G = 7 (28 / 4 heads) at T 2048 and Qwen2-1.5B's G = 6 (12 / 2) in f16
     # at a ragged T: 128-row blocks that are not a whole number of positions;
     # GLM-4.5-Air's G = 12 (96 / 8 heads) at the e2e_glm45_air cell's long prompt and
-    # its prefill batch of 16 x 256
+    # its prefill batch of 16 x 256, and GLM-4-9B's G = 16 (32 / 2) at e2e_glm4_9b's
     for label, B, T, Hq, Hkv, D, dtype in (
             ('tinyllama_t2048', 1, 2048, 32, 4, 64, 'bfloat16'),
             ('d128_g1', 1, 1000, 32, 32, 128, 'bfloat16'),
@@ -664,7 +712,9 @@ def flash_phase():
             ('qwen2_7b_g7_t2048', 1, 2048, 28, 4, 128, 'bfloat16'),
             ('qwen2_1p5b_g6_f16', 2, 300, 12, 2, 128, 'float16'),
             ('glm45_air_t2048', 1, 2048, 96, 8, 128, 'bfloat16'),
-            ('glm45_air_b16_t256', 16, 256, 96, 8, 128, 'bfloat16')):
+            ('glm45_air_b16_t256', 16, 256, 96, 8, 128, 'bfloat16'),
+            ('glm4_9b_t2048', 1, 2048, 32, 2, 128, 'bfloat16'),
+            ('glm4_9b_b16_t256', 16, 256, 32, 2, 128, 'bfloat16')):
         dt = getattr(torch, dtype)
         q = torch.randn(B, T, Hq, D, device='cuda', generator=gen).to(dt)
         k = torch.randn(B, T, Hkv, D, device='cuda', generator=gen).to(dt)
@@ -739,13 +789,17 @@ def plain_layout_path(D: int, q_dtype: torch.dtype, page_dtype: torch.dtype) -> 
 # shapes, each held against the plain version
 NARROW_SPLIT_SWEEP = (256, 512, 1024, 2048)
 NARROW_SWEEP_CASES = ('plain', 'e2e_long', 'gptoss_sliding', 'gptoss_full', 'd128_g1',
-                      'glm45_air')
+                      'glm45_air', 'glm4_9b', 'starcoder2_7b')
+# the dense cells' sessions (their long prompts and 32 tokens in 128-token pages)
+DENSE_W = (6144 + 128 + 127) // 128
+# the option each decode trap of the dense cells' cases leaves out
+DECODE_TRAP_OPT = {'softcap_left_out': 'logit_softcap', 'window_left_out': 'window'}
 
 
 def decode_cases():
     """decode_phase's cases, (label, B, Hq, Hkv, D, lens, W, opts): lens marks padding
-    rows -1; opts may give q's dtype, the block size (default 128), window, softcap and
-    sinks (True: drawn with the case)."""
+    rows -1; opts may give q's dtype, the block size (default 128), window, softcap,
+    sinks (True: drawn with the case) and a factor on q (``q_scale``)."""
     rng = np.random.RandomState(SEED)
     # bs64 TinyLlama heads, ragged lengths averaging ~384, one inactive row and
     # four padding rows (marked -1); then a D=128, G=1 (llama2-7b heads) case
@@ -780,6 +834,16 @@ def decode_cases():
     # warp's 16 rows part padding): the 64-row bucket with 63 rows of 257-288 tokens and
     # one of 2,049-2,080, the 17-page table
     lens_cells = np.concatenate([rng.randint(257, 289, size=63), rng.randint(2049, 2081, 1)])
+    # the dense cells' decode shapes, 63 rows of 257-288 tokens and one long row:
+    # Gemma-2-9B's (16 / 8 heads, D 256, softcap 50; its even layers' window of 4,096,
+    # which the long row of 6,145-6,176 tokens has outgrown; q scaled so that the scores
+    # spread as parity_gemma2_9b's raw prefill scores do: std 23.16 / 23.11 on its two
+    # layers, max |s| 125, its attn_score_std on H100 80GB HBM3 at 700 W), GLM-4-9B's
+    # G 16 (32 / 2, D 128; the long row 2,049-2,080) and StarCoder2-7B's G 9 (36 / 4,
+    # D 128, the window of 4,096 on every layer)
+    lens_long_window = np.concatenate([rng.randint(257, 289, size=63),
+                                       rng.randint(6145, 6177, 1)])
+    gemma2 = {'logit_softcap': 50.0, 'q_scale': 23.0, 'held_traps': ('softcap_left_out',)}
     return [
         ('plain', 64, 32, 4, 64, lens64, 8, {}),
         ('window', 64, 32, 4, 64, lens64, 8, {'window': 200}),
@@ -806,6 +870,12 @@ def decode_cases():
         ('d192_f32', 16, 8, 2, 192, lens16, 17, {'dtype': torch.float32}),
         ('mla_v2_lite_f32', 16, 16, 1, 576, lens16, 17, {'dtype': torch.float32}),
         ('glm45_air', 64, 96, 8, 128, lens_cells, 17, {}),
+        ('gemma2_9b', 64, 16, 8, 256, lens_long_window, DENSE_W,
+         dict(gemma2, window=4096, held_traps=('softcap_left_out', 'window_left_out'))),
+        ('gemma2_9b_full', 64, 16, 8, 256, lens_long_window, DENSE_W, gemma2),
+        ('glm4_9b', 64, 32, 2, 128, lens_cells, 17, {}),
+        ('starcoder2_7b', 64, 36, 4, 128, lens_long_window, DENSE_W,
+         {'window': 4096, 'held_traps': ('window_left_out',)}),
     ]
 
 
@@ -822,8 +892,11 @@ def decode_phase():
         opts = dict(opts)
         dtype = opts.pop('dtype', torch.bfloat16)
         BS = opts.pop('block_size', 128)
+        q_scale = opts.pop('q_scale', 1.0)
+        held_traps = opts.pop('held_traps', ())
         q, cache, tables, kv_lens = _decode_inputs(gen, B, Hq, Hkv, D, BS, W, lens,
                                                    dtype=dtype)
+        q = (q.float() * q_scale).to(dtype)
         if label.startswith('mla'):
             cache[:, :, 1, :, 512:] = 0          # the V plane: the latent and 64 zeros
         if opts.get('sinks'):
@@ -848,7 +921,12 @@ def decode_phase():
                  'splits': pd.plain_layout_splits(D, cache.dtype, B, W, BS, opts.get('window')),
                  'split_plain_err_over_tol': compare(pd.paged_decode_attention_split_plain(
                      q, cache, tables, kv_lens, layer, scale, Hkv, **opts), ref, tol)[2]}
-        traps = {}
+        # the dense cells' cases: the softcap or the window left out must read beyond the
+        # tolerance (the scores reach the cap; a row has outgrown the window)
+        traps = {trap: compare(paged_decode_attention_plain(
+            q, cache, tables, kv_lens, layer, scale, Hkv,
+            **dict(opts, **{DECODE_TRAP_OPT[trap]: None})), ref, tol)[2]
+            for trap in held_traps}
         if path.startswith('narrow') and int((kv_lens > BS).sum()):
             traps['combine_without_alpha'] = compare(_split_plain_trapped(
                 'paged_decode', q, cache, tables, kv_lens, layer, scale, Hkv,
@@ -1964,6 +2042,12 @@ def decode_kv_phase():
 SMALL_PAGE_POLICIES = ((4, 'paged_decode_int8'), (8, 'paged_decode_int4'),
                        (42, 'paged_decode_turbo'))
 SMALL_PAGE_BS = (8, 2)
+# the Engine check's session: 2,304 tokens (9 x 256) make the 16- and 8-slot tables
+# split each row at the same token boundaries for every policy (``page_splits``: 9
+# splits of 256 tokens for int8, 3 of 768 for int4, 2 of 1,152 for TurboQuant), so
+# both decodes add the same terms in the same order; at the default 2,176 int8's splits
+# fall at 256 and 248 tokens, and a greedy choice on a near tie may go either way
+SMALL_PAGE_SESSION = 9 * 256
 
 
 def decode_small_pages_phase():
@@ -2052,8 +2136,9 @@ def decode_small_pages_phase():
 def _small_pages_engines(counters):
     """An Engine of TinyLlama's width at 2 layers and one seeded set of weights, for each
     quantized policy at block size 16 and then 8: four requests (37-1,100 tokens), 16
-    greedy tokens each.  At 8 slots a page each decode step must launch the policy's
-    kernel once a layer, and the greedy tokens must equal those at 16."""
+    greedy tokens each, in a ``SMALL_PAGE_SESSION``-token session.  At 8 slots a page
+    each decode step must launch the policy's kernel once a layer, and the greedy
+    tokens must equal those at 16."""
     from lmdeploy_tpu_torch.models.llama import LlamaModel
     model = tinyllama_config(num_layers=2)
     rng = np.random.RandomState(SEED + 5)
@@ -2070,7 +2155,8 @@ def _small_pages_engines(counters):
         tokens, launched = {}, {}
         for BS in (16, 8):
             with _swapped((LlamaModel, 'init_params', init_once)):
-                engine = build_engine(model, 4, policy, block_size=BS)
+                engine = build_engine(model, 4, policy, session_len=SMALL_PAGE_SESSION,
+                                      block_size=BS)
             # the wrapper's launches plus each decode graph's launches times its replays
             before = engine.model_agent.graphs.launch_totals()[0][counters[kernel].__name__]
             outs, _, _ = run_requests(engine, prompts, 16)
@@ -2382,17 +2468,18 @@ def build_engine(model, max_batch: int, quant_policy: int = 0, session_len: int 
                   configs=bundle, mesh=mesh)
 
 
-def run_requests(engine, prompts, new_tokens, sampled=()):
+def run_requests(engine, prompts, new_tokens, sampled=(), logprobs: int = 0):
     """Serve the prompts at once, greedy but for the indices in ``sampled``, which
-    draw seeded samples (top-k 40, top-p 0.95, temperature 0.8, seed 1000 + index)."""
+    draw seeded samples (top-k 40, top-p 0.95, temperature 0.8, seed 1000 + index),
+    each token with the ``logprobs`` most likely beside it."""
     from lmdeploy_tpu_torch.messages import GenerationConfig
     inst = engine.create_instance()
 
     def gen(i):
         extra = (dict(do_sample=True, top_k=40, top_p=0.95, temperature=0.8,
                       random_seed=1000 + i) if i in sampled else {})
-        return GenerationConfig(max_new_tokens=new_tokens, ignore_eos=True, logprobs=0,
-                                **extra)
+        return GenerationConfig(max_new_tokens=new_tokens, ignore_eos=True,
+                                logprobs=logprobs, **extra)
 
     async def go():
         return await asyncio.gather(*[inst.async_infer(i + 1, p, gen(i))
@@ -2574,6 +2661,7 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
                 fn.combines = 0
         agent.graphs.reset_counts()
         pipelined, overlaps = engine._pipelined_runs, engine._overlap_dispatches
+        torch.cuda.reset_peak_memory_stats()
         # the first run also records the rows of every GEMM-kernel call of the path
         with _swapped(*record if i == 0 else []):
             outs, t0, t1 = run_requests(engine, prompts, new_tokens)
@@ -2586,6 +2674,7 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
                         rows[n][run.key[1]] += run.launches.get(fn.__name__, 0) * run.replays
         results.append({'tokens': [o.token_ids for o in outs], 'outs': outs, 't0': t0,
                         't1': t1, 'steps': dict(steps), 'graphs': agent.graphs.stats(),
+                        'peak_allocated_bytes': torch.cuda.max_memory_allocated(),
                         'pipelined_runs': engine._pipelined_runs - pipelined,
                         'overlap_dispatches': engine._overlap_dispatches - overlaps,
                         'launches': {n: launches[fn.__name__] for n, fn in counters.items()},
@@ -2637,6 +2726,9 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
            'launches_forbidden': list(forbid), 'launches_ok': launches_ok,
            'rows_by_kernel': {n: dict(c) for n, c in rows.items() if c},
            'num_blocks': num_blocks,
+           # the allocator's peak in each run (weights, cache, graph pool and the
+           # prefill's transients, the gathered path's f32 scores included)
+           'peak_allocated_bytes': [r['peak_allocated_bytes'] for r in results],
            'busy_share': trace_row['device_busy_share'] if trace_row else None,
            # card numbers from the last run (cuBLAS and allocator warmed by the first)
            **serving_numbers(last_run)}
@@ -2722,6 +2814,11 @@ def model_label(model, policy: int = 0) -> str:
     if model.model_type == 'gpt_oss':
         return (f'gpt-oss-20b geometry, {model.num_layers} layers, MXFP4 experts + bf16 '
                 f'KV, random seeded weights')
+    dense = {'gemma2': 'gemma-2-9b', 'glm4': 'glm-4-9b-0414',
+             'starcoder2': 'starcoder2-7b'}.get(model.model_type)
+    if dense:
+        return (f'{dense} geometry, {model.num_layers} layers, bf16 + {KV_LABELS[policy]}, '
+                f'random seeded weights')
     family = {'phimoe': 'phi-3.5-moe', 'glm4_moe': 'glm-4.5-air',
               'deepseek': 'deepseek-moe-16b'}.get(model.model_type)
     if family:
@@ -2939,6 +3036,8 @@ def _parity_traps(cfg16, policy: int, schedule: str = 'gd', cp: int = 1):
             for t in (W8A8_LEAF_TRAPS[:1] if fmt == 'w8a8' else ())]
     if cfg16.model_type in MOE_FAMILY:
         return _moe_traps(MOE_FAMILY[cfg16.model_type])
+    if cfg16.model_type in DENSE_FAMILY:
+        return _dense_traps(DENSE_FAMILY[cfg16.model_type])
     method = (cfg16.quantization_config or {}).get('quant_method')
     if method == 'mxfp4':
         return [(t, (moe, 'mxfp4_bmm', _mx_trapped(t)), 'card') for t in MX_TRAPS]
@@ -3094,8 +3193,13 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0, schedule: str = 
         meta = AttnMeta(tables.to(dev), torch.full((B,), hist, dtype=torch.int32).to(dev),
                         torch.full((B,), q_len, dtype=torch.int32).to(dev))
         pos = (hist + torch.arange(tok.shape[1]))[None].expand(B, -1).int()
-        return model.forward(params, tok.to(dev), pos.to(dev), kv, meta,
-                             cos.to(dev), sin.to(dev), fresh_prefill=fresh).float().cpu()
+        # the CPU's dense expert stacks take the grouped GEMM at every row count: the
+        # dense combine's f32 products, summed in another order, without reading every
+        # expert of a layer from host memory for a decode step's 2 rows
+        with (_swapped((moe_ops, 'RAGGED_MIN_TOKENS', 1)) if dev == 'cpu'
+              else contextlib.nullcontext()):
+            return model.forward(params, tok.to(dev), pos.to(dev), kv, meta,
+                                 cos.to(dev), sin.to(dev), fresh_prefill=fresh).float().cpu()
 
     def prefill(which):
         route['j'] = 0
@@ -3113,7 +3217,11 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0, schedule: str = 
         cpu.append(step('cpu', kv_cpu, toks[-1], T + i, 1, False))
     route['force'] = moe
     tail['max'] = 0.0
-    lg0, kv_gpu = prefill('card')
+    # a softcapped model's raw scores on the card, each layer's (std, max |s|)
+    spread = []
+    softcapped = getattr(m16, 'attn_logit_softcap', None)
+    with _swapped(_recording_scores(spread)) if softcapped else contextlib.nullcontext():
+        lg0, kv_gpu = prefill('card')
     kv_gpu0 = kv_gpu.clone()
     card = [lg0] + decode('card', kv_gpu, toks)
     card_tail = tail['max']
@@ -3202,6 +3310,9 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0, schedule: str = 
            'positions_with_margin': decided, 'argmax_fault': argmax_fault, 'ok': ok}
     if w8a8:
         row.update(cpu_int8_input='the bf16 rounding of its f32 activations')
+    if spread:
+        row.update(attn_score_std=[a for a, _ in spread],
+                   attn_score_abs_max=[b for _, b in spread])
     if cfg16.is_mla:
         row.update(traps_reported=[t for t in reported if t in traps],
                    attn_tail_abs_max=card_tail,
@@ -3225,6 +3336,27 @@ def parity_phase(name: str, cfg16, tol: float, policy: int = 0, schedule: str = 
                          f'beyond twice the allowance): {row}')
 
 
+def _recording_scores(spread: list):
+    """A swap of the gathered prefill attention that appends, for each call on the
+    card, the (std, max |s|) of its raw scores q.k * scale (before any softcap) over
+    the causal entries: the spread a softcapped decode case's q is scaled to."""
+    from lmdeploy_tpu_torch.ops import attention as att
+    gathered = att.attention_dense_gathered
+
+    def recorded(q, k, v, history_lens, scale, *args, **kwargs):
+        if q.is_cuda:
+            B, T, Hq, D = q.shape
+            Hkv, _, S, _ = k.shape
+            s = torch.einsum('bthgd,hbsd->bhgts', q.reshape(B, T, Hkv, Hq // Hkv, D).float(),
+                             k.float()) * scale
+            pos_q = history_lens.long()[:, None] + torch.arange(T, device=q.device)
+            causal = torch.arange(S, device=q.device)[None, None, :] <= pos_q[:, :, None]
+            s = s[causal[:, None, None].expand_as(s)]
+            spread.append((s.std().item(), s.abs().max().item()))
+        return gathered(q, k, v, history_lens, scale, *args, **kwargs)
+    return att, 'attention_dense_gathered', recorded
+
+
 _PARITY_WEIGHTS = {}
 
 
@@ -3243,6 +3375,8 @@ def _parity_weights(cfg16, m16, m32, schedule: str = 'gd'):
     if key not in _PARITY_WEIGHTS:
         _PARITY_WEIGHTS.clear()
         w = m32.init_params(SEED, device='cpu', dtype=torch.float32)
+        if cfg16.model_type in DENSE_FAMILY:
+            w = _dense_parity_tree(w, DENSE_FAMILY[cfg16.model_type])
         raw_cpu = m32.fuse_projections(_bf16_tree(w, 'cpu', torch.float32))
         for key_, leaf in list(raw_cpu['layers'].items()):
             if isinstance(leaf, dict) and 'nib' in leaf:
@@ -3293,15 +3427,15 @@ def _layer_lead(rows, names, m):
 
 
 def deepseek_e2e_phase(card: str) -> dict:
-    """e2e_deepseek_v2_lite_fp8: DeepSeek-V2-Lite at full width and depth (27 layers:
-    1 dense, 26 MoE) with seeded blocked-fp8 routed experts and a bf16 MLA cache, 63
+    """e2e_deepseek_v2_lite_fp8: DeepSeek-V2-Lite at full width and LDS of its 27 layers
+    (1 dense, the rest MoE) with seeded blocked-fp8 routed experts and a bf16 MLA cache, 63
     concurrent 1024-token prompts and one of 4096, 64 greedy tokens each, run twice, then
     traced.  Each decode step (64 rows) launches fp8_bmm three times a MoE layer (the
     dense combine's gate, up and down) and paged_decode once a layer; each prefill step
     whose chunks all start their prompts launches flash_prefill once a layer, exactly;
     every prefill step has >= 768 rows, so its experts are widened for the grouped GEMM
     and fp8_bmm does not launch there."""
-    cfg = deepseek_config()
+    cfg = deepseek_config(LDS)
     L, moe_layers = cfg.num_layers, cfg.num_layers - cfg.first_k_dense_replace
     return e2e_phase('e2e_deepseek_v2_lite_fp8', cfg, 64, 0, 63,
                      {'flash_prefill': (L, 0), 'paged_decode': (0, L),
@@ -3467,7 +3601,9 @@ def w8a8_leaf_check(gen, w8, scale) -> dict:
     """The whole W8A8 product on the card (``nn.linear.linear`` on a ``{'w8', 'scale'}``
     leaf of K-major codes: the row quantizer, ``_int_mm`` and the f32 epilogue) against
     a reference of the same bf16 x, bit for bit: codes and row scales from the CPU's
-    quantizer, their product in f64 on the card (exact), ``acc * a_scale * scale`` in
+    quantizer (``absmax * fl(1/127)``, the jitted reference's, which the CPU tests hold
+    against ``jax.jit`` of ``linear``), their product in f64 on the card (exact),
+    ``acc * a_scale * scale`` in
     f32 on the CPU, then bf16.  x's rows span four decades of magnitude and row 0 holds
     half-integer values under an absmax of 127 (scale 1: every code a tie).  At each M
     of INT_MM_ROWS, eager and replayed from a captured graph; at M 64 each fault of
@@ -3554,12 +3690,14 @@ def _int8_quant_trapped(trap: str):
     """``nn.linear.quantize_rows_int8`` with one fault planted: one activation scale for
     the whole tensor ('per_tensor_act_scale') or codes rounded half up
     ('round_half_up')."""
+    from lmdeploy_tpu_torch.nn import linear
+
     def quantize(x2d):
         xf = x2d.float()
         amax = xf.abs().amax(-1, keepdim=True)
         if trap == 'per_tensor_act_scale':
             amax = amax.amax().expand_as(amax)
-        a_scale = torch.clamp_min(amax / amax.new_full((1,), 127.0), 1e-8)
+        a_scale = torch.clamp_min(amax * linear._INV127, 1e-8)
         q = xf / a_scale
         q = torch.floor(q + 0.5) if trap == 'round_half_up' else torch.round(q)
         return torch.clamp(q, -127, 127).to(torch.int8), a_scale
@@ -3608,6 +3746,104 @@ def _moe_traps(family: str):
         finally:
             cfg.norm_topk_prob = not cfg.norm_topk_prob
     return [('norm_topk_prob_flipped', (Glm4MoeModel, 'route_weights', flipped), 'card')]
+
+
+DENSE_CONFIGS = {'gemma2_9b': GEMMA2_9B, 'glm4_9b': GLM4_9B, 'starcoder2_7b': STARCODER2_7B}
+DENSE_FAMILY = {'gemma2': 'gemma2_9b', 'glm4': 'glm4_9b', 'starcoder2': 'starcoder2_7b'}
+# the dense cells' depth, cut from 42 / 40 / 32 layers so that the script stays inside
+# its time limit beside the earlier phases; widths, vocab and traffic as published.
+# Their long prompts: past Gemma-2's and StarCoder2's window of 4,096; GLM-4-9B's as
+# the other cells'
+LDENSE = 4
+DENSE_LONG = {'gemma2_9b': 6144, 'glm4_9b': 2048, 'starcoder2_7b': 6144}
+# the dense parity rows (2 layers, card bf16 against CPU f32): a first card run read
+# (H100 80GB HBM3, 700 W), floor (plain versions on the card) / kernels / held traps:
+# Gemma-2-9B 0.235 / 0.245 / 1.86 (attention softcap left out), 530.6 (final softcap
+# left out), 31.7 (norms without their +1; logits up to the cap, 30); GLM-4-9B 0.102 /
+# 0.101 / 7.89 (rope in rotate-half order), 6.20 (sandwich norms left out); StarCoder2-7B
+# 0.066 / 0.070 / 1.36 (LayerNorm without its bias).  Each allowance is about twice its
+# floor
+LOGIT_TOL_DENSE = {'gemma2_9b': 0.5, 'glm4_9b': 0.2, 'starcoder2_7b': 0.15}
+# Gemma-2's seeded wq and embedding scaled so that its attention scores (std ~20) and
+# logits (std ~10) reach the softcaps of 50 and 30, which the traps leave out; at the
+# dense init's 0.02 neither cap moves a score or a logit
+DENSE_PARITY_SCALE = {'gemma2_9b': {'wq': 16.0, 'embed': 8.0}}
+
+
+def dense_config(name: str, num_layers: int = None):
+    """The public config of the dense cell ``name``, depth cut to ``num_layers``."""
+    from lmdeploy_tpu_torch.config import ModelConfig
+    cfg = DENSE_CONFIGS[name]
+    return ModelConfig.from_hf_config(
+        dict(cfg, num_hidden_layers=num_layers or cfg['num_hidden_layers']))
+
+
+def _dense_parity_tree(params: dict, name: str) -> dict:
+    """The seeded tree with norm weights 1 + 0.1 randn and norm biases 0.1 randn, so
+    that a fault that drops a norm's weight or bias shows, and the factors of
+    DENSE_PARITY_SCALE applied."""
+    gen = torch.Generator().manual_seed(SEED + 1)
+    factors = DENSE_PARITY_SCALE.get(name, {})
+
+    def walk(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            elif 'norm' in k:
+                noise = 0.1 * torch.randn(v.shape, generator=gen)
+                out[k] = noise if k.endswith('_b') else 1.0 + noise
+            else:
+                out[k] = v * factors.get(k, 1.0)
+        return out
+    return walk(params)
+
+
+def _dense_traps(name: str):
+    """The dense cells' parity traps: Gemma-2's attention softcap and final softcap
+    left out, and its norms without the +1 of the load; GLM-4's rope in rotate-half
+    order (pairs not de-interleaved) and its sandwich norms left out; StarCoder2's
+    LayerNorm without its bias."""
+    from lmdeploy_tpu_torch.models import llama
+    if name == 'gemma2_9b':
+        attend = llama.paged_attention
+
+        def no_softcap(*args, **kwargs):
+            return attend(*args, **dict(kwargs, logit_softcap=None))
+
+        def head_without_softcap(self, params, x):
+            lm_head = params.get('lm_head')
+            lm_head = params['embed'].t() if lm_head is None else lm_head
+            return torch.matmul(x.float(), lm_head.float())
+
+        def minus_one(raw):
+            layers = {k: v - 1.0 if 'norm' in k else v for k, v in raw['layers'].items()}
+            return dict(raw, layers=layers, final_norm=raw['final_norm'] - 1.0)
+        return [('attn_softcap_left_out', (llama, 'paged_attention', no_softcap), 'card'),
+                ('final_softcap_left_out', (llama.LlamaModel, '_head', head_without_softcap),
+                 'card'),
+                ('norm_plus_one_left_out', minus_one, 'card_params')]
+    if name == 'glm4_9b':
+        from lmdeploy_tpu_torch.models.glm4 import Glm4Model
+        from lmdeploy_tpu_torch.nn.layers import apply_rope
+
+        def rotate_half(self, q, k, cos, sin, layer):
+            r = self.config.rope_dim
+            q_rot, k_rot = apply_rope(q[..., :r], k[..., :r], cos, sin)
+            return (torch.cat([q_rot, q[..., r:]], dim=-1),
+                    torch.cat([k_rot, k[..., r:]], dim=-1))
+
+        def no_sandwich(raw):
+            layers = {k: v for k, v in raw['layers'].items()
+                      if k not in ('post_attn_norm', 'post_mlp_norm')}
+            return dict(raw, layers=layers)
+        return [('rope_rotate_half', (Glm4Model, '_apply_rope', rotate_half), 'card'),
+                ('sandwich_norms_left_out', no_sandwich, 'card_params')]
+    from lmdeploy_tpu_torch.models import starcoder2
+    from lmdeploy_tpu_torch.nn.layers import layer_norm
+    return [('layer_norm_bias_left_out',
+             (starcoder2, 'layer_norm', lambda x, w, b, eps: layer_norm(x, w, None, eps)),
+             'card')]
 
 
 def kernel_line(flash, decode, decode8, w4, mx, kv, szc, unprep, fp8, cp, mla_quant):
@@ -3803,8 +4039,11 @@ def main():
     for family, tol in LOGIT_TOL_MOE.items():
         name = f'parity_{family}'
         timed(name, parity_phase, name, moe_config(family, 2), tol)
+    for family, tol in LOGIT_TOL_DENSE.items():
+        name = f'parity_{family}'
+        timed(name, parity_phase, name, dense_config(family, 2), tol)
     _PARITY_WEIGHTS.clear()
-    L1, L7 = tinyllama_config().num_layers, llama7b_w4_config().num_layers
+    L1, L7 = tinyllama_config().num_layers, LW4
     # launches each (prefill step, decode step) needs on each path, and the path whose
     # launches each kernel's entry reports; the Llama-3.1-8B phases share one set of
     # seeded weights and must launch exactly that many
@@ -3839,7 +4078,7 @@ def main():
     # 17-page table (its combine counted apart), and the gd GEMM four times a layer per
     # decode step and per prefill step of at most 256 rows
     paths['e2e_w4a16_kv8'] = timed(
-        'e2e_w4a16_kv8', e2e_phase, 'e2e_w4a16_kv8', llama7b_w4_config(), 128, 4, 64,
+        'e2e_w4a16_kv8', e2e_phase, 'e2e_w4a16_kv8', llama7b_w4_config(LW4), 128, 4, 64,
         {'flash_prefill': (L7, 0), 'paged_decode_int8': (0, L7),
          'w4a16_gemm': (0, 4 * L7, 4 * L7)},
         info['nvidia_smi'], exact=True, combined={'paged_decode_int8': 1},
@@ -3885,6 +4124,19 @@ def main():
                             {'flash_prefill': (L, 0), 'paged_decode': (0, L)},
                             info['nvidia_smi'], short_len=256, long_len=long_len,
                             exact=True, new_tokens=32,
+                            graphs_check=dict(traffic=('greedy',), trace=False))
+    # the dense variants: the same traffic with the long prompt past Gemma-2's and
+    # StarCoder2's window; their attention softcap or window sends every prefill chunk to
+    # the gathered path (no flash_prefill), GLM-4's fresh chunks take flash_prefill
+    for family in DENSE_CONFIGS:
+        name, model = f'e2e_{family}', dense_config(family, LDENSE)
+        L = model.num_layers
+        flash = family == 'glm4_9b'
+        need = dict({'flash_prefill': (L, 0)} if flash else {}, paged_decode=(0, L))
+        paths[name] = timed(name, e2e_phase, name, model, 64, 0, 63, need,
+                            info['nvidia_smi'], short_len=256, long_len=DENSE_LONG[family],
+                            exact=True, new_tokens=32,
+                            forbid=() if flash else ('flash_prefill',),
                             graphs_check=dict(traffic=('greedy',), trace=False))
     main_path = {'fp8_bmm': 'e2e_deepseek_v2_lite_fp8', 'flash_prefill': 'e2e',
                  'paged_decode': 'e2e', 'paged_decode_cp': 'e2e_llama31_8b_cp2',

@@ -1,11 +1,13 @@
 """Time the redesigned kernels with one part of their design taken out at a time, on one
-CUDA card: the int4, TurboQuant, int8 and narrow (2-byte and e4m3 pages) paged decodes,
-the context-parallel partials, mxfp4_bmm, and the four W4A16 GEMM schedules.
+CUDA card: the int4, TurboQuant, int8, narrow (2-byte and e4m3 pages) and wide (2-byte
+pages at D 192-576) paged decodes, the context-parallel partials, mxfp4_bmm, and the four
+W4A16 GEMM schedules.
 
     python3 chip_steps.py [--kernels paged_decode_int4 paged_decode_turbo paged_decode
-                           paged_decode_fp8 paged_decode_int8 paged_decode_cp mxfp4_bmm
-                           w4a16_gd w4a16_fast w4a16_precise w4a16_unprepared]
-                          [--cases CASE ...]
+                           paged_decode_wide paged_decode_fp8 paged_decode_int8
+                           paged_decode_cp mxfp4_bmm w4a16_gd w4a16_fast w4a16_precise
+                           w4a16_unprepared]
+                          [--cases CASE ...] [--q-scales X ...]
 
 Each step but `full` and `one_split` compiles an edited copy of the kernels' sources
 (`lmdeploy_tpu_torch/csrc/` copied under `work_dir/steps/<step>/`, one part removed),
@@ -13,7 +15,8 @@ loads it in place of the package's library and times the wrapper at its cases, t
 decodes' split combine included (the context-parallel decode: both ranks' partials and
 their combine).  The decodes run at cases of `chip_smoke.kv_decode_cases` (int4,
 TurboQuant, e4m3; caches filled as `decode_kv_phase` fills them), of
-`chip_smoke.decode_cases` (2-byte pages), `int8_decode_cases` and `cp_decode_cases`;
+`chip_smoke.decode_cases` (2-byte pages; a case's `q_scale`, or each of `--q-scales`,
+multiplies its q), `int8_decode_cases` and `cp_decode_cases`;
 mxfp4_bmm at rows of `chip_smoke.MX_SHAPES`.  The int8, 2-byte, e4m3 and context-parallel
 decodes share narrow_decode.cuh's body, where their steps' edits are.  The decodes'
 steps:
@@ -30,8 +33,8 @@ steps:
   no_pv           no P.V products (the V decode and MMAs);
   p_once          2-byte pages only: P rounded once to the page type for P.V, as the
                   Pallas kernel does (pr.astype(v.dtype)), in place of hi + lo (one
-                  product where there are two); its output is held against the plain
-                  version like `full`'s.
+                  product where there are two; the wide path's at D 192 / 256); its
+                  output is held against the plain version like `full`'s.
 mxfp4_bmm's steps:
   full            the committed kernel (held against the plain version);
   loads_only      the producer streams every stage, the consumers release it unread;
@@ -78,11 +81,13 @@ sys.path.insert(0, ROOT)
 # each kernel's source, the module constant of its split (None: no split), and the files
 # its design's parts are in (the narrow decodes' shared body is narrow_decode.cuh's)
 NARROW = 'narrow_decode.cuh'
+WIDE = 'paged_decode.cu'
 KERNELS = {'paged_decode_int4': ('paged_decode_int4', 'SPLIT_TOKENS_INT4',
                                  ('paged_decode_int4.cu',)),
            'paged_decode_turbo': ('paged_decode_turbo', 'SPLIT_TOKENS_TURBO',
                                   ('paged_decode_turbo.cu',)),
            'paged_decode': ('paged_decode', 'SPLIT_TOKENS_NARROW', (NARROW,)),
+           'paged_decode_wide': ('paged_decode', 'SPLIT_TOKENS_MMA', (WIDE,)),
            'paged_decode_fp8': ('paged_decode', 'SPLIT_TOKENS_NARROW', (NARROW,)),
            'paged_decode_int8': ('paged_decode_int8', 'SPLIT_TOKENS_INT8', (NARROW,)),
            'paged_decode_cp': ('paged_decode_cp', 'SPLIT_TOKENS_CP', (NARROW,)),
@@ -135,12 +140,15 @@ DECODE_STEPS = {
         'for (int u = 0; u < 0; ++u) {\n      if constexpr'),),
     'p_once': ((NARROW, '          attn::Mma<T>::run(o[u][n], va, ph[0], ph[1]);\n'
                         '          attn::Mma<T>::run(o[u][n], va, pl[0], pl[1]);\n',
-                '          attn::Mma<T>::run(o[u][n], va, ph[0], ph[1]);\n'),),
+                '          attn::Mma<T>::run(o[u][n], va, ph[0], ph[1]);\n'),
+               (WIDE, 'constexpr bool mma_p_hi_lo() { return D < 576; }',
+                'constexpr bool mma_p_hi_lo() { return false; }')),
 }
 # the steps a kernel leaves out: the decode steps of the element types it does not read,
 # and (int8, cp) the block barrier, which costs the narrow body 0.5-3% (PERF.md §6)
 STEP_KERNELS = {'no_decode': ('paged_decode_fp8', 'paged_decode_int8'),
-                'cvt_decode': ('paged_decode_int8',), 'p_once': ('paged_decode',),
+                'cvt_decode': ('paged_decode_int8',),
+                'p_once': ('paged_decode', 'paged_decode_wide'),
                 'block_barrier': ('paged_decode_int4', 'paged_decode_turbo', 'paged_decode',
                                   'paged_decode_fp8')}
 MX = 'mxfp4_bmm.cu'
@@ -199,6 +207,7 @@ DECODE_CASES = {'paged_decode_int4': ['e2e_shape_llama31', 'bs64_7b_heads',
                 'paged_decode_fp8': ['e2e_shape_llama31', 'bs64_tinyllama_heads'],
                 'paged_decode': ['plain', 'e2e_long', 'gptoss_sliding',
                                  'rows_shorter_than_a_split', 'bs8'],
+                'paged_decode_wide': ['gemma2_9b', 'd256_window', 'mla_v2_lite'],
                 'paged_decode_int8': ['e2e_shape_7b', 'bs64_7b', 'bs64_tinyllama_heads'],
                 'paged_decode_cp': ['e2e_cp2', 'e2e_cp4'],
                 'mxfp4_bmm': ['gate_m64', 'down_m64', 'gate_m767']}
@@ -256,10 +265,10 @@ def build_steps(root: str, kernels) -> dict:
     return libs
 
 
-def kernel_cases(c, kernel, label, gen):
+def kernel_cases(c, kernel, label, gen, q_scale=None):
     """(call, plain call, splits) of one case: the wrapper and its plain version on the
     case's seeded inputs, and the split of its rows' pages the wrapper takes now (None
-    for mxfp4_bmm)."""
+    for mxfp4_bmm).  ``q_scale`` replaces a 2-byte decode case's own factor on q."""
     from lmdeploy_tpu_torch.config import ModelConfig
     from lmdeploy_tpu_torch.ops import paged_decode as pd
     from lmdeploy_tpu_torch.ops import quant_bmm as qb
@@ -333,12 +342,17 @@ def kernel_cases(c, kernel, label, gen):
                 lambda: c._cp_plain()(q, kv, tables, kv_lens, 1, D ** -0.5, Hkv, mesh,
                                       **opts),
                 lambda: pd.cp_splits(W, 128 // cp, D, dtype))
-    if kernel == 'paged_decode':
+    if kernel in ('paged_decode', 'paged_decode_wide'):
         _, B, Hq, Hkv, D, lens, W, opts = next(s for s in c.decode_cases() if s[0] == label)
         opts = dict(opts)
         BS = opts.pop('block_size', 128)
+        dtype = opts.pop('dtype', torch.bfloat16)
+        own_q_scale = opts.pop('q_scale', 1.0)
+        scale_q = own_q_scale if q_scale is None else q_scale
+        opts.pop('held_traps', None)
         q, cache, tables, kv_lens = c._decode_inputs(gen, B, Hq, Hkv, D, BS, W, lens,
-                                                     dtype=opts.pop('dtype', torch.bfloat16))
+                                                     dtype=dtype)
+        q = (q.float() * scale_q).to(dtype)
         if opts.get('sinks'):
             opts['sinks'] = torch.randn(Hq, device='cuda', generator=gen) * 2
         return (lambda: pd.paged_decode_attention(q, cache, tables, kv_lens, 1, D ** -0.5,
@@ -381,6 +395,15 @@ def kernel_cases(c, kernel, label, gen):
             splits)
 
 
+def _q_scales(c, kernel, label, scales):
+    """The q factors a case runs at: each of ``scales`` for a 2-byte decode case that
+    scales its q, else the case's own (None)."""
+    if scales and kernel in ('paged_decode', 'paged_decode_wide') and 'q_scale' in next(
+            s for s in c.decode_cases() if s[0] == label)[7]:
+        return scales
+    return [None]
+
+
 def main() -> int:
     import chip_smoke as c
     from lmdeploy_tpu_torch.ops import cuda_build
@@ -389,6 +412,9 @@ def main() -> int:
     ap.add_argument('--kernels', nargs='+', choices=list(KERNELS), default=list(KERNELS))
     ap.add_argument('--cases', nargs='+', help='the cases of every kernel named (default: '
                     'each kernel\'s own list)')
+    ap.add_argument('--q-scales', nargs='+', type=float,
+                    help='2-byte decode cases with a q_scale of their own run at each of '
+                    'these instead')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('chip_steps: no CUDA device available', file=sys.stderr)
@@ -402,10 +428,11 @@ def main() -> int:
     for kernel in args.kernels:
         source, const, _ = KERNELS[kernel]
         tol = c.KERNEL_TOL[c.W4_KERNEL_OF[W4_KERNELS[kernel][0]] if kernel in W4_KERNELS
-                           else kernel]
+                           else source if kernel == 'paged_decode_wide' else kernel]
         package_lib = cuda_build.load(source)
-        for label in args.cases or DECODE_CASES[kernel]:
-            kern, plain, splits = kernel_cases(c, kernel, label, gen)
+        for label, q_scale in [(label, q) for label in args.cases or DECODE_CASES[kernel]
+                               for q in _q_scales(c, kernel, label, args.q_scales)]:
+            kern, plain, splits = kernel_cases(c, kernel, label, gen, q_scale)
             chosen = getattr(pd, const) if const else None
             for step in steps_of(kernel):
                 cuda_build._libs[source] = (ctypes.CDLL(libs[(step, source)])
@@ -413,6 +440,8 @@ def main() -> int:
                 if step == 'one_split':
                     setattr(pd, const, 1 << 30)
                 row = {'step': step, 'kernel': kernel, 'case': label, 'ms': c.time_ms(kern)}
+                if q_scale is not None:
+                    row['q_scale'] = q_scale
                 if splits:
                     row['splits'] = splits()
                 if step in ('full', 'one_split', 'p_once', 'cvt_decode'):

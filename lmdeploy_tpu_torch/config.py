@@ -1,8 +1,8 @@
 """Internal engine configuration derived from user configs + HF model configs.
 
 Port of ``lmdeploy_tpu/config.py`` for the families the port serves (the dense llama
-family, the Mixtral / Qwen-MoE / PhiMoE family, gpt-oss, DeepSeek-V2 / V3, GLM-4.5 MoE
-and DeepSeek-MoE), with the
+family and its variants, ChatGLM's legacy field names included, the Mixtral / Qwen-MoE
+/ PhiMoE family, gpt-oss, DeepSeek-V2 / V3, GLM-4.5 MoE and DeepSeek-MoE), with the
 reference's MoE and MLA fields and its mesh geometry (``DistConfig``).  Dtypes are torch dtypes; the multimodal config fields
 of the reference are not carried until a slice ports those models.
 """
@@ -21,6 +21,19 @@ _DTYPES = {
     'float16': torch.float16,
     'bfloat16': torch.bfloat16,
     'float32': torch.float32,
+}
+
+
+# ``tie_word_embeddings`` of the transformers config class of each model type the port
+# serves that transformers defines (the others run remote code, and the reference
+# then keeps False); tests/test_torch_dense_families.py checks it against
+# ``transformers.CONFIG_MAPPING``
+TIED_EMBEDDING_DEFAULT = {
+    'llama': False, 'mistral': False, 'qwen2': False, 'qwen3': False, 'mixtral': False,
+    'qwen2_moe': False, 'qwen3_moe': False, 'gpt_oss': False, 'deepseek_v2': False,
+    'deepseek_v3': False, 'glm4_moe': False, 'phimoe': False, 'phi3': False,
+    'glm4': False, 'glm': False, 'gemma': True, 'gemma2': True, 'gemma3_text': True,
+    'gemma3': True, 'starcoder2': True,
 }
 
 
@@ -103,6 +116,27 @@ class ModelConfig:
     @classmethod
     def from_hf_config(cls, cfg: Dict[str, Any], dtype: str = 'auto') -> 'ModelConfig':
         archs = cfg.get('architectures') or ['LlamaForCausalLM']
+        if cfg.get('model_type') == 'chatglm' or 'multi_query_group_num' in cfg:
+            # the legacy THUDM ChatGLM2 / 3 and GLM-4 configs name their fields their
+            # own way (reference config.py:128-144)
+            cfg = dict(cfg)
+            cfg.setdefault('num_hidden_layers', cfg.get('num_layers', 28))
+            if cfg.get('multi_query_attention'):
+                cfg.setdefault('num_key_value_heads', cfg['multi_query_group_num'])
+            cfg.setdefault('intermediate_size', cfg.get('ffn_hidden_size'))
+            cfg.setdefault('vocab_size', cfg.get('padded_vocab_size', 65024))
+            cfg.setdefault('head_dim', cfg.get('kv_channels'))
+            cfg.setdefault('rms_norm_eps', cfg.get('layernorm_epsilon', 1e-5))
+            cfg.setdefault('max_position_embeddings', cfg.get('seq_length', 8192))
+            cfg.setdefault('rope_theta', 10000.0 * cfg.get('rope_ratio', 1.0))
+            cfg.setdefault('partial_rotary_factor', 0.5)
+            cfg.setdefault('attention_bias', cfg.get('add_qkv_bias', False))
+            cfg.setdefault('tie_word_embeddings', False)
+        if 'tie_word_embeddings' not in cfg and cfg.get('model_type') in TIED_EMBEDDING_DEFAULT:
+            # a config.json omits a value equal to its transformers class's default,
+            # which is True for some families (reference config.py:224-236 asks
+            # transformers.CONFIG_MAPPING; the port keeps its own table)
+            cfg = dict(cfg, tie_word_embeddings=TIED_EMBEDDING_DEFAULT[cfg['model_type']])
         num_heads = cfg.get('num_attention_heads', 32)
         hidden = cfg.get('hidden_size', 4096)
         head_dim = cfg.get('head_dim') or hidden // num_heads

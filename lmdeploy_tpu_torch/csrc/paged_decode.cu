@@ -61,9 +61,16 @@
 //     cp.async copies: sub-chunk i + 1's copies are in flight while sub-chunk i is
 //     computed.  S = Q K^T on mma.sync m16n8k16 over all of D, each warp taking a
 //     quarter of the sub-chunk's keys; the row max and row sum are combined across the
-//     warps in a fixed order; P is rounded to the page type for P.V, as the Pallas
-//     kernel does (pr.astype(v.dtype)); for O += P V each warp owns a quarter of D's
-//     columns with its f32 accumulator in registers (V fragments from ldmatrix.trans).
+//     warps in a fixed order; at D 192 / 256 P goes to P.V as hi + lo in the page type
+//     (two products, as the narrow body's), more precise than the Pallas kernel's one
+//     rounding (pr.astype(v.dtype)): rounded once, Gemma-2-9B's decode (softcap 50)
+//     read 2.1-2.6x the tolerance against the f32-P plain version at score spreads of
+//     std 8-40 (2.4x at 23, the spread its parity row's prefill scores have), hi + lo
+//     0.64-0.70x, for 1-2% more time (chip_steps.py p_once; H100 80GB HBM3, 700 W).
+//     MLA's 576 keeps the one rounding: its P.V is half its tensor-core work, and its
+//     cases pass; for O += P V
+//     each warp owns a quarter of D's columns with its f32 accumulator in registers (V
+//     fragments from ldmatrix.trans).
 //   * Wide (f32 pages at any D, e4m3 pages at D > 128; D a runtime value): a block of
 //     512 threads takes a group of up to 16 query heads and walks its pages in
 //     sub-chunks of TC tokens (128 up to D = 128, 64 up to 256, 32 at 576).  Each
@@ -485,11 +492,16 @@ paged_decode_wide(const TQ* __restrict__ q,                 // [B, Hq, D]
 constexpr int NTM = 128;          // 4 warps
 constexpr int MST = 2;            // sub-chunk ring stages
 
+// P as hi + lo below MLA's latent 576
+template <int D>
+__host__ __device__ constexpr bool mma_p_hi_lo() { return D < 576; }
+
 template <int D, int TC>
 __host__ __device__ constexpr int mma_smem() {
-  // Q [GB][D + 8], the ring [MST][K, V][TC][D + 8], P [GB][TC + 8] (2-byte elements),
-  // then the per-warp row maxima and sums [2][4][GB] f32
-  return (GB * (D + 8) + MST * 2 * TC * (D + 8) + GB * (TC + 8)) * 2 + 2 * 4 * GB * 4;
+  // Q [GB][D + 8], the ring [MST][K, V][TC][D + 8], P (and its lo parts) [GB][TC + 8]
+  // (2-byte elements), then the per-warp row maxima and sums [2][4][GB] f32
+  return (GB * (D + 8) + MST * 2 * TC * (D + 8) + (mma_p_hi_lo<D>() ? 2 : 1) * GB * (TC + 8))
+             * 2 + 2 * 4 * GB * 4;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool copy) {
@@ -516,12 +528,14 @@ paged_decode_mma(const T* __restrict__ q,                 // [B, Hq, D]
   constexpr int NTW = TC / 32;         // n8 key tiles per warp for S
   constexpr int DW = D / 4;            // output columns per warp
   constexpr int DT = DW / 8;           // n8 tiles over them
+  constexpr bool HILO = mma_p_hi_lo<D>();
   static_assert(DT % 2 == 0 && TC % 32 == 0, "two n8 tiles per ldmatrix.x4");
   extern __shared__ __align__(16) uint8_t mma_raw[];
   T* Qs = reinterpret_cast<T*>(mma_raw);         // [GB][ST]
   T* ring = Qs + GB * ST;                         // [MST][2][TC][ST]
   T* Ps = ring + MST * 2 * TC * ST;               // [GB][PST]
-  float* rmax = reinterpret_cast<float*>(Ps + GB * PST);   // [4][GB]
+  T* Pl = Ps + GB * PST;                          // [GB][PST] with HILO
+  float* rmax = reinterpret_cast<float*>(Pl + (HILO ? GB * PST : 0));   // [4][GB]
   float* rsum = rmax + 4 * GB;                              // [4][GB]
 
   const int G = Hq / Hkv;
@@ -663,11 +677,21 @@ paged_decode_mma(const T* __restrict__ q,                 // [B, Hq, D]
       s[n][3] = expf(s[n][3] - mn1);
       sum0 += s[n][0] + s[n][1];
       sum1 += s[n][2] + s[n][3];
-      // P in the page type for the P.V product
+      // P in the page type for the P.V product (hi, and with HILO what it leaves)
       const int c = (warp * NTW + n) * 8 + 2 * tig;
-      *reinterpret_cast<uint32_t*>(Ps + gid * PST + c) = attn::Mma<T>::pack(s[n][0], s[n][1]);
-      *reinterpret_cast<uint32_t*>(Ps + (gid + 8) * PST + c) =
-          attn::Mma<T>::pack(s[n][2], s[n][3]);
+      if constexpr (HILO) {
+        uint32_t h, l;
+        ndec::split_hi_lo<T>(s[n][0], s[n][1], h, l);
+        *reinterpret_cast<uint32_t*>(Ps + gid * PST + c) = h;
+        *reinterpret_cast<uint32_t*>(Pl + gid * PST + c) = l;
+        ndec::split_hi_lo<T>(s[n][2], s[n][3], h, l);
+        *reinterpret_cast<uint32_t*>(Ps + (gid + 8) * PST + c) = h;
+        *reinterpret_cast<uint32_t*>(Pl + (gid + 8) * PST + c) = l;
+      } else {
+        *reinterpret_cast<uint32_t*>(Ps + gid * PST + c) = attn::Mma<T>::pack(s[n][0], s[n][1]);
+        *reinterpret_cast<uint32_t*>(Ps + (gid + 8) * PST + c) =
+            attn::Mma<T>::pack(s[n][2], s[n][3]);
+      }
     }
     sum0 = attn::quad_sum(sum0);
     sum1 = attn::quad_sum(sum1);
@@ -700,6 +724,13 @@ paged_decode_mma(const T* __restrict__ q,                 // [B, Hq, D]
       pa[1] = attn::ld32(Ps + (gid + 8) * PST + kc * 16 + 2 * tig);
       pa[2] = attn::ld32(Ps + gid * PST + kc * 16 + 8 + 2 * tig);
       pa[3] = attn::ld32(Ps + (gid + 8) * PST + kc * 16 + 8 + 2 * tig);
+      uint32_t pl[4];
+      if constexpr (HILO) {
+        pl[0] = attn::ld32(Pl + gid * PST + kc * 16 + 2 * tig);
+        pl[1] = attn::ld32(Pl + (gid + 8) * PST + kc * 16 + 2 * tig);
+        pl[2] = attn::ld32(Pl + gid * PST + kc * 16 + 8 + 2 * tig);
+        pl[3] = attn::ld32(Pl + (gid + 8) * PST + kc * 16 + 8 + 2 * tig);
+      }
       const T* vr = vs + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ST
                     + (lane >> 4) * 8 + warp * DW;
 #pragma unroll
@@ -708,6 +739,10 @@ paged_decode_mma(const T* __restrict__ q,                 // [B, Hq, D]
         attn::ldsm_x4_trans(vb4, vr + dt * 8);
         attn::Mma<T>::run(o[dt], pa, vb4[0], vb4[1]);
         attn::Mma<T>::run(o[dt + 1], pa, vb4[2], vb4[3]);
+        if constexpr (HILO) {
+          attn::Mma<T>::run(o[dt], pl, vb4[0], vb4[1]);
+          attn::Mma<T>::run(o[dt + 1], pl, vb4[2], vb4[3]);
+        }
       }
     }
   }

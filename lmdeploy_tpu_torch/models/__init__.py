@@ -1,10 +1,12 @@
 """Model registry: HF architecture name -> model builder.
 
 Port of ``lmdeploy_tpu/models/__init__.py`` for the families ported so far: the dense
-llama builders (``_llama``, ``_qwen2``, ``_qwen3``), the sparse-MoE ones (``_mixtral``,
-``_qwen2_moe``, ``_qwen3_moe``, ``_phimoe``), ``_gpt_oss``, ``_deepseek`` (DeepSeek-V2 /
-V3 with MLA), and DeepSeek's MoE with GQA attention (``_glm4_moe``, ``_deepseek_v1``):
-12 of the reference's 68 architectures; the other families are not ported yet.
+llama builders (``_llama``, ``_qwen2``, ``_qwen3``), the dense variants (``_gemma``,
+``_phi3``, ``_glm4``, ``_chatglm``, ``_internlm2``, ``_baichuan``, ``_internlm_v1``,
+``_starcoder2``, ``_minicpm``), the sparse-MoE ones (``_mixtral``, ``_qwen2_moe``,
+``_qwen3_moe``, ``_phimoe``), ``_gpt_oss``, ``_deepseek`` (DeepSeek-V2 / V3 with MLA),
+and DeepSeek's MoE with GQA attention (``_glm4_moe``, ``_deepseek_v1``): 30 of the
+reference's 68 architectures; the other families are not ported yet.
 """
 from __future__ import annotations
 
@@ -97,6 +99,68 @@ def _glm4_moe(config: ModelConfig) -> LlamaModel:
 def _phimoe(config: ModelConfig) -> LlamaModel:
     from .phimoe import PhiMoeModel
     return PhiMoeModel(config)
+
+
+@register_model('GemmaForCausalLM', 'Gemma2ForCausalLM', 'Gemma3ForCausalLM',
+                'Gemma3TextForCausalLM')
+def _gemma(config: ModelConfig) -> LlamaModel:
+    from .gemma import GemmaModel
+    config.tie_word_embeddings = True
+    return GemmaModel(config)
+
+
+@register_model('Phi3ForCausalLM', 'Phi3SmallForCausalLM', 'Phi4MMForCausalLM')
+def _phi3(config: ModelConfig) -> LlamaModel:
+    from .phi3 import Phi3Model
+    return Phi3Model(config)
+
+
+@register_model('Glm4ForCausalLM', 'GlmForCausalLM')
+def _glm4(config: ModelConfig) -> LlamaModel:
+    from .glm4 import Glm4Model
+    model = Glm4Model(config)
+    if config.hf_arch == 'GlmForCausalLM':      # glm-4-9b-hf: no sandwich norms
+        model.sandwich_norms = False
+    return model
+
+
+@register_model('ChatGLMModel', 'ChatGLMForConditionalGeneration')
+def _chatglm(config: ModelConfig) -> LlamaModel:
+    from .chatglm import ChatGLMModel
+    return ChatGLMModel(config)
+
+
+@register_model('InternLM2ForCausalLM', 'InternLM3ForCausalLM')
+def _internlm2(config: ModelConfig) -> LlamaModel:
+    from .internlm2 import InternLM2Model
+    return InternLM2Model(config)
+
+
+@register_model('BaiChuanForCausalLM', 'BaichuanForCausalLM')
+def _baichuan(config: ModelConfig) -> LlamaModel:
+    from .baichuan import BaichuanModel
+    if config.num_attention_heads == 40 and config.hidden_size == 5120:
+        raise ValueError('Baichuan-13B uses ALiBi positional bias, which is not supported '
+                         'yet')
+    return BaichuanModel(config)
+
+
+@register_model('InternLMForCausalLM')
+def _internlm_v1(config: ModelConfig) -> LlamaModel:
+    from .baichuan import InternLMv1Model
+    return InternLMv1Model(config)
+
+
+@register_model('Starcoder2ForCausalLM')
+def _starcoder2(config: ModelConfig) -> LlamaModel:
+    from .starcoder2 import Starcoder2Model
+    return Starcoder2Model(config)
+
+
+@register_model('MiniCPMForCausalLM')
+def _minicpm(config: ModelConfig) -> LlamaModel:
+    from .minicpm import MiniCPMModel
+    return MiniCPMModel(config)
 
 
 def build_model(config: ModelConfig) -> LlamaModel:

@@ -19,13 +19,22 @@ in which one layer's ``[Kp/8, N]`` slice of a stacked leaf is a free view (the
 reference's whole-stack-plus-layer-index kernel design only avoids an XLA slice
 copy); the KV cache is written in place.
 
-The reference layer body's hooks that subclasses use are kept: ``_mlp`` (overridden
-by MoE models, which then keep gate and up unfused), ``_norm`` (RMSNorm here;
-PhiMoE's LayerNorm reads the ``attn_norm_b`` / ``mlp_norm_b`` / ``final_norm_b``
-biases), ``_head``, the ``bo`` output-projection bias, per-layer ``sinks`` and per-layer
-windows.  A per-layer window is a Python int from ``layer_windows`` (None: every layer
-takes ``config.sliding_window``), never a tensor: the reference's ``layer_window`` leaf
-is not part of the port's tree.
+The reference layer body's hooks that subclasses use are kept: ``_mlp`` and
+``_mlp_shapes`` (overridden by MoE models, which then keep gate and up unfused, and by
+StarCoder2's ungated MLP), ``_norm`` (RMSNorm here; the LayerNorm models read the
+``attn_norm_b`` / ``mlp_norm_b`` / ``final_norm_b`` biases), ``_head``, the ``bo``
+output-projection bias, per-layer ``sinks`` and per-layer windows, and the scalings of
+the dense variants (reference ``llama.py:73-82, 513-690``): ``embed_scale`` (the
+embedding times the scale rounded to the hidden dtype), ``attn_scale`` (in place of
+``1/sqrt(D)``), ``attn_logit_softcap`` (to ``paged_attention``),
+``final_logit_softcap`` (a tanh on the f32 logits in ``_head``), ``residual_scale`` (on
+both branch outputs), the sandwich norms ``post_attn_norm`` / ``post_mlp_norm``
+(``sandwich_norms``: an RMSNorm of each branch output before its scale and residual
+add), and the rope hooks ``_gather_rope`` / ``_apply_rope`` (GLM's interleaved partial
+rotary, Gemma-3's table per layer).  A per-layer window is a Python int from
+``layer_windows`` (None: every layer takes ``config.sliding_window``; 0: full
+attention), never a tensor: the reference's ``layer_window`` leaf is not part of the
+port's tree, and a choice that follows it (Gemma-3's rope table) follows the int.
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ from ..lite import formats
 from ..nn.layers import apply_rope, rms_norm
 from ..nn.linear import linear
 from ..ops.attention import compute_slot_mapping, fill_kv_cache, paged_attention
+from ..ops.kv_quant import f32_reciprocal
 from ..ops.quant_matmul import prep_w4
 
 # seeded W4A16 weights: nibbles uniform on 0..15 around zero point 7.5, and a scale
@@ -72,6 +82,28 @@ def init_fp8_leaf(name: str, shape, gen: torch.Generator, device,
     return (0.5 + torch.rand(shape, generator=gen, device=device)) * (0.02 / span)
 
 
+def transposed(t):
+    return t.t()
+
+
+def rows(lo: int, hi: int):
+    """The rows [lo, hi) of an HF ``[out, in]`` weight as an ``[in, out]`` leaf."""
+    return lambda t: t[lo:hi].t()
+
+
+def bias_rows(lo: int, hi: int):
+    return lambda t: t[lo:hi]
+
+
+def refuse_quantized(model: 'LlamaModel'):
+    """The families whose checkpoints fuse or rename the projections load dense weights
+    only, as the reference's assign plans do."""
+    if model.quant_method is not None:
+        raise NotImplementedError(f'{model.quant_method} checkpoints of '
+                                  f'{model.config.hf_arch} are not ported (the assign plan '
+                                  f'is dense only, as the reference\'s)')
+
+
 class Leaf(NamedTuple):
     """A parameter leaf with its own dtype (quantized leaves); plain shape tuples
     take the model dtype."""
@@ -98,6 +130,10 @@ class LlamaModel:
     # the 8-bit checkpoint formats (W8_METHODS) the class serves; a MoE family takes
     # none, or blocked fp8 where it dequantizes it at load
     LINEAR_8BIT: Tuple[str, ...] = W8_METHODS
+    # block-output RMSNorms before the residual add (GLM-4, Gemma-2 / 3)
+    sandwich_norms: bool = False
+    # an _mlp override that reads a fused 'w_gateup' leaf as the stock one does
+    FUSE_GATE_UP: bool = False
 
     def __init__(self, config: ModelConfig):
         self.config = config
@@ -109,6 +145,11 @@ class LlamaModel:
         self.quant_method = None
         self.group_size = 128
         self.layer_windows: Optional[List[int]] = None
+        self.embed_scale = 1.0            # Gemma: sqrt(hidden); MiniCPM: scale_emb
+        self.residual_scale: Optional[float] = None    # MiniCPM: scale_depth / sqrt(L)
+        self.final_logit_softcap: Optional[float] = None   # Gemma-2
+        self.attn_logit_softcap: Optional[float] = None    # Gemma-2
+        self.attn_scale: Optional[float] = None    # Gemma-2 / 3: query_pre_attn_scalar^-0.5
         qcfg = config.quantization_config or {}
         method = qcfg.get('quant_method')
         if method in ('awq', 'gptq'):
@@ -152,6 +193,10 @@ class LlamaModel:
                     'zeros': Leaf((L, Kp // gs, N), torch.float32)}
         return (L, K, N)
 
+    def _mlp_shapes(self, L: int, H: int, I: int) -> Dict:
+        lin = self._linear_shape
+        return {'w_gate': lin(L, H, I), 'w_up': lin(L, H, I), 'w_down': lin(L, I, H)}
+
     def param_shapes(self) -> Dict:
         cfg = self.config
         L, H, I, V = (cfg.num_layers, cfg.hidden_size, cfg.intermediate_size,
@@ -164,14 +209,14 @@ class LlamaModel:
             'wv': lin(L, H, self.kv_out),
             'wo': lin(L, self.q_out, H),
             'mlp_norm': (L, H),
-            'w_gate': lin(L, H, I),
-            'w_up': lin(L, H, I),
-            'w_down': lin(L, I, H),
+            **self._mlp_shapes(L, H, I),
         }
         if cfg.attention_bias:
             layers.update(bq=(L, self.q_out), bk=(L, self.kv_out), bv=(L, self.kv_out))
         if cfg.qk_norm:
             layers.update(q_norm=(L, cfg.head_dim), k_norm=(L, cfg.head_dim))
+        if self.sandwich_norms:
+            layers.update(post_attn_norm=(L, H), post_mlp_norm=(L, H))
         shapes = {'embed': (V, H), 'layers': layers, 'final_norm': (H,)}
         if not cfg.tie_word_embeddings:
             shapes['lm_head'] = (H, V)
@@ -230,9 +275,6 @@ class LlamaModel:
         column (``models.mixtral.ExpertSlice``) one expert of it (reference
         ``make_assign_plan``, dense, AWQ / GPTQ W4A16 and 8-bit paths)."""
         cfg = self.config
-
-        def transposed(x):
-            return x.t()
         plan = {'model.embed_tokens.weight': (('embed',), None),
                 'model.norm.weight': (('final_norm',), None)}
         if not cfg.tie_word_embeddings:
@@ -340,7 +382,7 @@ class LlamaModel:
             lp['wqkv'] = cat(['wq', 'wk', 'wv'])
             if 'bq' in lp:
                 lp['bqkv'] = cat(['bq', 'bk', 'bv'])
-        if fusable('w_gate') and type(self)._mlp is LlamaModel._mlp:
+        if fusable('w_gate') and (type(self)._mlp is LlamaModel._mlp or self.FUSE_GATE_UP):
             lp['w_gateup'] = cat(['w_gate', 'w_up'])
         return dict(params, layers=lp)
 
@@ -404,12 +446,15 @@ class LlamaModel:
         return (linear(x, w['wq'], w.get('bq')), linear(x, w['wk'], w.get('bk')),
                 linear(x, w['wv'], w.get('bv')))
 
+    def _gate_up(self, w, x):
+        """The gate and up projections, from the fused leaf where there is one."""
+        if 'w_gateup' in w:
+            return linear(x, w['w_gateup']).chunk(2, dim=-1)
+        return linear(x, w['w_gate']), linear(x, w['w_up'])
+
     def _mlp(self, w, x):
         # silu in f32 per element; the [*, I] intermediates stay in x.dtype
-        if 'w_gateup' in w:
-            gate, up = linear(x, w['w_gateup']).chunk(2, dim=-1)
-        else:
-            gate, up = linear(x, w['w_gate']), linear(x, w['w_up'])
+        gate, up = self._gate_up(w, x)
         act = F.silu(gate.float()).to(x.dtype) * up
         return linear(act, w['w_down'])
 
@@ -420,11 +465,34 @@ class LlamaModel:
 
     def _head(self, params, x: torch.Tensor) -> torch.Tensor:
         """Hidden -> f32 logits (f32 accumulation AND f32 result, as the
-        reference's preferred_element_type=f32 dot)."""
+        reference's preferred_element_type=f32 dot), then Gemma-2's final softcap
+        ``tanh(logits / cap) * cap`` (the division as the jitted reference's product by
+        fl(1/cap))."""
         lm_head = params.get('lm_head')
         if lm_head is None:
             lm_head = params['embed'].t()
-        return torch.matmul(x.float(), lm_head.float())
+        logits = torch.matmul(x.float(), lm_head.float())
+        if self.final_logit_softcap:
+            cap = self.final_logit_softcap
+            logits = torch.tanh(logits * f32_reciprocal(cap)) * cap
+        return logits
+
+    def _gather_rope(self, rope_cos: torch.Tensor, rope_sin: torch.Tensor,
+                     pos: torch.Tensor):
+        """Positions [B, T] -> the (cos, sin) rows the layers rotate by (reference
+        ``_gather_rope``; Gemma-3 adds its local table)."""
+        return rope_cos[pos], rope_sin[pos]
+
+    def _apply_rope(self, q: torch.Tensor, k: torch.Tensor, cos, sin, layer: int):
+        """Rotate q and k of ``layer`` (reference ``_apply_rope``, which takes the
+        layer's weights; here its index): rotate-half over the whole head."""
+        return apply_rope(q, k, cos, sin)
+
+    @staticmethod
+    def _scaled(x: torch.Tensor, s: float) -> torch.Tensor:
+        """``x * s`` with ``s`` rounded to x's dtype first (the reference's
+        ``x * jnp.asarray(s, x.dtype)``); the product rounds once to x's dtype."""
+        return x * float(torch.tensor(s, dtype=x.dtype))
 
     # -- forward ----------------------------------------------------------------------
     @torch.no_grad()
@@ -440,18 +508,27 @@ class LlamaModel:
         B, T = input_ids.shape
         D = cfg.head_dim
         Hq, Hkv = cfg.num_attention_heads, cfg.num_key_value_heads
-        scale = 1.0 / math.sqrt(D)
+        scale = self.attn_scale or 1.0 / math.sqrt(D)
         block_size = kv_cache.shape[3]
         embed = params['embed']
         # the reference's gathers clamp out-of-range ids; torch would fault
         ids = input_ids.long().clamp(0, embed.shape[0] - 1)
         hidden = embed[ids].to(cfg.torch_dtype())                      # [B,T,H]
+        if self.embed_scale != 1.0:
+            hidden = self._scaled(hidden, self.embed_scale)
         pos = positions.long().clamp(0, rope_cos.shape[0] - 1)
-        cos, sin = rope_cos[pos], rope_sin[pos]                         # [B,T,D/2]
+        cos, sin = self._gather_rope(rope_cos, rope_sin, pos)           # [B,T,D/2]
         slot_mapping = compute_slot_mapping(meta.block_tables, meta.history_lens,
                                             meta.q_lens, T, block_size)
         lp = params['layers']
         windows = self.layer_windows or [cfg.sliding_window] * cfg.num_layers
+
+        def branch_out(out, norm):
+            if norm is not None:
+                out = rms_norm(out, norm, cfg.rms_norm_eps)
+            if self.residual_scale is not None:
+                out = self._scaled(out, self.residual_scale)
+            return out
         for layer in range(cfg.num_layers):
             w = {name: {k: a[layer] for k, a in t.items()} if isinstance(t, dict)
                  else t[layer] for name, t in lp.items()}
@@ -463,18 +540,20 @@ class LlamaModel:
             if 'q_norm' in w:
                 q = rms_norm(q, w['q_norm'], cfg.rms_norm_eps)
                 k = rms_norm(k, w['k_norm'], cfg.rms_norm_eps)
-            q, k = apply_rope(q, k, cos, sin)
+            q, k = self._apply_rope(q, k, cos, sin, layer)
             fill_kv_cache(kv_cache, k.reshape(B * T, Hkv, D), v.reshape(B * T, Hkv, D),
                           slot_mapping, layer,
                           page_tables=meta.block_tables if fresh_prefill else None)
             attn = paged_attention(q, kv_cache, meta.block_tables, meta.history_lens,
                                    meta.q_lens, scale, layer, Hkv,
-                                   window_size=windows[layer],
+                                   logit_softcap=self.attn_logit_softcap,
+                                   window_size=windows[layer] or None,
                                    chunk_kv=(k, v), fresh_prefill=fresh_prefill,
                                    sinks=w.get('sinks'), cp_mesh=self.cp_mesh)
-            hidden = hidden + linear(attn.reshape(B, T, self.q_out), w['wo'], w.get('bo'))
+            out = linear(attn.reshape(B, T, self.q_out), w['wo'], w.get('bo'))
+            hidden = hidden + branch_out(out, w.get('post_attn_norm'))
             x = self._norm(hidden, w['mlp_norm'], w.get('mlp_norm_b'), cfg.rms_norm_eps)
-            hidden = hidden + self._mlp(w, x)
+            hidden = hidden + branch_out(self._mlp(w, x), w.get('post_mlp_norm'))
         hidden = self._norm(hidden, params['final_norm'], params.get('final_norm_b'),
                             cfg.rms_norm_eps)
         if return_all_logits:

@@ -2,7 +2,10 @@
 
 Port of ``lmdeploy_tpu/nn/layers.py`` (RMSNorm, SiLU MLP, rotary tables with the
 default / linear / dynamic-NTK / llama3 / longrope / yarn scalings, rotate-half rope),
-and the LayerNorm with bias of ``lmdeploy_tpu/models/phimoe.py:54``.  These stay plain
+the LayerNorm with bias of ``lmdeploy_tpu/models/phimoe.py:54`` and
+``starcoder2.py:32``, and the pair-order rope layout of ``lmdeploy_tpu/models/glm4.py``
+(``pairs_to_halves`` / ``halves_to_pairs``).  Gemma-3's local table is
+``make_rope_table`` at the local theta, unscaled, at the global table's length.  These stay plain
 PyTorch: they are elementwise or reductions next to the layer GEMMs.
 """
 from __future__ import annotations
@@ -136,3 +139,16 @@ def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.T
         x1, x2 = x[..., :d2].float(), x[..., d2:].float()
         return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
     return rot(q), rot(k)
+
+
+def pairs_to_halves(x: torch.Tensor) -> torch.Tensor:
+    """[..., d] with rotary pairs interleaved (dims 2i, 2i+1) -> rotate-half order (dim
+    i paired with i + d/2): GLM's rope layout, de-interleaved for ``apply_rope``."""
+    *lead, d = x.shape
+    return x.reshape(*lead, d // 2, 2).transpose(-1, -2).reshape(*lead, d)
+
+
+def halves_to_pairs(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``pairs_to_halves``."""
+    *lead, d = x.shape
+    return x.reshape(*lead, 2, d // 2).transpose(-1, -2).reshape(*lead, d)

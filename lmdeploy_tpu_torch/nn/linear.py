@@ -36,6 +36,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..ops.kv_quant import f32_reciprocal
 from ..ops.quant_matmul import (GROUP_DOT_MAX_M, schedule_of, w4a16_dense,
                                 w4a16_dense_szc, w4a16_matmul, w4a16_matmul_gd,
                                 w4a16_matmul_szc)
@@ -103,17 +104,17 @@ def _w4a16(x: torch.Tensor, w: dict) -> torch.Tensor:
 
 # cuBLASLt's int8 GEMM (``torch._int_mm`` on the card) takes more than 16 rows
 _INT_MM_MIN_ROWS = 17
+_INV127 = f32_reciprocal(127.0)
 
 
 def quantize_rows_int8(x2d: torch.Tensor):
     """Dynamic per-token symmetric int8 (the reference's ``_w8a8``): f32 rows, scale
-    ``max(absmax / 127, 1e-8)``, codes rounded half to even and clamped to +-127.
-    Returns (codes int8 [M, K], scales f32 [M, 1])."""
+    ``max(absmax / 127, 1e-8)`` as the jitted reference computes it (``absmax *
+    fl(1/127)``: XLA rewrites the division by a constant), codes rounded half to even
+    and clamped to +-127.  Returns (codes int8 [M, K], scales f32 [M, 1])."""
     xf = x2d.float()
     amax = xf.abs().amax(-1, keepdim=True)
-    # a true division on every device: CUDA multiplies by the rounded reciprocal of a
-    # Python scalar divisor, which moves some scales by an ulp
-    a_scale = torch.clamp_min(amax / amax.new_full((1,), 127.0), 1e-8)
+    a_scale = torch.clamp_min(amax * _INV127, 1e-8)
     xq = torch.clamp(torch.round(xf / a_scale), -127, 127).to(torch.int8)
     return xq, a_scale
 

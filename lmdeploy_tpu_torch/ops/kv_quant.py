@@ -40,6 +40,22 @@ import numpy as np
 import torch
 
 
+def f32_reciprocal(c: float) -> float:
+    """``fl(1/c)`` in f32, as a Python float (exact in f32 again).  The reference's
+    quantizers run inside jitted steps, where XLA rewrites ``x / c`` for a constant
+    ``c`` into ``x * fl(1/c)``; a product by this value gives that on every device."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+def scale_plus_eps(x: torch.Tensor, c: float, eps: float) -> torch.Tensor:
+    """``fl(x * c + eps)`` with one rounding, f32: the jitted reference's ``x / k + eps``
+    after XLA's rewrite, whose CPU backend contracts the product and the add into one
+    fused multiply-add.  In f64 the product of two f32 values is exact and the sum
+    rounds once before the f32 rounding; that second rounding can differ from a fused
+    one only where the f64 sum lies on an f32 tie, within 2^-53 of it."""
+    return (x.double() * c + float(np.float32(eps))).float()
+
+
 class _QuantCache:
     """A paged cache of several tensors that share the leading ``[L, NB]`` dims;
     ``.dtype`` / ``.device`` proxy to the code pages, ``.shape`` is the logical one."""
@@ -113,12 +129,17 @@ class QuantKVTurbo(_QuantCache):
         return torch.Size((L, NB, 2, BS, row * 4 // 3))
 
 
+_INV127 = f32_reciprocal(127.0)
+_INV15 = f32_reciprocal(15.0)
+
+
 def quantize_rows(x: torch.Tensor, eps: float = 1e-8
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[..., D] -> (int8 [..., D], f32 scale [...]): absmax/127 + eps per row, round
-    half to even (``torch.round``, as ``jnp.round``), clipped to +-127."""
+    """[..., D] -> (int8 [..., D], f32 scale [...]): absmax/127 + eps per row as the
+    jitted reference computes it (``scale_plus_eps``), round half to even
+    (``torch.round``, as ``jnp.round``), clipped to +-127."""
     xf = x.float()
-    scale = xf.abs().amax(dim=-1) / 127.0 + eps
+    scale = scale_plus_eps(xf.abs().amax(dim=-1), _INV127, eps)
     q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
     return q, scale
 
@@ -138,11 +159,12 @@ def deint_scale_pos(slot, block_size: int):
 def quantize_rows_int4(x: torch.Tensor, eps: float = 1e-8
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """[..., D] -> (u8 values 0..15 [..., D], f32 scale [...], f32 minv [...]):
-    per-row asymmetric min/max, scale = (max - min) / 15 + eps, round half to even."""
+    per-row asymmetric min/max, scale = (max - min) / 15 + eps as the jitted reference
+    computes it (``scale_plus_eps``), round half to even."""
     xf = x.float()
     mn = xf.amin(dim=-1)
     mx = xf.amax(dim=-1)
-    scale = (mx - mn) / 15.0 + eps
+    scale = scale_plus_eps(mx - mn, _INV15, eps)
     q = torch.clamp(torch.round((xf - mn[..., None]) / scale[..., None]), 0, 15)
     return q.to(torch.uint8), scale, mn
 
@@ -282,7 +304,8 @@ def quantize_rows_turbo_k(k_rot: torch.Tensor, eps: float = 1e-8
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """ALREADY-ROTATED K rows [..., D] -> (codes u8 0..15 [..., D], mse_norm [...],
     qjl_norm [...]); code = 3-bit index | (residual >= 0) << 3, and qjl_norm is the
-    residual's norm over sqrt(D)."""
+    residual's norm times ``fl(1/sqrt(D))`` (the jitted reference's division by the
+    f32 constant sqrt(D))."""
     D = k_rot.shape[-1]
     xf = k_rot.float()
     mse_norm = torch.sqrt((xf * xf).sum(-1) + eps)
@@ -290,7 +313,7 @@ def quantize_rows_turbo_k(k_rot: torch.Tensor, eps: float = 1e-8
     idx = _lloyd_index(u, LLOYD_B3 * turbo_sigma(D))
     r = u - turbo_codebooks(D, u.device)[0][idx.long()]
     sign = (r >= 0).to(torch.uint8)
-    qjl_norm = torch.sqrt((r * r).sum(-1) + eps) / float(np.float32(np.sqrt(D)))
+    qjl_norm = torch.sqrt((r * r).sum(-1) + eps) * f32_reciprocal(np.sqrt(D))
     return idx | (sign << 3), mse_norm, qjl_norm
 
 

@@ -5,8 +5,11 @@ Port of ``lmdeploy_tpu/weight_loader.py`` (``load_params_np``): allocate the mod
 stacked parameter tree once on the host (typed leaves keep their own dtypes: int32
 ``packed``, f32 ``scales`` / ``zeros`` / ``scale``, u8 ``nib``), stream every
 safetensors shard through the model's assign plan (each entry's transform: transposing
-linears to ``[in, out]``, repacking AWQ / GPTQ nibbles to the kernel layout; one
-tensor may fill several leaves, or one expert of a stacked layer row), hand every name
+linears to ``[in, out]``, repacking AWQ / GPTQ nibbles to the kernel layout, Gemma's
+``1 + w`` norm fold in f32; one tensor may fill several leaves, as the fused
+``qkv_proj`` / ``gate_up_proj`` / ``W_pack`` / ``query_key_value`` / grouped ``wqkv`` of
+the dense variants split into row blocks, or one expert of a stacked layer row; a
+transform's f32 result rounds once to the leaf's dtype), hand every name
 the plan does not know to the model's ``load_hook`` (gpt-oss's ``*_blocks`` /
 ``*_scales`` pairs), then move each leaf to the device once.  A model that sets
 ``dequant_on_load`` (DeepSeek on a native blocked-fp8 checkpoint) reads its fp8

@@ -3,13 +3,15 @@
 The port keeps its own layout (dim pairs a byte, token-major scale and min rows;
 ``ops/kv_quant.py``), the reference packs token pairs and de-interleaves its scales:
 ``weight_convert`` maps the two, and every cache comparison goes through it bit for
-bit.  ``quantize_rows_int4`` and the fill are bit-equal; the gather dequantizes to the
+bit.  ``quantize_rows_int4`` and the fill are bit-equal to the reference's under
+``jax.jit``, as its engine runs them; the gather dequantizes to the
 same values; ``paged_attention`` and the plain int4 decode (the CUDA kernel's plain
 version) match the reference's gather path and its Pallas int4 kernel in TPU interpret
 mode at f32 allclose 2e-5 (the same products summed in another order, and the
 kernel's online softmax against a one-pass one).  Engine and pipeline give exactly the
 JAX package's greedy tokens.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -42,10 +44,15 @@ def test_quantize_rows_int4_bit_equal():
     x = rng.randn(64, 4, 32).astype(np.float32) * 3
     x[0, 0] = 0                                        # a constant row: scale = eps
     x[1, 1, :4] = [7.5, -7.5, 0.25, -0.25]
-    jq_, js, jm = jq.quantize_rows_int4(jnp.asarray(x))
+    jq_, js, jm = jax.jit(jq.quantize_rows_int4)(jnp.asarray(x))
     tq, ts, tm = quantize_rows_int4(t(x))
     assert tq.dtype == torch.uint8 and ts.dtype == tm.dtype == torch.float32
     for a, b in ((tq, jq_), (ts, js), (tm, jm)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    # 4,096 rows of one head dim: the jitted reference's (max - min) * fl(1/15) + eps
+    # (one fused multiply-add) differs from the eager division in most of them
+    big = rng.randn(4096, 128).astype(np.float32)
+    for a, b in zip(quantize_rows_int4(t(big)), jax.jit(jq.quantize_rows_int4)(big)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     np.testing.assert_array_equal(dequantize_int4(tq, ts, tm).numpy(),
                                   np.asarray(jq.dequantize_int4(jq_, js, jm)))

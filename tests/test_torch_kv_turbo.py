@@ -5,16 +5,19 @@ The port keeps its own layout (per-head code rows, V four codes a byte, token-ma
 meta; ``ops/kv_quant.py``), the reference packs planar rows over the whole head-major
 row: ``weight_convert`` maps the two bit for bit.  The Hadamard rotation is the same
 f32 product (bit-equal at D = 64 and 128, where XLA and torch sum in the same order);
-the K and V codes of the quantizers and the fill are bit-equal; the f32 norms are
-sums of squares that XLA's CPU reduction adds in another order than torch's (a unit
-or two in the last place; the QJL residual norm, taken after the cancellation
-u - centroid, up to about ten), so they are held to a relative 2e-6.  The gather
+the K and V codes of the quantizers and the fill are bit-equal to the reference's under
+``jax.jit``, as its engine runs them (qjl_norm times fl(1/sqrt(D)), as XLA rewrites
+its division); the f32 norms are sums of squares that XLA's CPU reduction adds in
+another order than torch's (a unit or two in the last place; the QJL residual norm,
+taken after the cancellation u - centroid, up to about ten), so they are held to a
+relative 2e-6.  The gather
 dequantizes the same codes to the same values; ``paged_attention`` (q rotated into
 the cache's domain, the output rotated back) and the plain TurboQuant decode (the
 CUDA kernel's plain version) match the reference's gather path and its Pallas kernel
 in TPU interpret mode at f32 allclose 2e-5.  Engine and pipeline give exactly the JAX
 package's greedy tokens.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -53,14 +56,14 @@ def test_hadamard_and_quantizers_match_jax(D):
         np.testing.assert_array_equal(tr.numpy(), jr)
     np.testing.assert_allclose(tr.numpy(), jr, rtol=0, atol=1e-5)
     np.testing.assert_allclose(tq.hadamard_rotate_inv(tr).numpy(), x, rtol=0, atol=2e-5)
-    # the quantizers on the same rotated rows
-    jk = [np.asarray(a) for a in jq.quantize_rows_turbo_k(jnp.asarray(jr))]
+    # the quantizers on the same rotated rows, against the jitted reference
+    jk = [np.asarray(a) for a in jax.jit(jq.quantize_rows_turbo_k)(jnp.asarray(jr))]
     tk = [a.numpy() for a in tq.quantize_rows_turbo_k(t(jr))]
     np.testing.assert_array_equal(tk[0], jk[0])
     assert tk[0].max() == 15 and tk[0].min() == 0
     for a, b in zip(tk[1:], jk[1:]):
         np.testing.assert_allclose(a, b, rtol=NORM_RTOL, atol=0)
-    jv = [np.asarray(a) for a in jq.quantize_rows_turbo_v(jnp.asarray(jr))]
+    jv = [np.asarray(a) for a in jax.jit(jq.quantize_rows_turbo_v)(jnp.asarray(jr))]
     tv = [a.numpy() for a in tq.quantize_rows_turbo_v(t(jr))]
     np.testing.assert_array_equal(tv[0], jv[0])
     np.testing.assert_allclose(tv[1], jv[1], rtol=NORM_RTOL, atol=0)

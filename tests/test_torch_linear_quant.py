@@ -136,9 +136,19 @@ def test_linear_leaf_matches_jax(kind, K, N, dtype):
     x[1, 2] = 0.0
     bias = (rng.randn(N) * 0.1).astype(np.float32)
     jd, td = getattr(jnp, dtype), getattr(torch, dtype)
-    want = np.asarray(jlinear(jnp.asarray(x).astype(jd),
-                              {k: jnp.asarray(v) for k, v in leaf.items()},
-                              jnp.asarray(bias).astype(jd)).astype(jnp.float32))
+    # the reference engine runs linear inside jitted steps (XLA turns W8A8's division
+    # by 127 into a product by its f32 reciprocal).  W8A8's bias is added as the
+    # reference's linear writes it, to the product rounded to x's dtype: in an f32
+    # model XLA's CPU backend would fuse the scale product and that add into one
+    # multiply-add, an order of the CPU backend's own
+    jx, jw = jnp.asarray(x).astype(jd), {k: jnp.asarray(v) for k, v in leaf.items()}
+    jb = jnp.asarray(bias).astype(jd)
+    if kind == 'w8a8':
+        y = jax.jit(jlinear)(jx, jw)
+        want = (y.astype(jnp.float32) + jb.astype(jnp.float32)).astype(jd)
+    else:
+        want = jax.jit(jlinear)(jx, jw, jb)
+    want = np.asarray(want.astype(jnp.float32))
     got = tlinear(torch.from_numpy(x).to(td), _torch_leaf(leaf),
                   torch.from_numpy(bias).to(td)).float().numpy()
     assert got.shape == want.shape == (3, 7, N)
@@ -151,19 +161,54 @@ def test_linear_leaf_matches_jax(kind, K, N, dtype):
 
 
 def test_int8_quantizer_rounds_half_to_even():
-    """Per-token int8 codes and scales equal to the reference's, with values on the
-    half-code boundaries (scale 1 exactly: absmax 127) and a zero row."""
+    """Per-token int8 codes and scales equal to the jitted reference's (the quantizer of
+    ``lmdeploy_tpu/nn/linear.py _w8a8``), with values on the half-code boundaries (scale
+    1 exactly: absmax 127 times fl(1/127)) and a zero row."""
     from lmdeploy_tpu_torch.nn.linear import quantize_rows_int8
     x = np.array([[127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5],
                   [0.0] * 8,
                   [-3.0, 1e-3, 2.999, -0.25, 0.0, 1.0, 2.0, 0.125]], np.float32)
-    xf = jnp.asarray(x)
-    a_scale = jnp.maximum(jnp.max(jnp.abs(xf), axis=-1, keepdims=True) / 127.0, 1e-8)
-    want = jnp.clip(jnp.round(xf / a_scale), -127, 127).astype(jnp.int8)
+    a_scale, want = jax.jit(_w8a8_quantizer)(jnp.asarray(x))
     codes, scale = quantize_rows_int8(torch.from_numpy(x))
     np.testing.assert_array_equal(codes.numpy(), np.asarray(want))
     np.testing.assert_array_equal(scale.numpy(), np.asarray(a_scale))
     assert codes[0, 1:8].tolist() == [0, 2, 2, 0, -2, -2, 126]
+
+
+def _w8a8_quantizer(xf):
+    """The activation quantizer of the reference's ``_w8a8``
+    (``lmdeploy_tpu/nn/linear.py:138-141``): (scales, codes)."""
+    a_scale = jnp.maximum(jnp.max(jnp.abs(xf), axis=-1, keepdims=True) / 127.0, 1e-8)
+    return a_scale, jnp.clip(jnp.round(xf / a_scale), -127, 127).astype(jnp.int8)
+
+
+def test_int8_quantizer_matches_jitted_reference():
+    """``quantize_rows_int8`` against ``jax.jit`` of the reference's quantizer, bit for
+    bit, on 4,096 rows of four decades of magnitude: XLA multiplies by fl(1/127) where
+    the eager reference divides (an ulp apart in about a third of the rows)."""
+    from lmdeploy_tpu_torch.nn.linear import quantize_rows_int8
+    rng = np.random.RandomState(3)
+    x = (rng.randn(4096, 128) * np.logspace(-2, 2, 4096)[:, None]).astype(np.float32)
+    a_scale, want = jax.jit(_w8a8_quantizer)(jnp.asarray(x))
+    codes, scale = quantize_rows_int8(torch.from_numpy(x))
+    np.testing.assert_array_equal(scale.numpy(), np.asarray(a_scale))
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(want))
+
+
+def test_w8a8_linear_matches_jitted_reference():
+    """``linear`` on a W8A8 leaf against ``jax.jit`` of the reference's ``linear``, bit
+    for bit, at the size where the division moved 37 of 512 output rows: x randn * 2
+    [512, 256], random int8 codes [256, 64], per-column scales."""
+    from lmdeploy_tpu.nn.linear import linear as jlinear
+    from lmdeploy_tpu_torch.nn.linear import linear as tlinear
+    rng = np.random.RandomState(0)
+    x = (rng.randn(512, 256) * 2).astype(np.float32)
+    leaf = {'w8': rng.randint(-127, 128, (256, 64)).astype(np.int8),
+            'scale': (rng.rand(64) * 1e-2).astype(np.float32)}
+    want = np.asarray(jax.jit(jlinear)(jnp.asarray(x),
+                                       {k: jnp.asarray(v) for k, v in leaf.items()}))
+    got = tlinear(torch.from_numpy(x), _torch_leaf(leaf)).numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 def test_fuse_and_prep_keep_the_leaves():

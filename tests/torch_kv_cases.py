@@ -1,6 +1,7 @@
 """Checks shared by the port's KV-cache policy tests (test_torch_kv_int4.py,
 test_torch_kv_fp8.py, test_torch_kv_turbo.py): each runs the same inputs, made by
 numpy from a seed, through the JAX package and the port on the CPU in f32."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -59,8 +60,8 @@ def fill_random(ref, rng, L, NB, BS, Hkv, D, scale=1.0):
 
 
 def check_fill(ref, Hkv, D, fresh, rng, layer=1, scale=1.0, float_rtol=0.0):
-    """The JAX fill and the port's on the same rows, fresh (page tables given) and by
-    rows after history: the caches agree bit for bit through the converters (f32
+    """The jitted JAX fill and the port's on the same rows, fresh (page tables given)
+    and by rows after history: the caches agree bit for bit through the converters (f32
     leaves within ``float_rtol``)."""
     port = cache_from_reference(ref, Hkv, D)
     assert_cache_equal(port, ref)                       # the converters round-trip
@@ -75,8 +76,9 @@ def check_fill(ref, Hkv, D, fresh, rng, layer=1, scale=1.0, float_rtol=0.0):
                                     jnp.asarray(qlen), T, BS)
     ts = ta.compute_slot_mapping(t(tables), t(hist), t(qlen), T, BS)
     np.testing.assert_array_equal(ts.numpy(), np.asarray(slots))
-    jout = ja.fill_kv_cache(ref, jnp.asarray(k), jnp.asarray(v), slots, jnp.int32(layer),
-                            jnp.asarray(tables) if fresh else None)
+    # jitted, as the reference engine runs its fill (XLA's reciprocal products)
+    jout = jax.jit(ja.fill_kv_cache)(ref, jnp.asarray(k), jnp.asarray(v), slots,
+                                     jnp.int32(layer), jnp.asarray(tables) if fresh else None)
     ta.fill_kv_cache(port, t(k), t(v), ts, layer, t(tables) if fresh else None)
     assert_cache_equal(port, jout, skip_block0=True, float_rtol=float_rtol)
     return port, jout
