@@ -86,16 +86,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  request seeded-sampled: graphs, eager), then one traced eager run;
                  greedy and sampled tokens must be equal between the modes; each
                  mode's decode tok/s, TTFT p50 and busy share;
-  6. e2e_w4a16_kv8 -- the same at llama2-7b geometry (8 of its 32 layers, LW4),
+  6. e2e_w4a16_kv8 -- the same at llama2-7b geometry (4 of its 32 layers, LW4),
                  AWQ-style W4A16 weights (group 128, seeded) and quant_policy=4: 64 concurrent 128-token prompts plus
                  one 2048-token prompt, 64 greedy tokens each, run twice, then traced;
                  each decode step launches paged_decode_int8 (and its split's combine)
                  once a layer, exactly;
-  7. e2e_gptoss_mxfp4 -- gpt-oss-20b at full width and 12 of its 24 layers (public
+  7. e2e_gptoss_mxfp4 -- gpt-oss-20b at full width and 4 of its 24 layers (public
                  config), seeded MXFP4 experts, bf16 KV cache: 32 concurrent 128-token prompts plus one
                  2048-token prompt, 64 greedy tokens each (decode in the 64-row bucket),
                  run twice, then traced; the rows of every mxfp4_bmm launch are recorded;
-  8. e2e_llama31_8b_kv4 / _turbo / _fp8kv -- Llama-3.1-8B at full width and 8 of its
+  8. e2e_llama31_8b_kv4 / _turbo / _fp8kv -- Llama-3.1-8B at full width and 4 of its
                  32 layers (public config, seeded bf16 weights built once for the three)
                  with quant_policy 8, 42 and 16: 63 concurrent 1024-token prompts plus
                  one 4096-token prompt, 64 greedy tokens each, run twice, then traced;
@@ -107,19 +107,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  run twice, then traced; each decode step launches paged_decode_cp twice
                  a layer and paged_decode never, exactly;
   9. e2e_mixtral8x7b_w4a16 (+ _fast / _precise / _unprepared) -- Mixtral-8x7B at full
-                 width and 4 of its 32 layers (LMIX; public config, seeded AWQ-form W4A16
-                 weights, ~3.2 GB, built once for the four), bf16 KV: 63 concurrent 256-token prompts plus
+                 width and 2 of its 32 layers (LMIX; public config, seeded AWQ-form W4A16
+                 weights, ~1.6 GB, built once for the four), bf16 KV: 63 concurrent 256-token prompts plus
                  one 2048-token prompt (one 64-row wave, as the Llama-3.1-8B cells);
                  under gd 64 greedy tokens each, run twice, then
                  traced; under the other three schedules one run of 16 tokens.  Each
                  decode step (and prefill step of at most 256 rows) launches the
                  schedule's W4A16 kernel twice a layer and no other W4A16 kernel, exactly;
- 10. e2e_deepseek_v2_lite_fp8 -- DeepSeek-V2-Lite at full width and 8 of its 27
-                 layers (LDS; public config, 1 dense and 7 MoE layers, seeded blocked-fp8
+ 10. e2e_deepseek_v2_lite_fp8 -- DeepSeek-V2-Lite at full width and 4 of its 27
+                 layers (LDS; public config, 1 dense and 3 MoE layers, seeded blocked-fp8
                  routed experts), bf16 MLA cache: 63 concurrent 1024-token prompts plus
                  one 4096-token prompt, 64 greedy tokens each, run twice, then traced;
-                 each decode step launches fp8_bmm 21 times and paged_decode 8 times,
-                 each fresh prefill step flash_prefill 8 times, exactly;
+                 each decode step launches fp8_bmm 9 times and paged_decode 4 times,
+                 each fresh prefill step flash_prefill 4 times, exactly;
  11. int_mm   -- (after the kernel rows) the W8A8 product's int8 route, torch._int_mm with
                  its rows padded to cuBLASLt's 17, bit-exact against an f64 product of the
                  same codes at M 1 / 16 / 17 / 64 / 2048, eagerly and from a captured
@@ -149,7 +149,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  tokens, 32 greedy tokens, two runs, traced, then decode_graphs' greedy
                  pair: one paged_decode a layer per decode step, and flash_prefill a
                  layer per fresh prefill step on GLM-4 only (a softcap or a window sends
-                 Gemma-2's and StarCoder2's prefill to the gathered path).
+                 Gemma-2's and StarCoder2's prefill to the gathered path);
+ 15. spec     -- speculative decoding over Llama-3.1-8B at full width and L31 layers
+                 (seeded bf16 weights shared by every engine), K = 4: reject_sample and
+                 the row advance on the card equal to the CPU's with planted
+                 distributions and uniforms (spec_sampler); the verify's logits (the
+                 gathered path) against K+1 decode steps (row 2) from the same cache
+                 (spec_verify_vs_decode); the EAGLE-1 and EAGLE-3 head steps at their
+                 published widths, bf16 on the card against f32 on the CPU
+                 (spec_head_step); the plain engine on the cells' traffic (63 x 256 +
+                 one 2,048-token prompt, 64 tokens, greedy with top-2 logprobs); then the
+                 cells spec_eagle3 (yuhuili/EAGLE3-LLaMA3.1-Instruct-8B's head),
+                 spec_draft_llama32_1b (Llama-3.2-1B as the draft) and spec_self_draft
+                 (the target's own weights as the draft), each on a graph engine (every
+                 step replays its graph and launches paged_decode K x draft layers
+                 times and flash_prefill none) and an eager_mode engine (tokens equal,
+                 two seeded-sampled rows and one host-driven logprobs row included); the
+                 greedy tokens equal the plain engine's but where its top-2 margin lies
+                 below the verify allowance; each cell's decode tok/s, tokens emitted a
+                 step, TTFT, graphs and busy share.
 The line before the last lists every kernel; the last line is the result.
 It imports nothing of jax or lmdeploy_tpu.
 """
@@ -531,20 +549,22 @@ def gptoss_config(num_layers: int = 24):
                                            layer_types=GPT_OSS_20B['layer_types'][:num_layers]))
 
 
-# the Llama-3.1-8B e2e phases' depth, cut from the config's 32 layers so the script
-# stays well inside its time limit (to 8 when the decode_graphs phase joined the CP
-# cell); width, heads, vocab and the traffic stay as published
-L31 = 8
+# the Llama-3.1-8B e2e phases' depth (the KV cells, the CP cell and the speculative
+# cells' target), cut from the config's 32 layers so the script stays well inside its
+# time limit (to 8 when the decode_graphs phase joined the CP cell, to 4 when the
+# speculative cells joined); width, heads, vocab and the traffic stay as published
+L31 = 4
 # the Mixtral-8x7B and gpt-oss-20b e2e phases' depth, cut from 32 and 24 layers for
 # the same reason (Mixtral's to 4: with the overlap each prefill wave waits behind a
 # decode run that widens every expert of every layer at each step); and the W4A16 +
 # int8 cell's (llama2-7b, 32 layers) and DeepSeek-V2-Lite's (27), cut to 8 each when
-# the dense variants' cells joined the script; width, experts, vocab and traffic stay
-# as published
-LMIX = 4
-LGPT = 12
-LW4 = 8
-LDS = 8
+# the dense variants' cells joined the script; gpt-oss-20b's to 4 (two sliding, two
+# full layers), Mixtral's to 2, the W4A16 + int8 and DeepSeek-V2-Lite cells' to 4 when
+# the speculative cells joined; width, experts, vocab and traffic stay as published
+LMIX = 2
+LGPT = 4
+LW4 = 4
+LDS = 4
 
 
 def llama31_config(num_layers: int = 32):
@@ -696,7 +716,8 @@ def flash_phase():
     # Qwen2-7B's G = 7 (28 / 4 heads) at T 2048 and Qwen2-1.5B's G = 6 (12 / 2) in f16
     # at a ragged T: 128-row blocks that are not a whole number of positions;
     # GLM-4.5-Air's G = 12 (96 / 8 heads) at the e2e_glm45_air cell's long prompt and
-    # its prefill batch of 16 x 256, and GLM-4-9B's G = 16 (32 / 2) at e2e_glm4_9b's
+    # its prefill batch of 16 x 256, and GLM-4-9B's G = 16 (32 / 2) at e2e_glm4_9b's;
+    # Llama-3.1-8B's prefill wave of 16 x 256 in the speculative cells
     for label, B, T, Hq, Hkv, D, dtype in (
             ('tinyllama_t2048', 1, 2048, 32, 4, 64, 'bfloat16'),
             ('d128_g1', 1, 1000, 32, 32, 128, 'bfloat16'),
@@ -714,7 +735,8 @@ def flash_phase():
             ('glm45_air_t2048', 1, 2048, 96, 8, 128, 'bfloat16'),
             ('glm45_air_b16_t256', 16, 256, 96, 8, 128, 'bfloat16'),
             ('glm4_9b_t2048', 1, 2048, 32, 2, 128, 'bfloat16'),
-            ('glm4_9b_b16_t256', 16, 256, 32, 2, 128, 'bfloat16')):
+            ('glm4_9b_b16_t256', 16, 256, 32, 2, 128, 'bfloat16'),
+            ('llama31_8b_b16_t256', 16, 256, 32, 8, 128, 'bfloat16')):
         dt = getattr(torch, dtype)
         q = torch.randn(B, T, Hq, D, device='cuda', generator=gen).to(dt)
         k = torch.randn(B, T, Hkv, D, device='cuda', generator=gen).to(dt)
@@ -834,6 +856,10 @@ def decode_cases():
     # warp's 16 rows part padding): the 64-row bucket with 63 rows of 257-288 tokens and
     # one of 2,049-2,080, the 17-page table
     lens_cells = np.concatenate([rng.randint(257, 289, size=63), rng.randint(2049, 2081, 1)])
+    # (its own stream, so that the cases above and below keep their lengths)
+    spec_rng = np.random.RandomState(SEED + 17)
+    lens_spec = np.concatenate([spec_rng.randint(257, 353, size=63),
+                                spec_rng.randint(2049, 2145, 1)])
     # the dense cells' decode shapes, 63 rows of 257-288 tokens and one long row:
     # Gemma-2-9B's (16 / 8 heads, D 256, softcap 50; its even layers' window of 4,096,
     # which the long row of 6,145-6,176 tokens has outgrown; q scaled so that the scores
@@ -874,6 +900,11 @@ def decode_cases():
          dict(gemma2, window=4096, held_traps=('softcap_left_out', 'window_left_out'))),
         ('gemma2_9b_full', 64, 16, 8, 256, lens_long_window, DENSE_W, gemma2),
         ('glm4_9b', 64, 32, 2, 128, lens_cells, 17, {}),
+        # the speculative cells' draft decodes: the EAGLE-3 head's one layer (32 / 8
+        # heads, D 128) and Llama-3.2-1B's (32 / 8, D 64), over the draft cache at the
+        # cells' lengths (63 rows of 257-352 tokens, one of 2,049-2,144)
+        ('spec_eagle3_head', 64, 32, 8, 128, lens_spec, 17, {}),
+        ('spec_llama32_1b_draft', 64, 32, 8, 64, lens_spec, 17, {}),
         ('starcoder2_7b', 64, 36, 4, 128, lens_long_window, DENSE_W,
          {'window': 4096, 'held_traps': ('window_left_out',)}),
     ]
@@ -2451,35 +2482,40 @@ def decode_mla_quant_phase():
 
 # -- phase 5 and 6 -------------------------------------------------------------------
 def build_engine(model, max_batch: int, quant_policy: int = 0, session_len: int = 2048 + 128,
-                 mesh=None, block_size: int = 128, eager_mode: bool = False):
+                 mesh=None, block_size: int = 128, eager_mode: bool = False,
+                 num_blocks: int = 0, speculative_config=None):
     from lmdeploy_tpu_torch.config import (CacheConfig, EngineConfigBundle, MiscConfig,
                                            SchedulerConfig)
     from lmdeploy_tpu_torch.engine.engine import Engine
     from lmdeploy_tpu_torch.messages import QuantPolicy, TpuEngineConfig
     bundle = EngineConfigBundle(
         model=model,
-        cache=CacheConfig(block_size=block_size, num_gpu_blocks=0, cache_max_entry_count=0.5,
+        cache=CacheConfig(block_size=block_size, num_gpu_blocks=num_blocks,
+                          cache_max_entry_count=0.5,
                           max_prefill_token_num=8192,
                           quant_policy=QuantPolicy(quant_policy)),
         scheduler=SchedulerConfig(max_batch_size=max_batch, max_session_len=session_len,
                                   max_prefill_token_num=8192, max_prefill_batch=16),
         misc=MiscConfig(empty_init=True, eager_mode=eager_mode))
     return Engine(None, TpuEngineConfig(quant_policy=quant_policy, eager_mode=eager_mode),
-                  configs=bundle, mesh=mesh)
+                  configs=bundle, mesh=mesh, speculative_config=speculative_config)
 
 
-def run_requests(engine, prompts, new_tokens, sampled=(), logprobs: int = 0):
+def run_requests(engine, prompts, new_tokens, sampled=(), logprobs: int = 0,
+                 logprob_rows=None):
     """Serve the prompts at once, greedy but for the indices in ``sampled``, which
     draw seeded samples (top-k 40, top-p 0.95, temperature 0.8, seed 1000 + index),
-    each token with the ``logprobs`` most likely beside it."""
+    each token with the ``logprobs`` most likely beside it (only the requests of
+    ``logprob_rows`` where it is given)."""
     from lmdeploy_tpu_torch.messages import GenerationConfig
     inst = engine.create_instance()
 
     def gen(i):
         extra = (dict(do_sample=True, top_k=40, top_p=0.95, temperature=0.8,
                       random_seed=1000 + i) if i in sampled else {})
+        lp = logprobs if logprob_rows is None or i in logprob_rows else 0
         return GenerationConfig(max_new_tokens=new_tokens, ignore_eos=True,
-                                logprobs=logprobs, **extra)
+                                logprobs=lp, **extra)
 
     async def go():
         return await asyncio.gather(*[inst.async_infer(i + 1, p, gen(i))
@@ -3846,6 +3882,483 @@ def _dense_traps(name: str):
              'card')]
 
 
+# -- speculative decoding ------------------------------------------------------------
+# the public config.json of yuhuili/EAGLE3-LLaMA3.1-Instruct-8B (its fields the port
+# reads): one decoder layer at the target's width over a 32,000-id draft vocabulary
+EAGLE3_LLAMA31_8B = {
+    'architectures': ['LlamaForCausalLMEagle3'], 'model_type': 'llama',
+    'hidden_size': 4096, 'intermediate_size': 14336, 'num_hidden_layers': 1,
+    'num_attention_heads': 32, 'num_key_value_heads': 8, 'head_dim': 128,
+    'vocab_size': 128256, 'draft_vocab_size': 32000, 'target_hidden_size': 4096,
+    'max_position_embeddings': 2048, 'rms_norm_eps': 1e-05, 'rope_theta': 500000.0,
+    'tie_word_embeddings': False, 'torch_dtype': 'float16',
+}
+# yuhuili/EAGLE-LLaMA3-Instruct-8B's EAGLE-1 head (fc over [embed ; feature], the
+# target's norm and lm_head): the same layer geometry
+EAGLE_LLAMA3_8B = {
+    'architectures': ['LlamaForCausalLM'], 'model_type': 'llama',
+    'hidden_size': 4096, 'intermediate_size': 14336, 'num_hidden_layers': 1,
+    'num_attention_heads': 32, 'num_key_value_heads': 8, 'head_dim': 128,
+    'vocab_size': 128256, 'max_position_embeddings': 8192, 'rms_norm_eps': 1e-05,
+    'rope_theta': 500000.0, 'tie_word_embeddings': False, 'torch_dtype': 'float16',
+}
+# the public config.json of meta-llama/Llama-3.2-1B-Instruct, the draft model
+LLAMA32_1B = {
+    'architectures': ['LlamaForCausalLM'], 'model_type': 'llama',
+    'hidden_size': 2048, 'intermediate_size': 8192, 'num_hidden_layers': 16,
+    'num_attention_heads': 32, 'num_key_value_heads': 8, 'head_dim': 64,
+    'vocab_size': 128256, 'max_position_embeddings': 131072, 'rms_norm_eps': 1e-05,
+    'rope_theta': 500000.0,
+    'rope_scaling': {'factor': 32.0, 'low_freq_factor': 1.0, 'high_freq_factor': 4.0,
+                     'original_max_position_embeddings': 8192, 'rope_type': 'llama3'},
+    'tie_word_embeddings': True, 'bos_token_id': 128000,
+    'eos_token_id': [128001, 128008, 128009], 'torch_dtype': 'bfloat16',
+}
+# proposals a step (the reference's default)
+SPEC_K = 4
+# the cells over Llama-3.1-8B at L31 layers: (method, the draft's config); None: the
+# target's own config and seeded weights (a self-draft)
+SPEC_CELLS = {'spec_eagle3': ('eagle3', EAGLE3_LLAMA31_8B),
+              'spec_draft_llama32_1b': ('draft_model', LLAMA32_1B),
+              'spec_self_draft': ('draft_model', None)}
+# the traffic: 63 prompts of 256 tokens and one of 2,048, 64 new tokens each; two of
+# them seeded-sampled, one asking for its top-2 logprobs (the host-driven path)
+SPEC_SAMPLED = (1, 2)
+SPEC_LOGPROB_ROW = 3
+SPEC_NEW = 64
+# both caches' blocks (the draft's has the target's count): the traffic needs ~210 of
+# 128 tokens; the 1B draft's 16 layers take 2.1 GB, as would 8 target layers
+SPEC_BLOCKS = 512
+# the verify (the gathered path, f32 scores over the bf16 cache) against the plain
+# engine's decode (row 2's kernel) at the same positions: greedy tokens may differ only
+# where the plain engine's top-2 logprob margin lies below this allowance, which must lie
+# above its floor, twice the largest logit difference of the two paths on
+# verify_decode_check's rows (0.2243 on an H100 80GB HBM3 at 700 W with the target at
+# 8 layers of random bf16 weights; 0.25 at first, raised with the first read)
+VERIFY_MARGIN_TOL = 0.3
+# a head step at full width, card bf16 (the paged decode kernel) against the CPU in
+# f32: the largest logit difference, which must lie within the allowance, as must the
+# floor of the card's plain decode (EAGLE-1's first read 0.166, floor 0.193, on an H100
+# 80GB HBM3 at 700 W, against a first allowance of 0.1: the floor is bf16's own)
+HEAD_LOGIT_TOL = 0.3
+
+
+def spec_config_dir(root: str, name: str, cfg: dict) -> str:
+    """A directory holding ``cfg`` as config.json (the engine reads a draft's config
+    from a path; its weights are seeded)."""
+    path = os.path.join(root, name)
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, 'config.json'), 'w') as f:
+        json.dump(cfg, f)
+    return path
+
+
+def _spec_engine(target, method, draft_dir, shared, eager_mode=False):
+    """An engine of the cell, its target (and a self-draft) on the seeded weights in
+    ``shared``, any other draft on its own seeded weights."""
+    from lmdeploy_tpu_torch.messages import SpeculativeConfig
+    from lmdeploy_tpu_torch.models.llama import LlamaModel
+    init = LlamaModel.init_params
+
+    def init_target(self, *args, **kwargs):
+        if self.config.num_layers == target.num_layers and \
+                self.config.hidden_size == target.hidden_size:
+            if 'init' not in shared:
+                shared['init'] = init(self, *args, **kwargs)
+            return shared['init']
+        return init(self, *args, **kwargs)
+    spec = None if method is None else SpeculativeConfig(
+        method=method, model=draft_dir, num_speculative_tokens=SPEC_K)
+    with _swapped((LlamaModel, 'init_params', init_target)):
+        return build_engine(target, 64, session_len=2048 + 128, eager_mode=eager_mode,
+                            num_blocks=SPEC_BLOCKS, speculative_config=spec)
+
+
+def _spec_prompts():
+    rng = np.random.RandomState(SEED + 5)
+    prompts = [rng.randint(3, 32000, size=256).tolist() for _ in range(63)]
+    return prompts + [rng.randint(3, 32000, size=2048).tolist()]
+
+
+def _top2_margins(out) -> list:
+    """Each token's top-2 logprob margin from a request's logprobs entries."""
+    margins = []
+    for entry in out.logprobs:
+        vals = sorted((lp.logprob for lp in entry.values()), reverse=True)
+        margins.append(vals[0] - vals[1] if len(vals) > 1 else float('inf'))
+    return margins
+
+
+def spec_cell(name, method, draft_dir, target, shared, card, plain) -> dict:
+    """One speculative cell: a graph engine (warmed at the 64-row bucket) serves the
+    traffic once, counted: every speculative step must replay its graph (c) and launch
+    paged_decode K x draft layers times and flash_prefill none (d; the host-driven
+    row's decode steps and the prefill steps launch theirs apart); a traced run of the
+    greedy requests; then an eager_mode engine of the same weights serves the traffic,
+    whose tokens must equal the graph engine's, sampled and host-driven rows included
+    (a); the greedy rows' tokens must equal the plain engine's but where its top-2
+    margin at the first differing position lies below VERIFY_MARGIN_TOL (b)."""
+    from lmdeploy_tpu_torch.config import bucketize
+    prompts = _spec_prompts()
+    counters = _kernel_counters()
+    runs = {}
+    for mode in ('graphs', 'eager'):
+        t0 = time.perf_counter()
+        engine = _spec_engine(target, method, draft_dir, shared, eager_mode=mode == 'eager')
+        build_s = time.perf_counter() - t0
+        agent, spec = engine.model_agent, engine.spec
+        warm = _warmed(engine, len(prompts))
+        key = spec.key(bucketize(len(prompts), agent.batch_buckets))
+        steps = {'spec': 0, 'host': 0, 'prefill': 0, 'fresh_prefill': 0}
+        emitted = []
+        prefill, decode, spec_decode = agent.prefill, agent.decode, spec.spec_decode
+
+        def counted_prefill(chunks):
+            steps['prefill'] += 1
+            steps['fresh_prefill'] += all(c.start == 0 for c in chunks)
+            return prefill(chunks)
+
+        def counted_decode(seqs):
+            steps['host'] += 1
+            return decode(seqs)
+
+        def counted_spec(num_rows):
+            out = spec_decode(num_rows)
+            steps['spec'] += 1
+            emitted.append(out[1][out[1] > 0])
+            return out
+        agent.prefill, agent.decode, spec.spec_decode = (counted_prefill, counted_decode,
+                                                         counted_spec)
+        for fn in counters.values():
+            fn.launches = 0
+            if hasattr(fn, 'combines'):
+                fn.combines = 0
+        agent.graphs.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        outs, t0, t1 = run_requests(engine, prompts, SPEC_NEW, sampled=SPEC_SAMPLED,
+                                    logprobs=2, logprob_rows=(SPEC_LOGPROB_ROW,))
+        launches, combines = agent.graphs.launch_totals()
+        agent.prefill, agent.decode, spec.spec_decode = prefill, decode, spec_decode
+        run = {'tokens': [o.token_ids for o in outs], 'steps': dict(steps),
+               'graphs': agent.graphs.stats(), 'build_s': build_s, 'warmup': warm,
+               'eager_reason': agent.graphs.eager_reason(key),
+               'launches': {n: launches[fn.__name__] for n, fn in counters.items()},
+               'combines': {n: combines[fn.__name__] for n, fn in counters.items()
+                            if hasattr(fn, 'combines')},
+               'peak_allocated_bytes': torch.cuda.max_memory_allocated(),
+               'emitted_per_step': float(np.concatenate(emitted).mean()) if emitted else None,
+               'n_layers': spec.n_layers, 'outs': outs, 't0': t0, 't1': t1,
+               **serving_numbers({'outs': outs, 't0': t0, 't1': t1})}
+        if mode == 'graphs':
+            run['trace'] = profile_phase(name, engine, prompts, SPEC_NEW)
+        runs[mode] = run
+        engine.close()
+        del engine, agent, spec, prefill, decode, spec_decode, outs
+        gc.collect()
+        torch.cuda.empty_cache()
+    g, e = runs['graphs'], runs['eager']
+    L = target.num_layers
+    st = g['steps']
+    need = {'paged_decode': st['spec'] * SPEC_K * g['n_layers'] + st['host'] * L,
+            'flash_prefill': st['fresh_prefill'] * L}
+    launches_ok = all(g['launches'][k] == v and v > 0 for k, v in need.items())
+    replayed = (g['graphs']['replays'] == st['spec'] > 0 and g['graphs']['eager_runs'] == 0
+                and g['eager_reason'] is None)
+    eager_ran_eagerly = (e['graphs']['replays'] == 0
+                         and e['graphs']['eager_runs'] == e['steps']['spec'] > 0)
+    equal = g['tokens'] == e['tokens']
+    greedy_rows = [i for i in range(len(prompts)) if i not in SPEC_SAMPLED]
+    diffs = []
+    for i in greedy_rows:
+        a, b = g['tokens'][i], plain['tokens'][i]
+        if a != b:
+            j = next(j for j in range(len(b)) if a[j] != b[j])
+            diffs.append({'row': i, 'position': j, 'plain_margin': plain['margins'][i][j]})
+    within = all(d['plain_margin'] < VERIFY_MARGIN_TOL for d in diffs)
+    lengths_ok = all(len(t) == SPEC_NEW for r in runs.values() for t in r['tokens'])
+    host_row = g['outs'][SPEC_LOGPROB_ROW]
+    host_lp_ok = all(len(entry) >= 2 for entry in host_row.logprobs)
+    row = {'phase': name, 'model': f'{model_label(target)}; speculative {method}, K '
+                                   f'{SPEC_K}, draft {g["n_layers"]} layers', 'card': card,
+           'requests': len(prompts), 'new_tokens': SPEC_NEW, 'sampled_rows': SPEC_SAMPLED,
+           'host_driven_row': SPEC_LOGPROB_ROW,
+           'steps': st, 'emitted_per_step': g['emitted_per_step'],
+           'decode_tok_s': g['decode_tok_s'], 'ttft_ms': g['ttft_ms'],
+           'output_tok_s': g['output_tok_s'], 'wall_s': g['wall_s'],
+           'plain_decode_tok_s': plain['decode_tok_s'],
+           'warmup': g['warmup'], 'graphs': g['graphs'], 'eager_reason': g['eager_reason'],
+           'busy_share': g['trace']['device_busy_share'],
+           'launches': g['launches'], 'combines': g['combines'], 'launches_needed': need,
+           'launches_ok': launches_ok, 'replayed': replayed,
+           'peak_allocated_bytes': g['peak_allocated_bytes'],
+           'engine_build_s': g['build_s'], 'lengths_ok': lengths_ok,
+           'host_row_top_logprobs': host_lp_ok,
+           'greedy_rows_differing_from_plain': len(diffs), 'first_differences': diffs,
+           'verify_margin_tol': VERIFY_MARGIN_TOL, 'differences_within_tol': within,
+           'rows_by_kernel': {}}
+    emit(row)
+    check = {'phase': 'decode_graphs', 'of': name, 'card': card,
+             'tokens_equal': equal, 'graphs_replayed': replayed,
+             'eager_ran_eagerly': eager_ran_eagerly,
+             'decode_tok_s': {'graphs': g['decode_tok_s'], 'eager': e['decode_tok_s']},
+             'ttft_p50_ms': {'graphs': g['ttft_ms']['p50'], 'eager': e['ttft_ms']['p50']},
+             'emitted_per_step': {'graphs': g['emitted_per_step'],
+                                  'eager': e['emitted_per_step']},
+             'busy_share': {'graphs': row['busy_share'], 'eager': None},
+             'eager_build_s': e['build_s']}
+    check['ok'] = equal and replayed and eager_ran_eagerly
+    emit(check)
+    if not (launches_ok and replayed and lengths_ok and within and host_lp_ok):
+        raise SystemExit(f'{name} phase failed: {row}')
+    if not check['ok']:
+        raise SystemExit(f'decode_graphs of {name} failed: {check}')
+    return row
+
+
+def spec_plain_run(target, shared, card) -> dict:
+    """The plain engine (no speculation, graphs) on the spec cells' traffic, every
+    request greedy with its top-2 logprobs: its tokens and margins, and its numbers."""
+    prompts = _spec_prompts()
+    engine = _spec_engine(target, None, None, shared)
+    _warmed(engine, len(prompts))
+    outs, t0, t1 = run_requests(engine, prompts, SPEC_NEW, logprobs=2)
+    engine.close()
+    row = {'phase': 'spec_plain', 'model': model_label(target), 'card': card,
+           **serving_numbers({'outs': outs, 't0': t0, 't1': t1})}
+    emit(row)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(row, tokens=[o.token_ids for o in outs],
+                margins=[_top2_margins(o) for o in outs])
+
+
+def verify_decode_check(target, shared, card) -> dict:
+    """The verify's logits (T = K+1 over history: the gathered path) against K+1 decode
+    steps (row 2's kernel) from the same cache, at the same positions: 8 rows prefilled
+    with 256 tokens (flash_prefill), then the chunk [argmax, 4 random proposals]; the
+    largest logit difference, twice which is the floor of VERIFY_MARGIN_TOL."""
+    from lmdeploy_tpu_torch.models.llama import AttnMeta, LlamaModel
+    from lmdeploy_tpu_torch.nn.layers import make_rope_table
+    model = LlamaModel(target)
+    params = shared['init']
+    B, T, BS, K1 = 8, 256, 128, SPEC_K + 1
+    L, hd = target.num_layers, target.num_key_value_heads * target.head_dim
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    cache = torch.zeros((L, 1 + 3 * B, 2, BS, hd), dtype=torch.bfloat16, device='cuda')
+    tables = (1 + torch.arange(3 * B, device='cuda', dtype=torch.int32)).reshape(B, 3)
+    cos, sin = make_rope_table(target.rope_dim, 2048, target.rope_theta,
+                               target.rope_scaling, device='cuda')
+    ids = torch.randint(3, 32000, (B, T), generator=gen, device='cuda', dtype=torch.int32)
+    pos = torch.arange(T, device='cuda', dtype=torch.int32)[None].expand(B, T).contiguous()
+
+    def meta(hist, q):
+        return AttnMeta(tables, torch.full((B,), hist, dtype=torch.int32, device='cuda'),
+                        torch.full((B,), q, dtype=torch.int32, device='cuda'))
+    with torch.no_grad():
+        last = model.forward(params, ids, pos, cache, meta(0, T), cos, sin, fresh_prefill=True)
+        chunk = torch.cat([last.argmax(-1).int()[:, None],
+                           torch.randint(3, 32000, (B, SPEC_K), generator=gen, device='cuda',
+                                         dtype=torch.int32)], dim=1)
+        base = cache.clone()
+        dec = []
+        for j in range(K1):
+            p = torch.full((B, 1), T + j, dtype=torch.int32, device='cuda')
+            dec.append(model.forward(params, chunk[:, j:j + 1].contiguous(), p, cache,
+                                     meta(T + j, 1), cos, sin))
+        dec = torch.stack(dec, 1)
+        cache.copy_(base)
+        p = (T + torch.arange(K1, device='cuda', dtype=torch.int32))[None].expand(B, K1)
+        ver = model.forward(params, chunk, p.contiguous(), cache, meta(T, K1), cos, sin,
+                            return_all_logits=True)
+        # the same decode steps on the plain decode: the floor's share that is the
+        # verify's GEMM shapes and f32 scores, not the kernel
+        cache.copy_(base)
+        plain = []
+        with _plain_kernels():
+            for j in range(K1):
+                p = torch.full((B, 1), T + j, dtype=torch.int32, device='cuda')
+                plain.append(model.forward(params, chunk[:, j:j + 1].contiguous(), p, cache,
+                                           meta(T + j, 1), cos, sin))
+        plain = torch.stack(plain, 1)
+    diff = (ver - dec).abs()
+    floor = 2 * diff.max().item()
+    row = {'phase': 'spec_verify_vs_decode', 'card': card, 'rows': B, 'history': T,
+           'positions': K1, 'layers': L, 'max_abs_logit_diff': diff.max().item(),
+           'mean_abs_logit_diff': diff.mean().item(), 'floor': floor,
+           'plain_decode_max_abs_logit_diff': (ver - plain).abs().max().item(),
+           'kernel_vs_plain_decode_max_abs_logit_diff': (dec - plain).abs().max().item(),
+           'logit_std': ver.std().item(),
+           'verify_margin_tol': VERIFY_MARGIN_TOL,
+           'argmax_equal_share': (ver.argmax(-1) == dec.argmax(-1)).float().mean().item(),
+           'ok': bool(torch.isfinite(ver).all()) and floor <= VERIFY_MARGIN_TOL}
+    emit(row)
+    if not row['ok']:
+        raise SystemExit(f'the verify disagrees with the decode past the allowance: {row}')
+    return row
+
+
+def spec_sampler_check(card) -> dict:
+    """reject_sample and advance_rows on the card against the CPU, exactly, at the
+    cells' shape (B 64, K 4, V 128,256) with planted distributions and uniforms: rows
+    whose draft is the target (all accepted), rows whose first acceptance uniform is
+    0.999999 (first rejected), the rest random (partial); then the row advance."""
+    from lmdeploy_tpu_torch.engine.spec_agent import advance_rows
+    from lmdeploy_tpu_torch.ops.sampling import hash_uniform
+    from lmdeploy_tpu_torch.ops.spec_sampling import draw, reject_sample
+    B, K, V, F = 64, SPEC_K, 128256, 4096
+    gen = torch.Generator().manual_seed(SEED)
+    target = torch.softmax(torch.randn(B, K + 1, V, generator=gen) * 3, -1)
+    draft = torch.softmax(torch.randn(B, K, V, generator=gen) * 3, -1)
+    draft[:16] = target[:16, :K]
+    # drafts half the target's: accepted about half the time (partial rows)
+    draft[32:] = 0.5 * (draft[32:] + target[32:, :K])
+    seeds = torch.arange(B, dtype=torch.int64) * 7919
+    tokens = torch.stack([draw(draft[:, i], hash_uniform(seeds + i, V, 5)) for i in range(K)], 1)
+    u_acc = torch.rand(B, K, generator=gen).clamp_min(1e-6)
+    u_acc[16:32, 0] = 0.999999
+    u_res = torch.rand(B, V, generator=gen).clamp_min(1e-6)
+    u_bon = torch.rand(B, V, generator=gen).clamp_min(1e-6)
+    args = (target, draft, tokens)
+    cpu = reject_sample(*args, uniforms=(u_acc, u_res, u_bon))
+    card_out = reject_sample(*(a.cuda() for a in args),
+                             uniforms=tuple(u.cuda() for u in (u_acc, u_res, u_bon)))
+    torch.cuda.synchronize()
+    emitted = cpu[1].tolist()
+    sample_equal = all(torch.equal(c.cpu(), r) for c, r in zip(card_out, cpu))
+
+    def advanced(device):
+        out, n = (t.to(device) for t in cpu)
+        g = torch.Generator().manual_seed(SEED + 1)
+        row = {'active': (torch.arange(B) % 9 != 4).to(device),
+               'token': torch.randint(0, V, (B,), generator=g, dtype=torch.int32).to(device),
+               'position': torch.randint(0, 2000, (B,), generator=g, dtype=torch.int32).to(device),
+               'step_no': torch.randint(0, 60, (B,), generator=g, dtype=torch.int32).to(device)}
+        n = torch.where(row['active'], n, torch.zeros_like(n))
+        counts = torch.randint(0, 3, (B + 1, V), generator=g, dtype=torch.int32).to(device)
+        hidden = torch.randn(B, F, generator=g).to(torch.bfloat16).to(device)
+        feats = torch.randn(B, K + 1, F, generator=g).to(torch.bfloat16).to(device)
+        advance_rows(row, counts[:B], out, n, hidden, feats)
+        return [t.cpu() for t in (*row.values(), counts, hidden)]
+    advance_equal = all(torch.equal(a, b) for a, b in zip(advanced('cuda'), advanced('cpu')))
+    row = {'phase': 'spec_sampler', 'card': card, 'shape': [B, K, V],
+           'all_accepted_rows': sum(e == K + 1 for e in emitted),
+           'first_rejected_rows': sum(e == 1 for e in emitted),
+           'partial_rows': sum(1 < e < K + 1 for e in emitted),
+           'reject_sample_equal': sample_equal, 'advance_rows_equal': advance_equal}
+    row['ok'] = (sample_equal and advance_equal and row['all_accepted_rows'] >= 16
+                 and row['first_rejected_rows'] >= 16 and row['partial_rows'] > 0)
+    emit(row)
+    if not row['ok']:
+        raise SystemExit(f'the speculative sampler on the card is not the CPU\'s: {row}')
+    return row
+
+
+def spec_heads_check(target, shared, card) -> dict:
+    """EAGLE-1 and EAGLE-3 head steps at their published widths, 16 rows and two chained
+    steps over a head cache of random stale pages: the card in bf16 (the paged decode
+    kernel, and the plain decode for the floor) against the CPU in f32 (the same seeded
+    weights and inputs), by the largest logit and feature difference."""
+    from lmdeploy_tpu_torch.config import ModelConfig
+    from lmdeploy_tpu_torch.models.eagle import Eagle3Head, EagleHead
+    from lmdeploy_tpu_torch.nn.layers import make_rope_table
+    tparams = {k: shared['init'][k] for k in ('embed', 'final_norm', 'lm_head')}
+    B, BS, W, NB = 16, 128, 17, 1 + 16 * 17
+    rows = []
+    for kind, cfg_dict, cls in (('eagle', EAGLE_LLAMA3_8B, EagleHead),
+                                ('eagle3', EAGLE3_LLAMA31_8B, Eagle3Head)):
+        cfg = ModelConfig.from_hf_config(cfg_dict, dtype='bfloat16')
+        head = cls(cfg)
+        params = head.init_params(SEED, device='cuda')
+        gen = torch.Generator(device='cuda').manual_seed(SEED + 3)
+        hd = cfg.num_key_value_heads * cfg.head_dim
+        cache = (torch.randn((1, NB, 2, BS, hd), generator=gen, device='cuda') * 0.5
+                 ).to(torch.bfloat16)
+        tables = (1 + torch.arange(B * W, device='cuda', dtype=torch.int32)).reshape(B, W)
+        pos = torch.randint(100, 2000, (B,), generator=gen, device='cuda', dtype=torch.int32)
+        q1 = torch.ones(B, dtype=torch.int32, device='cuda')
+        q1[-1] = 0
+        # each step's tokens (the same on both sides, whatever either side's argmax)
+        toks = torch.randint(3, 32000, (2, B), generator=gen, device='cuda', dtype=torch.int32)
+        width = 3 * head.target_hidden if kind == 'eagle3' else cfg.hidden_size
+        feat = torch.randn((B, width), generator=gen, device='cuda').to(torch.bfloat16)
+
+        def steps(device, dtype, plain=False):
+            def mv(t):
+                return t.to(device=device, dtype=dtype if t.is_floating_point() else t.dtype)
+            p = {k: mv(v) for k, v in params.items()}
+            tp = {k: mv(v) for k, v in tparams.items()}
+            c, ps = mv(cache), pos.to(device)
+            cos, sin = make_rope_table(target.rope_dim, 2048 + 128, target.rope_theta,
+                                       target.rope_scaling, device=device)
+            h = mv(feat)
+            if kind == 'eagle3':
+                h = head.condition(p, h, dtype)
+            out = []
+            with _plain_kernels() if plain else contextlib.nullcontext():
+                for t in toks.to(device):
+                    logits, h = head.step(p, p['embed'] if kind == 'eagle3' else tp, h, t,
+                                          ps, c, tables.to(device), q1.to(device), cos, sin,
+                                          2048 + 128)
+                    out.append((logits.float().cpu(), h.float().cpu()))
+                    ps = ps + q1.to(device)
+            return out
+        ref = steps('cpu', torch.float32)
+        got = steps('cuda', torch.bfloat16)
+        floor = steps('cuda', torch.bfloat16, plain=True)
+        act = slice(0, B - 1)
+
+        def err(a, i):
+            return max((a[s][i][act] - ref[s][i][act]).abs().max().item() for s in range(2))
+        row = {'phase': 'spec_head_step', 'head': kind, 'card': card,
+               'shape': {'rows': B, 'hidden': cfg.hidden_size, 'heads': [cfg.num_attention_heads,
+                         cfg.num_key_value_heads, cfg.head_dim],
+                         'vocab': head.draft_vocab if kind == 'eagle3' else cfg.vocab_size},
+               'max_abs_logit_err': err(got, 0), 'floor_logit_err': err(floor, 0),
+               'max_abs_feature_err': err(got, 1), 'floor_feature_err': err(floor, 1),
+               'logit_tol': HEAD_LOGIT_TOL,
+               'logit_std': float(np.mean([ref[s][0][act].std().item() for s in range(2)])),
+               'argmax_equal_cpu_share': float(np.mean([
+                   (got[s][0][act].argmax(-1) == ref[s][0][act].argmax(-1)).float().mean()
+                   for s in range(2)]))}
+        row['ok'] = (row['max_abs_logit_err'] <= HEAD_LOGIT_TOL
+                     and row['floor_logit_err'] <= HEAD_LOGIT_TOL
+                     and all(np.isfinite([row['max_abs_logit_err'], row['max_abs_feature_err']])))
+        emit(row)
+        rows.append(row)
+        del params, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not row['ok']:
+            raise SystemExit(f'the {kind} head step on the card is off the CPU: {row}')
+    return rows
+
+
+def spec_phase(card: str) -> dict:
+    """Speculative decoding on Llama-3.1-8B (L31 layers, seeded bf16 weights shared by
+    every engine): the sampler and head checks, the verify against the decode, the plain
+    engine's run, then each cell of SPEC_CELLS (``spec_cell``).  Returns the cells'
+    rows by name."""
+    import tempfile
+    target = llama31_config(L31)
+    shared = {}
+    root = tempfile.mkdtemp(prefix='spec_configs_')
+    try:
+        spec_sampler_check(card)
+        plain = spec_plain_run(target, shared, card)
+        verify_decode_check(target, shared, card)
+        spec_heads_check(target, shared, card)
+        paths = {}
+        for name, (method, cfg) in SPEC_CELLS.items():
+            draft = cfg if cfg is not None else dict(LLAMA31_8B, num_hidden_layers=L31)
+            paths[name] = spec_cell(name, method, spec_config_dir(root, name, draft), target,
+                                    shared, card, plain)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shared.clear()
+    return paths
+
+
 def kernel_line(flash, decode, decode8, w4, mx, kv, szc, unprep, fp8, cp, mla_quant):
     def entry(name, source, replaces, rows, lead, library_ms):
         return {'name': name, 'route': 'cuda', 'source': f'lmdeploy_tpu_torch/csrc/{source}',
@@ -4138,6 +4651,8 @@ def main():
                             exact=True, new_tokens=32,
                             forbid=() if flash else ('flash_prefill',),
                             graphs_check=dict(traffic=('greedy',), trace=False))
+    # speculative decoding over Llama-3.1-8B: EAGLE-3, a Llama-3.2-1B draft, a self-draft
+    paths.update(timed('spec', spec_phase, info['nvidia_smi']))
     main_path = {'fp8_bmm': 'e2e_deepseek_v2_lite_fp8', 'flash_prefill': 'e2e',
                  'paged_decode': 'e2e', 'paged_decode_cp': 'e2e_llama31_8b_cp2',
                  'paged_decode_int8': 'e2e_w4a16_kv8', 'w4a16_gemm': 'e2e_w4a16_kv8',

@@ -8,7 +8,8 @@ path becomes a CUDA kernel written for ``sm_90a`` (``csrc/``, built at first use
 from .api import pipeline  # noqa: F401
 from .chat_template import ChatTemplateConfig  # noqa: F401
 from .messages import (EngineOutput, GenerationConfig, PytorchEngineConfig,  # noqa: F401
-                       QuantPolicy, Response, ResponseType, TpuEngineConfig)
+                       QuantPolicy, Response, ResponseType, SpeculativeConfig,
+                       TpuEngineConfig)
 from .tokenizer import Tokenizer  # noqa: F401
 
 __version__ = '0.1.0'

@@ -7,7 +7,7 @@ from __future__ import annotations
 from typing import Optional
 
 from .chat_template import ChatTemplateConfig
-from .messages import TpuEngineConfig
+from .messages import SpeculativeConfig, TpuEngineConfig
 from .pipeline import Pipeline
 
 
@@ -16,11 +16,13 @@ def pipeline(model_path: str,
              chat_template_config: Optional[ChatTemplateConfig] = None,
              log_level: str = 'WARNING',
              device=None,
+             speculative_config: Optional[SpeculativeConfig] = None,
              **kwargs) -> Pipeline:
     """Build an inference pipeline over the PyTorch engine.
 
     ``device=None`` serves on the GPU and raises when there is none; pass
-    ``device='cpu'`` to run on the CPU.  Example::
+    ``device='cpu'`` to run on the CPU.  ``speculative_config`` turns speculative
+    decoding on (a draft model, an EAGLE or an EAGLE-3 head).  Example::
 
         from lmdeploy_tpu_torch import pipeline
         pipe = pipeline('TinyLlama/TinyLlama-1.1B-Chat-v1.0')
@@ -28,4 +30,5 @@ def pipeline(model_path: str,
     """
     return Pipeline(model_path, backend_config=backend_config,
                     chat_template_config=chat_template_config,
-                    log_level=log_level, device=device, **kwargs)
+                    log_level=log_level, device=device,
+                    speculative_config=speculative_config, **kwargs)

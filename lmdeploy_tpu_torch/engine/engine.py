@@ -4,11 +4,13 @@ Port of the main-path subset of ``lmdeploy_tpu/engine/engine.py``: ``add_message
 the asyncio loop (``_async_loop_body``), prefill result handling, k-step decode runs
 with the pipelined chain (run N+1 dispatched before run N is drained) and the
 prefill / decode overlap (waiting prefills dispatched behind the in-flight run), the
-budget-aware drain and recompute preemption.  ``LMDEPLOY_TPU_OVERLAP=0`` and
+budget-aware drain and recompute preemption, and speculative decoding
+(``speculative_config``: ``engine/spec_agent.py``; rows that ask for top logprobs then
+decode one host-driven step at a time).  ``LMDEPLOY_TPU_OVERLAP=0`` and
 ``LMDEPLOY_TPU_PIPELINE=0`` turn the overlap and the chain off, as in the reference.
 Device steps run on one worker thread so requests keep arriving while the card
-computes.  Later slices bring speculative / diffusion / guided / host-driven decoding,
-host swap, S-LoRA and sleep / wakeup (see ROADMAP.md).
+computes.  Later slices bring diffusion and guided decoding, bad words, host swap,
+S-LoRA and sleep / wakeup (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -49,6 +51,14 @@ def _is_simple_sampling(p) -> bool:
             and p.frequency_penalty == 0.0 and p.presence_penalty == 0.0)
 
 
+def _host_driven(seq, spec=None) -> bool:
+    """Rows that run the single-step host path instead of the device decode state
+    (reference :46-77): under speculative decoding, rows that ask for top logprobs (the
+    speculative step computes only each token's own).  The reference's other host-driven
+    rows, guided decoding and bad words, are refused by ``add_message``."""
+    return spec is not None and seq.sampling_params.logprobs > 0
+
+
 def _is_full_vocab_sampling(p) -> bool:
     return bool(p.do_sample and p.top_k <= 0 and p.top_p >= 1.0 and p.min_p <= 0.0)
 
@@ -71,11 +81,13 @@ class Engine:
     ``DistConfig`` of more than one rank builds it (reference :133-138), over
     ``cuda:0 .. cuda:n-1`` (raising with fewer cards) or, with ``device='cpu'``, over
     that many CPU ranks.  Pass ``mesh=build_mesh(cp=2, devices=['cuda:0', 'cuda:0'])``
-    to put two ranks on one card."""
+    to put two ranks on one card.  ``speculative_config`` (``messages.SpeculativeConfig``)
+    turns speculative decoding on when it names a draft ``model`` (reference
+    :188-200); its proposer is built after the target's cache."""
 
     def __init__(self, model_path: Optional[str], engine_config: TpuEngineConfig,
                  configs: Optional[EngineConfigBundle] = None, tokenizer=None,
-                 device=None, mesh=None):
+                 device=None, mesh=None, speculative_config=None):
         self.engine_config = engine_config
         self.tokenizer = tokenizer
         if configs is None:
@@ -97,6 +109,17 @@ class Engine:
             device=device, mesh=mesh)
         self.scheduler = Scheduler(configs.scheduler, configs.cache,
                                    num_blocks=self.model_agent.num_blocks)
+        self.spec = None
+        if speculative_config is not None and (
+                speculative_config.model
+                or speculative_config.method in ('deepseek_mtp', 'qwen3_5_mtp')):
+            from .spec_agent import SpecExtension
+            # MTP weights live in the target checkpoint itself
+            self.spec = SpecExtension(
+                self.model_agent, speculative_config.model or model_path,
+                speculative_config.num_speculative_tokens,
+                draft_empty_init=configs.misc.empty_init,
+                method=speculative_config.method or 'draft_model')
         self.metrics = MetricsAggregator()
         # prefill/decode overlap: dispatch waiting requests' prefill behind an
         # in-flight decode run (LMDEPLOY_TPU_OVERLAP=0 restores k=1 clamping)
@@ -212,8 +235,9 @@ class Engine:
                 continue
             # overlap mode flips to decode-priority while rows decode: waiting
             # prefills dispatch BEHIND the run (see _decode_run_fast) instead of
-            # collapsing it to k=1
-            prefer_decode = self._overlap and bool(self.scheduler.running)
+            # collapsing it to k=1; speculative steps dispatch nothing behind them
+            prefer_decode = (self._overlap and self.spec is None
+                             and bool(self.scheduler.running))
             out = self.scheduler.schedule(prefer_decode=prefer_decode)
             if out.is_empty and self.scheduler.waiting:
                 # finished-but-undrained sequences may still pin blocks
@@ -237,7 +261,7 @@ class Engine:
                         self._executor, self.model_agent.prefill, out.prefill_chunks)
                     await self._handle_prefill_results(out.prefill_chunks, step, loop)
                 else:
-                    await self._decode_run_fast(out.decode_seqs, loop)
+                    await self._decode_run(out.decode_seqs, loop)
             except Exception as e:  # noqa: BLE001
                 logger.exception('engine step failed')
                 self._fail_all(e)
@@ -255,13 +279,76 @@ class Engine:
                 if not seq.metrics.first_token_time:
                     seq.metrics.first_token_time = time.time()
                 self._post_token(seq, float(logprobs[i]), top_logprobs=_row_top(top, i, seq))
-        # newly RUNNING sequences enter the device decode state
+        # newly RUNNING sequences enter the device decode state; host-driven rows
+        # stay out of it
         new_running = [c.seq for c in chunks
-                       if c.is_last and c.seq.status == MessageStatus.RUNNING]
+                       if c.is_last and c.seq.status == MessageStatus.RUNNING
+                       and not _host_driven(c.seq, self.spec)]
         if new_running:
             self.model_agent.insert_decode_rows(new_running)
             for s in new_running:
                 s._synced_blocks = len(s.logical_blocks)
+
+    async def _decode_run(self, seqs, loop):
+        """One decode round: host-driven rows take one host step each; the others a
+        speculative step, or k-step device decode runs."""
+        host_seqs = [s for s in seqs if _host_driven(s, self.spec)]
+        seqs = [s for s in seqs if not _host_driven(s, self.spec)]
+        if seqs:
+            if self.spec is not None:
+                await self._decode_step_spec(seqs, loop)
+            else:
+                await self._decode_run_fast(seqs, loop)
+        if host_seqs:
+            await self._decode_step_host(host_seqs, loop)
+
+    async def _decode_step_spec(self, seqs, loop):
+        """One speculative step (reference :985-1021): capacity for K+1 more tokens a
+        row (which may preempt), table sync, the step, then each row's emitted tokens
+        one at a time until the row stops."""
+        agent = self.model_agent
+        k1 = self.spec.k + 1
+        survivors = []
+        for seq in seqs:
+            if seq.status != MessageStatus.RUNNING:
+                continue
+            if self.scheduler.extend_decode_capacity(seq, k1, exclude=survivors):
+                survivors.append(seq)
+        inactive = [s.batch_slot for s in self.scheduler.seq_manager.all_sequences()
+                    if s.batch_slot >= 0 and s.status != MessageStatus.RUNNING]
+        if inactive:
+            agent.deactivate_rows(inactive)
+        if not survivors:
+            return
+        self._sync_tables(survivors)
+        num_rows = max(s.batch_slot for s in survivors) + 1
+        out_toks, n_emitted, out_lps = await loop.run_in_executor(
+            self._executor, self.spec.spec_decode, num_rows)
+        for seq in survivors:
+            slot = seq.batch_slot
+            for j in range(int(n_emitted[slot])):
+                if seq.status != MessageStatus.RUNNING:
+                    break
+                self.scheduler.on_decode_done(seq, int(out_toks[slot, j]))
+                self._post_token(seq, float(out_lps[slot, j]))
+        stopped = [s.batch_slot for s in survivors
+                   if s.status == MessageStatus.STOPPED and s.batch_slot >= 0]
+        if stopped:
+            agent.deactivate_rows(stopped)
+
+    async def _decode_step_host(self, seqs, loop):
+        """One host-driven decode step (reference :1025): these rows never enter the
+        device decode state."""
+        seqs = [s for s in seqs if s.status == MessageStatus.RUNNING]
+        if not seqs:
+            return
+        step = await loop.run_in_executor(self._executor, self.model_agent.decode, seqs)
+        tokens = await loop.run_in_executor(self._executor, step.tokens_np)
+        logprobs = step.logprobs_np()
+        top = step.top_np()
+        for i, seq in enumerate(seqs):
+            self.scheduler.on_decode_done(seq, int(tokens[i]))
+            self._post_token(seq, float(logprobs[i]), top_logprobs=_row_top(top, i, seq))
 
     async def _decode_run_fast(self, seqs, loop):
         """k-step device decode runs: reserve capacity for k more tokens a row, push

@@ -1,4 +1,4 @@
-"""Compiled decode runs: one CUDA graph per decode-run key.
+"""Compiled decode runs: one CUDA graph per decode-run key (and per speculative step).
 
 Port of the reference's jitted decode runs (``lmdeploy_tpu/engine/model_agent.py``
 ``_get_run_fn``, ``decode_run``, ``warmup``), which are its form of the CUDA-graph
@@ -22,6 +22,10 @@ and the capture but launches nothing that a decode run executes: the runner puts
 counts back as they were and keeps the capture's counts with the graph
 (``DecodeRun.launches``), so a run's launches are the wrappers' counts plus, for each
 graph, its launches times its replays (``launch_totals``).
+
+A speculative step (``engine/spec_agent.py``) is a run of the same kind, keyed
+``('spec', method, B)``: a ``SpecRun`` whose body is the step; it is captured, counted
+and cleared with the decode runs.
 
 On the CPU there is no capture: the agent calls the same body over the same buffers.
 """
@@ -49,18 +53,14 @@ def _counts(fns) -> Dict[str, Tuple[int, int]]:
     return {n: (fn.launches, getattr(fn, 'combines', 0)) for n, fn in fns.items()}
 
 
-class DecodeRun:
-    """One key's static outputs (tokens [k, B] i32, logprobs [k, B] f32, top logprobs
-    ([k, B, top_lp] f32, i32) or None) and, once captured, its graph."""
+class GraphRun:
+    """One key's run: its static outputs (a subclass's), the body that computes it
+    (``body(run, scratch)``; None: the graphs' default body) and, once captured, its
+    graph with the launches one replay makes."""
 
-    def __init__(self, key: RunKey, device: torch.device):
-        k, B, _simple, top_lp = key[:4]
+    def __init__(self, key, body: Optional[Callable] = None):
         self.key = key
-        self.tokens = torch.zeros((k, B), dtype=torch.int32, device=device)
-        self.logprobs = torch.zeros((k, B), dtype=torch.float32, device=device)
-        self.top = None if top_lp <= 0 else (
-            torch.zeros((k, B, top_lp), dtype=torch.float32, device=device),
-            torch.zeros((k, B, top_lp), dtype=torch.int32, device=device))
+        self.body = body
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: Dict[str, int] = {}    # kernel launches one replay makes
         self.combines: Dict[str, int] = {}
@@ -69,14 +69,30 @@ class DecodeRun:
         self.capture_s = 0.0
 
 
+class DecodeRun(GraphRun):
+    """A decode run's static outputs: tokens [k, B] i32, logprobs [k, B] f32, top
+    logprobs ([k, B, top_lp] f32, i32) or None."""
+
+    def __init__(self, key: RunKey, device: torch.device):
+        k, B, _simple, top_lp = key[:4]
+        super().__init__(key)
+        self.tokens = torch.zeros((k, B), dtype=torch.int32, device=device)
+        self.logprobs = torch.zeros((k, B), dtype=torch.float32, device=device)
+        self.top = None if top_lp <= 0 else (
+            torch.zeros((k, B, top_lp), dtype=torch.float32, device=device),
+            torch.zeros((k, B, top_lp), dtype=torch.int32, device=device))
+
+
 class DecodeGraphs:
-    """The agent's decode runs by key.  ``body(run, scratch)`` runs one key's k steps
-    and writes its outputs (over the real state, or a scratch state of inactive rows);
-    ``eager_reason(key)`` says why a key may not be captured (None: it may).  With
-    ``capture`` False (the CPU, or ``eager_mode``) every run calls the body."""
+    """The agent's decode runs (and speculative steps, ``engine/spec_agent.py``) by key.
+    ``body(run, scratch)`` runs one decode key's k steps and writes its outputs (over
+    the real state, or a scratch state of inactive rows); a run that carries a body of
+    its own runs that one.  ``eager_reason(key)`` says why a key may not be captured
+    (None: it may).  With ``capture`` False (the CPU, or ``eager_mode``) every run calls
+    its body."""
 
     def __init__(self, body: Callable, device: torch.device, capture: bool,
-                 eager_reason: Callable[[RunKey], Optional[str]]):
+                 eager_reason: Callable[[tuple], Optional[str]]):
         self.body = body
         self.device = device
         self.capture = capture
@@ -86,35 +102,39 @@ class DecodeGraphs:
         self.pool_bytes = 0             # device memory reserved while capturing
         self.capturing = False          # inside a warm pass or a capture
 
-    def prepare(self, key: RunKey) -> DecodeRun:
-        """The key's run, made at its first use and captured then where it will be
-        (also ``ModelAgent.warmup``)."""
+    def prepare(self, key, make: Optional[Callable] = None) -> GraphRun:
+        """The key's run, made at its first use (a ``DecodeRun``, or ``make(key)``)
+        and captured then where it will be (also ``ModelAgent.warmup``)."""
         run = self.runs.get(key)
         if run is None:
-            run = self.runs[key] = DecodeRun(key, self.device)
+            run = self.runs[key] = make(key) if make else DecodeRun(key, self.device)
         if run.graph is None and self.capture and self.eager_reason(key) is None:
             self._capture(run)
         return run
 
-    def run(self, key: RunKey) -> DecodeRun:
-        """One decode run of ``key`` on the current stream: a replay of its graph,
-        captured first if this is its first use, or the body itself."""
-        run = self.prepare(key)
+    def run(self, key, make: Optional[Callable] = None) -> GraphRun:
+        """One run of ``key`` on the current stream: a replay of its graph, captured
+        first if this is its first use, or the body itself."""
+        run = self.prepare(key, make)
         if run.graph is not None:
             run.graph.replay()
             run.replays += 1
         else:
-            self.body(run, scratch=False)
+            self._body(run)(run, scratch=False)
             run.eager_runs += 1
         return run
 
-    def _capture(self, run: DecodeRun):
+    def _body(self, run: GraphRun) -> Callable:
+        return run.body or self.body
+
+    def _capture(self, run: GraphRun):
         fns = counted_kernels()
         before = _counts(fns)
+        body = self._body(run)
         t0 = time.perf_counter()
         self.capturing = True
         try:
-            self.body(run, scratch=True)              # the warm pass
+            body(run, scratch=True)                   # the warm pass
             mid = _counts(fns)
             reserved = torch.cuda.memory_reserved(self.device)
             graph = torch.cuda.CUDAGraph()
@@ -127,7 +147,7 @@ class DecodeGraphs:
             try:
                 graph.capture_begin(pool=self.pool, capture_error_mode='thread_local')
                 try:
-                    self.body(run, scratch=False)
+                    body(run, scratch=False)
                 except BaseException:
                     with contextlib.suppress(Exception):
                         graph.capture_end()
@@ -152,7 +172,8 @@ class DecodeGraphs:
         run.capture_s = time.perf_counter() - t0
 
     def clear(self):
-        """Drop every graph (the state's tables were rebound)."""
+        """Drop every graph, the speculative steps' too (the state's tables were
+        rebound)."""
         self.runs.clear()
 
     def reset_counts(self):

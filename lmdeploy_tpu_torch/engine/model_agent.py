@@ -156,19 +156,7 @@ class ModelAgent:
         else:
             from ..weight_loader import load_params
             params = load_params(self.model, model_path, self.device)
-        # one wide qkv GEMM and one gate/up GEMM per layer, unless
-        # LMDEPLOY_TPU_FUSE_PROJ=0; W4A16 linears then take a schedule's prepared form
-        # unless LMDEPLOY_TPU_W4_STACKED=0 (they stay unprepared: raw scales and zeros):
-        # the group-dot 'gd' by default, 'fast' with LMDEPLOY_TPU_W4_FAST=1, or the one
-        # LMDEPLOY_TPU_W4_SCHED names (reference model_agent.py:129-149).  Neither on a
-        # mesh, as in the reference
-        if mesh is None and os.environ.get('LMDEPLOY_TPU_FUSE_PROJ', '1') != '0':
-            params = self.model.fuse_projections(params)
-        if mesh is None and os.environ.get('LMDEPLOY_TPU_W4_STACKED', '1') != '0':
-            fast = os.environ.get('LMDEPLOY_TPU_W4_FAST', '0') == '1'
-            sched = os.environ.get('LMDEPLOY_TPU_W4_SCHED', 'gd' if not fast else '') or None
-            params = self.model.prep_quant_leaves(params, fast=fast, mode=sched)
-        self.params = self.model.layout_quant_leaves(params)
+        self.params = self.prepare_params(self.model, params)
 
         cos, sin = make_rope_table(cfg.rope_dim, self.max_model_len, cfg.rope_theta,
                                    cfg.rope_scaling, device=self.device)
@@ -209,12 +197,37 @@ class ModelAgent:
         if cuda:
             self.stream.wait_stream(torch.cuda.current_stream(self.device))
         self.eager_mode = misc.eager_mode
+        # the speculative decoding extension (engine/spec_agent.py), when one is attached
+        self.spec = None
         cp_devices = mesh.cp_devices if mesh is not None else ()
         ragged = ragged_min_rows(self.params)
         self.graphs = DecodeGraphs(
             self._decode_body, self.token_counts.device,
             capture=cuda and not self.eager_mode,
-            eager_reason=lambda key: eager_reason(cp_devices, ragged, key[1]))
+            eager_reason=lambda key: eager_reason(cp_devices, ragged, self._graph_rows(key)))
+
+    def prepare_params(self, model, params):
+        """A loaded tree in the form the agent serves it: one wide qkv GEMM and one
+        gate/up GEMM per layer, unless LMDEPLOY_TPU_FUSE_PROJ=0; W4A16 linears then take
+        a schedule's prepared form unless LMDEPLOY_TPU_W4_STACKED=0 (they stay
+        unprepared: raw scales and zeros): the group-dot 'gd' by default, 'fast' with
+        LMDEPLOY_TPU_W4_FAST=1, or the one LMDEPLOY_TPU_W4_SCHED names (reference
+        model_agent.py:129-149).  Neither on a mesh, as in the reference.  A speculative
+        draft model's tree takes the same form."""
+        if self.mesh is None and os.environ.get('LMDEPLOY_TPU_FUSE_PROJ', '1') != '0':
+            params = model.fuse_projections(params)
+        if self.mesh is None and os.environ.get('LMDEPLOY_TPU_W4_STACKED', '1') != '0':
+            fast = os.environ.get('LMDEPLOY_TPU_W4_FAST', '0') == '1'
+            sched = os.environ.get('LMDEPLOY_TPU_W4_SCHED', 'gd' if not fast else '') or None
+            params = model.prep_quant_leaves(params, fast=fast, mode=sched)
+        return model.layout_quant_leaves(params)
+
+    def _graph_rows(self, key) -> int:
+        """The batch rows a run's forward passes take: B for a decode run, B * (K+1)
+        for a speculative step's verify."""
+        if key[0] == 'spec':
+            return key[2] * (self.spec.k + 1)
+        return key[1]
 
     def _on_stream(self):
         """The agent's stream as the current one (a no-op on the CPU)."""
@@ -379,7 +392,7 @@ class ModelAgent:
 
     def ensure_table_width(self, needed: int):
         """Grow the state's block-table width to the next bucket.  A grown table is a
-        new tensor, so every captured decode run is dropped (the tables start at full
+        new tensor, so every captured decode run (and speculative step) is dropped (the tables start at full
         width, so this does not happen while serving)."""
         if needed <= self.state_table_width:
             return
@@ -474,9 +487,9 @@ class ModelAgent:
                prefill_tokens: Optional[List[int]] = None):
         """Build the hot decode runs ahead of time (reference ``warmup``: the greedy
         and the sampled variant of every power-of-two run length up to
-        ``decode_run_steps``, for each batch size's bucket), largest bucket first: on
-        the card each is captured, on the CPU (or with ``eager_mode``) its buffers are
-        made.  Each ``prefill_tokens`` chunk bucket runs one eager prefill step over
+        ``decode_run_steps``, for each batch size's bucket; under speculative decoding the
+        speculative step instead), largest bucket first: on the card each is captured, on
+        the CPU (or with ``eager_mode``) its buffers are made.  Each ``prefill_tokens`` chunk bucket runs one eager prefill step over
         padding rows, which builds its kernels and warms the allocator.  Call it before
         any request holds a batch slot."""
         if len(self._free_slots) != self.max_batch:
@@ -489,6 +502,10 @@ class ModelAgent:
         buckets = sorted({bucketize(b, self.batch_buckets)
                           for b in (batch_sizes or [self.max_batch])}, reverse=True)
         with self._on_stream():
+            if self.spec is not None:
+                # under speculative decoding the decode-state rows run speculative steps
+                self.spec.warmup(buckets)
+                buckets = []
             for B in buckets:
                 for k in sorted(decode_ks, reverse=True):
                     for simple in (True, False):

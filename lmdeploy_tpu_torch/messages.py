@@ -155,6 +155,8 @@ class SpeculativeConfig:
     target checkpoint, models/qwen3_5.py Qwen3_5MTP); the hybrid target's
     conv/recurrent state is rolled back to the last accepted position via
     per-position snapshots during verification.
+    The port serves 'draft_model', 'eagle' and 'eagle3' (``engine/spec_agent.py``); the
+    two MTP methods raise until ROADMAP.md items 6 and 14 bring their heads.
     """
 
     method: str = 'draft_model'

@@ -150,6 +150,9 @@ class LlamaModel:
         self.final_logit_softcap: Optional[float] = None   # Gemma-2
         self.attn_logit_softcap: Optional[float] = None    # Gemma-2
         self.attn_scale: Optional[float] = None    # Gemma-2 / 3: query_pre_attn_scalar^-0.5
+        # EAGLE-3's feature taps: the layer OUTPUTS whose hidden states concatenate into
+        # the draft's conditioning (set by engine/spec_agent.py; reference llama.py:84-88)
+        self.aux_hidden_layers: Optional[Tuple[int, ...]] = None
         qcfg = config.quantization_config or {}
         method = qcfg.get('quant_method')
         if method in ('awq', 'gptq'):
@@ -500,10 +503,16 @@ class LlamaModel:
                 kv_cache: torch.Tensor, meta: AttnMeta,
                 rope_cos: torch.Tensor, rope_sin: torch.Tensor,
                 return_all_logits: bool = False,
-                fresh_prefill: bool = False) -> torch.Tensor:
+                fresh_prefill: bool = False, return_hidden: bool = False,
+                return_aux_hidden: bool = False):
         """One step over a [B, T] chunk (decode is T == 1); writes the chunk's K/V
         into ``kv_cache`` in place.  Returns f32 logits [B, V] at each row's last
-        valid token, or [B, T, V] with ``return_all_logits``."""
+        valid token, or [B, T, V] with ``return_all_logits``.  For speculative decoding
+        (reference :683-709) it returns (logits, features) instead: with
+        ``return_hidden`` the pre-final-norm hidden state (EAGLE), at the same positions
+        as the logits; with ``return_aux_hidden`` and ``return_all_logits`` the outputs
+        of the layers ``aux_hidden_layers`` (clipped to the model's), concatenated
+        [B, T, n*H] (EAGLE-3)."""
         cfg = self.config
         B, T = input_ids.shape
         D = cfg.head_dim
@@ -522,6 +531,7 @@ class LlamaModel:
                                             meta.q_lens, T, block_size)
         lp = params['layers']
         windows = self.layer_windows or [cfg.sliding_window] * cfg.num_layers
+        taps: List[torch.Tensor] = []
 
         def branch_out(out, norm):
             if norm is not None:
@@ -554,11 +564,19 @@ class LlamaModel:
             hidden = hidden + branch_out(out, w.get('post_attn_norm'))
             x = self._norm(hidden, w['mlp_norm'], w.get('mlp_norm_b'), cfg.rms_norm_eps)
             hidden = hidden + branch_out(self._mlp(w, x), w.get('post_mlp_norm'))
+            if return_aux_hidden:
+                taps.append(hidden)
+        prenorm = hidden
         hidden = self._norm(hidden, params['final_norm'], params.get('final_norm_b'),
                             cfg.rms_norm_eps)
         if return_all_logits:
-            return self._head(params, hidden)
+            logits = self._head(params, hidden)
+            if return_aux_hidden:
+                idx = np.clip(np.asarray(self.aux_hidden_layers), 0, cfg.num_layers - 1)
+                return logits, torch.cat([taps[i] for i in idx], dim=-1)
+            return (logits, prenorm) if return_hidden else logits
         last = (meta.q_lens.long() - 1).clamp(min=0)
-        last_hidden = hidden[torch.arange(B, device=hidden.device), last]
-        return self._head(params, last_hidden)
+        rows = torch.arange(B, device=hidden.device)
+        logits = self._head(params, hidden[rows, last])
+        return (logits, prenorm[rows, last]) if return_hidden else logits
 

@@ -14,7 +14,7 @@ from typing import Any, AsyncIterator, Dict, List, Literal, Optional, Union
 
 from ..chat_template import ChatTemplateConfig, get_chat_template
 from ..engine.engine import Engine
-from ..messages import (GenerationConfig, Response, ResponseType,
+from ..messages import (GenerationConfig, Response, ResponseType, SpeculativeConfig,
                         TpuEngineConfig)
 from ..tokenizer import DetokenizeState, Tokenizer
 
@@ -41,6 +41,7 @@ class AsyncEngine:
                  backend_config: Optional[TpuEngineConfig] = None,
                  chat_template_config: Optional[ChatTemplateConfig] = None,
                  device=None,
+                 speculative_config: Optional[SpeculativeConfig] = None,
                  **kwargs):
         self.model_path = model_path
         self.backend_config = backend_config or TpuEngineConfig()
@@ -49,7 +50,8 @@ class AsyncEngine:
                                                self.tokenizer)
         self.engine = Engine.from_pretrained(model_path,
                                              engine_config=self.backend_config,
-                                             tokenizer=self.tokenizer, device=device)
+                                             tokenizer=self.tokenizer, device=device,
+                                             speculative_config=speculative_config)
         self.instance = self.engine.create_instance()
         self._session_counter = 0
         self.stop_words: List[str] = list(getattr(self.chat_template, 'stop_words',

@@ -57,7 +57,9 @@ def params_from_jax(params_np: Dict, dtype=None, device='cpu') -> Dict:
     ``[L, ...]``) -> the port's tree of tensors (same names and layout).  ``dtype``
     applies to the dense float leaves; quantized dict leaves (``{'nib', 'scale'}``,
     ``{'w8', 'gscale'}``, ``{'packed', ...}`` of any rank, the 4-D expert stacks included, and the prepared
-    leaves of every schedule, bf16 ``sb`` / ``corr`` too) keep theirs, bit for bit.  The reference's ``layer_window`` leaf is
+    leaves of every schedule, bf16 ``sb`` / ``corr`` too) and integer leaves (EAGLE-3's
+    ``d2t``) keep theirs, bit for bit; a speculative head's flat tree converts the same
+    way.  The reference's ``layer_window`` leaf is
     dropped: the port's model holds its windows as Python ints (``layer_windows``)."""
     out = {}
     for k, v in params_np.items():
@@ -67,6 +69,8 @@ def params_from_jax(params_np: Dict, dtype=None, device='cpu') -> Dict:
             out[k] = params_from_jax(v, dtype, device)
         elif k == 'layer_window':
             continue
+        elif np.asarray(v).dtype.kind in 'iu':
+            out[k] = _to_torch(v, device=device)     # ids (EAGLE-3's d2t) keep their type
         else:
             out[k] = _to_torch(v, dtype, device)
     return out
