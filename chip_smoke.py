@@ -158,7 +158,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  (spec_verify_vs_decode); the EAGLE-1 and EAGLE-3 head steps at their
                  published widths, bf16 on the card against f32 on the CPU
                  (spec_head_step); the plain engine on the cells' traffic (63 x 256 +
-                 one 2,048-token prompt, 64 tokens, greedy with top-2 logprobs); then the
+                 one 2,048-token prompt, 32 tokens, greedy with top-2 logprobs); then the
                  cells spec_eagle3 (yuhuili/EAGLE3-LLaMA3.1-Instruct-8B's head),
                  spec_draft_llama32_1b (Llama-3.2-1B as the draft) and spec_self_draft
                  (the target's own weights as the draft), each on a graph engine (every
@@ -168,6 +168,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  greedy tokens equal the plain engine's but where its top-2 margin lies
                  below the verify allowance; each cell's decode tok/s, tokens emitted a
                  step, TTFT, graphs and busy share.
+ 16. mtp_dsa  -- DeepSeek-V3's and GLM-4.5-Air's MTP head steps at full width in bf16
+                 against f32 (mtp_step, on the f32 step's expert choices); V3.2's first
+                 two layers over one 4,096-token prompt, bf16 against f32 on the card:
+                 logits and the indexer's top-2,048 picks, with its rope order, the
+                 Hadamard of its keys and its ties planted as traps
+                 (parity_deepseek_v32, and parity_glm_moe_dsa_v32_widths for the
+                 GLM-MoE-DSA path); DeepSeek-V3 at 4 layers plus its MTP layer with
+                 deepseek_mtp (spec_mtp_deepseek_v3: the speculative cells' traffic;
+                 paged_decode K times and fp8_bmm 3 times a dense-combine chunk
+                 a step, exactly); DeepSeek-V3.2 at 4 layers (e2e_deepseek_v32_fp8: 24 x
+                 1,024 + 8 x 4,096 tokens, 32 greedy tokens; fp8_bmm 3 times a decode
+                 step, no attention kernel); each cell against an eager_mode engine.
 The line before the last lists every kernel; the last line is the result.
 It imports nothing of jax or lmdeploy_tpu.
 """
@@ -552,19 +564,24 @@ def gptoss_config(num_layers: int = 24):
 # the Llama-3.1-8B e2e phases' depth (the KV cells, the CP cell and the speculative
 # cells' target), cut from the config's 32 layers so the script stays well inside its
 # time limit (to 8 when the decode_graphs phase joined the CP cell, to 4 when the
-# speculative cells joined); width, heads, vocab and the traffic stay as published
-L31 = 4
+# speculative cells joined, to 2 when the MTP / DSA cells joined); width, heads, vocab
+# and the traffic stay as published
+L31 = 2
+# the TinyLlama e2e phase's depth, cut from its 22 layers when the MTP / DSA cells joined
+LTINY = 8
 # the Mixtral-8x7B and gpt-oss-20b e2e phases' depth, cut from 32 and 24 layers for
 # the same reason (Mixtral's to 4: with the overlap each prefill wave waits behind a
 # decode run that widens every expert of every layer at each step); and the W4A16 +
 # int8 cell's (llama2-7b, 32 layers) and DeepSeek-V2-Lite's (27), cut to 8 each when
 # the dense variants' cells joined the script; gpt-oss-20b's to 4 (two sliding, two
 # full layers), Mixtral's to 2, the W4A16 + int8 and DeepSeek-V2-Lite cells' to 4 when
-# the speculative cells joined; width, experts, vocab and traffic stay as published
+# the speculative cells joined; gpt-oss-20b's (one sliding, one full layer), the W4A16 +
+# int8 and DeepSeek-V2-Lite (one dense, one MoE layer) cells' to 2 when the MTP / DSA
+# cells joined; width, experts, vocab and traffic stay as published
 LMIX = 2
-LGPT = 4
-LW4 = 4
-LDS = 4
+LGPT = 2
+LW4 = 2
+LDS = 2
 
 
 def llama31_config(num_layers: int = 32):
@@ -717,7 +734,8 @@ def flash_phase():
     # at a ragged T: 128-row blocks that are not a whole number of positions;
     # GLM-4.5-Air's G = 12 (96 / 8 heads) at the e2e_glm45_air cell's long prompt and
     # its prefill batch of 16 x 256, and GLM-4-9B's G = 16 (32 / 2) at e2e_glm4_9b's;
-    # Llama-3.1-8B's prefill wave of 16 x 256 in the speculative cells
+    # Llama-3.1-8B's prefill wave of 16 x 256 in the speculative cells; DeepSeek-V3's
+    # (MLA under 128 query heads) in spec_mtp_deepseek_v3
     for label, B, T, Hq, Hkv, D, dtype in (
             ('tinyllama_t2048', 1, 2048, 32, 4, 64, 'bfloat16'),
             ('d128_g1', 1, 1000, 32, 32, 128, 'bfloat16'),
@@ -736,7 +754,8 @@ def flash_phase():
             ('glm45_air_b16_t256', 16, 256, 96, 8, 128, 'bfloat16'),
             ('glm4_9b_t2048', 1, 2048, 32, 2, 128, 'bfloat16'),
             ('glm4_9b_b16_t256', 16, 256, 32, 2, 128, 'bfloat16'),
-            ('llama31_8b_b16_t256', 16, 256, 32, 8, 128, 'bfloat16')):
+            ('llama31_8b_b16_t256', 16, 256, 32, 8, 128, 'bfloat16'),
+            ('mla_v3_b16_t256', 16, 256, 128, 1, 576, 'bfloat16')):
         dt = getattr(torch, dtype)
         q = torch.randn(B, T, Hq, D, device='cuda', generator=gen).to(dt)
         k = torch.randn(B, T, Hkv, D, device='cuda', generator=gen).to(dt)
@@ -905,6 +924,9 @@ def decode_cases():
         # cells' lengths (63 rows of 257-352 tokens, one of 2,049-2,144)
         ('spec_eagle3_head', 64, 32, 8, 128, lens_spec, 17, {}),
         ('spec_llama32_1b_draft', 64, 32, 8, 64, lens_spec, 17, {}),
+        # DeepSeek-V3's MTP head over its one-layer cache in spec_mtp_deepseek_v3 (MLA's
+        # latent head of 576 under 128 query heads), the same lengths
+        ('mla_v3_spec_mtp_head', 64, 128, 1, 576, lens_spec, 17, {}),
         ('starcoder2_7b', 64, 36, 4, 128, lens_long_window, DENSE_W,
          {'window': 4096, 'held_traps': ('window_left_out',)}),
     ]
@@ -1607,10 +1629,13 @@ FP8_MAIN_M = 64
 FP8_V2L = (64, 2048, 1408)
 FP8_V3 = (256, 7168, 2048)
 FP8_DENSE_MAX_M = 767          # the dense combine's largest M (ops/moe.py)
+# V3 at M 64 (the e2e decode bucket) and 320 (spec_mtp_deepseek_v3's verify: 64 rows x
+# (SPEC_K + 1) positions)
 FP8_SHAPES = tuple((f'v2_lite_{kind}_m{M}', FP8_V2L, kind, M)
                    for M in (FP8_MAIN_M, 8, 37, 128, FP8_DENSE_MAX_M)
                    for kind in ('gate', 'down')) \
-    + tuple((f'v3_{kind}_m{FP8_MAIN_M}', FP8_V3, kind, FP8_MAIN_M) for kind in ('gate', 'down'))
+    + tuple((f'v3_{kind}_m{M}', FP8_V3, kind, M) for M in (FP8_MAIN_M, 320)
+            for kind in ('gate', 'down'))
 # numerical traps the check must catch, each planted in the plain version: x left
 # unrounded (the rows check with an f32 x, which the kernel rounds to bf16); each group
 # read with the next group's scale row; the e4m3 NaN code decoded natively (NaN, where
@@ -2567,7 +2592,8 @@ def _row_recorders():
             'fp8_bmm': (moe, 'fp8_bmm', lambda x: x.shape[-2])}
 
 
-def _built(model, max_batch, quant_policy, long_len, cp, shared, env, eager_mode=False):
+def _built(model, max_batch, quant_policy, long_len, cp, shared, env, eager_mode=False,
+           num_blocks: int = 0):
     """An engine of the cell (``shared`` carries the raw seeded weights from one engine
     to the next of the same model; each engine fuses and prepares them itself; ``env``
     holds the engine switches set while it is built) and its build seconds."""
@@ -2588,7 +2614,8 @@ def _built(model, max_batch, quant_policy, long_len, cp, shared, env, eager_mode
             engine = build_engine(model, max_batch, quant_policy,
                                   session_len=max(2048, long_len) + 128,
                                   mesh=build_mesh(cp=cp, devices=['cuda:0'] * cp)
-                                  if cp > 1 else None, eager_mode=eager_mode)
+                                  if cp > 1 else None, eager_mode=eager_mode,
+                                  num_blocks=num_blocks)
     finally:
         for k, v in saved_env.items():
             if v is None:
@@ -2602,6 +2629,10 @@ def _warmed(engine, n_requests: int) -> dict:
     """``ModelAgent.warmup`` at the cell's batch bucket: its graph numbers."""
     from lmdeploy_tpu_torch.config import bucketize
     agent = engine.model_agent
+    # a capture's private pool cannot take the blocks the allocator caches (a seeded
+    # tree's f32 draws leave tens of GB of them at V3's widths)
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     agent.warmup(batch_sizes=[min(n_requests, agent.max_batch)])
     torch.cuda.synchronize()
@@ -2614,13 +2645,15 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
               exact: bool = False, shared: dict = None,
               env: dict = None, forbid=(), runs: int = 2, new_tokens: int = 64,
               trace: bool = True, cp: int = 1, combined: dict = None,
-              graphs_check: dict = None) -> dict:
+              graphs_check: dict = None, prompts=None, cache_blocks: int = 0) -> dict:
     """Drive the Engine ``runs`` times on the same requests (launch counts from the
     first run, card numbers from the last; every run must give the first one's greedy
     tokens, so with ``runs=1`` nothing is compared, and the card numbers come from
     that one run, which only ``warmup`` preceded), then, with ``trace``, a traced run:
     ``n_short`` prompts of ``short_len`` tokens and one of ``long_len``,
-    ``new_tokens`` greedy tokens each.  The engine decodes by
+    ``new_tokens`` greedy tokens each (or the lists of token ids ``prompts``, the
+    longest at most ``long_len``), over a cache of ``cache_blocks`` blocks (0: sized from
+    free memory).  The engine decodes by
     replaying CUDA graphs (the default), warmed up at the cell's batch bucket first;
     any decode run that does not replay fails the phase.  ``need_per_step`` maps
     each kernel of the path to its launches per (fresh prefill, decode[, prefill of
@@ -2638,13 +2671,15 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
     check), ``decode_graphs_phase`` follows on the same engine.  Returns the phase's
     row."""
     from lmdeploy_tpu_torch.config import bucketize
-    rng = np.random.RandomState(SEED)
-    prompts = [rng.randint(3, 32000, size=short_len).tolist() for _ in range(n_short)]
-    prompts.append(rng.randint(3, 32000, size=long_len).tolist())
+    if prompts is None:
+        rng = np.random.RandomState(SEED)
+        prompts = [rng.randint(3, 32000, size=short_len).tolist() for _ in range(n_short)]
+        prompts.append(rng.randint(3, 32000, size=long_len).tolist())
     reuse = shared is not None and 'init' in shared
     if graphs_check is not None and shared is None:
         shared = {}                     # the eager engine of the check takes the weights
-    engine, build_s = _built(model, max_batch, quant_policy, long_len, cp, shared, env)
+    engine, build_s = _built(model, max_batch, quant_policy, long_len, cp, shared, env,
+                             num_blocks=cache_blocks)
     agent = engine.model_agent
     warm = _warmed(engine, len(prompts))
     seconds = {}
@@ -2721,7 +2756,8 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
     seconds['trace'] = time.perf_counter() - t_runs - seconds['runs']
     check = (decode_graphs_phase(name, engine, prompts, new_tokens, card,
                                  lambda: _built(model, max_batch, quant_policy, long_len,
-                                                cp, shared, env, eager_mode=True)[0],
+                                                cp, shared, env, eager_mode=True,
+                                                num_blocks=cache_blocks)[0],
                                  trace_row, **graphs_check)
              if graphs_check is not None else None)
     first, last_run = results[0], results[-1]
@@ -2841,8 +2877,12 @@ KV_LABELS = {0: 'bf16 KV', 4: 'int8 KV', 8: 'int4 KV', 16: 'fp8-e4m3 KV',
 
 def model_label(model, policy: int = 0) -> str:
     if model.is_mla:
-        return (f'deepseek-v2-lite geometry, {model.num_layers} layers, MLA (one latent kv '
-                f'head of 576), blocked-fp8 e4m3 128x128 routed experts + '
+        name = {2048: 'deepseek-v2-lite', 7168: 'deepseek-v3'}.get(model.hidden_size,
+                                                                 'deepseek')
+        if model.cache_extra_dim:
+            name += '.2 (DSA: the indexer\'s keys in the cache rows)'
+        return (f'{name} geometry, {model.num_layers} layers, MLA (one latent kv head of '
+                f'{model.cache_head_dim}), blocked-fp8 e4m3 128x128 routed experts + '
                 f'{KV_LABELS[policy]}, random seeded weights')
     if model.model_type == 'mixtral':
         return (f'mixtral-8x7b geometry, {model.num_layers} layers, AWQ-form W4A16 gs128 '
@@ -2951,7 +2991,7 @@ def _plain_kernels():
     from lmdeploy_tpu_torch.ops import attention, moe, paged_decode
     from lmdeploy_tpu_torch.ops.flash_prefill import flash_prefill_attention_plain
     from lmdeploy_tpu_torch.ops.kv_quant import QuantKV, QuantKV4, QuantKVTurbo
-    from lmdeploy_tpu_torch.ops.quant_bmm import fp8_bmm_plain, mxfp4_bmm_plain
+    from lmdeploy_tpu_torch.ops.quant_bmm import mxfp4_bmm_plain
     from lmdeploy_tpu_torch.ops.quant_matmul import (w4a16_matmul_gd_plain,
                                                      w4a16_matmul_plain,
                                                      w4a16_matmul_szc_plain)
@@ -2972,7 +3012,7 @@ def _plain_kernels():
                     (linear, 'w4a16_matmul_szc', w4a16_matmul_szc_plain),
                     (linear, 'w4a16_matmul', w4a16_matmul_plain),
                     (moe, 'mxfp4_bmm', mxfp4_bmm_plain),
-                    (moe, 'fp8_bmm', fp8_bmm_plain))
+                    (moe, 'fp8_bmm', _fp8_plain_chunked))
 
 
 # DeepSeek's parity traps whose logit error is reported, not held: an unrounded x
@@ -3051,8 +3091,8 @@ def _parity_traps(cfg16, policy: int, schedule: str = 'gd', cp: int = 1):
         orig = deepseek.DeepseekV2Model._mla_qkv
 
         def v_not_padded(self, w, x, cos, sin):
-            q, k, _ = orig(self, w, x, cos, sin)
-            return q, k, k
+            q, k, _, qr = orig(self, w, x, cos, sin)
+            return q, k, k, qr
 
         def next_group(x, w8, gscale):
             return _fp8_trapped('next_group_scale')(x, w8, gscale) if x.is_cuda \
@@ -3490,9 +3530,11 @@ MOE_CONFIGS = {'phimoe': PHI35_MOE, 'glm45_air': GLM45_AIR,
 MOE_FAMILY = {'phimoe': 'phimoe', 'glm4_moe': 'glm45_air', 'deepseek': 'deepseek_moe_16b'}
 # the e2e phases' depth, cut from the configs' 32 / 32 / 36 (8-bit formats) and 32 / 46 /
 # 28 layers (MoE families) so that the script stays inside its time limit beside the
-# earlier phases; width, experts, vocab and traffic stay as published
-L8 = 4
-LMOE = 4
+# earlier phases (to 2 when the MTP / DSA cells joined: the MoE families keep a dense
+# and a MoE layer, PhiMoE two MoE layers); width, experts, vocab and traffic stay as
+# published
+L8 = 2
+LMOE = 2
 # the _int_mm route's check: Llama-3.1-8B's fused wqkv (K 4096, N 6144), decode rows
 # on both sides of cuBLASLt's 17-row minimum and a prefill chunk's
 INT_MM_SHAPE = (4096, 6144)
@@ -3789,8 +3831,9 @@ DENSE_FAMILY = {'gemma2': 'gemma2_9b', 'glm4': 'glm4_9b', 'starcoder2': 'starcod
 # the dense cells' depth, cut from 42 / 40 / 32 layers so that the script stays inside
 # its time limit beside the earlier phases; widths, vocab and traffic as published.
 # Their long prompts: past Gemma-2's and StarCoder2's window of 4,096; GLM-4-9B's as
-# the other cells'
-LDENSE = 4
+# the other cells'; 2 since the MTP / DSA cells joined (Gemma-2's windowed and full
+# layer both kept)
+LDENSE = 2
 DENSE_LONG = {'gemma2_9b': 6144, 'glm4_9b': 2048, 'starcoder2_7b': 6144}
 # the dense parity rows (2 layers, card bf16 against CPU f32): a first card run read
 # (H100 80GB HBM3, 700 W), floor (plain versions on the card) / kernels / held traps:
@@ -3921,11 +3964,12 @@ SPEC_K = 4
 SPEC_CELLS = {'spec_eagle3': ('eagle3', EAGLE3_LLAMA31_8B),
               'spec_draft_llama32_1b': ('draft_model', LLAMA32_1B),
               'spec_self_draft': ('draft_model', None)}
-# the traffic: 63 prompts of 256 tokens and one of 2,048, 64 new tokens each; two of
+# the traffic: 63 prompts of 256 tokens and one of 2,048, 32 new tokens each (64 before
+# the MTP / DSA cells joined, cut for the script's time); two of
 # them seeded-sampled, one asking for its top-2 logprobs (the host-driven path)
 SPEC_SAMPLED = (1, 2)
 SPEC_LOGPROB_ROW = 3
-SPEC_NEW = 64
+SPEC_NEW = 32
 # both caches' blocks (the draft's has the target's count): the traffic needs ~210 of
 # 128 tokens; the 1B draft's 16 layers take 2.1 GB, as would 8 target layers
 SPEC_BLOCKS = 512
@@ -3958,9 +4002,14 @@ def _spec_engine(target, method, draft_dir, shared, eager_mode=False):
     ``shared``, any other draft on its own seeded weights."""
     from lmdeploy_tpu_torch.messages import SpeculativeConfig
     from lmdeploy_tpu_torch.models.llama import LlamaModel
+    from lmdeploy_tpu_torch.models.mtp import MTPHead
     init = LlamaModel.init_params
 
     def init_target(self, *args, **kwargs):
+        if isinstance(self, MTPHead):             # an MTP head: its own seeded tree
+            if 'head' not in shared:
+                shared['head'] = init(self, *args, **kwargs)
+            return shared['head']
         if self.config.num_layers == target.num_layers and \
                 self.config.hidden_size == target.hidden_size:
             if 'init' not in shared:
@@ -3989,7 +4038,110 @@ def _top2_margins(out) -> list:
     return margins
 
 
-def spec_cell(name, method, draft_dir, target, shared, card, plain) -> dict:
+class RouteRecorder:
+    """The expert choices of an eager engine's target, per (request, position): every
+    forward (prefill, decode, the verify) runs in Python under ``eager_mode``, so the
+    target's ``route`` sees each step's rows.  A row's request is known by its table's
+    first block, which the prefill chunk that starts the request names (its first 16
+    tokens are the prompt's); ``routes[(i, p)]`` holds, per MoE layer, the sorted
+    choices that made position p's logits (a position the verify computes again, after
+    a rejection, keeps the last: the one whose logits were used)."""
+
+    def __init__(self, engine, prompts):
+        model = engine.model_agent.model
+        self.routes = {}
+        self._first = {tuple(p[:16]): i for i, p in enumerate(prompts)}
+        self._last = [len(p) - 1 for p in prompts]
+        self._owner = {}
+        forward, route = model.forward, model.route
+        ctx = {}
+
+        def recorded_forward(params, ids, positions, cache, meta, *args, **kwargs):
+            ctx.update(ids=ids.cpu().numpy(), pos=positions.cpu().numpy(),
+                       first=meta.block_tables[:, 0].cpu().numpy(),
+                       q=meta.q_lens.cpu().numpy(), call=0)
+            return forward(params, ids, positions, cache, meta, *args, **kwargs)
+
+        def recorded_route(w, xf):
+            logits, idx, wts = route(w, xf)
+            self._record(ctx, idx.view(*ctx['ids'].shape, -1).sort(-1).values.cpu().numpy())
+            ctx['call'] += 1
+            return logits, idx, wts
+        model.forward, model.route = recorded_forward, recorded_route
+
+    def _record(self, ctx, idx):
+        for r, q in enumerate(ctx['q']):
+            if q <= 0:
+                continue
+            block = int(ctx['first'][r])
+            if ctx['pos'][r, 0] == 0 and q >= 16:
+                owner = self._first.get(tuple(int(t) for t in ctx['ids'][r, :16]))
+                if owner is not None:
+                    self._owner[block] = owner
+            i = self._owner.get(block)
+            if i is None:
+                continue
+            for t in range(int(q)):
+                p = int(ctx['pos'][r, t])
+                if p >= self._last[i]:
+                    self.routes.setdefault((i, p), {})[ctx['call']] = tuple(idx[r, t].tolist())
+
+
+def plain_differences(tokens, plain, prompts, rows, margin_tol, routes=None) -> tuple:
+    """Check (b): each of ``rows`` whose tokens differ from the plain engine's, with
+    the plain engine's top-2 margin at the first differing position and, where both
+    engines' expert choices were recorded (``RouteRecorder``), whether they differ at
+    the position whose logits chose that token.  A row passes when the margin lies below
+    ``margin_tol`` or the choices differ there (a router flip: a seeded router's
+    near-tie that the two paths' bf16 sums break apart, which moves the logits by up to
+    a logit std, past any margin).  Returns (the differences, all passed)."""
+    diffs = []
+    for i in rows:
+        a, b = tokens[i], plain['tokens'][i]
+        j = next((j for j in range(min(len(a), len(b))) if a[j] != b[j]), None)
+        if j is None:
+            continue
+        d = {'row': i, 'position': j, 'plain_margin': plain['margins'][i][j]}
+        if routes is not None and 'routes' in plain:
+            key = (i, len(prompts[i]) - 1 + j)
+            mine, theirs = routes.get(key), plain['routes'].get(key)
+            d['router_flip'] = None if mine is None or theirs is None else mine != theirs
+        diffs.append(d)
+    return diffs, all(d['plain_margin'] < margin_tol or d.get('router_flip') for d in diffs)
+
+
+def acceptance_trap(target, method, draft_dir, shared, plain, margin_tol) -> dict:
+    """Check (b) against a planted wrong acceptance rule: every proposal accepted and
+    the target's token after the last, on an eager engine serving the first
+    ACCEPT_TRAP_ROWS prompts greedy, ACCEPT_TRAP_NEW tokens each; check (b) must fail
+    on its tokens."""
+    from lmdeploy_tpu_torch.engine import spec_agent
+    reject_sample = spec_agent.reject_sample
+
+    def accept_every_draft(tgt, dists, draft_toks, seeds):
+        out, n = reject_sample(tgt, dists, draft_toks, seeds)
+        bonus = tgt[:, -1].argmax(-1)[:, None]
+        return (torch.cat([draft_toks, bonus], 1).to(out.dtype),
+                torch.full_like(n, draft_toks.shape[1] + 1))
+    prompts = _spec_prompts()[:ACCEPT_TRAP_ROWS]
+    with _swapped((spec_agent, 'reject_sample', accept_every_draft)):
+        engine = _spec_engine(target, method, draft_dir, shared, eager_mode=True)
+        recorder = RouteRecorder(engine, prompts)
+        outs, _, _ = run_requests(engine, prompts, ACCEPT_TRAP_NEW)
+        engine.close()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    diffs, within = plain_differences([o.token_ids for o in outs], plain, prompts,
+                                      range(len(prompts)), margin_tol, recorder.routes)
+    return {'rows': len(prompts), 'rows_differing': len(diffs),
+            'rows_past_margin_without_flip': sum(
+                1 for d in diffs if d['plain_margin'] >= margin_tol and not d['router_flip']),
+            'caught': not within}
+
+
+def spec_cell(name, method, draft_dir, target, shared, card, plain,
+              fp8_layers: int = 0, margin_tol: float = VERIFY_MARGIN_TOL) -> dict:
     """One speculative cell: a graph engine (warmed at the 64-row bucket) serves the
     traffic once, counted: every speculative step must replay its graph (c) and launch
     paged_decode K x draft layers times and flash_prefill none (d; the host-driven
@@ -3997,8 +4149,20 @@ def spec_cell(name, method, draft_dir, target, shared, card, plain) -> dict:
     greedy requests; then an eager_mode engine of the same weights serves the traffic,
     whose tokens must equal the graph engine's, sampled and host-driven rows included
     (a); the greedy rows' tokens must equal the plain engine's but where its top-2
-    margin at the first differing position lies below VERIFY_MARGIN_TOL (b)."""
+    margin at the first differing position lies below ``margin_tol`` or, on an MoE
+    target whose plain run recorded its expert choices, where the two engines' choices
+    differ at that position (b: ``plain_differences``, the eager runs' choices; a
+    planted rule that accepts every proposal must fail it, ``acceptance_trap``).  A target
+    with ``fp8_layers`` MoE layers of blocked-fp8 experts launches fp8_bmm three times
+    a layer per chunk of the dense combine's rows (``ops/moe.py dense_row_chunk``) in
+    each speculative step (the verify's B x (K+1) rows), each host-driven decode step
+    and each prefill step of fewer than 768 rows (more widen the experts)."""
     from lmdeploy_tpu_torch.config import bucketize
+    from lmdeploy_tpu_torch.ops.moe import QUANT_RAGGED_MIN_TOKENS, dense_row_chunk
+
+    def combine_chunks(rows):
+        E, Ie = target.num_experts, target.moe_intermediate_size
+        return -(-rows // dense_row_chunk(rows, E, Ie, True))
     prompts = _spec_prompts()
     counters = _kernel_counters()
     runs = {}
@@ -4009,17 +4173,26 @@ def spec_cell(name, method, draft_dir, target, shared, card, plain) -> dict:
         agent, spec = engine.model_agent, engine.spec
         warm = _warmed(engine, len(prompts))
         key = spec.key(bucketize(len(prompts), agent.batch_buckets))
-        steps = {'spec': 0, 'host': 0, 'prefill': 0, 'fresh_prefill': 0}
+        steps = {'spec': 0, 'host': 0, 'prefill': 0, 'fresh_prefill': 0, 'small_prefill': 0,
+                 'host_chunks': 0, 'small_prefill_chunks': 0}
         emitted = []
         prefill, decode, spec_decode = agent.prefill, agent.decode, spec.spec_decode
 
         def counted_prefill(chunks):
             steps['prefill'] += 1
             steps['fresh_prefill'] += all(c.start == 0 for c in chunks)
+            rows = (bucketize(len(chunks), agent.batch_buckets)
+                    * bucketize(max(c.length for c in chunks), agent.chunk_buckets))
+            if fp8_layers and rows < QUANT_RAGGED_MIN_TOKENS:
+                steps['small_prefill'] += 1
+                steps['small_prefill_chunks'] += combine_chunks(rows)
             return prefill(chunks)
 
         def counted_decode(seqs):
             steps['host'] += 1
+            if fp8_layers:
+                steps['host_chunks'] += combine_chunks(bucketize(len(seqs),
+                                                                 agent.batch_buckets))
             return decode(seqs)
 
         def counted_spec(num_rows):
@@ -4034,6 +4207,8 @@ def spec_cell(name, method, draft_dir, target, shared, card, plain) -> dict:
             if hasattr(fn, 'combines'):
                 fn.combines = 0
         agent.graphs.reset_counts()
+        recorder = (RouteRecorder(engine, prompts)
+                    if mode == 'eager' and 'routes' in plain else None)
         torch.cuda.reset_peak_memory_stats()
         outs, t0, t1 = run_requests(engine, prompts, SPEC_NEW, sampled=SPEC_SAMPLED,
                                     logprobs=2, logprob_rows=(SPEC_LOGPROB_ROW,))
@@ -4047,13 +4222,14 @@ def spec_cell(name, method, draft_dir, target, shared, card, plain) -> dict:
                             if hasattr(fn, 'combines')},
                'peak_allocated_bytes': torch.cuda.max_memory_allocated(),
                'emitted_per_step': float(np.concatenate(emitted).mean()) if emitted else None,
-               'n_layers': spec.n_layers, 'outs': outs, 't0': t0, 't1': t1,
+               'n_layers': spec.n_layers, 'bucket': key[2], 'outs': outs, 't0': t0, 't1': t1,
+               'routes': None if recorder is None else recorder.routes,
                **serving_numbers({'outs': outs, 't0': t0, 't1': t1})}
         if mode == 'graphs':
             run['trace'] = profile_phase(name, engine, prompts, SPEC_NEW)
         runs[mode] = run
         engine.close()
-        del engine, agent, spec, prefill, decode, spec_decode, outs
+        del engine, agent, spec, prefill, decode, spec_decode, outs, recorder
         gc.collect()
         torch.cuda.empty_cache()
     g, e = runs['graphs'], runs['eager']
@@ -4061,6 +4237,10 @@ def spec_cell(name, method, draft_dir, target, shared, card, plain) -> dict:
     st = g['steps']
     need = {'paged_decode': st['spec'] * SPEC_K * g['n_layers'] + st['host'] * L,
             'flash_prefill': st['fresh_prefill'] * L}
+    if fp8_layers:
+        verify_rows = g['bucket'] * (SPEC_K + 1)
+        need['fp8_bmm'] = 3 * fp8_layers * (st['spec'] * combine_chunks(verify_rows)
+                                            + st['host_chunks'] + st['small_prefill_chunks'])
     launches_ok = all(g['launches'][k] == v and v > 0 for k, v in need.items())
     replayed = (g['graphs']['replays'] == st['spec'] > 0 and g['graphs']['eager_runs'] == 0
                 and g['eager_reason'] is None)
@@ -4068,13 +4248,10 @@ def spec_cell(name, method, draft_dir, target, shared, card, plain) -> dict:
                          and e['graphs']['eager_runs'] == e['steps']['spec'] > 0)
     equal = g['tokens'] == e['tokens']
     greedy_rows = [i for i in range(len(prompts)) if i not in SPEC_SAMPLED]
-    diffs = []
-    for i in greedy_rows:
-        a, b = g['tokens'][i], plain['tokens'][i]
-        if a != b:
-            j = next(j for j in range(len(b)) if a[j] != b[j])
-            diffs.append({'row': i, 'position': j, 'plain_margin': plain['margins'][i][j]})
-    within = all(d['plain_margin'] < VERIFY_MARGIN_TOL for d in diffs)
+    diffs, within = plain_differences(g['tokens'], plain, prompts, greedy_rows, margin_tol,
+                                      e['routes'])
+    trap = (acceptance_trap(target, method, draft_dir, shared, plain, margin_tol)
+            if 'routes' in plain else None)
     lengths_ok = all(len(t) == SPEC_NEW for r in runs.values() for t in r['tokens'])
     host_row = g['outs'][SPEC_LOGPROB_ROW]
     host_lp_ok = all(len(entry) >= 2 for entry in host_row.logprobs)
@@ -4094,8 +4271,10 @@ def spec_cell(name, method, draft_dir, target, shared, card, plain) -> dict:
            'engine_build_s': g['build_s'], 'lengths_ok': lengths_ok,
            'host_row_top_logprobs': host_lp_ok,
            'greedy_rows_differing_from_plain': len(diffs), 'first_differences': diffs,
-           'verify_margin_tol': VERIFY_MARGIN_TOL, 'differences_within_tol': within,
-           'rows_by_kernel': {}}
+           'verify_margin_tol': margin_tol, 'differences_within_tol': within,
+           'rows_past_margin_by_router_flip': sum(
+               1 for d in diffs if d['plain_margin'] >= margin_tol and d.get('router_flip')),
+           'acceptance_trap': trap, 'rows_by_kernel': {}}
     emit(row)
     check = {'phase': 'decode_graphs', 'of': name, 'card': card,
              'tokens_equal': equal, 'graphs_replayed': replayed,
@@ -4108,16 +4287,20 @@ def spec_cell(name, method, draft_dir, target, shared, card, plain) -> dict:
              'eager_build_s': e['build_s']}
     check['ok'] = equal and replayed and eager_ran_eagerly
     emit(check)
-    if not (launches_ok and replayed and lengths_ok and within and host_lp_ok):
+    if not (launches_ok and replayed and lengths_ok and within and host_lp_ok
+            and (trap is None or trap['caught'])):
         raise SystemExit(f'{name} phase failed: {row}')
     if not check['ok']:
         raise SystemExit(f'decode_graphs of {name} failed: {check}')
     return row
 
 
-def spec_plain_run(target, shared, card) -> dict:
+def spec_plain_run(target, shared, card, record_routes: bool = False) -> dict:
     """The plain engine (no speculation, graphs) on the spec cells' traffic, every
-    request greedy with its top-2 logprobs: its tokens and margins, and its numbers."""
+    request greedy with its top-2 logprobs: its tokens and margins, and its numbers.
+    With ``record_routes`` (an MoE target) an eager_mode engine serves the traffic again
+    and records its expert choices (``RouteRecorder``); its tokens must equal the graph
+    engine's."""
     prompts = _spec_prompts()
     engine = _spec_engine(target, None, None, shared)
     _warmed(engine, len(prompts))
@@ -4125,25 +4308,48 @@ def spec_plain_run(target, shared, card) -> dict:
     engine.close()
     row = {'phase': 'spec_plain', 'model': model_label(target), 'card': card,
            **serving_numbers({'outs': outs, 't0': t0, 't1': t1})}
+    tokens = [o.token_ids for o in outs]
+    routes = None
+    if record_routes:
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine = _spec_engine(target, None, None, shared, eager_mode=True)
+        recorder = RouteRecorder(engine, prompts)
+        eager, _, _ = run_requests(engine, prompts, SPEC_NEW, logprobs=2)
+        engine.close()
+        routes = recorder.routes
+        row['eager_tokens_equal'] = [o.token_ids for o in eager] == tokens
+        del recorder, eager
     emit(row)
     del engine
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(row, tokens=[o.token_ids for o in outs],
-                margins=[_top2_margins(o) for o in outs])
+    if record_routes and not row['eager_tokens_equal']:
+        raise SystemExit(f'the plain eager engine\'s tokens are not the graph engine\'s: {row}')
+    out = dict(row, tokens=tokens, margins=[_top2_margins(o) for o in outs])
+    if routes is not None:
+        out['routes'] = routes
+    return out
 
 
-def verify_decode_check(target, shared, card) -> dict:
+def verify_decode_check(target, shared, card, tol: float = VERIFY_MARGIN_TOL,
+                        name: str = 'spec_verify_vs_decode') -> dict:
     """The verify's logits (T = K+1 over history: the gathered path) against K+1 decode
     steps (row 2's kernel) from the same cache, at the same positions: 8 rows prefilled
     with 256 tokens (flash_prefill), then the chunk [argmax, 4 random proposals]; the
-    largest logit difference, twice which is the floor of VERIFY_MARGIN_TOL."""
-    from lmdeploy_tpu_torch.models.llama import AttnMeta, LlamaModel
+    largest logit difference, twice which is the floor of the margin allowance ``tol``.
+    An MoE target's decode steps take the verify's expert choices (their own, counted
+    beside as flips: a seeded router's near-ties flip under the two paths' bf16 sums and
+    move logits by up to a logit std, as the parity phases see), so the floor holds the
+    numerics."""
+    from lmdeploy_tpu_torch.models import build_model
+    from lmdeploy_tpu_torch.models.llama import AttnMeta
     from lmdeploy_tpu_torch.nn.layers import make_rope_table
-    model = LlamaModel(target)
+    model = build_model(target)
     params = shared['init']
     B, T, BS, K1 = 8, 256, 128, SPEC_K + 1
-    L, hd = target.num_layers, target.num_key_value_heads * target.head_dim
+    L, hd = target.num_layers, target.num_key_value_heads * target.cache_head_dim
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     cache = torch.zeros((L, 1 + 3 * B, 2, BS, hd), dtype=torch.bfloat16, device='cuda')
     tables = (1 + torch.arange(3 * B, device='cuda', dtype=torch.int32)).reshape(B, 3)
@@ -4151,48 +4357,72 @@ def verify_decode_check(target, shared, card) -> dict:
                                target.rope_scaling, device='cuda')
     ids = torch.randint(3, 32000, (B, T), generator=gen, device='cuda', dtype=torch.int32)
     pos = torch.arange(T, device='cuda', dtype=torch.int32)[None].expand(B, T).contiguous()
+    # the verify's expert choices per MoE layer call, replayed by each decode step
+    routes = {'mode': None, 'verify': [], 'calls': 0, 'flips': 0}
+    if hasattr(model, 'route'):
+        route = model.route
+
+        def routed(w, xf):
+            logits, idx, wts = route(w, xf)
+            if routes['mode'] == 'record':
+                routes['verify'].append(idx.view(B, K1, -1))
+            elif routes['mode'] is not None:
+                n = len(routes['verify'])
+                forced = routes['verify'][routes['calls'] % n][:, routes['calls'] // n]
+                routes['calls'] += 1
+                if routes['mode'] == 'count':
+                    routes['flips'] += int((forced.sort(-1).values
+                                            != idx.sort(-1).values).any(-1).sum())
+                idx, wts = forced, model.route_weights(w, logits, forced)
+            return logits, idx, wts
+        model.route = routed
 
     def meta(hist, q):
         return AttnMeta(tables, torch.full((B,), hist, dtype=torch.int32, device='cuda'),
                         torch.full((B,), q, dtype=torch.int32, device='cuda'))
+
+    def decode_steps(mode):
+        routes.update(mode=mode, calls=0)
+        cache.copy_(base)
+        out = []
+        for j in range(K1):
+            p = torch.full((B, 1), T + j, dtype=torch.int32, device='cuda')
+            out.append(model.forward(params, chunk[:, j:j + 1].contiguous(), p, cache,
+                                     meta(T + j, 1), cos, sin))
+        return torch.stack(out, 1)
     with torch.no_grad():
         last = model.forward(params, ids, pos, cache, meta(0, T), cos, sin, fresh_prefill=True)
         chunk = torch.cat([last.argmax(-1).int()[:, None],
                            torch.randint(3, 32000, (B, SPEC_K), generator=gen, device='cuda',
                                          dtype=torch.int32)], dim=1)
         base = cache.clone()
-        dec = []
-        for j in range(K1):
-            p = torch.full((B, 1), T + j, dtype=torch.int32, device='cuda')
-            dec.append(model.forward(params, chunk[:, j:j + 1].contiguous(), p, cache,
-                                     meta(T + j, 1), cos, sin))
-        dec = torch.stack(dec, 1)
-        cache.copy_(base)
+        routes['mode'] = 'record'
         p = (T + torch.arange(K1, device='cuda', dtype=torch.int32))[None].expand(B, K1)
         ver = model.forward(params, chunk, p.contiguous(), cache, meta(T, K1), cos, sin,
                             return_all_logits=True)
+        dec = decode_steps('count')
         # the same decode steps on the plain decode: the floor's share that is the
         # verify's GEMM shapes and f32 scores, not the kernel
-        cache.copy_(base)
-        plain = []
         with _plain_kernels():
-            for j in range(K1):
-                p = torch.full((B, 1), T + j, dtype=torch.int32, device='cuda')
-                plain.append(model.forward(params, chunk[:, j:j + 1].contiguous(), p, cache,
-                                           meta(T + j, 1), cos, sin))
-        plain = torch.stack(plain, 1)
+            plain = decode_steps('force')
     diff = (ver - dec).abs()
     floor = 2 * diff.max().item()
-    row = {'phase': 'spec_verify_vs_decode', 'card': card, 'rows': B, 'history': T,
+    row = {'phase': name, 'card': card, 'rows': B, 'history': T,
            'positions': K1, 'layers': L, 'max_abs_logit_diff': diff.max().item(),
            'mean_abs_logit_diff': diff.mean().item(), 'floor': floor,
            'plain_decode_max_abs_logit_diff': (ver - plain).abs().max().item(),
            'kernel_vs_plain_decode_max_abs_logit_diff': (dec - plain).abs().max().item(),
            'logit_std': ver.std().item(),
-           'verify_margin_tol': VERIFY_MARGIN_TOL,
+           'verify_margin_tol': tol,
            'argmax_equal_share': (ver.argmax(-1) == dec.argmax(-1)).float().mean().item(),
-           'ok': bool(torch.isfinite(ver).all()) and floor <= VERIFY_MARGIN_TOL}
+           'ok': bool(torch.isfinite(ver).all()) and floor <= tol}
+    if routes['verify']:
+        row.update(routing='decode steps take the verify\'s expert choices',
+                   decode_rows_whose_own_choices_flip=routes['flips'])
     emit(row)
+    del cache, base, ver, dec, plain, diff
+    gc.collect()
+    torch.cuda.empty_cache()       # the engines' graph pools cannot reuse cached blocks
     if not row['ok']:
         raise SystemExit(f'the verify disagrees with the decode past the allowance: {row}')
     return row
@@ -4359,6 +4589,491 @@ def spec_phase(card: str) -> dict:
     return paths
 
 
+# -- MTP speculative decoding on DeepSeek-V3, and DeepSeek Sparse Attention -----------
+# the public config.json of deepseek-ai/DeepSeek-V3.2-Exp: V3's fields plus the lightning
+# indexer's (64 heads of 128, top 2,048)
+DEEPSEEK_V32 = dict(DEEPSEEK_V3, architectures=['DeepseekV32ForCausalLM'],
+                    model_type='deepseek_v32', index_n_heads=64, index_head_dim=128,
+                    index_topk=2048)
+# the V3 / V3.2 cells' depth, cut from 61 layers: the 3 dense layers and one MoE layer of
+# seeded blocked-fp8 experts (plus V3's MTP layer in the speculative cell); width,
+# experts, vocab and the indexer stay as published
+LV3 = 4
+# an MTP head step at full width in bf16 against the same step in f32 (DeepSeek-V3's on
+# the card, its 256 f32 experts being 45 GB; GLM-4.5-Air's on the host): the largest
+# logit difference, as HEAD_LOGIT_TOL holds the EAGLE heads
+MTP_LOGIT_TOL = 0.3
+MTP_STEP_ROWS = 16
+# the greedy prompts that acceptance_trap serves and their new tokens (two speculative
+# steps: the first wrong proposal is the step's first)
+ACCEPT_TRAP_ROWS = 24
+ACCEPT_TRAP_NEW = 2 * (SPEC_K + 1)
+# V3.2's first two layers (both dense) over one 4,096-token prompt, bf16 on the card
+# against f32: the largest difference of the last position's logits (the bf16 run on
+# the f32 run's picks), and of each layer's top-2,048 picks the ones that differ, each
+# the f32 side's boundary deficit (score of its last pick minus the pick's score) over
+# the row's score spread, the bf16 run on the f32 run's picks so that each layer's inputs
+# stay within rounding of the f32 side's.  First allowances 0.1 and 0.02, raised with the
+# first reads (H100 80GB HBM3, 700 W): logits 0.1098 (std 1.69), deficits 0.029 (layer
+# 0) and 0.1427 (layer 1, whose inputs carry layer 0's rounding); the planted traps' picks
+# read 5.3-5.4 spreads
+DSA_PARITY_LEN = 4096
+DSA_LOGIT_TOL = 0.3
+DSA_PICK_TOL = 0.5
+# e2e_deepseek_v32_fp8's traffic: 24 prompts of 1,024 tokens and 8 of 4,096, 32 greedy
+# tokens each
+V32_TRAFFIC = ((24, 1024), (8, 4096))
+V32_NEW = 32
+# its cache: the traffic's ~460 blocks of 128 tokens, with room (a cache sized from free
+# memory would leave no room for the MoE layer's widened experts at prefill)
+V32_BLOCKS = 640
+
+
+def v3_config(cfg: dict, num_layers: int = LV3, dtype: str = 'auto', **over):
+    """A ModelConfig of a DeepSeek public config at ``num_layers`` (with ``over``), the
+    registry's fields set (one latent kv head, the DSA cache sidecar)."""
+    from lmdeploy_tpu_torch.config import ModelConfig
+    from lmdeploy_tpu_torch.models import build_model
+    config = ModelConfig.from_hf_config(dict(cfg, num_hidden_layers=num_layers, **over),
+                                        dtype=dtype)
+    build_model(config)
+    return config
+
+
+def _v3_tree(shared: dict):
+    """DeepSeek-V3's seeded tree at LV3 layers (bf16, blocked-fp8 routed experts), made
+    once and shared by the V3 and V3.2 cells."""
+    from lmdeploy_tpu_torch.models.deepseek import DeepseekV2Model
+    if 'v3' not in shared:
+        shared['v3'] = DeepseekV2Model(v3_config(DEEPSEEK_V3)).init_params(SEED, 'cuda')
+    return shared['v3']
+
+
+def _seeded_by_matrix(model, seed: int) -> dict:
+    """``model``'s seeded bf16 tree drawn one [K, N] matrix at a time (norms ones, norm
+    biases zeros, the rest std 0.02): ``init_params`` draws a whole leaf in f32 and scales
+    it, ~28 GB of temporaries for one of DeepSeek-V3's MTP expert stacks."""
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+
+    def walk(shapes):
+        out = {}
+        for name, shape in shapes.items():
+            if isinstance(shape, dict):
+                out[name] = walk(shape)
+            elif 'norm' in name:
+                fill = torch.zeros if name.endswith('_b') else torch.ones
+                out[name] = fill(shape, dtype=torch.bfloat16, device='cuda')
+            else:
+                t = torch.empty(shape, dtype=torch.bfloat16, device='cuda')
+                for m in t.view(-1, *shape[-2:]) if len(shape) > 2 else [t]:
+                    m.copy_(torch.randn(m.shape, generator=gen, device='cuda') * 0.02)
+                out[name] = t
+        return out
+    return walk(model.param_shapes())
+
+
+def _with_indexer(tree: dict, model, seed: int = SEED + 7) -> dict:
+    """``tree`` (V3's) with the indexer leaves of ``model`` seeded on: the groups are new
+    dicts over the same tensors."""
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    out = dict(tree)
+    for group, shapes in model.param_shapes().items():
+        if not isinstance(shapes, dict) or group not in tree:
+            continue
+        g = dict(tree[group])
+        for name, shape in shapes.items():
+            if name.startswith('idx_') and name not in g:
+                if 'norm' in name:
+                    fill = torch.zeros if name.endswith('_b') else torch.ones
+                    g[name] = fill(shape, dtype=torch.bfloat16, device='cuda')
+                else:
+                    g[name] = (torch.randn(shape, generator=gen, device='cuda') * 0.02
+                               ).to(torch.bfloat16)
+        out[group] = g
+    return out
+
+
+def _to(tree, dtype, device='cuda', pop: bool = False):
+    """``tree``'s floating leaves in ``dtype`` on ``device`` (with ``pop``, each source
+    leaf is dropped as it is converted, so a tree is never held twice)."""
+    out = {}
+    for k in list(tree):
+        v = tree.pop(k) if pop else tree[k]
+        if isinstance(v, dict):
+            out[k] = _to(v, dtype, device, pop)
+        else:
+            out[k] = v.to(device=device, dtype=dtype if v.is_floating_point() else v.dtype)
+        del v
+    return out
+
+
+def mtp_step_check(card: str) -> list:
+    """mtp_step: each MTP head's step at full width, 16 rows (the last inactive) and two
+    chained steps over a head cache of random stale pages: DeepSeek-V3's in bf16 on the
+    card (row 2's paged decode at Hq 128, D 576) against f32 on the card through the
+    plain versions (its 256 f32 experts do not fit a host comparison), GLM-4.5-Air's in
+    bf16 (row 2 at Hq 96, Hkv 8, D 128) against f32 on the host; each also in bf16
+    through the plain versions, the floor.  The f32 step runs first and the bf16 steps
+    take its expert choices (their own, recorded beside: flips at near-tied random
+    router scores would otherwise swamp the numerics, as in the parity phases); the
+    largest logit difference must lie within MTP_LOGIT_TOL."""
+    from lmdeploy_tpu_torch.models.mtp import DeepseekMTP, Glm4MoeMTP
+    from lmdeploy_tpu_torch.nn.layers import make_rope_table
+    B, BS, W = MTP_STEP_ROWS, 128, 17
+    NB = 1 + B * W
+    max_len = 4096 + 128
+    rows = []
+    for name, cfg_dict, cls, ref_device in (('deepseek_v3', DEEPSEEK_V3, DeepseekMTP, 'cuda'),
+                                            ('glm45_air', GLM45_AIR, Glm4MoeMTP, 'cpu')):
+        cfg = v3_config(cfg_dict, cfg_dict['num_hidden_layers'])
+        head = cls(cfg)
+        H, V = cfg.hidden_size, cfg.vocab_size
+
+        def seeded():
+            """The head's and the target's seeded bf16 weights (the same at every call)."""
+            gen = torch.Generator(device='cuda').manual_seed(SEED + 3)
+            tp = {k: (torch.randn(shape, generator=gen, device='cuda') * 0.02
+                      ).to(torch.bfloat16) for k, shape in (('embed', (V, H)),
+                                                            ('lm_head', (H, V)))}
+            return head.init_params(SEED, device='cuda'), tp
+        gen = torch.Generator(device='cuda').manual_seed(SEED + 5)
+        cache = (torch.randn((1, NB, 2, BS, head.cache_width), generator=gen, device='cuda')
+                 * 0.5).to(torch.bfloat16)
+        tables = (1 + torch.arange(B * W, device='cuda', dtype=torch.int32)).reshape(B, W)
+        pos = torch.randint(100, 2000, (B,), generator=gen, device='cuda', dtype=torch.int32)
+        q1 = torch.ones(B, dtype=torch.int32, device='cuda')
+        q1[-1] = 0
+        toks = torch.randint(3, 32000, (2, B), generator=gen, device='cuda', dtype=torch.int32)
+        feat = torch.randn((B, H), generator=gen, device='cuda').to(torch.bfloat16)
+        # the f32 step's expert choices, replayed by the bf16 steps; their own beside
+        routes = {'ref': [], 'own': []}
+        mode = {'force': False, 'record_own': False, 'j': 0}
+        route = head.route
+
+        def routed(w, xf):
+            logits, idx, wts = route(w, xf)
+            scores = head.choice_scores(w, logits).float().cpu()
+            if not mode['force']:
+                routes['ref'].append((scores, idx.cpu()))
+                return logits, idx, wts
+            if mode['record_own']:
+                routes['own'].append((scores, idx.cpu()))
+            idx = routes['ref'][mode['j']][1].to(idx.device)
+            mode['j'] += 1
+            return logits, idx, head.route_weights(w, logits, idx)
+        head.route = routed
+
+        def steps(p, tp, device, dtype, plain=False):
+            mode['j'] = 0
+            c, ps, h = cache.to(device, dtype).clone(), pos.to(device), feat.to(device, dtype)
+            cos, sin = make_rope_table(cfg.rope_dim, max_len, cfg.rope_theta,
+                                       cfg.rope_scaling, device=device)
+            out = []
+            with _plain_kernels() if plain else contextlib.nullcontext():
+                for t in toks.to(device):
+                    logits, h = head.step(p, tp, h, t, ps, c, tables.to(device),
+                                          q1.to(device), cos, sin, max_len)
+                    out.append((logits.float().cpu(), h.float().cpu()))
+                    ps = ps + q1.to(device)
+            return out
+        params, tparams = seeded()
+        ref = steps(_to(params, torch.float32, ref_device, pop=True),
+                    _to(tparams, torch.float32, ref_device, pop=True), ref_device,
+                    torch.float32, plain=ref_device == 'cuda')
+        gc.collect()
+        torch.cuda.empty_cache()
+        params, tparams = seeded()
+        mode.update(force=True, record_own=True)
+        counters = _kernel_counters()
+        counters['paged_decode'].launches = 0
+        got = steps(params, tparams, 'cuda', torch.bfloat16)
+        launches = counters['paged_decode'].launches
+        mode['record_own'] = False
+        floor = steps(params, tparams, 'cuda', torch.bfloat16, plain=True)
+        del head.route
+        act = slice(0, B - 1)
+        flips = sum(int((ri.sort(-1).values != oi.sort(-1).values).any(-1)[act].sum())
+                    for (_, ri), (_, oi) in zip(routes['ref'], routes['own']))
+        router_err = max((os_ - rs).abs().max().item()
+                         for (rs, _), (os_, _) in zip(routes['ref'], routes['own']))
+
+        def err(a, i):
+            return max((a[s][i][act] - ref[s][i][act]).abs().max().item() for s in range(2))
+        row = {'phase': 'mtp_step', 'head': name, 'card': card,
+               'reference': f'f32 on the {"card, plain versions" if ref_device == "cuda" else "host"}',
+               'shape': {'rows': B, 'hidden': H, 'heads': [cfg.num_attention_heads,
+                         1 if cls is DeepseekMTP else cfg.num_key_value_heads,
+                         head.cache_width if cls is DeepseekMTP else cfg.head_dim],
+                         'experts': cfg.num_experts, 'vocab': V},
+               'paged_decode_launches': launches,
+               'routing': 'bf16 steps take the f32 step\'s expert choices',
+               'rows_whose_own_choices_flip': flips, 'router_score_err_max': router_err,
+               'max_abs_logit_err': err(got, 0), 'floor_logit_err': err(floor, 0),
+               'max_abs_feature_err': err(got, 1), 'floor_feature_err': err(floor, 1),
+               'logit_tol': MTP_LOGIT_TOL,
+               'logit_std': float(np.mean([ref[s][0][act].std().item() for s in range(2)])),
+               'argmax_equal_ref_share': float(np.mean([
+                   (got[s][0][act].argmax(-1) == ref[s][0][act].argmax(-1)).float().mean()
+                   for s in range(2)]))}
+        row['ok'] = (row['max_abs_logit_err'] <= MTP_LOGIT_TOL and launches == 2
+                     and row['floor_logit_err'] <= MTP_LOGIT_TOL
+                     and all(np.isfinite([row['max_abs_logit_err'],
+                                          row['max_abs_feature_err']])))
+        emit(row)
+        rows.append(row)
+        del params, tparams, cache, got, floor, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not row['ok']:
+            raise SystemExit(f'the {name} MTP head step is off its f32 step: {row}')
+    return rows
+
+
+def _dsa_traps(glm: bool):
+    """[(trap, swaps)]: the indexer's rope in the other pair order, the Hadamard left
+    out of the cached keys (out of both q and k it changes nothing but rounding: the
+    transform is orthogonal), ties to the higher index."""
+    from lmdeploy_tpu_torch.models import deepseek_v32
+    from lmdeploy_tpu_torch.models.deepseek import _deinterleave
+    from lmdeploy_tpu_torch.models.glm_moe_dsa import GlmMoeDsaModel
+    from lmdeploy_tpu_torch.nn.layers import apply_rope
+    hadamard = deepseek_v32.hadamard_transform
+    cls = GlmMoeDsaModel if glm else deepseek_v32.DeepseekV32Model
+
+    def other_order(self, x, cos, sin):
+        d = x if not glm else _deinterleave(x)
+        return apply_rope(d, d, cos, sin)[0]
+    def keys_unrotated(x):
+        # the block rotates the key (a [B, T, Di] row) before the queries ([.., hI, Di])
+        return x if x.dim() == 3 else hadamard(x)
+
+    def ties_high(x):
+        n = x.shape[-1]
+        return n - 1 - torch.sort(x.flip(-1), dim=-1, descending=True, stable=True).indices
+    return [('indexer_rope_other_order', [(cls, '_indexer_rope', other_order)]),
+            ('hadamard_left_out_of_keys', [(deepseek_v32, 'hadamard_transform', keys_unrotated)]),
+            ('ties_to_higher_index', [(deepseek_v32, '_sorted_desc', ties_high)])]
+
+
+def _dsa_run(model, params, ids, record_scores: bool = False, force=None):
+    """One fresh prefill of ``ids`` [1, T] through ``model`` on the card: (the last
+    position's logits, each layer's own picks [T, K], valid [T, K] and, with
+    ``record_scores``, its score rows [T, S] f32); ``force``: another run's picks, taken
+    in place of the model's own (which are still returned)."""
+    from lmdeploy_tpu_torch.models.llama import AttnMeta
+    from lmdeploy_tpu_torch.nn.layers import make_rope_table
+    cfg = model.config
+    T, BS = ids.shape[1], 128
+    W = -(-T // BS) + 1
+    dtype = params['embed'].dtype
+    cache = torch.zeros((cfg.num_layers, 1 + W, 2, BS, cfg.cache_head_dim), dtype=dtype,
+                        device='cuda')
+    cos, sin = make_rope_table(cfg.rope_dim, W * BS, cfg.rope_theta, cfg.rope_scaling,
+                               device='cuda')
+    meta = AttnMeta(1 + torch.arange(W, dtype=torch.int32, device='cuda')[None],
+                    torch.zeros(1, dtype=torch.int32, device='cuda'),
+                    torch.full((1,), T, dtype=torch.int32, device='cuda'))
+    picks, scores = [], []
+    select, score = model._dsa_select, model._dsa_scores
+
+    def recorded_select(*args):
+        out = select(*args)
+        picks.append((out[0][0], out[1][0]))      # the model's own
+        if force is not None:
+            fp, fv = (t[None] for t in force[len(picks) - 1])
+            out = (fp, fv, (fp, fv) if isinstance(out[2], tuple) else out[2])
+        return out
+
+    def recorded_scores(*args):
+        out = score(*args)
+        scores.append(out[0])
+        return out
+    model._dsa_select = recorded_select
+    if record_scores:
+        model._dsa_scores = recorded_scores
+    try:
+        with torch.no_grad():
+            pos = torch.arange(T, dtype=torch.int32, device='cuda')[None]
+            logits = model.forward(params, ids, pos, cache, meta, cos, sin, fresh_prefill=True)
+    finally:
+        del model._dsa_select
+        if record_scores:
+            del model._dsa_scores
+    # a layer's score rows come in query blocks, in order; one layer's blocks cover T
+    rows, per_layer = [], []
+    for blk in scores:
+        per_layer.append(blk)
+        if sum(b.shape[0] for b in per_layer) == T:
+            rows.append(torch.cat(per_layer))
+            per_layer = []
+    return logits[0].float(), picks, rows
+
+
+def _pick_check(card_picks, ref_picks, ref_scores) -> dict:
+    """Layer by layer: the card's valid picks that the f32 side did not pick, each with
+    the f32 side's boundary deficit over its score spread; and whether each row's
+    invalid picks (past the causal range) are the f32 side's, in its order."""
+    out = []
+    for (cp, cv), (rp, rv), sc in zip(card_picks, ref_picks, ref_scores):
+        T, K = rp.shape
+        ref_set = torch.zeros_like(sc, dtype=torch.bool).scatter_(1, rp, rv)
+        extra = cv & ~torch.gather(ref_set, 1, cp)              # card-only valid picks
+        finite = torch.where(torch.isfinite(sc), sc, torch.zeros_like(sc))
+        spread = finite.std(-1, keepdim=True).clamp_min(1e-30)
+        last = torch.gather(rp, 1, (rv.sum(-1, keepdim=True) - 1).clamp(min=0))
+        kth = torch.gather(sc, 1, last)                       # the f32 side's last pick
+        deficit = ((kth - torch.gather(sc, 1, cp)) / spread).masked_fill(~extra, 0.0)
+        invalid_equal = bool(((cv == rv) & torch.where(~rv, cp == rp, True)).all())
+        out.append({'differing_picks': int(extra.sum()), 'queries': T, 'k': K,
+                    'rows_with_differences': int(extra.any(-1).sum()),
+                    'max_deficit_over_spread': float(deficit.max()),
+                    'invalid_picks_equal': invalid_equal})
+    return {'layers': out,
+            'max_deficit_over_spread': max(o['max_deficit_over_spread'] for o in out),
+            'invalid_picks_equal': all(o['invalid_picks_equal'] for o in out)}
+
+
+def dsa_parity_phase(card: str, shared: dict) -> list:
+    """parity_deepseek_v32 (and parity_glm_moe_dsa_v32_widths: the same widths and weights
+    with indexer_types ['full', 'shared'] and rotate-half indexer rope, GLM-MoE-DSA's
+    path; GLM-5's config is not in the repository): V3.2's first two layers (both dense)
+    over one 4,096-token prompt, so the top-2,048 selection is sparse for the last 2,048
+    queries; bf16 on the card against f32 on the card through the plain versions (a
+    4,096-token f32 forward of two full-width layers takes tens of seconds on the host):
+    the last position's logits within DSA_LOGIT_TOL with the f32 run's picks (the card's
+    own beside), and each card pick the f32 side did not make within DSA_PICK_TOL of its
+    boundary; each trap of ``_dsa_traps`` must break the picks check."""
+    from lmdeploy_tpu_torch.models import build_model
+    rng = np.random.RandomState(SEED + 11)
+    ids = torch.from_numpy(rng.randint(3, 32000, size=(1, DSA_PARITY_LEN))).int().cuda()
+    rows = []
+    base = _v3_tree(shared)
+    for name, over in (('parity_deepseek_v32', {}),
+                       ('parity_glm_moe_dsa_v32_widths',
+                        dict(architectures=['GlmMoeDsaForCausalLM'], model_type='glm_moe_dsa',
+                             indexer_types=['full', 'shared']))):
+        over = dict(over, first_k_dense_replace=2)
+        cfg = v3_config(dict(DEEPSEEK_V32, **over), 2)
+        model = build_model(cfg)
+        model32 = build_model(v3_config(dict(DEEPSEEK_V32, **over), 2, dtype='float32'))
+        two = {'embed': base['embed'], 'final_norm': base['final_norm'],
+               'lm_head': base['lm_head'],
+               'layers': {k: v[:2] for k, v in base['layers'].items()}}
+        p16 = _with_indexer(two, model)
+        p32 = _to(p16, torch.float32)
+        with _plain_kernels():
+            ref_logits, ref_picks, ref_scores = _dsa_run(model32, p32, ids, record_scores=True)
+        del p32
+        logits, _, _ = _dsa_run(model, p16, ids)
+        # the bf16 run on the f32 run's picks: each layer's inputs stay within rounding
+        # of the f32 side's, so its own picks show the selection's own error
+        forced, picks, _ = _dsa_run(model, p16, ids, force=ref_picks)
+        picks_row = _pick_check(picks, ref_picks, ref_scores)
+        traps = {}
+        for trap, swaps in _dsa_traps(name != 'parity_deepseek_v32'):
+            with _swapped(*swaps):
+                _, t_picks, _ = _dsa_run(model, p16, ids, force=ref_picks)
+            tc = _pick_check(t_picks, ref_picks, ref_scores)
+            traps[trap] = {'max_deficit_over_spread': tc['max_deficit_over_spread'],
+                           'invalid_picks_equal': tc['invalid_picks_equal']}
+            traps[trap]['caught'] = (tc['max_deficit_over_spread'] > DSA_PICK_TOL
+                                     or not tc['invalid_picks_equal'])
+        row = {'phase': name, 'card': card, 'model': f'{cfg.hf_arch} widths, 2 dense layers',
+               'prompt_tokens': DSA_PARITY_LEN, 'index_topk': model.idx_topk,
+               'indexer_types': [('full' if f else 'shared') for f in model.idx_full]
+               if hasattr(model, 'idx_full') else None,
+               'max_abs_logit_err': (forced - ref_logits).abs().max().item(),
+               'picks': 'the bf16 run takes the f32 run\'s picks; its own beside',
+               'own_picks_max_abs_logit_err': (logits - ref_logits).abs().max().item(),
+               'logit_std': ref_logits.std().item(), 'logit_tol': DSA_LOGIT_TOL,
+               'argmax_equal': bool(logits.argmax() == ref_logits.argmax()),
+               'own_picks_on_f32_inputs': picks_row, 'pick_tol': DSA_PICK_TOL,
+               'traps': traps}
+        row['ok'] = (row['max_abs_logit_err'] <= DSA_LOGIT_TOL
+                     and picks_row['max_deficit_over_spread'] <= DSA_PICK_TOL
+                     and picks_row['invalid_picks_equal']
+                     and all(t['caught'] for t in traps.values()))
+        emit(row)
+        rows.append(row)
+        del p16, ref_scores, ref_picks, picks
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not row['ok']:
+            raise SystemExit(f'{name} failed: {row}')
+    return rows
+
+
+def spec_mtp_phase(card: str, shared: dict) -> dict:
+    """spec_mtp_deepseek_v3: DeepSeek-V3 at full width, its LV3 layers (3 dense, 1 MoE of
+    seeded blocked-fp8 experts) and its MTP layer (seeded with the reference's dense
+    expert shapes), bf16 MLA cache, K = SPEC_K, the speculative cells' traffic
+    (``spec_cell``): per speculative step paged_decode K times (the head's MLA at D 576)
+    and fp8_bmm 3 times a chunk of the verify's 320 rows in the MoE layer's dense
+    combine (16 chunks of 20); per host-driven step 4 and 3; per fresh prefill step
+    flash_prefill 4 times; the greedy rows against the plain engine's under
+    VERIFY_MARGIN_TOL, whose floor ``verify_decode_check`` reads first, past it only at
+    a router flip (the one MoE layer is the last, so a choice at a position moves that
+    position's logits and no other's)."""
+    from lmdeploy_tpu_torch.models.mtp import DeepseekMTP
+    target = v3_config(DEEPSEEK_V3)
+    # the head's 22.5 GB of dense bf16 experts, seeded without init_params' f32
+    # temporaries beside the target's 19 GB
+    spec_shared = {'init': _v3_tree(shared),
+                   'head': _seeded_by_matrix(DeepseekMTP(target), SEED + 9)}
+    try:
+        plain = spec_plain_run(target, spec_shared, card, record_routes=True)
+        verify_decode_check(target, spec_shared, card, VERIFY_MARGIN_TOL,
+                            'spec_mtp_verify_vs_decode')
+        return spec_cell('spec_mtp_deepseek_v3', 'deepseek_mtp', None, target, spec_shared,
+                         card, plain, fp8_layers=target.num_layers - target.first_k_dense_replace)
+    finally:
+        spec_shared.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def deepseek_v32_e2e_phase(card: str, shared: dict) -> dict:
+    """e2e_deepseek_v32_fp8: DeepSeek-V3.2 at full width, LV3 layers (V3's seeded tree
+    plus the indexer), a bf16 cache whose rows carry the indexer's keys (704 wide), the
+    traffic of V32_TRAFFIC; each decode step launches fp8_bmm three times (the MoE
+    layer's dense combine at 32 rows), flash_prefill and paged_decode never (DSA gathers
+    its picks); every prefill step has >= 768 rows, so fp8_bmm does not launch there.
+    One run, traced, then the greedy requests on an eager_mode engine."""
+    from lmdeploy_tpu_torch.models import build_model
+    cfg = v3_config(DEEPSEEK_V32)
+    rng = np.random.RandomState(SEED + 13)
+    prompts = [rng.randint(3, 32000, size=n).tolist()
+               for count, n in V32_TRAFFIC for _ in range(count)]
+    e2e_shared = {'init': _with_indexer(_v3_tree(shared), build_model(v3_config(DEEPSEEK_V32)))}
+    moe = cfg.num_layers - cfg.first_k_dense_replace
+    try:
+        return e2e_phase('e2e_deepseek_v32_fp8', cfg, 32, 0, 0, {'fp8_bmm': (0, 3 * moe)},
+                         card, long_len=max(n for _, n in V32_TRAFFIC), exact=True,
+                         shared=e2e_shared, forbid=('flash_prefill', 'paged_decode'), runs=1,
+                         new_tokens=V32_NEW, prompts=prompts, cache_blocks=V32_BLOCKS,
+                         graphs_check=dict(traffic=('greedy',), trace=False))
+    finally:
+        e2e_shared.clear()
+
+
+def mtp_dsa_phase(card: str) -> dict:
+    """The slice's cells: mtp_step, parity_deepseek_v32 (two rows), spec_mtp_deepseek_v3
+    and e2e_deepseek_v32_fp8, sharing V3's seeded tree; returns the e2e rows by name."""
+    shared = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        mtp_step_check(card)
+        dsa_parity_phase(card, shared)
+        paths = {'spec_mtp_deepseek_v3': spec_mtp_phase(card, shared),
+                 'e2e_deepseek_v32_fp8': deepseek_v32_e2e_phase(card, shared)}
+    finally:
+        shared.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
+
+
 def kernel_line(flash, decode, decode8, w4, mx, kv, szc, unprep, fp8, cp, mla_quant):
     def entry(name, source, replaces, rows, lead, library_ms):
         return {'name': name, 'route': 'cuda', 'source': f'lmdeploy_tpu_torch/csrc/{source}',
@@ -4414,6 +5129,7 @@ def kernel_line(flash, decode, decode8, w4, mx, kv, szc, unprep, fp8, cp, mla_qu
     fp8_lead['bound_by'] = 'bytes' if all(r['bound_by'] == 'bytes' for r in fp8_layer) \
         else 'operations'
     v3 = [fp8_main[f'v3_gate_m{FP8_MAIN_M}']] * 2 + [fp8_main[f'v3_down_m{FP8_MAIN_M}']]
+    v3_verify = [fp8_main['v3_gate_m320']] * 2 + [fp8_main['v3_down_m320']]
 
     def shapes(rows, prefix):
         """The MLA rows of an attention kernel, by case."""
@@ -4449,7 +5165,9 @@ def kernel_line(flash, decode, decode8, w4, mx, kv, szc, unprep, fp8, cp, mla_qu
                    f'E {FP8_V2L[0]}, H {FP8_V2L[1]}, Ie {FP8_V2L[2]}, group 128, '
                    f'M = {FP8_MAIN_M}',
              v3_layer={k: sum(r[k] for r in v3) for k in ('kernel_ms', 'plain_ms',
-                                                           'bound_ms', 'dense_bf16_ms')}),
+                                                           'bound_ms', 'dense_bf16_ms')},
+             v3_verify_layer={k: sum(r[k] for r in v3_verify)
+                              for k in ('kernel_ms', 'plain_ms', 'bound_ms', 'dense_bf16_ms')}),
         dict(entry('w4a16_szc', 'w4a16_gemm_szc.cu',
                    'lmdeploy_tpu/ops/pallas/quant_matmul.py:364', szc, fast,
                    fast['library_ms']),
@@ -4556,7 +5274,7 @@ def main():
         name = f'parity_{family}'
         timed(name, parity_phase, name, dense_config(family, 2), tol)
     _PARITY_WEIGHTS.clear()
-    L1, L7 = tinyllama_config().num_layers, LW4
+    L1, L7 = tinyllama_config(LTINY).num_layers, LW4
     # launches each (prefill step, decode step) needs on each path, and the path whose
     # launches each kernel's entry reports; the Llama-3.1-8B phases share one set of
     # seeded weights and must launch exactly that many
@@ -4583,7 +5301,7 @@ def main():
     # the narrow decode splits every call at the 17-page table (its combine counted in
     # paged_decode's .combines) in the TinyLlama, gpt-oss and Mixtral cells, but for
     # gpt-oss's sliding layers, whose 128-token window fits one split
-    paths['e2e'] = timed('e2e', e2e_phase, 'e2e', tinyllama_config(), 64, 0, 8,
+    paths['e2e'] = timed('e2e', e2e_phase, 'e2e', tinyllama_config(LTINY), 64, 0, 8,
                          {'flash_prefill': (L1, 0), 'paged_decode': (0, L1)},
                          info['nvidia_smi'], combined={'paged_decode': 1},
                          graphs_check={})
@@ -4653,6 +5371,8 @@ def main():
                             graphs_check=dict(traffic=('greedy',), trace=False))
     # speculative decoding over Llama-3.1-8B: EAGLE-3, a Llama-3.2-1B draft, a self-draft
     paths.update(timed('spec', spec_phase, info['nvidia_smi']))
+    # MTP speculative decoding on DeepSeek-V3 and DeepSeek Sparse Attention (V3.2)
+    paths.update(timed('mtp_dsa', mtp_dsa_phase, info['nvidia_smi']))
     main_path = {'fp8_bmm': 'e2e_deepseek_v2_lite_fp8', 'flash_prefill': 'e2e',
                  'paged_decode': 'e2e', 'paged_decode_cp': 'e2e_llama31_8b_cp2',
                  'paged_decode_int8': 'e2e_w4a16_kv8', 'w4a16_gemm': 'e2e_w4a16_kv8',

@@ -141,7 +141,7 @@ DECODE_STEPS = {
     'p_once': ((NARROW, '          attn::Mma<T>::run(o[u][n], va, ph[0], ph[1]);\n'
                         '          attn::Mma<T>::run(o[u][n], va, pl[0], pl[1]);\n',
                 '          attn::Mma<T>::run(o[u][n], va, ph[0], ph[1]);\n'),
-               (WIDE, 'constexpr bool mma_p_hi_lo() { return D < 576; }',
+               (WIDE, 'constexpr bool mma_p_hi_lo() { return true; }',
                 'constexpr bool mma_p_hi_lo() { return false; }')),
 }
 # the steps a kernel leaves out: the decode steps of the element types it does not read,

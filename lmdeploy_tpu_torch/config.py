@@ -2,8 +2,8 @@
 
 Port of ``lmdeploy_tpu/config.py`` for the families the port serves (the dense llama
 family and its variants, ChatGLM's legacy field names included, the Mixtral / Qwen-MoE
-/ PhiMoE family, gpt-oss, DeepSeek-V2 / V3, GLM-4.5 MoE and DeepSeek-MoE), with the
-reference's MoE and MLA fields and its mesh geometry (``DistConfig``).  Dtypes are torch dtypes; the multimodal config fields
+/ PhiMoE family, gpt-oss, DeepSeek-V2 / V3 / V3.2, GLM-4.5 MoE, GLM-MoE-DSA and
+DeepSeek-MoE), with the reference's MoE and MLA fields (and the DSA cache sidecar) and its mesh geometry (``DistConfig``).  Dtypes are torch dtypes; the multimodal config fields
 of the reference are not carried until a slice ports those models.
 """
 from __future__ import annotations
@@ -84,6 +84,9 @@ class ModelConfig:
     qk_rope_head_dim: int = 0
     v_head_dim: int = 0
     first_k_dense_replace: int = 0
+    # a per-token sidecar cached after the K row (reference config.py:76): the DSA
+    # lightning indexer's key of DeepSeek-V3.2 / GLM-MoE-DSA, set by their models
+    cache_extra_dim: int = 0
     # DeepSeek-MoE routing: scores (softmax or sigmoid), group-limited top-k over n_group
     # groups of which topk_group are kept, and a factor on the routed weights
     routed_scaling_factor: float = 1.0
@@ -100,10 +103,11 @@ class ModelConfig:
     @property
     def cache_head_dim(self) -> int:
         """Per-head KV-cache row width: the latent plus the rope dims under MLA
-        (512 + 64 = 576 on DeepSeek-V2/V3), else head_dim."""
+        (512 + 64 = 576 on DeepSeek-V2/V3), else head_dim; plus ``cache_extra_dim``
+        (DeepSeek-V3.2's 576 + 128 = 704)."""
         if self.is_mla:
-            return self.kv_lora_rank + self.qk_rope_head_dim
-        return self.head_dim
+            return self.kv_lora_rank + self.qk_rope_head_dim + self.cache_extra_dim
+        return self.head_dim + self.cache_extra_dim
 
     @property
     def rope_dim(self) -> int:

@@ -61,14 +61,14 @@
 //     cp.async copies: sub-chunk i + 1's copies are in flight while sub-chunk i is
 //     computed.  S = Q K^T on mma.sync m16n8k16 over all of D, each warp taking a
 //     quarter of the sub-chunk's keys; the row max and row sum are combined across the
-//     warps in a fixed order; at D 192 / 256 P goes to P.V as hi + lo in the page type
-//     (two products, as the narrow body's), more precise than the Pallas kernel's one
-//     rounding (pr.astype(v.dtype)): rounded once, Gemma-2-9B's decode (softcap 50)
-//     read 2.1-2.6x the tolerance against the f32-P plain version at score spreads of
-//     std 8-40 (2.4x at 23, the spread its parity row's prefill scores have), hi + lo
-//     0.64-0.70x, for 1-2% more time (chip_steps.py p_once; H100 80GB HBM3, 700 W).
-//     MLA's 576 keeps the one rounding: its P.V is half its tensor-core work, and its
-//     cases pass; for O += P V
+//     warps in a fixed order; P goes to P.V as hi + lo in the page type (two products,
+//     as the narrow body's), more precise than the Pallas kernel's one rounding
+//     (pr.astype(v.dtype)): rounded once, Gemma-2-9B's decode (softcap 50) read 2.1-2.6x
+//     the tolerance against the f32-P plain version at score spreads of std 8-40 (2.4x
+//     at 23, the spread its parity row's prefill scores have), hi + lo 0.64-0.70x, for
+//     1-2% more time (chip_steps.py p_once; H100 80GB HBM3, 700 W); at MLA's 576 one
+//     rounding read 1.27x over a DeepSeek-V3 MTP head's cache (rows of 257-352 tokens,
+//     128 heads: softmax weights larger than at V3's 1,100-token rows); for O += P V
 //     each warp owns a quarter of D's columns with its f32 accumulator in registers (V
 //     fragments from ldmatrix.trans).
 //   * Wide (f32 pages at any D, e4m3 pages at D > 128; D a runtime value): a block of
@@ -492,9 +492,9 @@ paged_decode_wide(const TQ* __restrict__ q,                 // [B, Hq, D]
 constexpr int NTM = 128;          // 4 warps
 constexpr int MST = 2;            // sub-chunk ring stages
 
-// P as hi + lo below MLA's latent 576
+// P as hi + lo at every D (chip_steps.py's p_once step plants the one rounding here)
 template <int D>
-__host__ __device__ constexpr bool mma_p_hi_lo() { return D < 576; }
+__host__ __device__ constexpr bool mma_p_hi_lo() { return true; }
 
 template <int D, int TC>
 __host__ __device__ constexpr int mma_smem() {

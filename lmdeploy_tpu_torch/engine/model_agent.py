@@ -95,25 +95,27 @@ class StepOutput:
         return self._fetch()[2]
 
 
-def eager_reason(cp_devices, ragged_min_rows: Optional[int], B: int) -> Optional[str]:
+def eager_reason(cp_devices, ragged_min_rows: Optional[int], B: int,
+                 stacks: str = 'model') -> Optional[str]:
     """Why a decode run over a B-row bucket may not be captured (None: it may): a mesh
     whose cp ranks span several devices (one capture holds one card's launches), or an
     MoE model whose bucket reaches the grouped-GEMM route ``ops/moe.py _moe_ragged``,
     which reads the experts' group sizes on the host (``ragged_min_rows``: its
-    threshold for the model's stacks, None for a model without experts)."""
+    threshold for the ``stacks`` named, None for a model without experts)."""
     if len(set(cp_devices)) > 1:
         return f'the cp ranks span {len(set(cp_devices))} devices'
     if ragged_min_rows is not None and B >= ragged_min_rows:
-        return (f'a decode bucket of {B} rows takes the grouped expert GEMM (from '
-                f'{ragged_min_rows} rows), which reads group sizes on the host')
+        return (f'a decode bucket of {B} rows takes the {stacks}\'s grouped expert GEMM '
+                f'(from {ragged_min_rows} rows), which reads group sizes on the host')
     return None
 
 
 def ragged_min_rows(params) -> Optional[int]:
-    """The rows from which ``moe_ffn`` takes ``_moe_ragged`` on this model's expert
+    """The rows from which ``moe_ffn`` takes ``_moe_ragged`` on this tree's expert
     stacks (dense stacks, and W4A16 stacks that are widened at each step, from 128;
-    MXFP4 and blocked-fp8 stacks from 768); None without experts."""
-    for group in ('layers', 'moe_layers'):
+    MXFP4 and blocked-fp8 stacks from 768); None without experts.  A tree's layer groups
+    are ``layers`` / ``moe_layers``, an MTP head's one layer ``layer``."""
+    for group in ('layers', 'moe_layers', 'layer'):
         leaf = params.get(group, {}).get('we_gate')
         if leaf is not None:
             quant = isinstance(leaf, dict) and ('nib' in leaf or 'w8' in leaf)
@@ -204,7 +206,7 @@ class ModelAgent:
         self.graphs = DecodeGraphs(
             self._decode_body, self.token_counts.device,
             capture=cuda and not self.eager_mode,
-            eager_reason=lambda key: eager_reason(cp_devices, ragged, self._graph_rows(key)))
+            eager_reason=lambda key: self._eager_reason(key, cp_devices, ragged))
 
     def prepare_params(self, model, params):
         """A loaded tree in the form the agent serves it: one wide qkv GEMM and one
@@ -221,6 +223,14 @@ class ModelAgent:
             sched = os.environ.get('LMDEPLOY_TPU_W4_SCHED', 'gd' if not fast else '') or None
             params = model.prep_quant_leaves(params, fast=fast, mode=sched)
         return model.layout_quant_leaves(params)
+
+    def _eager_reason(self, key, cp_devices, ragged) -> Optional[str]:
+        """``eager_reason`` of a run key: a speculative step's verify rows against the
+        target's stacks, then its draft rows (B) against the proposer's."""
+        why = eager_reason(cp_devices, ragged, self._graph_rows(key))
+        if why is None and key[0] == 'spec':
+            why = eager_reason((), self.spec.draft_ragged, key[2], 'speculative proposer')
+        return why
 
     def _graph_rows(self, key) -> int:
         """The batch rows a run's forward passes take: B for a decode run, B * (K+1)

@@ -1,10 +1,16 @@
 """Speculative decoding: propose K tokens, verify them in one target pass.
 
-Port of ``lmdeploy_tpu/engine/spec_agent.py`` (``SpecExtension``) for three proposers:
+Port of ``lmdeploy_tpu/engine/spec_agent.py`` (``SpecExtension``) for four proposers:
 ``draft_model`` (a smaller checkpoint of a registered architecture, or the target
-itself), ``eagle`` (``models/eagle.py EagleHead``) and ``eagle3`` (``Eagle3Head``), over
-targets that run ``LlamaModel.forward``.  One speculative step over the rows [0, B) of
-the decode state (reference ``_get_fn`` / ``_get_fn_eagle`` / ``_get_fn_eagle3``):
+itself), ``eagle`` (``models/eagle.py EagleHead``), ``eagle3`` (``Eagle3Head``) and
+``deepseek_mtp`` (the target checkpoint's own MTP layer, ``models/mtp.py``: DeepSeek-V2 /
+V3 and V3.2 get ``DeepseekMTP``, GLM-4.5 ``Glm4MoeMTP``, GLM-MoE-DSA ``GlmMoeDsaMTP``,
+by the target's class, reference :48-65), over targets that run ``LlamaModel.forward``
+or ``DeepseekV2Model.forward``.  An MTP head rides the EAGLE proposer: it conditions on
+the target's pre-norm feature, shares the target's config, embedding and lm_head, and
+its weights come from the target's checkpoint.  One speculative step over the rows
+[0, B) of the decode state (reference ``_get_fn`` / ``_get_fn_eagle`` /
+``_get_fn_eagle3``):
 
   (a) the proposer takes K autoregressive steps over its own paged cache (``n_layers``
       layers: 1 for a head, the draft model's own count), each drawing a token from
@@ -24,15 +30,19 @@ acceptance only; the conditioning feature of a row starts from zero (and a reuse
 slot from its previous occupant's last feature); rejected positions leave stale K/V past
 each row's length in both caches, never read and overwritten later.  The draft's cache
 has the target's block count and block size, shares its block tables, and always holds
-the model dtype, whatever the target cache's policy.  Draft seeds are
+the model dtype, whatever the target cache's policy; its rows are as wide as the
+proposer writes them (an MTP head's ``cache_width``: DeepseekMTP's 576 under a V3.2
+target whose own rows are 704).  Draft seeds are
 ``seed + (step_no + 1 + i) * 0x9E3779B9`` and verify seeds ``seed + step_no *
 0x85EBCA6B``, in u32 arithmetic (int64 with ``& 0xFFFFFFFF``); the draws themselves come
 from the port's hash streams (``ops/spec_sampling.py``), not the reference's threefry.
 
 The step is one ``SpecRun`` per ``('spec', method, B)`` in the agent's ``DecodeGraphs``:
 on the card it is captured as a CUDA graph at its first use (or by ``warmup``) and
-replayed, unless ``eager_mode`` or ``eager_reason`` (which counts the verify's B * (K+1)
-rows) says otherwise; a wider block table drops it with the decode graphs.
+replayed, unless ``eager_mode`` or ``eager_reason`` says otherwise: it counts the
+verify's B * (K+1) rows against the target's expert stacks and the draft's B rows
+against the proposer's (``draft_ragged``); a wider block table drops it with the
+decode graphs.
 """
 from __future__ import annotations
 
@@ -43,6 +53,7 @@ import torch
 
 from ..config import ModelConfig, bucketize
 from ..models import build_model
+from ..models.deepseek import DeepseekV2Model
 from ..models.eagle import Eagle3Head, EagleHead
 from ..models.llama import AttnMeta, LlamaModel
 from ..nn.layers import make_rope_table
@@ -51,14 +62,17 @@ from ..ops.sampling import (GOLDEN, NEG_INF, SamplingInputs, _top_k_p_min_p_mask
 from ..ops.spec_sampling import DRAFT_SALT, draw, reject_sample
 from .decode_state import DecodeState, make_initial_state
 from .graph_runner import GraphRun
-from .model_agent import StepOutput
+from .model_agent import StepOutput, ragged_min_rows
 
 _MASK32 = 0xFFFFFFFF
 VERIFY_MIX = 0x85EBCA6B
-METHODS = ('draft_model', 'eagle', 'eagle3')
-# the reference's MTP proposers, and the ROADMAP items that bring their heads
-MTP_ITEMS = {'deepseek_mtp': 'ROADMAP.md item 6 (DeepSeek / GLM-4.5 MTP heads)',
-             'qwen3_5_mtp': 'ROADMAP.md item 14 (Qwen3.5 and its MTP layer)'}
+METHODS = ('draft_model', 'eagle', 'eagle3', 'deepseek_mtp')
+# the proposers that condition on the target's pre-norm feature
+FEATURE_METHODS = ('eagle', 'deepseek_mtp')
+# the reference's MTP proposers still to port, and the ROADMAP items that bring them
+MTP_ITEMS = {'qwen3_5_mtp': 'ROADMAP.md item 14 (Qwen3.5 and its MTP layer)'}
+# the target forwards a verify runs through
+VERIFY_FORWARDS = (LlamaModel.forward, DeepseekV2Model.forward)
 # EAGLE-3's draft logits outside its vocabulary (reference :537-538)
 UNMAPPED_LOGIT = -1e30
 # the seed of a draft's random weights under empty_init (the reference's PRNGKey(1))
@@ -133,13 +147,13 @@ class SpecExtension:
         if method not in METHODS:
             raise ValueError(f'unknown speculative method {method!r}; one of '
                              f'{METHODS + tuple(MTP_ITEMS)}')
-        if type(agent.model).forward is not LlamaModel.forward:
-            raise NotImplementedError(
-                f'speculative decoding verifies through LlamaModel.forward; '
-                f'{type(agent.model).__name__} runs its own (ROADMAP.md item 6)')
         if agent.mesh is not None:
             raise NotImplementedError('speculative decoding under context parallelism is '
                                       'not ported yet (ROADMAP.md item 16)')
+        if type(agent.model).forward not in VERIFY_FORWARDS:
+            raise NotImplementedError(
+                f'speculative decoding verifies through LlamaModel.forward or '
+                f'DeepseekV2Model.forward; {type(agent.model).__name__} runs its own')
         if num_speculative_tokens < 1:
             raise ValueError('num_speculative_tokens must be at least 1')
         self.agent = agent
@@ -147,9 +161,15 @@ class SpecExtension:
         self.method = method
         tcfg = agent.model_config
         dev = agent.device
-        self.draft_config = dc = ModelConfig.from_pretrained(draft_model_path,
-                                                             dtype=tcfg.dtype)
         self.hidden = None          # the conditioning feature of each decode-state row
+        if method == 'deepseek_mtp':
+            # the head is the checkpoint's extra layer: the target's config and weights
+            self.draft_config = dc = tcfg
+            self.draft_model = _mtp_head(agent.model)
+            width = tcfg.hidden_size
+        else:
+            self.draft_config = dc = ModelConfig.from_pretrained(draft_model_path,
+                                                                 dtype=tcfg.dtype)
         if method == 'eagle3':
             self.draft_model = Eagle3Head(dc)
             # the target's feature taps: layer OUTPUTS 1, L/2 - 1, L - 4, clipped
@@ -163,7 +183,7 @@ class SpecExtension:
         elif method == 'eagle':
             self.draft_model = EagleHead(dc)
             width = tcfg.hidden_size
-        else:
+        elif method == 'draft_model':
             self.draft_model = build_model(dc)
             if dc.vocab_size != tcfg.vocab_size:
                 raise ValueError(f'the draft model\'s vocabulary ({dc.vocab_size}) is not '
@@ -178,6 +198,8 @@ class SpecExtension:
             params = load_params(self.draft_model, draft_model_path, dev)
         self.draft_params = (agent.prepare_params(self.draft_model, params)
                              if method == 'draft_model' else params)
+        # the rows from which the proposer's expert stacks take the grouped GEMM
+        self.draft_ragged = ragged_min_rows(self.draft_params)
         self.d2t = None
         if method == 'eagle3':
             self.d2t = self.draft_params['d2t'].long()
@@ -185,8 +207,8 @@ class SpecExtension:
                 raise ValueError('EAGLE-3 d2t maps two draft ids to one target id')
         # the draft's cache: the target's blocks and block size, the model dtype
         self.n_layers = 1 if method != 'draft_model' else dc.num_layers
-        shape = (self.n_layers, agent.num_blocks, 2, agent.cache_config.block_size,
-                 dc.num_key_value_heads * dc.cache_head_dim)
+        row = getattr(self.draft_model, 'cache_width', dc.num_key_value_heads * dc.cache_head_dim)
+        shape = (self.n_layers, agent.num_blocks, 2, agent.cache_config.block_size, row)
         self.draft_kv = torch.zeros(shape, dtype=tcfg.torch_dtype(), device=dev)
         self.draft_cos, self.draft_sin = make_rope_table(
             dc.rope_dim, agent.max_model_len, dc.rope_theta, dc.rope_scaling, device=dev)
@@ -212,7 +234,7 @@ class SpecExtension:
                                               self.draft_kv, meta, self.draft_cos,
                                               self.draft_sin)
             return logits, None
-        if self.method == 'eagle':
+        if self.method in FEATURE_METHODS:
             return self.draft_model.step(self.draft_params, agent.params, h, tok, pos,
                                          self.draft_kv, tables, q1, agent.rope_cos,
                                          agent.rope_sin, max_len)
@@ -270,7 +292,7 @@ class SpecExtension:
                         q_lens=q1 * (K + 1))
         out = agent.model.forward(agent.params, chunk, positions, agent.kv_cache, meta,
                                   agent.rope_cos, agent.rope_sin, return_all_logits=True,
-                                  return_hidden=self.method == 'eagle',
+                                  return_hidden=self.method in FEATURE_METHODS,
                                   return_aux_hidden=self.method == 'eagle3')
         logits_all, features = out if isinstance(out, tuple) else (out, None)
         tgt = torch.stack([masked_dist(logits_all[:, j], row, counts, pmask)
@@ -303,3 +325,19 @@ class SpecExtension:
         """Build (on the card: capture) the step of each batch bucket."""
         for B in buckets:
             self.agent.graphs.prepare(self.key(B), self._make_run)
+
+
+def _mtp_head(target):
+    """The MTP head of the target's family (reference :54-62)."""
+    from ..models.glm4_moe import Glm4MoeModel
+    from ..models.glm_moe_dsa import GlmMoeDsaModel
+    from ..models.mtp import DeepseekMTP, Glm4MoeMTP, GlmMoeDsaMTP
+    if not isinstance(target, DeepseekV2Model):
+        raise ValueError(f'deepseek_mtp drafts with the MTP layer of a DeepSeek-V2 / V3 / '
+                         f'V3.2, GLM-4.5 or GLM-MoE-DSA checkpoint, not '
+                         f'{target.config.hf_arch}')
+    if isinstance(target, GlmMoeDsaModel):
+        return GlmMoeDsaMTP(target.config)
+    if isinstance(target, Glm4MoeModel):
+        return Glm4MoeMTP(target.config)
+    return DeepseekMTP(target.config)

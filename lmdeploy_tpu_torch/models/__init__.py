@@ -5,8 +5,9 @@ llama builders (``_llama``, ``_qwen2``, ``_qwen3``), the dense variants (``_gemm
 ``_phi3``, ``_glm4``, ``_chatglm``, ``_internlm2``, ``_baichuan``, ``_internlm_v1``,
 ``_starcoder2``, ``_minicpm``), the sparse-MoE ones (``_mixtral``, ``_qwen2_moe``,
 ``_qwen3_moe``, ``_phimoe``), ``_gpt_oss``, ``_deepseek`` (DeepSeek-V2 / V3 with MLA),
-and DeepSeek's MoE with GQA attention (``_glm4_moe``, ``_deepseek_v1``): 30 of the
-reference's 68 architectures; the other families are not ported yet.
+DeepSeek's MoE with GQA attention (``_glm4_moe``, ``_deepseek_v1``) and the DSA models
+(``_deepseek_v32``, ``_glm_moe_dsa``): 32 of the reference's 68 architectures; the other
+families are not ported yet.
 """
 from __future__ import annotations
 
@@ -76,6 +77,28 @@ def _deepseek(config: ModelConfig) -> LlamaModel:
     # MLA: one latent kv head; the cache row width comes from cache_head_dim
     config.num_key_value_heads = 1
     return DeepseekV2Model(config)
+
+
+@register_model('DeepseekV32ForCausalLM')
+def _deepseek_v32(config: ModelConfig) -> LlamaModel:
+    from .deepseek_v32 import DeepseekV32Model
+    # one latent kv head of kv_lora_rank + qk_rope + index_head_dim; the reference keeps
+    # the checkpoint's num_key_value_heads and reads the first such row (ROADMAP.md
+    # section 3)
+    config.num_key_value_heads = 1
+    return DeepseekV32Model(config)
+
+
+@register_model('GlmMoeDsaForCausalLM')
+def _glm_moe_dsa(config: ModelConfig) -> LlamaModel:
+    from .glm_moe_dsa import GlmMoeDsaModel
+    # a qk_head_dim other than nope + rope sets the rope share to the remainder
+    # (reference models/__init__.py:375-386)
+    qk_head_dim = (config.hf_config or {}).get('qk_head_dim')
+    if qk_head_dim and qk_head_dim != config.qk_nope_head_dim + config.qk_rope_head_dim:
+        config.qk_rope_head_dim = qk_head_dim - config.qk_nope_head_dim
+    config.num_key_value_heads = 1
+    return GlmMoeDsaModel(config)
 
 
 @register_model('DeepseekForCausalLM')

@@ -236,14 +236,16 @@ class DeepseekV2Model(LlamaModel):
 
     # -- forward ----------------------------------------------------------------------
     def _mla_qkv(self, w, x: torch.Tensor, cos, sin):
-        """(q_eff [B,T,nh,D], k_new [B,T,D], v_new [B,T,D]) of the absorbed attention,
-        D = kv_lora_rank + qk_rope_head_dim (reference ``_attn_block`` :319-340)."""
+        """(q_eff [B,T,nh,D], k_new [B,T,D], v_new [B,T,D], the query latent [B,T,rq] or
+        None without q_lora) of the absorbed attention, D = kv_lora_rank +
+        qk_rope_head_dim (reference ``_attn_block`` :319-340)."""
         cfg = self.config
         B, T = x.shape[:2]
         nh, dn, dr, r = self.nh, self.dn, self.dr, self.r
+        qr = None
         if self.rq:
-            q = linear(rms_norm(linear(x, w['wdq']), w['q_norm'], cfg.rms_norm_eps),
-                       w['wuq'])
+            qr = rms_norm(linear(x, w['wdq']), w['q_norm'], cfg.rms_norm_eps)
+            q = linear(qr, w['wuq'])
         else:
             q = linear(x, w['wq'])
         q = q.reshape(B, T, nh, dn + dr)
@@ -257,7 +259,7 @@ class DeepseekV2Model(LlamaModel):
         q_eff = torch.cat([q_c, q_pe], dim=-1)
         k_new = torch.cat([c, k_pe[:, :, 0]], dim=-1)
         v_new = torch.cat([c, torch.zeros_like(k_pe[:, :, 0])], dim=-1)
-        return q_eff, k_new, v_new
+        return q_eff, k_new, v_new, qr
 
     def _attn_block(self, w, h: torch.Tensor, layer: int, kv_cache, meta: AttnMeta,
                     cos, sin, slot_mapping, fresh_prefill: bool) -> torch.Tensor:
@@ -265,7 +267,7 @@ class DeepseekV2Model(LlamaModel):
         B, T = h.shape[:2]
         D = self.r + self.dr
         x = rms_norm(h, w['attn_norm'], cfg.rms_norm_eps)
-        q_eff, k_new, v_new = self._mla_qkv(w, x, cos, sin)
+        q_eff, k_new, v_new, _ = self._mla_qkv(w, x, cos, sin)
         fill_kv_cache(kv_cache, k_new.reshape(B * T, 1, D), v_new.reshape(B * T, 1, D),
                       slot_mapping, layer)
         attn = paged_attention(q_eff, kv_cache, meta.block_tables, meta.history_lens,
@@ -329,12 +331,34 @@ class DeepseekV2Model(LlamaModel):
             out = out + _f32_dot(s.to(x.dtype), w['ws_down'])
         return out.reshape(B, T, H).to(x.dtype)
 
+    # -- the per-layer hooks of the DSA models (deepseek_v32.py, glm_moe_dsa.py) -----------
+    def _init_dsa_carry(self):
+        """What a layer hands the next through the layer loop (GLM-MoE-DSA's shared
+        layers reuse the last full layer's selection): nothing here."""
+        return None
+
+    def _attn_block_x(self, w, h: torch.Tensor, layer: int, kv_cache, meta: AttnMeta,
+                      cos, sin, slot_mapping, fresh_prefill: bool, carry):
+        """``_attn_block`` with the layer loop's carry (reference :397-405)."""
+        return (self._attn_block(w, h, layer, kv_cache, meta, cos, sin, slot_mapping,
+                                 fresh_prefill), carry)
+
     @torch.no_grad()
     def forward(self, params: Dict, input_ids: torch.Tensor, positions: torch.Tensor,
                 kv_cache, meta: AttnMeta, rope_cos: torch.Tensor, rope_sin: torch.Tensor,
-                return_all_logits: bool = False, fresh_prefill: bool = False) -> torch.Tensor:
+                return_all_logits: bool = False, fresh_prefill: bool = False,
+                return_hidden: bool = False, return_aux_hidden: bool = False):
         """One step over a [B, T] chunk; the dense group, then the MoE group, one cache
-        layer counter over both.  Returns f32 logits as ``LlamaModel.forward``."""
+        layer counter over both, and the DSA carry (``_init_dsa_carry``) through every
+        layer.  Returns f32 logits as ``LlamaModel.forward``; with ``return_hidden``
+        (logits, the pre-final-norm hidden at the same positions), the feature an MTP
+        head conditions on (reference :464-480).  EAGLE-3's feature taps are not part
+        of the reference's DeepSeek forward, so ``return_aux_hidden`` raises."""
+        if return_aux_hidden:
+            raise NotImplementedError(
+                f'{type(self).__name__} has no EAGLE-3 feature taps (return_aux_hidden): '
+                f'the reference\'s DeepSeek forward (lmdeploy_tpu/models/deepseek.py:'
+                f'408-483) returns the pre-norm hidden only')
         cfg = self.config
         B, T = input_ids.shape
         block_size = kv_cache.shape[3]
@@ -346,6 +370,7 @@ class DeepseekV2Model(LlamaModel):
         slot_mapping = compute_slot_mapping(meta.block_tables, meta.history_lens,
                                             meta.q_lens, T, block_size)
         layer = 0
+        carry = self._init_dsa_carry()
         for group, moe in (('layers', False), ('moe_layers', True)):
             lp = params.get(group)
             if lp is None:
@@ -353,13 +378,17 @@ class DeepseekV2Model(LlamaModel):
             for i in range(lp['attn_norm'].shape[0]):
                 w = {name: {k: a[i] for k, a in t.items()} if isinstance(t, dict) else t[i]
                      for name, t in lp.items()}
-                hidden = self._attn_block(w, hidden, layer, kv_cache, meta, cos, sin,
-                                          slot_mapping, fresh_prefill)
+                hidden, carry = self._attn_block_x(w, hidden, layer, kv_cache, meta, cos,
+                                                   sin, slot_mapping, fresh_prefill, carry)
                 x = rms_norm(hidden, w['mlp_norm'], cfg.rms_norm_eps)
                 hidden = hidden + (self._moe_mlp(w, x) if moe else self._mlp(w, x))
                 layer += 1
+        prenorm = hidden
         hidden = rms_norm(hidden, params['final_norm'], cfg.rms_norm_eps)
         if return_all_logits:
-            return self._head(params, hidden)
+            logits = self._head(params, hidden)
+            return (logits, prenorm) if return_hidden else logits
         last = (meta.q_lens.long() - 1).clamp(min=0)
-        return self._head(params, hidden[torch.arange(B, device=hidden.device), last])
+        rows = torch.arange(B, device=hidden.device)
+        logits = self._head(params, hidden[rows, last])
+        return (logits, prenorm[rows, last]) if return_hidden else logits

@@ -13,7 +13,7 @@ no renormalization and full rotary (reference ``models/__init__.py:184-193``).
 
 A native blocked-fp8 checkpoint dequantizes while it streams in (``dequant_on_load``):
 the stacked expert layout carries no blocked leaves here, as in the reference.  The
-multi-token-prediction head (``Glm4MoeMTP``) is not ported.
+multi-token-prediction head (``Glm4MoeMTP``) is in ``mtp.py``.
 """
 from __future__ import annotations
 

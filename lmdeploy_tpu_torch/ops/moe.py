@@ -4,8 +4,11 @@ Port of ``lmdeploy_tpu/ops/moe.py`` (``moe_ffn`` and the single-device routes of
 ``_moe_ffn_one``).  The route depends on the step's token count N and on the stacks:
 
   * quantized stacks (MXFP4 ``{'nib', 'scale'}`` or blocked-fp8 ``{'w8', 'gscale'}``
-    dict leaves), N >= 768: widen the three stacks to ``out_dtype`` (``_dequant_stack``)
-    and take the grouped GEMM; x is not rounded on this route;
+    dict leaves), N >= 768: the grouped GEMM on the stacks widened to ``out_dtype``,
+    each stack at once as the reference does (``_widened``) up to
+    ``_WIDEN_WHOLE_BYTES``, a larger one an expert at a time just before its product
+    (``_expert``, the same values: DeepSeek-V3's three stacks would take 22.5 GB of
+    bf16 beside their f32 temporaries); x is not rounded on this route;
   * quantized stacks below 768: the dense combine over the resident stacks
     (``_moe_dense``), every product on ``ops/quant_bmm.mxfp4_bmm`` or ``fp8_bmm`` (the
     CUDA kernels on the card), which round x to bf16;
@@ -36,6 +39,9 @@ from .quant_bmm import fp8_bmm, mxfp4_bmm, widen_fp8, widen_mxfp4
 RAGGED_MIN_TOKENS = 128
 QUANT_RAGGED_MIN_TOKENS = 768
 _CHUNK_BYTES = 64 * 1024 * 1024
+# a quantized stack's widened size up to which the grouped GEMM widens it at once (the
+# largest before DeepSeek-V3, GLM-4.5-Air's 1.5 GB; V3's are 7.5 GB)
+_WIDEN_WHOLE_BYTES = 4 << 30
 
 
 def _silu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
@@ -61,9 +67,9 @@ def moe_ffn(xf: torch.Tensor, top_idx: torch.Tensor, top_w: torch.Tensor,
     N = xf.shape[0]
     if isinstance(we_gate, dict):
         if allow_ragged and N >= QUANT_RAGGED_MIN_TOKENS:
-            return _moe_ragged(xf, top_idx, top_w, _dequant_stack(we_gate, out_dtype),
-                               _dequant_stack(we_up, out_dtype),
-                               _dequant_stack(we_down, out_dtype), out_dtype, biases, act)
+            return _moe_ragged(xf, top_idx, top_w, _widened(we_gate, out_dtype),
+                               _widened(we_up, out_dtype), _widened(we_down, out_dtype),
+                               out_dtype, biases, act)
         return _moe_dense(xf, top_idx, top_w, we_gate, we_up, we_down, out_dtype,
                           biases, act)
     if allow_ragged and N >= RAGGED_MIN_TOKENS:
@@ -72,14 +78,28 @@ def moe_ffn(xf: torch.Tensor, top_idx: torch.Tensor, top_w: torch.Tensor,
     return _moe_dense(xf, top_idx, top_w, we_gate, we_up, we_down, out_dtype, biases, act)
 
 
-def _dequant_stack(leaf: dict, out_dtype: torch.dtype) -> torch.Tensor:
-    """A resident quantized stack widened to a dense [E, K, N] (the long-prefill
-    route; the round trip amortizes over the chunk).  Bit-equal to the weights the
-    kernel decodes (blocked fp8: but for the NaN code, which the reference's widening
-    keeps as NaN)."""
+def _widened(leaf: dict, out_dtype: torch.dtype):
+    """A resident quantized stack widened to a dense [E, K, N] where that takes at most
+    ``_WIDEN_WHOLE_BYTES`` (the round trip amortizes over the chunk), else the leaf
+    itself, which ``_expert`` widens an expert at a time."""
+    codes_per_byte = 2 if 'nib' in leaf else 1
+    if (_codes(leaf).numel() * codes_per_byte * torch.finfo(out_dtype).bits // 8
+            > _WIDEN_WHOLE_BYTES):
+        return leaf
     if 'w8' in leaf:
         return widen_fp8(leaf['w8'], leaf['gscale'], out_dtype)
     return widen_mxfp4(leaf['nib'], leaf['scale'], out_dtype)
+
+
+def _expert(stack, e: int, out_dtype: torch.dtype) -> torch.Tensor:
+    """Expert ``e``'s [K, N] weights: a dense stack's slice, or a resident quantized
+    stack's widened to ``out_dtype``, bit-equal to the weights the kernels decode
+    (blocked fp8: but for the NaN code, which the reference's widening keeps as NaN)."""
+    if not isinstance(stack, dict):
+        return stack[e]
+    if 'w8' in stack:
+        return widen_fp8(stack['w8'][e], stack['gscale'][e], out_dtype)
+    return widen_mxfp4(stack['nib'][e], stack['scale'][e], out_dtype)
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -95,7 +115,7 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _moe_ragged(xf, top_idx, top_w, we_gate, we_up, we_down, out_dtype,
                 biases=None, act=_silu_mul) -> torch.Tensor:
     N, H = xf.shape
-    E = we_gate.shape[0]
+    E = _codes(we_gate).shape[0]
     k = top_idx.shape[1]
     e_flat = top_idx.reshape(-1).long()                              # [N*k]
     order = torch.sort(e_flat, stable=True).indices                  # rows by expert
@@ -109,11 +129,12 @@ def _moe_ragged(xf, top_idx, top_w, we_gate, we_up, we_down, out_dtype,
         start = 0
         for e, n in enumerate(sizes):
             if n:
-                out[start:start + n] = _dot(a[start:start + n], stack[e])
+                out[start:start + n] = _dot(a[start:start + n], _expert(stack, e, out_dtype))
             start += n
         return out
-    gate = grouped(xs, we_gate, we_gate.shape[-1])
-    up = grouped(xs, we_up, we_up.shape[-1])
+    width = _codes(we_gate).shape[-1]
+    gate = grouped(xs, we_gate, width)
+    up = grouped(xs, we_up, width)
     if biases is not None:
         gate = gate + biases[0][e_sorted].float()
         up = up + biases[1][e_sorted].float()
@@ -128,6 +149,23 @@ def _moe_ragged(xf, top_idx, top_w, we_gate, we_up, we_down, out_dtype,
     combined = torch.empty_like(ys)
     combined[order] = ys * wts[:, None]
     return combined.view(N, k, H).sum(1)
+
+
+def dense_row_chunk(N: int, E: int, Ie: int, quant: bool) -> int:
+    """The dense combine's rows a chunk: N halved while even and while the chunk's
+    [E, Nc, Ie] activations (f32 for quantized stacks, bf16 for dense ones) pass
+    ``_CHUNK_BYTES``; each chunk runs its own gate, up and down products."""
+    Nc = N
+    while Nc > 1 and Nc * E * Ie * (4 if quant else 2) > _CHUNK_BYTES and Nc % 2 == 0:
+        Nc //= 2
+    return Nc
+
+
+def _codes(stack) -> torch.Tensor:
+    """The tensor whose [E, ..., N] shape is the stack's: a dense stack, or its codes."""
+    if not isinstance(stack, dict):
+        return stack
+    return stack['w8'] if 'w8' in stack else stack['nib']
 
 
 def _quant_bmm(x: torch.Tensor, leaf: dict) -> torch.Tensor:
@@ -151,15 +189,12 @@ def _moe_dense(xf, top_idx, top_w, we_gate, we_up, we_down, out_dtype,
     N, H = xf.shape
     quant = isinstance(we_gate, dict)
     product = _quant_bmm if quant else _dot
-    E, _, Ie = ((we_gate['w8'] if 'w8' in we_gate else we_gate['scale']) if quant
-                else we_gate).shape
+    E, _, Ie = _codes(we_gate).shape
     # scatter-add, as the reference's .at[].add: a token that picks one expert twice
     # gets the sum of the two weights
     combine = torch.zeros((N, E), dtype=torch.float32, device=xf.device).scatter_add_(
         1, top_idx.long(), top_w.float())
-    Nc = N
-    while Nc > 1 and Nc * E * Ie * (4 if quant else 2) > _CHUNK_BYTES and Nc % 2 == 0:
-        Nc //= 2
+    Nc = dense_row_chunk(N, E, Ie, quant)
     outs = []
     for s in range(0, N, Nc):
         xc, cc = xf[s:s + Nc], combine[s:s + Nc]

@@ -6,8 +6,10 @@ and expert stacks are dict leaves on both sides (``packed`` / ``scales`` / ``zer
 the prepared ``packed`` / ``sb`` / ``corr``, MXFP4 ``nib`` / ``scale``, blocked-fp8
 experts ``w8`` / ``gscale``, the 8-bit linears ``w8`` / ``scale`` (W8A8, fp8) and ``w8`` /
 ``bscale`` (blocked fp8)) and convert key by key; fp8 goes as its e4m3 bytes, int8 as
-it is.  Norm biases, ``bo``, ``lm_head_b`` and the DeepSeek-MoE ``layers`` /
-``moe_layers`` groups are plain leaves and groups.  The caches convert bit for bit both ways (``ops/kv_quant.py`` has the port's
+it is.  Norm biases, ``bo``, ``lm_head_b``, the DeepSeek-MoE ``layers`` /
+``moe_layers`` groups, the DSA indexer's leaves and an MTP head's tree (``enorm``,
+``hnorm``, ``eh_proj``, ``shead_norm`` and its one-row ``layer`` group) are plain
+leaves and groups.  The caches convert bit for bit both ways (``ops/kv_quant.py`` has the port's
 layouts); the port drops the reference's 128-lane row padding everywhere:
   * plain and fp8: ``[L, NB, 2, BS, Hkv*D]`` here against ``[L, NB, 2, BS, HDp]`` there,
     ``HDp`` the row width rounded up to 128; fp8 goes as its e4m3 bytes (u8);
@@ -95,11 +97,14 @@ def cache_from_reference(cache_np, num_kv_heads: int, head_dim: int, device='cpu
     return _to_torch(a[..., :hd], device=device).contiguous()
 
 
-def cache_to_reference(cache):
+def cache_to_reference(cache, row: int = None):
     """Port cache -> reference layout (rows zero-padded to a multiple of 128 lanes), as
     numpy: a plain cache in float32, an fp8 one as its e4m3 bytes (u8); a quantized
     cache as the tuple of the reference's leaves (``QuantKV``: data, scale;
-    ``QuantKV4``: data, scale, minv; ``QuantKVTurbo``: data, meta)."""
+    ``QuantKV4``: data, scale, minv; ``QuantKVTurbo``: data, meta).  ``row``: the
+    reference's row width where it is wider than the port's (the DSA models, whose
+    reference cache keeps the checkpoint's kv heads and reads the first; a plain
+    cache)."""
     if isinstance(cache, QuantKVTurbo):
         return _turbo_to_reference(cache)
     if isinstance(cache, QuantKV4):
@@ -108,11 +113,12 @@ def cache_to_reference(cache):
         return (_pad_rows(cache.data.cpu().numpy()),
                 cache.scale.float().cpu().numpy())
     if cache.dtype == torch.float8_e4m3fn:
-        return _pad_rows(cache.view(torch.uint8).cpu().numpy())
-    return _pad_rows(cache.float().cpu().numpy())
+        return _pad_rows(cache.view(torch.uint8).cpu().numpy(), row)
+    return _pad_rows(cache.float().cpu().numpy(), row)
 
 
 def _pad_rows(x: np.ndarray, row: int = None) -> np.ndarray:
+    """x's rows zero-padded to ``row`` (default: x's own width) rounded up to 128."""
     row = x.shape[-1] if row is None else row
     padded = (row + 127) // 128 * 128
     if padded == x.shape[-1]:

@@ -154,10 +154,14 @@ def _tact(gate, up):
 
 
 @pytest.mark.parametrize('route,N', [('dense', 24), ('ragged', 130),
-                                     ('mxfp4_dense', 24), ('mxfp4_ragged', 800)])
-def test_moe_ffn_routes_match_jax(route, N):
+                                     ('mxfp4_dense', 24), ('mxfp4_ragged', 800),
+                                     ('mxfp4_ragged_by_expert', 800)])
+def test_moe_ffn_routes_match_jax(route, N, monkeypatch):
     """Biases, the clamped activation (gate and up reach past +-7) and a token that
-    picks the same expert twice."""
+    picks the same expert twice; the grouped GEMM on quantized stacks widened at once
+    and, as stacks past ``_WIDEN_WHOLE_BYTES`` are, an expert at a time."""
+    if route.endswith('by_expert'):
+        monkeypatch.setattr(tmoe, '_WIDEN_WHOLE_BYTES', 0)
     rng = np.random.RandomState(3)
     E, k, H, Ie = 4, 2, 64, 64
     xf = (rng.randn(N, H) * 2).astype(np.float32)

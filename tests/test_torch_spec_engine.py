@@ -5,8 +5,8 @@ and the plain engines' for ``draft_model`` (the target as its own draft), ``eagl
 ``eagle3`` heads, on a plain and an int8 target cache; with penalties (counts frozen
 across a step's positions, so not the plain tokens) and under preemption they must equal
 the JAX speculative engine's.  Also: ``max_new_tokens`` when one step emits several, a
-``logprobs`` row on the host-driven path, seeded sampling that repeats, the MTP
-methods' refusal, ``pipeline()`` with a speculative config, and the step's graph key.
+``logprobs`` row on the host-driven path, seeded sampling that repeats, the refusal of
+Qwen3.5's MTP and of speculation under context parallelism, ``pipeline()`` with a speculative config, and the step's graph key.
 """
 import numpy as np
 import pytest
@@ -143,11 +143,13 @@ def test_seeded_sampling_repeats(tiny_model_dir, heads, method):
     assert [runs[0][i] for i in (1, 3)] == [greedy[i] for i in (1, 3)]
 
 
-@pytest.mark.parametrize('method, item', [('deepseek_mtp', 'item 6'),
-                                          ('qwen3_5_mtp', 'item 14')])
-def test_mtp_methods_raise(tiny_model_dir, method, item):
+@pytest.mark.parametrize('method, item, cfg', [('deepseek_mtp', 'item 16', {'cp': 2}),
+                                               ('qwen3_5_mtp', 'item 14', {})])
+def test_mtp_methods_raise(tiny_model_dir, method, item, cfg):
+    """Qwen3.5's MTP is not ported, and no method runs under context parallelism."""
     with pytest.raises(NotImplementedError, match=item):
-        sc.build('torch', tiny_model_dir, dict(method=method, num_speculative_tokens=2))
+        sc.build('torch', tiny_model_dir, dict(method=method, num_speculative_tokens=2),
+                 **cfg)
 
 
 def test_pipeline_with_speculative_config(tiny_model_dir, heads):
