@@ -63,9 +63,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  runs the experts widened to f32, and the routing flips between the two
                  sides are counted), and for Llama-3.1-8B with the int4, TurboQuant and
                  fp8 KV caches and with a bf16 KV striped over cp 2 (both sides), and for
-                 Mixtral-8x7B W4A16 under each W4A16 schedule
-                 (gd, fast, precise, unprepared; the CPU runs the experts widened to
-                 f32), and for DeepSeek-V2-Lite with blocked-fp8 experts (the dense
+                 Mixtral-8x7B W4A16 under the gd and precise schedules (the CPU runs
+                 the experts widened to f32; fast and unprepared: kernel rows), and for
+                 DeepSeek-V2-Lite with blocked-fp8 experts (the dense
                  layer and one MoE layer) with the bf16, int8 and int4 MLA caches;
                  beside it the bf16 floor (plain versions on
                  the card) and what each planted trap reads, which must exceed the
@@ -180,6 +180,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  a step, exactly); DeepSeek-V3.2 at 4 layers (e2e_deepseek_v32_fp8: 24 x
                  1,024 + 8 x 4,096 tokens, 32 greedy tokens; fp8_bmm 3 times a decode
                  step, no attention kernel); each cell against an eager_mode engine.
+ 17. qwen3_next -- Qwen3-Next-80B-A3B at full width and QN_LAYERS = 4 of its 48 layers
+                 (3 gated-DeltaNet, 1 gated full attention; seeded bf16, 512 experts):
+                 parity_qwen3_next (a 4,096-token and a 3,000-token prompt in one chunk,
+                 8 decode steps, bf16 with the kernels against f32 on the card on the f32
+                 run's expert choices; the floor and four planted traps: norms without
+                 +1, in_proj_qkvz split as quarters, the conv state from padded
+                 positions, the rope over all 256 dims) and parity_qwen3_5_moe_widths
+                 (the same network in Qwen3.5-MoE's split layout, with a trap); then
+                 e2e_qwen3_next_80b_a3b (63 x 256 + one 4,096-token prompt, 32 greedy
+                 tokens, one run: exactly one flash_prefill a fresh prefill step and one
+                 paged_decode a decode step, every decode run a graph replay;
+                 hybrid_state_check: every live slot's conv and rec state bit-equal under
+                 a scratch pass and an inactive replay, and the gated-delta ops' share of
+                 device time from a trace), traced, then an eager_mode engine (tokens
+                 equal).  The kernel rows hold rows 1-2 at its heads (Hq 16, Hkv 2, D 256).
+Parity rows and depths cut for the script's time are listed in PERF.md section 4.
 The line before the last lists every kernel; the last line is the result.
 It imports nothing of jax or lmdeploy_tpu.
 """
@@ -278,8 +294,11 @@ KV_PHASE = {8: 'kv4', 42: 'turbo', 16: 'fp8kv'}
 # from unrounded scales), 1.45 (scale on the dot outputs); precise 0.122 / 0.115 / 8.23
 # (subtrahend 128; its scale on the dot outputs reads 0.121, within the floor, and is
 # reported only); unprepared as gd (the same arithmetic) / 8.22 (zeros ignored), 8.41
-# (planes swapped).  One allowance sits between every floor and the mildest trap
-LOGIT_TOL_MIXTRAL = {'gd': 0.17, 'fast': 0.17, 'precise': 0.17, 'unprepared': 0.17}
+# (planes swapped).  One allowance sits between every floor and the mildest trap.  For
+# the script's time the gd and precise rows run (precise's products at model level, its
+# scale on the dot outputs reported); fast and unprepared hold their traps in their
+# kernel rows (SZC_TRAPS, UNPREP_TRAPS) and their e2e cells still serve
+LOGIT_TOL_MIXTRAL = {'gd': 0.17, 'precise': 0.17}
 # DeepSeek-V2-Lite, 2 layers (the dense one and one MoE layer), blocked-fp8 experts, the
 # card on the CPU's expert choices: logits reach ~4.3.  The phase read (H100 80GB HBM3,
 # 700 W) 0.0440 with every kernel swapped for its plain version, 0.0467 with the
@@ -735,7 +754,9 @@ def flash_phase():
     # GLM-4.5-Air's G = 12 (96 / 8 heads) at the e2e_glm45_air cell's long prompt and
     # its prefill batch of 16 x 256, and GLM-4-9B's G = 16 (32 / 2) at e2e_glm4_9b's;
     # Llama-3.1-8B's prefill wave of 16 x 256 in the speculative cells; DeepSeek-V3's
-    # (MLA under 128 query heads) in spec_mtp_deepseek_v3
+    # (MLA under 128 query heads) in spec_mtp_deepseek_v3; Qwen3-Next-80B-A3B's
+    # full-attention layers (16 / 2 heads, G 8, D 256) at e2e_qwen3_next_80b_a3b's long
+    # prompt and its prefill wave of 16 x 256
     for label, B, T, Hq, Hkv, D, dtype in (
             ('tinyllama_t2048', 1, 2048, 32, 4, 64, 'bfloat16'),
             ('d128_g1', 1, 1000, 32, 32, 128, 'bfloat16'),
@@ -755,7 +776,9 @@ def flash_phase():
             ('glm4_9b_t2048', 1, 2048, 32, 2, 128, 'bfloat16'),
             ('glm4_9b_b16_t256', 16, 256, 32, 2, 128, 'bfloat16'),
             ('llama31_8b_b16_t256', 16, 256, 32, 8, 128, 'bfloat16'),
-            ('mla_v3_b16_t256', 16, 256, 128, 1, 576, 'bfloat16')):
+            ('mla_v3_b16_t256', 16, 256, 128, 1, 576, 'bfloat16'),
+            ('qwen3_next_t4096', 1, 4096, 16, 2, 256, 'bfloat16'),
+            ('qwen3_next_b16_t256', 16, 256, 16, 2, 256, 'bfloat16')):
         dt = getattr(torch, dtype)
         q = torch.randn(B, T, Hq, D, device='cuda', generator=gen).to(dt)
         k = torch.randn(B, T, Hkv, D, device='cuda', generator=gen).to(dt)
@@ -889,6 +912,11 @@ def decode_cases():
     lens_long_window = np.concatenate([rng.randint(257, 289, size=63),
                                        rng.randint(6145, 6177, 1)])
     gemma2 = {'logit_softcap': 50.0, 'q_scale': 23.0, 'held_traps': ('softcap_left_out',)}
+    # e2e_qwen3_next_80b_a3b's decode shape (its own stream): Qwen3-Next-80B-A3B's
+    # full-attention heads (16 / 2, G 8, D 256: the wide path), the 64-row bucket with 63
+    # rows of 257-288 tokens and one of 4,097-4,128, the 33-page table
+    qn_rng = np.random.RandomState(SEED + 19)
+    lens_qn = np.concatenate([qn_rng.randint(257, 289, size=63), qn_rng.randint(4097, 4129, 1)])
     return [
         ('plain', 64, 32, 4, 64, lens64, 8, {}),
         ('window', 64, 32, 4, 64, lens64, 8, {'window': 200}),
@@ -929,6 +957,7 @@ def decode_cases():
         ('mla_v3_spec_mtp_head', 64, 128, 1, 576, lens_spec, 17, {}),
         ('starcoder2_7b', 64, 36, 4, 128, lens_long_window, DENSE_W,
          {'window': 4096, 'held_traps': ('window_left_out',)}),
+        ('qwen3_next_80b', 64, 16, 2, 256, lens_qn, L31_W, {}),
     ]
 
 
@@ -1007,6 +1036,7 @@ def decode_phase():
         # the MLA shapes, the narrow path's at the e2e cells' shapes
         sweep = {'mla_v2_lite': ('SPLIT_TOKENS_MMA', (512, 1024, 2048)),
                  'mla_v3': ('SPLIT_TOKENS_MMA', (512, 1024, 2048)),
+                 'qwen3_next_80b': ('SPLIT_TOKENS_MMA', (256, 512, 1024, 2048)),
                  **{c: ('SPLIT_TOKENS_NARROW', NARROW_SPLIT_SWEEP)
                     for c in NARROW_SWEEP_CASES}}.get(label)
         if sweep:
@@ -2645,7 +2675,8 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
               exact: bool = False, shared: dict = None,
               env: dict = None, forbid=(), runs: int = 2, new_tokens: int = 64,
               trace: bool = True, cp: int = 1, combined: dict = None,
-              graphs_check: dict = None, prompts=None, cache_blocks: int = 0) -> dict:
+              graphs_check: dict = None, prompts=None, cache_blocks: int = 0,
+              engine_check=None) -> dict:
     """Drive the Engine ``runs`` times on the same requests (launch counts from the
     first run, card numbers from the last; every run must give the first one's greedy
     tokens, so with ``runs=1`` nothing is compared, and the card numbers come from
@@ -2668,8 +2699,9 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
     the share of its launches that also launch the combine (``.combines``): all of
     them, or the full-attention layers' half of gpt-oss's, whose sliding layers' window
     fits one split.  With ``graphs_check`` (its keyword arguments, ``{}`` for the full
-    check), ``decode_graphs_phase`` follows on the same engine.  Returns the phase's
-    row."""
+    check), ``decode_graphs_phase`` follows on the same engine.  ``engine_check(engine)``,
+    if given, runs on the engine after the runs and returns a row whose ``ok`` the phase
+    holds.  Returns the phase's row."""
     from lmdeploy_tpu_torch.config import bucketize
     if prompts is None:
         rng = np.random.RandomState(SEED)
@@ -2752,8 +2784,10 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
                         'combines': {n: combines[fn.__name__] for n, fn in counters.items()
                                      if hasattr(fn, 'combines')}})
     seconds['runs'] = time.perf_counter() - t_runs
+    checked = engine_check(engine) if engine_check is not None else None
+    t_trace = time.perf_counter()
     trace_row = profile_phase(name, engine, prompts, new_tokens) if trace else None
-    seconds['trace'] = time.perf_counter() - t_runs - seconds['runs']
+    seconds['trace'] = time.perf_counter() - t_trace
     check = (decode_graphs_phase(name, engine, prompts, new_tokens, card,
                                  lambda: _built(model, max_batch, quant_policy, long_len,
                                                 cp, shared, env, eager_mode=True,
@@ -2810,6 +2844,8 @@ def e2e_phase(name: str, model, max_batch: int, quant_policy: int, n_short: int,
     torch.cuda.empty_cache()          # the next engine's block budget sees free memory
     if not (lengths_ok and finite and deterministic and replayed and launches_ok):
         raise SystemExit(f'{name} phase failed: {row}')
+    if checked is not None and not checked['ok']:
+        raise SystemExit(f'the engine check of {name} failed: {checked}')
     if check is not None and not check['ok']:
         raise SystemExit(f'decode_graphs of {name} failed: {check}')
     return row
@@ -2876,6 +2912,10 @@ KV_LABELS = {0: 'bf16 KV', 4: 'int8 KV', 8: 'int4 KV', 16: 'fp8-e4m3 KV',
 
 
 def model_label(model, policy: int = 0) -> str:
+    if model.hf_arch in ('Qwen3NextForCausalLM', 'Qwen3_5MoeForConditionalGeneration'):
+        return (f'qwen3-next-80b-a3b geometry, {model.num_layers} layers (gated-DeltaNet and '
+                f'gated full attention, {model.num_experts} experts), bf16 experts + '
+                f'{KV_LABELS[policy]}, random seeded weights')
     if model.is_mla:
         name = {2048: 'deepseek-v2-lite', 7168: 'deepseek-v3'}.get(model.hidden_size,
                                                                  'deepseek')
@@ -5074,6 +5114,406 @@ def mtp_dsa_phase(card: str) -> dict:
     return paths
 
 
+# Qwen/Qwen3-Next-80B-A3B-Instruct's published config.json (the fields the port reads)
+QWEN3_NEXT_80B = {
+    'architectures': ['Qwen3NextForCausalLM'], 'model_type': 'qwen3_next',
+    'hidden_size': 2048, 'intermediate_size': 5120, 'num_hidden_layers': 48,
+    'num_attention_heads': 16, 'num_key_value_heads': 2, 'head_dim': 256,
+    'partial_rotary_factor': 0.25, 'rope_theta': 10000000, 'max_position_embeddings': 262144,
+    'linear_num_key_heads': 16, 'linear_num_value_heads': 32, 'linear_key_head_dim': 128,
+    'linear_value_head_dim': 128, 'linear_conv_kernel_dim': 4, 'full_attention_interval': 4,
+    'num_experts': 512, 'num_experts_per_tok': 10, 'moe_intermediate_size': 512,
+    'shared_expert_intermediate_size': 512, 'norm_topk_prob': True, 'decoder_sparse_step': 1,
+    'mlp_only_layers': [], 'vocab_size': 151936, 'tie_word_embeddings': False,
+    'rms_norm_eps': 1e-6, 'torch_dtype': 'bfloat16', 'bos_token_id': 151643,
+    'eos_token_id': 151645}
+# the cells' depth, cut from 48 layers: one block of 3 gated-DeltaNet layers and 1 gated
+# full-attention layer, each with its 512-expert MoE (12.9 GB of bf16 experts); widths,
+# experts and vocabulary as published
+QN_LAYERS = 4
+# parity_qwen3_next: one 4,096-token prompt (the chunked form) beside a 3,000-token one
+# padded in the same chunk (the row on which a conv state taken from padded positions
+# shows), then 8 teacher-forced decode steps; bf16 with the kernels against the port's
+# f32 plain path, both on the card.  The allowance lies above the floor (bf16 through the
+# plain versions) and below the mildest planted trap: first reads (H100 80GB HBM3,
+# 700 W) floor 0.1475, the kernels 0.1468, the rope over all dims 0.4634 (the other
+# traps 4.5-6.6), logits of std 0.905
+QN_PARITY_LENS = (4096, 3000)
+QN_PARITY_STEPS = 8
+QN_LOGIT_TOL = 0.25
+# e2e_qwen3_next_80b_a3b's traffic: the MoE cells' (63 x 256 + one 4,096-token prompt),
+# 32 greedy tokens each
+QN_NEW = 32
+
+
+def qwen3_next_config(num_layers: int = QN_LAYERS, dtype: str = 'auto', cfg: dict = None):
+    """A ModelConfig of Qwen3-Next-80B-A3B (or ``cfg``) at ``num_layers``, the
+    registry's fields set (the paged layers: the full-attention ones)."""
+    from lmdeploy_tpu_torch.config import ModelConfig
+    from lmdeploy_tpu_torch.models import build_model
+    config = ModelConfig.from_hf_config(
+        dict(cfg or QWEN3_NEXT_80B, num_hidden_layers=num_layers), dtype=dtype)
+    build_model(config)
+    return config
+
+
+def qwen3_5_moe_widths_config(dtype: str = 'auto'):
+    """Qwen3.5-MoE's layout (split projections; text_config nested) at Qwen3-Next-80B-A3B's
+    widths and QN_LAYERS layers: no Qwen3.5 config is in the repository."""
+    text = {k: v for k, v in QWEN3_NEXT_80B.items() if k not in ('architectures',
+                                                                  'model_type')}
+    return qwen3_next_config(cfg={'architectures': ['Qwen3_5MoeForConditionalGeneration'],
+                                  'model_type': 'qwen3_5_moe', 'torch_dtype': 'bfloat16',
+                                  'text_config': dict(text, num_hidden_layers=QN_LAYERS)},
+                             dtype=dtype)
+
+
+def _qn_tree(shared: dict) -> dict:
+    """Qwen3-Next-80B-A3B's seeded bf16 tree at QN_LAYERS layers, drawn a matrix at a time
+    (14.5 GB; a leaf drawn whole in f32 would take 8.6 GB beside it), made once for the
+    parity and e2e cells."""
+    from lmdeploy_tpu_torch.models.qwen3_next import Qwen3NextModel
+    if 'qn' not in shared:
+        shared['qn'] = _seeded_by_matrix(Qwen3NextModel(qwen3_next_config()), SEED + 21)
+    return shared['qn']
+
+
+def _qwen3_5_tree(tree: dict, model) -> dict:
+    """The same network in Qwen3.5's layout: each linear layer's per-key-head
+    [q | k | v | z] and [b | a] columns regrouped as [q_all | k_all | v_all], z and
+    [b_all | a_all] (the other leaves shared)."""
+    b = dict(tree['blocks'])
+    hk, dk, dv, r = model.lin_hk, model.lin_dk, model.lin_dv, model.ratio
+    qkvz = b.pop('lin_in_qkvz')
+    lead = qkvz.shape[:-1]
+    g = qkvz.reshape(*lead, hk, 2 * dk + 2 * r * dv)
+    parts = [g[..., :dk], g[..., dk:2 * dk], g[..., 2 * dk:2 * dk + r * dv],
+             g[..., 2 * dk + r * dv:]]
+    q, k, v, z = (x.reshape(*lead, -1) for x in parts)
+    b['lin_in_qkv'] = torch.cat([q, k, v], -1).contiguous()
+    b['lin_in_z'] = z.contiguous()
+    ba = b['lin_in_ba'].reshape(*lead, hk, 2 * r)
+    b['lin_in_ba'] = torch.cat([ba[..., :r].reshape(*lead, -1),
+                                ba[..., r:].reshape(*lead, -1)], -1).contiguous()
+    return dict(tree, blocks=b)
+
+
+class _Routes:
+    """Records each MoE call's expert choices (``record``), or forces the recorded ones
+    in the same order (``force``: the weights from the run's own router probabilities)
+    and counts the tokens whose own choice differs (``flips``)."""
+
+    def __init__(self):
+        self.log, self.mode, self.i, self.flips = [], None, 0, 0
+
+    def swaps(self):
+        from lmdeploy_tpu_torch.models.qwen3_next import Qwen3NextModel, _f32_dot
+        route = Qwen3NextModel.route
+
+        def routed(model, w, j, xf):
+            idx, wts = route(model, w, j, xf)
+            if self.mode == 'record':
+                self.log.append(idx)
+            elif self.mode == 'force':
+                forced = self.log[self.i].to(idx.device)
+                self.i += 1
+                self.flips += int((idx.sort(-1).values != forced.sort(-1).values)
+                                  .any(-1).sum())
+                probs = torch.softmax(_f32_dot(xf, w['router'][j]), dim=-1)
+                wts = probs.gather(1, forced)
+                if model.norm_topk:
+                    wts = wts / (wts.sum(-1, keepdim=True) + 1e-20)
+                idx = forced
+            return idx, wts
+        return [(Qwen3NextModel, 'route', routed)]
+
+
+def _qn_run(model, params, ids, lens, steps, tokens=None, rope_all_dims=False):
+    """A fresh prefill of the rows ``ids`` [B, T] (``lens`` valid tokens each) into slots
+    0..B-1, then ``steps`` decode steps fed ``tokens`` (or the run's own argmax): the
+    logits [1 + steps, B, V] f32 at each row's last token, and the tokens fed."""
+    from lmdeploy_tpu_torch.models.llama import AttnMeta
+    from lmdeploy_tpu_torch.nn.layers import make_rope_table
+    cfg = model.config
+    B, T = ids.shape
+    BS = 128
+    dev = params['embed'].device
+    W = -(-(T + steps) // BS)
+    dtype = params['embed'].dtype
+    cache = {'pages': torch.zeros((cfg.cache_layers, 1 + B * W, 2, BS,
+                                   cfg.num_key_value_heads * cfg.head_dim), dtype=dtype,
+                                  device=dev)}
+    cache.update({n: torch.zeros(shape, dtype=dt, device=dev)
+                  for n, (shape, dt) in model.state_shapes(B + 1).items()})
+    rdim = cfg.head_dim if rope_all_dims else cfg.rope_dim
+    cos, sin = make_rope_table(rdim, W * BS, cfg.rope_theta, device=dev)
+    tables = (1 + torch.arange(B * W, dtype=torch.int32, device=dev)).reshape(B, W)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    pos = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T).contiguous()
+    meta = AttnMeta(tables, torch.zeros(B, dtype=torch.int32, device=dev), lens_t,
+                    slot_rows=torch.arange(B, device=dev),
+                    reset_rows=torch.ones(B, dtype=torch.bool, device=dev))
+    out, fed = [], []
+    with torch.no_grad():
+        out.append(model.forward(params, ids, pos, cache, meta, cos, sin,
+                                 fresh_prefill=True).float())
+        for i in range(steps):
+            tok = (tokens[i] if tokens is not None
+                   else out[-1].argmax(-1).int()[:, None])
+            fed.append(tok)
+            hist = lens_t + i
+            step_meta = AttnMeta(tables, hist, torch.ones(B, dtype=torch.int32, device=dev))
+            out.append(model.forward(params, tok, hist[:, None].contiguous(), cache, step_meta,
+                                     cos, sin).float())
+    return torch.stack(out), fed
+
+
+def _qn_traps():
+    """(name, model-dtype tree edit or None, swaps, rope over all dims) of
+    parity_qwen3_next's planted traps: the zero-centred norms used without their +1;
+    in_proj_qkvz split as contiguous quarters, not per key head; the conv state taken
+    from the padded chunk's last K-1 positions, not the last valid inputs; the partial
+    rope rotating all 256 dims."""
+    from lmdeploy_tpu_torch.models import qwen3_next
+    from lmdeploy_tpu_torch.ops.gated_delta import causal_conv1d
+
+    def minus_one(tree):
+        b = dict(tree['blocks'])
+        for k in ('attn_norms', 'mlp_norms', 'fa_q_norm', 'fa_k_norm'):
+            b[k] = b[k] - 1
+        return dict(tree, blocks=b, final_norm=tree['final_norm'] - 1)
+
+    def halves(self, w, j, x):
+        B, T, _ = x.shape
+        kd, vd, hv = self.key_dim, self.value_dim, self.lin_hv
+        qkvz = torch.matmul(x, w['lin_in_qkvz'][j])
+        q, k, v, z = qkvz.split([kd, kd, vd, vd], dim=-1)
+        ba = torch.matmul(x, w['lin_in_ba'][j])
+        return (q.reshape(B, T, self.lin_hk, -1), k.reshape(B, T, self.lin_hk, -1),
+                v.reshape(B, T, hv, -1), z.reshape(B, T, hv, -1), ba[..., :hv], ba[..., hv:])
+
+    def padded_state(x, conv_state, weight, bias, lens):
+        y, _ = causal_conv1d(x, conv_state, weight, bias, lens)
+        full = torch.cat([conv_state.to(x.dtype), x], dim=1)
+        return y, full[:, -(weight.shape[-1] - 1):].to(conv_state.dtype)
+    return [('norms_without_plus_one', minus_one, [], False),
+            ('qkvz_split_as_halves', None,
+             [(qwen3_next.Qwen3NextModel, '_delta_proj', halves)], False),
+            ('conv_state_from_padded_positions', None,
+             [(qwen3_next, 'causal_conv1d', padded_state)], False),
+            ('rope_over_all_dims', None, [], True)]
+
+
+def qwen3_next_parity_phase(card: str, shared: dict) -> list:
+    """parity_qwen3_next: Qwen3-Next-80B-A3B at full width and QN_LAYERS layers, the
+    prefill of QN_PARITY_LENS in one chunk (T 4,096: the chunked form) and
+    QN_PARITY_STEPS decode steps, bf16 with the kernels (rows 1-2 at Hq 16 / Hkv 2 /
+    D 256) against the f32 plain path on the card (the host is short of memory for
+    29 GB of f32 weights); the bf16 runs take the f32 run's expert choices (their own
+    counted as flips).  The largest logit difference must lie within QN_LOGIT_TOL, the
+    floor (bf16 through the plain versions) below it and every trap of ``_qn_traps``
+    above it.  parity_qwen3_5_moe_widths: the same network in Qwen3.5-MoE's split layout
+    (``Qwen3_5TextModel``), bf16 with the kernels against the same f32 run, with its
+    [b | a] halves swapped as the trap."""
+    from lmdeploy_tpu_torch.models import build_model
+    from lmdeploy_tpu_torch.models.qwen3_5 import Qwen3_5TextModel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(SEED + 23)
+    T = max(QN_PARITY_LENS)
+    ids = torch.from_numpy(rng.randint(3, 150000, size=(len(QN_PARITY_LENS), T))).int().cuda()
+    p16 = _qn_tree(shared)
+    m16, m32 = build_model(qwen3_next_config()), build_model(qwen3_next_config(dtype='float32'))
+    routes = _Routes()
+    p32 = _to(p16, torch.float32)
+    routes.mode = 'record'
+    with _plain_kernels(), _swapped(*routes.swaps()):
+        ref, fed = _qn_run(m32, p32, ids, QN_PARITY_LENS, QN_PARITY_STEPS)
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def read(model, params, swaps=(), plain=False, rope_all_dims=False):
+        routes.mode, routes.i, routes.flips = 'force', 0, 0
+        with (_plain_kernels() if plain else contextlib.nullcontext()), \
+                _swapped(*routes.swaps(), *swaps):
+            out, _ = _qn_run(model, params, ids, QN_PARITY_LENS, QN_PARITY_STEPS, fed,
+                             rope_all_dims)
+        return (out - ref).abs().max().item(), routes.flips
+
+    err, flips = read(m16, p16)
+    floor, _ = read(m16, p16, plain=True)
+    traps = {}
+    for trap, edit, swaps, rope_all in _qn_traps():
+        model = m16
+        if rope_all:
+            model = build_model(dataclasses.replace(qwen3_next_config(),
+                                                    partial_rotary_factor=1.0))
+        traps[trap] = read(model, edit(p16) if edit else p16, swaps, rope_all_dims=rope_all)[0]
+    row = {'phase': 'parity_qwen3_next', 'card': card,
+           'model': f'qwen3-next-80b-a3b geometry, {QN_LAYERS} layers (3 gated-DeltaNet, 1 '
+                    f'gated full attention), 512 experts top-10, random seeded bf16 weights',
+           'prompt_tokens': list(QN_PARITY_LENS), 'decode_steps': QN_PARITY_STEPS,
+           'max_abs_logit_err': err, 'floor': floor, 'logit_tol': QN_LOGIT_TOL,
+           'logit_std': ref.std().item(), 'routing_flips_own_choices': flips,
+           'traps': traps}
+    row['ok'] = floor < QN_LOGIT_TOL and err <= QN_LOGIT_TOL and all(
+        t > QN_LOGIT_TOL for t in traps.values())
+    emit(row)
+    rows = [row]
+    # the same network in Qwen3.5-MoE's layout, against the same f32 run
+    c35 = qwen3_5_moe_widths_config()
+    m35 = build_model(c35)
+    assert isinstance(m35, Qwen3_5TextModel)
+    p35 = _qwen3_5_tree(p16, m35)
+
+    def ba_swapped(tree):
+        b = dict(tree['blocks'])
+        hv = m35.lin_hv
+        b['lin_in_ba'] = torch.cat([b['lin_in_ba'][..., hv:], b['lin_in_ba'][..., :hv]], -1)
+        return dict(tree, blocks=b)
+    err35, flips35 = read(m35, p35)
+    trap35 = read(m35, ba_swapped(p35))[0]
+    row35 = {'phase': 'parity_qwen3_5_moe_widths', 'card': card,
+             'model': f'Qwen3_5MoeForConditionalGeneration layout (split in_proj_qkv / z / b '
+                      f'/ a) at qwen3-next-80b-a3b widths, {QN_LAYERS} layers, the same '
+                      f'seeded network',
+             'max_abs_logit_err': err35, 'logit_tol': QN_LOGIT_TOL,
+             'routing_flips_own_choices': flips35, 'traps': {'b_and_a_swapped': trap35}}
+    row35['ok'] = err35 <= QN_LOGIT_TOL and trap35 > QN_LOGIT_TOL
+    emit(row35)
+    rows.append(row35)
+    del p35, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    for r in rows:
+        if not r['ok']:
+            raise SystemExit(f'{r["phase"]} failed: {r}')
+    return rows
+
+
+def _hybrid_state_check(card: str):
+    """On the e2e cell's engine after its runs: every live slot's conv and rec state
+    (overwritten with random values) is left bit for bit as it was by a graph runner's
+    scratch pass and by a replay of a captured decode run whose rows are all inactive;
+    then, traced, an eager fresh prefill step of the cell's long prompt (1 x 4,096
+    tokens) and 8 eager decode steps at the cell's decode shape (64 rows, 63 at 256 +
+    QN_NEW / 2 kv tokens and one at 4,096 + QN_NEW / 2, each on pages of its own): the
+    gated-delta ops' share of device time (conv, gates and recurrence under one
+    ``record_function`` range)."""
+    def check(engine) -> dict:
+        from torch.profiler import ProfilerActivity, profile, record_function
+        from lmdeploy_tpu_torch.models import qwen3_next
+        from lmdeploy_tpu_torch.models.llama import AttnMeta
+        agent = engine.model_agent
+        cache = agent.kv_cache
+        gen = torch.Generator(device='cuda').manual_seed(SEED + 29)
+        live = slice(0, agent.max_batch)
+        with agent._on_stream():
+            for k in ('conv', 'rec'):
+                cache[k].copy_(torch.randn(cache[k].shape, generator=gen, device='cuda'))
+            agent.decode_state.active.zero_()
+            before = {k: cache[k][:, live].clone() for k in ('conv', 'rec')}
+            run = next(r for r in agent.graphs.runs.values() if r.graph is not None)
+            agent._decode_body(run, scratch=True)
+            agent.stream.synchronize()
+            scratch_ok = all(torch.equal(cache[k][:, live], before[k]) for k in before)
+            run.graph.replay()
+            agent.stream.synchronize()
+            replay_ok = all(torch.equal(cache[k][:, live], before[k]) for k in before)
+
+        def ranged(fn):
+            def inner(*args, **kwargs):
+                with record_function('gated_delta'):
+                    return fn(*args, **kwargs)
+            return inner
+        swaps = [(qwen3_next, n, ranged(getattr(qwen3_next, n)))
+                 for n in ('causal_conv1d', 'gate_decay', 'gated_delta_scan')]
+        bs, num_blocks = cache['pages'].shape[3], cache['pages'].shape[1]
+        mid = QN_NEW // 2
+        shares = {}
+        for label, T, hist, steps in (('prefill_1x4096', 4096, [0], 1),
+                                      ('decode_64_rows', 1, [256 + mid] * 63 + [4096 + mid], 8)):
+            B = len(hist)
+            need = [-(-(h + T) // bs) for h in hist]
+            assert sum(need) < num_blocks, (need, num_blocks)
+            starts = np.cumsum([1] + need[:-1])
+            tables = torch.zeros((B, max(need)), dtype=torch.int32)
+            for r, (s0, n) in enumerate(zip(starts, need)):
+                tables[r, :n] = torch.arange(s0, s0 + n, dtype=torch.int32)
+            hist_t = torch.tensor(hist, dtype=torch.int32, device='cuda')
+            ids = torch.randint(3, 150000, (B, T), generator=gen, device='cuda').int()
+            pos = (hist_t[:, None] + torch.arange(T, dtype=torch.int32, device='cuda')
+                   ).contiguous()
+            meta = AttnMeta(tables.cuda(), hist_t,
+                            torch.full((B,), T, dtype=torch.int32, device='cuda'),
+                            slot_rows=torch.arange(B, device='cuda'),
+                            reset_rows=torch.full((B,), T > 1, device='cuda'))
+            torch.cuda.synchronize()
+            with _swapped(*swaps), profile(activities=[ProfilerActivity.CPU,
+                                                       ProfilerActivity.CUDA]) as prof:
+                for _ in range(steps):
+                    agent.model.forward(agent.params, ids, pos, cache, meta,
+                                        agent.rope_cos, agent.rope_sin, fresh_prefill=T > 1)
+                torch.cuda.synchronize()
+            shares[label] = dict(_ranged_device_share(prof, 'gated_delta'),
+                                 mean_kv_tokens=float(np.mean(hist)) + T)
+        row = {'phase': 'hybrid_state_check', 'of': 'e2e_qwen3_next_80b_a3b', 'card': card,
+               'scratch_pass_state_bit_equal': scratch_ok,
+               'inactive_replay_state_bit_equal': replay_ok,
+               'gated_delta_share_of_device_time': shares}
+        row['ok'] = scratch_ok and replay_ok
+        emit(row)
+        return row
+    return check
+
+
+def _ranged_device_share(prof, label: str) -> dict:
+    """From a trace of CPU and CUDA activity: the device time of the kernels (and
+    copies) launched inside the ``record_function(label)`` ranges, matched by the
+    correlation id of each one's launch call, and its share of all device time."""
+    from torch.autograd import DeviceType
+    events = list(prof.profiler.kineto_results.events())
+    ranges = [(e.start_ns(), e.end_ns()) for e in events
+              if e.device_type() != DeviceType.CUDA and e.name() == label]
+    launched_in = {e.correlation_id() for e in events
+                   if e.device_type() != DeviceType.CUDA and e.correlation_id()
+                   and any(lo <= e.start_ns() <= hi for lo, hi in ranges)}
+    device = [e for e in events if e.device_type() == DeviceType.CUDA and e.name() != label]
+    total = sum(e.duration_ns() for e in device)
+    inside = sum(e.duration_ns() for e in device if e.correlation_id() in launched_in)
+    return {'ranges': len(ranges), f'{label}_device_ms': inside / 1e6,
+            'device_ms': total / 1e6, 'share': inside / total if total else None}
+
+
+def qwen3_next_phase(card: str) -> dict:
+    """The slice's cells: parity_qwen3_next (two rows) and e2e_qwen3_next_80b_a3b
+    (QN_LAYERS layers, the MoE cells' traffic: 63 x 256 + one 4,096-token prompt, 32
+    greedy tokens; one flash_prefill a fresh prefill step and one paged_decode a decode
+    step, exactly; the state check of ``_hybrid_state_check``; traced; then the greedy
+    requests on an eager_mode engine, tokens equal), sharing one seeded tree; returns the
+    e2e row by name."""
+    shared = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        qwen3_next_parity_phase(card, shared)
+        cfg = qwen3_next_config()
+        e2e_shared = {'init': _qn_tree(shared)}
+        full = cfg.cache_layers
+        row = e2e_phase('e2e_qwen3_next_80b_a3b', cfg, 64, 0, 63,
+                        {'flash_prefill': (full, 0), 'paged_decode': (0, full)}, card,
+                        short_len=256, long_len=4096, exact=True, shared=e2e_shared, runs=1,
+                        new_tokens=QN_NEW,
+                        graphs_check=dict(traffic=('greedy',), trace=False),
+                        engine_check=_hybrid_state_check(card))
+        e2e_shared.clear()
+    finally:
+        shared.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {'e2e_qwen3_next_80b_a3b': row}
+
+
 def kernel_line(flash, decode, decode8, w4, mx, kv, szc, unprep, fp8, cp, mla_quant):
     def entry(name, source, replaces, rows, lead, library_ms):
         return {'name': name, 'route': 'cuda', 'source': f'lmdeploy_tpu_torch/csrc/{source}',
@@ -5180,13 +5620,14 @@ def kernel_line(flash, decode, decode8, w4, mx, kv, szc, unprep, fp8, cp, mla_qu
              dense_bf16_ms=raw['dense_bf16_ms'], shape=shape),
         dict(entry('flash_prefill', 'flash_prefill.cu',
                    'lmdeploy_tpu/ops/pallas/flash_prefill.py:76', flash, flash[0],
-                   flash[0]['library_ms']), mla=shapes(flash, 'mla')),
+                   flash[0]['library_ms']), mla=shapes(flash, 'mla'),
+             qwen3_next=shapes(flash, 'qwen3_next')),
         dict(entry('paged_decode', 'paged_decode.cu',
                    'lmdeploy_tpu/ops/pallas/paged_decode.py:866', decode, decode[0], None),
              **{k: decode[0][k] for k in ('path', 'split_tokens', 'splits', 'split_tokens_ms')},
              shape=f'bs64 TinyLlama heads: B 64, Hq 32, Hkv 4, D 64, BS 128, '
                    f'{decode[0]["mean_kv_len"]:.0f} mean kv tokens',
-             mla=shapes(decode, 'mla'),
+             mla=shapes(decode, 'mla'), qwen3_next=shapes(decode, 'qwen3_next'),
              cases={r['case']: {k: r.get(k) for k in ('shape', 'dtype', 'path', 'splits',
                                                       'kernel_ms', 'bound_ms', 'max_abs_err',
                                                       'split_tokens_ms')} for r in decode}),
@@ -5373,6 +5814,8 @@ def main():
     paths.update(timed('spec', spec_phase, info['nvidia_smi']))
     # MTP speculative decoding on DeepSeek-V3 and DeepSeek Sparse Attention (V3.2)
     paths.update(timed('mtp_dsa', mtp_dsa_phase, info['nvidia_smi']))
+    # the hybrid gated-DeltaNet family: Qwen3-Next-80B-A3B (and Qwen3.5-MoE's layout)
+    paths.update(timed('qwen3_next', qwen3_next_phase, info['nvidia_smi']))
     main_path = {'fp8_bmm': 'e2e_deepseek_v2_lite_fp8', 'flash_prefill': 'e2e',
                  'paged_decode': 'e2e', 'paged_decode_cp': 'e2e_llama31_8b_cp2',
                  'paged_decode_int8': 'e2e_w4a16_kv8', 'w4a16_gemm': 'e2e_w4a16_kv8',

@@ -2,9 +2,13 @@
 
 Port of ``lmdeploy_tpu/config.py`` for the families the port serves (the dense llama
 family and its variants, ChatGLM's legacy field names included, the Mixtral / Qwen-MoE
-/ PhiMoE family, gpt-oss, DeepSeek-V2 / V3 / V3.2, GLM-4.5 MoE, GLM-MoE-DSA and
-DeepSeek-MoE), with the reference's MoE and MLA fields (and the DSA cache sidecar) and its mesh geometry (``DistConfig``).  Dtypes are torch dtypes; the multimodal config fields
-of the reference are not carried until a slice ports those models.
+/ PhiMoE family, gpt-oss, DeepSeek-V2 / V3 / V3.2, GLM-4.5 MoE, GLM-MoE-DSA,
+DeepSeek-MoE and the hybrid linear-attention Qwen3-Next / Qwen3.5), with the reference's
+MoE and MLA fields (and the DSA cache sidecar), its ``num_cache_layers`` (a hybrid
+model's paged layers) and its mesh geometry (``DistConfig``).  Dtypes are torch dtypes.
+A Qwen3.5 config nests its language model under ``text_config`` beside a
+``vision_config``; the LM's fields are read from there, as the reference does, and the
+vision tower's are not carried (multimodal inputs raise: ROADMAP.md item 15).
 """
 from __future__ import annotations
 
@@ -33,8 +37,11 @@ TIED_EMBEDDING_DEFAULT = {
     'qwen2_moe': False, 'qwen3_moe': False, 'gpt_oss': False, 'deepseek_v2': False,
     'deepseek_v3': False, 'glm4_moe': False, 'phimoe': False, 'phi3': False,
     'glm4': False, 'glm': False, 'gemma': True, 'gemma2': True, 'gemma3_text': True,
-    'gemma3': True, 'starcoder2': True,
+    'gemma3': True, 'starcoder2': True, 'qwen3_next': False,
 }
+# composite configs whose language model's fields nest under ``text_config`` (reference
+# config.py:147-181, for the model types the port serves)
+NESTED_TEXT_TYPES = ('qwen3_5', 'qwen3_5_moe')
 
 
 @dataclass
@@ -94,6 +101,9 @@ class ModelConfig:
     n_group: int = 0
     topk_group: int = 0
     hf_config: Optional[Dict[str, Any]] = None
+    # paged-cache layer count where it differs from num_layers (hybrid models: only the
+    # full-attention layers hold pages; reference config.py:83-85)
+    num_cache_layers: Optional[int] = None
     quantization_config: Optional[Dict[str, Any]] = None
 
     @property
@@ -110,6 +120,12 @@ class ModelConfig:
         return self.head_dim + self.cache_extra_dim
 
     @property
+    def cache_layers(self) -> int:
+        """The paged cache's layer count: ``num_cache_layers`` where set, else every
+        layer."""
+        return self.num_cache_layers or self.num_layers
+
+    @property
     def rope_dim(self) -> int:
         """The dimension the rotary tables are built for: the rope sub-dimension under
         MLA, the partial-rotary fraction of head_dim otherwise."""
@@ -120,6 +136,14 @@ class ModelConfig:
     @classmethod
     def from_hf_config(cls, cfg: Dict[str, Any], dtype: str = 'auto') -> 'ModelConfig':
         archs = cfg.get('architectures') or ['LlamaForCausalLM']
+        if ('vision_config' in cfg or 'text_config' in cfg) and \
+                cfg.get('model_type') in NESTED_TEXT_TYPES:
+            inner = cfg.get('text_config') or {
+                k: v for k, v in cfg.items() if k != 'vision_config'}
+            qcfg = dict(inner, architectures=archs)
+            qcfg.setdefault('model_type', 'qwen2')
+            qcfg.setdefault('torch_dtype', cfg.get('torch_dtype', 'bfloat16'))
+            cfg = qcfg
         if cfg.get('model_type') == 'chatglm' or 'multi_query_group_num' in cfg:
             # the legacy THUDM ChatGLM2 / 3 and GLM-4 configs name their fields their
             # own way (reference config.py:128-144)
@@ -294,7 +318,8 @@ def cp_unported(cp: int, quant_policy, block_size: int,
                 model: Optional[ModelConfig] = None) -> List[str]:
     """What of a context-parallel (``cp`` > 1) configuration the port does not serve
     yet: a quantized KV cache, an MLA model (the reference takes its gather path for
-    both; ROADMAP.md section 1, item 16) or a block size the ranks do not divide."""
+    both; ROADMAP.md section 1, item 16), a hybrid linear-attention model (item 16) or a
+    block size the ranks do not divide."""
     if cp <= 1:
         return []
     out = []
@@ -302,6 +327,8 @@ def cp_unported(cp: int, quant_policy, block_size: int,
         out.append(f'cp={cp} with quant_policy={int(quant_policy)}')
     if model is not None and model.is_mla:
         out.append(f'cp={cp} with an MLA model ({model.hf_arch})')
+    if model is not None and model.num_cache_layers:     # set by the hybrid builders
+        out.append(f'cp={cp} with a hybrid linear-attention model ({model.hf_arch})')
     if block_size % cp:
         out.append(f'cp={cp} with block_size={block_size} (the ranks split each '
                    f'page\'s slots evenly)')

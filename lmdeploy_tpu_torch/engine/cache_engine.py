@@ -19,6 +19,13 @@ comes from the device's free memory (``torch.cuda.mem_get_info``) times
 ``cache_max_entry_count``, after the weights are resident; ``block_bytes`` counts
 the bytes the chosen layout really takes.  Host swap pools are a later slice.
 
+A hybrid linear-attention model (``models/qwen3_next.py``) has a dict cache ``{'pages',
+'conv', 'rec'}`` (reference ``engine/model_agent.py:198-210``): ``pages`` holds only its
+``num_cache_layers`` full-attention layers, and its per-slot state (``state_shapes``,
+max_batch + 1 slots) is allocated before the block budget is read, so the budget sees
+it (Qwen3-Next-80B-A3B's 36 linear layers hold 2 MiB of f32 state a slot each: 18.1 GiB
+at max_batch 256).
+
 Under a mesh with context parallelism (cp > 1, plain caches only) the cache is a
 ``parallel.mesh.StripedKV``: one ``[num_layers, num_blocks, 2, block_size/cp, Hkv*D]``
 stripe per 'cp' rank on that rank's device, and the block budget is the smallest any
@@ -29,6 +36,7 @@ slot axis without loss.
 from __future__ import annotations
 
 import collections
+from typing import Dict, Optional
 
 import torch
 
@@ -43,7 +51,10 @@ CPU_CACHE_BYTES = 256 * 1024 * 1024     # budget when serving on the CPU (tests)
 class CacheEngine:
 
     def __init__(self, model_config: ModelConfig, cache_config: CacheConfig,
-                 device: torch.device, mesh=None):
+                 device: torch.device, mesh=None, state_shapes: Optional[Dict] = None):
+        """``state_shapes``: {name: (shape, dtype)} of a hybrid model's per-slot state,
+        allocated (zeros) before the block budget is read; the cache is then the dict
+        of the pages and these tensors."""
         self.model_config = model_config
         self.cache_config = cache_config
         self.device = device
@@ -60,15 +71,24 @@ class CacheEngine:
             if unported:
                 raise NotImplementedError(f'not ported yet: {", ".join(unported)}')
             self.cp_devices = mesh.cp_devices
+        states = {name: torch.zeros(shape, dtype=dtype, device=device)
+                  for name, (shape, dtype) in (state_shapes or {}).items()}
         if cache_config.num_gpu_blocks <= 0:
             cache_config.num_gpu_blocks = self._derive_num_blocks()
         self.num_blocks = cache_config.num_gpu_blocks
         self.row_width = cfg.num_key_value_heads * D
         self.kv_cache = self._alloc()
+        if states:
+            self.kv_cache = dict(pages=self.kv_cache, **states)
+
+    @property
+    def pages(self):
+        """The paged KV cache: the dict cache's ``pages``, or the cache itself."""
+        return self.kv_cache['pages'] if isinstance(self.kv_cache, dict) else self.kv_cache
 
     def _alloc(self):
         cfg = self.model_config
-        L, NB, BS, hkv = (cfg.num_layers, self.num_blocks, self.cache_config.block_size,
+        L, NB, BS, hkv = (cfg.cache_layers, self.num_blocks, self.cache_config.block_size,
                           cfg.num_key_value_heads)
         hd = self.row_width
 
@@ -95,7 +115,7 @@ class CacheEngine:
         is)."""
         if isinstance(self.kv_cache, StripedKV):
             return self.kv_cache.to_reference_layout()
-        return self.kv_cache
+        return self.pages
 
     def from_reference_layout(self, cache: torch.Tensor):
         """Overwrite the cache, in place, with the unsharded ``cache`` (split into the
@@ -106,12 +126,12 @@ class CacheEngine:
             for r, stripe in enumerate(self.kv_cache.stripes):
                 stripe.copy_(cache[:, :, :, spec.stripe(r, BS)])
         else:
-            self.kv_cache.copy_(cache)
+            self.pages.copy_(cache)
 
     def block_bytes(self) -> int:
         """Device bytes of one block across all layers, in the allocated layout."""
         cfg = self.model_config
-        tokens = cfg.num_layers * self.cache_config.block_size   # token rows per block
+        tokens = cfg.cache_layers * self.cache_config.block_size  # token rows per block
         hkv, hd = cfg.num_key_value_heads, cfg.num_key_value_heads * cfg.cache_head_dim
         if self.policy == QuantPolicy.KV_INT8:       # int8 K and V + f32 scales
             return tokens * 2 * (hd + 4 * hkv)

@@ -6,7 +6,8 @@ with the pipelined chain (run N+1 dispatched before run N is drained) and the
 prefill / decode overlap (waiting prefills dispatched behind the in-flight run), the
 budget-aware drain and recompute preemption, and speculative decoding
 (``speculative_config``: ``engine/spec_agent.py``; rows that ask for top logprobs then
-decode one host-driven step at a time).  ``LMDEPLOY_TPU_OVERLAP=0`` and
+decode one host-driven step at a time), and a hybrid linear-attention model's state
+checkpoints under prefix caching (``engine/ssm_ckpt.py``).  ``LMDEPLOY_TPU_OVERLAP=0`` and
 ``LMDEPLOY_TPU_PIPELINE=0`` turn the overlap and the chain off, as in the reference.
 Device steps run on one worker thread so requests keep arriving while the card
 computes.  Later slices bring diffusion and guided decoding, bad words, host swap,
@@ -109,7 +110,22 @@ class Engine:
             device=device, mesh=mesh)
         self.scheduler = Scheduler(configs.scheduler, configs.cache,
                                    num_blocks=self.model_agent.num_blocks)
+        # a hybrid linear-attention model's prefix caching: KV pages alone cannot
+        # rebuild its recurrent state, so trie matches are clamped to block boundaries
+        # with a stored state snapshot, restored into the row's slot (reference
+        # :169-187; engine/ssm_ckpt.py)
+        self._ssm_ckpt = None
+        if self.model_agent.has_linear_state and configs.cache.enable_prefix_caching:
+            from .ssm_ckpt import SsmCkptStore
+            self._ssm_ckpt = SsmCkptStore(capacity=int(
+                os.environ.get('LMDEPLOY_TPU_SSM_CKPT_MAX', '64')))
+        self.scheduler.ssm_ckpt = self._ssm_ckpt
         self.spec = None
+        if speculative_config is not None and self.model_agent.has_linear_state:
+            raise NotImplementedError(
+                f'speculative decoding over the hybrid linear-attention model '
+                f'{configs.model.hf_arch} is not ported yet (its state rollback; '
+                f'ROADMAP.md item 14)')
         if speculative_config is not None and (
                 speculative_config.model
                 or speculative_config.method in ('deepseek_mtp', 'qwen3_5_mtp')):
@@ -279,6 +295,8 @@ class Engine:
                 if not seq.metrics.first_token_time:
                     seq.metrics.first_token_time = time.time()
                 self._post_token(seq, float(logprobs[i]), top_logprobs=_row_top(top, i, seq))
+        if self._ssm_ckpt is not None:
+            await self._publish_ssm_ckpts(chunks, loop)
         # newly RUNNING sequences enter the device decode state; host-driven rows
         # stay out of it
         new_running = [c.seq for c in chunks
@@ -288,6 +306,21 @@ class Engine:
             self.model_agent.insert_decode_rows(new_running)
             for s in new_running:
                 s._synced_blocks = len(s.logical_blocks)
+
+    async def _publish_ssm_ckpts(self, chunks, loop):
+        """Store the state snapshots of prefill chunks that end on a block boundary
+        (the scheduler aligns chunk ends while checkpoints are on,
+        ``Scheduler._ssm_align_chunk``; reference :580-595)."""
+        bs = self.configs.cache.block_size
+        for chunk in chunks:
+            seq = chunk.seq
+            end = chunk.start + chunk.length
+            if (end % bs != 0 or end == 0 or seq.batch_slot < 0
+                    or self._ssm_ckpt.has(seq.history_ids, end)):
+                continue
+            snap = await loop.run_in_executor(
+                self._executor, self.model_agent.snapshot_slot_state, seq.batch_slot)
+            self._ssm_ckpt.put(seq.history_ids, end, snap)
 
     async def _decode_run(self, seqs, loop):
         """One decode round: host-driven rows take one host step each; the others a

@@ -15,7 +15,10 @@ bucketing/jit warmup (debug)") runs every decode run eagerly, as the CPU does.  
 agent queues all of its device work, eager and replayed, on one stream of its own;
 host arrays reach the card through pinned memory and results come back the same way,
 so dispatching a step never waits for the card.  There is no donation: every cache and
-state update is in place.
+state update is in place.  A hybrid linear-attention model's steps also pass each row's
+batch slot and whether its chunk starts the sequence (``AttnMeta.slot_rows`` /
+``reset_rows``), and its state snapshots and restores for prefix caching
+(``snapshot_slot_state``, ``_apply_ssm_restores``) run on the agent's stream.
 """
 from __future__ import annotations
 
@@ -114,8 +117,9 @@ def ragged_min_rows(params) -> Optional[int]:
     """The rows from which ``moe_ffn`` takes ``_moe_ragged`` on this tree's expert
     stacks (dense stacks, and W4A16 stacks that are widened at each step, from 128;
     MXFP4 and blocked-fp8 stacks from 768); None without experts.  A tree's layer groups
-    are ``layers`` / ``moe_layers``, an MTP head's one layer ``layer``."""
-    for group in ('layers', 'moe_layers', 'layer'):
+    are ``layers`` / ``moe_layers``, an MTP head's one layer ``layer``, a hybrid
+    linear-attention model's ``blocks``."""
+    for group in ('layers', 'moe_layers', 'layer', 'blocks'):
         leaf = params.get(group, {}).get('we_gate')
         if leaf is not None:
             quant = isinstance(leaf, dict) and ('nib' in leaf or 'w8' in leaf)
@@ -130,6 +134,8 @@ class ModelAgent:
         """``mesh`` (``parallel.mesh.Mesh``): the model runs on its first device and
         the KV cache is striped over its 'cp' ranks; ``device``, if given too, must be
         that first device."""
+        cfg = configs.model
+        self.model = build_model(cfg)    # sets a hybrid model's num_cache_layers
         if mesh is not None:
             self.device = mesh.devices[0]
             if device is not None and resolve_device(device) != self.device:
@@ -144,10 +150,9 @@ class ModelAgent:
             self.device = resolve_device(device)
         self.mesh = mesh
         self.configs = configs
-        self.model_config = cfg = configs.model
+        self.model_config = cfg
         self.cache_config = configs.cache
         self.sched_config = configs.scheduler
-        self.model = build_model(cfg)
         self.max_batch = configs.scheduler.max_batch_size
         self.max_model_len = configs.scheduler.max_session_len
         bs = configs.cache.block_size
@@ -164,10 +169,16 @@ class ModelAgent:
                                    cfg.rope_scaling, device=self.device)
         self.rope_cos, self.rope_sin = cos, sin
 
-        # after the weights are resident, so the free-memory budget sees them
-        self.cache_engine = CacheEngine(cfg, configs.cache, self.device, mesh=mesh)
+        # after the weights are resident, so the free-memory budget sees them (and a
+        # hybrid model's per-slot state, allocated first: max_batch + 1 slots, the
+        # last the garbage row of padding rows)
+        self.has_linear_state = getattr(self.model, 'has_linear_state', False)
+        self.cache_engine = CacheEngine(
+            cfg, configs.cache, self.device, mesh=mesh,
+            state_shapes=(self.model.state_shapes(self.max_batch + 1)
+                          if self.has_linear_state else None))
         self.num_blocks = self.cache_engine.num_blocks
-        if isinstance(self.kv_cache, QuantKVTurbo):
+        if isinstance(self.cache_engine.pages, QuantKVTurbo):
             turbo_tables(cfg.cache_head_dim, self.rope_cos.device)
         if mesh is not None and mesh.shape['cp'] > 1:
             self.model.cp_mesh = mesh
@@ -249,7 +260,8 @@ class ModelAgent:
     def kv_cache(self):
         """The paged cache (``engine/cache_engine.py``): a tensor with quant_policy 0
         (model dtype) or 16 (fp8-e4m3), a ``QuantKV`` with 4, a ``QuantKV4`` with 8, a
-        ``QuantKVTurbo`` with 42; a ``StripedKV`` under context parallelism."""
+        ``QuantKVTurbo`` with 42; a ``StripedKV`` under context parallelism; for a
+        hybrid model the dict of those pages and its per-slot state."""
         return self.cache_engine.kv_cache
 
     # -- slot management --------------------------------------------------------------
@@ -303,8 +315,10 @@ class ModelAgent:
         history_lens = np.zeros(B, np.int32)
         q_lens = np.zeros(B, np.int32)
         slot_rows = np.full(B, self.max_batch, np.int64)   # garbage row for padding
+        reset_rows = np.zeros(B, bool)
         counts_reset = np.zeros(B, bool)
         valid_mask = np.zeros(B, bool)
+        ssm_restores = []
         for i, (seq, start, length) in enumerate(zip(seqs, chunk_starts, chunk_lens)):
             input_ids[i, :length] = seq.history_ids[start:start + length]
             positions[i, :length] = np.arange(start, start + length)
@@ -313,6 +327,8 @@ class ModelAgent:
             history_lens[i] = start
             q_lens[i] = length
             slot_rows[i] = self.assign_slot(seq)
+            # a hybrid model's first chunk zeroes the slot's linear state
+            reset_rows[i] = reset[i]
             # a seq's first chunk in its current lifetime clears the slot's
             # previous occupant's penalty counts (even after a prefix-cache hit)
             counts_reset[i] = reset[i] or (count_inputs and
@@ -320,20 +336,28 @@ class ModelAgent:
             if count_inputs:
                 seq._fresh_counts = False
             valid_mask[i] = valid[i]
+            snap = getattr(seq, '_ssm_restore', None)
+            if snap is not None:
+                ssm_restores.append((int(slot_rows[i]), snap))
+                seq._ssm_restore = None
 
         sampling = _pad_sampling(SamplingInputs.from_seqs(seqs, self.model_config.vocab_size),
                                  n, B)
         fresh = count_inputs and all(s == 0 for s in chunk_starts)
         self._flush_deactivations()
+        if ssm_restores:
+            self._apply_ssm_restores(ssm_restores)
         with torch.no_grad():
             dev = self._to_dev
+            slots = dev(slot_rows)
             meta = AttnMeta(block_tables=dev(block_tables),
                             history_lens=dev(history_lens), q_lens=dev(q_lens))
+            if self.has_linear_state:
+                meta.slot_rows, meta.reset_rows = slots, dev(reset_rows)
             ids = dev(input_ids)
             logits = self.model.forward(self.params, ids, dev(positions), self.kv_cache,
                                         meta, self.rope_cos, self.rope_sin,
                                         fresh_prefill=fresh)
-            slots = dev(slot_rows)
             reset_t = dev(counts_reset)[:, None]
             rows = torch.where(reset_t, torch.zeros_like(self.token_counts[slots]),
                                self.token_counts[slots])
@@ -368,6 +392,28 @@ class ModelAgent:
         return self._run(seqs, [s.num_token_ids - 1 for s in seqs], [1] * len(seqs),
                          count_inputs=False, valid=[True] * len(seqs),
                          reset=[False] * len(seqs))
+
+    # -- linear-attention state snapshots (engine/ssm_ckpt.py) ------------------------
+    def _state_keys(self) -> List[str]:
+        cache = self.kv_cache
+        return [k for k in cache if k != 'pages'] if isinstance(cache, dict) else []
+
+    def snapshot_slot_state(self, slot: int) -> dict:
+        """One slot's state rows (``conv`` [n_lin, K-1, C], ``rec`` [n_lin, Hv, dk,
+        dv]) as host tensors, copied on the agent's stream after the steps queued
+        before (reference :680-692)."""
+        with self._on_stream():
+            snap = {k: _host_copy(self.kv_cache[k][:, slot]) for k in self._state_keys()}
+            if self.stream is not None:
+                self.stream.synchronize()
+        return snap
+
+    def _apply_ssm_restores(self, restores):
+        """Write host snapshots into their slots' state rows, in place, on the agent's
+        stream before the step that reads them (reference :694-708)."""
+        for slot, snap in restores:
+            for k in self._state_keys():
+                self.kv_cache[k][:, slot].copy_(snap[k], non_blocking=True)
 
     # -- device-resident decode state -------------------------------------------------
     def insert_decode_rows(self, seqs):
@@ -534,6 +580,9 @@ class ModelAgent:
         meta = AttnMeta(block_tables=torch.zeros((B, W), dtype=torch.int32, device=dev),
                         history_lens=torch.zeros(B, dtype=torch.int32, device=dev),
                         q_lens=torch.full((B,), T, dtype=torch.int32, device=dev))
+        if self.has_linear_state:
+            # padding rows: their state goes to the garbage slot
+            meta.slot_rows = torch.full((B,), self.max_batch, dtype=torch.long, device=dev)
         self.model.forward(self.params, torch.zeros((B, T), dtype=torch.int32, device=dev),
                            pos.contiguous(), self.kv_cache, meta, self.rope_cos,
                            self.rope_sin, fresh_prefill=True)

@@ -5,8 +5,9 @@ llama builders (``_llama``, ``_qwen2``, ``_qwen3``), the dense variants (``_gemm
 ``_phi3``, ``_glm4``, ``_chatglm``, ``_internlm2``, ``_baichuan``, ``_internlm_v1``,
 ``_starcoder2``, ``_minicpm``), the sparse-MoE ones (``_mixtral``, ``_qwen2_moe``,
 ``_qwen3_moe``, ``_phimoe``), ``_gpt_oss``, ``_deepseek`` (DeepSeek-V2 / V3 with MLA),
-DeepSeek's MoE with GQA attention (``_glm4_moe``, ``_deepseek_v1``) and the DSA models
-(``_deepseek_v32``, ``_glm_moe_dsa``): 32 of the reference's 68 architectures; the other
+DeepSeek's MoE with GQA attention (``_glm4_moe``, ``_deepseek_v1``), the DSA models
+(``_deepseek_v32``, ``_glm_moe_dsa``) and the hybrid linear-attention models
+(``_qwen3_next``, ``_qwen3_5``): 35 of the reference's 68 architectures; the other
 families are not ported yet.
 """
 from __future__ import annotations
@@ -184,6 +185,29 @@ def _starcoder2(config: ModelConfig) -> LlamaModel:
 def _minicpm(config: ModelConfig) -> LlamaModel:
     from .minicpm import MiniCPMModel
     return MiniCPMModel(config)
+
+
+@register_model('Qwen3NextForCausalLM')
+def _qwen3_next(config: ModelConfig) -> LlamaModel:
+    from .qwen3_next import Qwen3NextModel, layer_interval
+    # only the full-attention layers hold paged KV
+    config.num_cache_layers = config.num_layers // layer_interval(config.hf_config or {})
+    return Qwen3NextModel(config)
+
+
+@register_model('Qwen3_5ForConditionalGeneration', 'Qwen3_5MoeForConditionalGeneration')
+def _qwen3_5(config: ModelConfig) -> LlamaModel:
+    from .qwen3_5 import Qwen3_5TextModel
+    from .qwen3_next import layer_interval
+    config.num_cache_layers = config.num_layers // layer_interval(config.hf_config or {})
+    return Qwen3_5TextModel(config)
+
+
+@register_model('MetaMoeForConditionalGeneration', 'InternS2MobiusForConditionalGeneration',
+                'InternS2MobiusForCausalLM')
+def _meta_moe(config: ModelConfig) -> LlamaModel:
+    raise NotImplementedError(f'{config.hf_arch}: the Qwen3.5 meta-MoE expert sharing is '
+                              f'not ported yet (ROADMAP.md item 14)')
 
 
 def build_model(config: ModelConfig) -> LlamaModel:

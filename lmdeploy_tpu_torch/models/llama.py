@@ -119,6 +119,11 @@ class AttnMeta:
     block_tables: torch.Tensor    # [B, W] int32
     history_lens: torch.Tensor    # [B] int32 -- cached tokens before this chunk
     q_lens: torch.Tensor          # [B] int32 -- valid tokens in this chunk
+    # hybrid linear-attention models (models/qwen3_next.py): each row's batch slot in
+    # the per-slot state (None: arange(B), the decode path's rows), and the rows whose
+    # state a first chunk zeroes (None: none)
+    slot_rows: Optional[torch.Tensor] = None    # [B] int
+    reset_rows: Optional[torch.Tensor] = None   # [B] bool
 
 
 class LlamaModel:

@@ -64,6 +64,9 @@ class Scheduler:
         if self.window_size:
             self.block_trie = None
         self.num_window_freed_blocks = 0      # lifetime counter (metrics/tests)
+        # SsmCkptStore of a hybrid linear-attention model under prefix caching
+        # (engine/ssm_ckpt.py; set by the engine), else None
+        self.ssm_ckpt = None
         self.seq_manager = SequenceManager(cache_config.block_size)
         self.num_preemptions = 0
 
@@ -222,13 +225,21 @@ class Scheduler:
                 break
             if running_count + len(chunks) >= self.scheduler_config.max_batch_size:
                 break
-            if self.block_trie is not None and seq.num_computed_tokens == 0:
+            if (self.block_trie is not None and seq.num_computed_tokens == 0
+                    and not seq.logical_blocks):
                 # multimodal prompts are cacheable too: block identity is
                 # salted with per-span content digests (block_trie
                 # _block_tokens / native _salted_ids), so identical
-                # placeholder runs with different images never alias
+                # placeholder runs with different images never alias.  A match that
+                # _ssm_trim_match cut to 0 keeps its blocks; if the sequence is not
+                # admitted in this pass it holds them into the next and is not
+                # matched again
                 self.block_trie.match_prefix(seq)
+                if self.ssm_ckpt is not None and seq.num_computed_tokens > 0:
+                    self._ssm_trim_match(seq)
             num_new = min(seq.num_uncomputed, token_budget)
+            if self.ssm_ckpt is not None:
+                num_new = self._ssm_align_chunk(seq, num_new)
             if num_new <= 0:
                 continue
             if chunks:
@@ -313,6 +324,41 @@ class Scheduler:
             if freed and self.block_manager.allocate_for_seq(seq, num_new_tokens):
                 return True
         return self.block_manager.allocate_for_seq(seq, num_new_tokens)
+
+    # -- SSM state checkpoints (hybrid linear-attention prefix caching) ---------------
+    def _ssm_trim_match(self, seq: SchedulerSequence):
+        """Clamp a trie match to the deepest block boundary with a stored linear-state
+        snapshot (``engine/ssm_ckpt.py``) and attach the snapshot for the model agent
+        to restore; without one, decoding would resume from a zero recurrent state
+        (reference :381-398).  The matched blocks stay adopted: their KV is valid, and
+        the replayed span rewrites the same KV while it rebuilds the state.  A match cut
+        to 0 whose sequence then waits keeps them and is not matched again (the
+        reference's ``match_prefix`` asserts there; ROADMAP.md section 3)."""
+        bs = self.cache_config.block_size
+        nb = len(seq.logical_blocks)
+        keep, snap = self.ssm_ckpt.longest_prefix(seq.history_ids, nb, bs)
+        if keep < nb:
+            seq.num_computed_tokens = keep * bs
+        if keep:
+            seq._ssm_restore = snap
+
+    def _ssm_align_chunk(self, seq: SchedulerSequence, num_new: int) -> int:
+        """Align prefill chunk ends to block boundaries, so the state after a chunk can
+        be published as a checkpoint; the deepest matchable boundary ``((len - 1) //
+        bs) * bs`` always ends a chunk (reference :400-418)."""
+        bs = self.cache_config.block_size
+        start = seq.num_computed_tokens
+        end = start + num_new
+        total = seq.num_token_ids
+        top = ((total - 1) // bs) * bs
+        if end >= total:
+            if top > start:
+                return top - start
+            return num_new
+        aligned = (end // bs) * bs
+        if aligned > start:
+            return aligned - start
+        return num_new
 
     def _preempt(self, seq: SchedulerSequence):
         self.num_preemptions += 1

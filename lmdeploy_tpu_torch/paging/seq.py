@@ -123,6 +123,7 @@ class SchedulerSequence:
         self._fresh_counts = True              # penalty counts need a reset on the
         #                                        seq's first chunk (even when a trie
         #                                        match starts it at position > 0)
+        self._ssm_restore = None               # pending linear-state snapshot restore
 
     # -- token accounting -------------------------------------------------------------
     @property
@@ -169,6 +170,7 @@ class SchedulerSequence:
         self.logical_blocks = []
         self.num_window_freed = 0
         self._fresh_counts = True
+        self._ssm_restore = None
 
 
 class SchedulerSession:

@@ -7,10 +7,11 @@ the prepared ``packed`` / ``sb`` / ``corr``, MXFP4 ``nib`` / ``scale``, blocked-
 experts ``w8`` / ``gscale``, the 8-bit linears ``w8`` / ``scale`` (W8A8, fp8) and ``w8`` /
 ``bscale`` (blocked fp8)) and convert key by key; fp8 goes as its e4m3 bytes, int8 as
 it is.  Norm biases, ``bo``, ``lm_head_b``, the DeepSeek-MoE ``layers`` /
-``moe_layers`` groups, the DSA indexer's leaves and an MTP head's tree (``enorm``,
-``hnorm``, ``eh_proj``, ``shead_norm`` and its one-row ``layer`` group) are plain
-leaves and groups.  The caches convert bit for bit both ways (``ops/kv_quant.py`` has the port's
-layouts); the port drops the reference's 128-lane row padding everywhere:
+``moe_layers`` groups, the DSA indexer's leaves, an MTP head's tree (``enorm``,
+``hnorm``, ``eh_proj``, ``shead_norm`` and its one-row ``layer`` group) and the hybrid
+models' ``blocks`` group are plain leaves and groups.  The caches convert bit for bit
+both ways (``ops/kv_quant.py`` has the port's layouts; a hybrid model's dict cache key
+by key); the port drops the reference's 128-lane row padding everywhere:
   * plain and fp8: ``[L, NB, 2, BS, Hkv*D]`` here against ``[L, NB, 2, BS, HDp]`` there,
     ``HDp`` the row width rounded up to 128; fp8 goes as its e4m3 bytes (u8);
   * int8 ``QuantKV``: the data that way, the token-major f32 scales
@@ -81,7 +82,11 @@ def params_from_jax(params_np: Dict, dtype=None, device='cpu') -> Dict:
 def cache_from_reference(cache_np, num_kv_heads: int, head_dim: int, device='cpu'):
     """Reference cache -> port cache: a plain or fp8 array ``[L, NB, 2, BS, HDp]``, or a
     reference ``QuantKV`` / ``QuantKV4`` / ``QuantKVTurbo`` (their numpy or jax
-    leaves), to the port's type of the same name."""
+    leaves), to the port's type of the same name; a hybrid model's dict ``{'pages',
+    'conv', 'rec'}`` key by key (the state tensors as they are)."""
+    if isinstance(cache_np, dict):
+        return {k: cache_from_reference(v, num_kv_heads, head_dim, device) if k == 'pages'
+                else _to_torch(v, device=device).contiguous() for k, v in cache_np.items()}
     hd = num_kv_heads * head_dim
     if hasattr(cache_np, 'meta'):
         return _turbo_from_reference(cache_np, hd, device)
@@ -104,7 +109,11 @@ def cache_to_reference(cache, row: int = None):
     ``QuantKV4``: data, scale, minv; ``QuantKVTurbo``: data, meta).  ``row``: the
     reference's row width where it is wider than the port's (the DSA models, whose
     reference cache keeps the checkpoint's kv heads and reads the first; a plain
-    cache)."""
+    cache); a hybrid model's dict cache as a dict of the same keys, its state tensors
+    in float32 (bf16 conv state widens without loss)."""
+    if isinstance(cache, dict):
+        return {k: cache_to_reference(v, row) if k == 'pages' else v.float().cpu().numpy()
+                for k, v in cache.items()}
     if isinstance(cache, QuantKVTurbo):
         return _turbo_to_reference(cache)
     if isinstance(cache, QuantKV4):

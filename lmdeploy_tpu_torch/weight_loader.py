@@ -8,7 +8,8 @@ safetensors shard through the model's assign plan (each entry's transform: trans
 linears to ``[in, out]``, repacking AWQ / GPTQ nibbles to the kernel layout, Gemma's
 ``1 + w`` norm fold in f32; one tensor may fill several leaves, as the fused
 ``qkv_proj`` / ``gate_up_proj`` / ``W_pack`` / ``query_key_value`` / grouped ``wqkv`` of
-the dense variants split into row blocks, or one expert of a stacked layer row; a
+the dense variants split into row blocks, or one expert or a column slice of a stacked
+layer row; a
 transform's f32 result rounds once to the leaf's dtype), hand every name
 the plan does not know to the model's ``load_hook`` (gpt-oss's ``*_blocks`` /
 ``*_scales`` pairs), then move each leaf to the device once.  A model that sets
@@ -110,14 +111,19 @@ def load_params(model, model_path: str, device) -> Dict:
 
 def _assign(params: Dict, path, tensor: torch.Tensor, col=None):
     """Write ``tensor`` at ``path``; a trailing int selects the stacked layer row,
-    which keeps its leaf's dtype, and an expert column (``col.e``, the plan's
-    ``models.mixtral.ExpertSlice``) the expert within that row."""
+    which keeps its leaf's dtype, and a column within that row: an expert (``col.e``,
+    the plan's ``models.mixtral.ExpertSlice``) or a ``slice`` of the last axis (Qwen3.5's
+    ``in_proj_b`` / ``in_proj_a`` halves; reference weight_loader.py:146-153)."""
     node = params
     for part in path[:-1]:
         node = node[part]
     if isinstance(path[-1], int):
         row = node[path[-1]]
-        (row if col is None else row[col.e]).copy_(tensor)
+        if isinstance(col, slice):
+            row = row[..., col]
+        elif col is not None:
+            row = row[col.e]
+        row.copy_(tensor)
     else:
         node[path[-1]] = tensor.to(node[path[-1]].dtype).contiguous()
 

@@ -39,7 +39,8 @@ def test_tied_embedding_table_matches_transformers():
     from lmdeploy_tpu_torch.config import TIED_EMBEDDING_DEFAULT
     served = {c['model_type'] for c in CFGS.values()} | {
         'llama', 'mistral', 'qwen2', 'qwen3', 'mixtral', 'qwen2_moe', 'qwen3_moe',
-        'gpt_oss', 'deepseek_v2', 'deepseek_v3', 'deepseek', 'glm4_moe', 'phimoe', 'gemma3'}
+        'gpt_oss', 'deepseek_v2', 'deepseek_v3', 'deepseek', 'glm4_moe', 'phimoe', 'gemma3',
+        'qwen3_next'}
     assert served & set(CONFIG_MAPPING) == set(TIED_EMBEDDING_DEFAULT)
     for mt, tied in TIED_EMBEDDING_DEFAULT.items():
         assert bool(getattr(CONFIG_MAPPING[mt](), 'tie_word_embeddings', False)) is tied, mt
