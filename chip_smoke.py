@@ -195,6 +195,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  a scratch pass and an inactive replay, and the gated-delta ops' share of
                  device time from a trace), traced, then an eager_mode engine (tokens
                  equal).  The kernel rows hold rows 1-2 at its heads (Hq 16, Hkv 2, D 256).
+ 18. e2e_llama31_8b_guided_slora -- (after the Llama-3.1-8B CP cell, on its seeded
+                 weights; L31 layers, bf16 KV, block size 128, 64 rows, graphs) a seeded
+                 vocabulary of 128,256 strings in place of the tokenizer; one batch of 24
+                 greedy guided rows (json_object, json_schema, regex_schema), 8 sampled
+                 json_object rows (top-k 40), 8 bad-words rows (16 banned ids) and 24
+                 plain rows, 32 tokens, twice: with the speculative grammar acceptance and
+                 with LMDEPLOY_TPU_GUIDED_SPEC=0; every guided output legal, greedy
+                 guided tokens equal between the runs but where the masked top-2 margin
+                 lies below GUIDED_MARGIN_TOL, no banned id, no host step for a plain row,
+                 every decode run a replay; recoveries, rejections, the acceptance EMA,
+                 host ms per distinct mask and cache hits.  S-LoRA: two seeded adapters
+                 (ranks 8 / 16, all seven targets) in one batch with rows of no adapter;
+                 the engine's KV cache sized at the default fraction after its stacks;
+                 logits at 4 decode steps within SLORA_LOGIT_TOL of f32 on the merged
+                 weights (the adapter left out must read past it); no-adapter rows
+                 against a base engine of the same leaves, adapter rows against it after
+                 activate_lora (the graphs captured before replaying the merge), and again
+                 after deactivate_lora, each under the margin rule; each engine's own
+                 top-2 logprobs within SLORA_LP_TOL of f32 on its rows' weights fed its
+                 tokens, and past it for the traps (rows served with the adapter left
+                 out, or added where there is none).  flash_prefill and paged_decode
+                 launch exactly once a layer of each fresh prefill and decode step.
 Parity rows and depths cut for the script's time are listed in PERF.md section 4.
 The line before the last lists every kernel; the last line is the result.
 It imports nothing of jax or lmdeploy_tpu.
@@ -2538,7 +2560,8 @@ def decode_mla_quant_phase():
 # -- phase 5 and 6 -------------------------------------------------------------------
 def build_engine(model, max_batch: int, quant_policy: int = 0, session_len: int = 2048 + 128,
                  mesh=None, block_size: int = 128, eager_mode: bool = False,
-                 num_blocks: int = 0, speculative_config=None):
+                 num_blocks: int = 0, speculative_config=None, tokenizer=None, adapters=None,
+                 cache_fraction: float = 0.5):
     from lmdeploy_tpu_torch.config import (CacheConfig, EngineConfigBundle, MiscConfig,
                                            SchedulerConfig)
     from lmdeploy_tpu_torch.engine.engine import Engine
@@ -2546,14 +2569,16 @@ def build_engine(model, max_batch: int, quant_policy: int = 0, session_len: int 
     bundle = EngineConfigBundle(
         model=model,
         cache=CacheConfig(block_size=block_size, num_gpu_blocks=num_blocks,
-                          cache_max_entry_count=0.5,
+                          cache_max_entry_count=cache_fraction,
                           max_prefill_token_num=8192,
                           quant_policy=QuantPolicy(quant_policy)),
         scheduler=SchedulerConfig(max_batch_size=max_batch, max_session_len=session_len,
                                   max_prefill_token_num=8192, max_prefill_batch=16),
         misc=MiscConfig(empty_init=True, eager_mode=eager_mode))
-    return Engine(None, TpuEngineConfig(quant_policy=quant_policy, eager_mode=eager_mode),
-                  configs=bundle, mesh=mesh, speculative_config=speculative_config)
+    return Engine(None, TpuEngineConfig(quant_policy=quant_policy, eager_mode=eager_mode,
+                                        adapters=adapters),
+                  configs=bundle, mesh=mesh, speculative_config=speculative_config,
+                  tokenizer=tokenizer)
 
 
 def run_requests(engine, prompts, new_tokens, sampled=(), logprobs: int = 0,
@@ -2623,10 +2648,11 @@ def _row_recorders():
 
 
 def _built(model, max_batch, quant_policy, long_len, cp, shared, env, eager_mode=False,
-           num_blocks: int = 0):
+           num_blocks: int = 0, **engine_kw):
     """An engine of the cell (``shared`` carries the raw seeded weights from one engine
     to the next of the same model; each engine fuses and prepares them itself; ``env``
-    holds the engine switches set while it is built) and its build seconds."""
+    holds the engine switches set while it is built; ``engine_kw``: ``build_engine``'s
+    ``tokenizer``, ``adapters`` and ``cache_fraction``) and its build seconds."""
     from lmdeploy_tpu_torch.models.llama import LlamaModel
     from lmdeploy_tpu_torch.parallel.mesh import build_mesh
     t_build = time.perf_counter()
@@ -2645,7 +2671,7 @@ def _built(model, max_batch, quant_policy, long_len, cp, shared, env, eager_mode
                                   session_len=max(2048, long_len) + 128,
                                   mesh=build_mesh(cp=cp, devices=['cuda:0'] * cp)
                                   if cp > 1 else None, eager_mode=eager_mode,
-                                  num_blocks=num_blocks)
+                                  num_blocks=num_blocks, **engine_kw)
     finally:
         for k, v in saved_env.items():
             if v is None:
@@ -5514,6 +5540,649 @@ def qwen3_next_phase(card: str) -> dict:
     return {'e2e_qwen3_next_80b_a3b': row}
 
 
+# -- guided decoding, bad words and S-LoRA on Llama-3.1-8B -------------------------
+# one batch of 64 rows, 32 new tokens each, 128-token prompts
+GUIDED_NEW = 32
+GUIDED_PROMPT = 128
+GUIDED_SCHEMA = {'type': 'object',
+                 'properties': {'name': {'type': 'string'}, 'age': {'type': 'integer'},
+                                'color': {'enum': ['red', 'green', 'blue']},
+                                'scores': {'type': 'array', 'items': {'type': 'number'}}},
+                 'required': ['name', 'age', 'color', 'scores']}
+GUIDED_FORMATS = {'json_object': {'type': 'json_object'},
+                  'json_schema': {'type': 'json_schema',
+                                  'json_schema': {'name': 'record', 'schema': GUIDED_SCHEMA}},
+                  'regex_schema': {'type': 'regex_schema',
+                                   'regex_schema': r'\d{4}-\d{2}-\d{2}'}}
+# rows: 8 greedy rows of each format, 8 sampled json_object rows (top-k 40, seeded), 8
+# bad-words rows (16 banned ids each: the first distinct tokens their prompts' plain
+# twins, rows 40-47, emit), 24 plain rows
+GUIDED_ROWS = ([('greedy', f) for f in GUIDED_FORMATS for _ in range(8)]
+               + [('sampled', 'json_object')] * 8 + [('bad', None)] * 8 + [('plain', None)] * 24)
+BAD_WORDS = 16
+# a greedy guided row's tokens on the graph runs with grammar acceptance may leave its
+# per-step masked tokens only where the masked top-2 margin lies below this: the two
+# paths run the rows in other batch buckets (a host step's eager B against a run's), as
+# the speculative verify does against the decode (VERIFY_MARGIN_TOL)
+GUIDED_MARGIN_TOL = 0.3
+# S-LoRA: two seeded adapters on all seven targets, ranks 8 and 16, alpha 2r; a mixed
+# batch of 64 rows (none, a, b in turn)
+SLORA_RANKS = {'a': 8, 'b': 16}
+SLORA_STD = 0.03
+# bf16 S-LoRA logits (the card's engine leaves, the stacks in f32) against f32 on the
+# merged weights, 2 full-width layers: LOGIT_TOL_CP's allowance for Llama-3.1-8B at 2
+# layers (first card read beside it in PERF.md)
+SLORA_LOGIT_TOL = 0.2
+# the engines' own top-2 logprobs (decode graph replays) against the f32 log-softmax
+# of the weights their rows were served with, fed the same tokens: the same allowance
+SLORA_LP_TOL = 0.2
+SLORA_LOGIT_ROWS = 12
+SLORA_LOGIT_STEPS = 4
+SLORA_BLOCKS = 512
+
+
+class SeededVocab:
+    """A tokenizer stand-in: ``V`` seeded strings, ``decode(ids)`` their concatenation.
+    The first pieces are JSON's punctuation, digits, number characters, whitespace, the
+    literals and their prefixes and some multi-character JSON pieces; the rest up to
+    ``special_from`` are 1-6 characters drawn mostly from letters (digits, spaces and
+    punctuation among them); the ids from ``special_from`` (Llama-3's 256 special
+    tokens) decode to nothing, so no mask allows them but EOS."""
+
+    def __init__(self, V: int, special_from: int, seed: int):
+        rng = np.random.RandomState(seed)
+        fixed = (list('{}[]:,"') + list('0123456789') + list('-.+eE') + [' ', '\n', '\t', '\\']
+                 + ['true', 'false', 'null', 'tr', 'fal', 'nu', 'ul', 'se', 'ue']
+                 + ['": ', '", "', '{"', '"}', '["', '"]', '],', '},', ', ', ': ', ' "',
+                    '2024', '-1', '0.5', '12', 'red', 'green', 'blue', 'name', 'age'])
+        letters = [chr(c) for c in range(97, 123)] + [chr(c) for c in range(65, 91)]
+        alphabet = np.array(letters * 6 + list('0123456789') * 2 + list(' _-.,:"{}[]!?/'))
+        n = special_from - len(fixed)
+        lengths = rng.randint(1, 7, size=n)
+        flat = ''.join(rng.choice(alphabet, size=int(lengths.sum())))
+        ends = np.cumsum(lengths)
+        self.pieces = fixed + [flat[e - ln:e] for e, ln in zip(ends.tolist(), lengths.tolist())]
+        self.pieces += [''] * (V - len(self.pieces))
+
+    def decode(self, ids, **kwargs) -> str:
+        return ''.join(self.pieces[i] for i in ids)
+
+
+def fresh_guide(vocab, fmt: dict, eos):
+    """A guide of ``fmt`` at its start state (as ``Engine._make_guide`` builds it)."""
+    from lmdeploy_tpu_torch.guided import JsonGuide
+    from lmdeploy_tpu_torch.guided_regex import RegexGuide
+    from lmdeploy_tpu_torch.guided_schema import SchemaGuide
+    V = len(vocab.pieces)
+    if fmt['type'] == 'json_object':
+        return JsonGuide(vocab, V, eos)
+    if fmt['type'] == 'json_schema':
+        return SchemaGuide(vocab, V, eos, fmt['json_schema']['schema'])
+    return RegexGuide(vocab, V, eos, fmt['regex_schema'])
+
+
+def grammar_ok(vocab, fmt: dict, eos, ids, new_tokens: int) -> bool:
+    """A fresh guide accepts every token of ``ids``, and a row that stopped early (on
+    EOS, which the engine strips) ends in a complete state."""
+    from lmdeploy_tpu_torch.guided import JsonGuide, is_complete
+    g = fresh_guide(vocab, fmt, eos)
+    if not all(g.accept_token(int(t)) for t in ids):
+        return False
+    done = is_complete(g.state) if isinstance(g, JsonGuide) else g._is_complete()
+    return len(ids) == new_tokens or done
+
+
+class MaskMeter:
+    """Times ``allowed_mask`` of the three guide classes inside the block: calls, the
+    distinct masks computed (the class's mask cache grew: a scan of the vocabulary) and
+    their seconds, the cache hits."""
+
+    def __init__(self):
+        from lmdeploy_tpu_torch.guided import JsonGuide
+        from lmdeploy_tpu_torch.guided_regex import RegexGuide
+        from lmdeploy_tpu_torch.guided_schema import SchemaGuide
+        self.classes = (JsonGuide, SchemaGuide, RegexGuide)
+        self.stats = {c.__name__: {'calls': 0, 'distinct': 0, 'distinct_s': 0.0}
+                      for c in self.classes}
+
+    def _timed(self, cls):
+        orig, st = cls.allowed_mask, self.stats[cls.__name__]
+
+        def allowed_mask(guide):
+            n = len(cls._mask_cache)
+            t0 = time.perf_counter()
+            out = orig(guide)
+            st['calls'] += 1
+            if len(cls._mask_cache) > n:
+                st['distinct'] += 1
+                st['distinct_s'] += time.perf_counter() - t0
+            return out
+        return allowed_mask
+
+    def swapped(self):
+        return _swapped(*[(c, 'allowed_mask', self._timed(c)) for c in self.classes])
+
+    def row(self) -> dict:
+        out = {}
+        for name, st in self.stats.items():
+            out[name] = {'calls': st['calls'], 'distinct_masks': st['distinct'],
+                         'cache_hits': st['calls'] - st['distinct'],
+                         'ms_per_distinct_mask': (1e3 * st['distinct_s'] / st['distinct']
+                                                  if st['distinct'] else None)}
+        return out
+
+
+class GuidedCounters:
+    """On one engine: host steps and their rows, guided rows recovering from a
+    rejection and rows demoted by their acceptance EMA at a host step, the rejections
+    found by the drain, each guided row's last acceptance EMA, and plain rows that took
+    a host step (there must be none)."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.host, self.drain = engine._decode_step_host, engine._drain_decode_tokens
+        engine._decode_step_host, engine._drain_decode_tokens = self._host, self._drain
+        self.reset()
+
+    def reset(self):
+        self.host_steps = self.host_rows = self.recoveries = self.demoted = 0
+        self.rejections = self.plain_host_rows = 0
+        self.ema = {}
+
+    async def _host(self, seqs, loop):
+        from lmdeploy_tpu_torch.paging.seq import MessageStatus
+        seqs = [s for s in seqs if s.status == MessageStatus.RUNNING]
+        if seqs:
+            self.host_steps += 1
+            self.host_rows += len(seqs)
+        for s in seqs:
+            if s.guided is None and not s.sampling_params.bad_token_ids:
+                self.plain_host_rows += 1
+            elif getattr(s, '_guided_recover', False):
+                self.recoveries += 1
+            elif s.guided is not None and getattr(s, '_guided_ema', 1e9) < 2.0:
+                self.demoted += 1
+        return await self.host(seqs, loop)
+
+    def _drain(self, seq, toks, lps, tops=None):
+        flagged = getattr(seq, '_guided_recover', False)
+        out = self.drain(seq, toks, lps, tops)
+        if seq.guided is not None:
+            self.rejections += getattr(seq, '_guided_recover', False) and not flagged
+            if hasattr(seq, '_guided_ema'):
+                self.ema[seq.seq_id] = seq._guided_ema
+        return out
+
+    def row(self) -> dict:
+        return {'host_steps': self.host_steps, 'host_rows': self.host_rows,
+                'recovery_steps': self.recoveries, 'rejections': self.rejections,
+                'ema_demoted_rows': self.demoted, 'plain_host_rows': self.plain_host_rows,
+                'acceptance_ema_mean': (statistics.mean(self.ema.values())
+                                        if self.ema else None),
+                'rows_with_ema': len(self.ema)}
+
+
+def serve_rows(engine, prompts, kws):
+    """Serve ``prompts`` at once, each with its GenerationConfig keywords ``kws``:
+    (outputs, t0, t1)."""
+    from lmdeploy_tpu_torch.messages import GenerationConfig
+    inst = engine.create_instance()
+
+    async def go():
+        return await asyncio.gather(*[inst.async_infer(i + 1, p, GenerationConfig(**kw))
+                                      for i, (p, kw) in enumerate(zip(prompts, kws))])
+    t0 = time.time()
+    outs = asyncio.run(go())
+    torch.cuda.synchronize()
+    return outs, t0, time.time()
+
+
+def margin_differences(tokens, ref_outs, rows, tol: float) -> tuple:
+    """For each of ``rows`` whose ``tokens`` leave ``ref_outs``' tokens: the first
+    differing position and the reference run's top-2 logprob margin there (its masked
+    logits' for a guided row).  Returns (the differences, all within ``tol``)."""
+    diffs = []
+    for i in rows:
+        a, b = list(tokens[i]), list(ref_outs[i].token_ids)
+        j = next((j for j in range(min(len(a), len(b))) if a[j] != b[j]),
+                 None if len(a) == len(b) else min(len(a), len(b)))
+        if j is None:
+            continue
+        margins = _top2_margins(ref_outs[i])
+        diffs.append({'row': i, 'position': j,
+                      'margin': margins[j] if j < len(margins) else None})
+    return diffs, all(d['margin'] is not None and d['margin'] < tol for d in diffs)
+
+
+def _counted_run(engine, prompts, kws):
+    """One run with every kernel counter and graph count set to 0 before: (outputs,
+    t0, t1, launches, combines, graph stats, steps), the steps counting the prefill
+    steps (``fresh_prefill``: every chunk starts its prompt), the decode runs
+    dispatched and their decode steps, and the single host decode steps."""
+    agent = engine.model_agent
+    counters = _kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+        if hasattr(fn, 'combines'):
+            fn.combines = 0
+    agent.graphs.reset_counts()
+    steps = {'prefill': 0, 'fresh_prefill': 0, 'decode_runs': 0, 'run_steps': 0,
+             'host_steps': 0}
+    prefill, decode, decode_run = agent.prefill, agent.decode, agent.decode_run
+
+    def counted_prefill(chunks):
+        steps['prefill'] += 1
+        steps['fresh_prefill'] += all(c.start == 0 for c in chunks)
+        return prefill(chunks)
+
+    def counted_decode(seqs):
+        steps['host_steps'] += 1
+        return decode(seqs)
+
+    def counted_run(num_rows, k=None, *args, **kwargs):
+        steps['decode_runs'] += 1
+        steps['run_steps'] += k or agent.decode_run_steps
+        return decode_run(num_rows, k, *args, **kwargs)
+    agent.prefill, agent.decode, agent.decode_run = counted_prefill, counted_decode, counted_run
+    try:
+        outs, t0, t1 = serve_rows(engine, prompts, kws)
+    finally:
+        agent.prefill, agent.decode, agent.decode_run = prefill, decode, decode_run
+    launches, combines = agent.graphs.launch_totals()
+    return (outs, t0, t1, {n: launches[fn.__name__] for n, fn in counters.items()},
+            {n: combines[fn.__name__] for n, fn in counters.items() if hasattr(fn, 'combines')},
+            agent.graphs.stats(), steps)
+
+
+def slora_adapters(cfg, seed: int) -> dict:
+    """Two seeded adapters on all seven targets of every layer of the model ``cfg``,
+    ranks SLORA_RANKS and alpha 2r, as their PEFT tensors in memory (the card has no
+    safetensors), parsed by ``lora.peft_weights``: name -> (weights, scaling)."""
+    from lmdeploy_tpu_torch.lora import peft_weights
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    q, kv = cfg.num_attention_heads * cfg.head_dim, cfg.num_key_value_heads * cfg.head_dim
+    dims = {'self_attn.q_proj': (H, q), 'self_attn.k_proj': (H, kv),
+            'self_attn.v_proj': (H, kv), 'self_attn.o_proj': (q, H),
+            'mlp.gate_proj': (H, I), 'mlp.up_proj': (H, I), 'mlp.down_proj': (I, H)}
+    rng = np.random.RandomState(seed)
+    out = {}
+    for name, r in SLORA_RANKS.items():
+        tensors = {}
+        for layer in range(cfg.num_layers):
+            for mod, (k, n) in dims.items():
+                p = f'base_model.model.model.layers.{layer}.{mod}.'
+                for ab, shape in (('A', (r, k)), ('B', (n, r))):
+                    tensors[p + f'lora_{ab}.weight'] = (
+                        rng.standard_normal(shape) * SLORA_STD).astype(np.float32)
+        out[name] = peft_weights(tensors, {'r': r, 'lora_alpha': 2 * r})
+    return out
+
+
+def _lora_logits(model, params, ids, steps: int, adapter_ids=None, tokens=None):
+    """A fresh prefill of the rows ``ids`` [B, T] into pages of their own, then
+    ``steps`` decode steps fed ``tokens`` (or the run's own argmax), through the model's
+    forward (S-LoRA rows by ``adapter_ids``): the logits [1 + steps, B, V] f32 and the
+    tokens fed."""
+    from lmdeploy_tpu_torch.models.llama import AttnMeta
+    from lmdeploy_tpu_torch.nn.layers import make_rope_table
+    cfg = model.config
+    B, T = ids.shape
+    BS = 128
+    dev = params['embed'].device
+    W = -(-(T + steps) // BS)
+    cache = torch.zeros((cfg.num_layers, 1 + B * W, 2, BS,
+                         cfg.num_key_value_heads * cfg.head_dim),
+                        dtype=params['embed'].dtype, device=dev)
+    cos, sin = make_rope_table(cfg.rope_dim, W * BS, cfg.rope_theta, cfg.rope_scaling,
+                               device=dev)
+    tables = (1 + torch.arange(B * W, dtype=torch.int32, device=dev)).reshape(B, W)
+    lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+    pos = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T).contiguous()
+    kw = {} if adapter_ids is None else {'adapter_ids': adapter_ids}
+    out, fed = [], []
+    with torch.no_grad():
+        out.append(model.forward(params, ids, pos, cache,
+                                 AttnMeta(tables, torch.zeros_like(lens), lens), cos, sin,
+                                 fresh_prefill=True, **kw).float())
+        for i in range(steps):
+            tok = tokens[i] if tokens is not None else out[-1].argmax(-1).int()[:, None]
+            fed.append(tok)
+            hist = lens + i
+            out.append(model.forward(params, tok, hist[:, None].contiguous(), cache,
+                                     AttnMeta(tables, hist, torch.ones_like(lens)), cos, sin,
+                                     **kw).float())
+    return torch.stack(out), fed
+
+
+def _f32_trees(served: dict, adapters: dict):
+    """(name, tree) for None (the served leaves widened to f32) and then each adapter
+    (those plus ``scaling * A^T B^T`` a layer, computed here on the card in f32 with
+    TF32 off, apart from the port's ``lora`` module: its merged weights), one at a
+    time."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base32 = {k: ({k2: v2.float() for k2, v2 in v.items()} if isinstance(v, dict)
+                  else v.float()) for k, v in served.items() if k != 'lora'}
+    yield None, base32
+    for name, (weights, scaling) in adapters.items():
+        layers = dict(base32['layers'])
+        for module, per_layer in weights.items():
+            w = layers[module].clone()
+            for layer, ab in per_layer.items():
+                a, b = (torch.from_numpy(ab[k]).to(w.device) for k in 'AB')
+                w[layer] += scaling * (a.T @ b.T)       # [in, r] @ [r, out]
+            layers[module] = w
+        yield name, dict(base32, layers=layers)
+        del layers
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def engine_logprob_gap(m32, tree, prompts, outs, rows) -> float:
+    """The largest gap between an engine's reported logprobs (every id of every
+    token of the requests ``rows``) and the f32 log-softmax of ``tree``, prefilled
+    with the same prompts and fed the engine's own tokens."""
+    dev = tree['embed'].device
+    ids = torch.tensor([prompts[i] for i in rows], dtype=torch.int32, device=dev)
+    toks = torch.tensor([list(outs[i].token_ids) for i in rows], dtype=torch.int32,
+                        device=dev)
+    n = toks.shape[1]
+    logits, _ = _lora_logits(m32, tree, ids, n - 1,
+                             tokens=[toks[:, j:j + 1] for j in range(n - 1)])
+    lp = torch.log_softmax(logits, dim=-1)                  # [n, rows, V]
+    del logits
+    at = [(j, b, t, e[t].logprob) for b, i in enumerate(rows)
+          for j, e in enumerate(outs[i].logprobs) for t in e]
+    pos, row, tok, val = (list(c) for c in zip(*at))
+    got = lp[torch.tensor(pos), torch.tensor(row), torch.tensor(tok)]
+    return float((got - torch.tensor(val, device=dev)).abs().max())
+
+
+def slora_f32_checks(model, served: dict, slot_map: dict, adapters: dict, prompts,
+                     plans: dict) -> dict:
+    """The S-LoRA engine's model and leaves (bf16, unfused) and stacks ``served``
+    against f32 on the merged weights of each adapter (``_f32_trees``).
+
+    Logits: SLORA_LOGIT_ROWS rows (none, a, b in turn), prefill and SLORA_LOGIT_STEPS
+    decode steps through the model's forward on ``served``; each row's decode-step
+    logits against an f32 run of its tree fed the same tokens, within SLORA_LOGIT_TOL,
+    the adapter rows' against the f32 base (``adapter_left_out``) past it.
+
+    Engine logprobs: ``plans`` maps each tree's name to (label, the engine's outputs,
+    their rows, sound) entries; each ``engine_logprob_gap`` must lie within
+    SLORA_LP_TOL where sound, and past it where not (a trap: the rows served by
+    another model than the tree's)."""
+    from lmdeploy_tpu_torch.models import build_model
+    m32 = build_model(dataclasses.replace(model.config, dtype='float32'))
+    dev = served['embed'].device
+    names = [None, 'a', 'b']
+    rows = [names[i % 3] for i in range(SLORA_LOGIT_ROWS)]
+    ids = torch.tensor([prompts[i] for i in range(SLORA_LOGIT_ROWS)], dtype=torch.int32,
+                       device=dev)
+    slots = torch.tensor([0 if n is None else slot_map[n] for n in rows],
+                         dtype=torch.int32, device=dev)
+    bf16, fed = _lora_logits(model, served, ids, SLORA_LOGIT_STEPS, adapter_ids=slots)
+    out = {'logits': {'tolerance': SLORA_LOGIT_TOL, 'rows': SLORA_LOGIT_ROWS,
+                      'decode_steps': SLORA_LOGIT_STEPS},
+           'engine_logprobs': {'tolerance': SLORA_LP_TOL, 'sound': {}, 'traps': {}}}
+    lg, gaps = out['logits'], out['engine_logprobs']
+    base_logits = {}
+    for name, tree in _f32_trees(served, adapters):
+        key = 'none' if name is None else name
+        sel = [i for i, n in enumerate(rows) if n == name]
+        idx = torch.tensor(sel, device=dev)
+        f32, _ = _lora_logits(m32, tree, ids, SLORA_LOGIT_STEPS, tokens=fed)
+        if name is None:
+            base_logits = f32[1:]
+        card = bf16[1:, idx]
+        lg[f'max_abs_err_{key}'] = float((card - f32[1:, idx]).abs().max())
+        lg[f'logit_std_{key}'] = float(f32[1:, idx].std())
+        if name is not None:
+            lg[f'adapter_left_out_{key}'] = float((card - base_logits[:, idx]).abs().max())
+        del f32
+        for label, outs, plan_rows, sound in plans[name]:
+            gap = engine_logprob_gap(m32, tree, prompts, outs, plan_rows)
+            (gaps['sound'] if sound else gaps['traps'])[f'{label}_vs_f32_{key}'] = gap
+    lg['ok'] = (all(lg[f'max_abs_err_{k}'] <= SLORA_LOGIT_TOL for k in ('none', 'a', 'b'))
+                and all(lg[f'adapter_left_out_{k}'] > SLORA_LOGIT_TOL for k in ('a', 'b')))
+    gaps['ok'] = (all(g <= SLORA_LP_TOL for g in gaps['sound'].values())
+                  and all(g > SLORA_LP_TOL for g in gaps['traps'].values()))
+    out['ok'] = lg['ok'] and gaps['ok']
+    del bf16, base_logits
+    return out
+
+
+def guided_slora_phase(card: str, shared: dict) -> dict:
+    """e2e_llama31_8b_guided_slora: Llama-3.1-8B at full width and L31 layers (the
+    seeded bf16 weights ``shared`` with the other Llama-3.1-8B cells), bf16 KV, block
+    size 128, 64 rows, decode graphs on, a SeededVocab of the full vocabulary.
+
+    Guided decoding and bad words (engine G): GUIDED_ROWS in one batch, twice: with the
+    speculative grammar acceptance (graph runs, rejections, recovery steps) and with
+    LMDEPLOY_TPU_GUIDED_SPEC=0 (per-step masked host steps); every guided output is
+    legal, the greedy guided rows' tokens agree between the runs (or differ first where
+    the masked top-2 margin < GUIDED_MARGIN_TOL), no banned id appears, and no plain row
+    takes a host step while every decode run replays its graph; the first run launches
+    flash_prefill and paged_decode exactly once a layer of each of its fresh prefill
+    and decode steps.  S-LoRA (engine S, the adapters of ``slora_adapters``, its KV
+    cache sized from free memory at the default fraction): a batch mixing rows of no
+    adapter and of 'a' and 'b'; the no-adapter rows against engine B (the same unfused
+    leaves, no adapters), the adapter rows against engine B after ``activate_lora`` (the
+    merged weights, replayed by the graphs captured before the merge), and B again
+    after ``deactivate_lora`` against its base tokens (up to the unmerge's rounding),
+    each under the margin rule; and ``slora_f32_checks``: the forward's logits and each
+    engine's own logprobs against f32 on the merged weights, with traps.  Returns the
+    phase's row, whose launches are the first guided run's."""
+    from lmdeploy_tpu_torch.guided import JsonGuide
+    from lmdeploy_tpu_torch.messages import TpuEngineConfig
+    model = llama31_config(L31)
+    V = model.vocab_size
+    eos = list(model.eos_token_id)
+    t0 = time.perf_counter()
+    vocab = SeededVocab(V, model.bos_token_id, SEED + 20)
+    vocab_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    JsonGuide._token_strings(vocab, V)
+    strings_ms = 1e3 * (time.perf_counter() - t0)
+    rng = np.random.RandomState(SEED + 21)
+    prompts = [rng.randint(3, 32000, size=GUIDED_PROMPT).tolist() for _ in GUIDED_ROWS]
+    plain0 = GUIDED_ROWS.index(('plain', None))
+    bad0 = GUIDED_ROWS.index(('bad', None))
+    for j in range(8):
+        prompts[bad0 + j] = prompts[plain0 + j]      # each bad-words row's plain twin
+    row = {'phase': 'e2e_llama31_8b_guided_slora', 'model': model_label(model),
+           'card': card, 'requests': len(prompts), 'new_tokens': GUIDED_NEW,
+           'vocab_build_s': vocab_s, 'token_strings_ms': strings_ms}
+    seconds = {}
+
+    def new_engine(env=None, num_blocks=SLORA_BLOCKS, **kw):
+        engine, _ = _built(model, 64, 0, GUIDED_PROMPT, 1, shared, env,
+                           num_blocks=num_blocks, **kw)
+        _warmed(engine, 64)
+        return engine
+
+    # -- guided decoding and bad words ---------------------------------------------
+    t_g = time.perf_counter()
+    engine = new_engine(tokenizer=vocab)
+    warm = engine.model_agent.graphs.stats()
+    twins, _, _ = serve_rows(engine, prompts[plain0:plain0 + 8],
+                             [dict(max_new_tokens=GUIDED_NEW, ignore_eos=True)] * 8)
+    banned = []
+    for o in twins:
+        ids = list(dict.fromkeys(o.token_ids))[:BAD_WORDS]
+        while len(ids) < BAD_WORDS:
+            t = int(rng.randint(3, 128000))
+            ids += [] if t in ids else [t]
+        banned.append(ids)
+
+    def kws(per_step: bool):
+        out = []
+        for i, (kind, fmt) in enumerate(GUIDED_ROWS):
+            kw = dict(max_new_tokens=GUIDED_NEW, ignore_eos=kind in ('bad', 'plain'))
+            if fmt is not None:
+                kw['response_format'] = GUIDED_FORMATS[fmt]
+            if kind == 'sampled':
+                kw.update(do_sample=True, top_k=40, top_p=1.0, temperature=1.0,
+                          random_seed=3000 + i)
+            if kind == 'bad':
+                kw['bad_token_ids'] = banned[i - bad0]
+            if kind == 'greedy' and per_step:
+                kw['logprobs'] = 2          # the masked top-2 at each token
+            out.append(kw)
+        return out
+    counters = GuidedCounters(engine)
+    meter = MaskMeter()
+    with meter.swapped():
+        outs, t0, t1, launches, combines, graphs, steps = _counted_run(engine, prompts,
+                                                                       kws(False))
+        first = counters.row()
+        counters.reset()
+        saved = os.environ.get('LMDEPLOY_TPU_GUIDED_SPEC')
+        os.environ['LMDEPLOY_TPU_GUIDED_SPEC'] = '0'
+        try:
+            ref, _, _ = serve_rows(engine, prompts, kws(True))
+        finally:
+            if saved is None:
+                os.environ.pop('LMDEPLOY_TPU_GUIDED_SPEC')
+            else:
+                os.environ['LMDEPLOY_TPU_GUIDED_SPEC'] = saved
+        second = counters.row()
+    tokens = [o.token_ids for o in outs]
+    greedy = [i for i, (k, _) in enumerate(GUIDED_ROWS) if k == 'greedy']
+    guided = [i for i, (_, f) in enumerate(GUIDED_ROWS) if f is not None]
+    legal = {i: grammar_ok(vocab, GUIDED_FORMATS[GUIDED_ROWS[i][1]], eos, tokens[i],
+                           GUIDED_NEW) and
+             grammar_ok(vocab, GUIDED_FORMATS[GUIDED_ROWS[i][1]], eos, ref[i].token_ids,
+                        GUIDED_NEW) for i in guided}
+    diffs, within = margin_differences(tokens, ref, greedy, GUIDED_MARGIN_TOL)
+    bad_rows = range(bad0, bad0 + 8)
+    no_banned = all(not set(tokens[i]) & set(banned[i - bad0]) and
+                    not set(ref[i].token_ids) & set(banned[i - bad0]) for i in bad_rows)
+    plain_rows = [i for i, (k, _) in enumerate(GUIDED_ROWS) if k in ('bad', 'plain')]
+    lengths_ok = all(len(tokens[i]) == GUIDED_NEW for i in plain_rows)
+    replayed = graphs['eager_runs'] == 0 and graphs['replays'] == steps['decode_runs'] > 0
+    # one flash_prefill a layer of each fresh prefill step, one paged_decode a layer of
+    # each decode step, replayed or a host step's
+    need = {'flash_prefill': L31 * steps['fresh_prefill'],
+            'paged_decode': L31 * (steps['run_steps'] + steps['host_steps'])}
+    launches_ok = (all(launches[n] == need[n] > 0 for n in need)
+                   and steps['prefill'] == steps['fresh_prefill'])
+    row.update({
+        'guided': {'runs': {'grammar_acceptance': first, 'per_step': second},
+                   'graph_replays': graphs['replays'], 'steps': steps,
+                   'eager_decode_runs': graphs['eager_runs'], 'warmup': warm,
+                   'masks': meter.row(),
+                   'legal_outputs': sum(legal.values()), 'guided_rows': len(guided),
+                   'greedy_rows_equal': len(greedy) - len(diffs),
+                   'greedy_differences': diffs, 'margin_tol': GUIDED_MARGIN_TOL,
+                   'bad_words_absent': no_banned,
+                   'output_lengths': {k: statistics.mean(
+                       len(tokens[i]) for i, (kk, _) in enumerate(GUIDED_ROWS) if kk == k)
+                       for k in ('greedy', 'sampled', 'bad', 'plain')}},
+        'launches': launches, 'launches_needed': need, 'launches_ok': launches_ok,
+        'combines': combines, 'rows_by_kernel': {},
+        **serving_numbers({'outs': outs, 't0': t0, 't1': t1})})
+    guided_ok = (all(legal.values()) and within and no_banned and lengths_ok and replayed
+                 and first['plain_host_rows'] == second['plain_host_rows'] == 0
+                 and first['recovery_steps'] > 0 and launches_ok)
+    engine.close()
+    del engine, counters, outs, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds['guided'] = time.perf_counter() - t_g
+
+    # -- S-LoRA ----------------------------------------------------------------------
+    t_s = time.perf_counter()
+    stamp = [time.perf_counter()]
+
+    def lap(key):                   # the S-LoRA part's seconds, step by step
+        now = time.perf_counter()
+        seconds[key] = now - stamp[0]
+        stamp[0] = now
+    adapters = slora_adapters(model, SEED + 22)
+    lap('slora_adapters')
+    names = [None, 'a', 'b']
+    which = [names[i % 3] for i in range(len(prompts))]
+    rows_of = {n: [i for i, m in enumerate(which) if m == n] for n in names}
+    # the S-LoRA engine sizes its KV cache from the free memory left after its leaves
+    # and stacks, at the default fraction
+    fraction = TpuEngineConfig().cache_max_entry_count
+    engine = new_engine(adapters=adapters, num_blocks=0, cache_fraction=fraction)
+    lap('slora_engine')
+    agent = engine.model_agent
+    budget = {'cache_fraction': fraction, 'num_blocks': agent.num_blocks,
+              'stack_bytes': sum(t.numel() * t.element_size()
+                                 for ab in agent.params['lora'].values() for t in ab.values()),
+              'free_bytes_after_build': torch.cuda.mem_get_info()[0]}
+    sl, _, _ = serve_rows(engine, prompts, [dict(max_new_tokens=GUIDED_NEW, ignore_eos=True,
+                                                 adapter_name=n, logprobs=2) for n in which])
+    lap('slora_serve')
+    sl_graphs = agent.graphs.stats()
+    served, slot_map, served_model = dict(agent.params), agent.lora_slot_map, agent.model
+    engine.close()
+    del engine, agent
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_engine = new_engine(env={'LMDEPLOY_TPU_FUSE_PROJ': '0'})
+    lap('base_engine')
+    plain_kws = [dict(max_new_tokens=GUIDED_NEW, ignore_eos=True, logprobs=2)] * len(prompts)
+    base, _, _ = serve_rows(base_engine, prompts, plain_kws)
+    lap('base_serve')
+    graphs = base_engine.model_agent.graphs
+    before, captured = graphs.stats(), {k: r.graph for k, r in graphs.runs.items()}
+    merged = {}
+    for name in ('a', 'b'):
+        base_engine.load_lora(name, adapters[name])
+        base_engine.activate_lora(name)
+        merged[name], _, _ = serve_rows(base_engine, prompts, plain_kws)
+    base_engine.deactivate_lora()
+    restored, _, _ = serve_rows(base_engine, prompts, plain_kws)
+    after = graphs.stats()
+    base_engine.close()
+    del base_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap('merges')
+    # each engine's own logprobs against f32 on the weights its rows were served with;
+    # the traps serve the rows with another model (the adapter left out, as with
+    # adapter_name=None or without activate_lora; the adapter where there is none)
+    plans = {None: [('slora_rows', sl, rows_of[None], True),
+                    ('unmerged_rows', restored, list(range(len(prompts))), True),
+                    ('merged_a_rows', merged['a'], rows_of[None], False)],
+             **{n: [('slora_rows', sl, rows_of[n], True),
+                    ('merged_rows', merged[n], rows_of[n], True),
+                    ('base_rows', base, rows_of[n], False)] for n in ('a', 'b')}}
+    f32 = slora_f32_checks(served_model, served, slot_map, adapters, prompts, plans)
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap('f32_checks')
+    sl_tokens = [o.token_ids for o in sl]
+    checks = {
+        'base_rows': margin_differences(sl_tokens, base, rows_of[None], GUIDED_MARGIN_TOL),
+        **{f'merged_{n}': margin_differences(sl_tokens, merged[n], rows_of[n],
+                                             GUIDED_MARGIN_TOL) for n in ('a', 'b')},
+        'unmerged': margin_differences([o.token_ids for o in restored], base,
+                                       range(len(prompts)), GUIDED_MARGIN_TOL)}
+    adapters_move = sum(sl_tokens[i] != base[i].token_ids for i, n in enumerate(which)
+                        if n is not None)
+    # the runs captured before the merges replay the merged leaves: the same graphs
+    merge_replayed = (all(graphs.runs[k].graph is g for k, g in captured.items())
+                      and after['eager_runs'] == 0 and after['replays'] > before['replays'])
+    row['slora'] = {
+        'ranks': SLORA_RANKS, 'budget': budget, 'graphs': sl_graphs, 'f32': f32,
+        'adapter_rows_off_base': adapters_move,
+        'merge_graphs_before_after': [before, after], 'merge_replayed': merge_replayed,
+        **{k: {'differences': d, 'within': ok} for k, (d, ok) in checks.items()}}
+    slora_ok = (f32['ok'] and merge_replayed and adapters_move > 0
+                and sl_graphs['eager_runs'] == 0 and all(ok for _, ok in checks.values()))
+    seconds['slora'] = time.perf_counter() - t_s
+    row['seconds'] = seconds
+    emit(row)
+    if not (guided_ok and slora_ok):
+        raise SystemExit(f'e2e_llama31_8b_guided_slora failed: {row}')
+    return row
+
+
 def kernel_line(flash, decode, decode8, w4, mx, kv, szc, unprep, fp8, cp, mla_quant):
     def entry(name, source, replaces, rows, lead, library_ms):
         return {'name': name, 'route': 'cuda', 'source': f'lmdeploy_tpu_torch/csrc/{source}',
@@ -5738,6 +6407,10 @@ def main():
         {'flash_prefill': (L31, 0), 'paged_decode_cp': (0, 2 * L31)}, info['nvidia_smi'],
         short_len=1024, long_len=16384, exact=True, shared=shared, forbid=('paged_decode',),
         cp=2, combined={'paged_decode_cp': 1}, graphs_check={})
+    # guided decoding, bad words and S-LoRA on the same weights (the last cell to use them:
+    # its merge path writes into the unfused leaves it shares)
+    paths['e2e_llama31_8b_guided_slora'] = timed(
+        'e2e_llama31_8b_guided_slora', guided_slora_phase, info['nvidia_smi'], shared)
     shared.clear()
     # the narrow decode splits every call at the 17-page table (its combine counted in
     # paged_decode's .combines) in the TinyLlama, gpt-oss and Mixtral cells, but for

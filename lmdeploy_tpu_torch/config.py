@@ -300,11 +300,11 @@ class MiscConfig:
 
 
 # TpuEngineConfig fields the port does not read yet: a value other than the default
-# would ask for tensor, data or expert parallelism, KV roles, swap, LoRA, diffusion
-# decoding, MemDecode or model download, none of which the port does ('cp' is served,
-# within the limits check_ported names)
+# would ask for tensor, data or expert parallelism, KV roles, swap, diffusion decoding,
+# MemDecode or model download, none of which the port does ('cp' is served, within the
+# limits check_ported names; 'adapters', the S-LoRA slots, is served by Engine)
 _UNPORTED_FIELDS = ('tp', 'dp', 'ep', 'attn_tp_size', 'mlp_tp_size',
-                    'num_cpu_blocks', 'role', 'adapters',
+                    'num_cpu_blocks', 'role',
                     'dllm_block_length', 'memdecode', 'revision', 'download_dir')
 # the KV cache policies and checkpoint formats the port serves: every KV policy
 # (plain, int8, int4, fp8, TurboQuant), dense, AWQ / GPTQ W4A16, SmoothQuant W8A8 and fp8

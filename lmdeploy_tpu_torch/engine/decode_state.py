@@ -34,6 +34,7 @@ class DecodeState:
     presence_penalty: torch.Tensor    # [Bmax] f32
     do_sample: torch.Tensor      # [Bmax] bool
     seed: torch.Tensor           # [Bmax] i64 holding a u32 seed
+    adapter_id: torch.Tensor     # [Bmax] i32 -- S-LoRA slot (0 = none)
     token_counts: torch.Tensor   # [Bmax+1, V] i32 -- generated-token counts
     prompt_mask: torch.Tensor    # [Bmax+1, V] bool -- tokens present in the prompt
 
@@ -84,7 +85,7 @@ def make_initial_state(max_batch: int, table_width: int, token_counts: torch.Ten
         top_p=ones(torch.float32), min_p=z(torch.float32),
         repetition_penalty=ones(torch.float32), frequency_penalty=z(torch.float32),
         presence_penalty=z(torch.float32), do_sample=z(torch.bool),
-        seed=z(torch.int64), token_counts=token_counts, prompt_mask=prompt_mask)
+        seed=z(torch.int64), adapter_id=z(torch.int32), token_counts=token_counts, prompt_mask=prompt_mask)
 
 
 def host_rows_from_seqs(seqs: List, table_width: int) -> Dict[str, np.ndarray]:
@@ -107,6 +108,7 @@ def host_rows_from_seqs(seqs: List, table_width: int) -> Dict[str, np.ndarray]:
         'presence_penalty': np.zeros(n, np.float32),
         'do_sample': np.zeros(n, bool),
         'seed': np.zeros(n, np.int64),
+        'adapter_id': np.zeros(n, np.int32),
     }
     for i, seq in enumerate(seqs):
         p = seq.sampling_params
@@ -124,4 +126,5 @@ def host_rows_from_seqs(seqs: List, table_width: int) -> Dict[str, np.ndarray]:
         out['presence_penalty'][i] = p.presence_penalty
         out['do_sample'][i] = p.do_sample
         out['seed'][i] = (p.random_seed or 0) & 0xFFFFFFFF
+        out['adapter_id'][i] = getattr(seq, 'adapter_slot', 0)
     return out

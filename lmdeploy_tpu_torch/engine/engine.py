@@ -6,12 +6,17 @@ with the pipelined chain (run N+1 dispatched before run N is drained) and the
 prefill / decode overlap (waiting prefills dispatched behind the in-flight run), the
 budget-aware drain and recompute preemption, and speculative decoding
 (``speculative_config``: ``engine/spec_agent.py``; rows that ask for top logprobs then
-decode one host-driven step at a time), and a hybrid linear-attention model's state
-checkpoints under prefix caching (``engine/ssm_ckpt.py``).  ``LMDEPLOY_TPU_OVERLAP=0`` and
-``LMDEPLOY_TPU_PIPELINE=0`` turn the overlap and the chain off, as in the reference.
-Device steps run on one worker thread so requests keep arriving while the card
-computes.  Later slices bring diffusion and guided decoding, bad words, host swap,
-S-LoRA and sleep / wakeup (see ROADMAP.md).
+decode one host-driven step at a time), a hybrid linear-attention model's state
+checkpoints under prefix caching (``engine/ssm_ckpt.py``), guided decoding
+(``response_format``: JSON mode, a JSON schema or a regex; ``guided*.py``) with the
+reference's speculative grammar acceptance for greedy rows, bad words
+(``bad_token_ids``), and LoRA adapters: per-request S-LoRA slots (``adapters`` on the
+config, ``adapter_name`` on a request) and the merged single adapter (``load_lora``,
+``activate_lora``; ``lora.py``).  ``LMDEPLOY_TPU_OVERLAP=0``, ``LMDEPLOY_TPU_PIPELINE=0``
+and ``LMDEPLOY_TPU_GUIDED_SPEC=0`` turn the overlap, the chain and the grammar acceptance
+off, as in the reference.  Device steps run on one worker thread so requests keep
+arriving while the card computes.  Later slices bring multimodal inputs, diffusion
+decoding, host swap and sleep / wakeup (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -52,11 +57,34 @@ def _is_simple_sampling(p) -> bool:
             and p.frequency_penalty == 0.0 and p.presence_penalty == 0.0)
 
 
-def _host_driven(seq, spec=None) -> bool:
+def _host_driven(seq, spec=None, linear_state: bool = False) -> bool:
     """Rows that run the single-step host path instead of the device decode state
-    (reference :46-77): under speculative decoding, rows that ask for top logprobs (the
-    speculative step computes only each token's own).  The reference's other host-driven
-    rows, guided decoding and bad words, are refused by ``add_message``."""
+    (reference :46-77): rows that need a host-computed mask every step (a guided row's
+    grammar state, a bad-words row), and, under speculative decoding, rows that ask for
+    top logprobs (the speculative step computes only each token's own).
+
+    Speculative grammar acceptance: a GREEDY guided row with neutral penalties and no
+    bad words rides the k-step device runs unmasked; the drain accepts the longest
+    prefix the grammar allows, and one masked host step recovers from the first
+    rejection (``_guided_recover``).  The masked argmax is the argmax whenever the
+    argmax is legal, and the recovery step picks what per-step masking would, so the
+    tokens are those of per-step masking.  Not under speculative decoding, not for a
+    row whose acceptance EMA fell below 2 tokens a run, not with
+    LMDEPLOY_TPU_GUIDED_SPEC=0, and not on a hybrid linear-attention model
+    (``linear_state``): a device run advances a row's recurrent state through every
+    token of the run, rejected ones included, and nothing rolls it back, so there the
+    port takes the reference's per-step path (ROADMAP.md section 3)."""
+    if seq.guided is not None:
+        if (spec is None and not linear_state
+                and _is_simple_sampling(seq.sampling_params)
+                and not seq.sampling_params.bad_token_ids
+                and not getattr(seq, '_guided_recover', False)
+                and getattr(seq, '_guided_ema', 1e9) >= 2.0
+                and os.environ.get('LMDEPLOY_TPU_GUIDED_SPEC', '1') != '0'):
+            return False
+        return True
+    if seq.sampling_params.bad_token_ids:
+        return True
     return spec is not None and seq.sampling_params.logprobs > 0
 
 
@@ -105,9 +133,15 @@ class Engine:
                               devices=None if dev.type == 'cuda'
                               else [dev] * dist.world_size)
         self.mesh = mesh
+        adapters = getattr(engine_config, 'adapters', None)
+        if adapters and speculative_config is not None:
+            raise NotImplementedError('S-LoRA adapters under speculative decoding: the '
+                                      'speculative step reads no adapter ids')
+        # S-LoRA: the agent attaches the adapters' slot stacks (reference :143-145)
         self.model_agent = ModelAgent(
             configs, model_path if not configs.misc.empty_init else None,
-            device=device, mesh=mesh)
+            device=device, mesh=mesh, adapters=adapters)
+        self._lora = None                   # the merged single adapter (load_lora)
         self.scheduler = Scheduler(configs.scheduler, configs.cache,
                                    num_blocks=self.model_agent.num_blocks)
         # a hybrid linear-attention model's prefix caching: KV pages alone cannot
@@ -191,13 +225,11 @@ class Engine:
 
     def add_message(self, session_id: int, token_ids: List[int],
                     sampling_params: SamplingParams, mm_data=None) -> asyncio.Queue:
-        """Enqueue a generation request; returns the per-request output queue."""
+        """Enqueue a generation request; returns the per-request output queue.
+        ``sampling_params.response_format`` asks for guided decoding (reference
+        :401-441), ``adapter_name`` for an S-LoRA slot (:392-400)."""
         if mm_data:
             raise NotImplementedError('multimodal inputs are not ported yet')
-        if sampling_params.response_format or sampling_params.bad_token_ids:
-            raise NotImplementedError('guided decoding and bad words are not ported yet')
-        if sampling_params.adapter_name:
-            raise NotImplementedError('LoRA adapters are not ported yet')
         self.add_session(session_id)
         session = self.scheduler.seq_manager.get_session(session_id)
         max_len = self.configs.scheduler.max_session_len
@@ -211,12 +243,60 @@ class Engine:
             seq.status = MessageStatus.WAITING
         else:
             seq = session.add_sequence(token_ids, sampling_params)
+        aname = sampling_params.adapter_name
+        if aname:
+            slot_map = getattr(self.model_agent, 'lora_slot_map', None) or {}
+            if aname not in slot_map:
+                raise ValueError(f'unknown adapter {aname!r}; loaded: {sorted(slot_map)}')
+            seq.adapter_slot = slot_map[aname]
+        else:
+            seq.adapter_slot = 0
+        guide = self._make_guide(sampling_params)
+        if guide is not None:
+            seq.guided = guide
         queue: asyncio.Queue = asyncio.Queue()
         self._requests[seq.seq_id] = _ActiveRequest(
             seq=seq, queue=queue, loop=asyncio.get_running_loop())
         self._ensure_loop()
         self._new_work.set()
         return queue
+
+    def _make_guide(self, sampling_params):
+        """The grammar state of a ``response_format`` (reference :401-441): a regex
+        (``regex_schema``, the pattern under 'regex_schema' or 'regex'), a JSON schema
+        (``json_schema``, the schema dict under json_schema.schema or schema) or any
+        JSON value (``json_object``); None for no format.  EOS is the request's stop
+        ids, else the model's."""
+        fmt = sampling_params.response_format or {}
+        kind = fmt.get('type')
+        if kind not in ('regex_schema', 'json_object', 'json_schema'):
+            return None
+        if self.tokenizer is None:
+            raise ValueError('guided decoding requires a tokenizer-backed engine')
+        eos = sampling_params.stop_token_ids or self.configs.model.eos_token_id
+        vocab = self.configs.model.vocab_size
+        if kind == 'regex_schema':
+            pattern = fmt.get('regex_schema') or fmt.get('regex')
+            if not isinstance(pattern, str) or not pattern:
+                raise ValueError("response_format type 'regex_schema' requires a pattern "
+                                 "string under 'regex_schema'")
+            from ..guided_regex import RegexGuide
+            return RegexGuide(self.tokenizer, vocab, eos, pattern)
+        if kind == 'json_schema':
+            spec = fmt.get('json_schema') or {}
+            schema = spec.get('schema') if isinstance(spec, dict) else None
+            if schema is None:
+                schema = fmt.get('schema')
+            if not isinstance(schema, dict):
+                raise ValueError("response_format type 'json_schema' requires a schema "
+                                 "dict under json_schema.schema")
+            from ..guided_schema import SchemaGuide
+            return SchemaGuide(self.tokenizer, vocab, eos, schema)
+        from ..guided import JsonGuide
+        return JsonGuide(self.tokenizer, vocab, eos)
+
+    def _host(self, seq) -> bool:
+        return _host_driven(seq, self.spec, self.model_agent.has_linear_state)
 
     # -- main loop --------------------------------------------------------------------
     def _ensure_loop(self):
@@ -249,11 +329,11 @@ class Engine:
                 self._new_work.clear()
                 await self._new_work.wait()
                 continue
-            # overlap mode flips to decode-priority while rows decode: waiting
-            # prefills dispatch BEHIND the run (see _decode_run_fast) instead of
-            # collapsing it to k=1; speculative steps dispatch nothing behind them
+            # overlap mode flips to decode-priority while rows decode on the device:
+            # waiting prefills dispatch BEHIND the run (see _decode_run_fast) instead
+            # of collapsing it to k=1; speculative steps dispatch nothing behind them
             prefer_decode = (self._overlap and self.spec is None
-                             and bool(self.scheduler.running))
+                             and any(not self._host(s) for s in self.scheduler.running))
             out = self.scheduler.schedule(prefer_decode=prefer_decode)
             if out.is_empty and self.scheduler.waiting:
                 # finished-but-undrained sequences may still pin blocks
@@ -294,6 +374,8 @@ class Engine:
                 seq = chunk.seq
                 if not seq.metrics.first_token_time:
                     seq.metrics.first_token_time = time.time()
+                if seq.guided is not None:
+                    seq.guided.accept_token(int(tokens[i]))
                 self._post_token(seq, float(logprobs[i]), top_logprobs=_row_top(top, i, seq))
         if self._ssm_ckpt is not None:
             await self._publish_ssm_ckpts(chunks, loop)
@@ -301,7 +383,7 @@ class Engine:
         # stay out of it
         new_running = [c.seq for c in chunks
                        if c.is_last and c.seq.status == MessageStatus.RUNNING
-                       and not _host_driven(c.seq, self.spec)]
+                       and not self._host(c.seq)]
         if new_running:
             self.model_agent.insert_decode_rows(new_running)
             for s in new_running:
@@ -325,8 +407,8 @@ class Engine:
     async def _decode_run(self, seqs, loop):
         """One decode round: host-driven rows take one host step each; the others a
         speculative step, or k-step device decode runs."""
-        host_seqs = [s for s in seqs if _host_driven(s, self.spec)]
-        seqs = [s for s in seqs if not _host_driven(s, self.spec)]
+        host_seqs = [s for s in seqs if self._host(s)]
+        seqs = [s for s in seqs if not self._host(s)]
         if seqs:
             if self.spec is not None:
                 await self._decode_step_spec(seqs, loop)
@@ -370,8 +452,11 @@ class Engine:
             agent.deactivate_rows(stopped)
 
     async def _decode_step_host(self, seqs, loop):
-        """One host-driven decode step (reference :1025): these rows never enter the
-        device decode state."""
+        """One host-driven decode step, each row's logits masked by its banned ids or
+        its grammar state (reference :1025-1052).  A guided row that this step recovered
+        from a rejection rejoins the device decode runs: its flag is cleared and its
+        row re-inserted, which writes its stale device row (token, position, table,
+        sampling parameters, adapter) in place, where the captured runs read it."""
         seqs = [s for s in seqs if s.status == MessageStatus.RUNNING]
         if not seqs:
             return
@@ -380,8 +465,20 @@ class Engine:
         logprobs = step.logprobs_np()
         top = step.top_np()
         for i, seq in enumerate(seqs):
-            self.scheduler.on_decode_done(seq, int(tokens[i]))
+            tok = int(tokens[i])
+            self.scheduler.on_decode_done(seq, tok)
+            if seq.guided is not None:
+                seq.guided.accept_token(tok)
             self._post_token(seq, float(logprobs[i]), top_logprobs=_row_top(top, i, seq))
+        recovered = [s for s in seqs if getattr(s, '_guided_recover', False)]
+        for s in recovered:
+            s._guided_recover = False
+        back = [s for s in recovered
+                if s.status == MessageStatus.RUNNING and not self._host(s)]
+        if back:
+            self.model_agent.insert_decode_rows(back)
+            for s in back:
+                s._synced_blocks = len(s.logical_blocks)
 
     async def _decode_run_fast(self, seqs, loop):
         """k-step device decode runs: reserve capacity for k more tokens a row, push
@@ -450,9 +547,18 @@ class Engine:
             step = next_step
             if stopped:
                 break
+            # after a grammar rejection that row's chained tokens are garbage (the
+            # drain discards them): break, so that its recovery step runs now
+            if any(getattr(s, '_guided_recover', False) for s in survivors):
+                break
         stopped = await self._drain_run(step, survivors, loop)
-        if stopped:
-            agent.deactivate_rows(stopped)
+        # rows awaiting a guided recovery leave the device runs until the masked host
+        # step re-inserts them (their device rows are stale past the rejection)
+        recover = [s.batch_slot for s in survivors
+                   if getattr(s, '_guided_recover', False) and s.batch_slot >= 0
+                   and s.status == MessageStatus.RUNNING]
+        if stopped or recover:
+            agent.deactivate_rows(stopped + recover)
         if overlap is not None:
             await self._handle_prefill_results(*overlap, loop)
 
@@ -510,10 +616,37 @@ class Engine:
     # -- token post-processing --------------------------------------------------------
     def _drain_decode_tokens(self, seq: SchedulerSequence, toks, lps, tops=None):
         """Post one decode run's [k] tokens for one seq: vectorised stop scan, one
-        bulk append, at most one response chunk."""
+        bulk append, at most one response chunk.  A guided row keeps the longest
+        prefix its grammar accepts (an EOS only where ``allowed_mask`` permits it); a
+        rejection flags it for one masked host step, ``_guided_recover``, and its
+        acceptance EMA is ``0.5 * prev + 0.5 * accepted`` (reference :1072-1100).  A row
+        already flagged drops the whole run (a pipelined run chained past its
+        rejection) without touching its grammar state."""
         p = seq.sampling_params
         req = self._requests.get(seq.seq_id)
         n_out = len(seq.output_ids)
+        guide = seq.guided
+        if guide is not None and getattr(seq, '_guided_recover', False):
+            return
+        if guide is not None:
+            eos_ids = set(getattr(guide, 'eos_token_ids', ()) or ())
+            n_ok = 0
+            for t in toks:
+                ti = int(t)
+                if ti in eos_ids:
+                    ok = bool(guide.allowed_mask()[ti]) and guide.accept_token(ti)
+                else:
+                    ok = guide.accept_token(ti)
+                if not ok:
+                    seq._guided_recover = True
+                    break
+                n_ok += 1
+            seq._guided_ema = (0.5 * getattr(seq, '_guided_ema', float(len(toks)))
+                               + 0.5 * n_ok)
+            if n_ok < len(toks):
+                toks, lps = toks[:n_ok], lps[:n_ok]
+                if tops is not None:
+                    tops = (tops[0][:n_ok], tops[1][:n_ok])
         max_len = self.configs.scheduler.max_session_len
         take = max(int(min(len(toks), p.max_new_tokens - n_out,
                            max_len - seq.num_token_ids)), 0)
@@ -626,6 +759,25 @@ class Engine:
             req.loop.call_soon_threadsafe(req.queue.put_nowait, out)
             req.finished = True
         self._requests.clear()
+
+    # -- LoRA adapters, merged (reference :1269-1281; lora.py LoraManager) --------------
+    def load_lora(self, name: str, adapter):
+        """Load an adapter for merging: a PEFT directory, or its parsed
+        ``(weights, scaling)`` (``lora.load_peft_adapter``'s result)."""
+        if self._lora is None:
+            from ..lora import LoraManager
+            self._lora = LoraManager(self.model_agent)
+        self._lora.load(name, adapter)
+
+    def activate_lora(self, name: str):
+        """Merge ``name`` into the served weights, in place (the captured decode runs
+        read the merged values); the active one is unmerged first."""
+        assert not self.scheduler.has_unfinished(), 'adapter swap requires a drained engine'
+        self._lora.activate(name)
+
+    def deactivate_lora(self):
+        if self._lora is not None:
+            self._lora.deactivate()
 
     # -- lifecycle --------------------------------------------------------------------
     def close(self):

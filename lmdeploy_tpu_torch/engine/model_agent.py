@@ -18,7 +18,10 @@ so dispatching a step never waits for the card.  There is no donation: every cac
 state update is in place.  A hybrid linear-attention model's steps also pass each row's
 batch slot and whether its chunk starts the sequence (``AttnMeta.slot_rows`` /
 ``reset_rows``), and its state snapshots and restores for prefix caching
-(``snapshot_slot_state``, ``_apply_ssm_restores``) run on the agent's stream.
+(``snapshot_slot_state``, ``_apply_ssm_restores``) run on the agent's stream.  With
+S-LoRA slot stacks attached (``enable_slora``) every step passes each row's adapter slot:
+a prefill or host step from its sequence, a decode run from the state's ``adapter_id``
+leaf, which the captured runs read.
 """
 from __future__ import annotations
 
@@ -130,12 +133,15 @@ def ragged_min_rows(params) -> Optional[int]:
 class ModelAgent:
 
     def __init__(self, configs: EngineConfigBundle, model_path: Optional[str] = None,
-                 device=None, init_seed: int = 42, mesh=None):
+                 device=None, init_seed: int = 42, mesh=None, adapters=None):
         """``mesh`` (``parallel.mesh.Mesh``): the model runs on its first device and
         the KV cache is striped over its 'cp' ranks; ``device``, if given too, must be
-        that first device."""
+        that first device.  ``adapters`` (name -> PEFT directory or parsed pair) serve
+        S-LoRA (``enable_slora``)."""
         cfg = configs.model
         self.model = build_model(cfg)    # sets a hybrid model's num_cache_layers
+        if adapters:
+            self._check_slora()
         if mesh is not None:
             self.device = mesh.devices[0]
             if device is not None and resolve_device(device) != self.device:
@@ -163,13 +169,17 @@ class ModelAgent:
         else:
             from ..weight_loader import load_params
             params = load_params(self.model, model_path, self.device)
-        self.params = self.prepare_params(self.model, params)
+        # S-LoRA adds to each projection's output: its leaves stay unfused
+        self.params = self.prepare_params(self.model, params, fuse=not adapters)
+        if adapters:
+            self.enable_slora(adapters)
 
         cos, sin = make_rope_table(cfg.rope_dim, self.max_model_len, cfg.rope_theta,
                                    cfg.rope_scaling, device=self.device)
         self.rope_cos, self.rope_sin = cos, sin
 
-        # after the weights are resident, so the free-memory budget sees them (and a
+        # after the weights (and S-LoRA stacks) are resident, so the free-memory
+        # budget sees them (and a
         # hybrid model's per-slot state, allocated first: max_batch + 1 slots, the
         # last the garbage row of padding rows)
         self.has_linear_state = getattr(self.model, 'has_linear_state', False)
@@ -219,21 +229,55 @@ class ModelAgent:
             capture=cuda and not self.eager_mode,
             eager_reason=lambda key: self._eager_reason(key, cp_devices, ragged))
 
-    def prepare_params(self, model, params):
+    def prepare_params(self, model, params, fuse: bool = True):
         """A loaded tree in the form the agent serves it: one wide qkv GEMM and one
-        gate/up GEMM per layer, unless LMDEPLOY_TPU_FUSE_PROJ=0; W4A16 linears then take
+        gate/up GEMM per layer, unless LMDEPLOY_TPU_FUSE_PROJ=0 or not ``fuse``
+        (S-LoRA); W4A16 linears then take
         a schedule's prepared form unless LMDEPLOY_TPU_W4_STACKED=0 (they stay
         unprepared: raw scales and zeros): the group-dot 'gd' by default, 'fast' with
         LMDEPLOY_TPU_W4_FAST=1, or the one LMDEPLOY_TPU_W4_SCHED names (reference
         model_agent.py:129-149).  Neither on a mesh, as in the reference.  A speculative
         draft model's tree takes the same form."""
-        if self.mesh is None and os.environ.get('LMDEPLOY_TPU_FUSE_PROJ', '1') != '0':
+        if (fuse and self.mesh is None
+                and os.environ.get('LMDEPLOY_TPU_FUSE_PROJ', '1') != '0'):
             params = model.fuse_projections(params)
         if self.mesh is None and os.environ.get('LMDEPLOY_TPU_W4_STACKED', '1') != '0':
             fast = os.environ.get('LMDEPLOY_TPU_W4_FAST', '0') == '1'
             sched = os.environ.get('LMDEPLOY_TPU_W4_SCHED', 'gd' if not fast else '') or None
             params = model.prep_quant_leaves(params, fast=fast, mode=sched)
         return model.layout_quant_leaves(params)
+
+    def _check_slora(self):
+        """S-LoRA runs where the reference's does, in ``LlamaModel.forward`` with its
+        silu gated MLP: a family with its own forward, or with its own MLP over
+        ``w_gate`` leaves (Gemma's gelu), raises NotImplementedError naming it."""
+        from ..models.llama import LlamaModel
+        model = type(self.model)
+        own_mlp = (model._mlp is not LlamaModel._mlp
+                   and 'w_gate' in self.model.param_shapes()['layers'])
+        if model.forward is not LlamaModel.forward or own_mlp:
+            where = 'LlamaModel.forward' if not own_mlp else "LlamaModel's silu MLP"
+            raise NotImplementedError(
+                f'S-LoRA over {model.__name__} ({self.model.config.hf_arch}): the '
+                f'reference applies adapters only in {where}')
+
+    def enable_slora(self, adapters):
+        """Load adapters into S-LoRA slot stacks (reference :544-567): ``adapters``
+        maps each name to a PEFT directory or its parsed ``(weights, scaling)``
+        (``lora.py``).  The stacks ride as ``params['lora']``, and each row's
+        ``adapter_ids`` entry (0: none) picks its pair in the forward; the names'
+        slots are ``lora_slot_map``.  ``__init__`` calls it on the unfused tree (the
+        reference unfuses here), before the KV cache takes its share of the free
+        memory and before any decode run is captured."""
+        from ..lora import build_slora_stacks
+        stacks, slot_map = build_slora_stacks(self.model, adapters, device=self.device)
+        self.params = dict(self.params, lora=stacks)
+        self.lora_slot_map = slot_map
+
+    def _adapter_kw(self, ids) -> dict:
+        """The forward's ``adapter_ids`` (``ids()``) when S-LoRA stacks are attached;
+        nothing otherwise (a model with its own forward takes no such argument)."""
+        return {'adapter_ids': ids()} if 'lora' in self.params else {}
 
     def _eager_reason(self, key, cp_devices, ragged) -> Optional[str]:
         """``eager_reason`` of a run key: a speculative step's verify rows against the
@@ -315,6 +359,7 @@ class ModelAgent:
         history_lens = np.zeros(B, np.int32)
         q_lens = np.zeros(B, np.int32)
         slot_rows = np.full(B, self.max_batch, np.int64)   # garbage row for padding
+        adapter_ids = np.zeros(B, np.int32)                # S-LoRA slot, 0 for none
         reset_rows = np.zeros(B, bool)
         counts_reset = np.zeros(B, bool)
         valid_mask = np.zeros(B, bool)
@@ -327,6 +372,7 @@ class ModelAgent:
             history_lens[i] = start
             q_lens[i] = length
             slot_rows[i] = self.assign_slot(seq)
+            adapter_ids[i] = getattr(seq, 'adapter_slot', 0)
             # a hybrid model's first chunk zeroes the slot's linear state
             reset_rows[i] = reset[i]
             # a seq's first chunk in its current lifetime clears the slot's
@@ -357,7 +403,8 @@ class ModelAgent:
             ids = dev(input_ids)
             logits = self.model.forward(self.params, ids, dev(positions), self.kv_cache,
                                         meta, self.rope_cos, self.rope_sin,
-                                        fresh_prefill=fresh)
+                                        fresh_prefill=fresh,
+                                        **self._adapter_kw(lambda: dev(adapter_ids)))
             reset_t = dev(counts_reset)[:, None]
             rows = torch.where(reset_t, torch.zeros_like(self.token_counts[slots]),
                                self.token_counts[slots])
@@ -507,7 +554,8 @@ class ModelAgent:
                 positions = row['position'].clamp(0, self.max_model_len - 1)[:, None]
                 logits = self.model.forward(self.params, row['token'][:, None], positions,
                                             self.kv_cache, meta, self.rope_cos,
-                                            self.rope_sin)
+                                            self.rope_sin,
+                                            **self._adapter_kw(lambda: row['adapter_id']))
                 if simple:
                     tokens = torch.argmax(logits, dim=-1).int()
                     lp_all = torch.log_softmax(logits, dim=-1)

@@ -509,7 +509,8 @@ class LlamaModel:
                 rope_cos: torch.Tensor, rope_sin: torch.Tensor,
                 return_all_logits: bool = False,
                 fresh_prefill: bool = False, return_hidden: bool = False,
-                return_aux_hidden: bool = False):
+                return_aux_hidden: bool = False,
+                adapter_ids: Optional[torch.Tensor] = None):
         """One step over a [B, T] chunk (decode is T == 1); writes the chunk's K/V
         into ``kv_cache`` in place.  Returns f32 logits [B, V] at each row's last
         valid token, or [B, T, V] with ``return_all_logits``.  For speculative decoding
@@ -517,7 +518,16 @@ class LlamaModel:
         ``return_hidden`` the pre-final-norm hidden state (EAGLE), at the same positions
         as the logits; with ``return_aux_hidden`` and ``return_all_logits`` the outputs
         of the layers ``aux_hidden_layers`` (clipped to the model's), concatenated
-        [B, T, n*H] (EAGLE-3)."""
+        [B, T, n*H] (EAGLE-3).
+
+        S-LoRA (reference :594-606): with slot stacks attached as ``params['lora']``
+        (``ModelAgent.enable_slora``; {target: {'a' [L, S, in, rp], 'b' [L, S, rp,
+        out]}}), each row's projection output adds ``(x @ a[id]) @ b[id]`` for its
+        ``adapter_ids`` entry [B] (None: slot 0, no adapter), in f32, rounded to the
+        output's dtype before the add.  The adapters reach wq / wk / wv / wo where those
+        leaves are unfused, and the gated MLP where ``w_gate`` is a leaf, whose
+        product then runs in f32 as the reference's does (silu(gate) * up, rounded
+        once); other MLPs (experts, StarCoder2's) take none."""
         cfg = self.config
         B, T = input_ids.shape
         D = cfg.head_dim
@@ -537,6 +547,21 @@ class LlamaModel:
         lp = params['layers']
         windows = self.layer_windows or [cfg.sliding_window] * cfg.num_layers
         taps: List[torch.Tensor] = []
+        lora = params.get('lora')
+        if lora is not None and adapter_ids is None:
+            adapter_ids = torch.zeros(B, dtype=torch.long, device=input_ids.device)
+        if lora is not None:
+            adapter_ids = adapter_ids.long()
+        lw = None
+
+        def lin(x_, w, name, bias=None):
+            y = linear(x_, w[name], bias)
+            if lw is not None and name in lw:
+                a = lw[name]['a'][adapter_ids]                 # [B, in, rp]
+                b = lw[name]['b'][adapter_ids]                 # [B, rp, out]
+                t = torch.bmm(x_.float(), a)
+                y = y + torch.bmm(t, b).to(y.dtype)
+            return y
 
         def branch_out(out, norm):
             if norm is not None:
@@ -547,8 +572,14 @@ class LlamaModel:
         for layer in range(cfg.num_layers):
             w = {name: {k: a[layer] for k, a in t.items()} if isinstance(t, dict)
                  else t[layer] for name, t in lp.items()}
+            if lora is not None:
+                lw = {name: {k: a[layer] for k, a in ab.items()} for name, ab in lora.items()}
             x = self._norm(hidden, w['attn_norm'], w.get('attn_norm_b'), cfg.rms_norm_eps)
-            q, k, v = self._qkv(w, x)
+            if lw is not None and 'wqkv' not in w:
+                q, k, v = (lin(x, w, n, w.get(b))
+                           for n, b in (('wq', 'bq'), ('wk', 'bk'), ('wv', 'bv')))
+            else:
+                q, k, v = self._qkv(w, x)
             q = q.reshape(B, T, Hq, D)
             k = k.reshape(B, T, Hkv, D)
             v = v.reshape(B, T, Hkv, D)
@@ -565,10 +596,15 @@ class LlamaModel:
                                    window_size=windows[layer] or None,
                                    chunk_kv=(k, v), fresh_prefill=fresh_prefill,
                                    sinks=w.get('sinks'), cp_mesh=self.cp_mesh)
-            out = linear(attn.reshape(B, T, self.q_out), w['wo'], w.get('bo'))
+            out = lin(attn.reshape(B, T, self.q_out), w, 'wo', w.get('bo'))
             hidden = hidden + branch_out(out, w.get('post_attn_norm'))
             x = self._norm(hidden, w['mlp_norm'], w.get('mlp_norm_b'), cfg.rms_norm_eps)
-            hidden = hidden + branch_out(self._mlp(w, x), w.get('post_mlp_norm'))
+            if lw is not None and 'w_gate' in w:
+                act = F.silu(lin(x, w, 'w_gate').float()) * lin(x, w, 'w_up').float()
+                out = lin(act.to(x.dtype), w, 'w_down')
+            else:
+                out = self._mlp(w, x)
+            hidden = hidden + branch_out(out, w.get('post_mlp_norm'))
             if return_aux_hidden:
                 taps.append(hidden)
         prenorm = hidden

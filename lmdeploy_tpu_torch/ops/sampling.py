@@ -47,7 +47,9 @@ class SamplingInputs:
         """Pack per-sequence SamplingParams into flat numpy arrays (host side).
 
         Per-row seeds derive from (random_seed, tokens generated so far), as in
-        the reference, so a replayed request reproduces its samples."""
+        the reference, so a replayed request reproduces its samples.  A row's banned
+        ids (``bad_token_ids``) make up its ``bad_words_mask``; for a guided row the tokens
+        its grammar state does not allow (``~seq.guided.allowed_mask()``) do instead."""
         n = len(seqs)
         temperature = np.ones(n, np.float32)
         top_k = np.zeros(n, np.int32)
@@ -58,7 +60,7 @@ class SamplingInputs:
         pres = np.zeros(n, np.float32)
         do_sample = np.zeros(n, bool)
         seeds = np.zeros(n, np.int64)
-        bad_rows = []
+        bad_mask = None
         max_lp = 0
         for i, seq in enumerate(seqs):
             p = seq.sampling_params
@@ -72,14 +74,15 @@ class SamplingInputs:
             do_sample[i] = p.do_sample
             n_out = getattr(seq, 'num_output_tokens', 0)
             seeds[i] = ((p.random_seed or 0) + (n_out + 1) * GOLDEN) & _MASK32
-            if p.bad_token_ids:
-                bad_rows.append((i, p.bad_token_ids))
+            guide = getattr(seq, 'guided', None)
+            if guide is not None or p.bad_token_ids:
+                if bad_mask is None:
+                    bad_mask = np.zeros((n, vocab_size), dtype=bool)
+                if guide is not None:   # replaces the row's banned ids (reference :76-85)
+                    bad_mask[i] = ~guide.allowed_mask()
+                else:
+                    bad_mask[i, [t for t in p.bad_token_ids if 0 <= t < vocab_size]] = True
             max_lp = max(max_lp, p.logprobs if p.logprobs > 0 else 0)
-        bad_mask = None
-        if bad_rows:
-            bad_mask = np.zeros((n, vocab_size), dtype=bool)
-            for i, ids in bad_rows:
-                bad_mask[i, [t for t in ids if 0 <= t < vocab_size]] = True
         return cls(temperature=temperature, top_k=top_k, top_p=top_p, min_p=min_p,
                    repetition_penalty=rep, frequency_penalty=freq,
                    presence_penalty=pres, do_sample=do_sample, seeds=seeds,

@@ -25,6 +25,7 @@ by key); the port drops the reference's 128-lane row padding everywhere:
     head-major row P) against the port's token rows, and its meta
     ``[L, NB, 2, 2, Hkv, BS]`` (the never-written V slot 1 is zero) against the port's
     ``[L, NB, BS, 3, Hkv]``.
+S-LoRA slot stacks convert as they are (``slora_stacks_from_reference``).
 The functions take and give numpy arrays on the reference side, so callers need not
 import jax.
 """
@@ -77,6 +78,15 @@ def params_from_jax(params_np: Dict, dtype=None, device='cpu') -> Dict:
         else:
             out[k] = _to_torch(v, dtype, device)
     return out
+
+
+def slora_stacks_from_reference(stacks_np: Dict, device='cpu') -> Dict:
+    """The reference's S-LoRA slot stacks (``lora.build_slora_stacks``: {target: {'a'
+    [L, S, in, rp], 'b' [L, S, rp, out]}} in f32 numpy) -> the port's: the same layout as
+    f32 tensors on ``device``, bit for bit (each layer's rows gather ``a[adapter_ids]``,
+    ``b[adapter_ids]`` as there)."""
+    return {t: {k: _to_torch(np.asarray(v, np.float32), device=device)
+                for k, v in ab.items()} for t, ab in stacks_np.items()}
 
 
 def cache_from_reference(cache_np, num_kv_heads: int, head_dim: int, device='cpu'):

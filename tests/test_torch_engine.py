@@ -99,7 +99,7 @@ def test_sampled_requests_are_seeded(tiny_model_dir):
 @pytest.mark.parametrize('field', [
     dict(tp=2), dict(dp=2), dict(ep=2), dict(cp=2, quant_policy=4), dict(attn_tp_size=2),
     dict(num_cpu_blocks=16), dict(mlp_tp_size=2), dict(model_format='mxfp4'),
-    dict(role='prefill'), dict(adapters={'a': 'path'}),
+    dict(role='prefill'), dict(download_dir='/nonexistent'),
     dict(dllm_block_length=4), dict(memdecode={'memory_model_path': 'path'}),
     dict(revision='main')])
 def test_unported_engine_config_raises(tiny_model_dir, field):
