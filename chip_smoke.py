@@ -217,6 +217,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  tokens, and past it for the traps (rows served with the adapter left
                  out, or added where there is none).  flash_prefill and paged_decode
                  launch exactly once a layer of each fresh prefill and decode step.
+  logits_ppl_reward -- scoring without generation, through AsyncEngine (from_engine):
+                 Llama-3.1-8B at L31 layers on the same weights (before the guided cell
+                 writes into them), session 10,240: async_get_ppl over 16 seeded texts
+                 of 256-2,048 ids and one of 10,000 (8,192 fresh, then 1,808 over the
+                 cache), async_get_logits over three of them; every per-position NLL and
+                 the logits within NLL_TOL / LOGITS_TOL of f32 on the same weights (one
+                 pass over each whole text, plain versions), with three planted traps
+                 (the second chunk's positions restarted, its history ignored, the NLL
+                 against unshifted targets) past them; exactly one flash_prefill a
+                 layer of each text's first chunk and no other launch; 64 greedy
+                 128-token requests on graphs, alone and with the 17 ppl requests
+                 issued while they decode: tokens and ppl equal bit for bit.  Then
+                 Qwen2.5-Math-RM-72B and internlm2-7b-reward (2 layers, seeded):
+                 async_get_reward_score over 16 prompts of 64-2,048 ids within
+                 REWARD_TOL of f32 relative to the scores' spread, traps past it (ReLU
+                 left out, the first position's score; h unrounded reported).
 Parity rows and depths cut for the script's time are listed in PERF.md section 4.
 The line before the last lists every kernel; the last line is the result.
 It imports nothing of jax or lmdeploy_tpu.
@@ -2938,6 +2954,11 @@ KV_LABELS = {0: 'bf16 KV', 4: 'int8 KV', 8: 'int4 KV', 16: 'fp8-e4m3 KV',
 
 
 def model_label(model, policy: int = 0) -> str:
+    if model.hf_arch.endswith('ForRewardModel'):
+        name = {8192: 'qwen2.5-math-rm-72b', 4096: 'internlm2-7b-reward'}.get(
+            model.hidden_size, 'reward model')
+        return (f'{name} geometry, {model.num_layers} layers, bf16 + its score head + '
+                f'{KV_LABELS[policy]}, random seeded weights')
     if model.hf_arch in ('Qwen3NextForCausalLM', 'Qwen3_5MoeForConditionalGeneration'):
         return (f'qwen3-next-80b-a3b geometry, {model.num_layers} layers (gated-DeltaNet and '
                 f'gated full attention, {model.num_experts} experts), bf16 experts + '
@@ -6183,6 +6204,429 @@ def guided_slora_phase(card: str, shared: dict) -> dict:
     return row
 
 
+# -- logits, ppl and reward scores --------------------------------------------------------
+# the scoring path: ModelAgent.compute_logits / compute_nll through AsyncEngine's
+# async_get_logits / async_get_ppl / async_get_reward_score, prefill only (a text's
+# first chunk on flash_prefill, later chunks over the cache on the gathered path)
+PPL_TEXTS = 16                   # seeded texts of 256-2,048 ids, then one long text
+PPL_LENS = (256, 2048)
+PPL_LONG = 10000                 # 8,192 fresh, then 1,808 over a history of 8,192
+PPL_SESSION = 10240
+PPL_BLOCKS = 640
+LOGITS_OF = (0, 8, PPL_TEXTS)    # the texts async_get_logits runs on, the long one last
+PPL_SERVE = (64, 128, 32)        # the concurrent greedy batch: rows, prompt, tokens
+# the engine's bf16 logits and per-position NLL against f32 on the same weights (the card's
+# plain versions, one pass over each whole text).  The first card run read (H100 80GB
+# HBM3, 700 W): logits 0.1084 / 0.1176 / 0.1456 over the three texts (10,000 x 128,256
+# values the last), NLL 0.0884 over the 17 texts; the traps 9.910 (positions restart),
+# 10.833 (history ignored), 7.766 nats (unshifted targets).  The allowances sit about 2x
+# above the floor, 30x below the mildest trap
+LOGITS_TOL = 0.3
+NLL_TOL = 0.2
+PPL_TRAPS = ('positions_restart', 'history_ignored', 'nll_unshifted')
+PPL_REPORTED = ()
+# the published configs of two reward models (the config.json fields the port reads)
+QWEN25_MATH_RM_72B = {
+    'architectures': ['Qwen2ForRewardModel'], 'model_type': 'qwen2',
+    'hidden_size': 8192, 'intermediate_size': 29568, 'num_hidden_layers': 80,
+    'num_attention_heads': 64, 'num_key_value_heads': 8, 'vocab_size': 152064,
+    'max_position_embeddings': 4096, 'rms_norm_eps': 1e-06, 'rope_theta': 1000000.0,
+    'tie_word_embeddings': False, 'torch_dtype': 'bfloat16'}
+INTERNLM2_7B_REWARD = {
+    'architectures': ['InternLM2ForRewardModel'], 'model_type': 'internlm2',
+    'hidden_size': 4096, 'intermediate_size': 14336, 'num_hidden_layers': 32,
+    'num_attention_heads': 32, 'num_key_value_heads': 8, 'vocab_size': 92544,
+    'max_position_embeddings': 32768, 'rms_norm_eps': 1e-05, 'rope_theta': 1000000.0,
+    'bias': False, 'tie_word_embeddings': False, 'torch_dtype': 'bfloat16'}
+REWARD_CONFIGS = {'qwen25_math_rm_72b': QWEN25_MATH_RM_72B,
+                  'internlm2_7b_reward': INTERNLM2_7B_REWARD}
+LREWARD = 2
+REWARD_PROMPTS = 16
+REWARD_LENS = (64, 2048)
+# bf16 scores against f32 on the same weights, relative to the f32 scores' spread (their
+# std over the 16 prompts).  The first card run read 0.0576 (Qwen2.5-Math-RM-72B, spread
+# 2.03) and 0.0261 (internlm2-7b-reward, spread 1.21); the traps 2.41 (ReLU left out),
+# 2.61 and 4.23 (the first position's score); h left unrounded before w2 read 0.0585, the
+# floor itself (it moves only bf16 rounding), so it is reported, not held
+REWARD_TOL = 0.15
+REWARD_TRAPS = {'qwen25_math_rm_72b': ('relu_left_out', 'first_position', 'h_unrounded'),
+                'internlm2_7b_reward': ('first_position',)}
+REWARD_REPORTED = ('h_unrounded',)
+
+
+def _f32_logits(model32, tree32, ids) -> torch.Tensor:
+    """f32 logits [T, V] of one whole text in one pass on the card (the plain
+    versions, TF32 off, the gathered attention over the text at once): the reference
+    the chunked scoring path is held against."""
+    from lmdeploy_tpu_torch.models.llama import AttnMeta
+    from lmdeploy_tpu_torch.nn.layers import make_rope_table
+    cfg = model32.config
+    T, BS, dev = len(ids), 128, tree32['embed'].device
+    W = -(-T // BS)
+    cache = torch.zeros((cfg.num_layers, 1 + W, 2, BS, cfg.num_key_value_heads * cfg.head_dim),
+                        dtype=torch.float32, device=dev)
+    cos, sin = make_rope_table(cfg.rope_dim, W * BS, cfg.rope_theta, cfg.rope_scaling,
+                               device=dev)
+    meta = AttnMeta(block_tables=torch.arange(1, 1 + W, dtype=torch.int32, device=dev)[None],
+                    history_lens=torch.zeros(1, dtype=torch.int32, device=dev),
+                    q_lens=torch.tensor([T], dtype=torch.int32, device=dev))
+    ids_t = torch.tensor([ids], dtype=torch.int32, device=dev)
+    pos = torch.arange(T, dtype=torch.int32, device=dev)[None]
+    with _plain_kernels(), torch.no_grad():
+        return model32.forward(tree32, ids_t, pos, cache, meta, cos, sin,
+                               return_all_logits=True)[0]
+
+
+def _nll_ref(logits: torch.Tensor, targets: torch.Tensor, rows: int = 1024) -> torch.Tensor:
+    """f64 NLL of ``targets`` under ``logits`` rows, by log_softmax in f64, in row tiles."""
+    out = [-torch.log_softmax(logits[i:i + rows].double(), -1)
+           .gather(1, targets[i:i + rows, None])[:, 0]
+           for i in range(0, logits.shape[0], rows)]
+    return torch.cat(out)
+
+
+def _scratch(engine, n):
+    """Scratch blocks for ``n`` tokens from the engine's block manager (freed by the
+    caller), as ``AsyncEngine`` lends them."""
+    bm = engine.scheduler.block_manager
+    return bm.allocate(-(-n // bm.block_size))
+
+
+def _score_vs(agent, ids, blocks, ref, trap_targets=None) -> dict:
+    """The scoring path's chunks of ``ids`` against the f32 logits ``ref`` on the card:
+    the max |logits - ref| over all rows and over the rows of the second chunk on, and,
+    with ``trap_targets``, the NLL of those targets under the chunks' logits."""
+    out = {'logits': 0.0, 'later_chunks': 0.0}
+    nll = []
+    # ``ref`` and the targets were made on this stream, the chunks run on the agent's
+    torch.cuda.synchronize()
+
+    def take(lg, start):
+        err = (lg - ref[start:start + lg.shape[0]]).abs().max().item()
+        out['logits'] = max(out['logits'], err)
+        if start > 0:
+            out['later_chunks'] = max(out['later_chunks'], err)
+        if trap_targets is not None:
+            rows = min(lg.shape[0], len(trap_targets) - start)
+            nll.append(_nll_ref(lg[:rows], trap_targets[start:start + rows]))
+    agent._score_chunks(ids, blocks, take)
+    torch.cuda.synchronize()
+    if trap_targets is not None:
+        out['nll'] = torch.cat(nll)
+    return out
+
+
+def _ppl_trap(agent, trap: str):
+    """Swaps that plant a scoring-path trap into the model's forward: the second
+    chunk's positions restart at 0, or the second chunk attends only to itself (its
+    history taken as 0: it also writes its KV over the first chunk's); none for the
+    NLL trap, which takes each position's own token as its target."""
+    from lmdeploy_tpu_torch.models.llama import AttnMeta
+    forward = agent.model.forward
+
+    def restarted(params, ids, pos, cache, meta, *args, **kwargs):
+        return forward(params, ids, (pos - meta.history_lens[:, None]).clamp_min(0),
+                       cache, meta, *args, **kwargs)
+
+    def no_history(params, ids, pos, cache, meta, *args, **kwargs):
+        meta = AttnMeta(block_tables=meta.block_tables,
+                        history_lens=torch.zeros_like(meta.history_lens), q_lens=meta.q_lens)
+        return forward(params, ids, pos, cache, meta, *args, **kwargs)
+    fn = {'positions_restart': restarted, 'history_ignored': no_history}.get(trap)
+    return _swapped(*([(agent.model, 'forward', fn)] if fn else []))
+
+
+def _zero_counts(engine):
+    for fn in _kernel_counters().values():
+        fn.launches = 0
+        if hasattr(fn, 'combines'):
+            fn.combines = 0
+    engine.model_agent.graphs.reset_counts()
+
+
+def _counts(engine):
+    launches, combines = engine.model_agent.graphs.launch_totals()
+    counters = _kernel_counters()
+    return ({n: launches[fn.__name__] for n, fn in counters.items()},
+            {n: combines[fn.__name__] for n, fn in counters.items() if hasattr(fn, 'combines')})
+
+
+def _device_ms(agent, fn):
+    """(result, device ms) of ``fn()``, which queues its work on the agent's stream."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record(agent.stream)
+    out = fn()
+    end.record(agent.stream)
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def ppl_logits_cell(card: str, shared: dict) -> dict:
+    """Llama-3.1-8B at L31 layers on the shared seeded bf16 weights, session 10,240,
+    chunks of 8,192: ``async_get_ppl`` over PPL_TEXTS seeded texts and one of PPL_LONG
+    ids, ``async_get_logits`` over three of them (the long one too), every per-position
+    NLL and the logits held against f32 with the traps of PPL_TRAPS; launches exact (one
+    flash_prefill a layer of each text's first chunk, no other kernel); then PPL_SERVE's
+    greedy batch alone and with the 17 ppl requests issued while it decodes on graphs:
+    the same tokens, and the same ppl bit for bit."""
+    from lmdeploy_tpu_torch.models import build_model
+    from lmdeploy_tpu_torch.serve.async_engine import AsyncEngine
+    model = llama31_config(L31)
+    V = model.vocab_size
+    seconds = {}
+    stamp = [time.perf_counter()]
+
+    def lap(key):
+        now = time.perf_counter()
+        seconds[key] = now - stamp[0]
+        stamp[0] = now
+    rng = np.random.RandomState(SEED + 30)
+    texts = [rng.randint(3, 128000, size=n).tolist()
+             for n in rng.randint(PPL_LENS[0], PPL_LENS[1] + 1, size=PPL_TEXTS)]
+    texts.append(rng.randint(3, 128000, size=PPL_LONG).tolist())
+    engine, build_s = _built(model, PPL_SERVE[0], 0, PPL_SESSION - 128, 1, shared, None,
+                             num_blocks=PPL_BLOCKS)
+    agent = engine.model_agent
+    warm = _warmed(engine, PPL_SERVE[0])
+    aeng = AsyncEngine.from_engine(engine)
+    lap('engine')
+
+    # -- the scoring traffic, idle engine: launches counted ---------------------------
+    _zero_counts(engine)
+    t0 = time.perf_counter()
+    ppl = asyncio.run(aeng.async_get_ppl(texts))
+    torch.cuda.synchronize()
+    ppl_s = time.perf_counter() - t0
+    launches, combines = _counts(engine)
+    lap('ppl')
+    _zero_counts(engine)
+    t0 = time.perf_counter()
+    host_logits = asyncio.run(aeng.async_get_logits([texts[i] for i in LOGITS_OF]))
+    logits_s = time.perf_counter() - t0
+    logits_launches, _ = _counts(engine)
+    lap('logits')
+    need = {'flash_prefill': L31 * len(texts)}
+    need_logits = {'flash_prefill': L31 * len(LOGITS_OF)}
+    launches_ok = all(launches[n] == need.get(n, 0) for n in launches) and all(
+        logits_launches[n] == need_logits.get(n, 0) for n in logits_launches)
+    long_ids = texts[-1]
+    blocks = _scratch(engine, PPL_LONG)
+    # the long text's device time: its chunks' forward with the f32 logits, then the
+    # NLL path (the forward, the f64 log-sum-exp and the [T] copy)
+    _, forward_ms = _device_ms(agent, lambda: agent._score_chunks(long_ids, blocks,
+                                                                   lambda lg, start: None))
+    long_nll, nll_ms = _device_ms(agent, lambda: agent.compute_nll(long_ids, blocks))
+    t0 = time.perf_counter()
+    agent.compute_logits(long_ids, blocks)
+    logits_to_host_s = time.perf_counter() - t0
+    engine.scheduler.block_manager.free(blocks)
+    lap('device_ms')
+
+    # -- against f32 on the same weights ------------------------------------------------
+    m32 = build_model(dataclasses.replace(model, dtype='float32'))
+    tree32 = _bf16_tree(agent.params, agent.device, torch.float32)
+    lap('f32_tree')
+    nll_err, ppl_err, logits_err = [], [], {}
+    for i, ids in enumerate(texts):
+        ref = _f32_logits(m32, tree32, ids)
+        tgt = torch.tensor(ids[1:], device=agent.device)
+        ref_nll = _nll_ref(ref[:-1], tgt)
+        blocks = _scratch(engine, len(ids))
+        got = torch.from_numpy(agent.compute_nll(ids, blocks)).to(agent.device)
+        nll_err.append((got - ref_nll).abs().max().item())
+        ppl_err.append(abs(ppl[i] - ref_nll.mean().item()))
+        if i in LOGITS_OF:
+            host = host_logits[LOGITS_OF.index(i)]
+            logits_err[i] = max((torch.from_numpy(host[j:j + 1024]).to(agent.device)
+                                 - ref[j:j + 1024]).abs().max().item()
+                                for j in range(0, len(ids), 1024))
+        if i == len(texts) - 1:
+            # the traps, planted in the scoring path of the long text
+            traps = {}
+            for trap in PPL_TRAPS:
+                with _ppl_trap(agent, trap):
+                    out = _score_vs(agent, ids, blocks, ref,
+                                    torch.tensor(ids[:-1], device=agent.device)
+                                    if trap == 'nll_unshifted' else None)
+                if trap == 'nll_unshifted':
+                    traps[trap] = {'nll': (out['nll'] - ref_nll).abs().max().item()}
+                else:
+                    traps[trap] = {'logits': out['later_chunks']}
+            sound = _score_vs(agent, ids, blocks, ref)
+        engine.scheduler.block_manager.free(blocks)
+        del ref
+    del tree32
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap('f32_checks')
+    nll_ok = max(nll_err) <= NLL_TOL
+    logits_ok = max(logits_err.values()) <= LOGITS_TOL and sound['logits'] <= LOGITS_TOL
+    held = {t: r for t, r in traps.items() if t not in PPL_REPORTED}
+    traps_ok = all(r.get('logits', r.get('nll')) > (LOGITS_TOL if 'logits' in r else NLL_TOL)
+                   for r in held.values())
+
+    # -- served tokens with the ppl requests issued while the batch decodes ------------
+    n, plen, new = PPL_SERVE
+    prompts = [rng.randint(3, 128000, size=plen).tolist() for _ in range(n)]
+    kws = [dict(max_new_tokens=new, ignore_eos=True)] * n
+    alone, _, _ = serve_rows(engine, prompts, kws)
+    lap('serve_alone')
+    from lmdeploy_tpu_torch.messages import GenerationConfig
+    agent.graphs.reset_counts()
+
+    async def mixed():
+        inst = engine.create_instance()
+        serving = [asyncio.ensure_future(inst.async_infer(1000 + i, p, GenerationConfig(**kw)))
+                   for i, (p, kw) in enumerate(zip(prompts, kws))]
+        # the batch is decoding: its first rows are prefilled (the prefill steps take
+        # 16 rows each) and none has finished
+        while not engine.scheduler.running and not any(s.done() for s in serving):
+            await asyncio.sleep(0.001)
+        t_issue = time.time()
+        scored = await asyncio.gather(*[aeng.async_get_ppl([t]) for t in texts])
+        outs = await asyncio.gather(*serving)
+        return outs, [s[0] for s in scored], t_issue, time.time()
+    outs, ppl_mixed, t_issue, t_end = asyncio.run(mixed())
+    torch.cuda.synchronize()
+    mixed_graphs = agent.graphs.stats()
+    lap('serve_with_ppl')
+    tokens_equal = [o.token_ids for o in outs] == [o.token_ids for o in alone]
+    ppl_equal = ppl_mixed == ppl
+    overlapped = sum(o.req_metrics.finish_time > t_issue for o in outs)
+    replayed = mixed_graphs['eager_runs'] == 0 and mixed_graphs['replays'] > 0
+    engine.close()
+    del engine, agent, aeng
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {'cell': 'llama31_8b_ppl_logits', 'model': model_label(model), 'card': card,
+           'texts': [len(t) for t in texts], 'chunk_tokens': 8192,
+           'engine_build_s': build_s, 'warmup': warm,
+           'ppl': ppl, 'ppl_s': ppl_s, 'logits_s': logits_s,
+           'long_text': {'tokens': PPL_LONG, 'forward_device_ms': forward_ms,
+                         'nll_device_ms': nll_ms, 'logits_to_host_s': logits_to_host_s,
+                         'logits_bytes': PPL_LONG * V * 4,
+                         'nll_bytes_to_host': (PPL_LONG - 1) * 8,
+                         'nll_mean': float(long_nll.mean())},
+           'launches': launches, 'combines': combines, 'launches_needed': need,
+           'logits_launches': logits_launches, 'logits_launches_needed': need_logits,
+           'launches_ok': launches_ok,
+           'nll_max_abs_err': max(nll_err), 'ppl_max_abs_err': max(ppl_err),
+           'logits_max_abs_err': {str(k): v for k, v in logits_err.items()},
+           'logits_scoring_path_max_abs_err': sound['logits'],
+           'nll_tol': NLL_TOL, 'logits_tol': LOGITS_TOL, 'traps': traps,
+           'traps_reported': list(PPL_REPORTED), 'traps_ok': traps_ok,
+           'serve': {'rows': n, 'prompt': plen, 'new_tokens': new,
+                     'tokens_equal_alone': tokens_equal, 'ppl_equal_idle': ppl_equal,
+                     'rows_finished_after_ppl_issued': overlapped,
+                     'ppl_issue_to_end_s': t_end - t_issue, 'graphs': mixed_graphs},
+           'seconds': seconds}
+    row['ok'] = (launches_ok and nll_ok and logits_ok and traps_ok and tokens_equal
+                 and ppl_equal and overlapped == n and replayed
+                 and all(np.isfinite(p) for p in ppl)
+                 and [h.shape for h in host_logits] == [(len(texts[i]), V) for i in LOGITS_OF])
+    return row
+
+
+def _reward_trapped(trap: str):
+    """Swaps of the Qwen2 score head: ReLU left out, or h not rounded to the model
+    dtype before w2 (the first-position trap reads the scores' rows instead)."""
+    from lmdeploy_tpu_torch.models.reward import Qwen2RewardModel
+
+    def head(self, params, x):
+        h = torch.matmul(x.float(), params['score_w1'].float()) + params['score_b1'].float()
+        if trap != 'relu_left_out':
+            h = torch.relu(h)
+        if trap != 'h_unrounded':
+            h = h.to(x.dtype)
+        return torch.matmul(h.float(), params['score_w2'].float()) + params['score_b2'].float()
+    return _swapped(*([(Qwen2RewardModel, '_head', head)]
+                      if trap in ('relu_left_out', 'h_unrounded') else []))
+
+
+def reward_cell(name: str, card: str) -> dict:
+    """One reward model of REWARD_CONFIGS at LREWARD layers, seeded bf16 weights:
+    ``async_get_reward_score`` over REWARD_PROMPTS seeded prompts of REWARD_LENS ids,
+    held against f32 on the same weights relative to the f32 scores' spread, with its
+    traps; one flash_prefill a layer a prompt, no other kernel."""
+    from lmdeploy_tpu_torch.config import ModelConfig
+    from lmdeploy_tpu_torch.models import build_model
+    from lmdeploy_tpu_torch.serve.async_engine import AsyncEngine
+    model = ModelConfig.from_hf_config(dict(REWARD_CONFIGS[name], num_hidden_layers=LREWARD))
+    rng = np.random.RandomState(SEED + 31)
+    prompts = [rng.randint(3, model.vocab_size, size=n).tolist()
+               for n in rng.randint(REWARD_LENS[0], REWARD_LENS[1] + 1, size=REWARD_PROMPTS)]
+    t0 = time.perf_counter()
+    engine = build_engine(model, REWARD_PROMPTS, session_len=REWARD_LENS[1] + 128,
+                          num_blocks=REWARD_PROMPTS * 17)
+    aeng = AsyncEngine.from_engine(engine)
+    build_s = time.perf_counter() - t0
+    _zero_counts(engine)
+    t0 = time.perf_counter()
+    scores = asyncio.run(aeng.async_get_reward_score(prompts))
+    torch.cuda.synchronize()
+    scores_s = time.perf_counter() - t0
+    launches, combines = _counts(engine)
+    need = {'flash_prefill': LREWARD * len(prompts)}
+    launches_ok = all(launches[n] == need.get(n, 0) for n in launches)
+    agent = engine.model_agent
+    m32 = build_model(dataclasses.replace(model, dtype='float32'))
+    tree32 = _bf16_tree(agent.params, agent.device, torch.float32)
+    ref = [_f32_logits(m32, tree32, ids)[-1, 0].item() for ids in prompts]
+    del tree32
+    gc.collect()
+    torch.cuda.empty_cache()
+    spread = float(np.std(ref))
+    err = float(np.max(np.abs(np.subtract(scores, ref)))) / spread
+    traps = {}
+    for trap in REWARD_TRAPS[name]:
+        if trap == 'first_position':
+            got = [float(x[0, 0]) for x in asyncio.run(aeng.async_get_logits(prompts))]
+        else:
+            with _reward_trapped(trap):
+                got = asyncio.run(aeng.async_get_reward_score(prompts))
+        traps[trap] = float(np.max(np.abs(np.subtract(got, ref)))) / spread
+    engine.close()
+    del engine, agent, aeng
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = {t: r for t, r in traps.items() if t not in REWARD_REPORTED}
+    row = {'cell': f'reward_{name}', 'model': model_label(model), 'card': card,
+           'prompts': [len(p) for p in prompts], 'engine_build_s': build_s,
+           'scores_s': scores_s, 'scores': scores, 'f32_scores': ref, 'spread': spread,
+           'max_err_over_spread': err, 'tol': REWARD_TOL, 'traps': traps,
+           'traps_reported': [t for t in traps if t in REWARD_REPORTED],
+           'launches': launches, 'combines': combines, 'launches_needed': need,
+           'launches_ok': launches_ok}
+    row['ok'] = (launches_ok and err <= REWARD_TOL and all(v > REWARD_TOL for v in held.values())
+                 and all(np.isfinite(scores)) and len(set(scores)) == len(scores))
+    return row
+
+
+def logits_ppl_reward_phase(card: str, shared: dict) -> dict:
+    """logits_ppl_reward: the scoring path (``ppl_logits_cell``, on the shared
+    Llama-3.1-8B weights, before the guided cell writes into them; ``reward_cell`` for
+    Qwen2.5-Math-RM-72B and internlm2-7b-reward).  Returns the phase's row, whose
+    launches are the ppl traffic's."""
+    torch.backends.cuda.matmul.allow_tf32 = False     # the f32 references stay f32
+    t0 = time.perf_counter()
+    ppl = ppl_logits_cell(card, shared)
+    emit(ppl)
+    rewards = {}
+    for name in REWARD_CONFIGS:
+        rewards[name] = reward_cell(name, card)
+        emit(rewards[name])
+    row = {'phase': 'logits_ppl_reward', 'card': card, 'launches': ppl['launches'],
+           'combines': ppl['combines'], 'rows_by_kernel': {},
+           'reward_launches': {n: r['launches'] for n, r in rewards.items()},
+           'seconds': {'ppl_logits': ppl['seconds'], 'total': time.perf_counter() - t0,
+                       **{n: r['engine_build_s'] + r['scores_s'] for n, r in rewards.items()}}}
+    emit(row)
+    failed = [r['cell'] for r in (ppl, *rewards.values()) if not r['ok']]
+    if failed:
+        raise SystemExit(f'logits_ppl_reward failed: {failed}')
+    return row
+
+
 def kernel_line(flash, decode, decode8, w4, mx, kv, szc, unprep, fp8, cp, mla_quant):
     def entry(name, source, replaces, rows, lead, library_ms):
         return {'name': name, 'route': 'cuda', 'source': f'lmdeploy_tpu_torch/csrc/{source}',
@@ -6407,6 +6851,10 @@ def main():
         {'flash_prefill': (L31, 0), 'paged_decode_cp': (0, 2 * L31)}, info['nvidia_smi'],
         short_len=1024, long_len=16384, exact=True, shared=shared, forbid=('paged_decode',),
         cp=2, combined={'paged_decode_cp': 1}, graphs_check={})
+    # logits, ppl and reward scores: the scoring path on the same weights, then two
+    # reward models
+    paths['logits_ppl_reward'] = timed('logits_ppl_reward', logits_ppl_reward_phase,
+                                       info['nvidia_smi'], shared)
     # guided decoding, bad words and S-LoRA on the same weights (the last cell to use them:
     # its merge path writes into the unfused leaves it shares)
     paths['e2e_llama31_8b_guided_slora'] = timed(

@@ -1,7 +1,5 @@
-"""Public factory function (port of ``lmdeploy_tpu/api.py``: ``pipeline()``).
-
-The OpenAI server (``serve()``) comes with the slice that ports ``serve/api_server``.
-"""
+"""Public entry points (port of ``lmdeploy_tpu/api.py``): ``pipeline()`` and
+``serve()``, the OpenAI-compatible API server."""
 from __future__ import annotations
 
 from typing import Optional
@@ -32,3 +30,12 @@ def pipeline(model_path: str,
                     chat_template_config=chat_template_config,
                     log_level=log_level, device=device,
                     speculative_config=speculative_config, **kwargs)
+
+
+def serve(model_path: str, server_name: str = '0.0.0.0', server_port: int = 23333,
+          backend_config: Optional[TpuEngineConfig] = None, device=None, **kwargs):
+    """Launch the OpenAI-compatible API server (reference api.py:39-44) on the GPU, or
+    on the CPU with ``device='cpu'``."""
+    from .serve.api_server import serve as _serve
+    return _serve(model_path, server_name=server_name, server_port=server_port,
+                  backend_config=backend_config, device=device, **kwargs)

@@ -32,7 +32,7 @@ import numpy as np
 
 from ..config import EngineConfigBundle, check_ported
 from ..messages import (EngineOutput, Logprob, RequestMetrics, ResponseType,
-                        TpuEngineConfig)
+                        ScheduleMetrics, TpuEngineConfig)
 from ..metrics import MetricsAggregator, RequestStats
 from ..ops.sampling import topk_bucket
 from ..paging.scheduler import Scheduler
@@ -778,6 +778,14 @@ class Engine:
     def deactivate_lora(self):
         if self._lora is not None:
             self._lora.deactivate()
+
+    # -- introspection (reference :1320-1325) -----------------------------------------
+    def make_schedule_metrics(self) -> ScheduleMetrics:
+        return self.scheduler.make_metrics()
+
+    def is_alive(self) -> bool:
+        return (self._loop_task is not None and not self._loop_task.done()
+                or not self._stopped)
 
     # -- lifecycle --------------------------------------------------------------------
     def close(self):

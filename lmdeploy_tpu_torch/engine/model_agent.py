@@ -40,6 +40,7 @@ from ..models.llama import AttnMeta
 from ..nn.layers import make_rope_table
 from ..ops.sampling import (GOLDEN, TOPK_CANDIDATES, SamplingInputs, sample_logits,
                             update_token_counts)
+from ..ops.attention import KV_SIM_MODES
 from ..ops.kv_quant import QuantKVTurbo, turbo_tables
 from ..ops.moe import QUANT_RAGGED_MIN_TOKENS, RAGGED_MIN_TOKENS
 from .cache_engine import CacheEngine
@@ -57,6 +58,16 @@ def resolve_device(device=None) -> torch.device:
                                'on the CPU')
         device = 'cuda'
     return torch.device(device)
+
+
+def kv_sim_mode() -> Optional[str]:
+    """LMDEPLOY_TPU_KV_SIM ('turbo', 'turbo_k', 'turbo_v'; unset or empty: off), read
+    when an agent is built: its captured decode graphs could not see a later change."""
+    mode = os.environ.get('LMDEPLOY_TPU_KV_SIM') or None
+    if mode is not None and mode not in KV_SIM_MODES:
+        raise ValueError(f'LMDEPLOY_TPU_KV_SIM={mode!r}: expected one of '
+                         f'{sorted(KV_SIM_MODES)}')
+    return mode
 
 
 def _host_copy(t: torch.Tensor) -> torch.Tensor:
@@ -140,6 +151,7 @@ class ModelAgent:
         S-LoRA (``enable_slora``)."""
         cfg = configs.model
         self.model = build_model(cfg)    # sets a hybrid model's num_cache_layers
+        self.model.kv_sim = kv_sim_mode()
         if adapters:
             self._check_slora()
         if mesh is not None:
@@ -617,6 +629,77 @@ class ModelAgent:
             for tok in prefill_tokens or []:
                 self._warm_prefill(bucketize(tok, self.chunk_buckets))
 
+    # -- logits / ppl / reward scores (reference :1030-1083) --------------------------
+    @torch.no_grad()
+    def compute_logits(self, token_ids: List[int], block_ids: List[int]) -> np.ndarray:
+        """Full-vocab f32 logits [n, V] of every position of one sequence (a reward
+        model's [n, 1] scores), for the ppl and reward paths.  The caller lends
+        scratch blocks for its KV and frees them after."""
+        out = []
+        self._score_chunks(token_ids, block_ids, lambda lg, start: out.append(lg.cpu()))
+        return torch.cat(out).numpy()
+
+    @torch.no_grad()
+    def compute_nll(self, token_ids: List[int], block_ids: List[int]) -> np.ndarray:
+        """The float64 negative log-likelihoods [n - 1] of tokens 1..n-1, each under
+        the logits of the position before it: the reference's numpy log-sum-exp
+        (``serve/async_engine.py:355-363``), taken on the agent's device so that only
+        these values, not the [n, V] logits, reach the host."""
+        n = len(token_ids)
+        with self._on_stream():
+            targets = self._to_dev(np.asarray(token_ids[1:], np.int64))
+            nll = torch.zeros(max(n - 1, 0), dtype=torch.float64, device=self.device)
+
+            def take(logits, start):
+                rows = min(logits.shape[0], n - 1 - start)
+                if rows > 0:
+                    nll[start:start + rows] = nll_f64(logits[:rows],
+                                                      targets[start:start + rows])
+            self._score_chunks(token_ids, block_ids, take)
+            return nll.cpu().numpy()
+
+    def _score_chunks(self, token_ids: List[int], block_ids: List[int], take):
+        """Run one sequence through ``block_ids`` in chunks of the largest chunk
+        bucket, each at positions from its start over a history of its start (the
+        reference's streaming through the cache), and hand each chunk's [cn, V] f32
+        logits and start to ``take``, all on the agent's stream after whatever it
+        queued before.  The first chunk is a fresh prefill (``flash_prefill``), later
+        ones attend over the cache.  The page table is the request's own, so the
+        decode graphs keep theirs; a hybrid model's state runs in the garbage slot,
+        zeroed by the first chunk, so no batch slot's live state is read or written."""
+        n = len(token_ids)
+        bs = self.cache_config.block_size
+        if n > self.max_model_len:
+            raise ValueError(f'{n} tokens exceed the session length {self.max_model_len}')
+        if len(block_ids) * bs < n:
+            raise ValueError(f'{len(block_ids)} blocks of {bs} cannot hold {n} tokens')
+        W = bucketize(max(len(block_ids), 1), self.table_buckets)
+        table = np.zeros((1, W), np.int32)
+        table[0, :len(block_ids)] = block_ids
+        cap = max(self.chunk_buckets)
+        dev = self._to_dev
+        with self._on_stream():
+            tables = dev(table)
+            for start in range(0, n, cap):
+                chunk = token_ids[start:start + cap]
+                cn = len(chunk)
+                T = bucketize(cn, self.chunk_buckets)
+                ids = np.zeros((1, T), np.int32)
+                ids[0, :cn] = chunk
+                pos = np.zeros((1, T), np.int32)
+                pos[0, :cn] = np.arange(start, start + cn)
+                meta = AttnMeta(block_tables=tables,
+                                history_lens=dev(np.asarray([start], np.int32)),
+                                q_lens=dev(np.asarray([cn], np.int32)))
+                if self.has_linear_state:
+                    meta.slot_rows = dev(np.asarray([self.max_batch], np.int64))
+                    meta.reset_rows = dev(np.asarray([start == 0]))
+                logits = self.model.forward(
+                    self.params, dev(ids), dev(pos), self.kv_cache, meta, self.rope_cos,
+                    self.rope_sin, return_all_logits=True, fresh_prefill=start == 0,
+                    **self._adapter_kw(lambda: dev(np.zeros(1, np.int32))))
+                take(logits[0, :cn], start)
+
     def _warm_prefill(self, T: int):
         """One fresh prefill step of T-token chunks over padding rows (block table 0,
         the reserved padding block), its logits discarded."""
@@ -634,6 +717,25 @@ class ModelAgent:
         self.model.forward(self.params, torch.zeros((B, T), dtype=torch.int32, device=dev),
                            pos.contiguous(), self.kv_cache, meta, self.rope_cos,
                            self.rope_sin, fresh_prefill=True)
+
+
+# the bytes of f64 logits one tile of nll_f64 widens at most
+NLL_TILE_BYTES = 512 << 20
+
+
+def nll_f64(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """logits [R, V] (f32), targets [R] -> float64 [R] ``lse(row) - row[target]``,
+    each row widened to float64 first, ``lse = log(sum(exp(row - max))) + max``; the
+    rows go through in tiles of ``NLL_TILE_BYTES``."""
+    R, V = logits.shape
+    out = torch.empty(R, dtype=torch.float64, device=logits.device)
+    tile = max(1, NLL_TILE_BYTES // (8 * V))
+    for i in range(0, R, tile):
+        lg = logits[i:i + tile].double()
+        m = lg.amax(-1, keepdim=True)
+        lse = torch.log(torch.exp(lg - m).sum(-1)) + m[:, 0]
+        out[i:i + tile] = lse - lg.gather(1, targets[i:i + tile, None])[:, 0]
+    return out
 
 
 def _pad_sampling(s: SamplingInputs, n: int, B: int) -> SamplingInputs:

@@ -185,6 +185,7 @@ class SpecExtension:
             width = tcfg.hidden_size
         elif method == 'draft_model':
             self.draft_model = build_model(dc)
+            self.draft_model.kv_sim = agent.model.kv_sim
             if dc.vocab_size != tcfg.vocab_size:
                 raise ValueError(f'the draft model\'s vocabulary ({dc.vocab_size}) is not '
                                  f'the target\'s ({tcfg.vocab_size})')

@@ -1,6 +1,7 @@
 """Request metrics the engine keeps: the part of ``lmdeploy_tpu/metrics.py`` that
-``Engine`` uses (RequestStats TTFT/TPOT/e2e and the rolling MetricsAggregator).
-The client-side Profiler comes with the port's benchmark.
+``Engine`` and the API server's ``/metrics`` use (RequestStats TTFT/TPOT/e2e and the
+rolling MetricsAggregator with its Prometheus text).  The client-side Profiler comes
+with the port's benchmark.
 """
 from __future__ import annotations
 
@@ -64,6 +65,9 @@ class MetricsAggregator:
         self.num_aborted_total = 0
         self.prompt_tokens_total = 0
         self.generation_tokens_total = 0
+        # /metrics carries the reference's names; its engine advances neither counter
+        self.num_preemptions_total = 0
+        self.iterations_total = 0
         self.start_time = time.time()
 
     def on_request_finished(self, stats: RequestStats):
@@ -83,6 +87,8 @@ class MetricsAggregator:
             'num_requests_aborted': self.num_aborted_total,
             'prompt_tokens_total': self.prompt_tokens_total,
             'generation_tokens_total': self.generation_tokens_total,
+            'num_preemptions_total': self.num_preemptions_total,
+            'iterations_total': self.iterations_total,
             'ttft_mean_s': sum(ttfts) / len(ttfts) if ttfts else 0.0,
             'ttft_p50_s': _percentile(ttfts, 0.5),
             'ttft_p99_s': _percentile(ttfts, 0.99),
@@ -92,3 +98,10 @@ class MetricsAggregator:
             'e2e_p50_s': _percentile(e2es, 0.5),
             'uptime_s': time.time() - self.start_time,
         }
+
+    def prometheus_text(self, extra: Optional[Dict[str, float]] = None) -> str:
+        """``lmdeploy_<name> <value>`` lines of the snapshot and ``extra``."""
+        snap = self.snapshot()
+        if extra:
+            snap.update(extra)
+        return ''.join(f'lmdeploy_{key} {value}\n' for key, value in snap.items())

@@ -7,8 +7,9 @@ llama builders (``_llama``, ``_qwen2``, ``_qwen3``), the dense variants (``_gemm
 ``_qwen3_moe``, ``_phimoe``), ``_gpt_oss``, ``_deepseek`` (DeepSeek-V2 / V3 with MLA),
 DeepSeek's MoE with GQA attention (``_glm4_moe``, ``_deepseek_v1``), the DSA models
 (``_deepseek_v32``, ``_glm_moe_dsa``) and the hybrid linear-attention models
-(``_qwen3_next``, ``_qwen3_5``): 35 of the reference's 68 architectures; the other
-families are not ported yet.
+(``_qwen3_next``, ``_qwen3_5``) and the reward models (``_qwen2_reward``,
+``_internlm2_reward``): 39 of the reference's 69 registry names; the other families are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -160,6 +161,18 @@ def _internlm2(config: ModelConfig) -> LlamaModel:
     return InternLM2Model(config)
 
 
+@register_model('Qwen2ForRewardModel')
+def _qwen2_reward(config: ModelConfig) -> LlamaModel:
+    from .reward import Qwen2RewardModel
+    return Qwen2RewardModel(config)
+
+
+@register_model('InternLM2ForRewardModel')
+def _internlm2_reward(config: ModelConfig) -> LlamaModel:
+    from .reward import InternLM2RewardModel
+    return InternLM2RewardModel(config)
+
+
 @register_model('BaiChuanForCausalLM', 'BaichuanForCausalLM')
 def _baichuan(config: ModelConfig) -> LlamaModel:
     from .baichuan import BaichuanModel
@@ -217,3 +230,6 @@ def build_model(config: ModelConfig) -> LlamaModel:
                          f'supported: {sorted(_REGISTRY)}')
     return builder(config)
 
+
+def supported_archs():
+    return sorted(_REGISTRY)

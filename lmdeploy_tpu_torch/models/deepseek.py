@@ -269,7 +269,7 @@ class DeepseekV2Model(LlamaModel):
         x = rms_norm(h, w['attn_norm'], cfg.rms_norm_eps)
         q_eff, k_new, v_new, _ = self._mla_qkv(w, x, cos, sin)
         fill_kv_cache(kv_cache, k_new.reshape(B * T, 1, D), v_new.reshape(B * T, 1, D),
-                      slot_mapping, layer)
+                      slot_mapping, layer, kv_sim=self.kv_sim)
         attn = paged_attention(q_eff, kv_cache, meta.block_tables, meta.history_lens,
                                meta.q_lens, self.scale, layer, 1,
                                chunk_kv=(k_new[:, :, None], v_new[:, :, None]),

@@ -195,7 +195,8 @@ class DeepseekV32Model(DeepseekV2Model):
                                            ik[..., dr:]], dim=-1))
         k_new = torch.cat([k_mla, ik], dim=-1)                            # [B, T, D + Di]
         fill_kv_cache(kv_cache, k_new.reshape(B * T, 1, D + Di),
-                      torch.zeros_like(k_new).reshape(B * T, 1, D + Di), slot_mapping, layer)
+                      torch.zeros_like(k_new).reshape(B * T, 1, D + Di), slot_mapping, layer,
+                      kv_sim=self.kv_sim)
         keys = gather_layer_kv(kv_cache, layer, meta.block_tables, 1, D + Di)[0][0]
         S = keys.shape[1]                                                 # [B, S, D + Di]
         pos_q = (meta.history_lens.long()[:, None]

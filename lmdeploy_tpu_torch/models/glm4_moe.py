@@ -109,7 +109,8 @@ class Glm4MoeModel(DeepseekV2Model):
         k = torch.cat([k_rot, k[..., r:]], dim=-1)
         fill_kv_cache(kv_cache, k.reshape(B * T, nkv, D), v.reshape(B * T, nkv, D),
                       slot_mapping, layer,
-                      page_tables=meta.block_tables if fresh_prefill else None)
+                      page_tables=meta.block_tables if fresh_prefill else None,
+                      kv_sim=self.kv_sim)
         attn = paged_attention(q, kv_cache, meta.block_tables, meta.history_lens,
                                meta.q_lens, self.scale, layer, nkv, chunk_kv=(k, v),
                                fresh_prefill=fresh_prefill, cp_mesh=self.cp_mesh)

@@ -137,6 +137,9 @@ class LlamaModel:
     LINEAR_8BIT: Tuple[str, ...] = W8_METHODS
     # block-output RMSNorms before the residual add (GLM-4, Gemma-2 / 3)
     sandwich_norms: bool = False
+    # the KV simulation harness' mode (``ops/attention.py KV_SIM_MODES``), which the
+    # ModelAgent reads from LMDEPLOY_TPU_KV_SIM once, when it builds the model
+    kv_sim: Optional[str] = None
     # an _mlp override that reads a fused 'w_gateup' leaf as the stock one does
     FUSE_GATE_UP: bool = False
 
@@ -589,7 +592,8 @@ class LlamaModel:
             q, k = self._apply_rope(q, k, cos, sin, layer)
             fill_kv_cache(kv_cache, k.reshape(B * T, Hkv, D), v.reshape(B * T, Hkv, D),
                           slot_mapping, layer,
-                          page_tables=meta.block_tables if fresh_prefill else None)
+                          page_tables=meta.block_tables if fresh_prefill else None,
+                          kv_sim=self.kv_sim)
             attn = paged_attention(q, kv_cache, meta.block_tables, meta.history_lens,
                                    meta.q_lens, scale, layer, Hkv,
                                    logit_softcap=self.attn_logit_softcap,

@@ -329,7 +329,8 @@ class Qwen3NextModel(LlamaModel):
         k = torch.cat([k_rot, k[..., rdim:]], dim=-1)
         fill_kv_cache(pages, k.reshape(B * T, nkv, D), v.reshape(B * T, nkv, D),
                       slot_mapping, blk,
-                      page_tables=meta.block_tables if fresh_prefill else None)
+                      page_tables=meta.block_tables if fresh_prefill else None,
+                      kv_sim=self.kv_sim)
         attn = paged_attention(q, pages, meta.block_tables, meta.history_lens, meta.q_lens,
                                1.0 / math.sqrt(D), blk, nkv, chunk_kv=(k, v),
                                fresh_prefill=fresh_prefill)

@@ -98,9 +98,30 @@ def _as_stored(kv_cache: torch.Tensor, x: torch.Tensor) -> Tuple[torch.Tensor, t
     return kv_cache, x.to(kv_cache.dtype)
 
 
+# the LMDEPLOY_TPU_KV_SIM settings: which of K and V go through the TurboQuant codec
+KV_SIM_MODES = {'turbo': 'kv', 'turbo_k': 'k', 'turbo_v': 'v'}
+
+
+def kv_sim_rows(mode: str, k_new: torch.Tensor, v_new: torch.Tensor):
+    """The KV simulation harness (reference :91-108, ``LMDEPLOY_TPU_KV_SIM``): K
+    and / or V rows [N, Hkv, D] through the TurboQuant codec and back (rotate,
+    quantize, dequantize, rotate back), in their own dtype, so that a plain cache stores
+    what a TurboQuant cache would decode and the serving path runs unchanged;
+    ``eval/ppl_gate.py`` isolates the codec's ppl cost with it."""
+    planes = KV_SIM_MODES[mode]
+    if 'k' in planes:
+        code, mse, qjl = quantize_rows_turbo_k(hadamard_rotate(k_new))
+        k_new = hadamard_rotate_inv(dequantize_turbo_k(code, mse, qjl)).to(k_new.dtype)
+    if 'v' in planes:
+        code, norm = quantize_rows_turbo_v(hadamard_rotate(v_new))
+        v_new = hadamard_rotate_inv(dequantize_turbo_v(code, norm)).to(v_new.dtype)
+    return k_new, v_new
+
+
 def fill_kv_cache(kv_cache, k_new: torch.Tensor, v_new: torch.Tensor,
                   slot_mapping: torch.Tensor, layer: int,
-                  page_tables: Optional[torch.Tensor] = None) -> None:
+                  page_tables: Optional[torch.Tensor] = None,
+                  kv_sim: Optional[str] = None) -> None:
     """Write new K/V rows into layer ``layer`` of the cache, in place.
 
     k_new/v_new: [N, Hkv, D]; slot_mapping: [N] flat slots (block * BS + offset).
@@ -109,8 +130,12 @@ def fill_kv_cache(kv_cache, k_new: torch.Tensor, v_new: torch.Tensor,
     once, as the reference's page-granular path does.  Rows shorter than T write
     garbage into their last partial page beyond q_len (masked by length, overwritten
     later) and into block 0.  A quantized cache always takes the row scatter
-    (reference :110-127).
+    (reference :110-127).  ``kv_sim`` (a ``KV_SIM_MODES`` key) stores a cache that is
+    not quantized through ``kv_sim_rows``; the caller's attention over the chunk
+    still reads its exact K/V, as in the reference.
     """
+    if kv_sim and not isinstance(kv_cache, QUANT_CACHES):
+        k_new, v_new = kv_sim_rows(kv_sim, k_new, v_new)
     if isinstance(kv_cache, StripedKV):
         _fill_striped(kv_cache, k_new, v_new, slot_mapping, layer, page_tables)
         return

@@ -69,6 +69,7 @@ class Scheduler:
         self.ssm_ckpt = None
         self.seq_manager = SequenceManager(cache_config.block_size)
         self.num_preemptions = 0
+        self._step_count = 0            # schedule() calls (serve/health.py reads it)
 
     # -- session CRUD ------------------------------------------------------------------
     def add_session(self, session_id: int):
@@ -134,6 +135,7 @@ class Scheduler:
         instead (``schedule_overlap_prefill``), so decode keeps full-length runs under
         continuous arrivals.  Host swap comes with the port's swap slice.
         """
+        self._step_count += 1
         if self.waiting and not (prefer_decode and self.running):
             out = self._schedule_prefill()
             if not out.is_empty:

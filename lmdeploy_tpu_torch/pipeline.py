@@ -1,14 +1,15 @@
 """Sync Pipeline facade over the async engine.
 
 Port of ``lmdeploy_tpu/pipeline.py`` (private event-loop thread, infer, stream_infer,
-chat).  ``device=None`` serves on the GPU; pass ``device='cpu'`` for the CPU.
+chat, get_ppl, get_reward_score).  ``device=None`` serves on the GPU; pass
+``device='cpu'`` for the CPU.
 """
 from __future__ import annotations
 
 import asyncio
 import atexit
 import threading
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Union
 
 from .chat_template import ChatTemplateConfig
 from .messages import GenerationConfig, Response, TpuEngineConfig
@@ -105,6 +106,20 @@ class Pipeline:
             session = _ChatSession(self)
         session.chat(prompt, gen_config=gen_config, **kwargs)
         return session
+
+    def get_ppl(self, texts: Union[str, List[str]]):
+        """Mean negative log-likelihood per text (reference pipeline.py:105-112)."""
+        single = isinstance(texts, str)
+        batch = [texts] if single else list(texts)
+        ids = [self.engine.tokenizer.encode(t) for t in batch]
+        out = self._loop_thread.submit(self.engine.async_get_ppl(ids)).result()
+        return out[0] if single else out
+
+    def get_reward_score(self, input_ids):
+        """Reward-model scores for one or more tokenized prompts (reference
+        pipeline.py:114-119)."""
+        return self._loop_thread.submit(
+            self.engine.async_get_reward_score(input_ids)).result()
 
     def close(self):
         if self._closed:

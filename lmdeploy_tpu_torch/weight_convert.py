@@ -8,8 +8,9 @@ experts ``w8`` / ``gscale``, the 8-bit linears ``w8`` / ``scale`` (W8A8, fp8) an
 ``bscale`` (blocked fp8)) and convert key by key; fp8 goes as its e4m3 bytes, int8 as
 it is.  Norm biases, ``bo``, ``lm_head_b``, the DeepSeek-MoE ``layers`` /
 ``moe_layers`` groups, the DSA indexer's leaves, an MTP head's tree (``enorm``,
-``hnorm``, ``eh_proj``, ``shead_norm`` and its one-row ``layer`` group) and the hybrid
-models' ``blocks`` group are plain leaves and groups.  The caches convert bit for bit
+``hnorm``, ``eh_proj``, ``shead_norm`` and its one-row ``layer`` group), the hybrid
+models' ``blocks`` group and the reward heads (``score_w1`` / ``score_b1`` /
+``score_w2`` / ``score_b2``, ``v_head``) are plain leaves and groups.  The caches convert bit for bit
 both ways (``ops/kv_quant.py`` has the port's layouts; a hybrid model's dict cache key
 by key); the port drops the reference's 128-lane row padding everywhere:
   * plain and fp8: ``[L, NB, 2, BS, Hkv*D]`` here against ``[L, NB, 2, BS, HDp]`` there,

@@ -19,7 +19,13 @@ bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'lmdeploy_tpu'
              or m.startswith('lmdeploy_tpu.'))
 assert not bad, bad
+# the servers import aiohttp where they build their apps: the card's machine has none
+assert 'aiohttp' not in sys.modules
 assert len(names) >= 31, names
+assert {'lmdeploy_tpu_torch.serve.api_server', 'lmdeploy_tpu_torch.serve.anthropic_api',
+        'lmdeploy_tpu_torch.serve.responses_api', 'lmdeploy_tpu_torch.serve.proxy',
+        'lmdeploy_tpu_torch.serve.launch_server', 'lmdeploy_tpu_torch.cli.entrypoint',
+        'lmdeploy_tpu_torch.__main__', 'lmdeploy_tpu_torch.models.reward'} <= set(names)
 assert {'lmdeploy_tpu_torch.ops.moe', 'lmdeploy_tpu_torch.ops.quant_bmm',
         'lmdeploy_tpu_torch.parallel', 'lmdeploy_tpu_torch.parallel.mesh',
         'lmdeploy_tpu_torch.models.gpt_oss', 'lmdeploy_tpu_torch.ops.kv_quant',
